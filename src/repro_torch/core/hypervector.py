@@ -1,0 +1,182 @@
+"""Binary hyperdimensional-computing algebra (counterpart of
+`repro/core/hypervector.py`).
+
+Two representations, as in the reference:
+
+* **unpacked**: ``uint8`` tensors of {0, 1}.
+* **packed**: ``int32`` tensors of d/32 words holding the reference's uint32
+  bits in the same little-endian order (bit j of word w is dimension
+  32*w + j). torch's uint32 has no shifts, so words are int32; every right
+  shift is logical (masked after ``>>``), and shifts that can carry past bit
+  31 run in int64 and wrap back, so nothing relies on signed overflow.
+
+Randomness goes through an explicit `torch.Generator` where the reference
+takes a `jax.random` key. The packed BSC packs the *same* unpacked Bernoulli
+draw as `flip_bits`, so packed and unpacked pipelines agree on one generator.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import device as _device
+from repro_torch.kernels.common import popcount32
+
+WORD = 32
+_FULL = -1  # all 32 bits set, as int32
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 words -> their unsigned value in int64."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 words with the same bits."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def random_hv(generator: torch.Generator, num: int, dim: int,
+              device: str | torch.device | None = "cuda") -> torch.Tensor:
+    """`num` i.i.d. random binary hypervectors of dimension `dim` (uint8)."""
+    dev = _device.resolve(device)
+    return torch.randint(0, 2, (num, dim), generator=generator, device=dev,
+                         dtype=torch.uint8)
+
+
+def bind(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Binding = elementwise XOR (either representation)."""
+    return a ^ b
+
+
+def permute(hv: torch.Tensor, shift: int) -> torch.Tensor:
+    """Cyclic permutation rho^shift along the last (dimension) axis."""
+    return torch.roll(hv, int(shift), dims=-1)
+
+
+def permute_batch(hvs: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """Per-row cyclic shifts: hvs [..., M, d], shifts [M] -> [..., M, d]."""
+    d = hvs.shape[-1]
+    ar = torch.arange(d, device=hvs.device)
+    idx = (ar[None, :] - shifts.to(hvs.device, torch.int64)[:, None]) % d
+    return torch.gather(hvs, -1, idx.expand(hvs.shape))
+
+
+def majority(hvs: torch.Tensor) -> torch.Tensor:
+    """Bitwise strict majority over axis 0 of [M, ..., d] uint8; even-M ties
+    resolve to 0 (``count*2 > M``). The reference's keyed random tie-break
+    never runs on the serve path and is not ported."""
+    m = hvs.shape[0]
+    counts = hvs.to(torch.int32).sum(0)
+    return (counts * 2 > m).to(torch.uint8)
+
+
+def hamming_similarity(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
+    """Normalized similarity 1 - hamming/d in [0, 1]: q [..., d], protos
+    [C, d] -> [..., C], through the bipolar dot product."""
+    d = q.shape[-1]
+    qb = 2.0 * q.to(torch.float32) - 1.0
+    pb = 2.0 * protos.to(torch.float32) - 1.0
+    return (qb @ pb.T + d) / (2.0 * d)
+
+
+def _bernoulli(generator: torch.Generator, p, shape, dev) -> torch.Tensor:
+    """Bernoulli(p) mask of `shape` (p broadcasts against it)."""
+    return torch.rand(shape, generator=generator, device=dev) < p
+
+
+def flip_bits(generator: torch.Generator, hv: torch.Tensor, ber) -> torch.Tensor:
+    """Binary symmetric channel: flip each bit independently w.p. `ber`
+    (a float or a tensor broadcasting against `hv`)."""
+    flips = _bernoulli(generator, ber, hv.shape, hv.device)
+    return hv ^ flips.to(hv.dtype)
+
+
+# ---------------------------------------------------------------------------
+# packed representation
+# ---------------------------------------------------------------------------
+
+def pack(hv: torch.Tensor) -> torch.Tensor:
+    """uint8 {0,1} [..., d] -> int32 words [..., d//32], little-endian."""
+    d = hv.shape[-1]
+    if d % WORD:
+        raise ValueError(f"dim {d} must be a multiple of {WORD}")
+    bits = hv.reshape(hv.shape[:-1] + (d // WORD, WORD)).to(torch.int64)
+    weights = torch.ones((), dtype=torch.int64, device=hv.device) << torch.arange(
+        WORD, device=hv.device)
+    return _i32((bits * weights).sum(-1))
+
+
+def unpack(packed: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inverse of `pack`: int32 words [..., W] -> uint8 [..., dim]."""
+    shifts = torch.arange(WORD, dtype=torch.int32, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1     # arithmetic >>, then bit 0
+    return bits.reshape(packed.shape[:-1] + (dim,)).to(torch.uint8)
+
+
+def hamming_distance_packed(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
+    """Packed Hamming distance by XOR + popcount: q [..., W], protos [C, W]
+    -> int32 [..., C]."""
+    return popcount32(q[..., None, :] ^ protos).sum(-1, dtype=torch.int32)
+
+
+def permute_packed(hvp: torch.Tensor, shift: int) -> torch.Tensor:
+    """Cyclic permutation rho^shift on packed words [..., W]: a roll by
+    shift//32 words plus a shift by shift%32 bits with the carry from the
+    previous word. Equals pack(permute(unpack(hvp), shift))."""
+    w = hvp.shape[-1]
+    s = int(shift) % (w * WORD)
+    ws, bs = s // WORD, s % WORD
+    rolled = torch.roll(hvp, ws, dims=-1)
+    if bs == 0:
+        return rolled
+    prev = torch.roll(rolled, 1, dims=-1)
+    u = _u32(rolled)
+    carry = _u32(prev) >> (WORD - bs)              # logical: unsigned value
+    return _i32(((u << bs) & 0xFFFFFFFF) | carry)
+
+
+def permute_batch_packed(hvps: torch.Tensor, shifts) -> torch.Tensor:
+    """Per-row cyclic shifts on packed rows: hvps [M, W], shifts [M] -> [M, W]."""
+    return torch.stack([permute_packed(row, int(s)) for row, s in zip(hvps, shifts)])
+
+
+def _bitsliced_counts(hvs: torch.Tensor) -> list[torch.Tensor]:
+    """Bit-planes (LSB first) of the per-lane popcount over axis 0, by a
+    carry-save ripple adder over the M words (no unpacking)."""
+    planes: list[torch.Tensor] = []
+    for k in range(hvs.shape[0]):
+        carry = hvs[k]
+        for i in range(len(planes)):
+            planes[i], carry = planes[i] ^ carry, planes[i] & carry
+        if len(planes) < (k + 1).bit_length():  # else carry is provably 0
+            planes.append(carry)
+    return planes
+
+
+def _bitsliced_gt(planes: list[torch.Tensor], t: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(count > t, count == t) per bit lane, from LSB-first count planes."""
+    gt = torch.zeros_like(planes[0])
+    eq = torch.full_like(planes[0], _FULL)
+    for i in reversed(range(len(planes))):
+        tb = _FULL if (t >> i) & 1 else 0
+        gt = gt | (eq & planes[i] & ~tb)
+        eq = eq & ~(planes[i] ^ tb)
+    return gt, eq
+
+
+def majority_packed(hvs: torch.Tensor) -> torch.Tensor:
+    """Packed strict majority over axis 0: [M, ..., W] int32 -> [..., W],
+    by the bit-sliced carry-save adder and a bitwise comparator; even-M ties
+    resolve to 0, as `majority`."""
+    planes = _bitsliced_counts(hvs)
+    gt, _ = _bitsliced_gt(planes, hvs.shape[0] // 2)
+    return gt
+
+
+def flip_bits_packed(generator: torch.Generator, hvp: torch.Tensor, ber) -> torch.Tensor:
+    """Packed BSC, bit-exact against `flip_bits` on the same generator state:
+    the Bernoulli mask is drawn in the unpacked layout [..., d] (the draw
+    `flip_bits` makes) and packed before the XOR."""
+    d = hvp.shape[-1] * WORD
+    flips = _bernoulli(generator, ber, hvp.shape[:-1] + (d,), hvp.device)
+    return hvp ^ pack(flips.to(torch.uint8))

@@ -1,0 +1,37 @@
+"""Hand-written CUDA kernels (``csrc/*.cu``, ``sm_90a``) for the serve path.
+
+Each family has ops.py (the wrapper: checks, dispatch on the tensor's device,
+launch counter) and ref.py (the plain PyTorch twin):
+
+* hamming/      packed XOR+popcount search and the fused per-bank top-1
+* assoc_matmul/ bipolar {0,1} -> +-1 dot products, plain and banked
+* majority/     bitwise strict majority bundling
+
+`launch_counts` / `reset_launch_counts` read and clear the wrappers' counters,
+which count kernel launches only (never a CPU call of the plain version).
+"""
+from repro_torch.kernels.assoc_matmul import assoc_matmul, assoc_matmul_banked
+from repro_torch.kernels.hamming import hamming_search, hamming_topk_banked
+from repro_torch.kernels.majority import majority_bundle
+
+# kernel name -> the wrapper that launches it and holds its count
+WRAPPERS = {
+    "hamming_topk_banked": hamming_topk_banked,
+    "hamming_search": hamming_search,
+    "assoc_matmul": assoc_matmul_banked,
+    "majority_bundle": majority_bundle,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+__all__ = ["WRAPPERS", "assoc_matmul", "assoc_matmul_banked", "hamming_search",
+           "hamming_topk_banked", "launch_counts", "majority_bundle",
+           "reset_launch_counts"]

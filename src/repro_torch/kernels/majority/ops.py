@@ -1,0 +1,38 @@
+"""Public op: majority bundling.
+
+A wrapper given CPU tensors runs the plain version in `ref.py`; given CUDA
+tensors it launches the kernel of ``csrc/majority.cu`` (and counts the
+launch) or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import check_contiguous, dispatch
+from repro_torch.kernels.majority.ref import majority_bundle_ref
+
+
+def majority_bundle(hvs: torch.Tensor) -> torch.Tensor:
+    """Majority over axis 0 of [M, ..., d] uint8 {0,1} -> [..., d] uint8."""
+    if hvs.dtype != torch.uint8 or hvs.dim() < 2:
+        raise TypeError(f"majority_bundle: expected uint8 [M, ..., d], got "
+                        f"{hvs.dtype} {tuple(hvs.shape)}")
+    m, rest = hvs.shape[0], hvs.shape[1:]
+    flat = hvs.reshape(m, -1)
+    if dispatch("majority_bundle", flat) == "cpu":
+        return majority_bundle_ref(flat).reshape(rest)
+    check_contiguous("majority_bundle", flat)
+    n = flat.shape[1]
+    if n >= 2**31:
+        raise ValueError(f"majority_bundle: {n} lanes beyond the kernel's int index")
+    out = torch.empty((n,), dtype=torch.uint8, device=hvs.device)
+    if n and m:
+        _build.launch("majority_bundle_launch", flat.data_ptr(), out.data_ptr(), m, n)
+        majority_bundle.launches += 1
+    elif n:
+        out.zero_()                      # majority of nothing: 0 > 0 is false
+    return out.reshape(rest)
+
+
+majority_bundle.launches = 0

@@ -19,9 +19,12 @@ fallback, and a missing GPU is a failure):
 4. OTA serve at the paper's configuration (6400 classes, d = 512, M = 3,
    64 cores, batch 256): 8 calls in each of the four bsc modes
    (baseline/permuted x unpacked/packed) and ideal baseline unpacked/packed;
-   packed == unpacked on the same seeds, ideal == the noise-free reference,
-   and the launch counters show which kernels each serve ran;
-5. wired serve, unpacked and packed, with the same checks.
+   packed == unpacked on the same seeds, ideal == the noise-free reference
+   (predictions and maxsim), and the launch counters show which kernels
+   each serve ran;
+5. wired serve, unpacked and packed, with the same checks;
+6. the bsc tier alone at the serve shape: every core's flip rate lies within
+   5 sigma of its BER, and the packed draw equals the unpacked one.
 
 Then the card line again, a JSON line {"kernels": [...]} (launches counted on
 the serve runs of phases 4-5 only), and as the last line
@@ -152,6 +155,7 @@ def kernel_cases(torch, gen):
     None, bytes moved, operations, operation kind) at the main path's shapes
     and the tall shape."""
     from repro_torch import kernels as tk
+    from repro_torch.core import hypervector as hv
     from repro_torch.kernels.assoc_matmul.ref import assoc_matmul_ref
     from repro_torch.kernels.hamming.ref import hamming_search_ref, hamming_topk_banked_ref
     from repro_torch.kernels.majority.ref import majority_bundle_ref
@@ -168,7 +172,9 @@ def kernel_cases(torch, gen):
     cases = []
     for label, (g, b, c, w) in [("serve baseline G=64", (64, 256, 100, 16)),
                                 ("serve permuted G=192", (192, 256, 100, 16)),
-                                ("tall", (64, 4096, 1600, 64))]:
+                                ("tall", (64, 4096, 1600, 64)),
+                                # static + dynamic shared memory just past 48 KB
+                                ("wide", (4, 64, 300, 76))]:
         q, p = words(g, b, w), words(g, c, w)
         cases.append(("hamming_topk_banked", f"{label} B={b} C={c} W={w}",
                       lambda q=q, p=p: tk.hamming_topk_banked(q, p),
@@ -176,9 +182,13 @@ def kernel_cases(torch, gen):
                       4 * g * (b + c) * w + 8 * g * b, 3 * g * b * c * w, "int32"))
     for label, (b, c, w) in [("serve wired", (256, 6400, 16)), ("tall", (4096, 102400, 64))]:
         q, p = words(b, w), words(c, w)
+        # cdist with p=0 counts the coordinates that differ: the Hamming
+        # distance, on the unpacked bits as f32
+        qf, pf = hv.unpack(q, 32 * w).float(), hv.unpack(p, 32 * w).float()
         cases.append(("hamming_search", f"{label} B={b} C={c} W={w}",
                       lambda q=q, p=p: tk.hamming_search(q, p),
-                      lambda q=q, p=p: hamming_search_ref(q, p), None,
+                      lambda q=q, p=p: hamming_search_ref(q, p),
+                      lambda qf=qf, pf=pf: torch.cdist(qf, pf, p=0),
                       4 * (b + c) * w + 4 * b * c, 3 * b * c * w, "int32"))
     for label, (g, b, c, k) in [("serve per core G=64", (64, 256, 100, 512)),
                                 ("serve permuted G=192", (192, 256, 100, 512)),
@@ -215,7 +225,7 @@ def phase_kernels(torch, gen) -> dict:
         require(exact, f"{name} [{label}] differs from its plain version (max |err| {err})")
         ms, eager_ms = time_ms(torch, kern), call_ms(torch, kern)
         plain_ms = time_ms(torch, plain, samples=3)
-        lib_ms = time_ms(torch, lib) if lib is not None else None
+        lib_ms = time_ms(torch, lib, samples=3) if lib is not None else None
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         if kind == "int8":      # a product with a tensor-core form: its int8 peak
             ops_ms = ops / INT8_OPS_PER_S * 1e3
@@ -261,7 +271,8 @@ def serve_setup(torch, base, mode, protos_u, device):
 def run_serve(torch, base, mode, protos_u, state, device):
     """CALLS serve calls of one mode with the launch counters set to 0 just
     before and read just after; returns predictions, maxsims, classes, the
-    noise-free reference's predictions, per-call ms and kernel launches."""
+    noise-free reference's predictions and maxsims, per-call ms and kernel
+    launches."""
     from repro_torch import kernels as tk
     from repro_torch.core import scaleout
 
@@ -278,10 +289,11 @@ def run_serve(torch, base, mode, protos_u, state, device):
         preds.append(pred)
         sims.append(sim)
     counts = tk.launch_counts()
-    ref_pred = torch.cat([scaleout.serve_reference(cfg, protos, q)[0] for _, q in batches])
+    refs = [scaleout.serve_reference(cfg, protos, q) for _, q in batches]
     return dict(label=label, pred=torch.cat(preds), sim=torch.cat(sims),
                 classes=torch.cat([c for c, _ in batches]), ms=ms, counts=counts,
-                ref_pred=ref_pred)
+                ref_pred=torch.cat([r[0] for r in refs]),
+                ref_sim=torch.cat([r[1] for r in refs]))
 
 
 def hit_rate(torch, run, permuted: bool) -> dict:
@@ -318,14 +330,46 @@ def phase_serves(torch, state, protos_u, base, device="cuda") -> dict:
             require(torch.equal(u["pred"], run["pred"]) and torch.equal(u["sim"], run["sim"]),
                     f"{run['label']}: differs from the unpacked serve")
         if kind == "wired" or ch == "ideal":
-            require(torch.equal(run["pred"], run["ref_pred"]),
+            require(torch.equal(run["pred"], run["ref_pred"])
+                    and torch.equal(run["sim"], run["ref_sim"]),
                     f"{run['label']}: differs from serve_reference")
     require(runs[("ota", "bsc", False, "unpacked")]["acc"]["hit"] > 0.9,
             "bsc baseline: fewer than 90% of trials answered from the sent set")
     print("serve checks: packed == unpacked in every mode, ideal and wired == "
-          "serve_reference", flush=True)
+          "serve_reference (predictions and maxsim)", flush=True)
     return {"launches": launches, "runs": {
         r["label"]: dict(ms=r["ms"], acc=r["acc"], counts=r["counts"]) for r in runs.values()}}
+
+
+def phase_flip_rate(torch, state, cfg) -> dict:
+    """The bsc tier alone at the serve shape: CALLS draws of every core's
+    copy of an all-zero bundle. Each core's flip rate must lie within 5 sigma
+    of ``state.ber`` (binomial sigma over the bits drawn), and the packed
+    tier's draw on the same seed must unpack to the unpacked one."""
+    from repro_torch import phy
+    from repro_torch.core import hypervector as hv
+
+    chan, n = phy.get_channel("bsc"), cfg.n_rx_cores
+    zeros = torch.zeros((cfg.batch, cfg.dim), dtype=torch.uint8, device="cuda")
+    flips = torch.zeros(n, dtype=torch.float64, device="cuda")
+    for seed in range(CALLS):
+        draws = [chan.rx_copies(torch.Generator(device="cuda").manual_seed(100 + seed),
+                                hv.pack(zeros) if packed else zeros, state, 0, n,
+                                packed=packed, dim=cfg.dim, noise=cfg.noise)
+                 for packed in (False, True)]
+        require(torch.equal(hv.unpack(draws[1], cfg.dim), draws[0]),
+                "bsc: the packed draw differs from the unpacked one")
+        flips += draws[0].sum((1, 2), dtype=torch.float64)
+    bits = CALLS * cfg.batch * cfg.dim
+    ber = state.ber.double()
+    rate = flips / bits
+    sigma = (ber * (1 - ber) / bits).sqrt()
+    z = float(((rate - ber).abs() / sigma.clamp_min(1e-300)).max())
+    require(bool(((rate - ber).abs() <= 5 * sigma + 1e-12).all()),
+            f"bsc: a core's flip rate is more than 5 sigma from its BER (max {z:.2f} sigma)")
+    print(f"bsc flip rate: {n} cores x {bits} bits, within 5 sigma of each core's BER "
+          f"(max {z:.3f} sigma), packed draw == unpacked", flush=True)
+    return dict(bits_per_core=bits, max_sigma=z)
 
 
 def phase_profile(torch, state, protos_u, base) -> dict:
@@ -422,6 +466,7 @@ def main(argv: list[str]) -> int:
         torch.Generator(device="cuda").manual_seed(0),
         classifier.HDCTaskConfig(n_classes=cfg.n_classes, dim=cfg.dim), device="cuda")
     serves = phase_serves(torch, state, protos_u, cfg)
+    flip = phase_flip_rate(torch, state, cfg)
     profiles = phase_profile(torch, state, protos_u, cfg) if args.profile else None
 
     line = []
@@ -440,6 +485,7 @@ def main(argv: list[str]) -> int:
         args.json.write_text(json.dumps(dict(
             card=card, kind=kind, torch=torch.__version__, build_s=_build.build_seconds,
             ber=dict(avg=avg, max=mx, ms=pre_ms), kernels=kernels, serves=serves["runs"],
+            flip_rate=flip,
             profiles=profiles, seconds=time.perf_counter() - t_start), indent=1))
     print(card)
     print(json.dumps({"kernels": line}))

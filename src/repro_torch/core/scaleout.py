@@ -37,10 +37,12 @@ from repro_torch.kernels.majority import majority_bundle
 
 @dataclasses.dataclass(frozen=True)
 class ScaleOutConfig:
-    """The reference's configuration (same fields and defaults — the paper's
-    6400 classes over 64 cores, d = 512, M = 3, 7 dB, batch 256) minus
-    ``use_kernels``: the port dispatches on the tensors' device instead.
-    Values whose code is not ported yet raise here."""
+    """The reference's configuration (same defaults — the paper's 6400
+    classes over 64 cores, d = 512, M = 3, 7 dB, batch 256) minus
+    ``use_kernels`` (the port dispatches on the tensors' device instead) and
+    minus the knobs that only unported code reads (``noise_planes``,
+    ``coarse_keep``, ``k_max``). Values whose code is not ported yet raise
+    here."""
 
     n_classes: int = 6400
     dim: int = 512
@@ -52,11 +54,8 @@ class ScaleOutConfig:
     collective: str = "psum"
     representation: str = "unpacked"
     noise: str = "exact"
-    noise_planes: int = 16
     channel: str = "bsc"
     coarse_group: int = 0
-    coarse_keep: int = 8
-    k_max: int = 0
     m_active: int | None = None
 
     @property
@@ -132,7 +131,7 @@ def _rx_fanout(cfg: ScaleOutConfig, chan: phy.Channel, q_bundled: torch.Tensor,
     """Per-core decode through the PHY tier: [n_cores, B, d|W]."""
     return chan.rx_copies(generator, q_bundled, state, rx_base=0,
                           n_cores=cfg.n_rx_cores, packed=cfg.packed, dim=cfg.dim,
-                          noise=cfg.noise, planes=cfg.noise_planes)
+                          noise=cfg.noise)
 
 
 def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor,

@@ -174,9 +174,12 @@ hamming_search_kernel(const int* __restrict__ q, const int* __restrict__ p,
 
 size_t smem_bytes(int W) { return (size_t)(QB * W + THREADS * (W + 1)) * sizeof(int); }
 
+// Opt in to `bytes` of dynamic shared memory on every launch. The 48 KB
+// default covers static and dynamic shared memory together, and the top-1
+// kernel holds 1 KB of static reduction buffers, so a test of the dynamic
+// size alone would refuse W = 75 and 76; the attribute call is cheap.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }

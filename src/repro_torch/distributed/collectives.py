@@ -19,7 +19,7 @@ def ota_noise(generator: torch.Generator, bits: torch.Tensor, ber) -> torch.Tens
 
 
 def ota_noise_packed(generator: torch.Generator, words: torch.Tensor, ber,
-                     mode: str = "exact", planes: int = 16) -> torch.Tensor:
+                     mode: str = "exact") -> torch.Tensor:
     """BSC on packed int32 words [..., W].
 
     ``mode="exact"`` packs the same Bernoulli draw `ota_noise` makes on the

@@ -103,7 +103,7 @@ class Channel:
     wire: str = "votes"
 
     def rx_copies(self, generator, reduced, state: ChannelState, rx_base, n_cores: int,
-                  *, packed: bool, dim: int, noise: str, planes: int) -> torch.Tensor:
+                  *, packed: bool, dim: int, noise: str) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -114,7 +114,7 @@ class IdealChannel(Channel):
     wire = "votes"
 
     def rx_copies(self, generator, reduced, state, rx_base, n_cores,
-                  *, packed, dim, noise, planes):
+                  *, packed, dim, noise):
         return reduced[None].expand((n_cores,) + tuple(reduced.shape))
 
 
@@ -130,13 +130,12 @@ class BSCChannel(Channel):
     wire = "votes"
 
     def rx_copies(self, generator, reduced, state, rx_base, n_cores,
-                  *, packed, dim, noise, planes):
+                  *, packed, dim, noise):
         ber = state.ber[rx_base:rx_base + n_cores]
         copies = reduced[None].expand((n_cores,) + tuple(reduced.shape))
         p = ber.reshape((n_cores,) + (1,) * reduced.dim())
         if packed:
-            return collectives.ota_noise_packed(generator, copies, p, mode=noise,
-                                                planes=planes)
+            return collectives.ota_noise_packed(generator, copies, p, mode=noise)
         return collectives.ota_noise(generator, copies, p)
 
 

@@ -24,7 +24,7 @@ def _bits(seed, shape):
 
 
 def _t(a):
-    return convert.hv_from_numpy(np.asarray(a))
+    return convert.hv_from_numpy(np.asarray(a), "cpu")
 
 
 def _eq(port, ref):

@@ -28,7 +28,7 @@ def _bits(seed, shape):
 
 
 def _t(a):
-    return convert.hv_from_numpy(a)
+    return convert.hv_from_numpy(a, "cpu")
 
 
 def _eq(port, ref):

@@ -55,7 +55,8 @@ def _inputs(codebook, packed):
     jp, jq = jnp.asarray(protos), jnp.asarray(queries)
     if packed:
         jp, jq = jhv.pack(jp), jhv.pack(jq)
-    return jp, jq, convert.hv_from_numpy(np.asarray(jp)), convert.hv_from_numpy(np.asarray(jq))
+    return (jp, jq, convert.hv_from_numpy(np.asarray(jp), CPU),
+            convert.hv_from_numpy(np.asarray(jq), CPU))
 
 
 def _eq(port, ref):
@@ -74,7 +75,7 @@ class ReplayChannel(tphy.Channel):
         self.masks = masks
 
     def rx_copies(self, generator, reduced, state, rx_base, n_cores,
-                  *, packed, dim, noise, planes):
+                  *, packed, dim, noise):
         m = self.masks[rx_base:rx_base + n_cores]
         return reduced[None] ^ (thv.pack(m) if packed else m)
 
@@ -117,7 +118,7 @@ def test_bsc_serve_on_jax_noise_matches_jax(mesh, codebook, permuted, rep):
     jpred, jsim = jscale.make_ota_serve(mesh, jcfg)(jp, jq, jstate, key)
     # the port reads JAX's own state, carried across through numpy
     tstate = convert.state_from_numpy({f: np.asarray(getattr(jstate, f))
-                                       for f in tphy.ChannelState.FIELDS})
+                                       for f in tphy.ChannelState.FIELDS}, CPU)
     masks = torch.from_numpy(_jax_masks(key, BER, SMALL["batch"], SMALL["dim"]))
     tphy.register_channel(ReplayChannel(masks), override=True)
     try:
@@ -142,12 +143,12 @@ def test_bsc_tier_flip_rate_and_packed_equals_unpacked(codebook):
     b, d = 64, 512
     zeros = torch.zeros((b, d), dtype=torch.uint8)
     rx = chan.rx_copies(torch.Generator().manual_seed(3), zeros, state, 0, len(BER),
-                        packed=False, dim=d, noise="exact", planes=16)
+                        packed=False, dim=d, noise="exact")
     rate = rx.float().mean((1, 2)).numpy()
     sigma = np.sqrt(BER * (1 - BER) / (b * d))
     assert (np.abs(rate - BER) <= 5 * sigma + 1e-12).all(), (rate, BER)
     rxp = chan.rx_copies(torch.Generator().manual_seed(3), thv.pack(zeros), state, 0,
-                         len(BER), packed=True, dim=d, noise="exact", planes=16)
+                         len(BER), packed=True, dim=d, noise="exact")
     assert torch.equal(thv.unpack(rxp, d), rx)
     for permuted in (False, True):
         outs = []
@@ -182,7 +183,7 @@ def test_hdc_train_matches_jax(mesh, rep):
     if rep == "packed":
         jex = jhv.pack(jex)
     ref = jscale.make_hdc_train(mesh, jcfg)(jex, jnp.asarray(labels))
-    got = tscale.make_hdc_train(tcfg, device=CPU)(convert.hv_from_numpy(np.asarray(jex)),
+    got = tscale.make_hdc_train(tcfg, device=CPU)(convert.hv_from_numpy(np.asarray(jex), CPU),
                                                   torch.from_numpy(labels))
     _eq(got, ref)
 
@@ -190,20 +191,20 @@ def test_hdc_train_matches_jax(mesh, rep):
 def test_state_round_trips_through_numpy():
     jstate = jscale.precharacterize_state(jscale.ScaleOutConfig(**SMALL))
     leaves = {f: np.asarray(getattr(jstate, f)) for f in tphy.ChannelState.FIELDS}
-    tstate = convert.state_from_numpy(leaves)
+    tstate = convert.state_from_numpy(leaves, CPU)
     assert tstate.symbols.dtype == torch.complex64 and tstate.n_rx == SMALL["n_rx_cores"]
     back = convert.to_numpy(tstate)
     for f in tphy.ChannelState.FIELDS:
         assert back[f].dtype == leaves[f].dtype
         np.testing.assert_array_equal(back[f], leaves[f])
     with pytest.raises(KeyError):
-        convert.state_from_numpy({"ber": leaves["ber"]})
+        convert.state_from_numpy({"ber": leaves["ber"]}, CPU)
 
 
 def test_serve_accuracy_and_queries(codebook):
     protos, classes, _ = codebook
     tcfg = tscale.ScaleOutConfig(**SMALL, permuted=True)
-    tp = convert.hv_from_numpy(protos)
+    tp = convert.hv_from_numpy(protos, CPU)
     cls, q = tscale.make_queries(torch.Generator().manual_seed(0), tcfg, tp)
     assert tuple(cls.shape) == (16, 3) and tuple(q.shape) == (16, 1, 3, 256)
     assert torch.equal(q[:, 0, 1], tp[cls[:, 1]])
@@ -226,6 +227,10 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
             build(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tclf.make_codebook(torch.Generator(), tclf.HDCTaskConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.hv_from_numpy(np.zeros((2, 32), np.uint8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.state_from_numpy({f: np.zeros(1) for f in tphy.ChannelState.FIELDS})
 
 
 @pytest.mark.parametrize("bad", [dict(collective="psum_packed"), dict(representation="sparse"),

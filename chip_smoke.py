@@ -8,9 +8,10 @@ fallback, and a missing GPU is a failure):
 
 1. card: the GPU's name and power limit (nvidia-smi); build the CUDA kernels
    from src/repro_torch/csrc with nvcc and print the build seconds;
-2. kernels: each of the four kernels against its plain PyTorch version on the
-   card, at the serve's shapes and at one tall shape (102,400 classes over 64
-   cores, d = 2048, batch 4096) -- bit-exact, with the kernel's median device
+2. kernels: each of the six kernels against its plain PyTorch version on the
+   card, at the main path's shapes and at one tall shape (102,400 classes over
+   64 cores, d = 2048, batch 4096); the two sparse kernels also at ragged,
+   tie and empty-query shapes -- bit-exact, with the kernel's median device
    time (CUDA-graph replay) and eager call time, the plain version's time,
    one PyTorch library call's where one computes the same function, and the
    bound (least time the card could take);
@@ -24,25 +25,43 @@ fallback, and a missing GPU is a failure):
    each serve ran;
 5. wired serve, unpacked and packed, with the same checks;
 6. the bsc tier alone at the serve shape: every core's flip rate lies within
-   5 sigma of its BER, and the packed draw equals the unpacked one.
+   5 sigma of its BER, and the packed draw equals the unpacked one;
+7. Table I at the paper's task (C = 100, d = 512, 2000 trials): M in
+   (1, 3, 5, 7, 9, 11) x baseline/permuted x ideal/wireless (the average
+   BER of phase 3) x unpacked/packed, 48 calls of `classifier.run_trials`
+   (`run_accuracy` is its mean); packed == unpacked trial for trial, M = 1
+   cells 1.0, the ideal baseline M = 3 cell within 5 sigma of 0.9702;
+8. sparse trials at d = 2^20, density 0.001, k_max = 2048 (M in (1, 3),
+   ideal and bsc), every run's search held against a dense oracle on every
+   25th trial, and at d = 8192 (density 0.008, k_max 131, ideal) the sparse,
+   packed and unpacked searches equal, distance for distance;
+9. the sparse serve at d = 2^20, k_max = 2048 over the paper's 6400 classes,
+   64 cores, M = 3, batch 256: ideal and bsc calls, the ideal answers held
+   against a dense oracle, the psum wire and representation="auto" against
+   index_ag, the d = 8192 sparse serve against the packed one, and the bsc
+   drop and insertion rates per core within 5 sigma.
 
-Then the card line again, a JSON line {"kernels": [...]} (launches counted on
-the serve runs of phases 4-5 only), and as the last line
-{"ok": true, "device": {...}}.
+Each phase prints its seconds. Then the card line again, a JSON line
+{"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
+7-9, each run between a reset and a read of the counters: the serves, the
+48 Table I calls, and the sparse trials and serves at d = 2^20; the d = 8192
+comparisons are not counted), and as the last line {"ok": true, ...}.
 
     python3 chip_smoke.py --profile --json out/chip_smoke.json
 
-adds a profile of every serve mode under torch.profiler (device busy time,
-idle share, top device ops per call), and writes every number of the run,
-unrounded, to the JSON file.
+adds a profile of every serve mode and of the sparse serve under
+torch.profiler (device busy time, idle share, top device ops per call), and
+writes every number of the run, unrounded, to the JSON file.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -51,6 +70,16 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 CALLS = 8                        # serve calls per mode
+SEED = 0
+SPARSE_DIM, SPARSE_DENSITY, SPARSE_K = 2**20, 0.001, 2048   # benchmarks/sparse.py:46-47
+NARROW_DIM, NARROW_DENSITY, NARROW_K = 8192, 0.008, 131     # packed kernels fit (W = 256)
+PAPER_TABLE1 = {  # benchmarks/table1.py:11-16, M = 1, 3, ..., 11
+    ("baseline", "ideal"): [1, 0.966, 0.902, 0.803, 0.704, 0.543],
+    ("baseline", "wireless"): [1, 0.966, 0.9, 0.801, 0.699, 0.537],
+    ("permuted", "ideal"): [1, 1, 1, 1, 0.995, 0.978],
+    ("permuted", "wireless"): [1, 1, 1, 1, 0.994, 0.963],
+}
+TABLE1_MS = (1, 3, 5, 7, 9, 11)
 # serve modes: (serve, PHY tier, permuted bundling, representation)
 MODES = ([("ota", ch, perm, rep) for ch, perm in (("bsc", False), ("bsc", True), ("ideal", False))
           for rep in ("unpacked", "packed")]
@@ -69,6 +98,10 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
                      "src/repro/kernels/assoc_matmul/kernel.py:42"),
     "majority_bundle": ("cuda", "src/repro_torch/csrc/majority.cu",
                         "src/repro/kernels/majority/kernel.py:27"),
+    "sparse_search": ("cuda", "src/repro_torch/csrc/sparse.cu",
+                      "src/repro/kernels/sparse/kernel.py:62"),
+    "sparse_topk_banked": ("cuda", "src/repro_torch/csrc/sparse.cu",
+                           "src/repro/kernels/sparse/kernel.py:119"),
 }
 
 
@@ -212,9 +245,92 @@ def kernel_cases(torch, gen):
     return cases
 
 
+def sparse_kernel_cases(torch, gen):
+    """The two sparse kernels' cases, as `kernel_cases` gives them plus a
+    dict of extras: ``lib_eager`` (time the library call eagerly: a
+    cuSPARSE product is not captured in a CUDA graph here) and ``expect``
+    (a check of the result beyond equality with the plain version). Queries
+    are random index lists at density >= 0.001; the prototypes random words
+    (about half their bits set)."""
+    from repro_torch import kernels as tk
+    from repro_torch.core import hypervector as hv, sparse
+    from repro_torch.kernels.sparse.ref import sparse_search_ref, sparse_topk_banked_ref
+
+    dev, S = "cuda", sparse.SENTINEL
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def lists(n, d, k, density, empty=()):
+        q = sparse.random_sparse(gen, n, d, k, density, dev)
+        q[list(empty)] = S                  # all-SENTINEL rows, as padded batch rows are
+        return q
+
+    def live(q):
+        return int((q != S).sum())
+
+    cases = []
+    for label, (b, c, w, k, dens, empty, lib) in [
+            ("trials", (2000, 100, 32768, 2048, SPARSE_DENSITY, (), True)),
+            ("serve-wide", (256, 6400, 32768, 2048, SPARSE_DENSITY, (), False)),
+            ("ragged", (77, 333, 1000, 2097, 0.04, (3, 4, 5), False))]:
+        q, p = lists(b, 32 * w, k, dens, empty), words(c, w)
+        libfn, extra = None, {}
+        if lib:
+            # the overlap |q AND p| by cuSPARSE: the queries as a CSR f32
+            # matrix [B, d] times the unpacked prototypes [d, C] f32, all of
+            # the kernel's work but two adds
+            valid = q != S
+            crow = torch.zeros(b + 1, dtype=torch.int64, device=dev)
+            crow[1:] = valid.sum(1).cumsum(0)
+            col = q[valid].to(torch.int64)
+            with warnings.catch_warnings():     # "CSR support is in beta"
+                warnings.simplefilter("ignore", UserWarning)
+                csr = torch.sparse_csr_tensor(crow, col, torch.ones(col.numel(), device=dev),
+                                              size=(b, 32 * w), check_invariants=True)
+            dense = hv.unpack(p, 32 * w).T.float().contiguous()
+            libfn, extra = (lambda csr=csr, dense=dense: torch.sparse.mm(csr, dense)), dict(
+                lib_eager=True, lib_what=f"CSR f32 [B, d] x f32 [d, C] ({dense.numel() * 4} B)")
+        cases.append(("sparse_search", f"{label} B={b} C={c} k={k} W={w}",
+                      lambda q=q, p=p: tk.sparse_search(q, p),
+                      lambda q=q, p=p: sparse_search_ref(q, p), libfn,
+                      4 * (b * k + c * w + b * c), live(q) * c, "gather", extra))
+    for label, (g, b, c, c_real, w, k, dens, empty) in [
+            ("serve G=64", (64, 256, 100, 100, 32768, 2048, SPARSE_DENSITY, ())),
+            ("ragged", (3, 77, 333, 300, 1000, 2097, 0.04, (2, 80, 150)))]:
+        q = lists(g * b, 32 * w, k, dens, empty).reshape(g, b, k)
+        p = words(g, c, w)
+        cases.append(("sparse_topk_banked", f"{label} B={b} C={c} c_real={c_real} k={k} W={w}",
+                      lambda q=q, p=p, cr=c_real: tk.sparse_topk_banked(q, p, c_real=cr),
+                      lambda q=q, p=p, cr=c_real: sparse_topk_banked_ref(q, p, cr), None,
+                      4 * g * (b * k + c * w) + 8 * g * b, live(q) * c_real, "gather", {}))
+    # duplicates of query 0's bank row across tile boundaries (32 rows a tile
+    # at W = 1000, one at W = 32768): the first copy must win at distance 0
+    for w, k, dens, dups in [(1000, 2097, 0.04, (31, 32, 64)), (32768, 2048, SPARSE_DENSITY,
+                                                              (5, 6, 99))]:
+        g, b, c = 2, 40, 100
+        q = lists(g * b, 32 * w, k, dens).reshape(g, b, k)
+        p = words(g, c, w)
+        p[:, list(dups)] = hv.pack(sparse.densify(q[:, 0], 32 * w))[:, None, :]
+
+        def expect(got, first=dups[0]):
+            dist, idx = got
+            return bool((idx[:, 0] == first).all() and (dist[:, 0] == 0).all())
+
+        cases.append(("sparse_topk_banked", f"ties at {dups} B={b} C={c} k={k} W={w}",
+                      lambda q=q, p=p: tk.sparse_topk_banked(q, p),
+                      lambda q=q, p=p: sparse_topk_banked_ref(q, p), None,
+                      4 * g * (b * k + c * w) + 8 * g * b, live(q) * c, "gather",
+                      dict(expect=expect)))
+    return cases
+
+
 def phase_kernels(torch, gen) -> dict:
     results = {}
-    for name, label, kern, plain, lib, nbytes, ops, kind in kernel_cases(torch, gen):
+    for case in kernel_cases(torch, gen) + sparse_kernel_cases(torch, gen):
+        name, label, kern, plain, lib, nbytes, ops, kind = case[:8]
+        extra = case[8] if len(case) > 8 else {}
         got, want = kern(), plain()
         torch.cuda.synchronize()
         got_t = got if isinstance(got, tuple) else (got,)
@@ -223,19 +339,23 @@ def phase_kernels(torch, gen) -> dict:
                   for a, b in zip(got_t, want_t))
         exact = all(torch.equal(a, b) for a, b in zip(got_t, want_t))
         require(exact, f"{name} [{label}] differs from its plain version (max |err| {err})")
+        if "expect" in extra:
+            require(extra["expect"](got), f"{name} [{label}]: the first duplicate did not win")
         ms, eager_ms = time_ms(torch, kern), call_ms(torch, kern)
         plain_ms = time_ms(torch, plain, samples=3)
-        lib_ms = time_ms(torch, lib, samples=3) if lib is not None else None
+        lib_timer = call_ms if extra.get("lib_eager") else time_ms
+        lib_ms = lib_timer(torch, lib, samples=3) if lib is not None else None
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         if kind == "int8":      # a product with a tensor-core form: its int8 peak
             ops_ms = ops / INT8_OPS_PER_S * 1e3
             bound_ms, bound_by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                                           else "operations")
-        else:                   # popcount / int adds: no published peak, bytes bound
+        else:                   # popcount, gathers: no published peak, bytes bound
             bound_ms, bound_by = bytes_ms, "bytes"
         row = dict(shape=label, max_abs_err=err, ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
                    bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=lib_ms, bytes=nbytes, ops=ops, op_kind=kind)
+                   bound_by=bound_by, library_ms=lib_ms, bytes=nbytes, ops=ops, op_kind=kind,
+                   library_what=extra.get("lib_what"))
         results.setdefault(name, []).append(row)
         print(f"kernel {name} [{label}]: bit-exact, {ms:.4f} ms (eager call {eager_ms:.4f}), "
               f"plain {plain_ms:.4f} ms, "
@@ -372,47 +492,334 @@ def phase_flip_rate(torch, state, cfg) -> dict:
     return dict(bits_per_core=bits, max_sigma=z)
 
 
-def phase_profile(torch, state, protos_u, base) -> dict:
-    """Where a serve call's time goes (``--profile``): each mode's CALLS
-    calls under torch.profiler; the device's busy time is the union of its
-    kernel and copy intervals, its idle share the rest of the host's wall
-    time of those calls, and the top device ops by summed time."""
+# ---------------------------------------------------------------------------
+# phases 7-9: Table I, the sparse trials, the sparse serve
+# ---------------------------------------------------------------------------
+
+def counted(torch, fn):
+    """(result, seconds, launch counts) of one main-path call, the counters
+    set to 0 just before and read just after."""
+    from repro_torch import kernels as tk
+
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, tk.launch_counts()
+
+
+def require_only(counts: dict, want: tuple, what: str) -> None:
+    require(all(counts[k] > 0 for k in want) and
+            all(v == 0 for k, v in counts.items() if k not in want),
+            f"{what}: launches {counts}, expected {want} and nothing else")
+
+
+def add_launches(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """Within the block, every call of ``module.name`` runs unchanged and
+    appends its (arguments, result) to the list this yields."""
+    orig, log = getattr(module, name), []
+
+    def wrapper(*args):
+        log.append((args, orig(*args)))
+        return log[-1][1]
+
+    setattr(module, name, wrapper)
+    try:
+        yield log
+    finally:
+        setattr(module, name, orig)
+
+
+def phase_table1(torch, wireless_ber: float, launches: dict) -> dict:
+    """Table I at the paper's task: 48 calls of `classifier.run_trials`."""
+    from repro_torch.core import classifier
+
+    cfg = classifier.HDCTaskConfig()
+    flags, rows, call_s = {}, {}, []
+    for rep in ("unpacked", "packed"):
+        for bundling in ("baseline", "permuted"):
+            want = (("assoc_matmul",) if rep == "unpacked" else
+                    ("hamming_search",) if bundling == "baseline" else ("hamming_topk_banked",))
+            for name, channel, ber in (("ideal", "ideal", 0.0),
+                                       ("wireless", "bsc", wireless_ber)):
+                accs = []
+                for m in TABLE1_MS:
+                    f, sec, counts = counted(torch, lambda: classifier.run_trials(
+                        SEED, cfg, m, ber, bundling, representation=rep, channel=channel))
+                    require_only(counts, want, f"table1 {rep} {bundling} {name} M={m}")
+                    add_launches(launches, counts)
+                    call_s.append(sec)
+                    flags[(rep, bundling, name, m)] = f
+                    accs.append(float(f.float().mean()))
+                rows[(rep, bundling, name)] = accs
+    for (rep, bundling, name, m), f in flags.items():
+        if rep == "packed":
+            require(torch.equal(f, flags[("unpacked", bundling, name, m)]),
+                    f"table1 {bundling} {name} M={m}: packed differs from unpacked")
+    require(all(accs[0] == 1.0 for accs in rows.values()), "table1: an M = 1 cell is not 1.0")
+    p = 0.99 * 0.98                        # prod(1 - i/C), i < M = 3, C = 100
+    acc3 = rows[("unpacked", "baseline", "ideal")][1]
+    sigma = (p * (1 - p) / cfg.n_trials) ** 0.5
+    require(abs(acc3 - p) <= 5 * sigma,
+            f"table1 ideal baseline M=3: {acc3} is more than 5 sigma from {p:.4f}")
+    for bundling in ("baseline", "permuted"):
+        for name in ("ideal", "wireless"):
+            print(f"table1 {bundling:8s} {name:8s} M={TABLE1_MS}: "
+                  f"{rows[('unpacked', bundling, name)]} (paper {PAPER_TABLE1[(bundling, name)]})",
+                  flush=True)
+    print(f"table1 checks: packed == unpacked trial for trial in all 24 cells, M = 1 cells "
+          f"1.0, ideal baseline M=3 {acc3} within 5 sigma of {p:.4f}; "
+          f"{statistics.median(call_s) * 1e3:.3f} ms per call median "
+          f"(max {max(call_s) * 1e3:.3f})", flush=True)
+    return dict(rows={" ".join(k): v for k, v in rows.items()}, wireless_ber=wireless_ber,
+                call_ms=[x * 1e3 for x in call_s])
+
+
+def phase_sparse_trials(torch, ber: float, launches: dict) -> dict:
+    """Sparse trials at d = 2^20, each run's search held against a dense
+    oracle; at d = 8192 the three representations' searches held equal."""
+    from repro_torch.core import classifier, hypervector as hv, sparse
+    from repro_torch.kernels.hamming.ref import hamming_search_ref
+
+    cfg = classifier.HDCTaskConfig(dim=SPARSE_DIM)
+    out = {}
+    for channel, b in (("ideal", 0.0), ("bsc", ber)):
+        for m in (1, 3):
+            with recorded(classifier, "sparse_search") as log:
+                f, sec, counts = counted(torch, lambda: classifier.run_trials(
+                    SEED, cfg, m, b, representation="sparse", channel=channel,
+                    density=SPARSE_DENSITY, k_max=SPARSE_K))
+            require_only(counts, ("sparse_search",), f"sparse trials {channel} M={m}")
+            add_launches(launches, counts)
+            require(len(log) == 1, f"sparse trials {channel} M={m}: {len(log)} searches")
+            (qs, protos), dist = log[0]
+            # every 25th trial's distances from the densified, packed query
+            oracle = hamming_search_ref(hv.pack(sparse.densify(qs[::25], SPARSE_DIM)), protos)
+            require(torch.equal(dist[::25], oracle),
+                    f"sparse trials {channel} M={m}: distances differ from the dense oracle")
+            out[f"{channel} M={m}"] = dict(acc=float(f.float().mean()), s=sec,
+                                           live=float(sparse.count(qs).float().mean()))
+            print(f"sparse trials d=2^20 k_max={SPARSE_K} {channel} M={m}: accuracy "
+                  f"{out[f'{channel} M={m}']['acc']}, {sec:.3f} s, "
+                  f"{out[f'{channel} M={m}']['live']:.1f} live indices per query", flush=True)
+    require(out["ideal M=1"]["acc"] == 1.0, "sparse trials: ideal M=1 accuracy is not 1.0")
+    # at d = 8192 (not counted: a check, not the main path) the three
+    # representations search the same trials: equal distances, equal dots
+    narrow = classifier.HDCTaskConfig(dim=NARROW_DIM)
+    searches = {"sparse": "sparse_search", "packed": "hamming_search",
+                "unpacked": "assoc_matmul"}
+    for m in (1, 3):
+        flags, found = {}, {}
+        for rep, fn in searches.items():
+            with recorded(classifier, fn) as log:
+                flags[rep], _, counts = counted(torch, lambda: classifier.run_trials(
+                    SEED, narrow, m, 0.0, representation=rep, channel="ideal",
+                    density=NARROW_DENSITY, k_max=NARROW_K))
+            require(len(log) == 1, f"sparse trials d=8192 M={m} {rep}: {len(log)} searches")
+            found[rep] = log[0][1]
+            if rep == "sparse":
+                require_only(counts, ("sparse_search",), f"sparse trials d=8192 M={m}")
+        require(torch.equal(found["sparse"], found["packed"]) and
+                torch.equal((NARROW_DIM - 2 * found["sparse"]).float(), found["unpacked"]),
+                f"sparse trials d=8192 M={m}: the sparse, packed and unpacked searches differ")
+        require(torch.equal(flags["sparse"], flags["packed"]) and
+                torch.equal(flags["packed"], flags["unpacked"]),
+                f"sparse trials d=8192 M={m}: sparse, packed and unpacked differ")
+        out[f"d=8192 M={m}"] = float(flags["sparse"].float().mean())
+    print(f"sparse trials checks: ideal M=1 accuracy 1.0 at d=2^20; every 25th trial's "
+          f"distances == the dense oracle in all four runs; at d=8192 sparse == packed == "
+          f"unpacked distances ({narrow.n_trials} x {narrow.n_classes}) and flags (accuracy "
+          f"M=1 {out['d=8192 M=1']}, M=3 {out['d=8192 M=3']})", flush=True)
+    return out
+
+
+def rate_sigmas(counts, n: int, p):
+    """Per-core distance of observed Bernoulli counts from n*p, in binomial
+    sigmas. A float32 uniform draw compared with p cannot resolve p below its
+    2^-24 step, so p is floored there, and one count of slack covers the
+    discreteness where n*p is small (some cores' BER is ~1e-12)."""
+    p = p.clamp(min=2.0**-24)
+    sigma = (n * p * (1 - p)).sqrt()
+    return ((counts - n * p).abs() - 1).clamp(min=0) / sigma.clamp(min=1e-300)
+
+
+def sparse_codebook(torch, gen, n: int, d: int, k_max: int, density: float):
+    """Index lists [n, k_max] and packed words [n, d/32] of a random sparse
+    codebook, packed 64 rows at a time (a dense [6400, 2^20] codebook is
+    6.7 GB of bytes)."""
+    from repro_torch.core import hypervector as hv, sparse
+
+    codes = sparse.random_sparse(gen, n, d, k_max, density, "cuda")
+    words = torch.cat([hv.pack(sparse.densify(codes[i:i + 64], d))
+                       for i in range(0, n, 64)])
+    return codes, words
+
+
+def phase_sparse_serve(torch, state, launches: dict, profile: bool = False) -> dict:
+    """The sparse serve at d = 2^20 over the paper's geometry (``profile``:
+    also its ideal and bsc calls under torch.profiler)."""
+    import dataclasses
+
+    from repro_torch.core import hypervector as hv, scaleout, sparse
+    from repro_torch.kernels.hamming.ref import hamming_search_ref
+
+    base = scaleout.ScaleOutConfig(representation="sparse", collective="index_ag",
+                                   dim=SPARSE_DIM, k_max=SPARSE_K)
+    d, n_core = base.dim, base.n_rx_cores
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    codes, protos = sparse_codebook(torch, gen, base.n_classes, d, base.k_max, SPARSE_DENSITY)
+    gq = torch.Generator(device="cuda").manual_seed(1)
+    batches = [scaleout.make_queries(gq, base, codes) for _ in range(CALLS)]
+    out, answers = {}, {}
+    drops = torch.zeros(n_core, dtype=torch.float64, device="cuda")
+    accepted = torch.zeros(n_core, dtype=torch.float64, device="cuda")
+    live_total, slots_total = 0, 0
+    for channel in ("ideal", "bsc"):
+        cfg = dataclasses.replace(base, channel=channel)
+        serve = scaleout.make_ota_serve(cfg)
+        gn = torch.Generator(device="cuda").manual_seed(2)
+        preds, sims, ms = [], [], []
+        for classes, q in batches:
+            with recorded(sparse, "_noise_draws") as drawn:     # the bsc draws it makes
+                (pred, sim), sec, counts = counted(torch, lambda: serve(protos, q, state, gn))
+            require_only(counts, ("sparse_topk_banked",), f"sparse serve {channel}")
+            add_launches(launches, counts)
+            ms.append(sec * 1e3)
+            preds.append(pred)
+            sims.append(sim)
+            if channel == "ideal":              # a dense oracle on the first 16 trials
+                bundled = hv.majority(sparse.densify(q[:16, 0], d).transpose(0, 1))
+                dist = hamming_search_ref(hv.pack(bundled), protos)
+                require(torch.equal(pred[:16], torch.argmin(dist, -1).to(torch.int32)) and
+                        torch.equal(sim[:16], (d - 2 * dist.min(-1).values) / (2.0 * d) + 0.5),
+                        "sparse serve ideal: differs from the dense oracle")
+            else:
+                require(len(drawn) == 1, "sparse serve bsc: not one draw per call")
+                drop, _, acc = drawn[0][1]
+                live = sparse.valid(sparse.bundle(q[:, 0]))[None]       # [1, B, k]
+                drops += (drop & live).sum((1, 2), dtype=torch.float64)
+                accepted += acc.sum((1, 2), dtype=torch.float64)
+                live_total += int(live.sum())
+                slots_total += live.numel()
+        pred, classes = torch.cat(preds), torch.cat([c for c, _ in batches])
+        hit = float((pred[:, None] == classes).any(1).float().mean())
+        answers[channel] = (preds, sims)
+        out[channel] = dict(ms=ms, hit=hit)
+        print(f"sparse serve {channel}: {CALLS} calls x batch {base.batch}, "
+              f"{statistics.median(ms):.3f} ms/call median (first {ms[0]:.3f}), hit rate "
+              f"{hit} (reported, not gated)", flush=True)
+    # the drop rate of live indices, and the insertion acceptance, per core
+    ber = state.ber.double()[:n_core]
+    z_drop = rate_sigmas(drops, live_total, ber)
+    z_ins = rate_sigmas(accepted, slots_total, torch.clamp(ber * (d / base.k_max), max=1.0))
+    require(float(z_drop.max()) <= 5, f"sparse bsc: a core's drop rate is more than 5 sigma "
+                                      f"from its BER (max {float(z_drop.max()):.2f} sigma)")
+    require(float(z_ins.max()) <= 5, f"sparse bsc: a core's insertion rate is more than 5 sigma "
+                                     f"from min(1, ber*d/k_max) (max {float(z_ins.max()):.2f} sigma)")
+    # the psum wire and representation="auto" answer as index_ag does
+    for channel in ("ideal", "bsc"):
+        for variant in (dict(collective="psum"), dict(representation="auto", collective="psum")):
+            cfg = dataclasses.replace(base, channel=channel, **variant)
+            if variant.get("representation") == "auto":
+                require(scaleout.resolve_representation(cfg).representation == "sparse",
+                        "representation='auto' does not resolve to sparse at d = 2^20")
+                if channel == "bsc":
+                    continue
+            gn = torch.Generator(device="cuda").manual_seed(2)
+            (pred, sim), _, counts = counted(
+                torch, lambda: scaleout.make_ota_serve(cfg)(protos, batches[0][1], state, gn))
+            require_only(counts, ("sparse_topk_banked",), f"sparse serve {channel} {variant}")
+            add_launches(launches, counts)
+            want_p, want_s = answers[channel][0][0], answers[channel][1][0]
+            require(torch.equal(pred, want_p) and torch.equal(sim, want_s),
+                    f"sparse serve {channel} {variant}: differs from index_ag")
+    # at d = 8192 (not counted: a check, not the main path) the ideal sparse
+    # serve answers as the packed serve
+    narrow = dataclasses.replace(base, dim=NARROW_DIM, k_max=NARROW_K, channel="ideal")
+    codes8, protos8 = sparse_codebook(torch, gen, base.n_classes, NARROW_DIM, NARROW_K,
+                                      NARROW_DENSITY)
+    packed = dataclasses.replace(narrow, representation="packed", collective="psum", k_max=0)
+    g8 = torch.Generator(device="cuda").manual_seed(3)
+    for _ in range(2):
+        _, q8 = scaleout.make_queries(g8, narrow, codes8)
+        (sp, ss), _, counts = counted(
+            torch, lambda: scaleout.make_ota_serve(narrow)(protos8, q8, state, None))
+        require_only(counts, ("sparse_topk_banked",), "sparse serve d=8192")
+        q8p = hv.pack(sparse.densify(q8, NARROW_DIM))
+        pp, ps = scaleout.make_ota_serve(packed)(protos8, q8p, state, None)
+        require(torch.equal(sp, pp) and torch.equal(ss, ps),
+                "sparse serve d=8192: differs from the packed serve")
+    print(f"sparse serve checks: ideal == dense oracle (16 trials x {CALLS} calls), psum == "
+          f"index_ag and auto -> sparse, d=8192 sparse == packed; bsc drop rate within 5 sigma "
+          f"of each core's BER (max {float(z_drop.max()):.3f} sigma over {live_total} live "
+          f"indices), insertion rate within 5 sigma of min(1, ber*d/k_max) (max "
+          f"{float(z_ins.max()):.3f} sigma)", flush=True)
+    out["bsc_rates"] = dict(live=live_total, slots=slots_total,
+                            max_sigma_drop=float(z_drop.max()), max_sigma_ins=float(z_ins.max()))
+    if profile:
+        for channel in ("ideal", "bsc"):
+            serve = scaleout.make_ota_serve(dataclasses.replace(base, channel=channel))
+            gn = torch.Generator(device="cuda").manual_seed(2)
+            out[f"profile {channel}"] = profile_calls(torch, f"sparse serve {channel}", [
+                lambda q=q: serve(protos, q, state, gn) for _, q in batches])
+    return out
+
+
+def profile_calls(torch, label: str, calls: list) -> dict:
+    """Where a call's time goes: the calls (zero-argument callables) under
+    torch.profiler after one warm call; the device's busy time is the union
+    of its kernel and copy intervals, its idle share the rest of the host's
+    wall time of those calls, and the top device ops by summed time."""
     from torch.profiler import ProfilerActivity, profile
 
+    calls[0]()                                  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e, by_name = 0.0, None, None, {}
+    for a, b, name in dev:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+        if cur_e is None or a > cur_e:
+            busy += 0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += 0 if cur_e is None else cur_e - cur_s
+    n = len(calls)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    row = dict(wall_ms_per_call=wall_us / n / 1e3,
+               device_busy_ms_per_call=busy / n / 1e3,
+               idle_share=(1 - busy / wall_us) if dev else None,
+               device_ops_per_call=len(dev) / n,
+               top=[(name[:60], t / n / 1e3) for name, t in top])
+    idle = "n/a" if row["idle_share"] is None else f"{row['idle_share']:.3f}"
+    print(f"profile {label}: {row['wall_ms_per_call']:.3f} ms/call wall, device busy "
+          f"{row['device_busy_ms_per_call']:.3f} ms/call "
+          f"({row['device_ops_per_call']:.0f} device ops), idle share {idle}; top: "
+          + ", ".join(f"{name} {t:.4f}" for name, t in row["top"][:4]), flush=True)
+    return row
+
+
+def phase_profile(torch, state, protos_u, base) -> dict:
+    """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
     for mode in MODES:
         label, _, serve, protos, batches, gn = serve_setup(torch, base, mode, protos_u, "cuda")
-        serve(protos, batches[0][1], state, gn)       # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _, q in batches:
-                serve(protos, q, state, gn)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        dev = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-        busy, cur_s, cur_e, by_name = 0.0, None, None, {}
-        for a, b, name in dev:
-            by_name[name] = by_name.get(name, 0.0) + (b - a)
-            if cur_e is None or a > cur_e:
-                busy += 0 if cur_e is None else cur_e - cur_s
-                cur_s, cur_e = a, b
-            else:
-                cur_e = max(cur_e, b)
-        busy += 0 if cur_e is None else cur_e - cur_s
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        row = dict(wall_ms_per_call=wall_us / CALLS / 1e3,
-                   device_busy_ms_per_call=busy / CALLS / 1e3,
-                   idle_share=(1 - busy / wall_us) if dev else None,
-                   device_ops_per_call=len(dev) / CALLS,
-                   top=[(n[:60], t / CALLS / 1e3) for n, t in top])
-        out[label] = row
-        idle = "n/a" if row["idle_share"] is None else f"{row['idle_share']:.3f}"
-        print(f"profile {label}: {row['wall_ms_per_call']:.3f} ms/call wall, device busy "
-              f"{row['device_busy_ms_per_call']:.3f} ms/call "
-              f"({row['device_ops_per_call']:.0f} device ops), idle share {idle}; top: "
-              + ", ".join(f"{n} {t:.4f}" for n, t in row["top"][:4]), flush=True)
+        out[label] = profile_calls(torch, label, [
+            lambda q=q: serve(protos, q, state, gn) for _, q in batches])
     return out
 
 
@@ -439,6 +846,7 @@ def main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions run in full f32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    seconds = {}
     card = card_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"card: {card} ({kind}, {count} visible, torch {torch.__version__}, "
@@ -446,16 +854,30 @@ def main(argv: list[str]) -> int:
     _build.library()
     print(f"build: {_build.build_seconds:.2f} s (nvcc, sm_90a, "
           f"{len(_build.SOURCES)} sources in parallel)", flush=True)
+    seconds["1 build"] = time.perf_counter() - t_start
 
-    kernels = phase_kernels(torch, torch.Generator(device="cuda").manual_seed(0))
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
+        return out
+
+    kernels = phase("2 kernels", lambda: phase_kernels(
+        torch, torch.Generator(device="cuda").manual_seed(0)))
 
     cfg = scaleout.ScaleOutConfig()
     pre_ms = []
-    for _ in range(2):                   # cold (first use of its ops), then warm
-        t0 = time.perf_counter()
-        state = scaleout.precharacterize_state(cfg, device="cuda")
-        torch.cuda.synchronize()
-        pre_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def precharacterize():
+        for _ in range(2):                   # cold (first use of its ops), then warm
+            t0 = time.perf_counter()
+            st = scaleout.precharacterize_state(cfg, device="cuda")
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+        return st
+
+    state = phase("3 precharacterization", precharacterize)
     avg, mx = float(state.ber.mean()), float(state.ber.max())
     print(f"precharacterization: {cfg.m_tx} TX / {cfg.n_rx_cores} RX / {cfg.snr_db} dB, "
           f"avg BER {avg:.6f}, max {mx:.6f}, {pre_ms[0]:.1f} ms cold, {pre_ms[1]:.1f} ms warm",
@@ -465,28 +887,38 @@ def main(argv: list[str]) -> int:
     protos_u = classifier.make_codebook(
         torch.Generator(device="cuda").manual_seed(0),
         classifier.HDCTaskConfig(n_classes=cfg.n_classes, dim=cfg.dim), device="cuda")
-    serves = phase_serves(torch, state, protos_u, cfg)
-    flip = phase_flip_rate(torch, state, cfg)
-    profiles = phase_profile(torch, state, protos_u, cfg) if args.profile else None
+    serves = phase("4-5 serves", lambda: phase_serves(torch, state, protos_u, cfg))
+    launches = dict(serves["launches"])
+    flip = phase("6 bsc flip rate", lambda: phase_flip_rate(torch, state, cfg))
+    table = phase("7 table1", lambda: phase_table1(torch, avg, launches))
+    sparse_trials = phase("8 sparse trials", lambda: phase_sparse_trials(torch, avg, launches))
+    sparse_serve = phase("9 sparse serve", lambda: phase_sparse_serve(
+        torch, state, launches, profile=args.profile))
+    profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
+                if args.profile else None)
 
     line = []
     for name, (route, source, replaces) in KERNELS.items():
         main_row = kernels[name][0]          # the first case is the main path's shape
         line.append(dict(name=name, route=route, source=source, replaces=replaces,
-                         launches=serves["launches"][name],
+                         launches=launches.get(name, 0),
                          max_abs_err=max(r["max_abs_err"] for r in kernels[name]),
                          ms=main_row["ms"], call_ms=main_row["call_ms"],
                          plain_ms=main_row["plain_ms"],
                          bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
                          library_ms=main_row["library_ms"], shape=main_row["shape"]))
     require(all(k["launches"] > 0 for k in line), "a kernel of the path never launched")
+    seconds["total"] = time.perf_counter() - t_start
+    print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()),
+          flush=True)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(dict(
             card=card, kind=kind, torch=torch.__version__, build_s=_build.build_seconds,
             ber=dict(avg=avg, max=mx, ms=pre_ms), kernels=kernels, serves=serves["runs"],
-            flip_rate=flip,
-            profiles=profiles, seconds=time.perf_counter() - t_start), indent=1))
+            flip_rate=flip, table1=table, sparse_trials=sparse_trials,
+            sparse_serve=sparse_serve, launches=launches,
+            profiles=profiles, seconds=seconds), indent=1))
     print(card)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -1,7 +1,28 @@
-"""HDC classifier helpers of the serve path (counterpart of parts of
-`repro/core/classifier.py`: `HDCTaskConfig`, `make_codebook`,
-`serve_accuracy`). The Table I trial loop (`run_accuracy`, `table1`) is not
-ported yet."""
+"""The HDC classifier and the paper's bundled-query retrieval experiment
+(counterpart of `repro/core/classifier.py`): Table I, Fig. 10's accuracy
+against the BER and Fig. 11's similarity profile, plus the serve helpers.
+
+A trial draws M classes from the shared codebook, bundles their
+hypervectors by strict majority, flips the bundle through a BSC at the BER,
+and searches the C prototypes:
+
+* **baseline bundling**: the trial succeeds iff the top-M classes are the
+  sent set;
+* **permuted bundling**: encoder m sends rho^m(q_m); the receiver searches
+  M permuted banks and the trial succeeds iff every bank's top-1 is the
+  class its encoder sent.
+
+`_run_trials` runs all trials of one setting as three vectorized phases,
+as the reference does: the draws (every trial's classes, then its channel
+noise, from one `torch.Generator`), one batched search launch (the
+``assoc_matmul``, ``hamming_search``, ``hamming_topk_banked`` or
+``sparse_search`` kernel on the card), and a batched decision. Its draws
+can be given from outside (the tests replay JAX's).
+
+Ties: the baseline's top-M picks on the unique integer key
+``dot*C + (C-1-col)``, so equal similarities go to the lower class, the
+order of `jax.lax.top_k`; `torch.topk` promises no order among equal values.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +31,10 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core import hypervector as hv
+from repro_torch.core import hypervector as hv, sparse
+from repro_torch.kernels.assoc_matmul import assoc_matmul
+from repro_torch.kernels.hamming import hamming_search, hamming_topk_banked
+from repro_torch.kernels.sparse import sparse_search
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +54,215 @@ def make_codebook(generator: torch.Generator, cfg: HDCTaskConfig,
     dev = _device.resolve(device)
     draw = torch.rand((cfg.n_classes, cfg.dim), generator=generator, device=dev)
     return (draw < density).to(torch.uint8)
+
+
+def expanded_prototypes(protos: torch.Tensor, m: int) -> torch.Tensor:
+    """Permuted prototype banks for TX signatures 0..M-1: [M, C, d]."""
+    return torch.stack([hv.permute(protos, s) for s in range(m)], 0)
+
+
+def expanded_prototypes_packed(protos_p: torch.Tensor, m: int) -> torch.Tensor:
+    """Packed permuted banks: protos_p [C, W] int32 -> [M, C, W]."""
+    return torch.stack([hv.permute_packed(protos_p, s) for s in range(m)], 0)
+
+
+def _dots(qs: torch.Tensor, protos: torch.Tensor, d: int, packed: bool) -> torch.Tensor:
+    """Bipolar dots d - 2*hamming [T, C], exact integers in f32: the Hamming
+    search kernel on packed words, the bipolar matmul kernel on bits."""
+    if packed:
+        return (d - 2 * hamming_search(qs, protos)).to(torch.float32)
+    return assoc_matmul(qs, protos)
+
+
+def _similarity(qs: torch.Tensor, protos: torch.Tensor, d: int, packed: bool) -> torch.Tensor:
+    """Batched similarity [T, C] in [0, 1], the same floats in both
+    representations: (dot + d) / 2d from the exact integer dot."""
+    return (_dots(qs, protos, d, packed) + d) / (2.0 * d)
+
+
+def _topm_matches(dots: torch.Tensor, classes: torch.Tensor, m: int) -> torch.Tensor:
+    """Baseline decision: is the top-m set of every row of ``dots`` [T, C]
+    exactly the sent set ``classes`` [T, m]? The top-m is taken on the
+    unique key dot*C + (C-1-col), so ties go to the lower class, as in
+    `jax.lax.top_k`."""
+    t, c = dots.shape
+    col = torch.arange(c, device=dots.device)
+    key = dots.to(torch.int64) * c + (c - 1 - col)
+    topm = torch.topk(key, m, dim=-1).indices
+    sent = torch.zeros((t, c), dtype=torch.bool, device=dots.device).scatter_(1, classes, True)
+    got = torch.zeros((t, c), dtype=torch.bool, device=dots.device).scatter_(1, topm, True)
+    return (sent == got).all(-1)
+
+
+def _check_setting(bundling: str, representation: str, channel: str, k_max: int) -> None:
+    if channel == "symbol":
+        raise NotImplementedError("channel='symbol' (the physical tier) is not ported yet")
+    if channel not in ("bsc", "ideal"):
+        raise ValueError(f"unknown channel {channel!r}; the trials take 'bsc' or 'ideal'")
+    if bundling not in ("baseline", "permuted"):
+        raise ValueError(f"unknown bundling {bundling!r}")
+    if representation not in ("unpacked", "packed", "sparse"):
+        raise ValueError(f"unknown representation {representation!r}")
+    if representation == "sparse":
+        if k_max <= 0:
+            raise ValueError("representation='sparse' needs k_max > 0 (the index-list "
+                             f"capacity); got k_max={k_max}")
+        if bundling != "baseline":
+            raise ValueError("representation='sparse' supports baseline bundling only "
+                             f"(permuted TX signatures would need per-bank sparse "
+                             f"searches); got bundling={bundling!r}")
+
+
+def _draw(generator: torch.Generator, c: int, m: int, t: int, ber, d: int,
+          k_slots: int, representation: str, channel: str):
+    """Phase 1's draws: every trial's classes [T, m] first, then its noise.
+    The noise is None on the ideal channel, the flip mask [T, d] bool in the
+    dense representations (packed packs the same mask) and the sparse BSC's
+    (drop, pos, acc) [T, k_slots] otherwise."""
+    dev = generator.device
+    classes = torch.randint(0, c, (t, m), generator=generator, device=dev)
+    if channel == "ideal":
+        return classes, None
+    if representation == "sparse":
+        return classes, sparse._noise_draws(generator, (t, k_slots), ber, d, k_slots)
+    return classes, torch.rand((t, d), generator=generator, device=dev) < ber
+
+
+def _run_trials(protos: torch.Tensor, m: int, ber, bundling: str, representation: str,
+                n_trials: int, *, channel: str = "bsc", k_max: int = 0,
+                generator: torch.Generator | None = None, draws=None) -> torch.Tensor:
+    """Per-trial success flags [T] bool for ``n_trials`` trials on the
+    unpacked codebook ``protos`` [C, d] uint8.
+
+    ``draws`` = (classes [T, m] int64, noise) replaces phase 1's draws (see
+    `_draw`); without it they come from ``generator``. ``channel="ideal"`` is
+    the noise-free link (the BSC at ber = 0). ``representation="sparse"``
+    (baseline bundling only) runs the trial on index lists of capacity
+    ``k_max``: the same classes, the sparse bundle, the drop+insert BSC, and
+    one ``sparse_search`` against the packed codebook; at ber = 0 with no
+    saturation its flags equal the packed ones."""
+    _check_setting(bundling, representation, channel, k_max)
+    c, d = protos.shape
+    sparse_rep = representation == "sparse"
+    packed = representation == "packed"
+    protos_r = hv.pack(protos) if packed or sparse_rep else protos
+    codes = sparse.sparsify(protos, k_max) if sparse_rep else None
+    if draws is None:
+        draws = _draw(generator, c, m, n_trials, ber, d,
+                      codes.shape[-1] if sparse_rep else 0, representation, channel)
+    classes, noise = draws
+
+    # phase 1: the noisy bundled query of every trial
+    if sparse_rep:
+        qs = sparse.bundle(codes[classes])                    # [T, k_max]
+        if noise is not None:
+            qs = sparse.apply_noise(qs, *noise)
+    else:
+        q_tx = protos_r[classes]                              # [T, m, d|W]
+        if bundling == "permuted":                # each TX applies its signature
+            rho = hv.permute_packed if packed else hv.permute
+            q_tx = torch.stack([rho(q_tx[:, s], s) for s in range(m)], 1)
+        q_tx = q_tx.transpose(0, 1)
+        qs = hv.majority_packed(q_tx) if packed else hv.majority(q_tx)
+        if noise is not None:
+            flips = noise.to(torch.uint8)
+            qs = qs ^ (hv.pack(flips) if packed else flips)
+
+    # phases 2-3: one batched search, one batched decision
+    if bundling == "baseline":
+        if sparse_rep:
+            dots = d - 2 * sparse_search(qs, protos_r)
+        else:
+            dots = _dots(qs, protos_r, d, packed)
+        return _topm_matches(dots, classes, m)
+    if packed:
+        # every TX signature is a bank of one fused top-1 launch; argmin of
+        # the distance is the first maximum of the similarity
+        banks = expanded_prototypes_packed(protos_r, m)       # [m, C, W]
+        q_rep = qs[None].expand((m,) + tuple(qs.shape)).contiguous()
+        _, amin = hamming_topk_banked(q_rep, banks)
+        return (amin.T == classes).all(-1)
+    banks = expanded_prototypes(protos, m).reshape(m * c, d)
+    dots = _dots(qs, banks, d, False).reshape(-1, m, c)
+    return (torch.argmax(dots, -1) == classes).all(-1)       # first max per bank
+
+
+def run_trials(seed: int, cfg: HDCTaskConfig, m: int, ber: float,
+               bundling: str = "baseline", *, representation: str = "unpacked",
+               channel: str = "bsc", density: float | None = None, k_max: int = 0,
+               device: str | torch.device | None = "cuda") -> torch.Tensor:
+    """Per-trial success flags [cfg.n_trials] bool of one Table I setting:
+    one generator seeded with ``seed`` draws the codebook (each bit at
+    ``density``, default 1/2), then every trial's classes, then its noise,
+    so the unpacked and packed representations see the same draws and agree
+    trial for trial. ``representation="sparse"`` needs ``k_max``;
+    ``channel="symbol"`` is not ported yet."""
+    dev = _device.resolve(device)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    protos = make_codebook(generator, cfg, density, dev)
+    return _run_trials(protos, m, ber, bundling, representation, cfg.n_trials,
+                       channel=channel, k_max=k_max, generator=generator)
+
+
+def run_accuracy(seed: int, cfg: HDCTaskConfig, m: int, ber: float,
+                 bundling: str = "baseline", *, representation: str = "unpacked",
+                 channel: str = "bsc", density: float | None = None, k_max: int = 0,
+                 device: str | torch.device | None = "cuda") -> float:
+    """Trial-exact classification accuracy for M bundled hypervectors at a
+    BER: the share of `run_trials`'s flags that are set (float32 mean)."""
+    flags = run_trials(seed, cfg, m, ber, bundling, representation=representation,
+                       channel=channel, density=density, k_max=k_max, device=device)
+    return float(flags.to(torch.float32).mean())
+
+
+def accuracy_vs_ber(seed: int, cfg: HDCTaskConfig, m: int, bers, bundling: str = "baseline",
+                    *, representation: str = "unpacked",
+                    device: str | torch.device | None = "cuda") -> list[float]:
+    """Fig. 10 sweep: accuracy at each BER, every point on the same seed."""
+    return [run_accuracy(seed, cfg, m, float(b), bundling, representation=representation,
+                         device=device) for b in bers]
+
+
+def table1(seed: int, cfg: HDCTaskConfig, wireless_ber: float,
+           ms: tuple[int, ...] = (1, 3, 5, 7, 9, 11), *,
+           representation: str = "unpacked",
+           device: str | torch.device | None = "cuda") -> dict:
+    """Table I: accuracy for {baseline, permuted} x {ideal, wireless},
+    keyed ``(bundling, "ideal"|"wireless")``, one value per M in ``ms``."""
+    out = {}
+    for bundling in ("baseline", "permuted"):
+        for name, channel, ber in (("ideal", "ideal", 0.0), ("wireless", "bsc", wireless_ber)):
+            out[(bundling, name)] = [
+                run_accuracy(seed, cfg, m, ber, bundling, representation=representation,
+                             channel=channel, device=device) for m in ms]
+    return out
+
+
+def _profile_sims(protos: torch.Tensor, classes: torch.Tensor, mask: torch.Tensor,
+                  bundling: str) -> torch.Tensor:
+    """One trial's similarities: classes [m], mask [d] bool -> [C] baseline,
+    [m*C] permuted (bank-major)."""
+    m, (c, d) = classes.shape[0], protos.shape
+    q_tx = protos[classes]
+    if bundling == "permuted":
+        q_tx = hv.permute_batch(q_tx, torch.arange(m, device=protos.device))
+        protos = expanded_prototypes(protos, m).reshape(m * c, d)
+    q = hv.majority(q_tx) ^ mask.to(torch.uint8)
+    return _similarity(q[None], protos, d, False)[0]
+
+
+def similarity_profile(seed: int, cfg: HDCTaskConfig, m: int, ber: float,
+                       bundling: str = "baseline",
+                       device: str | torch.device | None = "cuda"
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One trial's similarity-against-class profile (Fig. 11): (classes [m],
+    sims [C] baseline or [m*C] permuted), the classes being the ones that
+    trial sent."""
+    dev = _device.resolve(device)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    protos = make_codebook(generator, cfg, None, dev)
+    classes, mask = _draw(generator, cfg.n_classes, m, 1, ber, cfg.dim, 0, "unpacked", "bsc")
+    return classes[0], _profile_sims(protos, classes[0], mask[0], bundling)
 
 
 def serve_accuracy(pred, classes) -> dict:

@@ -17,9 +17,20 @@ cores. `make_wired_serve` is the wired baseline: bundle by majority at every
 core (the majority kernel, or the bit-sliced packed majority), then one
 search over all classes (the Hamming or bipolar matmul kernel).
 
+``representation="sparse"`` serves ultra-sparse queries as sorted int32
+index lists (`core.sparse`) against the unchanged packed prototypes: the
+OTA wire is the index-list all-gather (``collective="index_ag"``, the
+slot-flattening reshape on one GPU) and a local sparse majority (the dense
+``psum`` fallback gives the same lists); the per-core BSC is the O(k)
+drop+insert channel, and the top-1 the gather-overlap ``sparse_topk_banked``
+kernel.
+``"auto"`` picks sparse or packed from the density crossover
+(`resolve_representation`).
+
 Randomness: an explicit `torch.Generator` replaces the reference's key, so
 the BSC noise is not the reference's bits; the tests hold the noisy serve by
-replaying JAX-drawn masks through a registered tier.
+replaying JAX-drawn masks through a registered tier (dense) or in place of
+`sparse._noise_draws` (sparse).
 """
 from __future__ import annotations
 
@@ -29,10 +40,12 @@ from typing import Callable
 import torch
 
 from repro_torch import device as _device, phy
-from repro_torch.core import em, hypervector as hv, ota
+from repro_torch.core import em, hypervector as hv, ota, sparse
+from repro_torch.distributed import collectives
 from repro_torch.kernels.assoc_matmul import assoc_matmul, assoc_matmul_banked
 from repro_torch.kernels.hamming import hamming_search, hamming_topk_banked
 from repro_torch.kernels.majority import majority_bundle
+from repro_torch.kernels.sparse import sparse_topk_banked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +54,13 @@ class ScaleOutConfig:
     classes over 64 cores, d = 512, M = 3, 7 dB, batch 256) minus
     ``use_kernels`` (the port dispatches on the tensors' device instead) and
     minus the knobs that only unported code reads (``noise_planes``,
-    ``coarse_keep``, ``k_max``). Values whose code is not ported yet raise
-    here."""
+    ``coarse_keep``). Combinations the reference rejects raise ValueError
+    here, as there; values whose code is not ported yet raise
+    NotImplementedError.
+
+    ``k_max`` is the sparse index-list capacity (``sparse``/``auto`` only):
+    at most k_max set indices per HV, results saturating to the k_max
+    smallest."""
 
     n_classes: int = 6400
     dim: int = 512
@@ -56,11 +74,16 @@ class ScaleOutConfig:
     noise: str = "exact"
     channel: str = "bsc"
     coarse_group: int = 0
+    k_max: int = 0
     m_active: int | None = None
 
     @property
     def packed(self) -> bool:
         return self.representation == "packed"
+
+    @property
+    def sparse(self) -> bool:
+        return self.representation == "sparse"
 
     @property
     def m_act(self) -> int:
@@ -71,12 +94,33 @@ class ScaleOutConfig:
         return self.dim // hv.WORD
 
     def __post_init__(self):
+        if self.representation not in ("unpacked", "packed", "sparse", "auto"):
+            raise ValueError(f"unknown representation {self.representation!r}")
+        if self.representation in ("sparse", "auto"):
+            rejected = [
+                (self.k_max <= 0, f"needs k_max > 0 (the sparse index-list "
+                 f"capacity); got k_max={self.k_max}"),
+                (self.permuted, "requires baseline bundling (permuted TX "
+                 "signatures would need per-bank sparse searches)"),
+                (bool(self.coarse_group), "does not compose with the "
+                 "coarse-to-fine screen (group summaries are dense bundles)"),
+                (self.collective not in ("index_ag", "psum", "psum_packed"),
+                 f"has no wire format for collective={self.collective!r}; use "
+                 "'index_ag' or the dense fallbacks 'psum'/'psum_packed'"),
+                (self.channel not in ("ideal", "bsc"), f"has no channel="
+                 f"{self.channel!r} tier (the symbol tier decodes dense fields)"),
+            ]
+            for bad, what in rejected:
+                if bad:
+                    raise ValueError(f"representation={self.representation!r} {what}")
+        elif self.collective == "index_ag":
+            raise ValueError(
+                "collective='index_ag' is the sparse index-list wire; "
+                f"representation={self.representation!r} has no index lists")
         unported = [
-            (self.collective != "psum",
-             f"collective={self.collective!r} (only 'psum' is ported; the "
-             "one-GPU model axis has no wire to pack)"),
-            (self.representation in ("sparse", "auto"),
-             f"representation={self.representation!r} (sparse index lists)"),
+            (self.collective not in ("psum", "index_ag"),
+             f"collective={self.collective!r} (only 'psum' and the sparse "
+             "'index_ag' are ported; the one-GPU model axis has no wire to pack)"),
             (self.channel == "symbol", "channel='symbol' (the physical tier)"),
             (self.noise != "exact", f"noise={self.noise!r} (bitplane masks)"),
             (bool(self.coarse_group), "coarse_group (coarse-to-fine search)"),
@@ -85,13 +129,33 @@ class ScaleOutConfig:
         for bad, what in unported:
             if bad:
                 raise NotImplementedError(f"ScaleOutConfig: {what} is not ported yet")
-        if self.representation not in ("unpacked", "packed"):
-            raise ValueError(f"unknown representation {self.representation!r}")
         if self.dim % hv.WORD:
             raise ValueError(f"dim={self.dim} must be a multiple of {hv.WORD}")
         if self.n_classes % self.n_rx_cores:
             raise ValueError(f"n_classes={self.n_classes} must divide evenly over "
                              f"n_rx_cores={self.n_rx_cores}")
+
+
+# ---------------------------------------------------------------------------
+# density crossover (representation="auto")
+# ---------------------------------------------------------------------------
+
+# Sparse wins below this query density (k_max / dim): the wire-parity point,
+# where k_max int32 indices cost as much as d/32 packed words.
+DEFAULT_CROSSOVER = {"density": 1.0 / 32.0}
+
+
+def resolve_representation(cfg: ScaleOutConfig) -> ScaleOutConfig:
+    """Materialize ``representation="auto"``: "sparse" with the
+    ``index_ag`` wire when ``k_max / dim`` lies below the crossover density,
+    else "packed". The reference gives packed its ``psum_packed`` wire; on one
+    GPU the vote is a local sum either way, so the port gives it ``psum``.
+    Other configs pass through untouched."""
+    if cfg.representation != "auto":
+        return cfg
+    if cfg.k_max / cfg.dim < DEFAULT_CROSSOVER["density"]:
+        return dataclasses.replace(cfg, representation="sparse", collective="index_ag")
+    return dataclasses.replace(cfg, representation="packed", collective="psum")
 
 
 def precharacterize_state(cfg: ScaleOutConfig, geom: em.PackageGeometry | None = None,
@@ -134,6 +198,29 @@ def _rx_fanout(cfg: ScaleOutConfig, chan: phy.Channel, q_bundled: torch.Tensor,
                           noise=cfg.noise)
 
 
+def _sparse_bundle(cfg: ScaleOutConfig, queries: torch.Tensor) -> torch.Tensor:
+    """The OTA vote on sparse index lists: queries [B, 1, M, k_max] ->
+    bundled [B, k_max], the sparse strict majority over the gathered lists.
+    The reference's ``psum`` fallback densifies, votes and re-sparsifies,
+    which gives the same lists; it differs only on a multi-GPU wire, so on
+    one GPU both collectives take this path."""
+    stack = collectives.sparse_index_allgather(queries)       # [B, M, k_max]
+    return sparse.bundle(stack, m=cfg.m_act)
+
+
+def _sparse_rx_fanout(cfg: ScaleOutConfig, q_bundled: torch.Tensor,
+                      state: phy.ChannelState, generator) -> torch.Tensor:
+    """Per-core sparse decode: [n_cores, B, k_max]. ``ideal`` broadcasts the
+    bundle; ``bsc`` runs the drop+insert channel at each core's BER, every
+    core's draws in one call."""
+    n = cfg.n_rx_cores
+    copies = q_bundled[None].expand((n,) + tuple(q_bundled.shape))
+    if cfg.channel == "ideal":
+        return copies
+    ber = state.ber[:n].reshape(n, 1, 1)
+    return sparse.flip_bits_sparse(generator, copies, ber, cfg.dim)
+
+
 def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor,
                 protos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Every core searches its class sub-shard (with the M permuted banks
@@ -144,7 +231,7 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor,
     n_core, b, last = q_rx.shape
     d = cfg.dim
     c_core = protos.shape[0] // n_core
-    protos_c = protos.reshape(n_core, c_core, last)
+    protos_c = protos.reshape(n_core, c_core, protos.shape[-1])
     if cfg.permuted:
         m = cfg.m_tx
         rho = hv.permute_packed if cfg.packed else hv.permute
@@ -166,8 +253,9 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor,
             val = val_c.max(1).values                         # [B, M]
             core_star = torch.argmax(val_c, 1)
             idx_in_core = torch.gather(idx_c, 1, core_star[:, None, :])[:, 0, :]
-    elif cfg.packed:
-        dmin, amin = hamming_topk_banked(q_rx.contiguous(), protos_c)  # [n_core, B]
+    elif cfg.packed or cfg.sparse:
+        search = sparse_topk_banked if cfg.sparse else hamming_topk_banked
+        dmin, amin = search(q_rx.contiguous(), protos_c)      # [n_core, B]
         dmin, amin = dmin.T, amin.T                           # [B, n_core]
         val = d - 2 * dmin.min(-1).values                     # [B]
         core_star = torch.argmin(dmin, -1)
@@ -191,14 +279,15 @@ def _gather_top1(cfg: ScaleOutConfig, val: torch.Tensor, idx: torch.Tensor):
 
 def _check_inputs(cfg: ScaleOutConfig, dev: torch.device, protos, queries, state) -> None:
     _device.check_on(dev, protos=protos, queries=queries, ber=state.ber)
-    want = torch.int32 if cfg.packed else torch.uint8
-    last = cfg.words if cfg.packed else cfg.dim
+    want = torch.int32 if cfg.packed or cfg.sparse else torch.uint8
+    last = cfg.words if cfg.packed or cfg.sparse else cfg.dim
+    q_last = cfg.k_max if cfg.sparse else last
     if protos.dtype != want or queries.dtype != want:
         raise TypeError(f"{cfg.representation} serve takes {want} protos and queries")
     if tuple(protos.shape) != (cfg.n_classes, last):
         raise ValueError(f"protos {tuple(protos.shape)} != {(cfg.n_classes, last)}")
-    if queries.dim() != 4 or queries.shape[1] != 1 or queries.shape[2:] != (cfg.m_tx, last):
-        raise ValueError(f"queries {tuple(queries.shape)} != [B, 1, {cfg.m_tx}, {last}] "
+    if queries.dim() != 4 or queries.shape[1] != 1 or queries.shape[2:] != (cfg.m_tx, q_last):
+        raise ValueError(f"queries {tuple(queries.shape)} != [B, 1, {cfg.m_tx}, {q_last}] "
                          "(one model shard)")
     if state.n_rx != cfg.n_rx_cores:
         raise ValueError(f"state has {state.n_rx} cores, cfg {cfg.n_rx_cores}")
@@ -217,8 +306,19 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
     is ``cfg.channel`` (``ideal`` or ``bsc``; the noise comes from
     ``generator``). The per-core search is the fused top-1 kernel (packed) or
     the bipolar matmul kernel (unpacked), one launch for all cores and banks.
-    Living-channel ``process`` and fault injection are not ported yet.
+
+    Sparse (``cfg.representation="sparse"``, or ``"auto"`` resolved to it):
+    queries are index lists [B, 1, M, k_max] int32 against packed
+    prototypes [C, W] int32, searched by the ``sparse_topk_banked`` kernel;
+    predictions equal the packed serve's on the ideal channel whenever no
+    bundle saturates k_max. Living-channel ``process`` and fault injection
+    are not ported yet; with sparse they raise ValueError, as in the
+    reference.
     """
+    cfg = resolve_representation(cfg)
+    if cfg.sparse and (process is not None or faults is not None):
+        raise ValueError("representation='sparse' does not compose with living-channel "
+                         "processes or fault injection; use representation='packed'")
     if process is not None or faults is not None:
         raise NotImplementedError("make_ota_serve: process= and faults= are not ported yet")
     dev = _device.resolve(device)
@@ -226,6 +326,11 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
 
     def fn(protos, queries, state, generator):
         _check_inputs(cfg, dev, protos, queries, state)
+        if cfg.sparse:
+            q_bundled = _sparse_bundle(cfg, queries)
+            q_rx = _sparse_rx_fanout(cfg, q_bundled, state, generator)
+            val, idx = _shard_top1(cfg, q_rx, protos)
+            return _gather_top1(cfg, val, idx)
         q_mine = queries[:, 0]                                # [B, M, d|W]
         if cfg.permuted:                  # TX g transmits rho^g(q_g)
             rho = hv.permute_packed if cfg.packed else hv.permute
@@ -246,7 +351,12 @@ def make_wired_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "c
     bundling; the state and generator ride along unused.
 
     Unpacked: the majority kernel, then the bipolar matmul kernel. Packed:
-    the bit-sliced carry-save majority, then the Hamming search kernel."""
+    the bit-sliced carry-save majority, then the Hamming search kernel.
+    Sparse queries have no wired serve and raise, as in the reference."""
+    cfg = resolve_representation(cfg)
+    if cfg.sparse:
+        raise ValueError("the wired serve has no sparse representation; use "
+                         "representation='packed'")
     dev = _device.resolve(device)
 
     def fn(protos, queries, state, generator=None):
@@ -296,9 +406,18 @@ def make_queries(generator: torch.Generator, cfg: ScaleOutConfig, protos: torch.
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Random trial queries from the unpacked codebook ``protos`` [C, d]:
     classes [B, M] int64 and queries [B, 1, M, d] uint8 (packed to
-    [B, 1, M, W] int32 words for a packed cfg)."""
+    [B, 1, M, W] int32 words for a packed cfg). For a sparse cfg the same
+    classes draw gives index lists [B, 1, M, k_max] int32; ``protos`` may
+    then also be the codebook's index lists [C, k_max] int32 (`sparsify`
+    of it), which spares a dense codebook at d = 2^20."""
+    cfg = resolve_representation(cfg)
     classes = torch.randint(0, cfg.n_classes, (cfg.batch, cfg.m_tx),
                             generator=generator, device=protos.device)
+    if cfg.sparse:
+        codes = protos if protos.dtype == torch.int32 else sparse.sparsify(protos, cfg.k_max)
+        if codes.shape[-1] != cfg.k_max:
+            raise ValueError(f"index lists hold {codes.shape[-1]} slots, cfg.k_max={cfg.k_max}")
+        return classes, codes[classes].reshape(cfg.batch, 1, cfg.m_tx, cfg.k_max)
     q = protos[classes].reshape(cfg.batch, 1, cfg.m_tx, cfg.dim)
     return classes, (hv.pack(q) if cfg.packed else q)
 
@@ -306,8 +425,13 @@ def make_queries(generator: torch.Generator, cfg: ScaleOutConfig, protos: torch.
 def serve_reference(cfg: ScaleOutConfig, protos: torch.Tensor,
                     queries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Noise-free single-device oracle of the serve step, in the unpacked
-    representation (packed protos or queries are unpacked first)."""
-    if queries.dtype == torch.int32:
+    representation (packed protos or queries are unpacked first, sparse
+    index-list queries densified). It matches the sparse serve whenever no
+    bundle saturates k_max."""
+    cfg = resolve_representation(cfg)
+    if cfg.sparse and queries.dtype == torch.int32:
+        queries = sparse.densify(queries, cfg.dim)
+    elif queries.dtype == torch.int32:
         queries = hv.unpack(queries, cfg.dim)
     if protos.dtype == torch.int32:
         protos = hv.unpack(protos, cfg.dim)

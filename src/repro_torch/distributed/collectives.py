@@ -1,9 +1,10 @@
-"""The per-receiver binary symmetric channel of the OTA serve (counterpart
-of `ota_noise` / `ota_noise_packed` in `repro/distributed/collectives.py`).
+"""The per-receiver binary symmetric channel of the OTA serve and the sparse
+index-list wire (counterpart of `ota_noise`, `ota_noise_packed` and
+`sparse_index_allgather` in `repro/distributed/collectives.py`).
 
 One GPU carries the whole ``model`` axis in this port, so the reference's
-collectives reduce to local sums inside `core.scaleout`; the multi-GPU
-collectives over `torch.distributed` are not ported yet.
+collectives reduce to local sums and reshapes inside `core.scaleout`; the
+multi-GPU collectives over `torch.distributed` are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,3 +31,12 @@ def ota_noise_packed(generator: torch.Generator, words: torch.Tensor, ber,
     if mode == "bitplane":
         raise NotImplementedError("ota_noise_packed(mode='bitplane') is not ported yet")
     raise ValueError(f"unknown packed noise mode {mode!r}")
+
+
+def sparse_index_allgather(idx: torch.Tensor) -> torch.Tensor:
+    """The index-list wire of the sparse OTA majority on one GPU: idx int32
+    [..., S, e, k_max] (every model shard's ``e`` encoder slots, all local)
+    -> [..., S*e, k_max], slot s*e + j holding shard s's slot j, the
+    reference's shard-major order. With the model axis of size S = 1 there
+    is nothing to gather: this is the slot-flattening reshape."""
+    return idx.reshape(idx.shape[:-3] + (idx.shape[-3] * idx.shape[-2], idx.shape[-1]))

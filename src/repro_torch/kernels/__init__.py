@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels (``csrc/*.cu``, ``sm_90a``) for the serve path.
+"""Hand-written CUDA kernels (``csrc/*.cu``, ``sm_90a``) for the serves and
+the classifier trials.
 
 Each family has ops.py (the wrapper: checks, dispatch on the tensor's device,
 launch counter) and ref.py (the plain PyTorch twin):
@@ -6,6 +7,8 @@ launch counter) and ref.py (the plain PyTorch twin):
 * hamming/      packed XOR+popcount search and the fused per-bank top-1
 * assoc_matmul/ bipolar {0,1} -> +-1 dot products, plain and banked
 * majority/     bitwise strict majority bundling
+* sparse/       sparse index-list queries against packed prototypes: full
+                distances and the fused per-bank top-1
 
 `launch_counts` / `reset_launch_counts` read and clear the wrappers' counters,
 which count kernel launches only (never a CPU call of the plain version).
@@ -13,6 +16,7 @@ which count kernel launches only (never a CPU call of the plain version).
 from repro_torch.kernels.assoc_matmul import assoc_matmul, assoc_matmul_banked
 from repro_torch.kernels.hamming import hamming_search, hamming_topk_banked
 from repro_torch.kernels.majority import majority_bundle
+from repro_torch.kernels.sparse import sparse_search, sparse_topk_banked
 
 # kernel name -> the wrapper that launches it and holds its count
 WRAPPERS = {
@@ -20,6 +24,8 @@ WRAPPERS = {
     "hamming_search": hamming_search,
     "assoc_matmul": assoc_matmul_banked,
     "majority_bundle": majority_bundle,
+    "sparse_search": sparse_search,
+    "sparse_topk_banked": sparse_topk_banked,
 }
 
 
@@ -34,4 +40,4 @@ def reset_launch_counts() -> None:
 
 __all__ = ["WRAPPERS", "assoc_matmul", "assoc_matmul_banked", "hamming_search",
            "hamming_topk_banked", "launch_counts", "majority_bundle",
-           "reset_launch_counts"]
+           "reset_launch_counts", "sparse_search", "sparse_topk_banked"]

@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("hamming.cu", "assoc_matmul.cu", "majority.cu")
+SOURCES = ("hamming.cu", "assoc_matmul.cu", "majority.cu", "sparse.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -34,6 +34,10 @@ SIGNATURES = {
     "assoc_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # hvs, out, M, N, stream
     "majority_bundle_launch": [_P, _P, _I, _I, _P],
+    # q, protos, pop scratch, out, B, C, W, K, stream
+    "sparse_search_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, protos, pop scratch, dist, idx, G, B, C, W, K, c_real, stream
+    "sparse_topk_banked_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -233,8 +233,11 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
         convert.state_from_numpy({f: np.zeros(1) for f in tphy.ChannelState.FIELDS})
 
 
-@pytest.mark.parametrize("bad", [dict(collective="psum_packed"), dict(representation="sparse"),
-                                 dict(representation="auto"), dict(channel="symbol"),
+@pytest.mark.parametrize("bad", [dict(collective="psum_packed"),
+                                 dict(representation="sparse", k_max=8,
+                                      collective="psum_packed"),
+                                 dict(representation="auto", k_max=8, noise="bitplane"),
+                                 dict(channel="symbol"),
                                  dict(coarse_group=4), dict(m_active=1),
                                  dict(noise="bitplane")])
 def test_unported_config_values_raise(bad):

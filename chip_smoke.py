@@ -8,13 +8,15 @@ fallback, and a missing GPU is a failure):
 
 1. card: the GPU's name and power limit (nvidia-smi); build the CUDA kernels
    from src/repro_torch/csrc with nvcc and print the build seconds;
-2. kernels: each of the six kernels against its plain PyTorch version on the
-   card, at the main path's shapes and at one tall shape (102,400 classes over
-   64 cores, d = 2048, batch 4096); the two sparse kernels also at ragged,
-   tie and empty-query shapes -- bit-exact, with the kernel's median device
-   time (CUDA-graph replay) and eager call time, the plain version's time,
-   one PyTorch library call's where one computes the same function, and the
-   bound (least time the card could take);
+2. kernels: each of the eight kernels against its plain PyTorch version on
+   the card, at the main path's shapes and at one tall shape (102,400 classes
+   over 64 cores, d = 2048, batch 4096); the fused top-k and the per-bank
+   search also at ragged, tie (across the kernel's 128-row tiles) and
+   limit shapes, k = 1 against the top-1 kernel; the two sparse kernels at
+   ragged, tie and empty-query shapes -- bit-exact, with the kernel's median
+   device time (CUDA-graph replay) and eager call time, the plain version's
+   time, one PyTorch library call's where one computes the same function,
+   and the bound (least time the card could take);
 3. precharacterization: the EM channel + exhaustive OTA phase search at
    3 TX / 64 RX / 7 dB, avg BER 0.0100 +- 1e-4;
 4. OTA serve at the paper's configuration (6400 classes, d = 512, M = 3,
@@ -39,19 +41,30 @@ fallback, and a missing GPU is a failure):
    64 cores, M = 3, batch 256: ideal and bsc calls, the ideal answers held
    against a dense oracle, the psum wire and representation="auto" against
    index_ag, the d = 8192 sparse serve against the packed one, and the bsc
-   drop and insertion rates per core within 5 sigma.
+   drop and insertion rates per core within 5 sigma;
+10. coarse-to-fine and multi-centroid: the flat and coarse serves at the C
+   sweep's gate row (102,400 classes, d = 2048, 8 cores, batch 512, bsc at
+   BER 0.02, groups of 8, 8 kept), 8 calls each, packed and unpacked:
+   0 predictions differ coarse vs flat, packed == unpacked; the screen's
+   recall against full distances (`hamming_search_banked`); keep == n_grp
+   at C = 1024 == flat in pred and maxsim; `train_multicentroid` on the
+   6400-class d = 512 codebook (k_c = 4), `multicentroid_predict` right on
+   every noisy prototype at BER 0.0 and 0.1, and the 25,600-row bank served
+   flat and coarse over 64 cores, centroid rows and classes equal.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
-7-9, each run between a reset and a read of the counters: the serves, the
-48 Table I calls, and the sparse trials and serves at d = 2^20; the d = 8192
-comparisons are not counted), and as the last line {"ok": true, ...}.
+7-10, each run between a reset and a read of the counters: the serves, the
+48 Table I calls, the sparse trials and serves at d = 2^20, and phase 10's
+serves, recall oracle and multi-centroid calls; the d = 8192 comparisons and
+the keep == n_grp identity at C = 1024 are not counted), and as the last line {"ok": true, ...}.
 
     python3 chip_smoke.py --profile --json out/chip_smoke.json
 
-adds a profile of every serve mode and of the sparse serve under
-torch.profiler (device busy time, idle share, top device ops per call), and
-writes every number of the run, unrounded, to the JSON file.
+adds a profile of every serve mode, of the sparse serve and of the flat
+and coarse packed serves at 102,400 classes under torch.profiler (device
+busy time, idle share, top device ops per call), and writes every number of
+the run, unrounded, to the JSON file.
 """
 from __future__ import annotations
 
@@ -73,6 +86,14 @@ CALLS = 8                        # serve calls per mode
 SEED = 0
 SPARSE_DIM, SPARSE_DENSITY, SPARSE_K = 2**20, 0.001, 2048   # benchmarks/sparse.py:46-47
 NARROW_DIM, NARROW_DENSITY, NARROW_K = 8192, 0.008, 131     # packed kernels fit (W = 256)
+# the gate row of the coarse-to-fine C sweep: benchmarks/topk.py:52-53
+# (C = 102,400, gs = 8, keep = 8), :89-101 (d = 2048, M = 3, 8 cores, batch
+# 512, exact noise) and :102 (bsc at BER 0.02)
+COARSE = dict(n_classes=102400, dim=2048, m_tx=3, n_rx_cores=8, batch=512)
+COARSE_BER, COARSE_GS, COARSE_KEEP = 0.02, 8, 8
+# the serve codebook of the multi-centroid memory, with train_multicentroid's
+# defaults (src/repro/core/classifier.py:450-461): k_c = 4 -> 25,600 rows
+MC_CLASSES, MC_DIM, MC_KC, MC_CORES = 6400, 512, 4, 64
 PAPER_TABLE1 = {  # benchmarks/table1.py:11-16, M = 1, 3, ..., 11
     ("baseline", "ideal"): [1, 0.966, 0.902, 0.803, 0.704, 0.543],
     ("baseline", "wireless"): [1, 0.966, 0.9, 0.801, 0.699, 0.537],
@@ -94,6 +115,10 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
                             "src/repro/kernels/hamming/kernel.py:109"),
     "hamming_search": ("cuda", "src/repro_torch/csrc/hamming.cu",
                        "src/repro/kernels/hamming/kernel.py:260"),
+    "hamming_topk_k_banked": ("cuda", "src/repro_torch/csrc/hamming.cu",
+                              "src/repro/kernels/hamming/kernel.py:214"),
+    "hamming_search_banked": ("cuda", "src/repro_torch/csrc/hamming.cu",
+                              "src/repro/kernels/hamming/kernel.py:41"),
     "assoc_matmul": ("cuda", "src/repro_torch/csrc/assoc_matmul.cu",
                      "src/repro/kernels/assoc_matmul/kernel.py:42"),
     "majority_bundle": ("cuda", "src/repro_torch/csrc/majority.cu",
@@ -326,9 +351,89 @@ def sparse_kernel_cases(torch, gen):
     return cases
 
 
+def hamming_k_cases(torch, gen):
+    """The fused top-k's and the per-bank search's cases, as
+    `sparse_kernel_cases` gives them: the coarse screen's shape (G = 8 cores,
+    B = 512, 1600 group summaries of W = 64 words, k = 8) and the recall
+    oracle's (12,800 rows per core) first, then ragged shapes, ties across
+    the kernel's 128-row tiles, k = 1 against the top-1 kernel, and k at the
+    kernel's limit."""
+    from repro_torch import kernels as tk
+    from repro_torch.core import hypervector as hv
+    from repro_torch.kernels.hamming.ops import MAX_K
+    from repro_torch.kernels.hamming.ref import (hamming_search_banked_ref,
+                                                 hamming_topk_k_banked_ref)
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    def topk_case(label, g, b, c, w, k, c_real=None, p=None, q=None, expect=None):
+        q = words(g, b, w) if q is None else q
+        p = words(g, c, w) if p is None else p
+        cr = c if c_real is None else c_real
+        return ("hamming_topk_k_banked", f"{label} G={g} B={b} C={c} c_real={cr} W={w} k={k}",
+                lambda: tk.hamming_topk_banked(q, p, k=k, c_real=cr),
+                lambda: hamming_topk_k_banked_ref(q, p, k, cr), None,
+                4 * g * (b + cr) * w + 8 * g * b * k, 3 * g * b * cr * w, "int32",
+                {} if expect is None else dict(expect=expect))
+
+    cases = [topk_case("screen", 8, 512, 1600, 64, 8),
+             topk_case("bank screen", 64, 256, 50, 16, 8),   # under one tile
+             topk_case("ragged", 3, 77, 333, 16, 5, c_real=300)]
+    # every row identical: rank r is column r, across five tiles
+    same = words(2, 1, 64).expand(2, 600, 64).contiguous()
+    cases.append(topk_case("all rows equal", 2, 40, 600, 64, 12, p=same, expect=lambda got: bool(
+        (got[1] == torch.arange(12, device="cuda", dtype=torch.int32)).all()
+        and (got[0] == got[0][..., :1]).all())))
+    # query 0's rows at 0..11 bits, at 122..133 and again at 250..261 (both
+    # copies straddle a tile edge): ranks (0,122), (0,250), (1,123), ...
+    q = words(2, 8, 64)
+    p = words(2, 384, 64)
+    for at in (122, 250):
+        for j in range(12):
+            p[:, at + j] = q[:, 0]
+            p[:, at + j, 0] ^= (1 << j) - 1
+    want_i = torch.tensor([122, 250, 123, 251, 124, 252], device="cuda", dtype=torch.int32)
+    want_d = torch.tensor([0, 0, 1, 1, 2, 2], device="cuda", dtype=torch.int32)
+    cases.append(topk_case("duplicates across tiles", 2, 8, 384, 64, 6, p=p, q=q,
+                           expect=lambda got: bool((got[0][:, 0] == want_d).all()
+                                                   and (got[1][:, 0] == want_i).all())))
+    q, p = words(8, 512, 64), words(8, 1600, 64)
+
+    def as_top1(got, q=q, p=p):
+        d1, i1 = tk.hamming_topk_banked(q, p)
+        return torch.equal(got[0][..., 0], d1) and torch.equal(got[1][..., 0], i1)
+
+    cases.append(topk_case("k=1 == top-1 kernel", 8, 512, 1600, 64, 1, p=p, q=q,
+                           expect=as_top1))
+    q, p = words(8, 64, 64), words(8, 1600, 64)
+
+    def over_the_limit_raises(got, q=q, p=p):
+        try:
+            tk.hamming_topk_banked(q, p, k=MAX_K + 1)
+        except ValueError as e:
+            return "MAX_K" in str(e)
+        return False
+
+    cases.append(topk_case("k at the limit (k + 1 raises)", 8, 64, 1600, 64, MAX_K, p=p, q=q,
+                           expect=over_the_limit_raises))
+    for label, (g, b, c, w) in [("recall oracle", (8, 512, 12800, 64)),
+                                ("ragged", (3, 77, 333, 5))]:
+        q, p = words(g, b, w), words(g, c, w)
+        qf, pf = hv.unpack(q, 32 * w).float(), hv.unpack(p, 32 * w).float()
+        cases.append(("hamming_search_banked", f"{label} G={g} B={b} C={c} W={w}",
+                      lambda q=q, p=p: tk.hamming_search_banked(q, p),
+                      lambda q=q, p=p: hamming_search_banked_ref(q, p),
+                      lambda qf=qf, pf=pf: torch.cdist(qf, pf, p=0),   # batched, on bits
+                      4 * g * (b + c) * w + 4 * g * b * c, 3 * g * b * c * w, "int32", {}))
+    return cases
+
+
 def phase_kernels(torch, gen) -> dict:
     results = {}
-    for case in kernel_cases(torch, gen) + sparse_kernel_cases(torch, gen):
+    for case in kernel_cases(torch, gen) + hamming_k_cases(torch, gen) + sparse_kernel_cases(
+            torch, gen):
         name, label, kern, plain, lib, nbytes, ops, kind = case[:8]
         extra = case[8] if len(case) > 8 else {}
         got, want = kern(), plain()
@@ -340,7 +445,7 @@ def phase_kernels(torch, gen) -> dict:
         exact = all(torch.equal(a, b) for a, b in zip(got_t, want_t))
         require(exact, f"{name} [{label}] differs from its plain version (max |err| {err})")
         if "expect" in extra:
-            require(extra["expect"](got), f"{name} [{label}]: the first duplicate did not win")
+            require(extra["expect"](got), f"{name} [{label}]: fails its expected-result check")
         ms, eager_ms = time_ms(torch, kern), call_ms(torch, kern)
         plain_ms = time_ms(torch, plain, samples=3)
         lib_timer = call_ms if extra.get("lib_eager") else time_ms
@@ -523,11 +628,11 @@ def add_launches(total: dict, counts: dict) -> None:
 @contextlib.contextmanager
 def recorded(module, name: str):
     """Within the block, every call of ``module.name`` runs unchanged and
-    appends its (arguments, result) to the list this yields."""
+    appends its (positional arguments, result) to the list this yields."""
     orig, log = getattr(module, name), []
 
-    def wrapper(*args):
-        log.append((args, orig(*args)))
+    def wrapper(*args, **kwargs):
+        log.append((args, orig(*args, **kwargs)))
         return log[-1][1]
 
     setattr(module, name, wrapper)
@@ -772,6 +877,207 @@ def phase_sparse_serve(torch, state, launches: dict, profile: bool = False) -> d
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: coarse-to-fine search and the multi-centroid memory
+# ---------------------------------------------------------------------------
+
+def coarse_serves(torch, base, protos_u, protos_p, state, launches, log=None):
+    """CALLS calls of each of the flat and coarse serves, packed and
+    unpacked, on the same query and noise seeds; each call's launches are
+    checked and added to ``launches``. ``log``
+    (a list) receives the recorded (args, result) of every packed coarse
+    call's screen and `_coarse_fine_packed`."""
+    import dataclasses
+
+    from repro_torch.core import hypervector as hv, scaleout
+
+    kernels = {("packed", False): ("hamming_topk_banked",),
+               ("packed", True): ("hamming_topk_k_banked",),
+               ("unpacked", False): ("assoc_matmul",), ("unpacked", True): ("assoc_matmul",)}
+    gq = torch.Generator(device="cuda").manual_seed(1)
+    batches = [scaleout.make_queries(gq, base, protos_u) for _ in range(CALLS)]
+    runs = {}
+    for rep in ("packed", "unpacked"):
+        for coarse in (False, True):
+            cfg = dataclasses.replace(base, representation=rep,
+                                      coarse_group=COARSE_GS if coarse else 0)
+            serve = scaleout.make_ota_serve(cfg)
+            protos = protos_p if cfg.packed else protos_u
+            gn = torch.Generator(device="cuda").manual_seed(2)
+            preds, sims, ms = [], [], []
+            for _, q in batches:
+                q = hv.pack(q) if cfg.packed else q
+                with contextlib.ExitStack() as stack:
+                    if log is not None and coarse and cfg.packed:
+                        fine = stack.enter_context(recorded(scaleout, "_coarse_fine_packed"))
+                        screen = stack.enter_context(recorded(scaleout, "hamming_topk_banked"))
+                    (pred, sim), sec, counts = counted(torch, lambda: serve(protos, q, state, gn))
+                    if log is not None and coarse and cfg.packed:
+                        log.append((fine[0], screen[0]))
+                require_only(counts, kernels[(rep, coarse)],
+                             f"coarse phase {rep} {'coarse' if coarse else 'flat'} C={base.n_classes}")
+                add_launches(launches, counts)
+                preds.append(pred)
+                sims.append(sim)
+                ms.append(sec * 1e3)
+            runs[(rep, coarse)] = dict(pred=torch.cat(preds), sim=torch.cat(sims), ms=ms)
+    classes = torch.cat([c for c, _ in batches])
+    return runs, classes
+
+
+def phase_coarse(torch, launches: dict, profile: bool = False) -> dict:
+    """Phase 10 at the full width of the C sweep's gate row (COARSE), the
+    identity at keep == n_grp, the screen's recall, and the multi-centroid
+    memory at the serve codebook (train, predict, bank served flat and
+    coarse)."""
+    import dataclasses
+
+    from repro_torch import kernels as tk, phy
+    from repro_torch.core import classifier, hypervector as hv, scaleout
+    from repro_torch.serving import hdc
+
+    out = {}
+    base = scaleout.ScaleOutConfig(**COARSE, noise="exact", channel="bsc",
+                                   coarse_keep=COARSE_KEEP)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    protos_u = hv.random_hv(gen, base.n_classes, base.dim, "cuda")
+    protos_p = torch.cat([hv.pack(protos_u[i:i + 8192]) for i in range(0, base.n_classes, 8192)])
+    state = phy.state_from_ber(torch.full((base.n_rx_cores,), COARSE_BER, device="cuda"),
+                               base.m_tx)
+    c_core = base.n_classes // base.n_rx_cores
+    cut = c_core / (c_core / COARSE_GS + COARSE_KEEP * COARSE_GS)
+    log = []
+    runs, classes = coarse_serves(torch, base, protos_u, protos_p, state, launches, log)
+    mism = {}
+    for rep in ("packed", "unpacked"):
+        flat, coarse = runs[(rep, False)], runs[(rep, True)]
+        mism[rep] = int((flat["pred"] != coarse["pred"]).sum())
+        hit = float((coarse["pred"][:, None] == classes).any(1).float().mean())
+        out[f"{rep} C={base.n_classes}"] = dict(
+            flat_ms=flat["ms"], coarse_ms=coarse["ms"], mismatches=mism[rep], hit=hit,
+            speedup=statistics.median(flat["ms"]) / statistics.median(coarse["ms"]))
+        print(f"coarse {rep} C={base.n_classes} d={base.dim} {base.n_rx_cores} cores batch "
+              f"{base.batch} BER {COARSE_BER} gs={COARSE_GS} keep={COARSE_KEEP}: flat "
+              f"{statistics.median(flat['ms']):.3f} ms/call, coarse "
+              f"{statistics.median(coarse['ms']):.3f} ms/call median ({CALLS} calls; "
+              f"{out[f'{rep} C={base.n_classes}']['speedup']:.3f}x, row-visit cut {cut:.2f}x), "
+              f"{mism[rep]} of {flat['pred'].numel()} predictions differ, hit rate {hit}",
+              flush=True)
+        require(mism[rep] == 0, f"coarse {rep}: {mism[rep]} predictions differ from the flat serve")
+    for coarse in (False, True):
+        a, b = runs[("packed", coarse)], runs[("unpacked", coarse)]
+        require(torch.equal(a["pred"], b["pred"]) and torch.equal(a["sim"], b["sim"]),
+                f"coarse phase: packed differs from unpacked (coarse={coarse})")
+
+    # the screen's recall: of every (core, query), does the flat per-core
+    # winner (first minimum of the full distances) lie in a surviving group?
+    # (and on the core that holds the flat serve's answer)
+    kept, kept_win, pairs = 0, 0, 0
+    flat_pred = runs[("packed", False)]["pred"].reshape(CALLS, base.batch)
+    for i, (((_, banks, q), _), (_, (_, gidx))) in enumerate(log):
+        dist, _, counts = counted(torch, lambda: tk.hamming_search_banked(q.contiguous(), banks))
+        require_only(counts, ("hamming_search_banked",), "recall oracle")
+        add_launches(launches, counts)
+        winner = torch.argmin(dist, -1)                       # [cores, B]
+        d1, i1 = tk.hamming_topk_banked(q.contiguous(), banks)
+        require(torch.equal(i1.long(), winner) and torch.equal(d1, dist.min(-1).values),
+                "recall oracle: the full distances disagree with the fused top-1")
+        survived = (gidx == (winner // COARSE_GS)[..., None].to(gidx.dtype)).any(-1)
+        kept += int(survived.sum())
+        pairs += winner.numel()
+        core = (flat_pred[i] // c_core).long()
+        kept_win += int(survived.gather(0, core[None])[0].sum())
+    require(len(log) == CALLS, f"recall: {len(log)} coarse packed calls recorded")
+    out["recall"] = dict(kept=kept, pairs=pairs, share=kept / pairs, winning_core=kept_win,
+                         queries=CALLS * base.batch)
+    print(f"coarse recall: the flat per-core winner survives the screen in {kept} of {pairs} "
+          f"(core, query) pairs ({kept / pairs:.6f}), on the core of the flat serve's answer in "
+          f"{kept_win} of {CALLS * base.batch} (full distances by hamming_search_banked)",
+          flush=True)
+
+    # keep == n_grp: the coarse serve is the flat serve, pred and maxsim
+    small = dataclasses.replace(base, n_classes=1024, coarse_keep=1024 // base.n_rx_cores // COARSE_GS)
+    ident, _ = coarse_serves(torch, small, protos_u[:1024].contiguous(),
+                             protos_p[:1024].contiguous(), state, {})   # a check: not counted
+    for rep in ("packed", "unpacked"):
+        f, c = ident[(rep, False)], ident[(rep, True)]
+        require(torch.equal(f["pred"], c["pred"]) and torch.equal(f["sim"], c["sim"]),
+                f"coarse identity {rep}: keep == n_grp differs from the flat serve")
+    print(f"coarse checks: 0 mismatches coarse vs flat in {CALLS} x {base.batch} trials, packed "
+          f"and unpacked; packed == unpacked (flat and coarse, pred and maxsim); keep == n_grp "
+          f"({small.coarse_keep}) at C={small.n_classes} == flat in pred and maxsim", flush=True)
+
+    # the multi-centroid memory at the serve codebook
+    book = classifier.make_codebook(torch.Generator(device="cuda").manual_seed(SEED),
+                                    classifier.HDCTaskConfig(n_classes=MC_CLASSES, dim=MC_DIM),
+                                    device="cuda")
+    cents, train_s, counts = counted(torch, lambda: classifier.train_multicentroid(
+        torch.Generator(device="cuda").manual_seed(3), book, MC_KC))
+    require_only(counts, (), "train_multicentroid")
+    pred_s = {}
+    for ber in (0.0, 0.1):
+        qs = hv.flip_bits_packed(torch.Generator(device="cuda").manual_seed(4), hv.pack(book), ber)
+        pred, pred_s[ber], counts = counted(
+            torch, lambda: classifier.multicentroid_predict(qs, cents))
+        require_only(counts, ("hamming_topk_banked",), "multicentroid_predict")
+        add_launches(launches, counts)
+        require(torch.equal(pred.long(), torch.arange(MC_CLASSES, device="cuda")),
+                f"multicentroid_predict at BER {ber}: {int((pred.long() != torch.arange(MC_CLASSES, device='cuda')).sum())} "
+                "of the noisy prototypes misclassified")
+    mc_cfg = scaleout.ScaleOutConfig(n_classes=MC_CLASSES * MC_KC, dim=MC_DIM, m_tx=3,
+                                     n_rx_cores=MC_CORES, batch=256, representation="packed",
+                                     channel="ideal", coarse_keep=COARSE_KEEP)
+    bank = hdc.multicentroid_bank(torch.Generator(device="cuda").manual_seed(3), book, MC_KC,
+                                  mc_cfg)
+    require(torch.equal(bank, cents.reshape(MC_CLASSES * MC_KC, -1)),
+            "multicentroid_bank: not the class-major rows of train_multicentroid")
+    gq = torch.Generator(device="cuda").manual_seed(5)
+    batches = [scaleout.make_queries(gq, dataclasses.replace(mc_cfg, n_classes=MC_CLASSES), book)
+               for _ in range(CALLS)]
+    mc_state = phy.state_from_ber(torch.zeros(MC_CORES, device="cuda"), 3)
+    mc = {}
+    for coarse, want in ((False, "hamming_topk_banked"), (True, "hamming_topk_k_banked")):
+        serve = scaleout.make_ota_serve(dataclasses.replace(
+            mc_cfg, coarse_group=COARSE_GS if coarse else 0))
+        preds, ms = [], []
+        for _, q in batches:                              # packed queries
+            (pred, _), sec, counts = counted(torch, lambda: serve(bank, q, mc_state, None))
+            require_only(counts, (want,), f"multicentroid serve coarse={coarse}")
+            add_launches(launches, counts)
+            preds.append(pred)
+            ms.append(sec * 1e3)
+        mc[coarse] = dict(pred=torch.cat(preds), ms=ms)
+    sent = torch.cat([c for c, _ in batches])
+    flat_cls = hdc.centroid_to_class(mc[False]["pred"], MC_KC)
+    coarse_cls = hdc.centroid_to_class(mc[True]["pred"], MC_KC)
+    require(torch.equal(flat_cls, coarse_cls), "multicentroid serve: coarse classes differ from flat")
+    require(torch.equal(mc[False]["pred"], mc[True]["pred"]),
+            "multicentroid serve: coarse centroid rows differ from flat")
+    hit = float((flat_cls[:, None] == sent).any(1).float().mean())
+    out["multicentroid"] = dict(
+        train_s=train_s, predict_s=pred_s, rows=int(bank.shape[0]), hit=hit,
+        flat_ms=mc[False]["ms"], coarse_ms=mc[True]["ms"])
+    print(f"multicentroid checks: train {MC_CLASSES} classes x k_c={MC_KC} (d={MC_DIM}) in "
+          f"{train_s:.3f} s; predict classifies all {MC_CLASSES} noisy prototypes at BER 0.0 "
+          f"and 0.1 ({pred_s[0.0] * 1e3:.3f} / {pred_s[0.1] * 1e3:.3f} ms); bank "
+          f"{bank.shape[0]} rows == the trained centroids; ideal serve over {MC_CORES} cores "
+          f"flat {statistics.median(mc[False]['ms']):.3f} ms/call, coarse "
+          f"{statistics.median(mc[True]['ms']):.3f} ms/call, centroid rows and classes flat == "
+          f"coarse, hit rate {hit}", flush=True)
+    if profile:
+        for coarse in (False, True):
+            cfg = dataclasses.replace(base, representation="packed",
+                                      coarse_group=COARSE_GS if coarse else 0)
+            serve = scaleout.make_ota_serve(cfg)
+            gq = torch.Generator(device="cuda").manual_seed(1)
+            qs = [scaleout.make_queries(gq, cfg, protos_u)[1] for _ in range(CALLS)]  # packed
+            gn = torch.Generator(device="cuda").manual_seed(2)
+            label = f"{'coarse' if coarse else 'flat'} packed C={base.n_classes}"
+            out[f"profile {label}"] = profile_calls(torch, label, [
+                lambda q=q: serve(protos_p, q, state, gn) for q in qs])
+    return out
+
+
 def profile_calls(torch, label: str, calls: list) -> dict:
     """Where a call's time goes: the calls (zero-argument callables) under
     torch.profiler after one warm call; the device's busy time is the union
@@ -894,6 +1200,8 @@ def main(argv: list[str]) -> int:
     sparse_trials = phase("8 sparse trials", lambda: phase_sparse_trials(torch, avg, launches))
     sparse_serve = phase("9 sparse serve", lambda: phase_sparse_serve(
         torch, state, launches, profile=args.profile))
+    coarse = phase("10 coarse-to-fine and multi-centroid", lambda: phase_coarse(
+        torch, launches, profile=args.profile))
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
 
@@ -917,7 +1225,7 @@ def main(argv: list[str]) -> int:
             card=card, kind=kind, torch=torch.__version__, build_s=_build.build_seconds,
             ber=dict(avg=avg, max=mx, ms=pre_ms), kernels=kernels, serves=serves["runs"],
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
-            sparse_serve=sparse_serve, launches=launches,
+            sparse_serve=sparse_serve, coarse=coarse, launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)
     print(json.dumps({"kernels": line}))

@@ -22,6 +22,11 @@ can be given from outside (the tests replay JAX's).
 Ties: the baseline's top-M picks on the unique integer key
 ``dot*C + (C-1-col)``, so equal similarities go to the lower class, the
 order of `jax.lax.top_k`; `torch.topk` promises no order among equal values.
+
+The multi-centroid memory (`train_multicentroid`, `multicentroid_predict`)
+turns each class prototype into k_c centroids by majority-based k-means in
+packed space, and classifies with one fused top-1 launch over all centroid
+rows.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import hypervector as hv, sparse
 from repro_torch.kernels.assoc_matmul import assoc_matmul
+from repro_torch.kernels.common import popcount32
 from repro_torch.kernels.hamming import hamming_search, hamming_topk_banked
 from repro_torch.kernels.sparse import sparse_search
 
@@ -279,3 +285,66 @@ def serve_accuracy(pred, classes) -> dict:
         "draw_acc": float(hit.mean()),
         "trial_acc": float(hit.reshape(hit.shape[0], -1).all(axis=-1).mean()),
     }
+
+
+# ---------------------------------------------------------------------------
+# multi-centroid associative memory (MEMHD-style, arXiv 2502.07834)
+# ---------------------------------------------------------------------------
+
+def _multicentroid_draws(generator: torch.Generator, protos_p: torch.Tensor, k_c: int,
+                        samples_per_class: int, ber) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k-means' draws: every class's BSC-noised samples [C, S, W] (one
+    `hv.flip_bits_packed` over all classes) and its k_c distinct initial
+    picks [C, k_c] (the first k_c of a random permutation of the S
+    samples), in that order from ``generator``."""
+    c, w = protos_p.shape
+    rows = protos_p[:, None, :].expand(c, samples_per_class, w)
+    samples = hv.flip_bits_packed(generator, rows, ber)
+    draw = torch.rand((c, samples_per_class), generator=generator, device=protos_p.device)
+    return samples, draw.argsort(-1)[:, :k_c]
+
+
+def train_multicentroid(generator: torch.Generator | None, protos: torch.Tensor, k_c: int,
+                        *, samples_per_class: int = 32, ber=0.08, n_iters: int = 4,
+                        draws=None) -> torch.Tensor:
+    """Majority-based k-means in packed space: each class's prototype
+    becomes ``k_c`` centroids covering its noisy query distribution.
+
+    protos [C, d] uint8 or [C, W] int32 -> [C, k_c, W] int32 centroids,
+    class-major. Per class, ``samples_per_class`` copies of the class HV go
+    through a BSC at ``ber``; k_c distinct samples seed the centroids; then
+    ``n_iters`` rounds of nearest-centroid assignment (packed Hamming
+    distance, ties to the first centroid) and the masked strict-majority
+    update (`hv.majority_packed_masked`); an empty cluster keeps its
+    centroid. ``draws`` = (samples [C, S, W], init [C, k_c]) replaces the
+    draws of `_multicentroid_draws` (the tests replay JAX's); without it they
+    come from ``generator``. Runs on the device of ``protos``."""
+    protos_p = protos if protos.dtype == torch.int32 else hv.pack(protos)
+    c, w = protos_p.shape
+    if not 1 <= k_c <= samples_per_class:
+        raise ValueError(f"k_c={k_c} outside [1, samples_per_class={samples_per_class}]")
+    if draws is None:
+        draws = _multicentroid_draws(generator, protos_p, k_c, samples_per_class, ber)
+    samples, init = draws                                     # [C, S, W], [C, k_c]
+    cent = torch.gather(samples, 1, init.to(torch.int64)[..., None].expand(c, k_c, w))
+    members = samples.transpose(0, 1)[:, :, None, :]          # [S, C, 1, W]
+    clusters = torch.arange(k_c, device=samples.device)
+    for _ in range(n_iters):
+        dist = popcount32(samples[:, :, None, :] ^ cent[:, None, :, :]).sum(-1)  # [C, S, k_c]
+        assign = torch.argmin(dist, -1)                       # first minimum
+        masks = assign[:, :, None] == clusters                # [C, S, k_c]
+        new = hv.majority_packed_masked(members, masks.transpose(0, 1))  # [C, k_c, W]
+        cent = torch.where(masks.any(1)[..., None], new, cent)
+    return cent
+
+
+def multicentroid_predict(queries: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """Top-1 class over a multi-centroid memory: queries [T, d] uint8 or
+    [T, W] int32, centroids [C, k_c, W] int32 -> [T] int32 class ids. One
+    fused top-1 launch over the [C*k_c] class-major centroid rows, so the
+    class is the winning row // k_c and ties go to the lowest class."""
+    c, k_c, w = centroids.shape
+    qp = queries if queries.dtype == torch.int32 else hv.pack(queries)
+    _, amin = hamming_topk_banked(qp[None].contiguous(),
+                                  centroids.reshape(1, c * k_c, w).contiguous())
+    return (amin[0] // k_c).to(torch.int32)

@@ -153,15 +153,18 @@ def _bitsliced_counts(hvs: torch.Tensor) -> list[torch.Tensor]:
     return planes
 
 
-def _bitsliced_gt(planes: list[torch.Tensor], t: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(count > t, count == t) per bit lane, from LSB-first count planes."""
+def _bitsliced_gt(planes: list[torch.Tensor], t) -> torch.Tensor:
+    """(count > t) per bit lane, from LSB-first count planes; the threshold
+    ``t`` is an int or an int32 tensor broadcasting against the planes (one
+    threshold per lane), t < 2^len(planes): its bits are spread to 0 /
+    all-ones words and compared plane by plane from the top."""
     gt = torch.zeros_like(planes[0])
     eq = torch.full_like(planes[0], _FULL)
     for i in reversed(range(len(planes))):
-        tb = _FULL if (t >> i) & 1 else 0
+        tb = -((t >> i) & 1)                         # 0 or all-ones
         gt = gt | (eq & planes[i] & ~tb)
         eq = eq & ~(planes[i] ^ tb)
-    return gt, eq
+    return gt
 
 
 def majority_packed(hvs: torch.Tensor) -> torch.Tensor:
@@ -169,8 +172,25 @@ def majority_packed(hvs: torch.Tensor) -> torch.Tensor:
     by the bit-sliced carry-save adder and a bitwise comparator; even-M ties
     resolve to 0, as `majority`."""
     planes = _bitsliced_counts(hvs)
-    gt, _ = _bitsliced_gt(planes, hvs.shape[0] // 2)
-    return gt
+    return _bitsliced_gt(planes, hvs.shape[0] // 2)
+
+
+def majority_packed_masked(hvs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Strict packed majority over the masked subset of axis 0: hvs
+    [M, ..., W] int32, mask [M, ...] bool (a prefix of hvs' leading dims, or
+    broadcasting against them) -> [..., W]. Masked-out members count as zero
+    words, and the threshold is the live count n = sum(mask) per lane:
+    ``count*2 > n``, so even-n ties resolve to 0, as `majority_packed`; an
+    empty selection gives all-zero words."""
+    if hvs.shape[0] < 1 or mask.shape[0] != hvs.shape[0]:
+        raise ValueError(f"mask {tuple(mask.shape)} does not select over hvs "
+                         f"{tuple(hvs.shape)}")
+    mask = mask.reshape(tuple(mask.shape) + (1,) * (hvs.dim() - mask.dim()))
+    live = -mask.to(torch.int32)                     # 0 or all-ones per member
+    planes = _bitsliced_counts(hvs & live)
+    n = mask.sum(0, dtype=torch.int32)               # [..., 1] live count
+    # n//2 <= M//2 < 2^len(planes) == 2^bit_length(M): the threshold fits
+    return _bitsliced_gt(planes, n // 2)
 
 
 def flip_bits_packed(generator: torch.Generator, hvp: torch.Tensor, ber) -> torch.Tensor:

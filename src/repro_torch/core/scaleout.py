@@ -27,6 +27,14 @@ kernel.
 ``"auto"`` picks sparse or packed from the density crossover
 (`resolve_representation`).
 
+``coarse_group > 0`` turns each core's search into the two-level
+coarse-to-fine screen: every block of ``coarse_group`` class rows collapses
+to its strict-majority summary, the summaries are screened (the fused top-k
+kernel packed, the bipolar matmul kernel and a tie-safe top-k unpacked), and
+only the ``coarse_keep`` surviving groups' rows are rescored exactly, in
+ascending class order, so the answer equals the flat scan's whenever the
+flat winner survives the screen.
+
 Randomness: an explicit `torch.Generator` replaces the reference's key, so
 the BSC noise is not the reference's bits; the tests hold the noisy serve by
 replaying JAX-drawn masks through a registered tier (dense) or in place of
@@ -43,6 +51,7 @@ from repro_torch import device as _device, phy
 from repro_torch.core import em, hypervector as hv, ota, sparse
 from repro_torch.distributed import collectives
 from repro_torch.kernels.assoc_matmul import assoc_matmul, assoc_matmul_banked
+from repro_torch.kernels.common import popcount32
 from repro_torch.kernels.hamming import hamming_search, hamming_topk_banked
 from repro_torch.kernels.majority import majority_bundle
 from repro_torch.kernels.sparse import sparse_topk_banked
@@ -53,14 +62,16 @@ class ScaleOutConfig:
     """The reference's configuration (same defaults — the paper's 6400
     classes over 64 cores, d = 512, M = 3, 7 dB, batch 256) minus
     ``use_kernels`` (the port dispatches on the tensors' device instead) and
-    minus the knobs that only unported code reads (``noise_planes``,
-    ``coarse_keep``). Combinations the reference rejects raise ValueError
-    here, as there; values whose code is not ported yet raise
-    NotImplementedError.
+    minus ``noise_planes``, which only the unported bitplane noise reads.
+    Combinations the reference rejects raise ValueError here, as there;
+    values whose code is not ported yet raise NotImplementedError.
 
-    ``k_max`` is the sparse index-list capacity (``sparse``/``auto`` only):
-    at most k_max set indices per HV, results saturating to the k_max
-    smallest."""
+    ``coarse_group`` > 0 switches on the coarse-to-fine screen (groups of
+    that many class rows per summary; baseline bundling only, checked when a
+    serve is built) and ``coarse_keep`` is its number of surviving groups
+    per (core, query), clamped to the group count. ``k_max`` is the sparse
+    index-list capacity (``sparse``/``auto`` only): at most k_max set indices
+    per HV, results saturating to the k_max smallest."""
 
     n_classes: int = 6400
     dim: int = 512
@@ -74,6 +85,7 @@ class ScaleOutConfig:
     noise: str = "exact"
     channel: str = "bsc"
     coarse_group: int = 0
+    coarse_keep: int = 8
     k_max: int = 0
     m_active: int | None = None
 
@@ -123,7 +135,6 @@ class ScaleOutConfig:
              "'index_ag' are ported; the one-GPU model axis has no wire to pack)"),
             (self.channel == "symbol", "channel='symbol' (the physical tier)"),
             (self.noise != "exact", f"noise={self.noise!r} (bitplane masks)"),
-            (bool(self.coarse_group), "coarse_group (coarse-to-fine search)"),
             (self.m_active is not None, "m_active (link-adaptation M-drop)"),
         ]
         for bad, what in unported:
@@ -221,6 +232,96 @@ def _sparse_rx_fanout(cfg: ScaleOutConfig, q_bundled: torch.Tensor,
     return sparse.flip_bits_sparse(generator, copies, ber, cfg.dim)
 
 
+def _group_summaries(cfg: ScaleOutConfig, banks: torch.Tensor) -> torch.Tensor:
+    """Per-bank coarse summaries: banks [T, C_core, d|W] -> [T, n_grp, d|W],
+    each contiguous block of ``coarse_group`` rows collapsed to its strict
+    majority (even group sizes tie to 0), recomputed from the resident rows
+    on every call."""
+    gs = cfg.coarse_group
+    t, c_core, last = banks.shape
+    members = banks.reshape(t, c_core // gs, gs, last).movedim(2, 0)  # [gs, T, n_grp, -]
+    return hv.majority_packed(members) if cfg.packed else hv.majority(members)
+
+
+def _survivor_rows(cfg: ScaleOutConfig, gidx: torch.Tensor) -> torch.Tensor:
+    """Surviving groups [G, B, keep] -> their class rows [G, B, keep*gs] in
+    ascending order."""
+    gs = cfg.coarse_group
+    g, b, keep = gidx.shape
+    gidx = torch.sort(gidx, dim=-1).values
+    rows = gidx[..., None] * gs + torch.arange(gs, dtype=torch.int32, device=gidx.device)
+    return rows.reshape(g, b, keep * gs)
+
+
+def _candidates(banks: torch.Tensor, rows: torch.Tensor,
+                bank_rows: torch.Tensor | None) -> torch.Tensor:
+    """Gather every (bank, query)'s survivor rows: [G, B, R, d|W], read
+    straight from the bank table when ``bank_rows`` names its rows."""
+    g = rows.shape[0]
+    bidx = (torch.arange(g, device=rows.device) if bank_rows is None
+            else bank_rows.to(torch.int64))
+    return banks[bidx[:, None, None], rows.to(torch.int64)]
+
+
+def _coarse_fine_packed(cfg: ScaleOutConfig, banks: torch.Tensor, q: torch.Tensor,
+                        bank_rows: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-level packed search: the top-keep screen over the group summaries
+    (one fused top-k launch), then an exact rescore of only the surviving
+    rows. banks [T, C_core, W] (T == G without ``bank_rows``), q [G, B, W]
+    -> (dist, row) of each bank's winner, both [G, B] int32.
+
+    The rescore minimizes the one int32 key ``dist*c_core + row`` over rows
+    in ascending order, so ties go to the lowest class row as in the flat
+    scan (`_validate_coarse` keeps the key inside int32)."""
+    c_core = banks.shape[1]
+    keep = min(cfg.coarse_keep, c_core // cfg.coarse_group)
+    summ = _group_summaries(cfg, banks)                       # [T, n_grp, W]
+    _, gidx = hamming_topk_banked(q.contiguous(), summ, k=keep, bank_rows=bank_rows)
+    rows = _survivor_rows(cfg, gidx)                          # [G, B, keep*gs]
+    cand = _candidates(banks, rows, bank_rows)                # [G, B, keep*gs, W]
+    dist = popcount32(q[:, :, None, :] ^ cand).sum(-1, dtype=torch.int32)
+    key = (dist * c_core + rows).min(-1).values               # one-key first minimum
+    return key // c_core, key % c_core
+
+
+def _screen_topk(csims: torch.Tensor, keep: int) -> torch.Tensor:
+    """The ``keep`` best groups [G, B, keep] of the summary similarities
+    csims [G, B, n_grp] (integer-valued f32), ties to the lower group, the
+    order of `jax.lax.top_k`: selected on the unique integer key
+    ``sim*n_grp + (n_grp-1-group)``, since `torch.topk` orders equal values
+    arbitrarily."""
+    n_grp = csims.shape[-1]
+    col = torch.arange(n_grp, device=csims.device)
+    key = csims.to(torch.int64) * n_grp + (n_grp - 1 - col)
+    return torch.topk(key, keep, dim=-1).indices.to(torch.int32)
+
+
+def _coarse_fine_unpacked(cfg: ScaleOutConfig, banks: torch.Tensor, q: torch.Tensor,
+                          bank_rows: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Unpacked coarse-to-fine: the screen through the summaries' bipolar
+    dots (the matmul kernel, one launch), then the surviving rows rescored.
+    banks [T, C_core, d] uint8, q [G, B, d] -> (val f32, row int32) of each
+    bank's winner, both [G, B].
+
+    The reference rescores with an f32 bipolar einsum over the gathered rows;
+    its values are the integers d - 2*hamming, computed here from the XOR of
+    the gathered bits (no f32 copies of the [G, B, keep*gs, d] candidates),
+    so the (max, first argmax) over rows in ascending order is the same."""
+    d = banks.shape[-1]
+    keep = min(cfg.coarse_keep, banks.shape[1] // cfg.coarse_group)
+    summ = _group_summaries(cfg, banks)                       # [T, n_grp, d]
+    summ_g = summ if bank_rows is None else summ.index_select(0, bank_rows)
+    csims = assoc_matmul_banked(q.contiguous(), summ_g.contiguous())  # [G, B, n_grp]
+    rows = _survivor_rows(cfg, _screen_topk(csims, keep))
+    cand = _candidates(banks, rows, bank_rows)                # [G, B, keep*gs, d]
+    sims = d - 2 * (q[:, :, None, :] ^ cand).sum(-1, dtype=torch.int32)
+    star = torch.argmax(sims, -1)                             # first max among survivors
+    row = torch.gather(rows, -1, star[..., None])[..., 0]
+    return sims.max(-1).values.to(torch.float32), row
+
+
 def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor,
                 protos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Every core searches its class sub-shard (with the M permuted banks
@@ -254,16 +355,23 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor,
             core_star = torch.argmax(val_c, 1)
             idx_in_core = torch.gather(idx_c, 1, core_star[:, None, :])[:, 0, :]
     elif cfg.packed or cfg.sparse:
-        search = sparse_topk_banked if cfg.sparse else hamming_topk_banked
-        dmin, amin = search(q_rx.contiguous(), protos_c)      # [n_core, B]
+        if cfg.coarse_group:
+            dmin, amin = _coarse_fine_packed(cfg, protos_c, q_rx)
+        else:
+            search = sparse_topk_banked if cfg.sparse else hamming_topk_banked
+            dmin, amin = search(q_rx.contiguous(), protos_c)  # [n_core, B]
         dmin, amin = dmin.T, amin.T                           # [B, n_core]
         val = d - 2 * dmin.min(-1).values                     # [B]
         core_star = torch.argmin(dmin, -1)
         idx_in_core = torch.gather(amin, 1, core_star[:, None])[:, 0]
     else:
-        sims = assoc_matmul_banked(q_rx.contiguous(), protos_c).permute(1, 0, 2)
-        val_c = sims.max(-1).values                           # [B, n_core]
-        idx_c = torch.argmax(sims, -1).to(torch.int32)
+        if cfg.coarse_group:
+            vg, rg = _coarse_fine_unpacked(cfg, protos_c, q_rx)   # each [n_core, B]
+            val_c, idx_c = vg.T, rg.T                         # [B, n_core]
+        else:
+            sims = assoc_matmul_banked(q_rx.contiguous(), protos_c).permute(1, 0, 2)
+            val_c = sims.max(-1).values                       # [B, n_core]
+            idx_c = torch.argmax(sims, -1).to(torch.int32)
         val = val_c.max(-1).values                            # [B]
         core_star = torch.argmax(val_c, -1)
         idx_in_core = torch.gather(idx_c, 1, core_star[:, None])[:, 0]
@@ -275,6 +383,24 @@ def _gather_top1(cfg: ScaleOutConfig, val: torch.Tensor, idx: torch.Tensor):
     """Global top-1 over the model shards — here the one shard — and the
     similarity normalized to [0, 1]."""
     return idx, val / (2.0 * cfg.dim) + 0.5
+
+
+def _validate_coarse(cfg: ScaleOutConfig) -> None:
+    """Serve-build validation of the coarse-to-fine screen (ValueError)."""
+    if not cfg.coarse_group:
+        return
+    if cfg.permuted:
+        raise ValueError("coarse_group requires baseline bundling (permuted banks would "
+                         "need one summary set per TX signature)")
+    c_core = cfg.n_classes // cfg.n_rx_cores      # divides: ScaleOutConfig checks
+    if cfg.coarse_group < 2 or c_core % cfg.coarse_group:
+        raise ValueError(f"coarse_group={cfg.coarse_group} must be >= 2 and divide the "
+                         f"per-core class count {c_core}")
+    if cfg.coarse_keep < 1:
+        raise ValueError(f"coarse_keep={cfg.coarse_keep} must be >= 1")
+    if (cfg.dim + 1) * c_core >= 2**31:
+        raise ValueError(f"rescore key (dim+1)*c_core = {(cfg.dim + 1) * c_core} would "
+                         "overflow int32 — shard wider (more RX cores) or shrink dim")
 
 
 def _check_inputs(cfg: ScaleOutConfig, dev: torch.device, protos, queries, state) -> None:
@@ -305,7 +431,11 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
     Encoder g transmits rho^g of its query when ``cfg.permuted``. The PHY tier
     is ``cfg.channel`` (``ideal`` or ``bsc``; the noise comes from
     ``generator``). The per-core search is the fused top-1 kernel (packed) or
-    the bipolar matmul kernel (unpacked), one launch for all cores and banks.
+    the bipolar matmul kernel (unpacked), one launch for all cores and banks;
+    with ``cfg.coarse_group`` it is the coarse-to-fine screen (the fused
+    top-k kernel or the matmul kernel over the group summaries, then an
+    exact rescore of the survivors). ``coarse_group`` with permuted bundling
+    and shapes the screen cannot tile raise ValueError here.
 
     Sparse (``cfg.representation="sparse"``, or ``"auto"`` resolved to it):
     queries are index lists [B, 1, M, k_max] int32 against packed
@@ -321,6 +451,7 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
                          "processes or fault injection; use representation='packed'")
     if process is not None or faults is not None:
         raise NotImplementedError("make_ota_serve: process= and faults= are not ported yet")
+    _validate_coarse(cfg)
     dev = _device.resolve(device)
     chan = phy.get_channel(cfg.channel)
 

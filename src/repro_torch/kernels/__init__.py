@@ -4,7 +4,8 @@ the classifier trials.
 Each family has ops.py (the wrapper: checks, dispatch on the tensor's device,
 launch counter) and ref.py (the plain PyTorch twin):
 
-* hamming/      packed XOR+popcount search and the fused per-bank top-1
+* hamming/      packed XOR+popcount search (flat and per bank) and the fused
+                per-bank top-1 and top-k
 * assoc_matmul/ bipolar {0,1} -> +-1 dot products, plain and banked
 * majority/     bitwise strict majority bundling
 * sparse/       sparse index-list queries against packed prototypes: full
@@ -14,7 +15,8 @@ launch counter) and ref.py (the plain PyTorch twin):
 which count kernel launches only (never a CPU call of the plain version).
 """
 from repro_torch.kernels.assoc_matmul import assoc_matmul, assoc_matmul_banked
-from repro_torch.kernels.hamming import hamming_search, hamming_topk_banked
+from repro_torch.kernels.hamming import (hamming_search, hamming_search_banked,
+                                        hamming_topk_banked, hamming_topk_k_banked)
 from repro_torch.kernels.majority import majority_bundle
 from repro_torch.kernels.sparse import sparse_search, sparse_topk_banked
 
@@ -22,6 +24,8 @@ from repro_torch.kernels.sparse import sparse_search, sparse_topk_banked
 WRAPPERS = {
     "hamming_topk_banked": hamming_topk_banked,
     "hamming_search": hamming_search,
+    "hamming_topk_k_banked": hamming_topk_k_banked,
+    "hamming_search_banked": hamming_search_banked,
     "assoc_matmul": assoc_matmul_banked,
     "majority_bundle": majority_bundle,
     "sparse_search": sparse_search,
@@ -39,5 +43,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["WRAPPERS", "assoc_matmul", "assoc_matmul_banked", "hamming_search",
-           "hamming_topk_banked", "launch_counts", "majority_bundle",
+           "hamming_search_banked", "hamming_topk_banked", "hamming_topk_k_banked",
+           "launch_counts", "majority_bundle",
            "reset_launch_counts", "sparse_search", "sparse_topk_banked"]

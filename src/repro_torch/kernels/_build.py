@@ -28,8 +28,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # q, protos, dist, idx, G, B, C, W, c_real, stream
     "hamming_topk_banked_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, protos, out, B, C, W, stream
-    "hamming_search_launch": [_P, _P, _P, _I, _I, _I, _P],
+    # q, protos, dist, idx, G, B, C, W, c_real, k, stream
+    "hamming_topk_k_banked_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, protos, out, G, B, C, W, stream (G = 1: the unbanked search)
+    "hamming_search_banked_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, protos, out, G, B, C, K, stream
     "assoc_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # hvs, out, M, N, stream

@@ -1,1 +1,2 @@
-from repro_torch.kernels.hamming.ops import hamming_search, hamming_topk_banked  # noqa: F401
+from repro_torch.kernels.hamming.ops import (  # noqa: F401
+    hamming_search, hamming_search_banked, hamming_topk_banked, hamming_topk_k_banked)

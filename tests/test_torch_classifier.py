@@ -14,7 +14,7 @@ import torch
 
 from repro.core import classifier as jclf, sparse as jsparse
 from repro_torch import convert
-from repro_torch.core import classifier as tclf
+from repro_torch.core import classifier as tclf, hypervector as thv
 
 CPU = "cpu"
 C, D, T = 32, 256, 64
@@ -154,3 +154,113 @@ def test_unsupported_trial_settings_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tclf.run_accuracy(0, cfg, 1, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the multi-centroid memory
+# ---------------------------------------------------------------------------
+
+MC_C, MC_D, MC_K, MC_S = 20, 512, 4, 16
+
+
+def _jax_multicentroid_draws(key, protos_p, k_c, samples_per_class, ber):
+    """The samples and initial picks `repro.core.classifier.train_multicentroid`
+    draws: one key per class, split into (noise, init)."""
+    from repro.core import hypervector as jhv
+
+    def one(class_key, row):
+        k_noise, k_init = jax.random.split(class_key)
+        samples = jhv.flip_bits_packed(
+            k_noise, jnp.broadcast_to(row, (samples_per_class, row.shape[-1])), ber)
+        init = jax.random.choice(k_init, samples_per_class, (k_c,), replace=False)
+        return samples, init
+
+    samples, init = jax.vmap(one)(jax.random.split(key, protos_p.shape[0]), protos_p)
+    return (convert.hv_from_numpy(np.asarray(samples), CPU),
+            torch.from_numpy(np.asarray(init).astype(np.int64)))
+
+
+@pytest.fixture(scope="module")
+def multicentroid():
+    """(protos [C, d] uint8, JAX's packed centroids, the port's centroids
+    trained on JAX's replayed draws, those draws)."""
+    from repro.core import hypervector as jhv
+
+    protos = _codebook(11, MC_C, MC_D)
+    key = jax.random.PRNGKey(1)
+    ref = jclf.train_multicentroid(key, jnp.asarray(protos), MC_K, samples_per_class=MC_S,
+                                   ber=0.08)
+    draws = _jax_multicentroid_draws(key, jhv.pack(jnp.asarray(protos)), MC_K, MC_S, 0.08)
+    got = tclf.train_multicentroid(None, convert.hv_from_numpy(protos, CPU), MC_K,
+                                   samples_per_class=MC_S, draws=draws)
+    return protos, np.asarray(ref), got, draws
+
+
+def test_train_multicentroid_matches_jax_on_replayed_draws(multicentroid):
+    _, ref, got, _ = multicentroid
+    assert got.dtype == torch.int32 and tuple(got.shape) == (MC_C, MC_K, MC_D // 32)
+    np.testing.assert_array_equal(convert.to_numpy(got, words=True), ref)
+
+
+def test_train_multicentroid_own_draws_and_empty_clusters():
+    """On its own generator: the same seed gives the same centroids, packed
+    or unpacked codebook, and they stay near their class (well under the d/2
+    of an unrelated HV). An empty cluster keeps its centroid: seeding two
+    centroids on equal samples leaves the second with no member (argmin
+    ties go to the first), so it never moves."""
+    protos = convert.hv_from_numpy(_codebook(12, MC_C, MC_D), CPU)
+    a = tclf.train_multicentroid(torch.Generator().manual_seed(3), protos, MC_K,
+                                 samples_per_class=MC_S)
+    b = tclf.train_multicentroid(torch.Generator().manual_seed(3), thv.pack(protos), MC_K,
+                                 samples_per_class=MC_S)
+    assert torch.equal(a, b)
+    dist = torch.stack([thv.hamming_distance_packed(a[i], thv.pack(protos)[i:i + 1])
+                        for i in range(MC_C)])
+    assert int(dist.max()) < MC_D // 4
+    samples, init = tclf._multicentroid_draws(torch.Generator().manual_seed(4),
+                                             thv.pack(protos), 2, MC_S, 0.08)
+    samples[:, 1] = samples[:, 0]
+    init[:, 0], init[:, 1] = 0, 1
+    cents = tclf.train_multicentroid(None, protos, 2, samples_per_class=MC_S,
+                                     draws=(samples, init))
+    assert torch.equal(cents[:, 1], samples[:, 1])
+
+
+def test_multicentroid_predict_matches_jax(multicentroid):
+    from repro.core import hypervector as jhv
+
+    protos, ref, got, _ = multicentroid
+    pp = jhv.pack(jnp.asarray(protos))
+    for seed, ber in ((0, 0.0), (2, 0.1), (5, 0.3)):
+        qs = jhv.flip_bits_packed(jax.random.PRNGKey(seed), pp, ber)
+        want = jclf.multicentroid_predict(qs, jnp.asarray(ref), use_kernels=False)
+        pred = tclf.multicentroid_predict(convert.hv_from_numpy(np.asarray(qs), CPU), got)
+        assert pred.dtype == torch.int32
+        np.testing.assert_array_equal(pred.numpy(), np.asarray(want))
+        if ber <= 0.1:
+            assert pred.tolist() == list(range(MC_C))
+    # unpacked queries are packed first
+    pred = tclf.multicentroid_predict(convert.hv_from_numpy(protos, CPU), got)
+    assert pred.tolist() == list(range(MC_C))
+
+
+@pytest.mark.parametrize("rep", ["packed", "unpacked"])
+def test_multicentroid_bank_and_centroid_to_class_match_jax(multicentroid, rep):
+    from repro.core.scaleout import ScaleOutConfig as JCfg
+    from repro.serving import hdc as jhdc
+    from repro_torch.core.scaleout import ScaleOutConfig as TCfg
+    from repro_torch.serving import hdc as thdc
+
+    protos, _, _, draws = multicentroid
+    kw = dict(n_classes=MC_C * MC_K, dim=MC_D, m_tx=3, n_rx_cores=2, batch=4,
+              representation=rep)
+    ref = jhdc.multicentroid_bank(jax.random.PRNGKey(1), jnp.asarray(protos), MC_K,
+                                  JCfg(**kw), samples_per_class=MC_S)
+    got = thdc.multicentroid_bank(None, convert.hv_from_numpy(protos, CPU), MC_K, TCfg(**kw),
+                                  samples_per_class=MC_S, draws=draws)
+    assert got.dtype == (torch.int32 if rep == "packed" else torch.uint8)
+    np.testing.assert_array_equal(convert.to_numpy(got, words=rep == "packed"),
+                                  np.asarray(ref))
+    pred = np.array([[0, 2], [5, MC_C * MC_K - 1]], np.int32)
+    np.testing.assert_array_equal(thdc.centroid_to_class(torch.from_numpy(pred), MC_K).numpy(),
+                                  np.asarray(jhdc.centroid_to_class(jnp.asarray(pred), MC_K)))

@@ -107,11 +107,21 @@ def test_hamming_topk_banked_c_real_against_pallas_interpret():
 
 
 def test_hamming_topk_banked_unported_modes_raise():
-    q, p = _t(_words(1, (1, 2, 1))), _t(_words(2, (1, 4, 1)))
-    with pytest.raises(NotImplementedError):
-        tk.hamming_topk_banked(q, p, k=2)
-    with pytest.raises(NotImplementedError):
-        tk.hamming_topk_banked(q, p, bank_rows=torch.zeros(1, dtype=torch.int32))
+    """The top-k and bank-table modes, once unported, now run and equal
+    JAX's; what lies outside the op's contract still raises."""
+    qn, pn = _words(1, (1, 2, 1)), _words(2, (1, 4, 1))
+    q, p = _t(qn), _t(pn)
+    for got, ref in ((tk.hamming_topk_banked(q, p, k=2),
+                      j_topk(jnp.asarray(qn), jnp.asarray(pn), k=2, use_kernel=False)),
+                     (tk.hamming_topk_banked(q, p, bank_rows=torch.zeros(1, dtype=torch.int32)),
+                      j_topk(jnp.asarray(qn), jnp.asarray(pn),
+                             bank_rows=jnp.zeros(1, jnp.int32), use_kernel=False))):
+        for a, r in zip(got, ref):
+            _eq(a, r)
+    with pytest.raises(ValueError):
+        tk.hamming_topk_banked(q, p, k=5)
+    with pytest.raises(ValueError):
+        tk.hamming_topk_banked(q, p, bank_rows=torch.zeros(2, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("b,c,k", [(1, 1, 1), (5, 130, 3), (16, 100, 512), (33, 7, 1000)])

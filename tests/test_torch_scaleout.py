@@ -238,8 +238,142 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
                                       collective="psum_packed"),
                                  dict(representation="auto", k_max=8, noise="bitplane"),
                                  dict(channel="symbol"),
-                                 dict(coarse_group=4), dict(m_active=1),
+                                 dict(collective="rs_ag"), dict(m_active=1),
                                  dict(noise="bitplane")])
 def test_unported_config_values_raise(bad):
     with pytest.raises(NotImplementedError):
         tscale.ScaleOutConfig(**SMALL, **bad)
+
+
+# ---------------------------------------------------------------------------
+# the coarse-to-fine serve
+# ---------------------------------------------------------------------------
+
+# a real screen at the sizes of tests/test_topk.py: c_core = 64, gs = 4 ->
+# 16 groups, keep 2: 8 of 64 rows rescored
+SCREEN = dict(n_classes=512, dim=1024, m_tx=3, n_rx_cores=8, batch=32)
+
+
+@pytest.fixture(scope="module")
+def screen_codebook():
+    protos = jhv.random_hv(jax.random.PRNGKey(0), SCREEN["n_classes"], SCREEN["dim"])
+    _, queries = jscale.make_queries(jax.random.PRNGKey(1), jscale.ScaleOutConfig(**SCREEN),
+                                     protos, 1)
+    return np.asarray(protos), None, np.asarray(queries)
+
+
+def _coarse_serves(mesh, book, size, rep, channel, ber, gs, keep):
+    """(JAX coarse, port coarse, port flat) (pred, maxsim) of one setting; the
+    bsc runs on JAX's own masks through `ReplayChannel`."""
+    kw = dict(**size, representation=rep, channel=channel)
+    jcfg = jscale.ScaleOutConfig(**kw, coarse_group=gs, coarse_keep=keep, use_kernels=False)
+    tflat = tscale.ScaleOutConfig(**kw)
+    jp, jq, tp, tq = _inputs(book, rep == "packed")
+    bers = np.full(size["n_rx_cores"], ber, np.float32)
+    key = jax.random.PRNGKey(2)
+    jstate = jphy.state_from_ber(jnp.asarray(bers), size["m_tx"])
+    ref = jscale.make_ota_serve(mesh, jcfg)(jp, jq, jstate, key)
+    tstate = tphy.state_from_ber(torch.from_numpy(bers), size["m_tx"])
+    if channel == "bsc":
+        masks = torch.from_numpy(_jax_masks(key, bers, size["batch"], size["dim"]))
+        tphy.register_channel(ReplayChannel(masks), override=True)
+        tflat = dataclasses.replace(tflat, channel="bsc_replay")
+    tcoarse = dataclasses.replace(tflat, coarse_group=gs, coarse_keep=keep)
+    try:
+        got = tscale.make_ota_serve(tcoarse, device=CPU)(tp, tq, tstate, None)
+        flat = tscale.make_ota_serve(tflat, device=CPU)(tp, tq, tstate, None)
+    finally:
+        tphy.CHANNELS.pop("bsc_replay", None)
+    return ref, got, flat
+
+
+@pytest.mark.parametrize("rep", ["unpacked", "packed"])
+@pytest.mark.parametrize("channel", ["ideal", "bsc"])
+def test_coarse_serve_at_full_keep_is_the_flat_serve(mesh, codebook, rep, channel):
+    """keep == n_grp (c_core = 32, gs = 4: 8 groups, keep 8): the coarse serve
+    equals JAX's, and the port's flat serve, in pred and maxsim."""
+    ref, got, flat = _coarse_serves(mesh, codebook, SMALL, rep, channel, 0.05, 4, 8)
+    for a, r, f in zip(got, ref, flat):
+        _eq(a, r)
+        assert torch.equal(a, f)
+
+
+@pytest.mark.parametrize("rep", ["unpacked", "packed"])
+@pytest.mark.parametrize("channel", ["ideal", "bsc"])
+def test_coarse_serve_real_screen_matches_jax(mesh, screen_codebook, rep, channel):
+    ref, got, flat = _coarse_serves(mesh, screen_codebook, SCREEN, rep, channel, 0.02, 4, 2)
+    for a, r in zip(got, ref):
+        _eq(a, r)
+    assert torch.equal(got[0], flat[0])          # the screen recalls every winner
+
+
+@pytest.mark.parametrize("rep", ["unpacked", "packed"])
+def test_coarse_fine_bank_rows_match_the_reference(rep):
+    """`_coarse_fine_packed` / `_unpacked` against the reference's functions
+    called directly, on a table of 3 banks searched by 6 banks (rows repeat),
+    and without the indirection on the gathered banks."""
+    t_, g, b, c_core, d, gs, keep = 3, 6, 5, 32, 256, 4, 3
+    rng = np.random.default_rng(20)
+    table = rng.integers(0, 2, (t_, c_core, d), dtype=np.uint8)
+    q = rng.integers(0, 2, (g, b, d), dtype=np.uint8)
+    rows = np.array([2, 0, 2, 1, 1, 0], np.int32)
+    kw = dict(n_classes=c_core * 8, dim=d, m_tx=3, n_rx_cores=8, batch=b,
+              representation=rep, coarse_group=gs, coarse_keep=keep)
+    jcfg = jscale.ScaleOutConfig(**kw, use_kernels=False)
+    tcfg = tscale.ScaleOutConfig(**kw)
+    jt, jq = jnp.asarray(table), jnp.asarray(q)
+    if rep == "packed":
+        jt, jq = jhv.pack(jt), jhv.pack(jq)
+    jfn = jscale._coarse_fine_packed if rep == "packed" else jscale._coarse_fine_unpacked
+    tfn = tscale._coarse_fine_packed if rep == "packed" else tscale._coarse_fine_unpacked
+    tt, tq = (convert.hv_from_numpy(np.asarray(x), CPU) for x in (jt, jq))
+    ref = jfn(jcfg, jt, jq, jnp.asarray(rows))
+    got = tfn(tcfg, tt, tq, torch.from_numpy(rows))
+    for a, r in zip(got, ref):
+        _eq(a, r)
+    direct = tfn(tcfg, tt[torch.from_numpy(rows).long()], tq)
+    assert all(torch.equal(a, r) for a, r in zip(got, direct))
+
+
+def test_unpacked_screen_needs_the_tie_safe_top_k(monkeypatch):
+    """Duplicate groups have equal summaries, so their screen similarities
+    tie. `jax.lax.top_k` keeps the lower group first; the port's screen
+    selects JAX's groups, where a plain `torch.topk` does not, and with it the
+    coarse serve would answer from another row."""
+    c_core, d, gs, keep = 64, 64, 4, 1
+    rng = np.random.default_rng(21)
+    half = rng.integers(0, 2, (1, c_core // 2, d), dtype=np.uint8)
+    banks = np.concatenate([half, half], 1)                   # group j == group j + 8
+    q = rng.integers(0, 2, (1, 64, d), dtype=np.uint8)
+    kw = dict(n_classes=c_core, dim=d, m_tx=3, n_rx_cores=1, batch=64,
+              coarse_group=gs, coarse_keep=keep)
+    ref = jscale._coarse_fine_unpacked(jscale.ScaleOutConfig(**kw, use_kernels=False),
+                                       jnp.asarray(banks), jnp.asarray(q))
+    tb, tq = convert.hv_from_numpy(banks, CPU), convert.hv_from_numpy(q, CPU)
+    tcfg = tscale.ScaleOutConfig(**kw)
+    for a, r in zip(tscale._coarse_fine_unpacked(tcfg, tb, tq), ref):
+        _eq(a, r)
+    plain = lambda csims, k: torch.topk(csims, k, dim=-1).indices.to(torch.int32)  # noqa: E731
+    monkeypatch.setattr(tscale, "_screen_topk", plain)
+    _, row = tscale._coarse_fine_unpacked(tcfg, tb, tq)
+    assert not np.array_equal(row.numpy(), np.asarray(ref[1]))
+
+
+@pytest.mark.parametrize("bad,match", [(dict(permuted=True), "permuted"),
+                                       (dict(coarse_group=3), "divide"),
+                                       (dict(coarse_group=1), "divide"),
+                                       (dict(coarse_keep=0), "coarse_keep"),
+                                       (dict(dim=2**22, n_classes=8 * 2**10), "overflow")])
+def test_validate_coarse_rejects_what_the_reference_rejects(bad, match):
+    base = dict(n_classes=64, dim=512, m_tx=3, n_rx_cores=8, batch=8, coarse_group=4,
+                coarse_keep=2)
+    kw = {**base, **bad}
+    with pytest.raises(ValueError, match=match):
+        jscale._validate_coarse(jscale.ScaleOutConfig(**kw))
+    with pytest.raises(ValueError, match=match):
+        tscale._validate_coarse(tscale.ScaleOutConfig(**kw))
+    with pytest.raises(ValueError, match=match):
+        tscale.make_ota_serve(tscale.ScaleOutConfig(**kw), device=CPU)
+    for ok in (dict(base, coarse_group=0), base):
+        jscale._validate_coarse(jscale.ScaleOutConfig(**ok))
+        tscale._validate_coarse(tscale.ScaleOutConfig(**ok))

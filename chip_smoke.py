@@ -8,12 +8,16 @@ fallback, and a missing GPU is a failure):
 
 1. card: the GPU's name and power limit (nvidia-smi); build the CUDA kernels
    from src/repro_torch/csrc with nvcc and print the build seconds;
-2. kernels: each of the eight kernels against its plain PyTorch version on
+2. kernels: each of the nine kernels against its plain PyTorch version on
    the card, at the main path's shapes and at one tall shape (102,400 classes
    over 64 cores, d = 2048, batch 4096); the fused top-k and the per-bank
    search also at ragged, tie (across the kernel's 128-row tiles) and
    limit shapes, k = 1 against the top-1 kernel; the two sparse kernels at
-   ragged, tie and empty-query shapes -- bit-exact, with the kernel's median
+   ragged, tie and empty-query shapes -- bit-exact; the attention forward at
+   the LM prefill's shape (B = 8, S = 1024, 32 heads over 4, D = 64, causal,
+   bf16), gemma3-1b's layer shape (4 heads over 1, D = 256, window 512 and
+   global), non-causal, ragged, a prefill chunk (q_offset 512) and f32 --
+   within atol = rtol = 2e-2 in bf16 and 1e-5 in f32; each with the kernel's median
    device time (CUDA-graph replay) and eager call time, the plain version's
    time, one PyTorch library call's where one computes the same function,
    and the bound (least time the card could take);
@@ -50,26 +54,39 @@ fallback, and a missing GPU is a failure):
    at C = 1024 == flat in pred and maxsim; `train_multicentroid` on the
    6400-class d = 512 codebook (k_c = 4), `multicentroid_predict` right on
    every noisy prototype at BER 0.0 and 0.1, and the 25,600-row bank served
-   flat and coarse over 64 cores, centroid rows and classes equal.
+   flat and coarse over 64 cores, centroid rows and classes equal;
+11. the LM serve: TinyLlama-1.1B at its published width and depth (22
+   layers, d = 2048, bf16, 1.1 B parameters drawn from the seed), batch 8 x
+   prompt 1024 x 32 new tokens, greedy, through `Engine.generate`: 22
+   attention launches a generate and no other kernel, time to first token,
+   decode ms per token, tokens/s; each layer's attention on its own inputs
+   against f64 (kernel no further off than its plain twin); and, with the
+   attention projections at fan-in over their contraction, f32 greedy
+   tokens of kernel and twin identical (last logits within 1e-3),
+   decode(prefill(x), t) against prefill(x ‖ t) within 5e-3, bf16 last
+   logits within LM_BF16_LOGIT_BOUND (see `phase_lm`).
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
-7-10, each run between a reset and a read of the counters: the serves, the
-48 Table I calls, the sparse trials and serves at d = 2^20, and phase 10's
-serves, recall oracle and multi-centroid calls; the d = 8192 comparisons and
-the keep == n_grp identity at C = 1024 are not counted), and as the last line {"ok": true, ...}.
+7-11, each run between a reset and a read of the counters: the serves, the
+48 Table I calls, the sparse trials and serves at d = 2^20, phase 10's
+serves, recall oracle and multi-centroid calls, and phase 11's generates;
+the d = 8192 comparisons, the keep == n_grp identity at C = 1024 and phase
+11's checks are not counted), and as the last line {"ok": true, ...}.
 
     python3 chip_smoke.py --profile --json out/chip_smoke.json
 
-adds a profile of every serve mode, of the sparse serve and of the flat
-and coarse packed serves at 102,400 classes under torch.profiler (device
-busy time, idle share, top device ops per call), and writes every number of
-the run, unrounded, to the JSON file.
+adds a profile of every serve mode, of the sparse serve, of the flat
+and coarse packed serves at 102,400 classes, and of the LM prefill (with
+the attention kernel's share of its device time) and decode step under
+torch.profiler (device busy time, idle share, top device ops per call), and
+writes every number of the run, unrounded, to the JSON file.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -82,6 +99,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12          # H100 SXM f32 peak outside the tensor cores
+PEAKS = {"int8": INT8_OPS_PER_S, "bf16": BF16_FLOPS_PER_S, "f32": F32_FLOPS_PER_S}
 CALLS = 8                        # serve calls per mode
 SEED = 0
 SPARSE_DIM, SPARSE_DENSITY, SPARSE_K = 2**20, 0.001, 2048   # benchmarks/sparse.py:46-47
@@ -101,6 +121,15 @@ PAPER_TABLE1 = {  # benchmarks/table1.py:11-16, M = 1, 3, ..., 11
     ("permuted", "wireless"): [1, 1, 1, 1, 0.994, 0.963],
 }
 TABLE1_MS = (1, 3, 5, 7, 9, 11)
+# phase 11: TinyLlama-1.1B at its published width (src/repro/configs/tinyllama_1_1b.py:
+# 22 layers, d 2048, 32 heads over 4 kv heads, head_dim 64, d_ff 5632, vocab
+# 32000, bf16), weights drawn from the seed; batch 8 x prompt 1024 x 32 new, greedy
+LM = dict(arch="tinyllama-1.1b", batch=8, prompt_len=1024, max_new=32)
+LM_GENERATES = 2                 # counted generate calls (the first one cold)
+# bf16 prefill last logits, kernel vs its plain twin, with the attention
+# projections at fan-in over their contraction: max |diff| allowed, about 3x
+# what this tree shows on the H100 and 5% of its largest logit (PERF.md)
+LM_BF16_LOGIT_BOUND = 0.25
 # serve modes: (serve, PHY tier, permuted bundling, representation)
 MODES = ([("ota", ch, perm, rep) for ch, perm in (("bsc", False), ("bsc", True), ("ideal", False))
           for rep in ("unpacked", "packed")]
@@ -127,6 +156,8 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
                       "src/repro/kernels/sparse/kernel.py:62"),
     "sparse_topk_banked": ("cuda", "src/repro_torch/csrc/sparse.cu",
                            "src/repro/kernels/sparse/kernel.py:119"),
+    "flash_attention_fwd": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:82"),
 }
 
 
@@ -430,10 +461,79 @@ def hamming_k_cases(torch, gen):
     return cases
 
 
+def attention_pairs(sq: int, skv: int, causal: bool, window: int, q_offset: int) -> int:
+    """The (query, key) pairs of one head that the mask keeps: the work these
+    inputs need (query i at position q_offset + i)."""
+    n = 0
+    for i in range(sq):
+        qp = q_offset + i
+        hi = min(skv, qp + 1) if causal else skv
+        lo = max(0, qp - window + 1) if window > 0 else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def flash_cases(torch, gen):
+    """The attention kernel's cases, as `sparse_kernel_cases` gives them: the
+    prefill's shape first (TinyLlama-1.1B, B = 8, S = 1024), then gemma3-1b's
+    layer shape at its full width (windowed and global), non-causal, a ragged
+    length, a prefill chunk (q_offset = 512 over a 768-key prefix) and f32 at
+    the prefill's shape. Tolerances: f32 atol = rtol = 1e-5 (only the order
+    of the sums differs); bf16 atol = rtol = 2e-2, compared in f32 (both
+    sides round to bf16 once at the output). The library call is
+    F.scaled_dot_product_attention on the same tensors (is_causal where that
+    is the mask, else an explicit boolean mask), timed eagerly."""
+    import torch.nn.functional as F
+
+    from repro_torch import kernels as tk
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+
+    cases = []
+    for label, (b, sq, skv, h, kh, d, causal, win, off, dt) in [
+            ("prefill", (8, 1024, 1024, 32, 4, 64, True, -1, 0, torch.bfloat16)),
+            ("gemma3-1b local", (8, 1024, 1024, 4, 1, 256, True, 512, 0, torch.bfloat16)),
+            ("gemma3-1b global", (8, 1024, 1024, 4, 1, 256, True, -1, 0, torch.bfloat16)),
+            ("non-causal", (8, 512, 512, 32, 4, 64, False, -1, 0, torch.bfloat16)),
+            ("ragged", (8, 1000, 1000, 32, 4, 64, True, -1, 0, torch.bfloat16)),
+            ("chunk", (8, 256, 768, 32, 4, 64, True, -1, 512, torch.bfloat16)),
+            ("f32 prefill", (8, 1024, 1024, 32, 4, 64, True, -1, 0, torch.float32))]:
+        q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(b, skv, kh, d, generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        kw = dict(causal=causal, window=win, q_offset=off)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if win <= 0 and off == 0 and sq == skv:
+            def lib(qt=qt, kt=kt, vt=vt, c=causal):
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=c, enable_gqa=True)
+        else:
+            qp = off + torch.arange(sq, device="cuda")[:, None]
+            kp = torch.arange(skv, device="cuda")[None, :]
+            mask = (kp <= qp) if causal else torch.ones_like(qp - kp, dtype=torch.bool)
+            if win > 0:
+                mask &= (qp - kp) < win
+
+            def lib(qt=qt, kt=kt, vt=vt, mask=mask):
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+        tol = 1e-5 if dt == torch.float32 else 2e-2
+        cases.append((
+            "flash_attention_fwd",
+            f"{label} B={b} Sq={sq} Skv={skv} H={h} KH={kh} D={d} causal={causal} "
+            f"window={win} q_offset={off} {str(dt).split('.')[-1]}",
+            lambda q=q, k=k, v=v, kw=kw: tk.flash_attention_fwd(q, k, v, **kw),
+            lambda q=q, k=k, v=v, kw=kw: flash_fwd_ref(q, k, v, **kw), lib,
+            q.element_size() * 2 * b * d * (sq * h + skv * kh),
+            4 * b * h * d * attention_pairs(sq, skv, causal, win, off),
+            "bf16" if dt == torch.bfloat16 else "f32",
+            dict(tol=(tol, tol), lib_eager=True,
+                 lib_what="F.scaled_dot_product_attention (eager)")))
+    return cases
+
+
 def phase_kernels(torch, gen) -> dict:
     results = {}
     for case in kernel_cases(torch, gen) + hamming_k_cases(torch, gen) + sparse_kernel_cases(
-            torch, gen):
+            torch, gen) + flash_cases(torch, gen):
         name, label, kern, plain, lib, nbytes, ops, kind = case[:8]
         extra = case[8] if len(case) > 8 else {}
         got, want = kern(), plain()
@@ -442,8 +542,17 @@ def phase_kernels(torch, gen) -> dict:
         want_t = want if isinstance(want, tuple) else (want,)
         err = max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
                   for a, b in zip(got_t, want_t))
-        exact = all(torch.equal(a, b) for a, b in zip(got_t, want_t))
-        require(exact, f"{name} [{label}] differs from its plain version (max |err| {err})")
+        if "tol" in extra:      # float kernels: within the stated tolerance, in f32
+            atol, rtol = extra["tol"]
+            near = all(torch.allclose(a.float(), b.float(), atol=atol, rtol=rtol)
+                       for a, b in zip(got_t, want_t))
+            require(near, f"{name} [{label}] beyond atol {atol} rtol {rtol} of its plain "
+                          f"version (max |err| {err})")
+            verdict = f"within atol {atol} rtol {rtol} (max |err| {err:.3g})"
+        else:
+            exact = all(torch.equal(a, b) for a, b in zip(got_t, want_t))
+            require(exact, f"{name} [{label}] differs from its plain version (max |err| {err})")
+            verdict = "bit-exact"
         if "expect" in extra:
             require(extra["expect"](got), f"{name} [{label}]: fails its expected-result check")
         ms, eager_ms = time_ms(torch, kern), call_ms(torch, kern)
@@ -451,8 +560,8 @@ def phase_kernels(torch, gen) -> dict:
         lib_timer = call_ms if extra.get("lib_eager") else time_ms
         lib_ms = lib_timer(torch, lib, samples=3) if lib is not None else None
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        if kind == "int8":      # a product with a tensor-core form: its int8 peak
-            ops_ms = ops / INT8_OPS_PER_S * 1e3
+        if kind in PEAKS:       # products with a published peak for their type
+            ops_ms = ops / PEAKS[kind] * 1e3
             bound_ms, bound_by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                                           else "operations")
         else:                   # popcount, gathers: no published peak, bytes bound
@@ -460,9 +569,9 @@ def phase_kernels(torch, gen) -> dict:
         row = dict(shape=label, max_abs_err=err, ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
                    bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=lib_ms, bytes=nbytes, ops=ops, op_kind=kind,
-                   library_what=extra.get("lib_what"))
+                   library_what=extra.get("lib_what"), tol=extra.get("tol"))
         results.setdefault(name, []).append(row)
-        print(f"kernel {name} [{label}]: bit-exact, {ms:.4f} ms (eager call {eager_ms:.4f}), "
+        print(f"kernel {name} [{label}]: {verdict}, {ms:.4f} ms (eager call {eager_ms:.4f}), "
               f"plain {plain_ms:.4f} ms, "
               f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
               f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {ops} {kind} ops)", flush=True)
@@ -1078,11 +1187,13 @@ def phase_coarse(torch, launches: dict, profile: bool = False) -> dict:
     return out
 
 
-def profile_calls(torch, label: str, calls: list) -> dict:
+def profile_calls(torch, label: str, calls: list, share_of: str | None = None) -> dict:
     """Where a call's time goes: the calls (zero-argument callables) under
     torch.profiler after one warm call; the device's busy time is the union
     of its kernel and copy intervals, its idle share the rest of the host's
-    wall time of those calls, and the top device ops by summed time."""
+    wall time of those calls, and the top device ops by summed time. With
+    `share_of`, also the share of the summed device time in the ops whose
+    name holds that string."""
     from torch.profiler import ProfilerActivity, profile
 
     calls[0]()                                  # warm
@@ -1111,12 +1222,253 @@ def profile_calls(torch, label: str, calls: list) -> dict:
                idle_share=(1 - busy / wall_us) if dev else None,
                device_ops_per_call=len(dev) / n,
                top=[(name[:60], t / n / 1e3) for name, t in top])
+    if share_of is not None:
+        total = sum(by_name.values())
+        row["share"] = (sum(t for name, t in by_name.items() if share_of in name) / total
+                        if total else None)
+        print(f"profile {label}: share of device time in {share_of}: {row['share']}",
+              flush=True)
     idle = "n/a" if row["idle_share"] is None else f"{row['idle_share']:.3f}"
     print(f"profile {label}: {row['wall_ms_per_call']:.3f} ms/call wall, device busy "
           f"{row['device_busy_ms_per_call']:.3f} ms/call "
           f"({row['device_ops_per_call']:.0f} device ops), idle share {idle}; top: "
           + ", ".join(f"{name} {t:.4f}" for name, t in row["top"][:4]), flush=True)
     return row
+
+
+def fan_in_over_contraction(params: dict, cfg) -> dict:
+    """Scale a drawn tree's attention projections, in place, to fan-in over
+    the axes they contract: d_model for wq, wk, wv and H * hd for wo (the MLP
+    and the head already are). The reference's init takes fan-in over axis -2
+    (`src/repro/models/base.py:41-44`), which for wq [d, H, hd] and wk
+    [d, KH, hd] is the head axis: at TinyLlama's width q and k then have
+    std ~8 and ~23 and the scores ~180, a near-hard attention under which
+    any change of summation order, the plain twin's own re-blocking
+    included, changes the greedy tokens at 22 layers (phase 11 reports
+    how far)."""
+    a, d, h = params["blocks"]["attn"], cfg.d_model, cfg.n_heads
+    a["wq"].mul_(math.sqrt(h / d))
+    a["wk"].mul_(math.sqrt(cfg.n_kv_heads / d))
+    a["wv"].mul_(math.sqrt(cfg.n_kv_heads / d))
+    a["wo"].mul_(1 / math.sqrt(h))
+    return params
+
+
+def exact_attention(torch, q, k, v, causal=True, window=-1, q_offset=0, **_):
+    """Softmax attention in f64: the yardstick of the per-layer check."""
+    b, sq, h, d = q.shape
+    g = h // k.shape[2]
+    kd, vd = (x.double().repeat_interleave(g, 2) for x in (k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), kd) / math.sqrt(d)
+    qp = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    ok = (kp <= qp) if causal else torch.ones_like(qp - kp, dtype=torch.bool)
+    if window > 0:
+        ok &= (qp - kp) < window
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc.masked_fill(~ok, -1e30), -1), vd)
+
+
+def phase_lm(torch, launches: dict, profile: bool = False) -> dict:
+    """Phase 11: the dense-decoder LM serve at TinyLlama-1.1B's published
+    width and depth (`LM`), weights drawn from the seed.
+
+    With the reference's own init, as its launcher draws it: the main path,
+    counted (bf16 `Engine.generate` x LM_GENERATES, 22 attention launches each
+    and no other kernel), time to first token and decode ms per token; every
+    layer's attention on its own inputs (the prefill's, first two rows),
+    kernel and plain twin against f64, the kernel no further off than 1.5x
+    the twin (bf16 and f32); and, reported only, how far kernel vs twin and
+    twin vs the twin re-blocked drift apart end to end in f32.
+
+    With the attention projections at fan-in over their contraction
+    (`fan_in_over_contraction`): in f32 the greedy tokens of kernel and twin
+    identical, the prefill's last logits within 1e-3 and decode(prefill(x), t)
+    against prefill(x ‖ t) within 5e-3; in bf16 the last logits within
+    LM_BF16_LOGIT_BOUND, token agreement reported."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch import configs
+    from repro_torch import kernels as tk
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    from repro_torch.models import count_params, get_model, init_params, layers
+    from repro_torch.serving import Engine, ServeConfig
+
+    dev = "cuda"
+    b, s, new = LM["batch"], LM["prompt_len"], LM["max_new"]
+    cfg = configs.get_config(LM["arch"])
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    prompt = {"tokens": toks[:, :s].contiguous()}
+    pad_to = s + new + 1
+    models = {dt: get_model(dataclasses.replace(cfg, dtype=dt))
+              for dt in (torch.bfloat16, torch.float32)}
+    engines = {dt: Engine(m, ServeConfig(max_new=new)) for dt, m in models.items()}
+
+    def draw(conditioned: bool) -> dict:
+        """{dtype: params}: one f32 draw from the seed, cast to bf16."""
+        p32 = init_params(models[torch.float32].specs,
+                          torch.Generator(device=dev).manual_seed(SEED), dev)
+        if conditioned:
+            fan_in_over_contraction(p32, cfg)
+
+        def cast(t):
+            return {k: cast(v) for k, v in t.items()} if isinstance(t, dict) else t.bfloat16()
+        return {torch.float32: p32, torch.bfloat16: cast(p32)}
+
+    def using(fn):
+        """The attention entry of the model swapped for `fn`."""
+        return mock.patch.object(layers, "flash_attention_fwd", fn)
+
+    def reblocked(q, k, v, **kw):
+        return flash_fwd_ref(q, k, v, **dict(kw, block_q=128, block_k=256))
+
+    def end_to_end(dt, params, fn):
+        """(prefill last logits, greedy tokens) with the attention `fn`."""
+        with using(fn):
+            lg, _ = models[dt].prefill_fn(params, prompt)
+            return lg, engines[dt].generate(params, prompt)
+
+    # --- the reference's init: the main path, counted
+    ref = draw(False)
+    model, params, eng = models[torch.bfloat16], ref[torch.bfloat16], engines[torch.bfloat16]
+    n_params = count_params(model.specs)
+    gen_s = []
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    for _ in range(LM_GENERATES):
+        t0 = time.perf_counter()
+        toks_k = eng.generate(params, prompt)
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    counts = tk.launch_counts()
+    require_only(counts, ("flash_attention_fwd",), "lm generate")
+    require(counts["flash_attention_fwd"] == cfg.n_layers * LM_GENERATES,
+            f"lm generate: {counts['flash_attention_fwd']} attention launches in "
+            f"{LM_GENERATES} calls, expected {cfg.n_layers} a call")
+    add_launches(launches, counts)
+    require(tuple(toks_k.shape) == (b, new) and
+            bool(((toks_k >= 0) & (toks_k < cfg.vocab)).all()),
+            f"lm generate: tokens {tuple(toks_k.shape)} out of shape or range")
+
+    ttft_ms, dec_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill_fn(params, prompt, pad_to=pad_to)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(new):
+            step, cache = model.decode_fn(params, cache, tok, s + i)
+            tok = torch.argmax(step, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        ttft_ms.append((t1 - t0) * 1e3)
+        dec_ms.append((time.perf_counter() - t1) / new * 1e3)
+    require(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all()),
+            "lm bf16: logits not finite")
+    tok_s = b * new / statistics.median(gen_s[1:])
+    out = dict(arch=cfg.name, params=n_params, batch=b, prompt_len=s, max_new=new,
+               generate_s=gen_s, ttft_ms=ttft_ms, decode_ms_per_token=dec_ms,
+               tokens_per_s=tok_s, launches=counts["flash_attention_fwd"])
+    print(f"lm serve: {cfg.name} ({n_params} parameters, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, bf16), batch {b} x prompt {s} x {new} new, greedy: prefill "
+          f"(time to first token) {statistics.median(ttft_ms):.3f} ms, decode "
+          f"{statistics.median(dec_ms):.3f} ms/token, generate {gen_s[0]:.3f} s cold / "
+          f"{statistics.median(gen_s[1:]):.3f} s warm ({tok_s:.1f} generated tokens/s)",
+          flush=True)
+    if profile:
+        out["profile prefill"] = profile_calls(torch, "lm prefill bf16", [
+            lambda: model.prefill_fn(params, prompt, pad_to=pad_to)], share_of="flash_fwd")
+        _, cache = model.prefill_fn(params, prompt, pad_to=pad_to)
+        state = dict(cache=cache, tok=toks_k[:, 0], pos=s)
+
+        def decode_step():
+            step, state["cache"] = model.decode_fn(params, state["cache"], state["tok"],
+                                                   state["pos"])
+            state["tok"] = torch.argmax(step, -1).to(torch.int32)
+            state["pos"] += 1
+
+        out["profile decode"] = profile_calls(torch, "lm decode step bf16",
+                                              [decode_step] * 16)
+        del state
+    del cache
+
+    layer_err = {}
+    for dt in (torch.bfloat16, torch.float32):     # every layer on its own inputs
+        seen = []
+
+        def record(q, k, v, **kw):
+            seen.append((q[:2], k[:2], v[:2], kw))
+            return tk.flash_attention_fwd(q, k, v, **kw)
+
+        with using(record):
+            models[dt].prefill_fn(ref[dt], prompt)
+        rows = []
+        for q, k, v, kw in seen:
+            want = exact_attention(torch, q, k, v, **kw)
+            rows.append(tuple(float((got.double() - want).abs().max()) for got in (
+                tk.flash_attention_fwd(q, k, v, **kw), flash_fwd_ref(q, k, v, **kw))))
+        del seen
+        name = str(dt).split(".")[-1]
+        require(len(rows) == cfg.n_layers and all(a <= 1.5 * t for a, t in rows),
+                f"lm {name}: a layer's attention off f64 by more than 1.5x the twin's: {rows}")
+        layer_err[name] = rows
+    lg_k, tk_k = end_to_end(torch.float32, ref[torch.float32], tk.flash_attention_fwd)
+    lg_t, tk_t = end_to_end(torch.float32, ref[torch.float32], flash_fwd_ref)
+    lg_r, tk_r = end_to_end(torch.float32, ref[torch.float32], reblocked)
+    drift = dict(kernel_vs_twin_logits=float((lg_k - lg_t).abs().max()),
+                 kernel_vs_twin_tokens=float((tk_k == tk_t).float().mean()),
+                 twin_vs_reblocked_logits=float((lg_t - lg_r).abs().max()),
+                 twin_vs_reblocked_tokens=float((tk_t == tk_r).float().mean()))
+    out.update(layer_err_vs_f64=layer_err, reference_init_f32_drift=drift)
+    worst = {k: (max(a for a, _ in v), max(t for _, t in v)) for k, v in layer_err.items()}
+    print(f"lm checks, the reference's init: {counts['flash_attention_fwd']} attention launches "
+          f"in {LM_GENERATES} generates ({cfg.n_layers} each), nothing else launched; bf16 "
+          f"logits finite; every layer's attention vs f64, worst max |err| kernel / twin: "
+          + ", ".join(f"{k} {a:.4g} / {t:.4g}" for k, (a, t) in worst.items())
+          + f"; f32 end to end (not gated): kernel vs twin logits "
+          f"{drift['kernel_vs_twin_logits']:.4g}, tokens agree "
+          f"{drift['kernel_vs_twin_tokens']:.4f}; twin vs twin re-blocked "
+          f"{drift['twin_vs_reblocked_logits']:.4g}, {drift['twin_vs_reblocked_tokens']:.4f}",
+          flush=True)
+    del ref, lg_k, lg_t, lg_r
+
+    # --- attention projections at fan-in over their contraction: the gates end to end
+    con = draw(True)
+    lg32, tk32 = end_to_end(torch.float32, con[torch.float32], tk.flash_attention_fwd)
+    lg32_t, tk32_t = end_to_end(torch.float32, con[torch.float32], flash_fwd_ref)
+    f32_err = float((lg32 - lg32_t).abs().max())
+    require(torch.equal(tk32, tk32_t),
+            f"lm f32: greedy tokens differ kernel vs twin in "
+            f"{int((tk32 != tk32_t).sum())} of {tk32.numel()}")
+    require(f32_err <= 1e-3, f"lm f32: prefill logits kernel vs twin differ by {f32_err}")
+    m32, p32 = models[torch.float32], con[torch.float32]
+    _, cache = m32.prefill_fn(p32, prompt, pad_to=s + 1)
+    lg_step, _ = m32.decode_fn(p32, cache, toks[:, s], s)
+    lg_full, _ = m32.prefill_fn(p32, {"tokens": toks})
+    dec_err = float((lg_step - lg_full).abs().max())
+    require(dec_err < 5e-3, f"lm f32: decode(prefill(x), t) vs prefill(x + t) differ by "
+                            f"{dec_err}")
+    del cache
+    lgb, tkb = end_to_end(torch.bfloat16, con[torch.bfloat16], tk.flash_attention_fwd)
+    lgb_t, tkb_t = end_to_end(torch.bfloat16, con[torch.bfloat16], flash_fwd_ref)
+    bf16_err = float((lgb - lgb_t).abs().max())
+    agree = float((tkb == tkb_t).float().mean())
+    require(bool(torch.isfinite(lgb).all()) and bool(torch.isfinite(lgb_t).all()),
+            "lm bf16: logits not finite")
+    require(bf16_err <= LM_BF16_LOGIT_BOUND,
+            f"lm bf16: prefill logits kernel vs twin differ by {bf16_err} > "
+            f"{LM_BF16_LOGIT_BOUND}")
+    out.update(f32_logit_err=f32_err, decode_consistency_err=dec_err,
+               bf16_logit_err=bf16_err, bf16_token_agreement=agree,
+               logit_std=float(lgb.std()), logit_max=float(lgb.abs().max()))
+    print(f"lm checks, projections at fan-in over their contraction: f32 greedy tokens "
+          f"kernel == twin ({tk32.numel()}), last logits max |diff| {f32_err:.3g}; "
+          f"decode(prefill(x), t) vs prefill(x + t) {dec_err:.3g}; bf16 logits finite, last "
+          f"logits kernel vs twin max |diff| {bf16_err:.4g} (bound {LM_BF16_LOGIT_BOUND}; "
+          f"max |logit| {out['logit_max']:.3g}), tokens agree {agree:.4f}", flush=True)
+    return out
 
 
 def phase_profile(torch, state, protos_u, base) -> dict:
@@ -1202,6 +1554,7 @@ def main(argv: list[str]) -> int:
         torch, state, launches, profile=args.profile))
     coarse = phase("10 coarse-to-fine and multi-centroid", lambda: phase_coarse(
         torch, launches, profile=args.profile))
+    lm = phase("11 LM serve", lambda: phase_lm(torch, launches, profile=args.profile))
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
 
@@ -1225,7 +1578,7 @@ def main(argv: list[str]) -> int:
             card=card, kind=kind, torch=torch.__version__, build_s=_build.build_seconds,
             ber=dict(avg=avg, max=mx, ms=pre_ms), kernels=kernels, serves=serves["runs"],
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
-            sparse_serve=sparse_serve, coarse=coarse, launches=launches,
+            sparse_serve=sparse_serve, coarse=coarse, lm=lm, launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)
     print(json.dumps({"kernels": line}))

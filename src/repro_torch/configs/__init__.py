@@ -1,0 +1,55 @@
+"""Architecture registry (counterpart of `repro.configs`).
+
+`get_config(name)` returns the full published config and `get_smoke(name)` a
+reduced same-family config, forced to f32, for CPU tests. The port carries
+the four dense decoders; the MoE, SSM, hybrid, enc-dec and VLM architectures
+raise until their slice (ROADMAP module item 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+import torch
+
+ARCHS = (
+    "smollm_360m",
+    "gemma3_1b",
+    "tinyllama_1_1b",
+    "deepseek_coder_33b",
+    "qwen2_vl_7b",
+    "whisper_tiny",
+    "falcon_mamba_7b",
+    "zamba2_2_7b",
+    "mixtral_8x22b",
+    "kimi_k2",
+)
+DENSE = ("smollm_360m", "gemma3_1b", "tinyllama_1_1b", "deepseek_coder_33b")
+
+ALIASES = {a.replace("_", "-"): a for a in ARCHS} | {
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "kimi-k2-1t-a32b": "kimi_k2",
+    "kimi-k2": "kimi_k2",
+}
+
+
+def _mod(name: str):
+    name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
+    if name not in ARCHS:
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
+    if name not in DENSE:
+        raise NotImplementedError(
+            f"{name} is not ported yet: the port carries the dense decoders "
+            f"{DENSE}; MoE, SSM, hybrid, enc-dec and VLM wait for ROADMAP module "
+            "item 13")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str):
+    return _mod(name).CONFIG
+
+
+def get_smoke(name: str):
+    """Reduced same-family config, forced to f32 as the reference's is."""
+    return dataclasses.replace(_mod(name).smoke_config(), dtype=torch.float32)

@@ -1,11 +1,14 @@
-"""Carry hypervectors and channel state between numpy and the port.
+"""Carry hypervectors, channel state and model parameters between numpy
+and the port.
 
 numpy is the meeting point with the JAX package (convert a JAX array with
 ``np.asarray`` first); this module imports nothing of JAX. Packed words are
 uint32 in numpy and int32 with the same bits in the port; sparse index lists
-are int32 on both sides (``SENTINEL`` = 2^31 - 1 kept as is). Like the port's
-entry points, the functions that make tensors put them on CUDA unless the
-caller asks for another device, and raise when CUDA is absent.
+are int32 on both sides (``SENTINEL`` = 2^31 - 1 kept as is). bf16 arrays
+(numpy dtype ``bfloat16`` from ml_dtypes, which ``torch.from_numpy``
+refuses) cross as their 16-bit patterns, bit for bit. Like the port's entry
+points, the functions that make tensors put them on CUDA unless the caller
+asks for another device, and raise when CUDA is absent.
 """
 from __future__ import annotations
 
@@ -43,12 +46,37 @@ def state_from_numpy(leaves: dict, device: str | torch.device | None = "cuda"
     ))
 
 
+def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_numpy(tree, device: str | torch.device | None = "cuda"):
+    """A nested dict of numpy arrays (a JAX parameter pytree through
+    ``np.asarray``) -> the same nested dict of tensors on `device`, key paths,
+    shapes, layouts and dtypes kept (bf16 bit for bit)."""
+    dev = _device.resolve(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    return _tensor_from_numpy(np.asarray(tree)).to(dev)
+
+
 def to_numpy(x, words: bool = False):
     """Tensor -> numpy (``words=True`` views int32 words as uint32; index
-    lists stay int32 with the default ``words=False``); a
-    ChannelState -> the dict of its eight leaves."""
+    lists stay int32 with the default ``words=False``; bf16 -> ml_dtypes'
+    bfloat16, bit for bit); a ChannelState -> the dict of its eight leaves; a
+    nested dict of tensors (model parameters, a KV cache) -> the same dict of
+    arrays."""
     if isinstance(x, ChannelState):
         return {f: to_numpy(getattr(x, f)) for f in ChannelState.FIELDS}
+    if isinstance(x, dict):
+        return {k: to_numpy(v, words) for k, v in x.items()}
+    if x.dtype == torch.bfloat16:
+        import ml_dtypes   # numpy's bfloat16 type; needed only to convert bf16 back
+
+        return x.detach().cpu().view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     a = x.detach().cpu().numpy()
     if words:
         if a.dtype != np.int32:

@@ -1,0 +1,66 @@
+"""Model facade (counterpart of `repro/models/zoo.py`).
+
+`get_model(cfg)` returns a `Model` whose members are plain functions:
+
+* prefill_fn(params, batch, pad_to=None) -> (last logits [B, V] f32, cache)
+* decode_fn(params, cache, token [B], pos: int) -> (logits [B, V] f32, cache)
+* init_cache_fn(batch, seq, device=None) -> an empty cache
+
+The port carries the text-only dense decoder (smollm, gemma3, tinyllama,
+deepseek). `loss_fn` waits for the training slice and the other families
+(MoE, VLM, SSM, hybrid, enc-dec) for theirs (ROADMAP module item 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models import transformer as tfm
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    specs: Any
+    prefill_fn: Callable
+    decode_fn: Callable
+    init_cache_fn: Callable
+
+
+def _last_logits(params: dict, cfg: ModelConfig, h_last: torch.Tensor) -> torch.Tensor:
+    """h_last [B, 1, d] -> logits [B, V] (f32)."""
+    return tfm.logits_head(params, cfg, h_last)[:, 0]
+
+
+def _decoder_model(cfg: ModelConfig) -> Model:
+    specs = tfm.decoder_specs(cfg)
+
+    def prefill_fn(params, batch, pad_to=None):
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+        x = tfm.embed_tokens(params, cfg, tokens)
+        h, kv = tfm.run_stack_prefill(params, cfg, x, positions)
+        cache = tfm.cache_from_kv(cfg, kv, s, pad_to)
+        return _last_logits(params, cfg, h[:, -1:]), cache
+
+    def decode_fn(params, cache, token, pos):
+        x = tfm.embed_tokens(params, cfg, token[:, None])
+        h, cache = tfm.run_stack_decode(params, cfg, x, int(pos), cache)
+        return _last_logits(params, cfg, h), cache
+
+    def init_cache_fn(batch, seq, device=None):
+        return tfm.init_cache(cfg, batch, seq, device=device)
+
+    return Model(cfg, specs, prefill_fn, decode_fn, init_cache_fn)
+
+
+def get_model(cfg: ModelConfig) -> Model:
+    if not isinstance(cfg, ModelConfig):
+        raise NotImplementedError(
+            f"{type(cfg).__name__}: the port carries the dense decoder only; the other "
+            "model families wait for ROADMAP module item 13")
+    return _decoder_model(cfg)

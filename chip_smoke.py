@@ -7,17 +7,23 @@ Phases, one line each (a failing phase exits non-zero; there is no CPU
 fallback, and a missing GPU is a failure):
 
 1. card: the GPU's name and power limit (nvidia-smi); build the CUDA kernels
-   from src/repro_torch/csrc with nvcc and print the build seconds;
+   from src/repro_torch/csrc with nvcc and print the build seconds; count
+   the tensor-core instructions in the built library's SASS (cuobjdump):
+   HGMMA/HMMA in the bf16 attention kernel, IGMMA/IMMA and no IDP4A in
+   assoc_matmul, and the SIMT attention kernel built for f32 only;
 2. kernels: each of the nine kernels against its plain PyTorch version on
    the card, at the main path's shapes and at one tall shape (102,400 classes
-   over 64 cores, d = 2048, batch 4096); the fused top-k and the per-bank
+   over 64 cores, d = 2048, batch 4096); assoc_matmul also at a ragged shape
+   (K = 500, a partial class tile); the fused top-k and the per-bank
    search also at ragged, tie (across the kernel's 128-row tiles) and
    limit shapes, k = 1 against the top-1 kernel; the two sparse kernels at
    ragged, tie and empty-query shapes -- bit-exact; the attention forward at
    the LM prefill's shape (B = 8, S = 1024, 32 heads over 4, D = 64, causal,
    bf16), gemma3-1b's layer shape (4 heads over 1, D = 256, window 512 and
-   global), non-causal, ragged, a prefill chunk (q_offset 512) and f32 --
-   within atol = rtol = 2e-2 in bf16 and 1e-5 in f32; each with the kernel's median
+   global), non-causal, ragged, a prefill chunk (q_offset 512), f32,
+   deepseek-coder-33b's layer shape (56 heads over 8, D = 128), D = 16 and
+   32, and rows that see no key (q_offset -64) -- within atol = rtol = 2e-2
+   in bf16 and 1e-5 in f32; each with the kernel's median
    device time (CUDA-graph replay) and eager call time, the plain version's
    time, one PyTorch library call's where one computes the same function,
    and the bound (least time the card could take);
@@ -87,6 +93,9 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -175,6 +184,59 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# tensor-core instructions in the SASS of the redesigned kernels: kernel
+# symbol -> the opcodes that must appear and those that must not
+TENSOR_CORE_SASS = {
+    "flash_fwd_mma_kernel": (("HGMMA", "HMMA"), ()),
+    "assoc_matmul_kernel": (("IGMMA", "IMMA"), ("IDP4A",)),
+}
+
+
+def sass_counts(lib: Path) -> dict:
+    """{kernel symbol: {opcode: count}} over every instance of the kernels in
+    TENSOR_CORE_SASS, from ``cuobjdump -sass`` of the built library; also
+    the names of the SIMT attention kernel's instances (f32 only)."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    ops = {op for want, bad in TENSOR_CORE_SASS.values() for op in want + bad}
+    pat = re.compile(r"\b(" + "|".join(sorted(ops)) + r")\b")
+    counts = {name: dict.fromkeys(sorted(ops), 0) for name in TENSOR_CORE_SASS}
+    simt, current = [], None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            current = next((n for n in TENSOR_CORE_SASS if n in fn), None)
+            if "flash_fwd_simt_kernel" in fn:
+                simt.append(fn)
+        elif current is not None:
+            for op in pat.findall(line):
+                counts[current][op] += 1
+    return dict(counts=counts, simt_attention=simt)
+
+
+def ptxas_report(lib: Path) -> dict:
+    """{instance: (registers, spill store bytes, spill load bytes)} of the
+    kernels in TENSOR_CORE_SASS, from the ptxas report (-Xptxas -v) that the
+    build keeps in build.log beside the library."""
+    out, current = {}, None
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            name = next((n for n in TENSOR_CORE_SASS if n in fn), None)
+            current = None if name is None else fn[fn.index(name):].split("EE")[0] + "E"
+            if current is not None:
+                out[current] = [None, None, None]
+        elif current is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[current][1:] = [int(st), int(ld)]
+        elif current is not None and "Used" in line and "registers" in line:
+            out[current][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def _events(torch):
@@ -282,7 +344,9 @@ def kernel_cases(torch, gen):
     for label, (g, b, c, k) in [("serve per core G=64", (64, 256, 100, 512)),
                                 ("serve permuted G=192", (192, 256, 100, 512)),
                                 ("serve wired G=1", (1, 256, 6400, 512)),
-                                ("tall", (64, 4096, 1600, 2048))]:
+                                ("tall", (64, 4096, 1600, 2048)),
+                                # padding past K, a partial class tile, unaligned rows
+                                ("ragged", (3, 200, 100, 500))]:
         q, p = bits(g, b, k), bits(g, c, k)
         qb = (2 * q.to(torch.bfloat16) - 1).contiguous()
         pbt = (2 * p.to(torch.bfloat16) - 1).transpose(1, 2).contiguous()
@@ -463,13 +527,14 @@ def hamming_k_cases(torch, gen):
 
 def attention_pairs(sq: int, skv: int, causal: bool, window: int, q_offset: int) -> int:
     """The (query, key) pairs of one head that the mask keeps: the work these
-    inputs need (query i at position q_offset + i)."""
+    inputs need (query i at position q_offset + i; a row that sees no key
+    takes the mean of V over all Skv keys, as the reference gives it)."""
     n = 0
     for i in range(sq):
         qp = q_offset + i
         hi = min(skv, qp + 1) if causal else skv
         lo = max(0, qp - window + 1) if window > 0 else 0
-        n += max(0, hi - lo)
+        n += hi - lo if hi > lo else skv
     return n
 
 
@@ -477,9 +542,11 @@ def flash_cases(torch, gen):
     """The attention kernel's cases, as `sparse_kernel_cases` gives them: the
     prefill's shape first (TinyLlama-1.1B, B = 8, S = 1024), then gemma3-1b's
     layer shape at its full width (windowed and global), non-causal, a ragged
-    length, a prefill chunk (q_offset = 512 over a 768-key prefix) and f32 at
-    the prefill's shape. Tolerances: f32 atol = rtol = 1e-5 (only the order
-    of the sums differs); bf16 atol = rtol = 2e-2, compared in f32 (both
+    length, a prefill chunk (q_offset = 512 over a 768-key prefix), f32 at
+    the prefill's shape, deepseek-coder-33b's layer shape (B = 2), the two
+    smallest head dims, and a causal q_offset of -64 (queries 0-63 see no
+    key and take the mean of V over all keys). Tolerances: f32 atol = rtol =
+    1e-5 (only the order of the sums differs); bf16 atol = rtol = 2e-2, compared in f32 (both
     sides round to bf16 once at the output). The library call is
     F.scaled_dot_product_attention on the same tensors (is_causal where that
     is the mask, else an explicit boolean mask), timed eagerly."""
@@ -496,7 +563,12 @@ def flash_cases(torch, gen):
             ("non-causal", (8, 512, 512, 32, 4, 64, False, -1, 0, torch.bfloat16)),
             ("ragged", (8, 1000, 1000, 32, 4, 64, True, -1, 0, torch.bfloat16)),
             ("chunk", (8, 256, 768, 32, 4, 64, True, -1, 512, torch.bfloat16)),
-            ("f32 prefill", (8, 1024, 1024, 32, 4, 64, True, -1, 0, torch.float32))]:
+            ("f32 prefill", (8, 1024, 1024, 32, 4, 64, True, -1, 0, torch.float32)),
+            ("deepseek-coder-33b", (2, 1024, 1024, 56, 8, 128, True, -1, 0, torch.bfloat16)),
+            ("D=16", (2, 300, 300, 4, 2, 16, True, -1, 0, torch.bfloat16)),
+            ("D=32", (2, 300, 300, 4, 2, 32, True, -1, 0, torch.bfloat16)),
+            # queries 0-63 see no key: the mean of V over all 128 keys
+            ("fully masked rows", (2, 128, 128, 4, 2, 64, True, -1, -64, torch.bfloat16))]:
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, skv, kh, d, generator=gen, device="cuda").to(dt)
                 for _ in range(2))
@@ -1512,6 +1584,20 @@ def main(argv: list[str]) -> int:
     _build.library()
     print(f"build: {_build.build_seconds:.2f} s (nvcc, sm_90a, "
           f"{len(_build.SOURCES)} sources in parallel)", flush=True)
+    sass = sass_counts(_build.build())
+    sass["ptxas"] = ptxas_report(_build.build())
+    print("ptxas (registers, spill store / load bytes): " + ", ".join(
+        f"{k} {v[0]} regs {v[1]}/{v[2]} B" for k, v in sass["ptxas"].items()), flush=True)
+    for name, (want, bad) in TENSOR_CORE_SASS.items():
+        got = sass["counts"][name]
+        print(f"sass {name}: " + ", ".join(f"{op} {got[op]}" for op in want + bad), flush=True)
+        require(sum(got[op] for op in want) > 0, f"sass {name}: no {'/'.join(want)} instruction")
+        require(all(got[op] == 0 for op in bad), f"sass {name}: {bad} present: {got}")
+    # the SIMT attention kernel is built for f32 only (no bf16 instance)
+    require(sass["simt_attention"] and all("bfloat16" not in fn
+                                           for fn in sass["simt_attention"]),
+            f"sass: the SIMT attention kernel has other than f32 instances: "
+            f"{sass['simt_attention']}")
     seconds["1 build"] = time.perf_counter() - t_start
 
     def phase(name, fn):
@@ -1576,6 +1662,7 @@ def main(argv: list[str]) -> int:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(dict(
             card=card, kind=kind, torch=torch.__version__, build_s=_build.build_seconds,
+            sass=sass,
             ber=dict(avg=avg, max=mx, ms=pre_ms), kernels=kernels, serves=serves["runs"],
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, launches=launches,

@@ -11,43 +11,512 @@
 // accumulator carried in f32 across kv tiles; P cast to the input type for
 // the P.V product, as the reference casts it; out = acc / max(l, 1e-30) in
 // the input type. Unlike the Pallas wrapper it takes any Sq and Skv: keys
-// past Skv are masked inside the tile and their rows of K and V are zero.
+// past Skv score -inf inside the tile, so they add nothing even to a row
+// that sees no key (which, as in the reference, gets the mean of V over all
+// Skv keys: a block holding such a row visits every kv tile).
 //
 // What bounds it on the H100: operations. At the prefill shape (B = 8,
 // S = 1024, H = 32, KH = 4, D = 64, causal, bf16) it moves 75.5 MB (0.0225 ms
-// at 3.35 TB/s) and does 34.4 GFLOP (0.0347 ms at the bf16 tensor-core peak).
-// This first version runs both products as f32 FMAs outside the tensor cores
-// (67 TFLOP/s at best), so it cannot come near that bound; mma/wgmma tiles fed
-// by TMA are the next step.
+// at 3.35 TB/s) and does 34.4 GFLOP over the causal pairs (0.0347 ms at the
+// bf16 tensor-core peak of 989 TFLOP/s).
 //
-// Design. One block of 256 threads owns (b * H + h, a tile of 64 query rows);
-// four neighbouring threads own one row and split D between them by float4
-// chunks (lane l owns chunks l, l + 4, ...), so a warp's read of a K or V row
-// in shared memory is four distinct float4s broadcast to eight rows: no bank
-// conflicts. Each kv tile (64 keys; 32 at D = 256) is staged into shared
-// memory as f32 by the whole block. A thread keeps its q chunks, its
-// accumulator chunks and the tile's scores in registers; the four lanes of a
-// row add their partial dots with two shuffles and then hold the same scores,
-// so the tile's max, the exps and the row sum need no further exchange. Tiles
-// that lie wholly above the diagonal or wholly outside the window for every
-// row of the block are skipped: for a row with at least one visible key this
-// changes only the order of the sums (a masked tile's p = 1 terms are wiped
-// exactly by alpha = exp(-1e30 - m) = 0). A row with no visible key at all,
-// which the model never forms, gets the mean of V over the tiles its block
-// visits where the reference takes it over every key. Query tiles run
-// heaviest first (the last causal tiles have the most keys).
+// The dtype chooses the design, fixed for each:
+//
+// bf16: both products on the tensor cores with wgmma (flash_fwd_mma_kernel).
+// A block of two warpgroups owns (b * H + h, 128 query rows), a warpgroup 64
+// rows, a warp 16 of them. S = Q.K^T is wgmma m64nBKk16 with Q and the K tile
+// read from shared memory (both K-major, as they lie in device memory); the
+// online softmax runs on S's accumulator fragments in registers (a row's max
+// is two shuffles within its quad, the scale folded into the exponent, l kept
+// per thread and summed once at the end, O rescaled only when a row max
+// moved); P is rounded to bf16 in registers and fed straight back as the
+// register A operand of the P.V wgmma (m64nDk16, the S accumulator layout of
+// two n8 tiles is the A layout of one k16 step), with the V tile read from
+// shared memory as a transposed (MN-major) B. K and V stay bf16 in shared
+// memory: 64-key tiles (32 at D = 256) in a two-stage cp.async ring, one
+// __syncthreads a tile, in the canonical 128/64/32-byte swizzled layouts
+// wgmma reads (D >= 64 in 64-column blocks). Tiles that no row of the block
+// can see are not visited, a warpgroup skips tiles none of its rows can see,
+// and only tiles that cross a mask edge evaluate the mask per element: for a
+// row with a visible key this changes only the order of the sums (a masked
+// tile's p are wiped exactly by alpha = exp(-1e30 - m) = 0). The output is
+// staged in shared memory and written in 16-byte rows. Query tiles run
+// heaviest first. D <= 64 is held to 128 registers: two blocks an SM.
+//
+// f32: the SIMT kernel (flash_fwd_simt_kernel), f32 FMAs on the CUDA cores
+// (67 TFLOP/s at best). It beats SDPA in f32 on this card, and TF32 tensor
+// cores would round the inputs to 10 bits, which the f32 model's identity
+// with its plain twin does not survive. A block of 256 threads owns 64 query
+// rows, four threads a row splitting D by float4 chunks; each kv tile is
+// staged into shared memory by the whole block.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// a row at position qp sees no key at all
+__device__ __forceinline__ bool sees_no_key(int qp, int Skv, int causal, int window) {
+  const int lo = window > 0 ? max(0, qp - window + 1) : 0;
+  const int hi = causal ? min(Skv, qp + 1) : Skv;
+  return hi <= lo;
+}
+
+// The kv range [beg, end) a block of rows at positions q_lo..q_hi visits
+// (beg a multiple of bk). Rows that see no key lie at the two ends of the
+// positions (before key 0 when causal, past Skv + window - 1 when windowed),
+// so testing the first and last row finds them; then every key is visited.
+__device__ __forceinline__ void kv_range(int q_lo, int q_hi, int Skv, int causal, int window,
+                                         int bk, int& beg, int& end) {
+  if (sees_no_key(q_lo, Skv, causal, window) || sees_no_key(q_hi, Skv, causal, window)) {
+    beg = 0;
+    end = Skv;
+    return;
+  }
+  end = causal ? min(Skv, q_hi + 1) : Skv;
+  beg = window > 0 ? max(0, q_lo - window + 1) / bk * bk : 0;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int WG_ROWS = 64;                 // query rows a warpgroup owns
+constexpr int MMA_BQ = 2 * WG_ROWS;         // query rows per block (two warpgroups)
+constexpr int MMA_THREADS = 256;
+
+template <int D> struct Mma {
+  static constexpr int BK = D >= 256 ? 32 : 64;     // keys per kv tile
+  static constexpr int CH = D / 8;                  // 16-byte chunks a row
+  static constexpr size_t Q_BYTES = (size_t)MMA_BQ * D * 2;
+  static constexpr size_t KV_BYTES = (size_t)BK * D * 2;        // one K or V tile
+  // Q, K and V in two stages, and the 1024-byte alignment of the swizzle atoms
+  static constexpr size_t SMEM = Q_BYTES + 4 * KV_BYTES + 1024;
+};
+
+// Byte offset of 16-byte chunk c of row r in a bf16 tile of `rows` rows of D
+// values, in the canonical swizzled layouts wgmma reads: D >= 64 as D/64
+// column blocks of [rows][128 B] in the 128-byte swizzle, D = 32 as [rows]
+// [64 B] in the 64-byte swizzle, D = 16 as [rows][32 B] in the 32-byte one.
+template <int D>
+__device__ __forceinline__ int tile_off(int r, int c, int rows) {
+  if constexpr (D >= 64) {
+    return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  } else if constexpr (D == 32) {
+    return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+  } else {
+    return r * 32 + ((c ^ ((r >> 2) & 1)) << 4);
+  }
+}
+
+// swizzle of the layouts above (wgmma's layout type) and the byte stride
+// between 8-row groups
+template <int D> struct Swz {
+  static constexpr uint64_t TYPE = D >= 64 ? 1 : D == 32 ? 2 : 3;
+  static constexpr uint32_t ROW = D >= 64 ? 128 : 2 * D;        // bytes a row of one block
+  static constexpr uint32_t GROUP = 8 * ROW;
+};
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t type) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (type << 62);
+}
+
+// k16 step kk of a K-major operand (Q as A, K as B): rows r0.. of a tile
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int rows, int r0, int kk) {
+  using S = Swz<D>;
+  const uint32_t blk = D >= 64 ? (uint32_t)(kk >> 2) * rows * 128 : 0;
+  const uint32_t in_row = D >= 64 ? (uint32_t)(kk & 3) * 32 : (uint32_t)kk * 32;
+  return make_desc(base + blk + (uint32_t)r0 * S::ROW + in_row, 16, S::GROUP, S::TYPE);
+}
+
+// keys 16 ks .. 16 ks + 15 of V as an MN-major B operand (all D columns):
+// 8-key groups GROUP bytes apart, 64-column blocks rows * 128 bytes apart
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t base, int rows, int ks) {
+  using S = Swz<D>;
+  return make_desc(base + (uint32_t)ks * 16 * S::ROW, D >= 64 ? rows * 128 : 16, S::GROUP,
+                   S::TYPE);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// wgmma.mma_async m64nNk16, f32 += bf16 x bf16: SS reads A and B (K-major)
+// from shared memory; RS takes A from registers and B (MN-major, V) from
+// shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db);
+  else wgmma_ss_n64(d, da, db);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 2 : 1)   // two blocks an SM
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int Skv,
+                     int H, int KH, int causal, int window, int q_offset, float scale_log2) {
+  using M = Mma<D>;
+  constexpr int BK = M::BK, CH = M::CH;
+  constexpr int NT = BK / 8;       // n8 tiles of keys in S
+  constexpr int DT = D / 8;        // n8 tiles of the output
+  constexpr int KS = D / 16;       // k16 steps of Q.K^T
+  constexpr int PS = BK / 16;      // k16 steps of P.V
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sq = smem;
+  unsigned char* skv = smem + M::Q_BYTES;   // stage s: K at 2s, V at 2s + 1 (KV_BYTES each)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / KH);
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * MMA_BQ;   // heaviest query tile first
+  const int nrows = min(MMA_BQ, Sq - i0);
+  const size_t q_row = (size_t)H * D, kv_row = (size_t)KH * D;
+  const bf16* qbase = q + ((size_t)b * Sq + i0) * q_row + (size_t)h * D;
+  const bf16* kbase = k + (size_t)b * Skv * kv_row + (size_t)kh * D;
+  const bf16* vbase = v + (size_t)b * Skv * kv_row + (size_t)kh * D;
+
+  int k_beg, k_end;
+  kv_range(q_offset + i0, q_offset + i0 + nrows - 1, Skv, causal, window, BK, k_beg, k_end);
+  const int ntiles = k_end > k_beg ? (k_end - k_beg + BK - 1) / BK : 0;
+
+  auto load_kv = [&](int t, int stage) {
+    const int k0 = k_beg + t * BK;
+    unsigned char* sk = skv + (size_t)(2 * stage) * M::KV_BYTES;
+    unsigned char* sv = sk + M::KV_BYTES;
+    for (int e = tid; e < BK * CH; e += MMA_THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool ok = k0 + r < Skv;
+      const size_t off = (ok ? (size_t)(k0 + r) * kv_row : 0) + (size_t)c * 8;
+      cp_async16(sk + tile_off<D>(r, c, BK), kbase + off, ok ? 16 : 0);
+      cp_async16(sv + tile_off<D>(r, c, BK), vbase + off, ok ? 16 : 0);
+    }
+  };
+
+  for (int e = tid; e < MMA_BQ * CH; e += MMA_THREADS) {
+    const int r = e / CH, c = e % CH;
+    const bool ok = r < nrows;
+    cp_async16(sq + tile_off<D>(r, c, MMA_BQ),
+               qbase + (ok ? (size_t)r * q_row : 0) + (size_t)c * 8, ok ? 16 : 0);
+  }
+  if (ntiles > 0) load_kv(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  // this warpgroup's rows: block rows 64 wg ..; a warp's 16 rows are
+  // 16 warp .. 16 warp + 15, a thread's lane / 4 and lane / 4 + 8 of them
+  const int wgr0 = wg * WG_ROWS;
+  const int wglive = min(WG_ROWS, nrows - wgr0);      // <= 0: no live row
+  const int qg_lo = q_offset + i0 + wgr0, qg_hi = qg_lo + max(wglive, 1) - 1;
+  const bool wg_empty = wglive > 0 && (sees_no_key(qg_lo, Skv, causal, window) ||
+                                       sees_no_key(qg_hi, Skv, causal, window));
+  const int qw_lo = q_offset + i0 + 16 * warp, qw_hi = qw_lo + 15;
+  const int qp0 = qw_lo + (lane >> 2), qp1 = qp0 + 8;
+  const uint32_t sq_addr = smem_u32(sq);
+
+  float o[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // l: this thread's share
+
+  for (int t = 0; t < ntiles; ++t) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    // this thread's copies, visible to the tensor cores' (async proxy) reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();              // tile t landed; stage (t + 1) & 1 is consumed
+    if (t + 1 < ntiles) load_kv(t + 1, (t + 1) & 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const int k0 = k_beg + t * BK;
+    bool skip = wglive <= 0;
+    if (!skip && !wg_empty) {                         // the tile hidden from every row
+      skip = (causal && k0 > qg_hi) || (window > 0 && qg_lo - (k0 + BK - 1) >= window);
+    }
+    if (skip) continue;           // uniform over the warpgroup
+    const uint32_t sk_addr = smem_u32(skv + (size_t)(2 * (t & 1)) * M::KV_BYTES);
+    const uint32_t sv_addr = sk_addr + (uint32_t)M::KV_BYTES;
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      wgmma_ss<BK>(&s[0][0], kmajor_desc<D>(sq_addr, MMA_BQ, wgr0, kk),
+                   kmajor_desc<D>(sk_addr, BK, 0, kk));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+
+    // the mask, on raw scores, only on tiles crossing an edge; m stays raw and
+    // the scale (into the log2 domain) is applied in the exponent
+    const bool inside = k0 + BK <= Skv && (!causal || k0 + BK - 1 <= qw_lo) &&
+                        (window <= 0 || qw_hi - k0 < window);
+    if (!inside) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          if (kp >= Skv) {
+            s[j][e] = -INFINITY;
+          } else if ((causal && kp > qp) || (window > 0 && qp - kp >= window)) {
+            s[j][e] = NEG_INF;
+          }
+        }
+      }
+    }
+
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xFFFFFFFFu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xFFFFFFFFu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xFFFFFFFFu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xFFFFFFFFu, mx1, 2));
+    // __fmul_rn: never contracted into an FMA, so x * scale - ms is exactly 0
+    // where x == mx (a row that sees no key so far gets exp2(0) = 1)
+    const float ms0 = __fmul_rn(mx0, scale_log2), ms1 = __fmul_rn(mx1, scale_log2);
+    const float al0 = exp2f(__fmul_rn(m0, scale_log2) - ms0);
+    const float al1 = exp2f(__fmul_rn(m1, scale_log2) - ms1);
+    m0 = mx0;
+    m1 = mx1;
+    float ps0 = 0.f, ps1 = 0.f;
+    if (inside) {                 // every score finite: one FFMA an exponent
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][0] = exp2f(fmaf(s[j][0], scale_log2, -ms0));
+        s[j][1] = exp2f(fmaf(s[j][1], scale_log2, -ms0));
+        s[j][2] = exp2f(fmaf(s[j][2], scale_log2, -ms1));
+        s[j][3] = exp2f(fmaf(s[j][3], scale_log2, -ms1));
+        ps0 += s[j][0] + s[j][1];
+        ps1 += s[j][2] + s[j][3];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][0] = exp2f(__fmul_rn(s[j][0], scale_log2) - ms0);
+        s[j][1] = exp2f(__fmul_rn(s[j][1], scale_log2) - ms0);
+        s[j][2] = exp2f(__fmul_rn(s[j][2], scale_log2) - ms1);
+        s[j][3] = exp2f(__fmul_rn(s[j][3], scale_log2) - ms1);
+        ps0 += s[j][0] + s[j][1];
+        ps1 += s[j][2] + s[j][3];
+      }
+    }
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+    if (__any_sync(0xFFFFFFFFu, al0 != 1.f || al1 != 1.f)) {   // a row max moved
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        o[j][0] *= al0; o[j][1] *= al0; o[j][2] *= al1; o[j][3] *= al1;
+      }
+    }
+    // P in bf16 as the A operand of P.V: two n8 tiles of S make one k16 step
+    uint32_t pa[PS][4];
+#pragma unroll
+    for (int ks = 0; ks < PS; ++ks) {
+      pa[ks][0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
+      pa[ks][1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
+      pa[ks][2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
+      pa[ks][3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
+    }
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < PS; ++ks) {
+      wgmma_rs<D>(&o[0][0], pa[ks], mnmajor_desc<D>(sv_addr, BK, ks));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+
+  const int wlive = min(16, nrows - 16 * warp);
+  if (wlive <= 0) return;
+  l0 += __shfl_xor_sync(0xFFFFFFFFu, l0, 1);
+  l0 += __shfl_xor_sync(0xFFFFFFFFu, l0, 2);
+  l1 += __shfl_xor_sync(0xFFFFFFFFu, l1, 1);
+  l1 += __shfl_xor_sync(0xFFFFFFFFu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // the warp's 16 rows of Q in shared memory are its own: stage the output there
+  const int r0 = 16 * warp + (lane >> 2);
+  const int cb = 4 * (lane & 3);                      // byte offset inside a chunk
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    *reinterpret_cast<uint32_t*>(sq + tile_off<D>(r0, j, MMA_BQ) + cb) =
+        pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
+    *reinterpret_cast<uint32_t*>(sq + tile_off<D>(r0 + 8, j, MMA_BQ) + cb) =
+        pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
+  }
+  __syncwarp();
+  bf16* obase = out + ((size_t)b * Sq + i0) * q_row + (size_t)h * D;
+  for (int e = lane; e < 16 * CH; e += 32) {
+    const int r = e / CH, c = e % CH;
+    if (r < wlive) {
+      *reinterpret_cast<uint4*>(obase + (size_t)(16 * warp + r) * q_row + c * 8) =
+          *reinterpret_cast<const uint4*>(sq + tile_off<D>(16 * warp + r, c, MMA_BQ));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int THREADS = 256;
 constexpr int BQ = 64;          // query rows per block
 constexpr int LANES = 4;        // threads per query row
-constexpr float NEG_INF = -1e30f;
 
 template <int D> struct Tile {
   static constexpr int BK = D >= 256 ? 32 : 64;     // keys per kv tile
@@ -59,40 +528,15 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float bf16_bits(unsigned int lo16) {
-  return __uint_as_float(lo16 << 16);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  return make_float4(bf16_bits(raw.x & 0xFFFFu), bf16_bits(raw.x >> 16),
-                     bf16_bits(raw.y & 0xFFFFu), bf16_bits(raw.y >> 16));
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<unsigned int*>(&a);
-  raw.y = *reinterpret_cast<unsigned int*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-// P as the P.V product sees it: rounded to the input type.
-__device__ __forceinline__ float as_input(float p, const float*) { return p; }
-__device__ __forceinline__ float as_input(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(p));
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv, int H,
-                 int KH, int causal, int window, int q_offset, float scale) {
+flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out, int Sq, int Skv,
+                      int H, int KH, int causal, int window, int q_offset, float scale) {
   constexpr int BK = Tile<D>::BK;
   constexpr int NC = Tile<D>::NC;
   extern __shared__ float4 smem4[];
@@ -110,7 +554,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_pos = q_offset + i;
 
   float4 qr[NC], acc[NC];
-  const T* qrow = q + ((size_t)b * Sq + (live ? i : 0)) * H * D + (size_t)h * D;
+  const float* qrow = q + ((size_t)b * Sq + (live ? i : 0)) * H * D + (size_t)h * D;
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
     qr[j] = live ? load4(qrow + 4 * (j * LANES + lane)) : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -118,15 +562,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = NEG_INF, l = 0.f;
 
-  // kv tiles any row of this block can see
-  const int q_lo = q_offset + i0;
-  const int q_hi = q_offset + min(i0 + BQ, Sq) - 1;
-  const int k_end = causal ? max(0, min(Skv, q_hi + 1)) : Skv;
-  const int k_beg = window > 0 ? max(0, q_lo - window + 1) / BK * BK : 0;
+  int k_beg, k_end;
+  kv_range(q_offset + i0, q_offset + min(i0 + BQ, Sq) - 1, Skv, causal, window, BK, k_beg,
+           k_end);
 
   const size_t kv_row = (size_t)KH * D;             // stride between positions
-  const T* kbase = k + (size_t)b * Skv * kv_row + (size_t)kh * D;
-  const T* vbase = v + (size_t)b * Skv * kv_row + (size_t)kh * D;
+  const float* kbase = k + (size_t)b * Skv * kv_row + (size_t)kh * D;
+  const float* vbase = v + (size_t)b * Skv * kv_row + (size_t)kh * D;
 
   for (int k0 = k_beg; k0 < k_end; k0 += BK) {
     __syncthreads();                                // the last tile is consumed
@@ -160,18 +602,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       part += __shfl_xor_sync(0xFFFFFFFFu, part, 1);
       part += __shfl_xor_sync(0xFFFFFFFFu, part, 2);
       const int kp = k0 + kk;
-      const bool ok = kp < Skv && (!causal || kp <= q_pos) &&
-                      (window <= 0 || q_pos - kp < window);
-      s[kk] = ok ? part * scale : NEG_INF;
+      const bool ok = (!causal || kp <= q_pos) && (window <= 0 || q_pos - kp < window);
+      s[kk] = kp >= Skv ? -INFINITY : ok ? part * scale : NEG_INF;
       m_new = fmaxf(m_new, s[kk]);
     }
     const float alpha = expf(m - m_new);
     float tile_sum = 0.f;
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      const float p = expf(s[kk] - m_new);
-      tile_sum += p;
-      s[kk] = as_input(p, q);
+      s[kk] = expf(s[kk] - m_new);
+      tile_sum += s[kk];
     }
     l = l * alpha + tile_sum;
 #pragma unroll
@@ -196,7 +636,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (!live) return;
   const float inv = 1.f / fmaxf(l, 1e-30f);
-  T* orow = out + ((size_t)b * Sq + i) * H * D + (size_t)h * D;
+  float* orow = out + ((size_t)b * Sq + i) * H * D + (size_t)h * D;
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
     store4(orow + 4 * (j * LANES + lane),
@@ -204,34 +644,47 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-           int H, int KH, int causal, int window, int q_offset, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
+                int H, int KH, int causal, int window, int q_offset, cudaStream_t stream) {
+  const size_t smem = Mma<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Sq + MMA_BQ - 1) / MMA_BQ);
+  const float scale_log2 = (float)(1.0 / sqrt((double)D)) * LOG2E;
+  flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, Sq, Skv, H, KH, causal,
+      window, q_offset, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
+               int H, int KH, int causal, int window, int q_offset, cudaStream_t stream) {
   const size_t smem = Tile<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_simt_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   const float scale = (float)(1.0 / sqrt((double)D));
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, H, KH, causal, window,
-      q_offset, scale);
+  flash_fwd_simt_kernel<D><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Skv, H, KH, causal,
+      window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-             int Skv, int H, int KH, int D, int causal, int window, int q_offset,
-             cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, s);
-    case 256: return launch<T, 256>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
+           int H, int KH, int causal, int window, int q_offset, int is_bf16, cudaStream_t s) {
+  return is_bf16 ? launch_bf16<D>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, s)
+                 : launch_f32<D>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, s);
 }
 
 }  // namespace
@@ -244,8 +697,12 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch_d<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, KH, D, causal, window,
-                                        q_offset, s)
-              : launch_d<float>(q, k, v, out, B, Sq, Skv, H, KH, D, causal, window,
-                                q_offset, s);
+  switch (D) {
+    case 16: return launch<16>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 32: return launch<32>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 64: return launch<64>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 128: return launch<128>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 256: return launch<256>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

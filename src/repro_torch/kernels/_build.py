@@ -76,7 +76,8 @@ def build() -> Path:
     out = BUILD_ROOT / _digest()
     lib = out / "librepro_torch_kernels.so"
     if lib.exists():
-        build_seconds = 0.0
+        if build_seconds is None:        # built by an earlier process
+            build_seconds = 0.0
         return lib
     t0 = time.perf_counter()
     out.mkdir(parents=True, exist_ok=True)

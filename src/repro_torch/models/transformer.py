@@ -13,6 +13,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.device import resolve
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -247,9 +248,12 @@ def run_stack_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, pos: int,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, layers: int | None = None,
-               device=None) -> dict:
-    """An empty KV cache. For pure sliding-window models the cache is a ring
-    buffer of the largest window; otherwise full length."""
+               device="cuda") -> dict:
+    """An empty KV cache on ``device`` (the card unless the caller asks for
+    another; raises without CUDA, as every entry point does). For pure
+    sliding-window models the cache is a ring buffer of the largest window;
+    otherwise full length."""
+    device = resolve(device)
     l = layers if layers is not None else cfg.n_layers
     sc = seq if cfg.max_window < 0 else min(seq, cfg.max_window)
     kv = (l, batch, sc, cfg.n_kv_heads, cfg.hd)

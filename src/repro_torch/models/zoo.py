@@ -4,7 +4,8 @@
 
 * prefill_fn(params, batch, pad_to=None) -> (last logits [B, V] f32, cache)
 * decode_fn(params, cache, token [B], pos: int) -> (logits [B, V] f32, cache)
-* init_cache_fn(batch, seq, device=None) -> an empty cache
+* init_cache_fn(batch, seq, device="cuda") -> an empty cache (raises without
+  CUDA unless the caller asks for the CPU)
 
 The port carries the text-only dense decoder (smollm, gemma3, tinyllama,
 deepseek). `loss_fn` waits for the training slice and the other families
@@ -52,7 +53,7 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         h, cache = tfm.run_stack_decode(params, cfg, x, int(pos), cache)
         return _last_logits(params, cfg, h), cache
 
-    def init_cache_fn(batch, seq, device=None):
+    def init_cache_fn(batch, seq, device="cuda"):
         return tfm.init_cache(cfg, batch, seq, device=device)
 
     return Model(cfg, specs, prefill_fn, decode_fn, init_cache_fn)

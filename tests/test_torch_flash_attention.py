@@ -118,3 +118,19 @@ def test_bf16_twin_rounds_once_at_the_output():
     want = flash_fwd_ref(q.float(), k.float(), v.float(), window=16, block_q=32, block_k=32)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=2e-2, rtol=2e-2)
+
+
+def test_fully_masked_rows_take_the_mean_of_every_value():
+    """q_offset = -64, causal, Sq = Skv = 128: queries 0-63 sit before key 0
+    and see no key. The reference gives such a row exp(0) = 1 on every key,
+    the mean of V over all Skv keys; the twin (and the kernel, which visits
+    every kv tile for a block holding such a row) gives the same."""
+    q, k, v = _qkv(11, 2, 128, 128, 4, 2, 64)      # chip_smoke.py phase 2 holds the kernel here
+    want = np.asarray(jlayers.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                              causal=True, q_offset=-64, block_q=32,
+                                              block_k=64))
+    got = _port(q, k, v, causal=True, q_offset=-64, block_q=32, block_k=64)
+    np.testing.assert_allclose(got, want, **TOL)
+    mean_v = np.repeat(v, 2, axis=2).mean(1, keepdims=True)        # [B, 1, H, D]
+    np.testing.assert_allclose(got[:, :64], np.broadcast_to(mean_v, got[:, :64].shape),
+                               **TOL)

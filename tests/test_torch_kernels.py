@@ -146,6 +146,19 @@ def test_assoc_matmul_ragged_k_against_pallas_interpret():
     _eq(tk.assoc_matmul(_t(q), _t(p)), ref)
 
 
+@pytest.mark.parametrize("k", [500, 33, 512])
+def test_assoc_matmul_u8_identity_against_pallas_interpret(k):
+    """The kernel's arithmetic: raw {0,1} bytes through a u8 x u8 product,
+    the bipolar dot recovered as 4 q.p - 2|q| - 2|p| + K (exact in int64 here,
+    int32 on the card), equals the Pallas kernel's at ragged and tile-sized K
+    (zero padding past K adds 0 to every term)."""
+    q, p = _bits(k, (2, 5, k)), _bits(k + 1, (12, k))
+    qi, pi = torch.from_numpy(q).long(), torch.from_numpy(p).long()
+    dot = 4 * (qi @ pi.T) - 2 * qi.sum(-1, keepdim=True) - 2 * pi.sum(-1) + k
+    ref = j_assoc(jnp.asarray(q), jnp.asarray(p), bm=8, interpret=True)
+    np.testing.assert_array_equal(dot.float().numpy(), np.asarray(ref))
+
+
 @pytest.mark.parametrize("m,b,d", [(1, 1, 1), (2, 5, 130), (3, 16, 512), (4, 7, 96),
                                    (5, 33, 200)])
 def test_majority_bundle_matches_jax(m, b, d):

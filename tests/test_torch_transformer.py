@@ -22,6 +22,7 @@ from repro.models import init_params as j_init_params
 from repro.models.base import count_params as j_count_params
 from repro_torch import configs, convert
 from repro_torch.models import count_params, get_model, init_params
+from repro_torch.models import transformer as ttfm
 
 DENSE = ("tinyllama_1_1b", "smollm_360m", "gemma3_1b", "deepseek_coder_33b")
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -77,7 +78,7 @@ def test_prefill_cache_and_decode_match_jax(arch):
     t_full, _ = tm.prefill_fn(tp, {"tokens": torch.from_numpy(toks)})
     assert float((t_step - t_full).abs().max()) < 5e-3
     # an empty cache of the same layout as the reference's
-    j_empty, t_empty = jm.init_cache_fn(b, pad_to), tm.init_cache_fn(b, pad_to)
+    j_empty, t_empty = jm.init_cache_fn(b, pad_to), tm.init_cache_fn(b, pad_to, device="cpu")
     for name in ("k", "v", "slot_pos"):
         assert tuple(t_empty[name].shape) == tuple(j_empty[name].shape)
         np.testing.assert_array_equal(t_empty[name].numpy(), np.asarray(j_empty[name]))
@@ -150,3 +151,19 @@ def test_configs_registry():
             if f.name != "dtype":
                 assert getattr(t, f.name) == getattr(j, f.name), (arch, f.name)
         assert (t.hd, t.windows, t.max_window) == (j.hd, j.windows, j.max_window)
+
+
+def test_empty_cache_defaults_to_the_card(monkeypatch):
+    """The KV cache goes where every entry point goes: the card unless the
+    caller asks for the CPU, and an error, not the CPU, when no card is
+    present (here made absent for the test's duration)."""
+    cfg = configs.get_smoke("tinyllama-1.1b")
+    model = get_model(cfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache_fn(2, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttfm.init_cache(cfg, 2, 8)
+    cache = model.init_cache_fn(2, 8, device="cpu")
+    assert all(t.device.type == "cpu" for t in cache.values())
+    assert cache["k"].shape == (cfg.n_layers, 2, 8, cfg.n_kv_heads, cfg.hd)

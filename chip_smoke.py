@@ -8,16 +8,19 @@ fallback, and a missing GPU is a failure):
 
 1. card: the GPU's name and power limit (nvidia-smi); build the CUDA kernels
    from src/repro_torch/csrc with nvcc and print the build seconds; count
-   the tensor-core instructions in the built library's SASS (cuobjdump):
-   HGMMA/HMMA in the bf16 attention kernel, IGMMA/IMMA and no IDP4A in
-   assoc_matmul, and the SIMT attention kernel built for f32 only;
+   instructions in the built library's SASS (cuobjdump): HGMMA/HMMA in the
+   bf16 attention kernel, IGMMA/IMMA and no IDP4A in assoc_matmul, LDGSTS
+   (16-byte cp.async) in the sparse kernels, and the SIMT attention kernel
+   built for f32 only;
 2. kernels: each of the nine kernels against its plain PyTorch version on
    the card, at the main path's shapes and at one tall shape (102,400 classes
    over 64 cores, d = 2048, batch 4096); assoc_matmul also at a ragged shape
-   (K = 500, a partial class tile); the fused top-k and the per-bank
-   search also at ragged, tie (across the kernel's 128-row tiles) and
-   limit shapes, k = 1 against the top-1 kernel; the two sparse kernels at
-   ragged, tie and empty-query shapes -- bit-exact; the attention forward at
+   (K = 500, a partial class tile) and on bytes 0-255; the fused top-k and
+   the per-bank search also at ragged, tie (across the kernel's 128-row
+   tiles) and limit shapes, k = 1 against the top-1 kernel; the two sparse
+   kernels at ragged, tie and empty-query shapes, full lists at the serve
+   shape, indices on segment and row edges, one class past a 128-class
+   tile, and d = 2^21 -- bit-exact; the attention forward at
    the LM prefill's shape (B = 8, S = 1024, 32 heads over 4, D = 64, causal,
    bf16), gemma3-1b's layer shape (4 heads over 1, D = 256, window 512 and
    global), non-causal, ragged, a prefill chunk (q_offset 512), f32,
@@ -70,7 +73,9 @@ fallback, and a missing GPU is a failure):
    attention projections at fan-in over their contraction, f32 greedy
    tokens of kernel and twin identical (last logits within 1e-3),
    decode(prefill(x), t) against prefill(x ‖ t) within 5e-3, bf16 last
-   logits within LM_BF16_LOGIT_BOUND (see `phase_lm`).
+   logits within LM_BF16_LOGIT_BOUND (see `phase_lm`); bf16 `torch.matmul` at
+   the projection shapes identical with the reduced-precision reduction
+   flag on and off.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
@@ -186,30 +191,32 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# tensor-core instructions in the SASS of the redesigned kernels: kernel
-# symbol -> the opcodes that must appear and those that must not
-TENSOR_CORE_SASS = {
+# instructions in the SASS of the redesigned kernels: kernel symbol -> the
+# opcodes that must appear (tensor-core products; the sparse kernels'
+# asynchronous 16-byte copies) and those that must not
+SASS_RULES = {
     "flash_fwd_mma_kernel": (("HGMMA", "HMMA"), ()),
     "assoc_matmul_kernel": (("IGMMA", "IMMA"), ("IDP4A",)),
+    "sparse_kernel": (("LDGSTS",), ()),
 }
 
 
 def sass_counts(lib: Path) -> dict:
     """{kernel symbol: {opcode: count}} over every instance of the kernels in
-    TENSOR_CORE_SASS, from ``cuobjdump -sass`` of the built library; also
+    SASS_RULES, from ``cuobjdump -sass`` of the built library; also
     the names of the SIMT attention kernel's instances (f32 only)."""
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" / "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    ops = {op for want, bad in TENSOR_CORE_SASS.values() for op in want + bad}
+    ops = {op for want, bad in SASS_RULES.values() for op in want + bad}
     pat = re.compile(r"\b(" + "|".join(sorted(ops)) + r")\b")
-    counts = {name: dict.fromkeys(sorted(ops), 0) for name in TENSOR_CORE_SASS}
+    counts = {name: dict.fromkeys(sorted(ops), 0) for name in SASS_RULES}
     simt, current = [], None
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            current = next((n for n in TENSOR_CORE_SASS if n in fn), None)
+            current = next((n for n in SASS_RULES if n in fn), None)
             if "flash_fwd_simt_kernel" in fn:
                 simt.append(fn)
         elif current is not None:
@@ -220,14 +227,14 @@ def sass_counts(lib: Path) -> dict:
 
 def ptxas_report(lib: Path) -> dict:
     """{instance: (registers, spill store bytes, spill load bytes)} of the
-    kernels in TENSOR_CORE_SASS, from the ptxas report (-Xptxas -v) that the
+    kernels in SASS_RULES, from the ptxas report (-Xptxas -v) that the
     build keeps in build.log beside the library."""
     out, current = {}, None
     for line in (lib.parent / "build.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             fn = m.group(1)
-            name = next((n for n in TENSOR_CORE_SASS if n in fn), None)
+            name = next((n for n in SASS_RULES if n in fn), None)
             current = None if name is None else fn[fn.index(name):].split("EE")[0] + "E"
             if current is not None:
                 out[current] = [None, None, None]
@@ -346,8 +353,13 @@ def kernel_cases(torch, gen):
                                 ("serve wired G=1", (1, 256, 6400, 512)),
                                 ("tall", (64, 4096, 1600, 2048)),
                                 # padding past K, a partial class tile, unaligned rows
-                                ("ragged", (3, 200, 100, 500))]:
+                                ("ragged", (3, 200, 100, 500)),
+                                # every byte value, not only 0 and 1: 2v - 1 each
+                                ("bytes 0-255", (3, 200, 100, 500))]:
         q, p = bits(g, b, k), bits(g, c, k)
+        if label.startswith("bytes"):
+            q, p = (torch.randint(0, 256, x.shape, generator=gen, device=dev,
+                                  dtype=torch.uint8) for x in (q, p))
         qb = (2 * q.to(torch.bfloat16) - 1).contiguous()
         pbt = (2 * p.to(torch.bfloat16) - 1).transpose(1, 2).contiguous()
         cases.append(("assoc_matmul", f"{label} B={b} C={c} K={k}",
@@ -370,10 +382,14 @@ def sparse_kernel_cases(torch, gen):
     dict of extras: ``lib_eager`` (time the library call eagerly: a
     cuSPARSE product is not captured in a CUDA graph here) and ``expect``
     (a check of the result beyond equality with the plain version). Queries
-    are random index lists at density >= 0.001; the prototypes random words
-    (about half their bits set)."""
+    are random index lists at density >= 0.001, lists with every slot live,
+    and lists on the edges of the kernels' segments (`plan`) and of the row;
+    every list is checked sorted and SENTINEL-padded, the kernels'
+    precondition. The prototypes are random words (about half their bits
+    set)."""
     from repro_torch import kernels as tk
     from repro_torch.core import hypervector as hv, sparse
+    from repro_torch.kernels.sparse.ops import plan
     from repro_torch.kernels.sparse.ref import sparse_search_ref, sparse_topk_banked_ref
 
     dev, S = "cuda", sparse.SENTINEL
@@ -382,20 +398,57 @@ def sparse_kernel_cases(torch, gen):
         return torch.randint(-2**31, 2**31 - 1, shape, generator=gen, device=dev,
                              dtype=torch.int32)
 
+    def sorted_lists(q):
+        """The kernels' precondition, held on every list they are fed: each
+        row strictly increasing up to its SENTINEL padding."""
+        require(bool((q[..., 1:] > q[..., :-1]).logical_or(q[..., 1:] == S).all()),
+                "sparse kernel cases: index lists not sorted or not SENTINEL-padded")
+        return q
+
     def lists(n, d, k, density, empty=()):
         q = sparse.random_sparse(gen, n, d, k, density, dev)
         q[list(empty)] = S                  # all-SENTINEL rows, as padded batch rows are
-        return q
+        return sorted_lists(q)
 
     def live(q):
         return int((q != S).sum())
+
+    def full(n, d, k):
+        """Lists with all k slots live (as the bsc serve's are), one index in
+        each of k equal strides of the row."""
+        stride = d // k
+        return sorted_lists((torch.arange(k, device=dev, dtype=torch.int32) * stride
+                             + torch.randint(0, stride, (n, k), generator=gen, device=dev,
+                                             dtype=torch.int32)).contiguous())
+
+    def edges(n, d, k, wseg, density):
+        """Random lists but the first four: the first and last bits of the row
+        and of the kernels' first segment boundary; every segment's first and
+        last bit; live slots all inside one (middle) segment; empty."""
+        seg, nseg = 32 * wseg, -(-d // (32 * wseg))
+        q = sparse.random_sparse(gen, n, d, k, density, dev)
+        mid = nseg // 2 * seg
+        one = torch.randperm(min(seg, d - mid), generator=gen, device=dev)[:min(k, 300)] + mid
+        special = [sorted({b for b in (0, seg - 1, seg, d - 1) if b < d}),
+                   sorted({b for i in range(nseg) for b in (i * seg, min(d, (i + 1) * seg) - 1)}),
+                   sorted(one.tolist()), []]
+        for r, idx in enumerate(special):
+            idx = idx[:k]
+            q[r] = S
+            q[r, :len(idx)] = torch.tensor(idx, dtype=torch.int32, device=dev)
+        return sorted_lists(q)
 
     cases = []
     for label, (b, c, w, k, dens, empty, lib) in [
             ("trials", (2000, 100, 32768, 2048, SPARSE_DENSITY, (), True)),
             ("serve-wide", (256, 6400, 32768, 2048, SPARSE_DENSITY, (), False)),
-            ("ragged", (77, 333, 1000, 2097, 0.04, (3, 4, 5), False))]:
+            ("ragged", (77, 333, 1000, 2097, 0.04, (3, 4, 5), False)),
+            ("a class tile and one", (40, 129, 1000, 2097, 0.04, (), False)),
+            ("segment edges", (40, 100, 32768, 2048, SPARSE_DENSITY, (), False)),
+            ("d = 2^21", (20, 150, 65536, 4096, SPARSE_DENSITY, (), False))]:
         q, p = lists(b, 32 * w, k, dens, empty), words(c, w)
+        if label == "segment edges":
+            q = edges(b, 32 * w, k, plan(b, c, w, search=True).wseg, dens)
         libfn, extra = None, {}
         if lib:
             # the overlap |q AND p| by cuSPARSE: the queries as a CSR f32
@@ -418,8 +471,18 @@ def sparse_kernel_cases(torch, gen):
                       4 * (b * k + c * w + b * c), live(q) * c, "gather", extra))
     for label, (g, b, c, c_real, w, k, dens, empty) in [
             ("serve G=64", (64, 256, 100, 100, 32768, 2048, SPARSE_DENSITY, ())),
-            ("ragged", (3, 77, 333, 300, 1000, 2097, 0.04, (2, 80, 150)))]:
-        q = lists(g * b, 32 * w, k, dens, empty).reshape(g, b, k)
+            ("ragged", (3, 77, 333, 300, 1000, 2097, 0.04, (2, 80, 150))),
+            ("full lists, serve G=64", (64, 256, 100, 100, 32768, 2048, None, ())),
+            ("a class tile and one", (2, 40, 129, 129, 1000, 2097, 0.04, ())),
+            ("segment edges", (2, 40, 100, 100, 32768, 2048, SPARSE_DENSITY, ())),
+            ("d = 2^21", (2, 20, 150, 150, 65536, 4096, SPARSE_DENSITY, ()))]:
+        if dens is None:
+            q = full(g * b, 32 * w, k).reshape(g, b, k)
+        elif label == "segment edges":
+            wseg = plan(b, c_real, w, banks=g).wseg
+            q = edges(g * b, 32 * w, k, wseg, dens).reshape(g, b, k)
+        else:
+            q = lists(g * b, 32 * w, k, dens, empty).reshape(g, b, k)
         p = words(g, c, w)
         cases.append(("sparse_topk_banked", f"{label} B={b} C={c} c_real={c_real} k={k} W={w}",
                       lambda q=q, p=p, cr=c_real: tk.sparse_topk_banked(q, p, c_real=cr),
@@ -1340,6 +1403,46 @@ def exact_attention(torch, q, k, v, causal=True, window=-1, q_offset=0, **_):
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc.masked_fill(~ok, -1e30), -1), vd)
 
 
+# TinyLlama-1.1B's projection shapes in the prefill (M = batch 8 x prompt
+# 1024 rows; K x N of wq/wo, wk/wv, wg/wu and wd)
+BF16_MATMUL_SHAPES = [(8192, 2048, 2048), (8192, 2048, 256), (8192, 2048, 5632),
+                      (8192, 5632, 2048)]
+
+
+def bf16_reduction_check(torch, gen) -> list:
+    """bf16 ``torch.matmul`` with PyTorch's
+    ``allow_bf16_reduced_precision_reduction`` on and off, each against the
+    f32 product rounded to bf16 once, at the LM's projection shapes: whether
+    the flag changes what cuBLAS returns on this card (the reference
+    accumulates in f32, src/repro/models/layers.py `dense`)."""
+    flags = torch.backends.cuda.matmul
+    keep = flags.allow_bf16_reduced_precision_reduction
+    rows = []
+    try:
+        for m, k, n in BF16_MATMUL_SHAPES:
+            x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+            w = (torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)).bfloat16()
+            ref = torch.matmul(x.float(), w.float()).bfloat16().float()
+            got = {}
+            for on in (True, False):
+                flags.allow_bf16_reduced_precision_reduction = on
+                got[on] = torch.matmul(x, w).float()
+            torch.cuda.synchronize()
+            row = dict(shape=(m, k, n), on_vs_off_equal=bool(torch.equal(got[True], got[False])),
+                       on_err=float((got[True] - ref).abs().max()),
+                       off_err=float((got[False] - ref).abs().max()),
+                       on_differ=int((got[True] != ref).sum()),
+                       off_differ=int((got[False] != ref).sum()))
+            rows.append(row)
+            print(f"bf16 matmul M={m} K={k} N={n}: reduced-precision reduction on vs off "
+                  f"{'identical' if row['on_vs_off_equal'] else 'DIFFER'}; vs the f32 product "
+                  f"rounded once: on max |err| {row['on_err']:.4g} ({row['on_differ']} of {m * n} "
+                  f"differ), off {row['off_err']:.4g} ({row['off_differ']} differ)", flush=True)
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = keep
+    return rows
+
+
 def phase_lm(torch, launches: dict, profile: bool = False) -> dict:
     """Phase 11: the dense-decoder LM serve at TinyLlama-1.1B's published
     width and depth (`LM`), weights drawn from the seed.
@@ -1356,7 +1459,9 @@ def phase_lm(torch, launches: dict, profile: bool = False) -> dict:
     (`fan_in_over_contraction`): in f32 the greedy tokens of kernel and twin
     identical, the prefill's last logits within 1e-3 and decode(prefill(x), t)
     against prefill(x ‖ t) within 5e-3; in bf16 the last logits within
-    LM_BF16_LOGIT_BOUND, token agreement reported."""
+    LM_BF16_LOGIT_BOUND, token agreement reported. Last, bf16 `torch.matmul`
+    at the projection shapes is the same with PyTorch's reduced-precision
+    reduction flag on and off (`bf16_reduction_check`)."""
     import dataclasses
     from unittest import mock
 
@@ -1535,6 +1640,11 @@ def phase_lm(torch, launches: dict, profile: bool = False) -> dict:
     out.update(f32_logit_err=f32_err, decode_consistency_err=dec_err,
                bf16_logit_err=bf16_err, bf16_token_agreement=agree,
                logit_std=float(lgb.std()), logit_max=float(lgb.abs().max()))
+    # the port's bf16 products leave the reduction to cuBLAS: hold that the
+    # reduced-precision flag (True by default) changes nothing at these shapes
+    out["bf16_matmul"] = bf16_reduction_check(torch, torch.Generator(device=dev).manual_seed(SEED))
+    require(all(r["on_vs_off_equal"] for r in out["bf16_matmul"]),
+            "lm bf16: allow_bf16_reduced_precision_reduction changes torch.matmul's result")
     print(f"lm checks, projections at fan-in over their contraction: f32 greedy tokens "
           f"kernel == twin ({tk32.numel()}), last logits max |diff| {f32_err:.3g}; "
           f"decode(prefill(x), t) vs prefill(x + t) {dec_err:.3g}; bf16 logits finite, last "
@@ -1588,7 +1698,7 @@ def main(argv: list[str]) -> int:
     sass["ptxas"] = ptxas_report(_build.build())
     print("ptxas (registers, spill store / load bytes): " + ", ".join(
         f"{k} {v[0]} regs {v[1]}/{v[2]} B" for k, v in sass["ptxas"].items()), flush=True)
-    for name, (want, bad) in TENSOR_CORE_SASS.items():
+    for name, (want, bad) in SASS_RULES.items():
         got = sass["counts"][name]
         print(f"sass {name}: " + ", ".join(f"{op} {got[op]}" for op in want + bad), flush=True)
         require(sum(got[op] for op in want) > 0, f"sass {name}: no {'/'.join(want)} instruction")

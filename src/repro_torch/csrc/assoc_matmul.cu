@@ -2,10 +2,11 @@
 //
 // Replaces assoc_matmul_pallas / _assoc_kernel of
 // src/repro/kernels/assoc_matmul/kernel.py: dots[g, b, c] =
-// sum_k (2 q[g,b,k] - 1) (2 p[g,c,k] - 1) for uint8 {0,1} inputs, written as
-// f32. The bank axis g is the vmap the JAX serve wraps around the kernel
-// (one bank per IMC core, or per (core, permuted bank)); G = 1 is the plain
-// [B, K] x [C, K] product.
+// sum_k (2 q[g,b,k] - 1) (2 p[g,c,k] - 1) of uint8 inputs ({0,1} on every
+// caller's path; exact for any byte while 4 * 255^2 * K fits int32, K <= 8256),
+// written as f32 (rounded once from the exact int32). The bank axis g is
+// the vmap the JAX serve wraps around the kernel (one bank per IMC core, or
+// per (core, permuted bank)); G = 1 is the plain [B, K] x [C, K] product.
 //
 // What bounds it on the H100: it moves G*(B+C)*K bytes in and G*B*C*4 bytes
 // out and does 2*G*B*C*K operations. At the serve's shapes (B = 256, C = 100,
@@ -18,12 +19,12 @@
 //   dot = 4 (q.p) - 2|q| - 2|p| + K,
 // with q.p the u8 x u8 product accumulated in int32 by wgmma
 // (wgmma.mma_async m64nNk32 .s32.u8.u8, both operands K-major from shared
-// memory, as [B, K] and [C, K] lie in device memory) and |q|, |p| the counts
-// of ones, taken by each block from the tiles it stages while the products
-// run. Bytes past K, rows past B and rows past C stage as 0 and add 0 to
-// every term, so the mask of kernel.py:26-29 costs nothing and the result is
-// exact: int32 throughout, |dot| <= K < 2^24 (the wrapper checks K), written
-// as f32.
+// memory, as [B, K] and [C, K] lie in device memory) and |q|, |p| the sums
+// of the byte values (the counts of ones for {0,1} bytes), taken by each
+// block from the tiles it stages while the products run. Bytes past K, rows
+// past B and rows past C stage as 0 and add 0 to every term, so the mask of
+// kernel.py:26-29 costs nothing and the result is exact: int32 throughout,
+// for {0,1} bytes |dot| <= K < 2^24 (the wrapper checks K), written as f32.
 //
 // A block owns (bank g, BM queries, 128 classes): one class tile covers the
 // serve's C = 100. Its two warpgroups each run one wgmma a 32-byte k step: at
@@ -66,6 +67,14 @@ template <int BM> struct Cfg {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Sum of the 16 byte values of v (not a count of set bits: |q| and |p| are
+// sums of byte values, so the identity holds for any byte): per-byte
+// absolute differences against 0, summed (no IDP4A).
+__device__ __forceinline__ int byte_sum(uint4 v) {
+  return static_cast<int>(__vsadu4(v.x, 0u) + __vsadu4(v.y, 0u) + __vsadu4(v.z, 0u) +
+                          __vsadu4(v.w, 0u));
 }
 
 // byte offset of 16-byte chunk c of row r inside a tile of 128-byte rows:
@@ -240,16 +249,16 @@ assoc_matmul_kernel(const unsigned char* __restrict__ q, const unsigned char* __
       }
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    // the counts of ones, from the chunks this thread staged, while the products run
+    // the byte sums |q|, |p|, from the chunks this thread staged, while the products run
 #pragma unroll
     for (int i = 0; i < AI; ++i) {
       const uint4 v = *reinterpret_cast<const uint4*>(sa + swz(lrow + i * (THREADS / CHUNKS), lch));
-      qpart[i] += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+      qpart[i] += byte_sum(v);
     }
 #pragma unroll
     for (int i = 0; i < BI; ++i) {
       const uint4 v = *reinterpret_cast<const uint4*>(sb + swz(lrow + i * (THREADS / CHUNKS), lch));
-      ppart[i] += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+      ppart[i] += byte_sum(v);
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     if (kt + STAGES < nk) {       // refill the stage once every warp is done with it

@@ -37,10 +37,10 @@ SIGNATURES = {
     "assoc_matmul_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # hvs, out, M, N, stream
     "majority_bundle_launch": [_P, _P, _I, _I, _P],
-    # q, protos, pop scratch, out, B, C, W, K, stream
-    "sparse_search_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, protos, pop scratch, dist, idx, G, B, C, W, K, c_real, stream
-    "sparse_topk_banked_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, protos, out, B, C, W, K, then the plan: qpw, wseg, stride, splits; stream
+    "sparse_search_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, protos, dist, idx, G, B, C, W, K, c_real, then the plan: qpw, wseg, stride; stream
+    "sparse_topk_banked_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, B, Sq, Skv, H, KH, D, causal, window, q_offset, bf16, stream
     "flash_attention_fwd_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _P],

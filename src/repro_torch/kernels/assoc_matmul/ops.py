@@ -20,7 +20,9 @@ BM = 64                  # queries per block (csrc/assoc_matmul.cu)
 def assoc_matmul_banked(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
     """Bipolar dots of bank g's queries [G, B, K] against bank g's prototypes
     [G, C, K] (uint8 {0,1}) -> [G, B, C] f32 — the per-IMC-core search that
-    the JAX serve writes as a vmap of `assoc_matmul`, in one launch."""
+    the JAX serve writes as a vmap of `assoc_matmul`, in one launch. Other
+    byte values v count as 2v - 1, as in the reference, exactly while
+    4 * 255^2 * K fits int32 (K <= 8256)."""
     check("assoc_matmul q", q, torch.uint8, 3)
     check("assoc_matmul protos", protos, torch.uint8, 3)
     g, b, k = q.shape

@@ -159,6 +159,36 @@ def test_assoc_matmul_u8_identity_against_pallas_interpret(k):
     np.testing.assert_array_equal(dot.float().numpy(), np.asarray(ref))
 
 
+def test_assoc_matmul_non_binary_bytes_against_pallas_interpret():
+    """Bytes other than 0 and 1 count as 2v - 1, as in the reference: the
+    plain version against the Pallas kernel on values 0-3 at a ragged K
+    (where JAX's bf16 operands and f32 sums are exact)."""
+    rng = np.random.default_rng(11)
+    q = rng.integers(0, 4, (2, 7, 500), dtype=np.uint8)
+    p = rng.integers(0, 4, (12, 500), dtype=np.uint8)
+    ref = j_assoc(jnp.asarray(q), jnp.asarray(p), bm=8, interpret=True)
+    _eq(tk.assoc_matmul(_t(q), _t(p)), ref)
+
+
+@pytest.mark.parametrize("k", [1, 500, 8256])
+def test_assoc_matmul_byte_sum_identity_on_any_byte(k):
+    """The kernel's arithmetic on any byte: 4 q.p - 2|q| - 2|p| + K with |q|,
+    |p| sums of byte values (not counts of set bits), in int32 range up to
+    K = 8256 and rounded to f32 once, equals the plain version bit for bit;
+    a count of set bits would not (q = [2], p = [1]: 3, not 5)."""
+    rng = np.random.default_rng(k)
+    q = rng.integers(0, 256, (1, 6, k), dtype=np.uint8)
+    p = rng.integers(0, 256, (1, 9, k), dtype=np.uint8)
+    q[0, 0], p[0, 0] = 255, 255                     # the largest dot
+    qi, pi = torch.from_numpy(q).long(), torch.from_numpy(p).long()
+    dot = (4 * (qi @ pi.transpose(1, 2)) - 2 * qi.sum(-1, keepdim=True)
+           - 2 * pi.sum(-1)[:, None, :] + k)
+    assert int(dot.abs().max()) < 2**31
+    _eq(tk.assoc_matmul_banked(_t(q), _t(p)), dot.float().numpy())
+    one = tk.assoc_matmul(_t(np.array([[2]], np.uint8)), _t(np.array([[1]], np.uint8)))
+    assert one.item() == 3.0
+
+
 @pytest.mark.parametrize("m,b,d", [(1, 1, 1), (2, 5, 130), (3, 16, 512), (4, 7, 96),
                                    (5, 33, 200)])
 def test_majority_bundle_matches_jax(m, b, d):

@@ -262,6 +262,13 @@ def test_sparse_wrappers_check_inputs_and_count_no_cpu_launch():
         tk.sparse_topk_banked(q[None], p[None], c_real=4)
     with pytest.raises(ValueError):
         tk.sparse_topk_banked(q[None], torch.stack([p, p]))
+    # the C entries take no |p| scratch: the kernels count |p| as the rows
+    # pass (pointers: q, protos, the outputs, the stream; then ints)
+    from repro_torch.kernels import _build
+    sig = {name: _build.SIGNATURES[name] for name in ("sparse_search_launch",
+                                                       "sparse_topk_banked_launch")}
+    assert [t.__name__ for t in sig["sparse_search_launch"]].count("c_void_p") == 4
+    assert [t.__name__ for t in sig["sparse_topk_banked_launch"]].count("c_void_p") == 5
 
 
 # ---------------------------------------------------------------------------

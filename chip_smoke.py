@@ -10,14 +10,18 @@ fallback, and a missing GPU is a failure):
    from src/repro_torch/csrc with nvcc and print the build seconds; count
    instructions in the built library's SASS (cuobjdump): HGMMA/HMMA in the
    bf16 attention kernel, IGMMA/IMMA and no IDP4A in assoc_matmul, LDGSTS
-   (16-byte cp.async) in the sparse kernels, and the SIMT attention kernel
-   built for f32 only;
+   (16-byte cp.async) in the sparse kernels, BMMA (1-bit tensor-core
+   products) in the Hamming search and top-k kernels, and the SIMT
+   attention kernel built for f32 only;
 2. kernels: each of the nine kernels against its plain PyTorch version on
    the card, at the main path's shapes and at one tall shape (102,400 classes
    over 64 cores, d = 2048, batch 4096); assoc_matmul also at a ragged shape
    (K = 500, a partial class tile) and on bytes 0-255; the fused top-k and
    the per-bank search also at ragged, tie (across the kernel's 128-row
-   tiles) and limit shapes, k = 1 against the top-1 kernel; the two sparse
+   tiles and across the top-k's class splits) and limit shapes, k = 1
+   against the top-1 kernel, c_real inside the last split, k past a split's
+   classes (W = 64 and 5), B and C off the search's tiles and W = 76;
+   `hamming_search` also at the Table I trials' shape; the two sparse
    kernels at ragged, tie and empty-query shapes, full lists at the serve
    shape, indices on segment and row edges, one class past a 128-class
    tile, and d = 2^21 -- bit-exact; the attention forward at
@@ -28,8 +32,11 @@ fallback, and a missing GPU is a failure):
    32, and rows that see no key (q_offset -64) -- within atol = rtol = 2e-2
    in bf16 and 1e-5 in f32; each with the kernel's median
    device time (CUDA-graph replay) and eager call time, the plain version's
-   time, one PyTorch library call's where one computes the same function,
-   and the bound (least time the card could take);
+   time, one PyTorch library call's where one computes the same function
+   (for the Hamming searches also one bf16 `torch.bmm` on the +-1
+   expansions), and the bound (least time the card could take; the Hamming
+   kernels' products counted as 2*G*B*c*32W operations at the 1-bit
+   tensor-core rate, B1_OPS_PER_S);
 3. precharacterization: the EM channel + exhaustive OTA phase search at
    3 TX / 64 RX / 7 dB, avg BER 0.0100 +- 1e-4;
 4. OTA serve at the paper's configuration (6400 classes, d = 512, M = 3,
@@ -115,7 +122,13 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 peak outside the tensor cores
-PEAKS = {"int8": INT8_OPS_PER_S, "bf16": BF16_FLOPS_PER_S, "f32": F32_FLOPS_PER_S}
+# the 1-bit tensor-core product (mma.sync m16n8k256 .b1 .and.popc), counted
+# as 2 operations a bit product like the int8 peak: NVIDIA publishes no 1-bit
+# peak, so this is the highest rate benchmarks/torch_hamming_b1_probe.py
+# measured on an H100 80GB HBM3 at 700 W (about 5x the int8 peak)
+B1_OPS_PER_S = 10283e12
+PEAKS = {"int8": INT8_OPS_PER_S, "b1": B1_OPS_PER_S, "bf16": BF16_FLOPS_PER_S,
+         "f32": F32_FLOPS_PER_S}
 CALLS = 8                        # serve calls per mode
 SEED = 0
 SPARSE_DIM, SPARSE_DENSITY, SPARSE_K = 2**20, 0.001, 2048   # benchmarks/sparse.py:46-47
@@ -198,6 +211,9 @@ SASS_RULES = {
     "flash_fwd_mma_kernel": (("HGMMA", "HMMA"), ()),
     "assoc_matmul_kernel": (("IGMMA", "IMMA"), ("IDP4A",)),
     "sparse_kernel": (("LDGSTS",), ()),
+    # the packed Hamming search and top-k: 1-bit tensor-core products
+    "hamming_search_kernel": (("BMMA", "IMMA"), ()),
+    "hamming_topk_k_kernel": (("BMMA", "IMMA"), ()),
 }
 
 
@@ -308,6 +324,16 @@ def time_ms(torch, fn, samples: int = 7) -> float:
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def bmm_yardstick(torch, hv, q, p) -> dict:
+    """The Hamming searches' second library time: one bf16 `torch.bmm` of
+    the +-1 expansions of q [G, B, W] and p [G, C, W], d - 2H in one call
+    (the product a tensor-core route computes; its bf16 output rounds)."""
+    d = 32 * q.shape[-1]
+    qb = (1 - 2 * hv.unpack(q, d).to(torch.bfloat16)).contiguous()
+    pbt = (1 - 2 * hv.unpack(p, d).to(torch.bfloat16)).transpose(1, 2).contiguous()
+    return dict(bmm=lambda: torch.bmm(qb, pbt))
+
+
 def kernel_cases(torch, gen):
     """(kernel name, shape label, kernel call, plain call, library call or
     None, bytes moved, operations, operation kind) at the main path's shapes
@@ -337,8 +363,9 @@ def kernel_cases(torch, gen):
         cases.append(("hamming_topk_banked", f"{label} B={b} C={c} W={w}",
                       lambda q=q, p=p: tk.hamming_topk_banked(q, p),
                       lambda q=q, p=p: hamming_topk_banked_ref(q, p), None,
-                      4 * g * (b + c) * w + 8 * g * b, 3 * g * b * c * w, "int32"))
-    for label, (b, c, w) in [("serve wired", (256, 6400, 16)), ("tall", (4096, 102400, 64))]:
+                      4 * g * (b + c) * w + 8 * g * b, 2 * g * b * c * 32 * w, "b1"))
+    for label, (b, c, w) in [("serve wired", (256, 6400, 16)), ("tall", (4096, 102400, 64)),
+                             ("Table I trials", (2000, 100, 16))]:
         q, p = words(b, w), words(c, w)
         # cdist with p=0 counts the coordinates that differ: the Hamming
         # distance, on the unpacked bits as f32
@@ -347,7 +374,8 @@ def kernel_cases(torch, gen):
                       lambda q=q, p=p: tk.hamming_search(q, p),
                       lambda q=q, p=p: hamming_search_ref(q, p),
                       lambda qf=qf, pf=pf: torch.cdist(qf, pf, p=0),
-                      4 * (b + c) * w + 4 * b * c, 3 * b * c * w, "int32"))
+                      4 * (b + c) * w + 4 * b * c, 2 * b * c * 32 * w, "b1",
+                      bmm_yardstick(torch, hv, q[None], p[None])))
     for label, (g, b, c, k) in [("serve per core G=64", (64, 256, 100, 512)),
                                 ("serve permuted G=192", (192, 256, 100, 512)),
                                 ("serve wired G=1", (1, 256, 6400, 512)),
@@ -518,7 +546,7 @@ def hamming_k_cases(torch, gen):
     kernel's limit."""
     from repro_torch import kernels as tk
     from repro_torch.core import hypervector as hv
-    from repro_torch.kernels.hamming.ops import MAX_K
+    from repro_torch.kernels.hamming.ops import CLASS_TILE, MAX_K, plan
     from repro_torch.kernels.hamming.ref import (hamming_search_banked_ref,
                                                  hamming_topk_k_banked_ref)
 
@@ -533,12 +561,27 @@ def hamming_k_cases(torch, gen):
         return ("hamming_topk_k_banked", f"{label} G={g} B={b} C={c} c_real={cr} W={w} k={k}",
                 lambda: tk.hamming_topk_banked(q, p, k=k, c_real=cr),
                 lambda: hamming_topk_k_banked_ref(q, p, k, cr), None,
-                4 * g * (b + cr) * w + 8 * g * b * k, 3 * g * b * cr * w, "int32",
+                4 * g * (b + cr) * w + 8 * g * b * k, 2 * g * b * cr * 32 * w, "b1",
                 {} if expect is None else dict(expect=expect))
 
     cases = [topk_case("screen", 8, 512, 1600, 64, 8),
              topk_case("bank screen", 64, 256, 50, 16, 8),   # under one tile
-             topk_case("ragged", 3, 77, 333, 16, 5, c_real=300)]
+             topk_case("ragged", 3, 77, 333, 16, 5, c_real=300),
+             # the last split ends at c_real, inside its last tile
+             topk_case("c_real inside the last split", 8, 512, 1600, 64, 8, c_real=1550),
+             # k past one split's classes (6 splits of one 128-class tile)
+             topk_case("k past a split's classes", 2, 100, 700, 64, 150, c_real=650),
+             topk_case("k past a split's classes, W=5", 1, 64, 1600, 5, 200)]
+    # eight equal copies of query 0's row straddle the boundary of splits 1
+    # and 2 of the screen's plan: ranks 0-7 are those columns, lowest first
+    splits = plan(8, 512, 1600, torch.cuda.get_device_properties(0).multi_processor_count)
+    edge = CLASS_TILE * (2 * 13 // splits)       # split 2's first tile of 13
+    q, p = words(8, 512, 64), words(8, 1600, 64)
+    p[:, edge - 4:edge + 4] = q[:, :1]
+    want_i = torch.arange(edge - 4, edge + 4, device="cuda", dtype=torch.int32)
+    cases.append(topk_case(f"equal rows across the split edge at {edge}", 8, 512, 1600, 64, 8,
+                           p=p, q=q, expect=lambda got, want=want_i: bool(
+                               (got[1][:, 0] == want).all() and (got[0][:, 0] == 0).all())))
     # every row identical: rank r is column r, across five tiles
     same = words(2, 1, 64).expand(2, 600, 64).contiguous()
     cases.append(topk_case("all rows equal", 2, 40, 600, 64, 12, p=same, expect=lambda got: bool(
@@ -577,14 +620,18 @@ def hamming_k_cases(torch, gen):
     cases.append(topk_case("k at the limit (k + 1 raises)", 8, 64, 1600, 64, MAX_K, p=p, q=q,
                            expect=over_the_limit_raises))
     for label, (g, b, c, w) in [("recall oracle", (8, 512, 12800, 64)),
-                                ("ragged", (3, 77, 333, 5))]:
+                                ("ragged", (3, 77, 333, 5)),
+                                # 128-query tiles, B past a tile, C % 4 != 0
+                                ("B and C off the tiles", (4, 200, 9001, 64)),
+                                ("W=76", (2, 130, 700, 76))]:
         q, p = words(g, b, w), words(g, c, w)
         qf, pf = hv.unpack(q, 32 * w).float(), hv.unpack(p, 32 * w).float()
         cases.append(("hamming_search_banked", f"{label} G={g} B={b} C={c} W={w}",
                       lambda q=q, p=p: tk.hamming_search_banked(q, p),
                       lambda q=q, p=p: hamming_search_banked_ref(q, p),
                       lambda qf=qf, pf=pf: torch.cdist(qf, pf, p=0),   # batched, on bits
-                      4 * g * (b + c) * w + 4 * g * b * c, 3 * g * b * c * w, "int32", {}))
+                      4 * g * (b + c) * w + 4 * g * b * c, 2 * g * b * c * 32 * w, "b1",
+                      bmm_yardstick(torch, hv, q, p)))
     return cases
 
 
@@ -694,21 +741,23 @@ def phase_kernels(torch, gen) -> dict:
         plain_ms = time_ms(torch, plain, samples=3)
         lib_timer = call_ms if extra.get("lib_eager") else time_ms
         lib_ms = lib_timer(torch, lib, samples=3) if lib is not None else None
+        bmm_ms = time_ms(torch, extra["bmm"], samples=3) if "bmm" in extra else None
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        if kind in PEAKS:       # products with a published peak for their type
+        if kind in PEAKS:       # products with a peak for their type (b1: measured)
             ops_ms = ops / PEAKS[kind] * 1e3
             bound_ms, bound_by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                                           else "operations")
-        else:                   # popcount, gathers: no published peak, bytes bound
+        else:                   # gathers: no published peak, bytes bound
             bound_ms, bound_by = bytes_ms, "bytes"
         row = dict(shape=label, max_abs_err=err, ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms,
+                   bound_ms=bound_ms, bmm_ms=bmm_ms,
                    bound_by=bound_by, library_ms=lib_ms, bytes=nbytes, ops=ops, op_kind=kind,
                    library_what=extra.get("lib_what"), tol=extra.get("tol"))
         results.setdefault(name, []).append(row)
         print(f"kernel {name} [{label}]: {verdict}, {ms:.4f} ms (eager call {eager_ms:.4f}), "
               f"plain {plain_ms:.4f} ms, "
-              f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+              f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms"
+              f"{'' if bmm_ms is None else f', bf16 bmm {bmm_ms:.5f} ms'}, bound "
               f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {ops} {kind} ops)", flush=True)
     return results
 
@@ -1317,8 +1366,10 @@ def phase_coarse(torch, launches: dict, profile: bool = False) -> dict:
             qs = [scaleout.make_queries(gq, cfg, protos_u)[1] for _ in range(CALLS)]  # packed
             gn = torch.Generator(device="cuda").manual_seed(2)
             label = f"{'coarse' if coarse else 'flat'} packed C={base.n_classes}"
+            # the coarse screen's split lists go through topk_merge_kernel
             out[f"profile {label}"] = profile_calls(torch, label, [
-                lambda q=q: serve(protos_p, q, state, gn) for q in qs])
+                lambda q=q: serve(protos_p, q, state, gn) for q in qs],
+                share_of="topk_merge_kernel" if coarse else None)
     return out
 
 
@@ -1328,7 +1379,7 @@ def profile_calls(torch, label: str, calls: list, share_of: str | None = None) -
     of its kernel and copy intervals, its idle share the rest of the host's
     wall time of those calls, and the top device ops by summed time. With
     `share_of`, also the share of the summed device time in the ops whose
-    name holds that string."""
+    name holds that string, and their device ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
     calls[0]()                                  # warm
@@ -1359,10 +1410,11 @@ def profile_calls(torch, label: str, calls: list, share_of: str | None = None) -
                top=[(name[:60], t / n / 1e3) for name, t in top])
     if share_of is not None:
         total = sum(by_name.values())
-        row["share"] = (sum(t for name, t in by_name.items() if share_of in name) / total
-                        if total else None)
-        print(f"profile {label}: share of device time in {share_of}: {row['share']}",
-              flush=True)
+        mine = sum(t for name, t in by_name.items() if share_of in name)
+        row["share"] = mine / total if total else None
+        row["share_ms_per_call"] = mine / n / 1e3
+        print(f"profile {label}: share of device time in {share_of}: {row['share']} "
+              f"({row['share_ms_per_call']:.4f} ms/call)", flush=True)
     idle = "n/a" if row["idle_share"] is None else f"{row['idle_share']:.3f}"
     print(f"profile {label}: {row['wall_ms_per_call']:.3f} ms/call wall, device busy "
           f"{row['device_busy_ms_per_call']:.3f} ms/call "

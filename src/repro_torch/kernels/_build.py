@@ -29,8 +29,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # q, protos, dist, idx, G, B, C, W, c_real, stream
     "hamming_topk_banked_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, protos, dist, idx, G, B, C, W, c_real, k, stream
-    "hamming_topk_k_banked_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, protos, dist, idx, split scratch dist and idx, G, B, C, W, c_real, k,
+    # splits, stream
+    "hamming_topk_k_banked_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, protos, out, G, B, C, W, stream (G = 1: the unbanked search)
     "hamming_search_banked_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, protos, out, G, B, C, K, stream

@@ -7,10 +7,12 @@ launches the kernel of ``csrc/hamming.cu`` (and counts the launch) or raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check, check_contiguous, dispatch
+from repro_torch.kernels.common import cdiv, check, check_contiguous, dispatch
 from repro_torch.kernels.hamming.ref import (
     hamming_search_banked_ref,
     hamming_search_ref,
@@ -19,13 +21,36 @@ from repro_torch.kernels.hamming.ref import (
 )
 
 # Largest word count whose query and prototype tiles fit one block's shared
-# memory (227 KB; csrc/hamming.cu, smem_bytes): d up to 11,520 bits.
+# memory in the top-1 kernel (227 KB; csrc/hamming.cu, smem_bytes): d up to
+# 11,520 bits. The search and the top-k stream the words: any W.
 MAX_WORDS = 360
-MAX_GRID = 65535   # grid y / z limit; a block holds 32 queries
+MAX_GRID = 65535   # grid y / z limit; a search block holds 64 or 128 queries
 # The top-k kernel's largest k (csrc/hamming.cu, MAX_K): its merge holds
-# k/32 buffered ranks a lane in registers. Its k-rank buffers share the
-# block's shared memory with the tiles; the C entry refuses a W * k past it.
+# k/32 buffered ranks a lane in registers, and its k-rank buffers take
+# 512 bytes a rank (64 queries) of the block's shared memory.
 MAX_K = 256
+# csrc/hamming.cu's top-k tiles (TOPK_BM and BN there), and the plan's target
+TOPK_BM = 64       # queries a top-k block
+CLASS_TILE = 128   # classes a tile
+WAVES = 2          # blocks the plan asks of every SM
+
+
+@functools.lru_cache(maxsize=256)      # every launch asks for its plan
+def plan(g: int, b: int, c_real: int, sms: int) -> int:
+    """The fused top-k's class splits for g banks of b queries over c_real
+    classes on a card of ``sms`` SMs: split s of S walks the class tiles
+    [s*T//S, (s+1)*T//S) of the T 128-class tiles under c_real
+    (csrc/hamming.cu, hamming_topk_k_kernel). The fewest splits (at most one
+    a tile) whose blocks give every SM WAVES blocks; one split when the
+    (bank, query tile) pairs already do, or when c_real fits one tile."""
+    if g < 1 or b < 1 or c_real < 1:
+        raise ValueError(f"hamming top-k plan: G={g}, B={b}, c_real={c_real} must be >= 1")
+    return min(cdiv(c_real, CLASS_TILE), cdiv(WAVES * sms, g * cdiv(b, TOPK_BM)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def hamming_search(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
@@ -41,8 +66,8 @@ def hamming_search(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
     if dispatch("hamming_search", qf, protos) == "cpu":
         return hamming_search_ref(qf, protos).reshape(lead + (c,))
     check_contiguous("hamming_search", qf, protos)
-    if w > MAX_WORDS or b > MAX_GRID * 32:
-        raise ValueError(f"hamming_search: W={w} or B={b} beyond the kernel's limits")
+    if b > MAX_GRID * 32:
+        raise ValueError(f"hamming_search: B={b} beyond the kernel's limits")
     out = torch.empty((b, c), dtype=torch.int32, device=q.device)
     if b and c:
         _build.launch("hamming_search_banked_launch", qf.data_ptr(), protos.data_ptr(),
@@ -67,9 +92,8 @@ def hamming_search_banked(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor
     if dispatch("hamming_search_banked", q, protos) == "cpu":
         return hamming_search_banked_ref(q, protos)
     check_contiguous("hamming_search_banked", q, protos)
-    if w > MAX_WORDS or g > MAX_GRID or b > MAX_GRID * 32:
-        raise ValueError(f"hamming_search_banked: W={w}, G={g} or B={b} beyond the "
-                         "kernel's limits")
+    if g > MAX_GRID or b > MAX_GRID * 32:
+        raise ValueError(f"hamming_search_banked: G={g} or B={b} beyond the kernel's limits")
     out = torch.empty((g, b, c), dtype=torch.int32, device=q.device)
     if g and b and c:
         _build.launch("hamming_search_banked_launch", q.data_ptr(), protos.data_ptr(),
@@ -109,8 +133,10 @@ def hamming_topk_k_banked(
     (dists, idxs), each [G, B, k] int32, rank-sorted ascending by
     (distance, class index), over bank g's own prototypes; columns at or past
     ``c_real`` (default C) never rank. ``1 <= k <= c_real``; on the card also
-    ``k <= MAX_K``, else it raises, and the launch fails where W * k
-    outgrows the block's shared memory (there is no fallback)."""
+    ``k <= MAX_K``, else it raises (there is no fallback). On the card the
+    class axis is split over blocks by `plan`; with more than one split the
+    split lists go through a [splits, G, B, k] scratch and a merge kernel,
+    both inside the one counted launch."""
     c_real = _banks("hamming_topk_k_banked", q, protos, None, c_real)
     g, b, w = q.shape
     if not 1 <= k <= c_real:
@@ -126,8 +152,14 @@ def hamming_topk_k_banked(
     dist = torch.empty((g, b, k), dtype=torch.int32, device=q.device)
     idx = torch.empty((g, b, k), dtype=torch.int32, device=q.device)
     if g and b:
+        splits = plan(g, b, c_real, _sm_count(q.device.index))
+        # the split lists (dist, idx) before their merge; none for one split
+        scratch = [torch.empty((splits, g, b, k), dtype=torch.int32, device=q.device)
+                   if splits > 1 else None for _ in range(2)]
         _build.launch("hamming_topk_k_banked_launch", q.data_ptr(), protos.data_ptr(),
-                      dist.data_ptr(), idx.data_ptr(), g, b, protos.shape[1], w, c_real, k)
+                      dist.data_ptr(), idx.data_ptr(),
+                      *(None if t is None else t.data_ptr() for t in scratch),
+                      g, b, protos.shape[1], w, c_real, k, splits)
         hamming_topk_k_banked.launches += 1
     return dist, idx
 

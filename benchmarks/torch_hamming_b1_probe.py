@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Rate of the 1-bit tensor-core product on one H100, and the two
+"""Rates of the 1-bit tensor-core products on one H100, and the two
 tensor-core routes of the packed Hamming search at the recall oracle.
 
     python3 benchmarks/torch_hamming_b1_probe.py [--json out.json]
 
 Builds ``benchmarks/torch_hamming_b1_probe.cu`` with nvcc into
 ``build/b1_probe/`` and prints ``mma.sync m16n8k256 .b1 .and.popc``'s rate
-on registers alone (TOP/s, 2 * 16 * 8 * 256 a product: the int8 peak's
-count). NVIDIA publishes no 1-bit peak; ``chip_smoke.py`` bounds the Hamming
-kernels by this rate (``B1_OPS_PER_S``). Then, at the recall oracle's shape
+on registers alone and ``wgmma m64n128k256 .b1 .and.popc``'s on tiles in
+shared memory (TOP/s, 2 * M * N * K a product: the int8 peak's count).
+NVIDIA publishes no 1-bit peak; ``chip_smoke.py`` bounds the Hamming
+kernels by the higher rate (``B1_OPS_PER_S``). Then, at the recall oracle's shape
 (G 8, B 512, C 12,800, W 64), times with CUDA events, in turns: the port's
 ``hamming_search_banked`` (the 1-bit route), the int8 wgmma route's product
 as the port runs it (``assoc_matmul_banked`` on the {0,1} byte expansions:
@@ -43,6 +44,7 @@ def build() -> ctypes.CDLL:
                     "-Xcompiler", "-fPIC", "-shared", str(SRC), "-o", str(lib)], check=True)
     dll = ctypes.CDLL(str(lib))
     dll.b1_peak_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    dll.b1_wgmma_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     return dll
 
 
@@ -93,6 +95,21 @@ def main(argv) -> int:
     print(f"b1 m16n8k256 rate on registers: {peak / 1e12:.1f} TOP/s ({peak_ms:.4f} ms)",
           flush=True)
 
+    # the warpgroup rate from shared memory: 8 one-warpgroup blocks an SM
+    wblocks, witers = torch.cuda.get_device_properties(0).multi_processor_count * 8, 2000
+    wsink = torch.empty(wblocks * 128, dtype=torch.int32, device="cuda")
+
+    def wgmma_launch():
+        err = dll.b1_wgmma_launch(wsink.data_ptr(), wblocks, witers,
+                                  torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"cudaError {err}")
+
+    wgmma_ms = events_ms(torch, wgmma_launch, reps=3)
+    wgmma = wblocks * witers * 4 * 2 * 64 * 128 * 256 / (wgmma_ms * 1e-3)
+    print(f"b1 wgmma m64n128k256 rate from shared memory: {wgmma / 1e12:.1f} TOP/s "
+          f"({wgmma_ms:.4f} ms)", flush=True)
+
     g, b, c, w = 8, 512, 12800, 64
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, p = (torch.randint(-2**31, 2**31 - 1, (g, n, w), generator=gen, device="cuda",
@@ -113,7 +130,8 @@ def main(argv) -> int:
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(dict(card=card, b1_peak_tops=peak / 1e12,
-                                             oracle_ms=oracle), indent=1))
+                                             b1_wgmma_tops=wgmma / 1e12, oracle_ms=oracle),
+                                        indent=1))
     return 0
 
 

@@ -11,15 +11,24 @@ fallback, and a missing GPU is a failure):
    instructions in the built library's SASS (cuobjdump): HGMMA/HMMA in the
    bf16 attention kernel, IGMMA/IMMA and no IDP4A in assoc_matmul, LDGSTS
    (16-byte cp.async) in the sparse kernels, BMMA (1-bit tensor-core
-   products) in the Hamming search and top-k kernels, and the SIMT
-   attention kernel built for f32 only;
-2. kernels: each of the nine kernels against its plain PyTorch version on
+   products) in the Hamming search and top-k kernels and BGMMA (1-bit
+   warpgroup products) in the top-1, 16-byte loads in the majority kernel,
+   no SIMT top-1 (retired), and the SIMT attention kernel built for f32 only;
+2. kernels: the launch floor (a one-element add_); each of the nine
+   kernels against its plain PyTorch version on
    the card, at the main path's shapes and at one tall shape (102,400 classes
-   over 64 cores, d = 2048, batch 4096); assoc_matmul also at a ragged shape
+   over 64 cores, d = 2048, batch 4096); the fused top-1 at every main-path
+   shape (the OTA serves, the flat serve at C = 102,400, multi-centroid
+   predict and bank serve, Table I at M = 11) and at ragged, tie (all rows
+   equal, equal rows across a class split's edge), c_real inside the last
+   split, B off its tile, W = 5, 76 and 400 shapes; the majority also on
+   bytes 0-255 at M = 300, odd N and a base one byte off alignment;
+   assoc_matmul also at a ragged shape
    (K = 500, a partial class tile) and on bytes 0-255; the fused top-k and
    the per-bank search also at ragged, tie (across the kernel's 128-row
    tiles and across the top-k's class splits) and limit shapes, k = 1
-   against the top-1 kernel, c_real inside the last split, k past a split's
+   against the top-1 kernel (also at the flat serve's shape), c_real inside
+   the last split, k past a split's
    classes (W = 64 and 5), B and C off the search's tiles and W = 76;
    `hamming_search` also at the Table I trials' shape; the two sparse
    kernels at ragged, tie and empty-query shapes, full lists at the serve
@@ -122,11 +131,12 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 peak outside the tensor cores
-# the 1-bit tensor-core product (mma.sync m16n8k256 .b1 .and.popc), counted
-# as 2 operations a bit product like the int8 peak: NVIDIA publishes no 1-bit
-# peak, so this is the highest rate benchmarks/torch_hamming_b1_probe.py
-# measured on an H100 80GB HBM3 at 700 W (about 5x the int8 peak)
-B1_OPS_PER_S = 10283e12
+# the 1-bit tensor-core products (mma.sync m16n8k256 and wgmma m64n128k256,
+# .b1 .and.popc), counted as 2 operations a bit product like the int8 peak:
+# NVIDIA publishes no 1-bit peak, so this is the highest rate
+# benchmarks/torch_hamming_b1_probe.py measured on an H100 80GB HBM3 at
+# 700 W (the wgmma product from shared memory; about 7.9x the int8 peak)
+B1_OPS_PER_S = 15684e12
 PEAKS = {"int8": INT8_OPS_PER_S, "b1": B1_OPS_PER_S, "bf16": BF16_FLOPS_PER_S,
          "f32": F32_FLOPS_PER_S}
 CALLS = 8                        # serve calls per mode
@@ -206,39 +216,55 @@ def card_line() -> str:
 
 # instructions in the SASS of the redesigned kernels: kernel symbol -> the
 # opcodes that must appear (tensor-core products; the sparse kernels'
-# asynchronous 16-byte copies) and those that must not
+# asynchronous 16-byte copies; the majority's 16-byte loads) and those that
+# must not. "LDG.128" is any LDG whose modifiers include .128.
 SASS_RULES = {
     "flash_fwd_mma_kernel": (("HGMMA", "HMMA"), ()),
     "assoc_matmul_kernel": (("IGMMA", "IMMA"), ("IDP4A",)),
     "sparse_kernel": (("LDGSTS",), ()),
     # the packed Hamming search and top-k: 1-bit tensor-core products
+    # (mma.sync); the top-1: 1-bit warpgroup products (wgmma)
     "hamming_search_kernel": (("BMMA", "IMMA"), ()),
     "hamming_topk_k_kernel": (("BMMA", "IMMA"), ()),
+    "hamming_top1_kernel": (("BGMMA",), ("BMMA", "IMMA")),
+    "majority_kernel": (("LDG.128",), ()),
 }
+# kernel symbols that must not be in the library: the retired SIMT top-1,
+# replaced by hamming_top1_kernel
+GONE = ("hamming_topk_banked_kernel",)
+
+
+def _op_pattern(op: str) -> str:
+    """A regex for an opcode rule: a plain name, or NAME.MOD for any NAME
+    instruction whose dotted modifiers include MOD."""
+    head, _, mod = op.partition(".")
+    return rf"\b{head}\b" if not mod else rf"\b{head}(?:\.\w+)*?\.{mod}\b"
 
 
 def sass_counts(lib: Path) -> dict:
     """{kernel symbol: {opcode: count}} over every instance of the kernels in
     SASS_RULES, from ``cuobjdump -sass`` of the built library; also
-    the names of the SIMT attention kernel's instances (f32 only)."""
+    the names of the SIMT attention kernel's instances (f32 only) and of
+    every function whose name holds a symbol of GONE."""
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda") / "bin" / "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    ops = {op for want, bad in SASS_RULES.values() for op in want + bad}
-    pat = re.compile(r"\b(" + "|".join(sorted(ops)) + r")\b")
-    counts = {name: dict.fromkeys(sorted(ops), 0) for name in SASS_RULES}
-    simt, current = [], None
+    ops = sorted({op for want, bad in SASS_RULES.values() for op in want + bad})
+    pats = {op: re.compile(_op_pattern(op)) for op in ops}
+    counts = {name: dict.fromkeys(ops, 0) for name in SASS_RULES}
+    simt, gone, current = [], [], None
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             current = next((n for n in SASS_RULES if n in fn), None)
             if "flash_fwd_simt_kernel" in fn:
                 simt.append(fn)
+            gone += [fn for n in GONE if n in fn]
         elif current is not None:
-            for op in pat.findall(line):
-                counts[current][op] += 1
-    return dict(counts=counts, simt_attention=simt)
+            for op, pat in pats.items():
+                counts[current][op] += len(pat.findall(line))
+    return dict(counts=counts, simt_attention=simt, gone=gone)
 
 
 def ptxas_report(lib: Path) -> dict:
@@ -341,6 +367,7 @@ def kernel_cases(torch, gen):
     from repro_torch import kernels as tk
     from repro_torch.core import hypervector as hv
     from repro_torch.kernels.assoc_matmul.ref import assoc_matmul_ref
+    from repro_torch.kernels.hamming.ops import CLASS_TILE, plan_top1
     from repro_torch.kernels.hamming.ref import hamming_search_ref, hamming_topk_banked_ref
     from repro_torch.kernels.majority.ref import majority_bundle_ref
 
@@ -353,17 +380,47 @@ def kernel_cases(torch, gen):
     def bits(*shape):
         return torch.randint(0, 2, shape, generator=gen, device=dev, dtype=torch.uint8)
 
-    cases = []
-    for label, (g, b, c, w) in [("serve baseline G=64", (64, 256, 100, 16)),
-                                ("serve permuted G=192", (192, 256, 100, 16)),
-                                ("tall", (64, 4096, 1600, 64)),
-                                # static + dynamic shared memory just past 48 KB
-                                ("wide", (4, 64, 300, 76))]:
-        q, p = words(g, b, w), words(g, c, w)
-        cases.append(("hamming_topk_banked", f"{label} B={b} C={c} W={w}",
-                      lambda q=q, p=p: tk.hamming_topk_banked(q, p),
-                      lambda q=q, p=p: hamming_topk_banked_ref(q, p), None,
-                      4 * g * (b + c) * w + 8 * g * b, 2 * g * b * c * 32 * w, "b1"))
+    def top1_case(label, g, b, c, w, c_real=None, p=None, q=None, expect=None):
+        q = words(g, b, w) if q is None else q
+        p = words(g, c, w) if p is None else p
+        cr = c if c_real is None else c_real
+        return ("hamming_topk_banked", f"{label} G={g} B={b} C={c} c_real={cr} W={w}",
+                lambda: tk.hamming_topk_banked(q, p, c_real=cr),
+                lambda: hamming_topk_banked_ref(q, p, cr), None,
+                4 * g * (b + cr) * w + 8 * g * b, 2 * g * b * cr * 32 * w, "b1",
+                {} if expect is None else dict(expect=expect))
+
+    # the main path's shapes (the OTA serves, phase 10's flat serve at
+    # C = 102,400 and multi-centroid predict and bank serve, Table I at M = 11),
+    # then the tall shape and the edges: ragged and unaligned (W = 5, 76),
+    # B off the query tile, W past the SIMT kernel's old limit of 360
+    cases = [top1_case(label, *shape) for label, shape in [
+        ("serve baseline", (64, 256, 100, 16)), ("serve permuted", (192, 256, 100, 16)),
+        ("flat C=102,400", (8, 512, 12800, 64)), ("multi-centroid predict", (1, 6400, 25600, 16)),
+        ("Table I M=11", (11, 2000, 100, 16)), ("multi-centroid bank serve", (64, 256, 400, 16)),
+        ("tall", (64, 4096, 1600, 64)), ("ragged", (3, 77, 333, 5)), ("W=76", (4, 64, 300, 76)),
+        ("B off the query tile", (2, 300, 20000, 16)), ("W=400", (2, 128, 1000, 400)),
+        # 128-query tiles with the query tile streamed (too wide to stay resident)
+        ("W=76 at 128-query tiles", (8, 512, 2000, 76))]]
+    # every row equal: every query's first minimum is column 0, in every split
+    same = words(2, 1, 64).expand(2, 1000, 64).contiguous()
+    cases.append(top1_case("all rows equal", 2, 100, 1000, 64, p=same, expect=lambda got: bool(
+        (got[1] == 0).all())))
+    # (2, 64, 3000, 16) takes 24 splits of one tile: eight equal copies of
+    # query 0's row straddle the edge of splits 0 and 1, the lower must win
+    _, splits = plan_top1(2, 64, 3000, torch.cuda.get_device_properties(0).multi_processor_count)
+    edge = CLASS_TILE * (24 // splits)
+    q, p = words(2, 64, 16), words(2, 3000, 16)
+    p[:, edge - 4:edge + 4] = q[:, :1]
+    cases.append(top1_case(f"equal rows across the split edge at {edge} ({splits} splits)",
+                           2, 64, 3000, 16, p=p, q=q, expect=lambda got, e=edge: bool(
+                               (got[1][:, 0] == e - 4).all() and (got[0][:, 0] == 0).all())))
+    # c_real inside the last split's tile; the columns past it equal every
+    # query 0 row (distance 0), so they would win if they took part
+    q, p = words(2, 64, 16), words(2, 3000, 16)
+    p[:, 2950:] = q[:, :1]
+    cases.append(top1_case("c_real inside the last split", 2, 64, 3000, 16, c_real=2950, p=p,
+                           q=q, expect=lambda got: bool((got[1] < 2950).all())))
     for label, (b, c, w) in [("serve wired", (256, 6400, 16)), ("tall", (4096, 102400, 64)),
                              ("Table I trials", (2000, 100, 16))]:
         q, p = words(b, w), words(c, w)
@@ -402,6 +459,18 @@ def kernel_cases(torch, gen):
                       lambda x=x, m=m: majority_bundle_ref(x.reshape(m, -1)).reshape(x.shape[1:]),
                       lambda x=x: torch.mode(x, 0).values,   # odd M: the mode is the majority
                       m * b * d + b * d, m * b * d, "int32"))
+    # every byte value at M = 300 (past the 16-bit lanes' 257-row flush; even
+    # M, so ties give 0); N odd (the byte-wise path and tail); a base one byte
+    # past an aligned address (a sliced input)
+    full = torch.randint(0, 256, (300, 64, 512), generator=gen, device=dev, dtype=torch.uint8)
+    odd = bits(4, 7, 333)
+    offset = bits(3 * 256 * 512 + 1)[1:].view(3, 256, 512)
+    for label, x in [("bytes 0-255", full), ("odd N, even M", odd), ("base offset by 1 byte", offset)]:
+        m, b, d = x.shape
+        cases.append(("majority_bundle", f"{label} M={m} B={b} d={d}",
+                      lambda x=x: tk.majority_bundle(x),
+                      lambda x=x, m=m: majority_bundle_ref(x.reshape(m, -1)).reshape(x.shape[1:]),
+                      None, m * b * d + b * d, m * b * d, "int32"))
     return cases
 
 
@@ -600,14 +669,16 @@ def hamming_k_cases(torch, gen):
     cases.append(topk_case("duplicates across tiles", 2, 8, 384, 64, 6, p=p, q=q,
                            expect=lambda got: bool((got[0][:, 0] == want_d).all()
                                                    and (got[1][:, 0] == want_i).all())))
-    q, p = words(8, 512, 64), words(8, 1600, 64)
-
-    def as_top1(got, q=q, p=p):
+    def as_top1(got, q, p):
         d1, i1 = tk.hamming_topk_banked(q, p)
         return torch.equal(got[0][..., 0], d1) and torch.equal(got[1][..., 0], i1)
 
-    cases.append(topk_case("k=1 == top-1 kernel", 8, 512, 1600, 64, 1, p=p, q=q,
-                           expect=as_top1))
+    # k = 1 against the top-1 kernel, at the screen's shape and at the flat
+    # serve's (C = 102,400 over 8 cores), where its time stands beside the top-1's
+    for label, c in [("k=1 == top-1 kernel", 1600), ("k=1 == top-1 kernel, flat C=102,400", 12800)]:
+        q, p = words(8, 512, 64), words(8, c, 64)
+        cases.append(topk_case(label, 8, 512, c, 64, 1, p=p, q=q,
+                               expect=lambda got, q=q, p=p: as_top1(got, q, p)))
     q, p = words(8, 64, 64), words(8, 1600, 64)
 
     def over_the_limit_raises(got, q=q, p=p):
@@ -713,7 +784,11 @@ def flash_cases(torch, gen):
 
 
 def phase_kernels(torch, gen) -> dict:
-    results = {}
+    # the floor a launch sits on: one-element add_, timed as the kernels are
+    one = torch.zeros(1, device="cuda")
+    floor_ms = time_ms(torch, lambda: one.add_(1))
+    print(f"launch floor: one-element add_ {floor_ms:.6f} ms (CUDA-graph replay)", flush=True)
+    results = {"launch_floor_ms": floor_ms}
     for case in kernel_cases(torch, gen) + hamming_k_cases(torch, gen) + sparse_kernel_cases(
             torch, gen) + flash_cases(torch, gen):
         name, label, kern, plain, lib, nbytes, ops, kind = case[:8]
@@ -1755,6 +1830,7 @@ def main(argv: list[str]) -> int:
         print(f"sass {name}: " + ", ".join(f"{op} {got[op]}" for op in want + bad), flush=True)
         require(sum(got[op] for op in want) > 0, f"sass {name}: no {'/'.join(want)} instruction")
         require(all(got[op] == 0 for op in bad), f"sass {name}: {bad} present: {got}")
+    require(not sass["gone"], f"sass: retired kernels still built: {sass['gone']}")
     # the SIMT attention kernel is built for f32 only (no bf16 instance)
     require(sass["simt_attention"] and all("bfloat16" not in fn
                                            for fn in sass["simt_attention"]),

@@ -1,8 +1,8 @@
 // Packed Hamming search kernels for Hopper (sm_90a), plain C interface.
 //
 // Replaces four TPU kernels of src/repro/kernels/hamming/kernel.py:
-//   * hamming_topk_banked_pallas / _topk_banked_kernel -> hamming_topk_banked_kernel
-//     per-bank fused top-1 (min distance, first argmin) over XOR+popcount.
+//   * hamming_topk_banked_pallas / _topk_banked_kernel -> hamming_top1_kernel
+//     (+ top1_merge_kernel) per-bank fused top-1 (min distance, first argmin).
 //   * hamming_topk_k_banked_pallas / _topk_k_banked_kernel -> hamming_topk_k_kernel
 //     (+ topk_merge_kernel) per-bank fused top-k, rank-sorted ascending by
 //     (distance, class index).
@@ -15,9 +15,9 @@
 // counted as products of the {0,1} expansions that is 2*G*B*C*32W
 // operations. The full searches also write G*B*C*4 bytes, which bound them
 // once the products run on the tensor cores (the recall oracle's [8, 512,
-// 12,800] output is 210 MB, 0.063 ms at 3.35 TB/s). The top-1 (SIMT, below)
-// and the top-k read G*(B+C)*W*4 bytes and write 8 bytes per query and rank:
-// their products bound them.
+// 12,800] output is 210 MB, 0.063 ms at 3.35 TB/s). The top-1 and the top-k
+// read G*(B+C)*W*4 bytes and write 8 bytes per query and rank: their
+// products bound them at the wide shapes, their bytes at the serve's.
 //
 // The search and the top-k run their products on the tensor cores' 1-bit
 // path: mma.sync m16n8k256 .b1 with .and.popc sums popc(q AND p) over 256
@@ -77,19 +77,44 @@
 // distinct and the ranks a permutation; the k smallest land in order. The
 // result does not depend on which block ends first.
 //
-// Top-1 (SIMT). The Pallas grid walks the class axis in order and carries
-// the running (min, argmin) in a revisited VMEM tile; here that axis becomes
-// a loop inside one block. A block owns one bank and a tile of QB queries,
-// staged once in shared memory; it streams the bank's prototypes through
-// shared memory one tile of 128 rows at a time (row stride W+1 words, so the
-// 32 lanes of a warp read 32 different banks). Each thread owns one class row
-// of the tile and keeps, in registers, the running best (dist, col) of each
-// of the QB queries; it meets its classes in increasing order and replaces
-// only on a strictly smaller distance. At the end a lexicographic
-// (dist, col) reduction over the block (warp shuffles, then the warps in
-// order) gives the first minimum, exactly the tie rule of kernel.py:93-105.
-// Columns at or past c_real are never visited, which equals the reference's
-// 2^30 poison whenever c_real >= 1 (the wrapper checks that).
+// Top-1 (hamming_top1_kernel). The Pallas grid walks the class axis in
+// order and carries the running (min, argmin) in a revisited VMEM tile. Here
+// block (query tile, split s, bank) walks its class tiles [s*T/S, (s+1)*T/S)
+// of the T = ceil(c_real / 128) and writes no distance. Its products run on
+// the 1-bit warpgroup product, wgmma.mma_async m64n128k256 .b1 .and.popc
+// (BGMMA): both operands straight from shared memory, no fragment loads, at
+// ~15.7 POP/s on an H100 where the mma.sync tile above reaches ~10
+// (benchmarks/torch_hamming_b1_probe.py); a top-1 on the mma.sync tile was
+// bound by its fragment loads and missed its target (PERF.md). The words
+// are laid out as csrc/assoc_matmul.cu lays out
+// bytes: rows of 128 bytes (32 words, four 256-bit k steps) with their
+// 16-byte chunks XOR-swizzled by row, the layout wgmma reads with its
+// 128-byte swizzle; a k step past the row's words (W = 16: the last two)
+// is not issued. Two warpgroups: at BM = 128 each owns 64 queries x the
+// tile's 128 classes, at BM = 64 each 64 queries x 64 classes. The query
+// tile stays resident in shared memory for the block's life where two blocks
+// still fit an SM (W <= 64 at BM = 128, <= 160 at BM = 64); the class rows
+// stream through a ring of k-tile slots by cp.async, all but one slot in
+// flight (4 slots; 3 at BM = 128 when each slot also carries the query
+// rows' k tile), one barrier a stage. |p| comes from the 16-byte chunks each thread copied,
+// counted while the products run; |q| once a block. After a tile's products
+// every thread takes, for each of its two rows (wrow + 16 (warp % 4) +
+// lane / 4 (+ 8)), v = |p| - 2 acc over its 32 (BM 128) or 16 columns,
+// met in increasing order, keeps the least (columns at or past c_real never
+// take part, which equals the reference's 2^30 poison since c_real >= 1) and
+// replaces its running best only on a strictly smaller v, with the first
+// column at it: so it holds the first minimum of its columns. At the end the
+// four threads of a quad (the same rows) meet by shuffles and, at BM = 64,
+// the two warpgroups through shared memory, each step a lexicographic
+// (v, col) min; the distance is |q| + v. The result is the first minimum
+// (kernel.py:93-105) whatever the order of lanes, warpgroups or splits. S and
+// BM come from kernels/hamming/ops.py `plan_top1` (BM = 128 where 128-query
+// tiles, split down to one class tile a block, still give every SM two
+// blocks; S counts whole waves, so no split count leaves a second wave of a
+// few blocks). With S = 1 the block writes the result; otherwise the
+// caller's [S, G, B] scratch, and top1_merge_kernel takes each query's
+// lexicographic min over the S complete partials, which does not depend on
+// which block ends first.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -98,8 +123,6 @@
 
 namespace {
 
-constexpr int THREADS = 128;  // top-1: class rows per tile, one per thread
-constexpr int QB = 32;        // top-1: queries per block
 constexpr int MAX_K = 256;    // top-k buffer ranks (the merge's registers: MAX_K / 32 a lane)
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -110,6 +133,11 @@ constexpr int KC = 32;            // words of a row a ring stage (4 k steps of 8
 constexpr int LD = KC + 8;        // staged row stride in words (== 8 mod 32)
 constexpr int OUT_LD = BN + 8;    // distance tile row stride in words (== 8 mod 32)
 constexpr int TOPK_BM = 64;       // queries a top-k block
+// the top-1 on wgmma
+constexpr int BK = 128;           // bytes of a row a k tile: 32 words, four 256-bit k steps
+// shared memory a block may take so that two fit an SM (228 KB, 1 KB
+// reserved a block)
+constexpr size_t TWO_BLOCK_SMEM = 113 * 1024;
 
 template <int BM>
 struct Tile {
@@ -292,105 +320,311 @@ __device__ __forceinline__ void distance_tile(int* smem, const int (&acc)[2][Til
   }
 }
 
-// Stage QB query rows [QB][W] (zero past B) and return nothing; callers sync.
-__device__ __forceinline__ void stage_queries(int* qs, const int* q, int b0,
-                                              int B, int W) {
-  for (int i = threadIdx.x; i < QB * W; i += THREADS) {
-    const int b = b0 + i / W;
-    qs[i] = b < B ? q[(size_t)b * W + i % W] : 0;
-  }
+// byte offset of 16-byte chunk c of row r in a tile of 128-byte rows: the
+// 128-byte swizzle wgmma reads (chunk c ^ (r % 8))
+__device__ __forceinline__ int swz(int r, int c) { return r * BK + ((c ^ (r & 7)) << 4); }
+
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle:
+// rows of 128 bytes, 8-row atoms of 1024 bytes (the stride between atoms),
+// as swz() lays them out; a 256-bit (32-byte) k step adds 2 to the address
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// Stage `rows` prototype rows starting at c0 into ps with row stride W + 1.
-__device__ __forceinline__ void stage_protos(int* ps, const int* p, int c0,
-                                             int rows, int W) {
-  for (int i = threadIdx.x; i < rows * W; i += THREADS) {
-    const int r = i / W, w = i % W;
-    ps[r * (W + 1) + w] = p[(size_t)(c0 + r) * W + w];
-  }
+// d (+)= popc(A AND B) over one 256-bit k step, 64 rows x N classes a
+// warpgroup, int32; scale_d = 0 starts from 0
+__device__ __forceinline__ void wgmma_b1(int (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k256.s32.b1.b1.and.popc "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
 }
 
-__global__ void __launch_bounds__(THREADS)
-hamming_topk_banked_kernel(const int* __restrict__ q, const int* __restrict__ p,
-                           int* __restrict__ dist, int* __restrict__ idx,
-                           int B, int C, int W, int c_real) {
-  extern __shared__ int smem[];
-  int* qs = smem;            // [QB][W]
-  int* ps = smem + QB * W;   // [THREADS][W + 1]
-  __shared__ int red_d[THREADS / 32][QB];
-  __shared__ int red_c[THREADS / 32][QB];
+__device__ __forceinline__ void wgmma_b1(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k256.s32.b1.b1.and.popc "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
 
-  const int g = blockIdx.y;
-  const int b0 = blockIdx.x * QB;
-  const int t = threadIdx.x;
-  const int* pg = p + (size_t)g * C * W;
-  stage_queries(qs, q + (size_t)g * B * W, b0, B, W);
-
-  int best_d[QB], best_c[QB];
-#pragma unroll
-  for (int j = 0; j < QB; ++j) {
-    best_d[j] = INT_MAX;
-    best_c[j] = INT_MAX;
+// The top-1's shared memory: a ring of STAGES slots of k-tile rows (class
+// rows; with QRES off, the query rows' k tile first), with QRES the query
+// tile resident ([W / 32] k tiles of [BM][BK]), the rows' bit counts and the
+// reduction's [2][BM] (dist, col).
+template <int BM, bool QRES>
+struct Top1 {
+  static constexpr int WN = BM == 128 ? 128 : 64;          // classes a warpgroup's wgmma covers
+  static constexpr int SROWS = QRES ? BN : BM + BN;         // rows a ring slot stages
+  static constexpr int STAGES = QRES || BM == 64 ? 4 : 3;   // at most 96 KB of ring
+  static constexpr size_t SLOT = (size_t)SROWS * BK;
+  static constexpr size_t RING = STAGES * SLOT;
+  static size_t smem(int W) {                              // + 1024 for the ring's alignment
+    const size_t ktiles = (size_t)max(1, (W + KC - 1) / KC);
+    return 1024 + RING + (QRES ? ktiles * BM * BK : 0) + (BM + BN + 4 * BM) * sizeof(int);
   }
+};
 
-  const int c_end = min(C, c_real);
-  for (int c0 = 0; c0 < c_end; c0 += THREADS) {
-    const int rows = min(THREADS, c_end - c0);
-    __syncthreads();  // the previous tile is consumed (and qs is staged)
-    stage_protos(ps, pg, c0, rows, W);
-    __syncthreads();
-    if (t < rows) {
-      int acc[QB];
+// grid (B / BM, S, G): block (query tile, split s, bank) finds, for each of
+// its BM queries, the first minimum (dist, col) over the class tiles
+// [s*T/S, (s+1)*T/S) of the T = ceil(c_real / BN) tiles; writes [G, B]
+// (S = 1) or split s of the [S, G, B] scratch.
+template <int BM, bool ALIGNED, bool QRES>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+hamming_top1_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ p,
+                    int* __restrict__ dist, int* __restrict__ idx, int B, int C, int W,
+                    int c_real) {
+  using T = Top1<BM, QRES>;
+  constexpr int STAGES = T::STAGES, WN = T::WN;
+  constexpr int CR = QRES ? 0 : BM;             // a slot's first class row
+  constexpr int SJ = T::SROWS * 8 / MMA_THREADS;   // chunks a thread stages: rows tid/8 + 32 j
+  constexpr int QJ = QRES ? 0 : BM / 32;        // of which query rows (j < QJ)
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle atoms need 1024-byte alignment
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qt = ring + T::RING;
+  const int nch = max(1, (W + KC - 1) / KC);    // k tiles a row (W = 0: one, empty)
+  int* counts = reinterpret_cast<int*>(qt + (QRES ? (size_t)nch * BM * BK : 0));
+  int* red_d = counts + BM + BN;                // [2][BM]
+  int* red_c = red_d + 2 * BM;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  const int b0 = blockIdx.x * BM, split = blockIdx.y, S = gridDim.y;
+  const size_t g = blockIdx.z;
+  const uint32_t* qg = q + g * B * W;
+  const uint32_t* pg = p + g * C * W;
+  const long long tiles = (c_real + BN - 1) / BN;
+  const int t0 = (int)(split * tiles / S), t1 = (int)((split + 1) * tiles / S);
+  const int n = (t1 - t0) * nch;                // stages: (class tile, k tile)
+  // warpgroup wg's outputs: 64 queries from wrow x WN classes from wcol
+  const int wrow = BM == 128 ? 64 * wg : 0, wcol = BM == 128 ? 0 : 64 * wg;
+  const int qd = tid & 7;                       // this thread's 16-byte chunk of a row
+
+  // 16 bytes of row `row` (of `rows`) at word w into dst, zeros past the row
+  auto copy16 = [&](unsigned char* dst, const uint32_t* base, int row, int rows, int w) {
+    const bool ok = row < rows;
+    const uint32_t* src = base + (size_t)(ok ? row : 0) * W;
+    if (ALIGNED) {
+      cp_async16(dst, src + (ok && w < W ? w : 0), ok && w < W ? 16 : 0);
+    } else {
 #pragma unroll
-      for (int j = 0; j < QB; ++j) acc[j] = 0;
-      const int* pr = ps + t * (W + 1);
-      for (int w = 0; w < W; ++w) {
-        const int pw = pr[w];
-#pragma unroll
-        for (int j = 0; j < QB; ++j) acc[j] += __popc(qs[j * W + w] ^ pw);
+      for (int e = 0; e < 4; ++e) {
+        const bool in = ok && w + e < W;
+        cp_async4(dst + 4 * e, src + (in ? w + e : 0), in ? 4 : 0);
       }
-      const int c = c0 + t;
+    }
+  };
+  // k tile ch's words [32 ch, 32 ch + kw), zeros to a multiple of 8
+  auto fill = [&](int ch) -> int {
+    const int kw = min(KC, W - ch * KC);
+    return ((kw + 7) & ~7) / 4;                   // 16-byte chunks a row to stage
+  };
+  auto load = [&](int st) {
+    if (st >= n) return;
+    unsigned char* slot = ring + (st % STAGES) * T::SLOT;
+    const int ch = st % nch, c0 = (t0 + st / nch) * BN;
+    if (qd >= fill(ch)) return;
 #pragma unroll
-      for (int j = 0; j < QB; ++j) {
-        if (acc[j] < best_d[j]) {  // strict: the earlier class keeps a tie
-          best_d[j] = acc[j];
-          best_c[j] = c;
+    for (int j = 0; j < SJ; ++j) {
+      const int r = (tid >> 3) + 32 * j;
+      if (j < QJ) copy16(slot + swz(r, qd), qg, b0 + r, B, ch * KC + 4 * qd);
+      else copy16(slot + swz(r, qd), pg, c0 + r - CR, C, ch * KC + 4 * qd);
+    }
+  };
+
+  if (QRES) {                                   // the query tile, once
+    for (int e = tid; e < nch * BM * 8; e += MMA_THREADS) {
+      const int kt = e / (BM * 8), r = (e >> 3) % BM, c = e & 7;
+      if (c < fill(kt)) copy16(qt + (size_t)kt * BM * BK + swz(r, c), qg, b0 + r, B, kt * KC + 4 * c);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    load(i);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+
+  int acc[WN / 2];                              // W = 0: no product, every count 0
+#pragma unroll
+  for (int i = 0; i < WN / 2; ++i) acc[i] = 0;
+  int cnt[SJ];
+#pragma unroll
+  for (int j = 0; j < SJ; ++j) cnt[j] = 0;
+  // this thread's running best of its rows wrow + 16 (warp % 4) + lane / 4
+  // (+ 8 h) over its columns, met in increasing order, as v = |p| - 2 acc
+  // (the distance less |q|, the same for the whole row): a strictly smaller
+  // v replaces
+  int bv[2] = {INT_MAX, INT_MAX}, bc[2] = {INT_MAX, INT_MAX};
+
+  for (int st = 0; st < n; ++st) {
+    const int ch = st % nch;
+    const bool first = st < nch;                // the first class tile: count the query rows
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");   // stage st landed
+    // this thread's copies of stage st, visible to the tensor cores' (async) reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // stage st visible to every warp; every warpgroup's products on stage
+    // st - 1 done (each waits for its own below), so its slot may refill
+    __syncthreads();
+    load(st + STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+
+    const unsigned char* slot = ring + (st % STAGES) * T::SLOT;
+    const unsigned char* at = QRES ? qt + (size_t)ch * BM * BK : slot;
+    const uint64_t da = sw128_desc(smem_u32(at + wrow * BK));
+    const uint64_t db = sw128_desc(smem_u32(slot + (CR + wcol) * BK));
+    const int nq = fill(ch);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < BK / 32; ++ks) {      // the k steps holding words of the row
+      if (2 * ks < nq) wgmma_b1(acc, da + 2 * ks, db + 2 * ks, ch > 0 || ks > 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if (qd < nq) {                              // bit counts of this thread's chunks meanwhile
+#pragma unroll
+      for (int j = 0; j < SJ; ++j) {
+        if (j >= QJ || first) {
+          const uint4 v = *reinterpret_cast<const uint4*>(slot + swz((tid >> 3) + 32 * j, qd));
+          cnt[j] += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
         }
       }
     }
-  }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < WN / 2; ++i) asm volatile("" : "+r"(acc[i])::"memory");   // read after the wait
+    if (ch < nch - 1) continue;
 
-  const int lane = t & 31, warp = t >> 5;
+    // the class tile's products are in: its rows' counts (the eight threads
+    // of a row are neighbouring lanes), then its columns into the running bests
 #pragma unroll
-  for (int j = 0; j < QB; ++j) {
-    int d = best_d[j], c = best_c[j];
+    for (int j = 0; j < SJ; ++j) {
+      if (j >= QJ || first) {
+        int v = cnt[j];
+        v += __shfl_xor_sync(FULL, v, 1);
+        v += __shfl_xor_sync(FULL, v, 2);
+        v += __shfl_xor_sync(FULL, v, 4);
+        if (qd == 0) counts[BM - CR + (tid >> 3) + 32 * j] = v;
+        cnt[j] = 0;
+      }
+    }
+    if (QRES && first && tid < BM) {            // the resident query rows, once
+      int v = 0;
+      for (int kt = 0; kt < nch; ++kt) {
+        for (int c = 0; c < fill(kt); ++c) {
+          const uint4 x = *reinterpret_cast<const uint4*>(qt + (size_t)kt * BM * BK + swz(tid, c));
+          v += __popc(x.x) + __popc(x.y) + __popc(x.z) + __popc(x.w);
+        }
+      }
+      counts[tid] = v;
+    }
+    __syncthreads();                            // the counts are in
+    const int c0 = (t0 + st / nch) * BN;
+    const bool full = c0 + BN <= c_real;        // no column at or past c_real
+    // accumulator j: row .. + 8 (j % 4 >= 2), class wcol + 8 (j / 4) + 2 (lane % 4) + j % 2
+    auto v_at = [&](int nt, int h, int j) {
+      const int c = wcol + 8 * nt + 2 * (lane & 3) + j;
+      const int v = counts[BM + c] - 2 * acc[4 * nt + 2 * h + j];
+      return full || c0 + c < c_real ? v : INT_MAX;
+    };
+    int m[2] = {INT_MAX, INT_MAX};
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const int d2 = __shfl_down_sync(0xffffffffu, d, off);
-      const int c2 = __shfl_down_sync(0xffffffffu, c, off);
+    for (int nt = 0; nt < WN / 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        m[0] = min(m[0], v_at(nt, 0, j));
+        m[1] = min(m[1], v_at(nt, 1, j));
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (m[h] < bv[h]) {                       // rare after the first tiles: its first column
+        int col = 0;
+#pragma unroll
+        for (int nt = WN / 8 - 1; nt >= 0; --nt)
+#pragma unroll
+          for (int j = 1; j >= 0; --j) {
+            col = v_at(nt, h, j) == m[h] ? wcol + 8 * nt + 2 * (lane & 3) + j : col;
+          }
+        bv[h] = m[h];
+        bc[h] = c0 + col;
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // the quad's four threads share their rows; then (BM = 64) the two
+  // warpgroups over a row's columns, through shared memory; lexicographic
+  // (v, col) at each step
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int d = bv[h], c = bc[h];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const int d2 = __shfl_xor_sync(FULL, d, off), c2 = __shfl_xor_sync(FULL, c, off);
       if (lex_less(d2, c2, d, c)) {
         d = d2;
         c = c2;
       }
     }
-    if (lane == 0) {
-      red_d[warp][j] = d;
-      red_c[warp][j] = c;
+    if ((lane & 3) == 0) {
+      const int r = (BM == 128 ? 0 : wg * BM) + wrow + 16 * (warp & 3) + (lane >> 2) + 8 * h;
+      red_d[r] = d;
+      red_c[r] = c;
     }
   }
   __syncthreads();
-  if (t < QB && b0 + t < B) {
-    int d = red_d[0][t], c = red_c[0][t];
-#pragma unroll
-    for (int k = 1; k < THREADS / 32; ++k) {
-      if (lex_less(red_d[k][t], red_c[k][t], d, c)) {
-        d = red_d[k][t];
-        c = red_c[k][t];
-      }
+  const int r = tid, b = b0 + r;
+  if (r < BM && b < B) {
+    int d = red_d[r], c = red_c[r];
+    if (BM == 64 && lex_less(red_d[BM + r], red_c[BM + r], d, c)) {
+      d = red_d[BM + r];
+      c = red_c[BM + r];
     }
-    dist[(size_t)g * B + b0 + t] = d;
-    idx[(size_t)g * B + b0 + t] = c;
+    const size_t o = (S == 1 ? 0 : (size_t)split * gridDim.z * B) + g * B + b;
+    dist[o] = counts[r] + d;                    // |q| + |p| - 2 acc
+    idx[o] = c;
   }
+}
+
+// The S split results of each (g, b): their lexicographic (dist, col) min.
+// Every split holds at least one real column, and the min of complete
+// partials does not depend on which block ended first.
+__global__ void top1_merge_kernel(const int* __restrict__ sd, const int* __restrict__ sc,
+                                  int* __restrict__ dist, int* __restrict__ idx, int GB,
+                                  int S) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= GB) return;
+  int d = sd[e], c = sc[e];
+  for (int s = 1; s < S; ++s) {
+    const int d2 = sd[(size_t)s * GB + e], c2 = sc[(size_t)s * GB + e];
+    if (lex_less(d2, c2, d, c)) {
+      d = d2;
+      c = c2;
+    }
+  }
+  dist[e] = d;
+  idx[e] = c;
 }
 
 // One query's merge of a distance tile (td, `rows` columns from class c0)
@@ -578,12 +812,8 @@ __global__ void topk_merge_kernel(const int* __restrict__ sd, const int* __restr
   }
 }
 
-size_t smem_bytes(int W) { return (size_t)(QB * W + THREADS * (W + 1)) * sizeof(int); }
-
-// Opt in to `bytes` of dynamic shared memory on every launch. The 48 KB
-// default covers static and dynamic shared memory together, and the top-1
-// kernel holds 1 KB of static reduction buffers, so a test of the dynamic
-// size alone would refuse W = 75 and 76; the attribute call is cheap.
+// Opt in to `bytes` of dynamic shared memory (past the 48 KB default) on
+// every launch; the attribute call is cheap.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -600,6 +830,29 @@ int launch_search(const void* q, const void* p, void* out, int G, int B, int C, 
   hamming_search_kernel<BM, ALIGNED><<<grid, MMA_THREADS, smem, stream>>>(
       (const uint32_t*)q, (const uint32_t*)p, (int*)out, B, C, W);
   return (int)cudaGetLastError();
+}
+
+template <int BM, bool ALIGNED, bool QRES>
+int launch_top1(const void* q, const void* p, void* dist, void* idx, int G, int B, int C,
+                int W, int c_real, int S, cudaStream_t stream) {
+  const size_t smem = Top1<BM, QRES>::smem(W);
+  cudaError_t err = allow_smem(hamming_top1_kernel<BM, ALIGNED, QRES>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + BM - 1) / BM, S, G);
+  hamming_top1_kernel<BM, ALIGNED, QRES><<<grid, MMA_THREADS, smem, stream>>>(
+      (const uint32_t*)q, (const uint32_t*)p, (int*)dist, (int*)idx, B, C, W, c_real);
+  return (int)cudaGetLastError();
+}
+
+// The query tile resident where two blocks still fit an SM (W <= 64 at
+// BM = 128, <= 160 at BM = 64); else streamed with the class rows.
+template <int BM, bool ALIGNED>
+int launch_top1_at(const void* q, const void* p, void* dist, void* idx, int G, int B, int C,
+                   int W, int c_real, int S, cudaStream_t stream) {
+  if (Top1<BM, true>::smem(W) <= TWO_BLOCK_SMEM) {
+    return launch_top1<BM, ALIGNED, true>(q, p, dist, idx, G, B, C, W, c_real, S, stream);
+  }
+  return launch_top1<BM, ALIGNED, false>(q, p, dist, idx, G, B, C, W, c_real, S, stream);
 }
 
 template <int KR, bool ALIGNED>
@@ -630,15 +883,32 @@ bool aligned16(const void* q, const void* p, int W) {
 
 }  // namespace
 
+// The fused top-1 at BM-query tiles (64 or 128) over S splits of the class
+// axis (kernels/hamming/ops.py `plan_top1`); with S > 1 the split results go
+// to the scratch sd, sc [S, G, B] and are merged into dist, idx [G, B] by a
+// second kernel on the same stream.
 extern "C" int hamming_topk_banked_launch(const void* q, const void* p, void* dist,
-                                          void* idx, int G, int B, int C, int W,
-                                          int c_real, void* stream) {
-  const size_t smem = smem_bytes(W);
-  cudaError_t err = allow_smem(hamming_topk_banked_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + QB - 1) / QB, G);
-  hamming_topk_banked_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int*)q, (const int*)p, (int*)dist, (int*)idx, B, C, W, c_real);
+                                          void* idx, void* sd, void* sc, int G, int B,
+                                          int C, int W, int c_real, int BM, int S,
+                                          void* stream) {
+  const long long tiles = (c_real + BN - 1) / BN;
+  if (c_real < 1 || c_real > C || (BM != 64 && BM != 128) || S < 1 || S > tiles ||
+      S > 65535 || (S > 1 && (sd == nullptr || sc == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  void* d1 = S == 1 ? dist : sd;
+  void* i1 = S == 1 ? idx : sc;
+  const bool al = aligned16(q, p, W);
+  const int err =
+      BM == 128 ? (al ? launch_top1_at<128, true>(q, p, d1, i1, G, B, C, W, c_real, S, st)
+                      : launch_top1_at<128, false>(q, p, d1, i1, G, B, C, W, c_real, S, st))
+                : (al ? launch_top1_at<64, true>(q, p, d1, i1, G, B, C, W, c_real, S, st)
+                      : launch_top1_at<64, false>(q, p, d1, i1, G, B, C, W, c_real, S, st));
+  if (err != 0 || S == 1) return err;
+  const int gb = G * B;
+  top1_merge_kernel<<<(gb + 255) / 256, 256, 0, st>>>((const int*)sd, (const int*)sc,
+                                                      (int*)dist, (int*)idx, gb, S);
   return (int)cudaGetLastError();
 }
 

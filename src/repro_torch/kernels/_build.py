@@ -27,8 +27,9 @@ FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> argtypes; every entry returns cudaGetLastError() as int
 SIGNATURES = {
-    # q, protos, dist, idx, G, B, C, W, c_real, stream
-    "hamming_topk_banked_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, protos, dist, idx, split scratch dist and idx, G, B, C, W, c_real,
+    # query tile, splits, stream
+    "hamming_topk_banked_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, protos, dist, idx, split scratch dist and idx, G, B, C, W, c_real, k,
     # splits, stream
     "hamming_topk_k_banked_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

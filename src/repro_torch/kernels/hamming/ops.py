@@ -20,10 +20,7 @@ from repro_torch.kernels.hamming.ref import (
     hamming_topk_k_banked_ref,
 )
 
-# Largest word count whose query and prototype tiles fit one block's shared
-# memory in the top-1 kernel (227 KB; csrc/hamming.cu, smem_bytes): d up to
-# 11,520 bits. The search and the top-k stream the words: any W.
-MAX_WORDS = 360
+# The kernels stream the words through shared memory: any W.
 MAX_GRID = 65535   # grid y / z limit; a search block holds 64 or 128 queries
 # The top-k kernel's largest k (csrc/hamming.cu, MAX_K): its merge holds
 # k/32 buffered ranks a lane in registers, and its k-rank buffers take
@@ -46,6 +43,28 @@ def plan(g: int, b: int, c_real: int, sms: int) -> int:
     if g < 1 or b < 1 or c_real < 1:
         raise ValueError(f"hamming top-k plan: G={g}, B={b}, c_real={c_real} must be >= 1")
     return min(cdiv(c_real, CLASS_TILE), cdiv(WAVES * sms, g * cdiv(b, TOPK_BM)))
+
+
+@functools.lru_cache(maxsize=256)      # every launch asks for its plan
+def plan_top1(g: int, b: int, c_real: int, sms: int) -> tuple[int, int]:
+    """The fused top-1's (query tile, class splits) for g banks of b queries
+    over c_real classes on a card of ``sms`` SMs (csrc/hamming.cu,
+    hamming_top1_kernel; split s of S walks the tiles [s*T//S, (s+1)*T//S) as
+    in `plan`). 128-query tiles where, split down to one class tile a block,
+    they still give every SM WAVES blocks; else 64. Then the splits that take
+    the least time as waves x (class tiles a block + 1, a block's fixed cost:
+    the ring's first fill and the reduction), the fewest splits among
+    equals: a split count just past a whole wave would leave a second wave
+    of a few blocks and double the time. One split when c_real fits one
+    tile."""
+    if g < 1 or b < 1 or c_real < 1:
+        raise ValueError(f"hamming top-1 plan: G={g}, B={b}, c_real={c_real} must be >= 1")
+    tiles, slots = cdiv(c_real, CLASS_TILE), WAVES * sms
+    bm = 128 if g * cdiv(b, 128) * tiles >= slots else 64
+    pairs = g * cdiv(b, bm)
+    splits = min(range(1, min(tiles, MAX_GRID) + 1),
+                 key=lambda s: (cdiv(pairs * s, slots) * (cdiv(tiles, s) + 1), s))
+    return bm, splits
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,6 +204,9 @@ def hamming_topk_banked(
     ``bank_rows`` [G] makes protos a [T, C, W] bank table: bank g searches
     table row ``bank_rows[g]`` (rows may repeat). On the card the G rows are
     gathered before the launch; the plain version gathers per class chunk.
+    On the card the class axis is split over blocks by `plan_top1`; with
+    more than one split the split results go through a [splits, G, B]
+    scratch and a merge kernel, both inside the one counted launch.
     """
     c_real = _banks("hamming_topk_banked", q, protos, bank_rows, c_real)
     rows = () if bank_rows is None else (bank_rows,)
@@ -198,13 +220,19 @@ def hamming_topk_banked(
         return hamming_topk_k_banked(q, protos, k, c_real=c_real)
     check_contiguous("hamming_topk_banked", q, protos)
     g, b, w = q.shape
-    if w > MAX_WORDS or g > MAX_GRID:
-        raise ValueError(f"hamming_topk_banked: W={w} or G={g} beyond the kernel's limits")
+    if g > MAX_GRID:
+        raise ValueError(f"hamming_topk_banked: G={g} > {MAX_GRID}")
     dist = torch.empty((g, b), dtype=torch.int32, device=q.device)
     idx = torch.empty((g, b), dtype=torch.int32, device=q.device)
     if g and b:
+        bm, splits = plan_top1(g, b, c_real, _sm_count(q.device.index))
+        # the split results (dist, idx) before their merge; none for one split
+        scratch = [torch.empty((splits, g, b), dtype=torch.int32, device=q.device)
+                   if splits > 1 else None for _ in range(2)]
         _build.launch("hamming_topk_banked_launch", q.data_ptr(), protos.data_ptr(),
-                      dist.data_ptr(), idx.data_ptr(), g, b, protos.shape[1], w, c_real)
+                      dist.data_ptr(), idx.data_ptr(),
+                      *(None if t is None else t.data_ptr() for t in scratch),
+                      g, b, protos.shape[1], w, c_real, bm, splits)
         hamming_topk_banked.launches += 1
     return dist, idx
 

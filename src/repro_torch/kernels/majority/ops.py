@@ -12,6 +12,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_contiguous, dispatch
 from repro_torch.kernels.majority.ref import majority_bundle_ref
 
+# csrc/majority.cu counts in uint32: 255 * M stays below 2^32
+MAX_ROWS = 2**24
+
 
 def majority_bundle(hvs: torch.Tensor) -> torch.Tensor:
     """Majority over axis 0 of [M, ..., d] uint8 {0,1} -> [..., d] uint8."""
@@ -26,6 +29,9 @@ def majority_bundle(hvs: torch.Tensor) -> torch.Tensor:
     n = flat.shape[1]
     if n >= 2**31:
         raise ValueError(f"majority_bundle: {n} lanes beyond the kernel's int index")
+    if m > MAX_ROWS:
+        raise ValueError(f"majority_bundle: M={m} beyond the kernel's 32-bit counts "
+                         f"(MAX_ROWS={MAX_ROWS})")
     out = torch.empty((n,), dtype=torch.uint8, device=hvs.device)
     if n and m:
         _build.launch("majority_bundle_launch", flat.data_ptr(), out.data_ptr(), m, n)

@@ -91,20 +91,37 @@ fallback, and a missing GPU is a failure):
    decode(prefill(x), t) against prefill(x ‖ t) within 5e-3, bf16 last
    logits within LM_BF16_LOGIT_BOUND (see `phase_lm`); bf16 `torch.matmul` at
    the projection shapes identical with the reduced-precision reduction
-   flag on and off.
+   flag on and off;
+12. the physical tier and living channels at the paper's configuration: the
+   symbol serve, 8 calls in each of baseline/permuted x unpacked/packed,
+   packed == unpacked and every call == a plain re-derivation of its physics
+   (combo, constellation lookup, the same noise, `awgn_decide`, a dense
+   search over every core's shard), with the decode's own time; the
+   empirical flip rate of all 64 RX at d = 2^16 within 5 sigma + 5e-4 of
+   the per-symbol analytic BER; the Table I workload on the symbol tier
+   (C = 100, 1000 trials, re-characterized per M: M = 1 accuracy 1.0, M = 3
+   symbol within 5 binomial sigma of bsc, packed == unpacked); bitplane
+   noise (flip rates within 5 sigma of round(ber*2^16)/2^16, the comparator
+   against a per-bit reference, serve time beside exact noise); the M-drop
+   (m_active = 1 unpacked, packed and sparse == `serve_reference`; the
+   symbol tier refuses it); StaticProcess serves == process-free serves,
+   quarantine, a PhaseDriftProcess serve's time, and the closed loop (open
+   drop >= 3 points, closed gap <= 1, re-fits > 0).
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
-7-11, each run between a reset and a read of the counters: the serves, the
+7-12, each run between a reset and a read of the counters: the serves, the
 48 Table I calls, the sparse trials and serves at d = 2^20, phase 10's
-serves, recall oracle and multi-centroid calls, and phase 11's generates;
-the d = 8192 comparisons, the keep == n_grp identity at C = 1024 and phase
-11's checks are not counted), and as the last line {"ok": true, ...}.
+serves, recall oracle and multi-centroid calls, phase 11's generates, and
+phase 12's serves, trials and drift sweeps; the d = 8192 comparisons, the
+keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
+quarantine check are not counted), and as the last line {"ok": true, ...}.
 
     python3 chip_smoke.py --profile --json out/chip_smoke.json
 
-adds a profile of every serve mode, of the sparse serve, of the flat
-and coarse packed serves at 102,400 classes, and of the LM prefill (with
+adds a profile of every serve mode (the symbol modes too), of the sparse
+serve, of the flat and coarse packed serves at 102,400 classes, and of the
+LM prefill (with
 the attention kernel's share of its device time) and decode step under
 torch.profiler (device busy time, idle share, top device ops per call), and
 writes every number of the run, unrounded, to the JSON file.
@@ -158,6 +175,18 @@ PAPER_TABLE1 = {  # benchmarks/table1.py:11-16, M = 1, 3, ..., 11
     ("permuted", "wireless"): [1, 1, 1, 1, 0.994, 0.963],
 }
 TABLE1_MS = (1, 3, 5, 7, 9, 11)
+# phase 12: the symbol tier's empirical BER at d = 2^16 over all 64 RX, the
+# Table I workload on the physical tier and the reference's numbers for it
+# (EXPERIMENTS.md:150-177), and the living-channel scenarios: the gated
+# closed loop at tests/test_phy_process.py:283-306's parameters with 512
+# trials, and EXPERIMENTS.md:228-236's, reported
+SYMBOL_BER_DIM = 2**16
+SYMBOL_TASK = dict(n_classes=100, dim=512, n_trials=1000)
+PAPER_SYMBOL = dict(avg_ber=0.0401, max_ber=0.162, m5=0.887, m5_permuted=0.981,
+                    m5_avg_ber=0.1072)
+DRIFT_GATE = dict(n_rx=16, n_classes=64, sigma=0.15, alpha=0.5, guard=128, steps=25, tail=8,
+                  trials=512)
+DRIFT_REPORT = dict(sigma=0.1, steps=50, tail=10)
 # phase 11: TinyLlama-1.1B at its published width (src/repro/configs/tinyllama_1_1b.py:
 # 22 layers, d 2048, 32 heads over 4 kv heads, head_dim 64, d_ff 5632, vocab
 # 32000, bf16), weights drawn from the seed; batch 8 x prompt 1024 x 32 new, greedy
@@ -1780,6 +1809,435 @@ def phase_lm(torch, launches: dict, profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the symbol tier, M-drop, bitplane noise and living channels
+# ---------------------------------------------------------------------------
+
+def symbol_physics(torch, cfg, protos_u, q, state, gen_state):
+    """One symbol-tier serve call re-derived in plain PyTorch from the same
+    generator state: the TX bit combo (permuted TX g rolls its bits by g),
+    each core's noiseless symbols ``symbols[i][combo]``, the tier's draws in
+    its order (real normals, imaginary normals, fallback flips),
+    `ota.awgn_decide`, the fallback for invalid rows, and a dense f32
+    bipolar search over every core's class shard (and the M permuted banks).
+    Returns (pred, maxsim) as the serve does."""
+    from repro_torch.core import hypervector as hv, ota
+
+    d, n, m = cfg.dim, cfg.n_rx_cores, cfg.m_tx
+    bits = hv.unpack(q[:, 0], d) if cfg.packed else q[:, 0]             # [B, M, d]
+    if cfg.permuted:
+        bits = torch.stack([torch.roll(bits[:, g], g, -1) for g in range(m)], 1)
+    combo = (bits.to(torch.int64) << torch.arange(m, device="cuda")[:, None]).sum(1)
+    gen = torch.Generator(device="cuda")
+    gen.set_state(gen_state)
+    full = (n,) + tuple(combo.shape)
+    nr = torch.randn(full, generator=gen, device="cuda")
+    ni = torch.randn(full, generator=gen, device="cuda")
+    flips = torch.rand(full, generator=gen, device="cuda") < state.ber[:, None, None]
+    dec = ota.awgn_decide(None, state.symbols[:, combo], state.c0[:, None, None],
+                          state.c1[:, None, None], state.n0, noise=(nr, ni))
+    exact = ota.majority_labels(m, "cuda")[combo][None] ^ flips.to(torch.uint8)
+    dec = torch.where(state.valid[:, None, None], dec, exact)
+    qb = 2.0 * dec.to(torch.float32) - 1.0                              # [n, B, d]
+    c_core = cfg.n_classes // n
+    banks = ([torch.roll(protos_u, s, -1) for s in range(m)] if cfg.permuted
+             else [protos_u])
+    sims = torch.stack([torch.einsum("nbd,ncd->bnc", qb, (2.0 * bk.to(torch.float32) - 1.0)
+                                     .reshape(n, c_core, d)).reshape(-1, cfg.n_classes)
+                        for bk in banks], 1)                            # [B, banks, C]
+    sims = sims if cfg.permuted else sims[:, 0]
+    return torch.argmax(sims, -1).to(torch.int32), sims.max(-1).values / (2.0 * d) + 0.5
+
+
+def symbol_serves(torch, state, protos_u, base, launches) -> dict:
+    """The symbol serve at the paper's configuration: CALLS calls in each
+    mode on the query and noise seeds of phases 4-5, every call held against
+    `symbol_physics`, packed against unpacked; the bsc baseline alongside
+    for the wall times. Also the decode alone (lookup, AWGN, compare, pack)
+    at the serve's shape."""
+    from repro_torch import kernels as tk, phy
+    from repro_torch.core import hypervector as hv
+
+    runs = {}
+    for mode in ([("ota", "symbol", perm, rep) for perm in (False, True)
+                  for rep in ("unpacked", "packed")]
+                 + [("ota", "bsc", False, rep) for rep in ("unpacked", "packed")]):
+        label, cfg, serve, protos, batches, gn = serve_setup(torch, base, mode, protos_u, "cuda")
+        preds, sims, ms, states = [], [], [], []
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        for _, q in batches:
+            states.append(gn.get_state())
+            t0 = time.perf_counter()
+            pred, sim = serve(protos, q, state, gn)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            preds.append(pred)
+            sims.append(sim)
+        counts = tk.launch_counts()
+        require_only(counts, SERVE_KERNELS[("ota", cfg.representation)], label)
+        add_launches(launches, counts)
+        if cfg.channel == "symbol":
+            for (_, q), st, pred, sim in zip(batches, states, preds, sims):
+                want_p, want_s = symbol_physics(torch, cfg, protos_u, q, state, st)
+                require(torch.equal(pred, want_p) and torch.equal(sim, want_s),
+                        f"{label}: a call differs from the plain re-derivation of its physics")
+        run = dict(label=label, pred=torch.cat(preds), sim=torch.cat(sims),
+                   classes=torch.cat([c for c, _ in batches]), ms=ms, counts=counts)
+        run["acc"] = hit_rate(torch, run, mode[2])
+        runs[mode] = run
+        print(f"serve {label}: {CALLS} calls x batch {base.batch}, "
+              f"{statistics.median(ms):.3f} ms/call median (first {ms[0]:.3f}), "
+              f"{json.dumps(run['acc'])}, launches {counts}", flush=True)
+    for perm in (False, True):
+        u, p = runs[("ota", "symbol", perm, "unpacked")], runs[("ota", "symbol", perm, "packed")]
+        require(torch.equal(u["pred"], p["pred"]) and torch.equal(u["sim"], p["sim"]),
+                f"{p['label']}: differs from the unpacked serve")
+    # the decode alone at the serve's shape: device time of 20 back-to-back calls
+    chan, n = phy.get_channel("symbol"), base.n_rx_cores
+    combo = torch.randint(0, 2 ** base.m_tx, (base.batch, base.dim),
+                          generator=torch.Generator(device="cuda").manual_seed(5), device="cuda",
+                          dtype=torch.int32)
+    gd = torch.Generator(device="cuda").manual_seed(6)
+    decode_ms = {rep: call_ms(torch, lambda packed=(rep == "packed"): chan.rx_copies(
+        gd, combo, state, 0, n, packed=packed, dim=base.dim, noise="exact"))
+        for rep in ("unpacked", "packed")}
+    bsc = phy.get_channel("bsc")
+    bundle = torch.zeros((base.batch, base.words), dtype=torch.int32, device="cuda")
+    decode_ms["bsc packed"] = call_ms(torch, lambda: bsc.rx_copies(
+        gd, bundle, state, 0, n, packed=True, dim=base.dim, noise="exact"))
+    print(f"symbol decode (lookup + AWGN + compare [+ pack]) at {n} cores x batch "
+          f"{base.batch} x d {base.dim}: unpacked {decode_ms['unpacked']:.4f} ms, packed "
+          f"{decode_ms['packed']:.4f} ms (the bsc tier's packed noise "
+          f"{decode_ms['bsc packed']:.4f} ms; CUDA events over 20 back-to-back calls)",
+          flush=True)
+    print("symbol serve checks: every call == the plain re-derivation of its physics "
+          "(predictions and maxsim), packed == unpacked", flush=True)
+    return dict(runs={r["label"]: dict(ms=r["ms"], acc=r["acc"], counts=r["counts"])
+                      for r in runs.values()}, decode_ms=decode_ms)
+
+
+def symbol_ber(torch, state) -> dict:
+    """Monte-Carlo flip rate of every RX's symbol decode of one M-TX
+    transmission at d = SYMBOL_BER_DIM against the per-symbol analytic BER:
+    for every valid row within 5 binomial sigma + 5e-4 (tests/test_phy.py:
+    205-241's band)."""
+    from repro_torch import phy
+    from repro_torch.core import hypervector as hv, ota
+
+    m, d = state.m_tx, SYMBOL_BER_DIM
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    queries = hv.random_hv(gen, m, d, "cuda")
+    maj = hv.majority(queries)
+    combo = phy.combo_index(queries, axis=0).to(torch.int64)
+    dec = ota.awgn_decide(gen, state.symbols[:, combo], state.c0[:, None],
+                          state.c1[:, None], state.n0)
+    emp = (dec != maj[None]).to(torch.float64).mean(1)
+    ana, _ = ota.decision_metrics(state.symbols, ota.majority_labels(m, "cuda"), state.n0,
+                                  method="symbol")
+    ana = ana.double()
+    valid = state.valid
+    tol = 5.0 * (torch.clamp(ana * (1 - ana), min=1e-9) / d).sqrt() + 5e-4
+    bad = valid & ((emp - ana).abs() > tol)
+    require(bool(valid.any()) and not bool(bad.any()),
+            f"symbol BER: {int(bad.sum())} valid RX outside 5 sigma + 5e-4 of the per-symbol "
+            "analytic BER")
+    out = dict(valid=int(valid.sum()), emp_avg=float(emp[valid].mean()),
+               emp_max=float(emp[valid].max()), ana_avg=float(ana[valid].mean()),
+               ana_max=float(ana[valid].max()), eq1_avg=float(state.ber[valid].mean()))
+    print(f"symbol BER: {out['valid']} of {state.n_rx} RX valid, every valid RX within 5 sigma "
+          f"+ 5e-4 of the per-symbol analytic at d = {d}; empirical avg {out['emp_avg']:.4f} "
+          f"max {out['emp_max']:.4f} (analytic {out['ana_avg']:.4f} / {out['ana_max']:.4f}, "
+          f"Eq. 1 {out['eq1_avg']:.4f}; reference {PAPER_SYMBOL['avg_ber']} / "
+          f"{PAPER_SYMBOL['max_ber']})", flush=True)
+    return out
+
+
+def symbol_trials(torch, launches) -> dict:
+    """Table I's workload on the physical tier (EXPERIMENTS.md:162-177):
+    C = 100, d = 512, 1000 trials, the 64-RX system re-characterized per M;
+    baseline at M = 1, 3, 5 and permuted at M = 5, bsc at each state's Eq. 1
+    average BER beside the symbol tier, packed == unpacked trial for trial."""
+    from repro_torch.core import classifier, scaleout
+
+    cfg = classifier.HDCTaskConfig(**SYMBOL_TASK)
+    rows, out = {}, {}
+    for m, bundling in ((1, "baseline"), (3, "baseline"), (5, "baseline"), (5, "permuted")):
+        state = scaleout.precharacterize_state(scaleout.ScaleOutConfig(m_tx=m), device="cuda")
+        avg = float(state.ber.mean())
+        flags = {}
+        for name, channel in (("bsc", "bsc"), ("symbol", "symbol")):
+            for rep in ("unpacked", "packed"):
+                want = (("assoc_matmul",) if rep == "unpacked" else ("hamming_search",)
+                        if bundling == "baseline" else ("hamming_topk_banked",))
+                f, _, counts = counted(torch, lambda: classifier.run_trials(
+                    SEED, cfg, m, avg, bundling, representation=rep, channel=channel,
+                    state=state))
+                require_only(counts, want, f"symbol trials {name} {bundling} M={m} {rep}")
+                add_launches(launches, counts)
+                flags[(name, rep)] = f
+            require(torch.equal(flags[(name, "unpacked")], flags[(name, "packed")]),
+                    f"symbol trials {name} {bundling} M={m}: packed differs from unpacked")
+        acc = {k: float(flags[(k, "unpacked")].float().mean()) for k in ("bsc", "symbol")}
+        rows[(m, bundling)] = dict(avg_ber=avg, **acc)
+        print(f"symbol trials {bundling} M={m}: Eq. 1 avg BER {avg:.4f}, bsc {acc['bsc']}, "
+              f"symbol {acc['symbol']}", flush=True)
+    require(rows[(1, "baseline")]["symbol"] == 1.0, "symbol trials: M = 1 accuracy is not 1.0")
+    p3 = rows[(3, "baseline")]
+    sigma = (p3["bsc"] * (1 - p3["bsc"]) / cfg.n_trials) ** 0.5
+    require(abs(p3["symbol"] - p3["bsc"]) <= 5 * sigma,
+            f"symbol trials M=3: symbol {p3['symbol']} is more than 5 sigma ({sigma:.4f}) from "
+            f"bsc {p3['bsc']}")
+    print(f"symbol trials checks: M = 1 symbol 1.0, M = 3 symbol within 5 sigma of bsc "
+          f"({abs(p3['symbol'] - p3['bsc']):.4f} <= {5 * sigma:.4f}), packed == unpacked; M = 5 "
+          f"baseline {rows[(5, 'baseline')]['symbol']} (reference {PAPER_SYMBOL['m5']}), "
+          f"permuted {rows[(5, 'permuted')]['symbol']} (reference "
+          f"{PAPER_SYMBOL['m5_permuted']}), M = 5 avg BER "
+          f"{rows[(5, 'baseline')]['avg_ber']:.4f} (reference {PAPER_SYMBOL['m5_avg_ber']}, "
+          "the reference's own coordinate search)", flush=True)
+    out["rows"] = {f"{b} M={m}": v for (m, b), v in rows.items()}
+    return out
+
+
+def bitplane_checks(torch, state, protos_u, base, launches) -> dict:
+    """The packed bsc serve with noise="bitplane": each core's flip rate over
+    a zero bundle within 5 sigma of round(ber * 2^16) / 2^16, the comparator
+    against a per-bit reference on the same planes, and the serve's wall
+    time beside noise="exact"."""
+    import dataclasses
+
+    from repro_torch import phy
+    from repro_torch.core import hypervector as hv
+
+    chan, n, d = phy.get_channel("bsc"), base.n_rx_cores, base.dim
+    planes = base.noise_planes
+    zeros = torch.zeros((base.batch, base.words), dtype=torch.int32, device="cuda")
+    flips = torch.zeros(n, dtype=torch.float64, device="cuda")
+    for seed in range(CALLS):
+        rx = chan.rx_copies(torch.Generator(device="cuda").manual_seed(200 + seed), zeros,
+                            state, 0, n, packed=True, dim=d, noise="bitplane", planes=planes)
+        flips += hv.unpack(rx, d).sum((1, 2), dtype=torch.float64)
+    bits = CALLS * base.batch * d
+    q = torch.clamp(torch.round(state.ber.double() * 2**planes), 0, 2**planes - 1) / 2**planes
+    rate = flips / bits
+    sigma = (q * (1 - q) / bits).sqrt()
+    z = float(((rate - q).abs() / sigma.clamp_min(1e-300)).max())
+    require(bool(((rate - q).abs() <= 5 * sigma + 1e-12).all()),
+            f"bitplane: a core's flip rate is more than 5 sigma from its quantized BER "
+            f"(max {z:.2f} sigma)")
+    # the comparator against the per-bit uniforms of the same planes
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shape = (n, base.batch, base.words)
+    words = hv._random_words(gen, (planes,) + shape, "cuda")
+    p = state.ber.reshape(n, 1, 1)
+    got = hv.bernoulli_words(None, p, shape, planes, planes=words)
+    u = torch.zeros((n, base.batch, d), dtype=torch.int64, device="cuda")
+    for i in range(planes):
+        u += hv.unpack(words[i], d).to(torch.int64) << i
+    t = torch.clamp(torch.round(p.float() * 2**planes), 0, 2**planes - 1).to(torch.int64)
+    require(torch.equal(got, hv.pack((u < t).to(torch.uint8))),
+            "bitplane: the comparator differs from the per-bit reference on the same planes")
+    ms = {}
+    for noise in ("exact", "bitplane"):
+        cfg = dataclasses.replace(base, representation="packed", noise=noise)
+        mode = ("ota", "bsc", False, "packed")
+        _, _, serve, protos, batches, gn = serve_setup(torch, cfg, mode, protos_u, "cuda")
+        ms[noise] = []
+        for _, qb in batches:
+            _, sec, counts = counted(torch, lambda: serve(protos, qb, state, gn))
+            require_only(counts, ("hamming_topk_banked",), f"bitplane serve noise={noise}")
+            add_launches(launches, counts)
+            ms[noise].append(sec * 1e3)
+    print(f"bitplane: {n} cores x {bits} bits within 5 sigma of round(ber*2^{planes})/2^"
+          f"{planes} (max {z:.3f} sigma), comparator == per-bit reference; packed bsc serve "
+          f"{statistics.median(ms['bitplane']):.3f} ms/call median with bitplane noise, "
+          f"{statistics.median(ms['exact']):.3f} with exact", flush=True)
+    return dict(max_sigma=z, bits_per_core=bits, ms=ms)
+
+
+def m_drop_checks(torch, state, protos_u, base, launches) -> dict:
+    """m_active = 1 of 3 on the ideal tier, unpacked and packed at the
+    paper's configuration and sparse at d = 8192: the serve equals
+    `serve_reference` (which bundles the first m_act TXs) bit for bit; the
+    symbol tier refuses an M-drop."""
+    import dataclasses
+
+    from repro_torch.core import hypervector as hv, scaleout
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    codes8, protos8 = sparse_codebook(torch, gen, base.n_classes, NARROW_DIM, NARROW_K,
+                                      NARROW_DENSITY)
+    sparse_cfg = dataclasses.replace(base, representation="sparse", collective="index_ag",
+                                     dim=NARROW_DIM, k_max=NARROW_K)
+    out = {}
+    for rep, cfg0, book, protos in (
+            ("unpacked", base, protos_u, protos_u),
+            ("packed", dataclasses.replace(base, representation="packed"), protos_u,
+             hv.pack(protos_u)),
+            ("sparse", sparse_cfg, codes8, protos8)):
+        cfg = dataclasses.replace(cfg0, channel="ideal", m_active=1)
+        serve = scaleout.make_ota_serve(cfg)
+        gq = torch.Generator(device="cuda").manual_seed(1)
+        ms = []
+        for _ in range(2):
+            _, q = scaleout.make_queries(gq, cfg, book)
+            (pred, sim), sec, counts = counted(torch, lambda: serve(protos, q, state, None))
+            require_only(counts, SERVE_KERNELS.get(("ota", rep), ("sparse_topk_banked",)),
+                         f"m_active=1 {rep}")
+            add_launches(launches, counts)
+            want_p, want_s = scaleout.serve_reference(cfg, protos, q)
+            require(torch.equal(pred, want_p) and torch.equal(sim, want_s),
+                    f"m_active=1 {rep}: differs from serve_reference")
+            ms.append(sec * 1e3)
+        out[rep] = ms
+    try:
+        scaleout.make_ota_serve(dataclasses.replace(base, channel="symbol", m_active=1))
+        raised = False
+    except ValueError:
+        raised = True
+    require(raised, "channel='symbol' with m_active=1 did not raise")
+    print("m-drop checks: m_active=1 unpacked, packed (d = 512) and sparse (d = 8192) == "
+          "serve_reference; channel='symbol' with m_active=1 raises", flush=True)
+    return out
+
+
+def living_channels(torch, state, protos_u, base, launches) -> dict:
+    """StaticProcess serves against process-free serves (bsc and symbol,
+    unpacked and packed, CALLS steps), quarantine of core 0, the
+    PhaseDriftProcess serve's time per call, and the closed-loop drift
+    sweeps (DRIFT_GATE gated, DRIFT_REPORT reported)."""
+    import dataclasses
+
+    from repro_torch import phy
+    from repro_torch.core import classifier, scaleout
+
+    out = {}
+    c_core = base.n_classes // base.n_rx_cores
+    for channel in ("bsc", "symbol"):
+        for rep in ("unpacked", "packed"):
+            mode = ("ota", channel, False, rep)
+            label, cfg, serve, protos, batches, gn = serve_setup(torch, base, mode, protos_u,
+                                                                 "cuda")
+            pserve = scaleout.make_ota_serve(cfg, process=phy.StaticProcess())
+            pstate = phy.StaticProcess().init(state)
+            gp = torch.Generator(device="cuda").manual_seed(2)
+            gens = phy.process_generators(SEED, "cuda")
+            for _, q in batches:
+                want = serve(protos, q, state, gn)
+                (pred, sim, pstate), _, counts = counted(
+                    torch, lambda: pserve(protos, q, pstate, gp, gens))
+                require_only(counts, SERVE_KERNELS[("ota", rep)], f"static process {label}")
+                add_launches(launches, counts)
+                require(torch.equal(pred, want[0]) and torch.equal(sim, want[1]),
+                        f"static process {label}: differs from the process-free serve")
+            require(int(pstate.t) == CALLS, "static process: t did not advance once a call")
+    # quarantine core 0: no prediction in its class range
+    label, cfg, _, protos, batches, _ = serve_setup(torch, base, ("ota", "symbol", False,
+                                                                  "unpacked"), protos_u, "cuda")
+    pserve = scaleout.make_ota_serve(cfg, process=phy.StaticProcess())
+    p0 = phy.StaticProcess().init(state)
+    quar = phy.set_quarantine(p0, torch.arange(base.n_rx_cores, device="cuda") == 0)
+    gens = phy.process_generators(SEED, "cuda")
+    opened = torch.cat([pserve(protos, q, p0, torch.Generator(device="cuda").manual_seed(2),
+                               gens)[0] for _, q in batches])
+    closed = torch.cat([pserve(protos, q, quar, torch.Generator(device="cuda").manual_seed(2),
+                               gens)[0] for _, q in batches])
+    require(bool((opened < c_core).any()) and not bool((closed < c_core).any()),
+            "quarantine: core 0's classes still win (or never won unmasked)")
+    # a drifting channel's serve, time per call beside the process-free serve
+    drift = phy.PhaseDriftProcess(sigma=DRIFT_REPORT["sigma"], alpha=0.5,
+                                  guard_dims=DRIFT_GATE["guard"])
+    for rep in ("unpacked", "packed"):
+        label, cfg, serve, protos, batches, gn = serve_setup(
+            torch, base, ("ota", "symbol", False, rep), protos_u, "cuda")
+        pserve = scaleout.make_ota_serve(cfg, process=drift)
+        pstate = drift.init(state)
+        gens = phy.process_generators(SEED, "cuda")
+        ms = {"process-free": [], "phase_drift": []}
+        for _, q in batches:
+            _, sec, _ = counted(torch, lambda: serve(protos, q, state, gn))
+            ms["process-free"].append(sec * 1e3)
+            (_, _, pstate), sec, counts = counted(torch, lambda: pserve(protos, q, pstate, gn,
+                                                                        gens))
+            require_only(counts, SERVE_KERNELS[("ota", rep)], f"drift serve {label}")
+            add_launches(launches, counts)
+            ms["phase_drift"].append(sec * 1e3)
+        out[f"drift serve {rep}"] = ms
+        print(f"process serve {label}: PhaseDriftProcess(sigma {DRIFT_REPORT['sigma']}, guard "
+              f"{DRIFT_GATE['guard']}) {statistics.median(ms['phase_drift']):.3f} ms/call "
+              f"median, process-free {statistics.median(ms['process-free']):.3f}", flush=True)
+    # the closed loop (tests/test_phy_process.py:283-306's scenario at 512 trials)
+    g = DRIFT_GATE
+    cfg16 = scaleout.ScaleOutConfig(n_classes=g["n_classes"], n_rx_cores=g["n_rx"])
+    state16 = scaleout.precharacterize_state(cfg16, device="cuda")
+    task = classifier.HDCTaskConfig(n_classes=g["n_classes"], dim=512, n_trials=g["trials"])
+    band = {"cap": 0.05}
+
+    def sweep(proc, steps, **kw):
+        res, sec, counts = counted(torch, lambda: classifier.run_drift_sweep(
+            7, task, 3, state16, proc, steps, **kw))
+        require_only(counts, ("assoc_matmul",), "drift sweep")
+        add_launches(launches, counts)
+        return res, sec
+
+    proc = phy.PhaseDriftProcess(sigma=g["sigma"], alpha=g["alpha"], guard_dims=g["guard"])
+    base_acc = sweep(phy.StaticProcess(), 1)[0]["acc"][0]
+    opened, s_open = sweep(proc, g["steps"])
+    adapt, s_adapt = sweep(proc, g["steps"], adaptive=True, patience=1, band_kwargs=band)
+    tail = g["tail"]
+    drop = 100.0 * (base_acc - statistics.fmean(opened["acc"][-tail:]))
+    gap = 100.0 * (base_acc - statistics.fmean(adapt["acc"][-tail:]))
+    require(drop >= 3.0 and gap <= 1.0 and adapt["n_refits"] > 0,
+            f"closed loop: open-loop drop {drop:.2f} pts (>= 3), closed-loop gap {gap:.2f} "
+            f"pts (<= 1), {adapt['n_refits']} re-fits (> 0)")
+    out["closed_loop"] = dict(baseline=base_acc, open=opened["acc"], adaptive=adapt["acc"],
+                              drop_pts=drop, gap_pts=gap, n_refits=adapt["n_refits"],
+                              seconds=dict(open=s_open, adaptive=s_adapt))
+    print(f"closed loop ({g['n_rx']} RX, C = {g['n_classes']}, sigma {g['sigma']}, "
+          f"{g['steps']} steps x {g['trials']} trials): no drift {base_acc}, open-loop tail-"
+          f"{tail} drop {drop:.2f} pts, closed-loop gap {gap:.2f} pts, {adapt['n_refits']} "
+          f"re-fits; {s_adapt:.2f} s for the adaptive sweep", flush=True)
+    # EXPERIMENTS.md:228-236's scenario through run_drift_sweep, reported only
+    r = DRIFT_REPORT
+    proc = phy.PhaseDriftProcess(sigma=r["sigma"], alpha=0.5, guard_dims=g["guard"])
+    opened, _ = sweep(proc, r["steps"])
+    adapt, _ = sweep(proc, r["steps"], adaptive=True, patience=1, band_kwargs=band)
+    tail = r["tail"]
+    rep_row = dict(open_tail=statistics.fmean(opened["acc"][-tail:]),
+                   open_worst=min(opened["acc"]),
+                   adaptive_tail=statistics.fmean(adapt["acc"][-tail:]),
+                   adaptive_worst=min(adapt["acc"]), n_refits=adapt["n_refits"])
+    out["drift_report"] = rep_row
+    print(f"drift sweep (sigma {r['sigma']}, {r['steps']} steps x {g['trials']} trials, "
+          f"reported): open-loop tail-{tail} {rep_row['open_tail']:.4f} (worst "
+          f"{rep_row['open_worst']:.4f}), adaptive {rep_row['adaptive_tail']:.4f} (worst "
+          f"{rep_row['adaptive_worst']:.4f}, {rep_row['n_refits']} re-fits); the reference's "
+          "0.894 / 1.000 come from its serving loop with LinkController", flush=True)
+    print("living channel checks: StaticProcess == process-free (bsc and symbol, unpacked and "
+          f"packed, {CALLS} steps), quarantined core 0 never wins, closed loop recovers",
+          flush=True)
+    return out
+
+
+def phase_physical(torch, state, protos_u, base, launches, profile: bool = False) -> dict:
+    """Phase 12: the symbol tier, M-drop, bitplane noise and living channels."""
+    out = dict(serves=symbol_serves(torch, state, protos_u, base, launches),
+               ber=symbol_ber(torch, state),
+               trials=symbol_trials(torch, launches),
+               bitplane=bitplane_checks(torch, state, protos_u, base, launches),
+               m_drop=m_drop_checks(torch, state, protos_u, base, launches),
+               living=living_channels(torch, state, protos_u, base, launches))
+    if profile:
+        for mode in ([("ota", "symbol", perm, rep) for perm in (False, True)
+                      for rep in ("unpacked", "packed")]
+                     + [("ota", "bsc", False, rep) for rep in ("unpacked", "packed")]):
+            label, _, serve, protos, batches, gn = serve_setup(torch, base, mode, protos_u,
+                                                               "cuda")
+            out[f"profile {label}"] = profile_calls(torch, label, [
+                lambda q=q: serve(protos, q, state, gn) for _, q in batches])
+    return out
+
+
 def phase_profile(torch, state, protos_u, base) -> dict:
     """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
@@ -1879,6 +2337,9 @@ def main(argv: list[str]) -> int:
     coarse = phase("10 coarse-to-fine and multi-centroid", lambda: phase_coarse(
         torch, launches, profile=args.profile))
     lm = phase("11 LM serve", lambda: phase_lm(torch, launches, profile=args.profile))
+    physical = phase("12 symbol tier, M-drop, bitplane, living channels",
+                     lambda: phase_physical(torch, state, protos_u, cfg, launches,
+                                            profile=args.profile))
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
 
@@ -1903,7 +2364,8 @@ def main(argv: list[str]) -> int:
             sass=sass,
             ber=dict(avg=avg, max=mx, ms=pre_ms), kernels=kernels, serves=serves["runs"],
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
-            sparse_serve=sparse_serve, coarse=coarse, lm=lm, launches=launches,
+            sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical,
+            launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)
     print(json.dumps({"kernels": line}))

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.phy.channel import ChannelState
+from repro_torch.phy.process import ProcessState
 
 
 def hv_from_numpy(a: np.ndarray, device: str | torch.device | None = "cuda") -> torch.Tensor:
@@ -46,6 +47,20 @@ def state_from_numpy(leaves: dict, device: str | torch.device | None = "cuda"
     ))
 
 
+def pstate_from_numpy(leaves: dict, device: str | torch.device | None = "cuda"
+                      ) -> ProcessState:
+    """A dict of the ProcessState leaves as numpy arrays, ``chan`` itself a
+    dict of the eight ChannelState leaves -> the port's ProcessState on
+    `device` (``t`` a 0-dim int32 tensor)."""
+    dev = _device.resolve(device)
+    missing = set(ProcessState.FIELDS) - set(leaves)
+    if missing:
+        raise KeyError(f"missing ProcessState leaves: {sorted(missing)}")
+    return ProcessState(chan=state_from_numpy(leaves["chan"], dev), **{
+        f: torch.from_numpy(np.array(leaves[f], copy=True)).to(dev)
+        for f in ProcessState.FIELDS if f != "chan"})
+
+
 def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
@@ -68,9 +83,10 @@ def to_numpy(x, words: bool = False):
     lists stay int32 with the default ``words=False``; bf16 -> ml_dtypes'
     bfloat16, bit for bit); a ChannelState -> the dict of its eight leaves; a
     nested dict of tensors (model parameters, a KV cache) -> the same dict of
-    arrays."""
-    if isinstance(x, ChannelState):
-        return {f: to_numpy(getattr(x, f)) for f in ChannelState.FIELDS}
+    arrays; a ProcessState -> the dict of its leaves, ``chan`` a dict as
+    above."""
+    if isinstance(x, (ChannelState, ProcessState)):
+        return {f: to_numpy(getattr(x, f)) for f in type(x).FIELDS}
     if isinstance(x, dict):
         return {k: to_numpy(v, words) for k, v in x.items()}
     if x.dtype == torch.bfloat16:

@@ -12,6 +12,12 @@ and searches the C prototypes:
   M permuted banks and the trial succeeds iff every bank's top-1 is the
   class its encoder sent.
 
+On the physical ``symbol`` channel the majority and the BSC give way to
+the link itself: each trial's M bits superpose in the constellation of RX
+core ``t % N`` of a `phy.ChannelState`, which adds AWGN and decides by its
+decision regions (`ota.awgn_decide`). `run_drift_sweep` runs these trials
+at every step of a living channel (`phy.process`).
+
 `_run_trials` runs all trials of one setting as three vectorized phases,
 as the reference does: the draws (every trial's classes, then its channel
 noise, from one `torch.Generator`), one batched search launch (the
@@ -36,11 +42,13 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core import hypervector as hv, sparse
+from repro_torch.core import hypervector as hv, ota, sparse
 from repro_torch.kernels.assoc_matmul import assoc_matmul
 from repro_torch.kernels.common import popcount32
 from repro_torch.kernels.hamming import hamming_search, hamming_topk_banked
 from repro_torch.kernels.sparse import sparse_search
+from repro_torch.phy import process as phy_process
+from repro_torch.phy.channel import combo_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,11 +108,14 @@ def _topm_matches(dots: torch.Tensor, classes: torch.Tensor, m: int) -> torch.Te
     return (sent == got).all(-1)
 
 
-def _check_setting(bundling: str, representation: str, channel: str, k_max: int) -> None:
-    if channel == "symbol":
-        raise NotImplementedError("channel='symbol' (the physical tier) is not ported yet")
-    if channel not in ("bsc", "ideal"):
-        raise ValueError(f"unknown channel {channel!r}; the trials take 'bsc' or 'ideal'")
+def _check_setting(bundling: str, representation: str, channel: str, k_max: int,
+                   state=None) -> None:
+    if channel not in ("bsc", "ideal", "symbol"):
+        raise ValueError(f"unknown channel {channel!r}; the trials take 'bsc', 'ideal' "
+                         "or 'symbol'")
+    if channel == "symbol" and state is None:
+        raise ValueError("channel='symbol' needs a phy.ChannelState "
+                         "(scaleout.precharacterize_state)")
     if bundling not in ("baseline", "permuted"):
         raise ValueError(f"unknown bundling {bundling!r}")
     if representation not in ("unpacked", "packed", "sparse"):
@@ -117,37 +128,65 @@ def _check_setting(bundling: str, representation: str, channel: str, k_max: int)
             raise ValueError("representation='sparse' supports baseline bundling only "
                              f"(permuted TX signatures would need per-bank sparse "
                              f"searches); got bundling={bundling!r}")
+        if channel == "symbol":
+            raise ValueError("representation='sparse' has no symbol tier (the "
+                             "constellation decodes dense per-dimension fields); use "
+                             "channel='bsc' or 'ideal'")
 
 
 def _draw(generator: torch.Generator, c: int, m: int, t: int, ber, d: int,
           k_slots: int, representation: str, channel: str):
     """Phase 1's draws: every trial's classes [T, m] first, then its noise.
-    The noise is None on the ideal channel, the flip mask [T, d] bool in the
-    dense representations (packed packs the same mask) and the sparse BSC's
-    (drop, pos, acc) [T, k_slots] otherwise."""
+    The noise is None on the ideal channel, the AWGN's standard normals
+    (real, imaginary) [T, d] each on the symbol channel, the flip mask
+    [T, d] bool in the dense representations (packed packs the same mask)
+    and the sparse BSC's (drop, pos, acc) [T, k_slots] otherwise."""
     dev = generator.device
     classes = torch.randint(0, c, (t, m), generator=generator, device=dev)
     if channel == "ideal":
         return classes, None
+    if channel == "symbol":
+        return classes, ota.awgn_draws(generator, (t, d), dev)
     if representation == "sparse":
         return classes, sparse._noise_draws(generator, (t, k_slots), ber, d, k_slots)
     return classes, torch.rand((t, d), generator=generator, device=dev) < ber
 
 
+def _symbol_queries(q_tx: torch.Tensor, state, noise, d: int, packed: bool) -> torch.Tensor:
+    """The symbol channel's received queries: q_tx [T, m, d|W] -> [T, d|W].
+    Trial t superposes its m phase-encoded bits at RX core t % N, which adds
+    the AWGN ``noise`` and decides by its own decision regions."""
+    t = q_tx.shape[0]
+    bits = hv.unpack(q_tx, d) if packed else q_tx
+    combo = combo_index(bits, axis=1).to(torch.int64)         # [T, d]
+    rx = torch.arange(t, device=q_tx.device) % state.n_rx
+    sym = torch.gather(state.symbols[rx], 1, combo)           # [T, d]
+    q = ota.awgn_decide(None, sym, state.c0[rx, None], state.c1[rx, None], state.n0,
+                        noise=noise)
+    return hv.pack(q) if packed else q
+
+
 def _run_trials(protos: torch.Tensor, m: int, ber, bundling: str, representation: str,
                 n_trials: int, *, channel: str = "bsc", k_max: int = 0,
-                generator: torch.Generator | None = None, draws=None) -> torch.Tensor:
+                generator: torch.Generator | None = None, draws=None,
+                state=None) -> torch.Tensor:
     """Per-trial success flags [T] bool for ``n_trials`` trials on the
     unpacked codebook ``protos`` [C, d] uint8.
 
     ``draws`` = (classes [T, m] int64, noise) replaces phase 1's draws (see
     `_draw`); without it they come from ``generator``. ``channel="ideal"`` is
-    the noise-free link (the BSC at ber = 0). ``representation="sparse"``
-    (baseline bundling only) runs the trial on index lists of capacity
-    ``k_max``: the same classes, the sparse bundle, the drop+insert BSC, and
-    one ``sparse_search`` against the packed codebook; at ber = 0 with no
-    saturation its flags equal the packed ones."""
-    _check_setting(bundling, representation, channel, k_max)
+    the noise-free link (the BSC at ber = 0). ``channel="symbol"`` replaces
+    the majority and the BSC by the physical link of ``state`` (a
+    `phy.ChannelState`): trial t superposes its m bits, adds AWGN and
+    decodes at RX core t % N; ``ber`` is unused. ``representation="sparse"``
+    (baseline bundling, bsc or ideal only) runs the trial on index lists of
+    capacity ``k_max``: the same classes, the sparse bundle, the drop+insert
+    BSC, and one ``sparse_search`` against the packed codebook; at ber = 0
+    with no saturation its flags equal the packed ones."""
+    _check_setting(bundling, representation, channel, k_max, state)
+    if channel == "symbol" and state.m_tx != m:
+        raise ValueError(f"channel='symbol': the state characterizes {state.m_tx} TXs, "
+                         f"the trials bundle m={m}")
     c, d = protos.shape
     sparse_rep = representation == "sparse"
     packed = representation == "packed"
@@ -168,11 +207,14 @@ def _run_trials(protos: torch.Tensor, m: int, ber, bundling: str, representation
         if bundling == "permuted":                # each TX applies its signature
             rho = hv.permute_packed if packed else hv.permute
             q_tx = torch.stack([rho(q_tx[:, s], s) for s in range(m)], 1)
-        q_tx = q_tx.transpose(0, 1)
-        qs = hv.majority_packed(q_tx) if packed else hv.majority(q_tx)
-        if noise is not None:
-            flips = noise.to(torch.uint8)
-            qs = qs ^ (hv.pack(flips) if packed else flips)
+        if channel == "symbol":
+            qs = _symbol_queries(q_tx, state, noise, d, packed)
+        else:
+            q_tx = q_tx.transpose(0, 1)
+            qs = hv.majority_packed(q_tx) if packed else hv.majority(q_tx)
+            if noise is not None:
+                flips = noise.to(torch.uint8)
+                qs = qs ^ (hv.pack(flips) if packed else flips)
 
     # phases 2-3: one batched search, one batched decision
     if bundling == "baseline":
@@ -196,28 +238,35 @@ def _run_trials(protos: torch.Tensor, m: int, ber, bundling: str, representation
 def run_trials(seed: int, cfg: HDCTaskConfig, m: int, ber: float,
                bundling: str = "baseline", *, representation: str = "unpacked",
                channel: str = "bsc", density: float | None = None, k_max: int = 0,
-               device: str | torch.device | None = "cuda") -> torch.Tensor:
+               state=None, device: str | torch.device | None = "cuda") -> torch.Tensor:
     """Per-trial success flags [cfg.n_trials] bool of one Table I setting:
     one generator seeded with ``seed`` draws the codebook (each bit at
     ``density``, default 1/2), then every trial's classes, then its noise,
     so the unpacked and packed representations see the same draws and agree
     trial for trial. ``representation="sparse"`` needs ``k_max``;
-    ``channel="symbol"`` is not ported yet."""
+    ``channel="symbol"`` needs ``state`` (`scaleout.precharacterize_state`)
+    with at least one valid row, and cycles the trials over its RX cores."""
+    _check_setting(bundling, representation, channel, k_max, state)
+    if channel == "symbol" and not bool(state.valid.any()):
+        raise ValueError("channel='symbol' needs characterized decision regions, but "
+                         "state.valid is all-False (e.g. a state_from_ber synthesis with "
+                         "zero physics) — build one with scaleout.precharacterize_state")
     dev = _device.resolve(device)
     generator = torch.Generator(device=dev).manual_seed(seed)
     protos = make_codebook(generator, cfg, density, dev)
     return _run_trials(protos, m, ber, bundling, representation, cfg.n_trials,
-                       channel=channel, k_max=k_max, generator=generator)
+                       channel=channel, k_max=k_max, generator=generator, state=state)
 
 
 def run_accuracy(seed: int, cfg: HDCTaskConfig, m: int, ber: float,
                  bundling: str = "baseline", *, representation: str = "unpacked",
                  channel: str = "bsc", density: float | None = None, k_max: int = 0,
-                 device: str | torch.device | None = "cuda") -> float:
+                 state=None, device: str | torch.device | None = "cuda") -> float:
     """Trial-exact classification accuracy for M bundled hypervectors at a
     BER: the share of `run_trials`'s flags that are set (float32 mean)."""
     flags = run_trials(seed, cfg, m, ber, bundling, representation=representation,
-                       channel=channel, density=density, k_max=k_max, device=device)
+                       channel=channel, density=density, k_max=k_max, state=state,
+                       device=device)
     return float(flags.to(torch.float32).mean())
 
 
@@ -269,6 +318,46 @@ def similarity_profile(seed: int, cfg: HDCTaskConfig, m: int, ber: float,
     protos = make_codebook(generator, cfg, None, dev)
     classes, mask = _draw(generator, cfg.n_classes, m, 1, ber, cfg.dim, 0, "unpacked", "bsc")
     return classes[0], _profile_sims(protos, classes[0], mask[0], bundling)
+
+
+def run_drift_sweep(seed: int, cfg: HDCTaskConfig, m: int, state, process, n_steps: int,
+                    *, bundling: str = "permuted", representation: str = "unpacked",
+                    adaptive: bool = False, patience: int = 2,
+                    band_kwargs: dict | None = None,
+                    device: str | torch.device | None = "cuda") -> dict:
+    """Accuracy per step over a living channel (the closed-loop sweep).
+
+    Rolls ``state`` forward ``n_steps`` under ``process`` (`phy.rollout`,
+    or `phy.adaptive_rollout` with the banded EM re-fit when ``adaptive``)
+    and runs the symbol-tier trials at every step's channel. One generator
+    seeded with ``seed`` draws the codebook and the trials' classes and
+    noise once, and every step reuses them, so differences between steps are
+    the channel's; the process draws from `phy.process_generators(seed)`.
+    Returns per-step ``acc``, ``ber_avg``, ``ber_max`` and ``est_avg``
+    (lists of floats, read from the device once at the end), the re-fit
+    mask ``refits`` [T, N] bool and ``n_refits``."""
+    dev = _device.resolve(device)
+    _check_setting(bundling, representation, "symbol", 0, state)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    protos = make_codebook(generator, cfg, None, dev)
+    draws = _draw(generator, cfg.n_classes, m, cfg.n_trials, 0.0, cfg.dim, 0,
+                  representation, "symbol")
+    gens = phy_process.process_generators(seed, dev)
+    p0 = process.init(state)
+    if adaptive:
+        _, traj, trips = phy_process.adaptive_rollout(process, p0, gens, n_steps,
+                                                      patience=patience,
+                                                      band_kwargs=band_kwargs)
+    else:
+        _, traj = phy_process.rollout(process, p0, gens, n_steps)
+        trips = torch.zeros((n_steps, state.n_rx), dtype=torch.bool, device=dev)
+    rows = torch.stack([torch.stack([
+        _run_trials(protos, m, 0.0, bundling, representation, cfg.n_trials,
+                    channel="symbol", draws=draws, state=p.chan).to(torch.float32).mean(),
+        p.chan.ber.mean(), p.chan.ber.max(), p.est.mean()]) for p in traj]).tolist()
+    acc, ber_avg, ber_max, est_avg = (list(col) for col in zip(*rows)) if rows else ([],) * 4
+    return {"acc": acc, "ber_avg": ber_avg, "ber_max": ber_max, "est_avg": est_avg,
+            "refits": trips, "n_refits": int(trips.sum())}
 
 
 def serve_accuracy(pred, classes) -> dict:

@@ -145,3 +145,24 @@ def snr_per_rx(h: torch.Tensor, n0) -> torch.Tensor:
     """Per-receiver mean link SNR in dB: mean over TXs of |H[r, t]|^2 / N0."""
     p = (h.abs() ** 2).mean(-1)
     return 10.0 * torch.log10(p / n0)
+
+
+def analytic_ber_band(h: torch.Tensor, n0, ber: torch.Tensor, *, slack_db: float = 6.0,
+                      fade_slack: float = 0.5, floor: float = 0.02,
+                      cap: float = 0.5) -> torch.Tensor:
+    """Per-RX acceptance ceiling [N] f32 for the empirical flip rate that
+    the living-channel monitor (`repro_torch.phy.process`) estimates:
+
+        hi[r] = min(max(ber[r] * 10^((slack_db + fade_slack * max(0,
+                snr_mean - snr[r])) / 10), floor), cap)
+
+    the characterized BER widened by a fixed slack plus headroom for
+    receivers in deep fades (`snr_per_rx` below the mean), floored so
+    near-error-free receivers do not trip on the shot noise of a short
+    guard block, capped so noisy ones are re-fit before their flips poison
+    the vote, and clipped to [0, 0.5]."""
+    snr = snr_per_rx(h, n0)
+    rel = torch.clamp(snr.mean() - snr, min=0.0)
+    mult = 10.0 ** ((slack_db + fade_slack * rel) / 10.0)
+    hi = torch.clamp(torch.clamp(ber * mult, min=floor), max=cap)
+    return torch.clamp(hi, 0.0, 0.5).to(torch.float32)

@@ -13,6 +13,8 @@ Two representations, as in the reference:
 Randomness goes through an explicit `torch.Generator` where the reference
 takes a `jax.random` key. The packed BSC packs the *same* unpacked Bernoulli
 draw as `flip_bits`, so packed and unpacked pipelines agree on one generator.
+Where the tests replay JAX's randomness, a function also takes its draw as
+an argument (`majority`'s tie bits, `bernoulli_words`'s planes).
 """
 from __future__ import annotations
 
@@ -61,13 +63,30 @@ def permute_batch(hvs: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     return torch.gather(hvs, -1, idx.expand(hvs.shape))
 
 
-def majority(hvs: torch.Tensor) -> torch.Tensor:
-    """Bitwise strict majority over axis 0 of [M, ..., d] uint8; even-M ties
-    resolve to 0 (``count*2 > M``). The reference's keyed random tie-break
-    never runs on the serve path and is not ported."""
+def _tie_bits(generator, tie, shape, dev) -> torch.Tensor | None:
+    """The random tie-break bits [..., d] (uint8): ``tie`` as given, else a
+    fair coin per bit from ``generator``, else None (ties resolve to 0)."""
+    if tie is not None:
+        return tie.to(torch.uint8)
+    if generator is None:
+        return None
+    return (torch.rand(shape, generator=generator, device=dev) < 0.5).to(torch.uint8)
+
+
+def majority(hvs: torch.Tensor, generator: torch.Generator | None = None,
+             tie: torch.Tensor | None = None) -> torch.Tensor:
+    """Bitwise majority over axis 0 of [M, ..., d] uint8. Even-M ties
+    resolve to 0 (strict ``count*2 > M``), the repo-wide rule, unless a
+    ``generator`` or the ``tie`` bits [..., d] are given: then a random
+    hypervector decides the ties (the classical tie-break, never on the
+    serve path). Odd M never ties."""
     m = hvs.shape[0]
     counts = hvs.to(torch.int32).sum(0)
-    return (counts * 2 > m).to(torch.uint8)
+    strict = (counts * 2 > m).to(torch.uint8)
+    tie = None if m % 2 else _tie_bits(generator, tie, counts.shape, hvs.device)
+    if tie is None:
+        return strict
+    return torch.where(counts * 2 == m, tie, strict)
 
 
 def hamming_similarity(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
@@ -91,6 +110,20 @@ def flip_bits(generator: torch.Generator, hv: torch.Tensor, ber) -> torch.Tensor
     return hv ^ flips.to(hv.dtype)
 
 
+def _per_rx(ber_per_rx: torch.Tensor, ndim: int) -> torch.Tensor:
+    """ber [N] -> [N, 1, ..., 1] broadcasting against [N] + a rank-`ndim` HV."""
+    return ber_per_rx.reshape((ber_per_rx.shape[0],) + (1,) * ndim)
+
+
+def flip_bits_per_rx(generator: torch.Generator, hv: torch.Tensor,
+                     ber_per_rx: torch.Tensor) -> torch.Tensor:
+    """Per-receiver BSC: hv [..., d] against ber_per_rx [N] -> [N, ..., d],
+    copy r flipped at ``ber_per_rx[r]``."""
+    n = ber_per_rx.shape[0]
+    return flip_bits(generator, hv[None].expand((n,) + tuple(hv.shape)),
+                     _per_rx(ber_per_rx, hv.dim()))
+
+
 # ---------------------------------------------------------------------------
 # packed representation
 # ---------------------------------------------------------------------------
@@ -111,6 +144,27 @@ def unpack(packed: torch.Tensor, dim: int) -> torch.Tensor:
     shifts = torch.arange(WORD, dtype=torch.int32, device=packed.device)
     bits = (packed[..., None] >> shifts) & 1     # arithmetic >>, then bit 0
     return bits.reshape(packed.shape[:-1] + (dim,)).to(torch.uint8)
+
+
+def random_hv_packed(generator: torch.Generator, num: int, dim: int,
+                     device: str | torch.device | None = "cuda") -> torch.Tensor:
+    """`num` i.i.d. random hypervectors drawn directly as 32-bit words
+    [num, dim//32] int32: every bit a fair coin, as `random_hv`, but a
+    different stream than ``pack(random_hv(...))``."""
+    if dim % WORD:
+        raise ValueError(f"dim {dim} must be a multiple of {WORD}")
+    return _random_words(generator, (num, dim // WORD), _device.resolve(device))
+
+
+def _random_words(generator: torch.Generator, shape, dev) -> torch.Tensor:
+    """Uniform 32-bit words (int32 with the same bits), as `jax.random.bits`."""
+    return torch.randint(-2**31, 2**31, tuple(shape), generator=generator, device=dev,
+                         dtype=torch.int32)
+
+
+def bind_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Packed binding: word-wise XOR (packing commutes with `bind`)."""
+    return a ^ b
 
 
 def hamming_distance_packed(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
@@ -167,12 +221,23 @@ def _bitsliced_gt(planes: list[torch.Tensor], t) -> torch.Tensor:
     return gt
 
 
-def majority_packed(hvs: torch.Tensor) -> torch.Tensor:
-    """Packed strict majority over axis 0: [M, ..., W] int32 -> [..., W],
-    by the bit-sliced carry-save adder and a bitwise comparator; even-M ties
-    resolve to 0, as `majority`."""
+def majority_packed(hvs: torch.Tensor, generator: torch.Generator | None = None,
+                    tie: torch.Tensor | None = None) -> torch.Tensor:
+    """Packed majority over axis 0: [M, ..., W] int32 -> [..., W], by the
+    bit-sliced carry-save adder and a bitwise comparator. Ties as `majority`:
+    even-M ties resolve to 0 unless a ``generator`` or unpacked ``tie`` bits
+    [..., d] are given; the random tie bits are drawn unpacked and packed, so
+    ``unpack(majority_packed(pack(x), g))`` equals ``majority(x, g)`` on one
+    generator state."""
+    m = hvs.shape[0]
     planes = _bitsliced_counts(hvs)
-    return _bitsliced_gt(planes, hvs.shape[0] // 2)
+    gt = _bitsliced_gt(planes, m // 2)
+    d = hvs.shape[-1] * WORD
+    tie = None if m % 2 else _tie_bits(generator, tie, hvs.shape[1:-1] + (d,), hvs.device)
+    if tie is None:
+        return gt
+    eq = _bitsliced_gt(planes, m // 2 - 1) & ~gt     # count == m/2
+    return gt | (eq & pack(tie))
 
 
 def majority_packed_masked(hvs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -200,3 +265,41 @@ def flip_bits_packed(generator: torch.Generator, hvp: torch.Tensor, ber) -> torc
     d = hvp.shape[-1] * WORD
     flips = _bernoulli(generator, ber, hvp.shape[:-1] + (d,), hvp.device)
     return hvp ^ pack(flips.to(torch.uint8))
+
+
+def flip_bits_per_rx_packed(generator: torch.Generator, hvp: torch.Tensor,
+                            ber_per_rx: torch.Tensor) -> torch.Tensor:
+    """Per-receiver packed BSC: hvp [..., W] against ber_per_rx [N] ->
+    [N, ..., W], the same mask draw as `flip_bits_per_rx`, packed."""
+    n = ber_per_rx.shape[0]
+    return flip_bits_packed(generator, hvp[None].expand((n,) + tuple(hvp.shape)),
+                            _per_rx(ber_per_rx, hvp.dim()))
+
+
+def bernoulli_words(generator: torch.Generator | None, p, shape, precision: int = 16,
+                    planes: torch.Tensor | None = None) -> torch.Tensor:
+    """Bernoulli(p) bit masks drawn directly as packed int32 words [*shape].
+
+    ``precision`` fair bit-planes [precision, *shape] (``planes`` if given,
+    else drawn from ``generator``) form a ``precision``-bit uniform per bit
+    lane, and a bit-sliced comparator against round(p * 2^precision) sets
+    the lanes whose uniform lies below it: ``precision`` random bits per
+    mask bit instead of the 32 of a float draw, and no unpacked
+    intermediate. p (a float or a tensor broadcasting against ``shape``) is
+    quantized to 2^-precision, so this is the "bitplane" noise mode, not
+    bit-exact against `flip_bits`."""
+    shape = tuple(shape)
+    if planes is None:
+        dev = p.device if isinstance(p, torch.Tensor) else generator.device
+        planes = _random_words(generator, (precision,) + shape, dev)
+    elif tuple(planes.shape) != (precision,) + shape:
+        raise ValueError(f"planes {tuple(planes.shape)} != {(precision,) + shape}")
+    pf = torch.as_tensor(p, dtype=torch.float32, device=planes.device)
+    t = torch.clamp(torch.round(pf * 2**precision), 0, 2**precision - 1).to(torch.int32)
+    lt = torch.zeros(shape, dtype=torch.int32, device=planes.device)
+    eq = torch.full(shape, _FULL, dtype=torch.int32, device=planes.device)
+    for i in reversed(range(precision)):
+        tb = -((t >> i) & 1)                         # 0 or all-ones
+        lt = lt | (eq & ~planes[i] & tb)
+        eq = eq & ~(planes[i] ^ tb)
+    return lt

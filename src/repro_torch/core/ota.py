@@ -186,6 +186,58 @@ def optimize_phases_coordinate(h: torch.Tensor, n0: float, generator: torch.Gene
     return _result(h, phase_idx, maj, n0, method)
 
 
+# ---------------------------------------------------------------------------
+# end-to-end OTA transmission (empirical cross-check of Eq. 1)
+# ---------------------------------------------------------------------------
+
+def awgn_draws(generator: torch.Generator, shape, device=None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The standard normals (real, imaginary) [*shape] f32 of one AWGN
+    draw, real parts first, as `awgn_decide` scales them."""
+    nr = torch.randn(tuple(shape), generator=generator, device=device)
+    ni = torch.randn(tuple(shape), generator=generator, device=device)
+    return nr, ni
+
+
+def awgn_decide(generator: torch.Generator | None, sym: torch.Tensor, c0: torch.Tensor,
+                c1: torch.Tensor, n0, noise: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+    """Physical receiver decode: complex AWGN, then the nearest of the two
+    majority-region centroids.
+
+    sym [...] complex64 noiseless received symbols; c0/c1 broadcast against
+    it (`majority_centroids`); n0 the noise density. The noise has variance
+    n0/2 per component (Eq. 1's error model): ``sqrt(n0/2) * (nr + j ni)``
+    with (nr, ni) standard normals, ``noise`` if given (the tests replay
+    JAX's), else `awgn_draws` from ``generator``. Note that
+    ``torch.randn(dtype=complex64)`` has variance 1/2 per component, which is
+    why the draw is two real tensors. Returns uint8 bits: 1 where the noisy
+    symbol lies strictly closer to c1. The one decode definition shared by
+    `simulate_ota_bundle`, the classifier's symbol trials, the serve's
+    symbol tier and the process monitor."""
+    nr, ni = noise if noise is not None else awgn_draws(generator, sym.shape, sym.device)
+    scale = torch.sqrt(torch.as_tensor(n0, dtype=torch.float32, device=sym.device) / 2.0)
+    r = sym + torch.complex(nr, ni) * scale
+    return ((r - c1).abs() < (r - c0).abs()).to(torch.uint8)
+
+
+def simulate_ota_bundle(generator: torch.Generator | None, queries: torch.Tensor,
+                        h: torch.Tensor, phase_idx: torch.Tensor, n0,
+                        noise: tuple[torch.Tensor, torch.Tensor] | None = None
+                        ) -> torch.Tensor:
+    """Physically simulate the OTA majority (the paper's Fig. 3b dataflow):
+    per dimension, all M TXs send their bit at once and each RX adds AWGN
+    and decodes by its decision regions. queries [M, d] uint8, h [N, M],
+    phase_idx [M, 2] -> every receiver's decoded view of maj(queries)
+    [N, d] uint8; ``noise`` as in `awgn_decide`, [N, d] each."""
+    m = queries.shape[0]
+    y = rx_constellations(h, phase_idx)                          # [N, 2^M]
+    c0, c1 = majority_centroids(y, majority_labels(m, h.device))
+    weights = 1 << torch.arange(m, device=queries.device)
+    combo = (queries.to(torch.int64) * weights[:, None]).sum(0)  # [d]
+    return awgn_decide(generator, y[:, combo], c0[:, None], c1[:, None], n0, noise)
+
+
 def default_n0(h: torch.Tensor, snr_db: float = 7.0) -> float:
     """Noise density giving mean per-link SNR `snr_db` (the calibration knob;
     7 dB lands the 3 TX / 64 RX cavity at avg BER 0.010)."""

@@ -10,12 +10,17 @@ cores becomes a written-out leading core axis, which is also the bank axis of
 the kernels: one launch searches every core.
 
 Dataflow of `make_ota_serve`: encoders vote (sum of bipolar votes, strict
-majority), every core receives its own copy through the PHY tier (``ideal``
-or ``bsc``), each core searches its class sub-shard — the fused packed top-1
-kernel or the bipolar matmul kernel — and the global top-1 is taken over the
-cores. `make_wired_serve` is the wired baseline: bundle by majority at every
-core (the majority kernel, or the bit-sliced packed majority), then one
-search over all classes (the Hamming or bipolar matmul kernel).
+majority), every core receives its own copy through the PHY tier (``ideal``,
+``bsc``, or ``symbol``, whose wire is the TX bit-combo index and whose cores
+decode the constellation physics), each core searches its class sub-shard —
+the fused packed top-1 kernel or the bipolar matmul kernel — and the global
+top-1 is taken over the cores. ``m_active`` drops encoders: slots
+``g >= m_active`` abstain (vote exactly 0). With a living-channel
+``process`` the serve first steps the channel, then serves through the
+evolved state and masks quarantined cores out of the top-1.
+`make_wired_serve` is the wired baseline: bundle by majority at every core
+(the majority kernel, or the bit-sliced packed majority), then one search
+over all classes (the Hamming or bipolar matmul kernel).
 
 ``representation="sparse"`` serves ultra-sparse queries as sorted int32
 index lists (`core.sparse`) against the unchanged packed prototypes: the
@@ -36,9 +41,9 @@ ascending class order, so the answer equals the flat scan's whenever the
 flat winner survives the screen.
 
 Randomness: an explicit `torch.Generator` replaces the reference's key, so
-the BSC noise is not the reference's bits; the tests hold the noisy serve by
-replaying JAX-drawn masks through a registered tier (dense) or in place of
-`sparse._noise_draws` (sparse).
+the BSC and AWGN noise is not the reference's bits; the tests hold the noisy
+serve by replaying JAX-drawn draws through a registered tier (dense) or in
+place of `sparse._noise_draws` (sparse).
 """
 from __future__ import annotations
 
@@ -61,10 +66,20 @@ from repro_torch.kernels.sparse import sparse_topk_banked
 class ScaleOutConfig:
     """The reference's configuration (same defaults — the paper's 6400
     classes over 64 cores, d = 512, M = 3, 7 dB, batch 256) minus
-    ``use_kernels`` (the port dispatches on the tensors' device instead) and
-    minus ``noise_planes``, which only the unported bitplane noise reads.
-    Combinations the reference rejects raise ValueError here, as there;
-    values whose code is not ported yet raise NotImplementedError.
+    ``use_kernels`` (the port dispatches on the tensors' device instead).
+    Combinations the reference rejects raise ValueError here, as there; the
+    multi-GPU collectives, not ported yet, raise NotImplementedError.
+
+    ``channel`` is the PHY tier: ``"ideal"``, ``"bsc"`` (the default, the
+    paper's Eq. 1 abstraction) or ``"symbol"`` (the physics; it needs a real
+    ChannelState from `precharacterize_state` and ``collective="psum"``).
+    ``noise`` is the packed BSC's mask source: ``"exact"`` packs the
+    unpacked draw (packed == unpacked on one generator), ``"bitplane"``
+    draws the mask words directly at ``noise_planes`` bits of precision (the
+    BER quantized to 2^-noise_planes). ``m_active`` drops to the first
+    m_active encoders (the others abstain; odd, in [1, m_tx], vote-wire
+    tiers only; checked when a serve is built); shapes are unchanged, and a
+    permuted serve's columns past m_active mean nothing.
 
     ``coarse_group`` > 0 switches on the coarse-to-fine screen (groups of
     that many class rows per summary; baseline bundling only, checked when a
@@ -83,6 +98,7 @@ class ScaleOutConfig:
     collective: str = "psum"
     representation: str = "unpacked"
     noise: str = "exact"
+    noise_planes: int = 16
     channel: str = "bsc"
     coarse_group: int = 0
     coarse_keep: int = 8
@@ -129,17 +145,11 @@ class ScaleOutConfig:
             raise ValueError(
                 "collective='index_ag' is the sparse index-list wire; "
                 f"representation={self.representation!r} has no index lists")
-        unported = [
-            (self.collective not in ("psum", "index_ag"),
-             f"collective={self.collective!r} (only 'psum' and the sparse "
-             "'index_ag' are ported; the one-GPU model axis has no wire to pack)"),
-            (self.channel == "symbol", "channel='symbol' (the physical tier)"),
-            (self.noise != "exact", f"noise={self.noise!r} (bitplane masks)"),
-            (self.m_active is not None, "m_active (link-adaptation M-drop)"),
-        ]
-        for bad, what in unported:
-            if bad:
-                raise NotImplementedError(f"ScaleOutConfig: {what} is not ported yet")
+        if self.collective not in ("psum", "index_ag"):
+            raise NotImplementedError(
+                f"ScaleOutConfig: collective={self.collective!r} is not ported yet (only "
+                "'psum' and the sparse 'index_ag' are; the one-GPU model axis has no "
+                "wire to pack)")
         if self.dim % hv.WORD:
             raise ValueError(f"dim={self.dim} must be a multiple of {hv.WORD}")
         if self.n_classes % self.n_rx_cores:
@@ -186,17 +196,30 @@ def precharacterize_state(cfg: ScaleOutConfig, geom: em.PackageGeometry | None =
     return phy.state_from_ota(res, h)
 
 
+def precharacterize(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda"
+                    ) -> torch.Tensor:
+    """Per-core Eq. 1 BER [n_rx_cores], the summary of `precharacterize_state`."""
+    return precharacterize_state(cfg, device=device).ber
+
+
 # ---------------------------------------------------------------------------
 # serve-step stages (one model shard: tx = 0, every core local)
 # ---------------------------------------------------------------------------
 
-def _ota_bundle(cfg: ScaleOutConfig, q_mine: torch.Tensor) -> torch.Tensor:
-    """The OTA vote over the encoders: q_mine [B, M, d|W] -> bundled query
-    [B, d|W]. Each encoder votes +-1 per dimension; the sum over the encoder
+def _ota_bundle(cfg: ScaleOutConfig, chan: phy.Channel, q_mine: torch.Tensor) -> torch.Tensor:
+    """The OTA collective over the encoders: q_mine [B, M, d|W] -> bundled
+    query [B, d|W], or the combo index [B, d] int32 on the combo wire.
+
+    Vote wire: each active encoder votes +-1 per dimension and the
+    abstaining slots ``g >= m_act`` vote exactly 0; the sum over the encoder
     axis is the reference's ``psum`` over the model axis, and ``tally > 0``
-    is the strict majority (even-M ties -> 0)."""
+    is the strict majority (even-M ties -> 0). Combo wire: the sum of
+    ``bit_g * 2^g`` over the encoders, the received field's index into the
+    constellation."""
     q_bits = hv.unpack(q_mine, cfg.dim) if cfg.packed else q_mine
-    votes = (2 * q_bits.to(torch.int8) - 1).sum(-2, dtype=torch.int8)
+    if chan.wire == "combo":
+        return phy.combo_index(q_bits, axis=-2)
+    votes = (2 * q_bits[..., :cfg.m_act, :].to(torch.int8) - 1).sum(-2, dtype=torch.int8)
     bundled = (votes > 0).to(torch.uint8)
     return hv.pack(bundled) if cfg.packed else bundled
 
@@ -206,16 +229,20 @@ def _rx_fanout(cfg: ScaleOutConfig, chan: phy.Channel, q_bundled: torch.Tensor,
     """Per-core decode through the PHY tier: [n_cores, B, d|W]."""
     return chan.rx_copies(generator, q_bundled, state, rx_base=0,
                           n_cores=cfg.n_rx_cores, packed=cfg.packed, dim=cfg.dim,
-                          noise=cfg.noise)
+                          noise=cfg.noise, planes=cfg.noise_planes)
 
 
 def _sparse_bundle(cfg: ScaleOutConfig, queries: torch.Tensor) -> torch.Tensor:
     """The OTA vote on sparse index lists: queries [B, 1, M, k_max] ->
     bundled [B, k_max], the sparse strict majority over the gathered lists.
-    The reference's ``psum`` fallback densifies, votes and re-sparsifies,
-    which gives the same lists; it differs only on a multi-GPU wire, so on
-    one GPU both collectives take this path."""
+    Abstaining slots (``g >= m_act``) are emptied to all-SENTINEL, a dense
+    all-zero vote, and the threshold runs at m_act. The reference's ``psum``
+    fallback densifies, votes and re-sparsifies, which gives the same lists;
+    it differs only on a multi-GPU wire, so on one GPU both collectives take
+    this path."""
     stack = collectives.sparse_index_allgather(queries)       # [B, M, k_max]
+    active = torch.arange(stack.shape[-2], device=stack.device)[:, None] < cfg.m_act
+    stack = torch.where(active, stack, sparse.SENTINEL)
     return sparse.bundle(stack, m=cfg.m_act)
 
 
@@ -322,13 +349,16 @@ def _coarse_fine_unpacked(cfg: ScaleOutConfig, banks: torch.Tensor, q: torch.Ten
     return sims.max(-1).values.to(torch.float32), row
 
 
-def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor,
-                protos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor, protos: torch.Tensor,
+                qmask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Every core searches its class sub-shard (with the M permuted banks
     when ``cfg.permuted``). q_rx [n_core, B, d|W], protos [C, d|W] ->
     (val, idx): the winner's similarity (d - 2*dist, int32 packed / f32
     unpacked) and global class index, [B] or [B, M]. Ties go to the lowest
-    class: first minimum inside a core, then the first core."""
+    class: first minimum inside a core, then the first core. ``qmask``
+    [n_core] bool quarantines cores after the kernel: their winner's
+    distance becomes d + 1 (packed) or its similarity -2d (unpacked), so
+    they never win."""
     n_core, b, last = q_rx.shape
     d = cfg.dim
     c_core = protos.shape[0] // n_core
@@ -343,6 +373,8 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor,
             dmin, amin = hamming_topk_banked(q_rep, banks)   # each [n_core*M, B]
             dmin = dmin.reshape(n_core, m, b).permute(2, 0, 1)   # [B, n_core, M]
             amin = amin.reshape(n_core, m, b).permute(2, 0, 1)
+            if qmask is not None:
+                dmin = torch.where(qmask[None, :, None], d + 1, dmin)
             val = d - 2 * dmin.min(1).values                  # [B, M]
             core_star = torch.argmin(dmin, 1)
             idx_in_core = torch.gather(amin, 1, core_star[:, None, :])[:, 0, :]
@@ -351,6 +383,8 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor,
             sims = sims.reshape(n_core, m, b, c_core).permute(2, 0, 1, 3)
             val_c = sims.max(-1).values                       # [B, n_core, M]
             idx_c = torch.argmax(sims, -1).to(torch.int32)
+            if qmask is not None:
+                val_c = torch.where(qmask[None, :, None], -2.0 * d, val_c)
             val = val_c.max(1).values                         # [B, M]
             core_star = torch.argmax(val_c, 1)
             idx_in_core = torch.gather(idx_c, 1, core_star[:, None, :])[:, 0, :]
@@ -361,6 +395,8 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor,
             search = sparse_topk_banked if cfg.sparse else hamming_topk_banked
             dmin, amin = search(q_rx.contiguous(), protos_c)  # [n_core, B]
         dmin, amin = dmin.T, amin.T                           # [B, n_core]
+        if qmask is not None:
+            dmin = torch.where(qmask[None, :], d + 1, dmin)
         val = d - 2 * dmin.min(-1).values                     # [B]
         core_star = torch.argmin(dmin, -1)
         idx_in_core = torch.gather(amin, 1, core_star[:, None])[:, 0]
@@ -372,6 +408,8 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor,
             sims = assoc_matmul_banked(q_rx.contiguous(), protos_c).permute(1, 0, 2)
             val_c = sims.max(-1).values                       # [B, n_core]
             idx_c = torch.argmax(sims, -1).to(torch.int32)
+        if qmask is not None:
+            val_c = torch.where(qmask[None, :], -2.0 * d, val_c)
         val = val_c.max(-1).values                            # [B]
         core_star = torch.argmax(val_c, -1)
         idx_in_core = torch.gather(idx_c, 1, core_star[:, None])[:, 0]
@@ -383,6 +421,30 @@ def _gather_top1(cfg: ScaleOutConfig, val: torch.Tensor, idx: torch.Tensor):
     """Global top-1 over the model shards — here the one shard — and the
     similarity normalized to [0, 1]."""
     return idx, val / (2.0 * cfg.dim) + 0.5
+
+
+def _validate_channel(cfg: ScaleOutConfig, chan: phy.Channel) -> None:
+    """Serve-build validation of the combo wire and the M-drop (ValueError),
+    with the reference's messages."""
+    if chan.wire == "combo":
+        if cfg.collective != "psum":
+            raise ValueError(
+                f"channel={cfg.channel!r} replaces the vote reduction with the "
+                f"combo-index psum; collective={cfg.collective!r} does not "
+                "apply (use collective='psum')")
+        if cfg.m_tx > 16:
+            raise ValueError(f"channel={cfg.channel!r}: the constellation table is "
+                             f"[N, 2^M]; m_tx={cfg.m_tx} > 16")
+    if cfg.m_act != cfg.m_tx:
+        if chan.wire == "combo":
+            raise ValueError(
+                f"m_active={cfg.m_act} needs a vote-wire tier; "
+                f"channel={cfg.channel!r} transmits the full {cfg.m_tx}-TX "
+                "combo field (its constellation assumes every TX superposes)")
+        if not 1 <= cfg.m_act <= cfg.m_tx:
+            raise ValueError(f"m_active={cfg.m_act} outside [1, {cfg.m_tx}]")
+        if cfg.m_act % 2 == 0:
+            raise ValueError(f"m_active={cfg.m_act} must be odd (majority votes tie)")
 
 
 def _validate_coarse(cfg: ScaleOutConfig) -> None:
@@ -417,10 +479,12 @@ def _check_inputs(cfg: ScaleOutConfig, dev: torch.device, protos, queries, state
                          "(one model shard)")
     if state.n_rx != cfg.n_rx_cores:
         raise ValueError(f"state has {state.n_rx} cores, cfg {cfg.n_rx_cores}")
+    if state.m_tx != cfg.m_tx:
+        raise ValueError(f"state characterizes {state.m_tx} TXs, cfg {cfg.m_tx}")
 
 
 def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda",
-                   process=None, faults=None) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
+                   process=None, faults=None) -> Callable[..., tuple[torch.Tensor, ...]]:
     """Build the OTA serve step.
 
     fn(protos [C, d|W], queries [B, 1, M, d|W], state phy.ChannelState,
@@ -428,34 +492,51 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
     (permuted), maxsim f32 in [0, 1].
 
     Unpacked tensors are uint8 {0,1}; packed ones int32 words (``hv.pack``).
-    Encoder g transmits rho^g of its query when ``cfg.permuted``. The PHY tier
-    is ``cfg.channel`` (``ideal`` or ``bsc``; the noise comes from
-    ``generator``). The per-core search is the fused top-1 kernel (packed) or
-    the bipolar matmul kernel (unpacked), one launch for all cores and banks;
-    with ``cfg.coarse_group`` it is the coarse-to-fine screen (the fused
-    top-k kernel or the matmul kernel over the group summaries, then an
-    exact rescore of the survivors). ``coarse_group`` with permuted bundling
-    and shapes the screen cannot tile raise ValueError here.
+    Encoder g transmits rho^g of its query when ``cfg.permuted``; encoders
+    ``g >= cfg.m_active`` abstain. The PHY tier is ``cfg.channel``
+    (``ideal``, ``bsc`` or ``symbol``; the noise comes from ``generator``);
+    ``symbol`` needs a real state (`precharacterize_state`), replaces the
+    vote by the combo index and decodes the physics at every core, bits
+    packed afterwards when the serve is packed. The per-core search is the
+    fused top-1 kernel (packed) or the bipolar matmul kernel (unpacked), one
+    launch for all cores and banks; with ``cfg.coarse_group`` it is the
+    coarse-to-fine screen (the fused top-k kernel or the matmul kernel over
+    the group summaries, then an exact rescore of the survivors).
+    ``coarse_group`` with permuted bundling, shapes the screen cannot tile,
+    the symbol tier with another collective or with ``m_active``, and an
+    even or out-of-range ``m_active`` raise ValueError here.
+
+    ``process`` (a `phy.ChannelProcess`) serves a living channel: the
+    built fn becomes
+
+        fn(protos, queries, pstate phy.ProcessState, generator,
+           process_generators phy.ProcessGenerators) -> (pred, maxsim, pstate')
+
+    Each call first steps the channel (`process.step` on
+    ``process_generators``), then serves through the evolved
+    ``pstate.chan`` with the cores of ``pstate.quarantine`` masked out of
+    the top-1. With `phy.StaticProcess` the predictions equal the
+    process-free serve's on the same generator, bit for bit.
 
     Sparse (``cfg.representation="sparse"``, or ``"auto"`` resolved to it):
     queries are index lists [B, 1, M, k_max] int32 against packed
     prototypes [C, W] int32, searched by the ``sparse_topk_banked`` kernel;
     predictions equal the packed serve's on the ideal channel whenever no
-    bundle saturates k_max. Living-channel ``process`` and fault injection
-    are not ported yet; with sparse they raise ValueError, as in the
-    reference.
+    bundle saturates k_max. With sparse, ``process`` and ``faults`` raise
+    ValueError, as in the reference; fault injection is not ported yet.
     """
     cfg = resolve_representation(cfg)
     if cfg.sparse and (process is not None or faults is not None):
         raise ValueError("representation='sparse' does not compose with living-channel "
                          "processes or fault injection; use representation='packed'")
-    if process is not None or faults is not None:
-        raise NotImplementedError("make_ota_serve: process= and faults= are not ported yet")
-    _validate_coarse(cfg)
+    if faults is not None:
+        raise NotImplementedError("make_ota_serve: faults= is not ported yet")
     dev = _device.resolve(device)
     chan = phy.get_channel(cfg.channel)
+    _validate_channel(cfg, chan)
+    _validate_coarse(cfg)
 
-    def fn(protos, queries, state, generator):
+    def serve_core(protos, queries, state, generator, qmask=None):
         _check_inputs(cfg, dev, protos, queries, state)
         if cfg.sparse:
             q_bundled = _sparse_bundle(cfg, queries)
@@ -466,10 +547,19 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
         if cfg.permuted:                  # TX g transmits rho^g(q_g)
             rho = hv.permute_packed if cfg.packed else hv.permute
             q_mine = torch.stack([rho(q_mine[:, g], g) for g in range(cfg.m_tx)], 1)
-        q_bundled = _ota_bundle(cfg, q_mine)
+        q_bundled = _ota_bundle(cfg, chan, q_mine)
         q_rx = _rx_fanout(cfg, chan, q_bundled, state, generator)
-        val, idx = _shard_top1(cfg, q_rx, protos)
+        val, idx = _shard_top1(cfg, q_rx, protos, qmask)
         return _gather_top1(cfg, val, idx)
+
+    if process is None:
+        return serve_core
+
+    def fn(protos, queries, pstate, generator, process_generators):
+        pstate = process.step(process_generators, pstate)   # evolve, then serve
+        pred, maxsim = serve_core(protos, queries, pstate.chan, generator,
+                                  pstate.quarantine)
+        return pred, maxsim, pstate
 
     return fn
 

@@ -20,16 +20,19 @@ def ota_noise(generator: torch.Generator, bits: torch.Tensor, ber) -> torch.Tens
 
 
 def ota_noise_packed(generator: torch.Generator, words: torch.Tensor, ber,
-                     mode: str = "exact") -> torch.Tensor:
+                     mode: str = "exact", planes: int = 16) -> torch.Tensor:
     """BSC on packed int32 words [..., W].
 
     ``mode="exact"`` packs the same Bernoulli draw `ota_noise` makes on the
     unpacked bits, so the packed pipeline equals the unpacked one on the same
-    generator. The reference's ``"bitplane"`` mode is not ported yet."""
+    generator. ``mode="bitplane"`` draws the mask directly as words through
+    a bit-sliced comparator over ``planes`` random bit-planes
+    (`hv.bernoulli_words`): ``planes`` random bits per mask bit instead of
+    32, no unpacked intermediate, the BER quantized to 2^-planes."""
     if mode == "exact":
         return hv.flip_bits_packed(generator, words, ber)
     if mode == "bitplane":
-        raise NotImplementedError("ota_noise_packed(mode='bitplane') is not ported yet")
+        return words ^ hv.bernoulli_words(generator, ber, words.shape, precision=planes)
     raise ValueError(f"unknown packed noise mode {mode!r}")
 
 

@@ -2,10 +2,17 @@
 `repro/phy/channel.py`).
 
 The precharacterization travels as a `ChannelState` (a dataclass of tensors
-where the reference has a pytree). Ported tiers: ``ideal`` (error-free) and
+where the reference has a pytree). Three tiers: ``ideal`` (error-free),
 ``bsc`` (per-core binary symmetric channel at the Eq. 1 BER, the paper's
-abstraction). The physical ``symbol`` tier is not ported yet:
-``get_channel("symbol")`` raises NotImplementedError.
+abstraction) and ``symbol`` (the physics: each core looks its received
+symbol up in the constellation by the TX bit combo, adds complex AWGN and
+decides against its two decision-region centroids).
+
+The symbol tier's wire is the combo index ``sum_m bit_m * 2^m`` per
+dimension: the received field depends on the TX bits only through it, so
+summing the per-TX contributions (one psum over the model axis in the
+reference, a local sum on one GPU) and indexing the precomputed
+constellation equals summing the complex fields.
 
 Tiers are looked up through a registry, so a test or an out-of-tree tier can
 ``register_channel(..., override=True)`` without editing this module.
@@ -16,7 +23,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import ota
+from repro_torch.core import hypervector as hv, ota
 from repro_torch.distributed import collectives
 
 
@@ -94,16 +101,20 @@ def combo_index(bits: torch.Tensor, axis: int = 0) -> torch.Tensor:
 class Channel:
     """One fidelity tier of the OTA link inside the serve step.
 
-    `rx_copies` returns every core's received copy of the bundled query
-    ``reduced`` [B, d] uint8 (or [B, W] int32 words when ``packed``):
-    [n_cores, B, d|W]. Core ``rx_base + i`` reads ``state.ber[i]``; the
-    tier draws its noise from ``generator``."""
+    ``wire`` names what the encoders reduce: ``"votes"`` (the bipolar
+    majority votes; `rx_copies` gets the thresholded bundle ``reduced``
+    [B, d] uint8, or [B, W] int32 words when ``packed``) or ``"combo"``
+    (`rx_copies` gets the TX bit-combo index [B, d] int32 and decodes the
+    physics). `rx_copies` returns every core's received copy
+    [n_cores, B, d|W]; core i is RX ``rx_base + i`` of the state. The tier
+    draws its noise from ``generator``; ``noise`` and ``planes`` are the
+    packed BSC's mask mode and bitplane precision."""
 
     name: str = "?"
     wire: str = "votes"
 
     def rx_copies(self, generator, reduced, state: ChannelState, rx_base, n_cores: int,
-                  *, packed: bool, dim: int, noise: str) -> torch.Tensor:
+                  *, packed: bool, dim: int, noise: str, planes: int = 16) -> torch.Tensor:
         raise NotImplementedError
 
 
@@ -114,7 +125,7 @@ class IdealChannel(Channel):
     wire = "votes"
 
     def rx_copies(self, generator, reduced, state, rx_base, n_cores,
-                  *, packed, dim, noise):
+                  *, packed, dim, noise, planes=16):
         return reduced[None].expand((n_cores,) + tuple(reduced.shape))
 
 
@@ -124,23 +135,72 @@ class BSCChannel(Channel):
     All cores draw in one call: one [n_cores, B, d] uniform draw compared
     with ``state.ber[rx_base + i]`` per core, the same draw in both
     representations (the packed tier packs it), so packed and unpacked
-    serves agree on one generator."""
+    serves agree on one generator. ``noise="bitplane"`` (packed only) draws
+    the masks as words instead (`hv.bernoulli_words`, ``planes`` bits)."""
 
     name = "bsc"
     wire = "votes"
 
     def rx_copies(self, generator, reduced, state, rx_base, n_cores,
-                  *, packed, dim, noise):
+                  *, packed, dim, noise, planes=16):
         ber = state.ber[rx_base:rx_base + n_cores]
         copies = reduced[None].expand((n_cores,) + tuple(reduced.shape))
         p = ber.reshape((n_cores,) + (1,) * reduced.dim())
         if packed:
-            return collectives.ota_noise_packed(generator, copies, p, mode=noise)
+            return collectives.ota_noise_packed(generator, copies, p, mode=noise,
+                                                planes=planes)
         return collectives.ota_noise(generator, copies, p)
 
 
+class SymbolChannel(Channel):
+    """Physical OTA: constellation superposition, AWGN, decision regions.
+
+    ``reduced`` is the combo index [B, d] int32. Core i looks up its
+    noiseless symbol ``symbols[rx_base + i][combo]``, adds complex AWGN at
+    ``n0`` and decides against its (c0, c1) (`ota.awgn_decide`): the
+    reference's `ota.simulate_ota_bundle` over cores x batch x dimensions.
+    It decodes bits and packs them when ``packed``: the same bits either way.
+
+    Rows with ``valid=False`` carry no usable decision regions (a failed
+    2-means fit, or a `state_from_ber` state with zero physics); they fall
+    back to the analytic-BER abstraction, the exact majority with BSC flips
+    at ``state.ber``, instead of decoding constant bits that would poison
+    the vote. `draws` fixes the order on the one generator: the AWGN first,
+    then the fallback flips, which are drawn whether or not a row is invalid
+    (the reference skips them by a branch on ``all(valid)``; reading that on
+    the host would cost a sync every call). So a valid row's bits do not
+    depend on the fallback."""
+
+    name = "symbol"
+    wire = "combo"
+
+    def draws(self, generator, state, rx_base, n_cores, shape):
+        """One call's randomness: the AWGN's standard normals (real,
+        imaginary) and the fallback's flip mask (bool), each
+        [n_cores, *shape]. A test overrides this to replay JAX's draws."""
+        full = (n_cores,) + tuple(shape)
+        dev = state.symbols.device
+        nr, ni = ota.awgn_draws(generator, full, dev)
+        ber = state.ber[rx_base:rx_base + n_cores].reshape((n_cores,) + (1,) * len(shape))
+        flips = torch.rand(full, generator=generator, device=dev) < ber
+        return nr, ni, flips
+
+    def rx_copies(self, generator, reduced, state, rx_base, n_cores,
+                  *, packed, dim, noise, planes=16):
+        rows = slice(rx_base, rx_base + n_cores)
+        lead = (n_cores,) + (1,) * reduced.dim()
+        nr, ni, flips = self.draws(generator, state, rx_base, n_cores, reduced.shape)
+        combo = reduced.to(torch.int64)
+        sym = state.symbols[rows][:, combo]                   # [n, B, d]
+        bits = ota.awgn_decide(None, sym, state.c0[rows].reshape(lead),
+                               state.c1[rows].reshape(lead), state.n0, noise=(nr, ni))
+        exact = ota.majority_labels(state.m_tx, reduced.device)[combo]   # [B, d]
+        fallback = exact[None] ^ flips.to(torch.uint8)
+        bits = torch.where(state.valid[rows].reshape(lead), bits, fallback)
+        return hv.pack(bits) if packed else bits
+
+
 CHANNELS: dict[str, Channel] = {}
-_NOT_PORTED = {"symbol": "the physical symbol tier is not ported yet"}
 
 
 def register_channel(channel: Channel, *, override: bool = False) -> Channel:
@@ -158,14 +218,14 @@ def register_channel(channel: Channel, *, override: bool = False) -> Channel:
     return channel
 
 
-for _tier in (IdealChannel(), BSCChannel()):
+for _tier in (IdealChannel(), BSCChannel(), SymbolChannel()):
     register_channel(_tier)
 del _tier
 
 
 def get_channel(name: str) -> Channel:
-    if name in CHANNELS:
+    try:
         return CHANNELS[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"channel {name!r}: {_NOT_PORTED[name]}")
-    raise ValueError(f"unknown channel tier {name!r}; available: {sorted(CHANNELS)}")
+    except KeyError:
+        raise ValueError(f"unknown channel tier {name!r}; "
+                         f"available: {sorted(CHANNELS)}") from None

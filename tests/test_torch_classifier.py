@@ -149,7 +149,7 @@ def test_unsupported_trial_settings_raise():
     with pytest.raises(ValueError):
         tclf.run_accuracy(0, cfg, 1, 0.0, "permuted", representation="sparse", k_max=8,
                           device=CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="ChannelState"):
         tclf.run_accuracy(0, cfg, 1, 0.0, channel="symbol", device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -41,7 +41,8 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core.scaleout, repro_torch.kernels, "
         "repro_torch.convert, repro_torch.models.zoo, repro_torch.serving.engine, "
-        "repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
+        "repro_torch.launch.serve, repro_torch.kernels.flash_attention, "
+        "repro_torch.phy.process, repro_torch.core.classifier\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"

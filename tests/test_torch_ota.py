@@ -138,7 +138,10 @@ def test_snr_and_state_helpers_match_jax(jax_state):
 
 
 def test_symbol_tier_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        tphy.get_channel("symbol")
-    with pytest.raises(NotImplementedError):
-        tscale.ScaleOutConfig(channel="symbol")
+    """The symbol tier, once refused here, is registered: it rides the combo
+    wire and the config takes it (tests/test_torch_phy.py holds its physics
+    against JAX); an unknown tier still raises."""
+    assert tphy.get_channel("symbol").wire == "combo"
+    assert tscale.ScaleOutConfig(channel="symbol").channel == "symbol"
+    with pytest.raises(ValueError, match="unknown channel tier"):
+        tphy.get_channel("fading")

@@ -75,7 +75,7 @@ class ReplayChannel(tphy.Channel):
         self.masks = masks
 
     def rx_copies(self, generator, reduced, state, rx_base, n_cores,
-                  *, packed, dim, noise):
+                  *, packed, dim, noise, planes):
         m = self.masks[rx_base:rx_base + n_cores]
         return reduced[None] ^ (thv.pack(m) if packed else m)
 
@@ -236,11 +236,16 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
 @pytest.mark.parametrize("bad", [dict(collective="psum_packed"),
                                  dict(representation="sparse", k_max=8,
                                       collective="psum_packed"),
-                                 dict(representation="auto", k_max=8, noise="bitplane"),
-                                 dict(channel="symbol"),
-                                 dict(collective="rs_ag"), dict(m_active=1),
-                                 dict(noise="bitplane")])
+                                 dict(representation="packed", noise="bitplane",
+                                      collective="psum_packed"),
+                                 dict(channel="symbol", collective="rs_ag"),
+                                 dict(collective="rs_ag"),
+                                 dict(m_active=1, collective="psum_packed"),
+                                 dict(representation="packed", collective="rs_ag")])
 def test_unported_config_values_raise(bad):
+    """The multi-GPU collectives are the config's only unported values; the
+    symbol tier, bitplane noise and m_active are taken (see
+    tests/test_torch_phy.py), but not with such a collective."""
     with pytest.raises(NotImplementedError):
         tscale.ScaleOutConfig(**SMALL, **bad)
 

@@ -106,21 +106,43 @@ fallback, and a missing GPU is a failure):
    (m_active = 1 unpacked, packed and sparse == `serve_reference`; the
    symbol tier refuses it); StaticProcess serves == process-free serves,
    quarantine, a PhaseDriftProcess serve's time, and the closed loop (open
-   drop >= 3 points, closed gap <= 1, re-fits > 0).
+   drop >= 3 points, closed gap <= 1, re-fits > 0);
+13. multi-tenant serving (the slot ring, the scheduler, the tenant registry,
+   the multi-tenant OTA serve), every tenant at the paper's configuration:
+   (a) the reference serving bench's trace (512 requests of 4 trials, 4
+   tenants in the order of its seeded Poisson race, 16 slots, all queued at
+   t = 0) in three modes (baseline packed and unpacked, permuted packed) on
+   phase 3's state; (b) the paper's batch of 256 trials, 64 requests over 8
+   tenants and 8 slots, packed, on bsc and on the symbol tier, then the
+   tenant lifecycle (evict a tenant and onboard a new one into its row,
+   evict another and re-onboard the first into that row: its answers
+   unchanged, the new tenant's equal its standalone serves); (c) the
+   adaptive engine at the drift benchmark's serving point (16 RX, C = 64,
+   symbol tier, PhaseDriftProcess, 4 slots, 32 requests). Every completion
+   equals a standalone `make_ota_serve` of its request on a generator
+   seeded alike, in pred and maxsim; (a) takes 32 steps; every step
+   launches one search kernel and nothing else; under StaticProcess the
+   adaptive engine equals `HDCEngine`. Reported: continuous and static
+   (one standalone serve a request) trials/s and their ratio, p50/p95
+   latency, ms a step, the drifting run's trials/s and controller actions.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
-7-12, each run between a reset and a read of the counters: the serves, the
+7-13, each run between a reset and a read of the counters: the serves, the
 48 Table I calls, the sparse trials and serves at d = 2^20, phase 10's
-serves, recall oracle and multi-centroid calls, phase 11's generates, and
-phase 12's serves, trials and drift sweeps; the d = 8192 comparisons, the
+serves, recall oracle and multi-centroid calls, phase 11's generates,
+phase 12's serves, trials and drift sweeps, and phase 13's slot-ring runs
+(its standalone comparison serves are not counted); the d = 8192 comparisons, the
 keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
 quarantine check are not counted), and as the last line {"ok": true, ...}.
 
     python3 chip_smoke.py --profile --json out/chip_smoke.json
 
 adds a profile of every serve mode (the symbol modes too), of the sparse
-serve, of the flat and coarse packed serves at 102,400 classes, and of the
+serve, of the flat and coarse packed serves at 102,400 classes, of one
+multi-tenant step of phase 13's (a) baseline packed and unpacked and (b)
+bsc (the share of the tenant gather, bank_rows packed or store rows
+unpacked, and of the per-slot fan-out), and of the
 LM prefill (with
 the attention kernel's share of its device time) and decode step under
 torch.profiler (device busy time, idle share, top device ops per call), and
@@ -196,6 +218,17 @@ LM_GENERATES = 2                 # counted generate calls (the first one cold)
 # projections at fan-in over their contraction: max |diff| allowed, about 3x
 # what this tree shows on the H100 and 5% of its largest logit (PERF.md)
 LM_BF16_LOGIT_BOUND = 0.25
+# phase 13, multi-tenant serving, every tenant at the paper's configuration
+# (ScaleOutConfig's defaults): (a) the reference bench's trace
+# (benchmarks/serving.py:105-108: 512 requests of 4 trials, 16 slots, 4
+# tenants; the tenant order from its Poisson race, :140-147, seed 0; all
+# queued at t = 0) at 6400 classes over 64 cores; (b) the paper's batch of
+# 256 trials, 64 requests over 8 slots and 8 tenants; (c) the drift
+# benchmark's serving point (benchmarks/serving.py:231-300)
+MT_TRACE = dict(requests=512, slots=16, tenants=4, batch=4)
+MT_BATCH = dict(requests=64, slots=8, tenants=8, batch=256)
+MT_DRIFT = dict(n_rx=16, n_classes=64, sigma=0.1, alpha=0.5, guard=128, cap=0.05, slots=4,
+                tenants=2, requests=32, batch=4)
 # serve modes: (serve, PHY tier, permuted bundling, representation)
 MODES = ([("ota", ch, perm, rep) for ch, perm in (("bsc", False), ("bsc", True), ("ideal", False))
           for rep in ("unpacked", "packed")]
@@ -430,7 +463,21 @@ def kernel_cases(torch, gen):
         ("tall", (64, 4096, 1600, 64)), ("ragged", (3, 77, 333, 5)), ("W=76", (4, 64, 300, 76)),
         ("B off the query tile", (2, 300, 20000, 16)), ("W=400", (2, 128, 1000, 400)),
         # 128-query tiles with the query tile streamed (too wide to stay resident)
-        ("W=76 at 128-query tiles", (8, 512, 2000, 76))]]
+        ("W=76 at 128-query tiles", (8, 512, 2000, 76)),
+        # phase 13's multi-tenant steps: (a) 16 slots x 64 cores (x 3 banks
+        # permuted) of 4 trials, (b) 8 slots x 64 cores of 256 trials
+        ("mt step (a)", (1024, 4, 100, 16)), ("mt step (a) permuted", (3072, 4, 100, 16)),
+        ("mt step (b)", (512, 256, 100, 16))]]
+    # the step as the serve calls it: bank g reads table row bank_rows[g]
+    # (4 tenants x 64 cores), gathered before the launch; the bound counts
+    # the table's rows once
+    q, table = words(1024, 4, 16), words(256, 100, 16)
+    bank_rows = torch.randint(0, 256, (1024,), generator=gen, device=dev, dtype=torch.int32)
+    cases.append(("hamming_topk_banked", "mt step (a) with bank_rows G=1024 B=4 C=100 W=16",
+                  lambda q=q, t=table, r=bank_rows: tk.hamming_topk_banked(q, t, bank_rows=r),
+                  lambda q=q, t=table, r=bank_rows: hamming_topk_banked_ref(q, t, 100, r), None,
+                  4 * (1024 * 4 + 256 * 100) * 16 + 4 * 1024 + 8 * 1024 * 4,
+                  2 * 1024 * 4 * 100 * 32 * 16, "b1", {}))
     # every row equal: every query's first minimum is column 0, in every split
     same = words(2, 1, 64).expand(2, 1000, 64).contiguous()
     cases.append(top1_case("all rows equal", 2, 100, 1000, 64, p=same, expect=lambda got: bool(
@@ -465,6 +512,7 @@ def kernel_cases(torch, gen):
     for label, (g, b, c, k) in [("serve per core G=64", (64, 256, 100, 512)),
                                 ("serve permuted G=192", (192, 256, 100, 512)),
                                 ("serve wired G=1", (1, 256, 6400, 512)),
+                                ("mt step (a) G=1024", (1024, 4, 100, 512)),
                                 ("tall", (64, 4096, 1600, 2048)),
                                 # padding past K, a partial class tile, unaligned rows
                                 ("ragged", (3, 200, 100, 500)),
@@ -2238,6 +2286,305 @@ def phase_physical(torch, state, protos_u, base, launches, profile: bool = False
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: multi-tenant serving
+# ---------------------------------------------------------------------------
+
+def poisson_race(n_requests: int, tenants: int, seed: int = 0) -> list:
+    """The reference bench's trace order (benchmarks/serving.py:140-147): the
+    tenant of each arrival is the argmin of the tenants' next-event times
+    under seeded exponential inter-arrivals."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nxt = rng.exponential(1.0, tenants)
+    trace = []
+    for _ in range(n_requests):
+        t = int(np.argmin(nxt))
+        trace.append(t)
+        nxt[t] += rng.exponential(1.0)
+    return trace
+
+
+def latency_pcts(lat: list) -> dict:
+    import numpy as np
+
+    a = np.asarray(lat)
+    return dict(p50_ms=float(np.percentile(a, 50) * 1e3), p95_ms=float(np.percentile(a, 95) * 1e3),
+                max_ms=float(a.max() * 1e3))
+
+
+def cuda_gen(torch, seed: int):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def mt_requests(torch, cfg, books, trace, seed0: int = 0) -> list:
+    """(tenant, queries, noise seed) of each request: queries drawn from the
+    tenant's codebook on seed 100 + i, noise on seed 1000 + i (the reference
+    bench's seeds), offset by ``seed0``."""
+    from repro_torch.core import scaleout
+
+    return [(t, scaleout.make_queries(cuda_gen(torch, seed0 + 100 + i), cfg, books[t])[1],
+             seed0 + 1000 + i) for i, t in enumerate(trace)]
+
+
+def mt_static(torch, cfg, state, banks, reqs) -> tuple:
+    """One standalone `make_ota_serve` call per request, each answer brought
+    to the host (what the slot ring is held to): (answers, latencies, wall)."""
+    from repro_torch.core import scaleout
+
+    serve = scaleout.make_ota_serve(cfg)
+    gens = [cuda_gen(torch, seed) for _, _, seed in reqs]
+    serve(banks[0], reqs[0][1], state, cuda_gen(torch, 0))      # warm
+    torch.cuda.synchronize()
+    out, lat = [], []
+    t0 = time.perf_counter()
+    for (t, q, _), g in zip(reqs, gens):
+        pred, sim = serve(banks[t], q, state, g)
+        out.append((pred.cpu().numpy(), sim.cpu().numpy()))
+        lat.append(time.perf_counter() - t0)                     # queueing included
+    return out, lat, time.perf_counter() - t0
+
+
+def mt_continuous(torch, eng, reqs, launches, what: str) -> tuple:
+    """The same requests through the slot ring (all queued at t = 0, noise
+    generators seeded alike), after a warm step of a full ring; the launch
+    counters set to 0 just before and read just after. Gates one search
+    launch a step and ceil(R / slots) steps. Returns (completions in request
+    order, wall, steps, counts)."""
+    from repro_torch import kernels as tk
+    from repro_torch.serving import HDCScheduler
+
+    warm = HDCScheduler(eng)
+    for _ in range(eng.num_slots):
+        warm.submit(reqs[0][0], reqs[0][1], generator=cuda_gen(torch, 0))
+    warm.run(timeout=600)
+    gens = [cuda_gen(torch, seed) for _, _, seed in reqs]
+    sched = HDCScheduler(eng, clock=time.perf_counter)
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [sched.submit(t, q, generator=g) for (t, q, _), g in zip(reqs, gens)]
+    sched.run(timeout=600)
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    want = SERVE_KERNELS[("ota", eng.cfg.representation)]
+    steps = -(-len(reqs) // eng.num_slots)
+    require(sched.steps == steps, f"{what}: {sched.steps} steps, expected {steps}")
+    require(all(counts[k] == steps for k in want)
+            and all(v == 0 for k, v in counts.items() if k not in want),
+            f"{what}: launches {counts}, expected one {want} a step ({steps}) and nothing else")
+    add_launches(launches, counts)
+    return [sched.results[r] for r in rids], wall, sched.steps, counts
+
+
+def mt_identity(done, static, what: str) -> None:
+    import numpy as np
+
+    bad = [i for i, (c, (p, s)) in enumerate(zip(done, static))
+           if c.status != "ok" or not (np.array_equal(c.pred, p) and np.array_equal(c.maxsim, s))]
+    require(not bad, f"{what}: {len(bad)} completions differ from their standalone serve "
+                     f"(first request {bad[:1]})")
+
+
+def mt_workload(torch, cfg, state, books, trace, slots, label, launches) -> tuple:
+    """Static against continuous on one trace: identity, steps, launches, and
+    trials/s and latencies of both. Returns (row, engine, requests, static
+    answers)."""
+    from repro_torch.core import hypervector as hv
+    from repro_torch.serving import HDCEngine
+
+    banks = [hv.pack(b) if cfg.packed else b for b in books]
+    reqs = mt_requests(torch, cfg, books, trace)
+    static, s_lat, s_wall = mt_static(torch, cfg, state, banks, reqs)
+    eng = HDCEngine(cfg, state, num_slots=slots, max_tenants=len(books))
+    for t, b in enumerate(banks):
+        eng.registry.onboard(t, b)
+    done, c_wall, steps, counts = mt_continuous(torch, eng, reqs, launches, label)
+    mt_identity(done, static, label)
+    n_trials = len(reqs) * cfg.batch
+    row = dict(requests=len(reqs), slots=slots, tenants=len(books), batch=cfg.batch,
+               steps=steps, launches=counts,
+               static=dict(wall_s=s_wall, trials_per_s=n_trials / s_wall, **latency_pcts(s_lat)),
+               continuous=dict(wall_s=c_wall, trials_per_s=n_trials / c_wall,
+                               ms_per_step=c_wall / steps * 1e3,
+                               **latency_pcts([c.latency for c in done])))
+    row["ratio"] = row["continuous"]["trials_per_s"] / row["static"]["trials_per_s"]
+    c, st = row["continuous"], row["static"]
+    print(f"mt {label}: {len(reqs)} requests x {cfg.batch} trials, {len(books)} tenants, "
+          f"{slots} slots: continuous {c['trials_per_s']:.1f} trials/s ({steps} steps, "
+          f"{c['ms_per_step']:.4f} ms/step, p50 {c['p50_ms']:.4f} ms, p95 {c['p95_ms']:.4f} "
+          f"ms), static {st['trials_per_s']:.1f} trials/s (p50 {st['p50_ms']:.4f} ms, p95 "
+          f"{st['p95_ms']:.4f} ms), ratio {row['ratio']:.4f}; launches {counts}", flush=True)
+    return row, eng, reqs, static
+
+
+def mt_lifecycle(torch, eng, cfg, state, books, new_book, reqs, static, launches) -> dict:
+    """Evict tenant 0 and onboard a new tenant into its row; evict tenant 1
+    and re-onboard tenant 0 into that (other) row. Tenant 0's requests, served
+    again on generators seeded alike, answer as before, and the new tenant's
+    equal its standalone serves."""
+    from repro_torch.core import hypervector as hv
+
+    pack = (lambda b: hv.pack(b)) if cfg.packed else (lambda b: b)
+    row0 = eng.registry.rows[0]
+    eng.registry.evict(0)
+    require(eng.registry.onboard("new", pack(new_book)) == row0,
+            "lifecycle: the new tenant did not take the evicted row")
+    row1 = eng.registry.rows[1]
+    eng.registry.evict(1)
+    require(eng.registry.onboard(0, pack(books[0])) == row1 != row0,
+            "lifecycle: tenant 0 did not come back on another row")
+    again = [(i, r) for i, r in enumerate(reqs) if r[0] == 0][:eng.num_slots]
+    require(bool(again), "lifecycle: the trace holds no request of tenant 0")
+    fresh = [("new", q, seed + 5000) for _, (_, q, seed) in again]
+    want_new, _, _ = mt_static(torch, cfg, state, {"new": pack(new_book)} | {0: pack(books[0])},
+                               fresh)
+    done, _, _, counts = mt_continuous(torch, eng, [r for _, r in again] + fresh, launches,
+                                       "lifecycle")
+    mt_identity(done[:len(again)], [static[i] for i, _ in again], "lifecycle: tenant 0")
+    mt_identity(done[len(again):], want_new, "lifecycle: the new tenant")
+    print(f"mt lifecycle: tenant 0 row {row0} -> {row1}, the new tenant on row {row0}; "
+          f"{len(again)} of tenant 0's requests answer as before, {len(fresh)} of the new "
+          "tenant's equal their standalone serves", flush=True)
+    return dict(row0=row0, row1=row1, requests=len(again) + len(fresh), launches=counts)
+
+
+def mt_profile(torch, eng, state, reqs, label: str) -> dict:
+    """A full-ring step (results to the host included) CALLS times under
+    torch.profiler; then, alone, the step's tenant gather (packed: the
+    `index_select` of the table rows named by ``bank_rows`` before the top-1
+    launch; unpacked: the `index_select` of the slots' store rows before the
+    matmul launch), named by its kernel, and its per-slot PHY fan-out, each
+    against the step's device busy time. Baseline serves only."""
+    from repro_torch import phy
+    from repro_torch.core import scaleout
+
+    cfg, n = eng.cfg, eng.num_slots
+    st = eng.admit_many(eng.init_state(), [q for _, q, _ in reqs[:n]],
+                        [t for t, _, _ in reqs[:n]], list(range(n)),
+                        [cuda_gen(torch, s) for s in range(n)])
+    step = profile_calls(torch, f"mt step {label}", [
+        lambda: [x.cpu() for x in eng.step(eng.params, st)[1]]] * CALLS)
+    store = eng.registry.store
+    n_core = cfg.n_rx_cores
+    if cfg.packed:
+        table = store.reshape(store.shape[0] * n_core, -1, store.shape[-1])
+        bank_rows = (st["row"][:, None] * n_core
+                     + torch.arange(n_core, dtype=torch.int32, device="cuda")).reshape(-1)
+        what, rows = "bank_rows gather", bank_rows
+    else:
+        table, rows, what = store, st["row"], "store-row gather"
+    gather = profile_calls(torch, f"mt gather {label}", [
+        lambda: table.index_select(0, rows)] * CALLS)
+    gather_share = gather["device_busy_ms_per_call"] / step["device_busy_ms_per_call"]
+    print(f"mt profile {label}: the {what} ({gather['top'][0][0]}) is "
+          f"{gather_share:.4f} of the step's device busy time "
+          f"({gather['device_busy_ms_per_call']:.5f} ms)", flush=True)
+    chan = phy.get_channel(cfg.channel)
+    q = st["queries"][:, :, 0]
+    qb = scaleout._ota_bundle(cfg, chan, q.reshape((-1,) + tuple(q.shape[2:])))
+    qb = qb.reshape((n, -1) + tuple(qb.shape[1:]))
+    gens = [cuda_gen(torch, s) for s in range(n)]
+    fan = profile_calls(torch, f"mt fan-out {label}", [
+        lambda: [scaleout._rx_fanout(cfg, chan, qb[s], state, gens[s]) for s in range(n)]]
+        * CALLS)
+    share = fan["device_busy_ms_per_call"] / step["device_busy_ms_per_call"]
+    print(f"mt profile {label}: the per-slot fan-out is {share:.4f} of the step's device busy "
+          f"time ({fan['device_busy_ms_per_call']:.4f} of {step['device_busy_ms_per_call']:.4f} "
+          f"ms), {fan['device_ops_per_call']:.0f} of {step['device_ops_per_call']:.0f} device "
+          "ops", flush=True)
+    return dict(step=step, gather=gather, gather_busy_share=gather_share, fanout=fan,
+                fanout_busy_share=share)
+
+
+def mt_adaptive(torch, launches) -> dict:
+    """The drift benchmark's serving point: AdaptiveHDCEngine under
+    StaticProcess equals HDCEngine bit for bit; under PhaseDriftProcess the
+    trials/s and the controller's action counts are reported."""
+    from repro_torch import phy
+    from repro_torch.core import classifier, scaleout
+    from repro_torch.serving import AdaptiveHDCEngine, HDCEngine, LinkControllerConfig
+
+    d = MT_DRIFT
+    cfg = scaleout.ScaleOutConfig(n_classes=d["n_classes"], n_rx_cores=d["n_rx"],
+                                  batch=d["batch"], channel="symbol")
+    state = scaleout.precharacterize_state(cfg)
+    books = classifier.make_tenant_codebooks(
+        [cuda_gen(torch, t) for t in range(d["tenants"])],
+        classifier.HDCTaskConfig(n_classes=d["n_classes"], dim=cfg.dim))
+    reqs = mt_requests(torch, cfg, books, [i % d["tenants"] for i in range(d["requests"])])
+    ctl = LinkControllerConfig(patience=1, band_kwargs={"cap": d["cap"]})
+
+    def run(eng, what):
+        for t, b in enumerate(books):
+            eng.registry.onboard(t, b)
+        return mt_continuous(torch, eng, reqs, launches, what)
+
+    plain, _, _, _ = run(HDCEngine(cfg, state, num_slots=d["slots"], max_tenants=2), "static")
+    static, _, _, _ = run(AdaptiveHDCEngine(cfg, state, process=phy.StaticProcess(),
+                                            num_slots=d["slots"], max_tenants=2,
+                                            controller=ctl), "adaptive static")
+    mt_identity(static, [(c.pred, c.maxsim) for c in plain],
+                "adaptive engine under StaticProcess")
+    proc = phy.PhaseDriftProcess(sigma=d["sigma"], alpha=d["alpha"], guard_dims=d["guard"])
+    eng = AdaptiveHDCEngine(cfg, state, process=proc, num_slots=d["slots"], max_tenants=2,
+                            controller=ctl)
+    _, wall, steps, _ = run(eng, "adaptive drift")
+    actions = {}
+    for e in eng.controller.trace:
+        actions[e["action"]] = actions.get(e["action"], 0) + 1
+    row = dict(trials_per_s=d["requests"] * d["batch"] / wall, wall_s=wall, steps=steps,
+               actions=actions, n_refits=eng.controller.n_refits)
+    print(f"mt adaptive ({d['n_rx']} RX, C = {d['n_classes']}, symbol, PhaseDriftProcess sigma "
+          f"{d['sigma']}, {d['slots']} slots, {d['requests']} requests x {d['batch']}): "
+          f"{row['trials_per_s']:.1f} trials/s, {steps} steps, actions {actions} "
+          f"({row['n_refits']} re-fits); StaticProcess == HDCEngine", flush=True)
+    return row
+
+
+def phase_mt(torch, state, launches, profile: bool = False) -> dict:
+    """Phase 13: multi-tenant serving, workloads (a), (b) and (c)."""
+    import dataclasses
+
+    from repro_torch.core import classifier, scaleout
+
+    base = scaleout.ScaleOutConfig()
+    task = classifier.HDCTaskConfig(n_classes=base.n_classes, dim=base.dim)
+    out = {}
+    a = MT_TRACE
+    books = classifier.make_tenant_codebooks([cuda_gen(torch, t) for t in range(a["tenants"])],
+                                             task)
+    trace = poisson_race(a["requests"], a["tenants"])
+    for perm, rep in ((False, "packed"), (False, "unpacked"), (True, "packed")):
+        cfg = dataclasses.replace(base, batch=a["batch"], permuted=perm, representation=rep)
+        label = f"(a) {'permuted' if perm else 'baseline'} {rep}"
+        out[label], eng, reqs, _ = mt_workload(torch, cfg, state, books, trace, a["slots"],
+                                               label, launches)
+        if profile and not perm:
+            out[f"profile {label}"] = mt_profile(torch, eng, state, reqs, label)
+    b = MT_BATCH
+    books = classifier.make_tenant_codebooks(
+        [cuda_gen(torch, t) for t in range(b["tenants"] + 1)], task)
+    trace = poisson_race(b["requests"], b["tenants"])
+    for channel in ("bsc", "symbol"):
+        cfg = dataclasses.replace(base, batch=b["batch"], representation="packed",
+                                  channel=channel)
+        label = f"(b) {channel} baseline packed"
+        out[label], eng, reqs, static = mt_workload(torch, cfg, state, books[:-1], trace,
+                                                    b["slots"], label, launches)
+        out[f"lifecycle {label}"] = mt_lifecycle(torch, eng, cfg, state, books[:-1], books[-1],
+                                                 reqs, static, launches)
+        if profile and channel == "bsc":
+            out[f"profile {label}"] = mt_profile(torch, eng, state, reqs, label)
+    out["(c) adaptive"] = mt_adaptive(torch, launches)
+    print("mt checks: every completion == its standalone serve ((a) three modes, (b) bsc and "
+          f"symbol), {-(-a['requests'] // a['slots'])} steps for {a['requests']} requests over "
+          f"{a['slots']} slots, one search launch a step, the tenant lifecycle, StaticProcess "
+          "adaptive == static", flush=True)
+    return out
+
+
 def phase_profile(torch, state, protos_u, base) -> dict:
     """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
@@ -2340,6 +2687,8 @@ def main(argv: list[str]) -> int:
     physical = phase("12 symbol tier, M-drop, bitplane, living channels",
                      lambda: phase_physical(torch, state, protos_u, cfg, launches,
                                             profile=args.profile))
+    mt = phase("13 multi-tenant serving", lambda: phase_mt(torch, state, launches,
+                                                           profile=args.profile))
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
 
@@ -2364,7 +2713,7 @@ def main(argv: list[str]) -> int:
             sass=sass,
             ber=dict(avg=avg, max=mx, ms=pre_ms), kernels=kernels, serves=serves["runs"],
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
-            sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical,
+            sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

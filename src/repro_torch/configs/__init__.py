@@ -3,7 +3,7 @@
 `get_config(name)` returns the full published config and `get_smoke(name)` a
 reduced same-family config, forced to f32, for CPU tests. The port carries
 the four dense decoders; the MoE, SSM, hybrid, enc-dec and VLM architectures
-raise until their slice (ROADMAP module item 13).
+raise until their slice (ROADMAP §1, LM stack).
 """
 from __future__ import annotations
 
@@ -41,8 +41,8 @@ def _mod(name: str):
     if name not in DENSE:
         raise NotImplementedError(
             f"{name} is not ported yet: the port carries the dense decoders "
-            f"{DENSE}; MoE, SSM, hybrid, enc-dec and VLM wait for ROADMAP module "
-            "item 13")
+            f"{DENSE}; MoE, SSM, hybrid, enc-dec and VLM wait for ROADMAP §1, "
+            "LM stack")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -70,6 +70,15 @@ def make_codebook(generator: torch.Generator, cfg: HDCTaskConfig,
     return (draw < density).to(torch.uint8)
 
 
+def make_tenant_codebooks(generators, cfg: HDCTaskConfig,
+                          device: str | torch.device | None = "cuda") -> torch.Tensor:
+    """Per-tenant prototype memories [T, C, d] uint8, one tenant per
+    generator: tenant t's codebook is ``make_codebook(generators[t], cfg)``,
+    the codebook a standalone single-tenant serve would build from that
+    generator (the reference folds the tenant index into one key)."""
+    return torch.stack([make_codebook(g, cfg, device=device) for g in generators])
+
+
 def expanded_prototypes(protos: torch.Tensor, m: int) -> torch.Tensor:
     """Permuted prototype banks for TX signatures 0..M-1: [M, C, d]."""
     return torch.stack([hv.permute(protos, s) for s in range(m)], 0)

@@ -21,6 +21,10 @@ evolved state and masks quarantined cores out of the top-1.
 `make_wired_serve` is the wired baseline: bundle by majority at every core
 (the majority kernel, or the bit-sliced packed majority), then one search
 over all classes (the Hamming or bipolar matmul kernel).
+`make_mt_ota_serve` serves N resident slots against a T-tenant store in one
+call, each slot as its standalone serve would (the step of
+`serving.hdc.HDCEngine`): one bundle over every slot's rows, the fan-out
+slot by slot, one banked search over every (slot, core).
 
 ``representation="sparse"`` serves ultra-sparse queries as sorted int32
 index lists (`core.sparse`) against the unchanged packed prototypes: the
@@ -349,70 +353,96 @@ def _coarse_fine_unpacked(cfg: ScaleOutConfig, banks: torch.Tensor, q: torch.Ten
     return sims.max(-1).values.to(torch.float32), row
 
 
-def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor, protos: torch.Tensor,
-                qmask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Every core searches its class sub-shard (with the M permuted banks
-    when ``cfg.permuted``). q_rx [n_core, B, d|W], protos [C, d|W] ->
-    (val, idx): the winner's similarity (d - 2*dist, int32 packed / f32
-    unpacked) and global class index, [B] or [B, M]. Ties go to the lowest
-    class: first minimum inside a core, then the first core. ``qmask``
-    [n_core] bool quarantines cores after the kernel: their winner's
-    distance becomes d + 1 (packed) or its similarity -2d (unpacked), so
-    they never win."""
-    n_core, b, last = q_rx.shape
+def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor, store: torch.Tensor,
+                rows: torch.Tensor | None = None, qmask: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every core of every slot searches its class sub-shard (with the M
+    permuted banks when ``cfg.permuted``), in one kernel launch for every
+    (slot, core[, permuted bank]). q_rx [N, n_core, B, d|W|k_max]; store
+    [T, C, d|W]: slot s searches tenant bank ``rows[s]`` (int32 [N]) through
+    the kernels' ``bank_rows`` indirection (packed, coarse) or a gather of
+    those rows (unpacked), or, with ``rows=None``, bank s itself (T == N: no
+    indirection and no gather; the standalone serve is N = 1). Returns (val,
+    idx): the winner's similarity (d - 2*dist, int32 packed / f32 unpacked)
+    and global class index, [N, B] or [N, B, M]. Ties go to the lowest
+    class: first minimum inside a core, then the first core, per slot.
+    ``qmask`` [n_core] bool quarantines cores after the kernel (every slot
+    rides the one link): their winner's distance becomes d + 1 (packed) or
+    its similarity -2d (unpacked), so they never win."""
+    n, n_core, b, q_last = q_rx.shape
+    t, c, last = store.shape
     d = cfg.dim
-    c_core = protos.shape[0] // n_core
-    protos_c = protos.reshape(n_core, c_core, protos.shape[-1])
+    c_core = c // n_core
+    store_c = store.reshape(t, n_core, c_core, last)
+    core_rows = None
+    if rows is not None:
+        core_ids = torch.arange(n_core, dtype=rows.dtype, device=rows.device)
+        core_rows = (rows[:, None] * n_core + core_ids).reshape(-1)       # [N*n_core]
     if cfg.permuted:
         m = cfg.m_tx
         rho = hv.permute_packed if cfg.packed else hv.permute
-        banks = torch.stack([rho(protos_c, s) for s in range(m)], 1)  # [n_core, M, c, -]
-        q_rep = q_rx[:, None].expand(n_core, m, b, last).reshape(n_core * m, b, last)
-        banks = banks.reshape(n_core * m, c_core, last)
+        # permute the T-tenant store once a call, not once a slot
+        banks = torch.stack([rho(store_c, s) for s in range(m)], 2)    # [T, n_core, M, c, -]
+        q_rep = q_rx[:, :, None].expand(n, n_core, m, b, last).reshape(n * n_core * m, b, last)
         if cfg.packed:
-            dmin, amin = hamming_topk_banked(q_rep, banks)   # each [n_core*M, B]
-            dmin = dmin.reshape(n_core, m, b).permute(2, 0, 1)   # [B, n_core, M]
-            amin = amin.reshape(n_core, m, b).permute(2, 0, 1)
+            bank_rows = None if core_rows is None else (
+                core_rows[:, None] * m
+                + torch.arange(m, dtype=rows.dtype, device=rows.device)).reshape(-1)
+            dmin, amin = hamming_topk_banked(
+                q_rep, banks.reshape(t * n_core * m, c_core, last), bank_rows=bank_rows)
+            dmin = dmin.reshape(n, n_core, m, b).permute(0, 3, 1, 2)   # [N, B, n_core, M]
+            amin = amin.reshape(n, n_core, m, b).permute(0, 3, 1, 2)
             if qmask is not None:
-                dmin = torch.where(qmask[None, :, None], d + 1, dmin)
-            val = d - 2 * dmin.min(1).values                  # [B, M]
-            core_star = torch.argmin(dmin, 1)
-            idx_in_core = torch.gather(amin, 1, core_star[:, None, :])[:, 0, :]
+                dmin = torch.where(qmask[None, None, :, None], d + 1, dmin)
+            val = d - 2 * dmin.min(2).values                           # [N, B, M]
+            core_star = torch.argmin(dmin, 2)
+            idx_in_core = torch.gather(amin, 2, core_star[:, :, None, :])[:, :, 0, :]
         else:
-            sims = assoc_matmul_banked(q_rep, banks)          # [n_core*M, B, c]
-            sims = sims.reshape(n_core, m, b, c_core).permute(2, 0, 1, 3)
-            val_c = sims.max(-1).values                       # [B, n_core, M]
+            if rows is not None:
+                banks = banks.index_select(0, rows)                    # [N, n_core, M, c, d]
+            sims = assoc_matmul_banked(q_rep, banks.reshape(n * n_core * m, c_core, last))
+            sims = sims.reshape(n, n_core, m, b, c_core).permute(0, 3, 1, 2, 4)
+            val_c = sims.max(-1).values                                # [N, B, n_core, M]
             idx_c = torch.argmax(sims, -1).to(torch.int32)
             if qmask is not None:
-                val_c = torch.where(qmask[None, :, None], -2.0 * d, val_c)
-            val = val_c.max(1).values                         # [B, M]
-            core_star = torch.argmax(val_c, 1)
-            idx_in_core = torch.gather(idx_c, 1, core_star[:, None, :])[:, 0, :]
+                val_c = torch.where(qmask[None, None, :, None], -2.0 * d, val_c)
+            val = val_c.max(2).values                                  # [N, B, M]
+            core_star = torch.argmax(val_c, 2)
+            idx_in_core = torch.gather(idx_c, 2, core_star[:, :, None, :])[:, :, 0, :]
     elif cfg.packed or cfg.sparse:
+        table = store_c.reshape(t * n_core, c_core, last)
+        q_flat = q_rx.reshape(n * n_core, b, q_last).contiguous()
         if cfg.coarse_group:
-            dmin, amin = _coarse_fine_packed(cfg, protos_c, q_rx)
+            dmin, amin = _coarse_fine_packed(cfg, table, q_flat, bank_rows=core_rows)
+        elif cfg.sparse:                  # the multi-tenant serve refuses sparse: rows is None
+            dmin, amin = sparse_topk_banked(q_flat, table)
         else:
-            search = sparse_topk_banked if cfg.sparse else hamming_topk_banked
-            dmin, amin = search(q_rx.contiguous(), protos_c)  # [n_core, B]
-        dmin, amin = dmin.T, amin.T                           # [B, n_core]
+            dmin, amin = hamming_topk_banked(q_flat, table, bank_rows=core_rows)
+        dmin = dmin.reshape(n, n_core, b).transpose(1, 2)              # [N, B, n_core]
+        amin = amin.reshape(n, n_core, b).transpose(1, 2)
         if qmask is not None:
-            dmin = torch.where(qmask[None, :], d + 1, dmin)
-        val = d - 2 * dmin.min(-1).values                     # [B]
+            dmin = torch.where(qmask[None, None, :], d + 1, dmin)
+        val = d - 2 * dmin.min(-1).values                              # [N, B]
         core_star = torch.argmin(dmin, -1)
-        idx_in_core = torch.gather(amin, 1, core_star[:, None])[:, 0]
+        idx_in_core = torch.gather(amin, 2, core_star[..., None])[..., 0]
     else:
+        q_flat = q_rx.reshape(n * n_core, b, last).contiguous()
         if cfg.coarse_group:
-            vg, rg = _coarse_fine_unpacked(cfg, protos_c, q_rx)   # each [n_core, B]
-            val_c, idx_c = vg.T, rg.T                         # [B, n_core]
+            vg, rg = _coarse_fine_unpacked(cfg, store_c.reshape(t * n_core, c_core, last),
+                                           q_flat, bank_rows=core_rows)
+            val_c = vg.reshape(n, n_core, b).transpose(1, 2)           # [N, B, n_core]
+            idx_c = rg.reshape(n, n_core, b).transpose(1, 2)
         else:
-            sims = assoc_matmul_banked(q_rx.contiguous(), protos_c).permute(1, 0, 2)
-            val_c = sims.max(-1).values                       # [B, n_core]
+            banks = store_c if rows is None else store_c.index_select(0, rows)
+            sims = assoc_matmul_banked(q_flat, banks.reshape(n * n_core, c_core, last))
+            sims = sims.reshape(n, n_core, b, c_core).transpose(1, 2)  # [N, B, n_core, c]
+            val_c = sims.max(-1).values
             idx_c = torch.argmax(sims, -1).to(torch.int32)
         if qmask is not None:
-            val_c = torch.where(qmask[None, :], -2.0 * d, val_c)
-        val = val_c.max(-1).values                            # [B]
+            val_c = torch.where(qmask[None, None, :], -2.0 * d, val_c)
+        val = val_c.max(-1).values                                     # [N, B]
         core_star = torch.argmax(val_c, -1)
-        idx_in_core = torch.gather(idx_c, 1, core_star[:, None])[:, 0]
+        idx_in_core = torch.gather(idx_c, 2, core_star[..., None])[..., 0]
     idx = (core_star * c_core + idx_in_core).to(torch.int32)
     return val, idx
 
@@ -541,27 +571,123 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
         if cfg.sparse:
             q_bundled = _sparse_bundle(cfg, queries)
             q_rx = _sparse_rx_fanout(cfg, q_bundled, state, generator)
-            val, idx = _shard_top1(cfg, q_rx, protos)
-            return _gather_top1(cfg, val, idx)
-        q_mine = queries[:, 0]                                # [B, M, d|W]
-        if cfg.permuted:                  # TX g transmits rho^g(q_g)
-            rho = hv.permute_packed if cfg.packed else hv.permute
-            q_mine = torch.stack([rho(q_mine[:, g], g) for g in range(cfg.m_tx)], 1)
-        q_bundled = _ota_bundle(cfg, chan, q_mine)
-        q_rx = _rx_fanout(cfg, chan, q_bundled, state, generator)
-        val, idx = _shard_top1(cfg, q_rx, protos, qmask)
-        return _gather_top1(cfg, val, idx)
+            val, idx = _shard_top1(cfg, q_rx[None], protos[None])
+            return _gather_top1(cfg, val[0], idx[0])
+        pred, maxsim = _serve_slots(cfg, chan, protos[None], queries[None], None, state,
+                                    [generator], qmask)
+        return pred[0], maxsim[0]
 
-    if process is None:
-        return serve_core
+    return serve_core if process is None else _with_process(process, serve_core)
 
-    def fn(protos, queries, pstate, generator, process_generators):
+
+def _serve_slots(cfg: ScaleOutConfig, chan: phy.Channel, store: torch.Tensor,
+                 queries: torch.Tensor, rows: torch.Tensor | None, state: phy.ChannelState,
+                 generators: list, qmask: torch.Tensor | None = None):
+    """The dense serve of N slots: queries [N, B, 1, M, d|W] against store
+    [T, C, d|W] (bank ``rows[s]``, or bank s when ``rows`` is None), slot s
+    on ``generators[s]`` -> (pred, maxsim), [N, B] or [N, B, M].
+
+    The bundle runs once over the slot-flattened [N*B] rows, elementwise over
+    rows, so each row tallies as in a one-slot serve; the PHY fan-out runs
+    slot by slot on ``generators[s]`` (merging the slots' draws would change
+    every slot's noise); the search keeps the per-slot reduction order."""
+    n, b = queries.shape[:2]
+    q_mine = queries[:, :, 0].reshape((n * b,) + tuple(queries.shape[3:]))  # [N*B, M, d|W]
+    if cfg.permuted:                      # TX g transmits rho^g(q_g)
+        rho = hv.permute_packed if cfg.packed else hv.permute
+        q_mine = torch.stack([rho(q_mine[:, g], g) for g in range(cfg.m_tx)], 1)
+    q_bundled = _ota_bundle(cfg, chan, q_mine)
+    q_bundled = q_bundled.reshape((n, b) + tuple(q_bundled.shape[1:]))
+    copies = [_rx_fanout(cfg, chan, q_bundled[s], state, generators[s]) for s in range(n)]
+    q_rx = copies[0][None] if n == 1 else torch.stack(copies)   # [N, n_core, B, d|W]
+    val, idx = _shard_top1(cfg, q_rx, store, rows, qmask)
+    return _gather_top1(cfg, val, idx)
+
+
+def _with_process(process, serve_core):
+    """The living-channel form of a serve core: ``fn(*inputs, pstate,
+    generator(s), process_generators) -> (pred, maxsim, pstate')`` first
+    steps the channel, then serves through the evolved ``pstate.chan`` with
+    the cores of ``pstate.quarantine`` masked out of the top-1."""
+    def fn(*args):
+        *inputs, pstate, generators, process_generators = args
         pstate = process.step(process_generators, pstate)   # evolve, then serve
-        pred, maxsim = serve_core(protos, queries, pstate.chan, generator,
-                                  pstate.quarantine)
+        pred, maxsim = serve_core(*inputs, pstate.chan, generators, pstate.quarantine)
         return pred, maxsim, pstate
 
     return fn
+
+
+def _check_mt_inputs(cfg: ScaleOutConfig, dev: torch.device, store, queries, rows,
+                     state, generators) -> None:
+    if store.dim() != 3 or queries.dim() != 5:
+        raise ValueError(f"store {tuple(store.shape)} and queries {tuple(queries.shape)} must "
+                         "be [T, C, d|W] and [N, B, 1, M, d|W]")
+    _check_inputs(cfg, dev, store[0], queries[0], state)
+    _device.check_on(dev, rows=rows)
+    n = queries.shape[0]
+    if rows.dtype != torch.int32 or tuple(rows.shape) != (n,):
+        raise ValueError(f"rows must be int32 [{n}], got {rows.dtype} {tuple(rows.shape)}")
+    if len(generators) != n:
+        raise ValueError(f"{len(generators)} generators for {n} slots")
+
+
+def make_mt_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda",
+                      process=None, faults=None) -> Callable[..., tuple[torch.Tensor, ...]]:
+    """Build the multi-tenant slot-batched OTA serve step.
+
+    fn(store [T, C, d|W], queries [N, B, 1, M, d|W], rows [N] int32,
+       state phy.ChannelState, generators: list of N torch.Generator)
+      -> (pred, maxsim), each [N, B] (baseline) or [N, B, M] (permuted).
+
+    One call serves N resident slots against a T-tenant store; slot s
+    searches tenant bank ``rows[s]`` (each in [0, T): the caller keeps the
+    rows, as `serving.hdc.TenantRegistry` does) with its own generator.
+
+    Per-slot identity with `make_ota_serve`: the bundle runs once over the
+    slot-flattened [N*B] rows, elementwise over rows, so each row tallies as
+    in its standalone serve; the PHY fan-out runs slot by slot on
+    ``generators[s]`` (the counterpart of the reference's vmap over per-slot
+    keys; merging the slots' draws would change every slot's noise); and
+    the search keeps the standalone per-slot reduction order. So row s of
+    the output equals a standalone serve of slot s's queries against its
+    tenant's codebook on a generator in the state of ``generators[s]``, bit
+    for bit.
+
+    The search is one launch for every (slot, core[, permuted bank]): the
+    fused top-1 with bank index ``rows[s]*n_core + core`` (baseline) or
+    ``(rows[s]*n_core + core)*M + m`` (permuted, the T-tenant store
+    permuted once a call), the bipolar matmul over N*n_core(*M) gathered
+    banks (unpacked), or the coarse-to-fine screen with ``bank_rows``.
+
+    ``process`` serves a living channel: the fn becomes
+
+        fn(store, queries, rows, pstate, generators, process_generators)
+          -> (pred, maxsim, pstate')
+
+    with one process step a serve step (every slot rides the one link) and
+    the cores of ``pstate.quarantine`` masked out of the top-1.
+
+    The sparse and ``"auto"`` representations raise ValueError, as in the
+    reference; ``faults`` raises NotImplementedError (fault injection is not
+    ported yet)."""
+    if cfg.representation in ("sparse", "auto"):
+        raise ValueError(
+            "the multi-tenant serve does not support the sparse "
+            "representation (slot-batched bank indirection is a dense-store "
+            "contract); use representation='packed'")
+    if faults is not None:
+        raise NotImplementedError("make_mt_ota_serve: faults= is not ported yet")
+    dev = _device.resolve(device)
+    chan = phy.get_channel(cfg.channel)
+    _validate_channel(cfg, chan)
+    _validate_coarse(cfg)
+
+    def serve_core(store, queries, rows, state, generators, qmask=None):
+        _check_mt_inputs(cfg, dev, store, queries, rows, state, generators)
+        return _serve_slots(cfg, chan, store, queries, rows, state, generators, qmask)
+
+    return serve_core if process is None else _with_process(process, serve_core)
 
 
 def make_wired_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda"

@@ -1,4 +1,5 @@
-"""Serving launcher: static one-shot generation of a dense decoder.
+"""Serving launcher: static one-shot generation of a dense decoder, or the
+multi-tenant HDC service replaying a Poisson request trace.
 
   # on the GPU, TinyLlama-1.1B at its published width, weights from the seed
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -8,15 +9,22 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --smoke --device cpu
 
-The weights are drawn from ``--seed`` (no download), as the reference's
-launcher draws them. Continuous batching (``--stream``) and the multi-tenant
-HDC serve (``--hdc``) wait for ROADMAP module item 12.
+  # the multi-tenant HDC service: tenant-tagged Poisson arrivals through
+  # the slot ring, one multi-tenant OTA serve a step (add --device cpu to
+  # run it on the CPU)
+  PYTHONPATH=src python -m repro_torch.launch.serve --hdc --requests 48 \
+      --rate 800 --slots 8 --tenants 4
+
+The weights and the tenants' codebooks are drawn from ``--seed`` (no
+download), as the reference's launcher draws them. Continuous LM batching
+(``--stream``) waits for ROADMAP §1, serving.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import device as _device
@@ -56,7 +64,66 @@ def run_static(args, cfg, model, params, dev: torch.device) -> torch.Tensor:
     return toks
 
 
-def main(argv: list[str] | None = None) -> torch.Tensor | None:
+def run_hdc_stream(args, dev: torch.device) -> dict:
+    """Multi-tenant HDC serving: tenant-tagged Poisson arrivals through the
+    slot-ring `HDCScheduler`, every step one multi-tenant OTA serve. A warm-up
+    fills every slot once; then the trace is replayed in real time and the
+    trials/s and request latencies (queueing included) are printed."""
+    from repro_torch import phy
+    from repro_torch.core import classifier, hypervector as hv, scaleout
+    from repro_torch.serving import HDCEngine, HDCScheduler
+
+    rep = "unpacked" if args.unpacked else "packed"
+    cfg = scaleout.ScaleOutConfig(n_classes=args.classes, dim=args.dim, m_tx=3, n_rx_cores=8,
+                                  batch=args.hdc_batch, representation=rep, noise="exact")
+    tcfg = classifier.HDCTaskConfig(n_classes=args.classes, dim=args.dim)
+    books = classifier.make_tenant_codebooks(
+        [torch.Generator(device=dev).manual_seed(args.seed + t) for t in range(args.tenants)],
+        tcfg, device=dev)
+    state = phy.state_from_ber(torch.full((cfg.n_rx_cores,), 0.02, device=dev), cfg.m_tx)
+    eng = HDCEngine(cfg, state, num_slots=args.slots, max_tenants=args.tenants, device=dev)
+    for t in range(args.tenants):
+        eng.registry.onboard(t, hv.pack(books[t]) if cfg.packed else books[t])
+
+    rng = np.random.default_rng(args.seed)
+    tenant_of = rng.integers(0, args.tenants, args.requests)
+    arrivals = np.cumsum(rng.exponential(1.0 / args.rate, size=args.requests))
+    queries = [scaleout.make_queries(torch.Generator(device=dev).manual_seed(100 + i), cfg,
+                                     books[int(t)])[1] for i, t in enumerate(tenant_of)]
+
+    t0 = time.perf_counter()
+    warm = HDCScheduler(eng)
+    for _ in range(args.slots):
+        warm.submit(0, queries[0])
+    warm.run(timeout=600)
+    print(f"warm-up: one full-ring step of {args.slots} slots in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    sched = HDCScheduler(eng)
+    t0 = time.monotonic()
+    nxt = 0
+    while len(sched.results) < args.requests:
+        now = time.monotonic() - t0
+        while nxt < args.requests and arrivals[nxt] <= now:
+            sched.submit(int(tenant_of[nxt]), queries[nxt])
+            nxt += 1
+        if sched.pending or sched.running:
+            sched.step()
+        elif nxt < args.requests:
+            time.sleep(min(arrivals[nxt] - now, 0.01))
+    wall = time.monotonic() - t0
+
+    lat = np.asarray([c.latency for c in sched.results.values()])
+    n_trials = args.requests * cfg.batch
+    print(f"{args.requests} requests x {cfg.batch} trials, {args.tenants} tenants ({rep}, "
+          f"rate {args.rate}/s, {args.slots} slots) on {dev}: {wall:.3f} s wall, "
+          f"{n_trials / wall:.1f} trials/s, {sched.steps} serve steps")
+    print(f"request latency p50 {np.percentile(lat, 50) * 1e3:.3f} ms  "
+          f"p95 {np.percentile(lat, 95) * 1e3:.3f} ms  max {lat.max() * 1e3:.3f} ms")
+    return sched.results
+
+
+def main(argv: list[str] | None = None) -> torch.Tensor | dict | None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", help="LM architecture (dense decoders)")
     ap.add_argument("--smoke", action="store_true", help="the reduced f32 config")
@@ -68,14 +135,26 @@ def main(argv: list[str] | None = None) -> torch.Tensor | None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--stream", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--hdc", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--hdc", action="store_true",
+                    help="multi-tenant HDC serving over the OTA wire path")
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--rate", type=float, default=8.0, help="arrivals per second")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--tenants", type=int, default=4)
+    ap.add_argument("--hdc-batch", type=int, default=4, help="(--hdc) trials per request")
+    ap.add_argument("--classes", type=int, default=128)
+    ap.add_argument("--dim", type=int, default=512)
+    ap.add_argument("--unpacked", action="store_true",
+                    help="(--hdc) elementwise representation instead of packed")
     args = ap.parse_args(argv)
 
-    if args.stream or args.hdc:
-        raise SystemExit("--stream and --hdc are not ported yet: the slot ring, the "
-                         "scheduler and the HDC engine wait for ROADMAP module item 12")
+    if args.stream:
+        raise SystemExit("--stream is not ported yet: the continuous LM engine waits for "
+                         "ROADMAP §1, serving")
+    if args.hdc:
+        return run_hdc_stream(args, _device.resolve(args.device))
     if not args.arch:
-        raise SystemExit("--arch is required")
+        raise SystemExit("--arch is required unless --hdc")
 
     from repro_torch import configs
     from repro_torch.models import get_model, init_params

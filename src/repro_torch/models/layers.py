@@ -69,7 +69,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     pairs with the second half (rotate-half, not interleaved pairs)."""
     if sections is not None:
         raise NotImplementedError("M-RoPE sections wait for the VLM slice "
-                                  "(ROADMAP module item 13)")
+                                  "(ROADMAP §1, LM stack)")
     ang = _rope_angles(positions, x.shape[-1], theta)            # [B, S, D/2]
     cos = torch.cos(ang)[..., None, :]                            # [B, S, 1, D/2]
     sin = torch.sin(ang)[..., None, :]

@@ -5,7 +5,7 @@ Layers are stacked along a leading L axis, in the reference's layouts
 (``wq [L, d, H, hd]``, ``wo [L, H, hd, d]``, ...), and run by a Python loop;
 per-layer heterogeneity (sliding window, dual RoPE theta) comes from
 `layer_meta`. The chunked prefill (`run_stack_chunk`) waits for the
-continuous engine (ROADMAP module item 12).
+continuous engine (ROADMAP §1, serving).
 """
 from __future__ import annotations
 

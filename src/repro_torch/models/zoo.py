@@ -9,7 +9,7 @@
 
 The port carries the text-only dense decoder (smollm, gemma3, tinyllama,
 deepseek). `loss_fn` waits for the training slice and the other families
-(MoE, VLM, SSM, hybrid, enc-dec) for theirs (ROADMAP module item 13).
+(MoE, VLM, SSM, hybrid, enc-dec) for theirs (ROADMAP §1, LM stack).
 """
 from __future__ import annotations
 
@@ -63,5 +63,5 @@ def get_model(cfg: ModelConfig) -> Model:
     if not isinstance(cfg, ModelConfig):
         raise NotImplementedError(
             f"{type(cfg).__name__}: the port carries the dense decoder only; the other "
-            "model families wait for ROADMAP module item 13")
+            "model families wait for ROADMAP §1, LM stack")
     return _decoder_model(cfg)

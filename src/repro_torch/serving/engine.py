@@ -6,7 +6,7 @@ padded to prompt + max_new + 1, then ``max_new`` decode steps run in a
 Python loop, exactly the reference's schedule: the emitted tokens are the
 carry ``[tok0, ..., tok_{max_new-1}]``, so the last decode's output is not
 used. The reference's compiled-program cache has no counterpart: PyTorch
-runs eagerly. The continuous engine waits for ROADMAP module item 12.
+runs eagerly. The continuous engine waits for ROADMAP §1, serving.
 """
 from __future__ import annotations
 

@@ -1,18 +1,76 @@
-"""The multi-centroid bank of HDC-as-a-service (counterpart of two helpers
-of `repro/serving/hdc.py`).
+"""HDC-as-a-service: the similarity-search backend of the slot ring
+(counterpart of `repro/serving/hdc.py`).
 
-The serve is class-count-agnostic: a multi-centroid memory is a codebook of
-C*k_c class-major rows, served by a `ScaleOutConfig` with
-``n_classes = C * k_c``, and a serve prediction ``p`` maps back to class
-``p // k_c``. The tenant registry, the slot-ring engine and the scheduler of
-the reference module are not ported yet.
+The paper's end state, a wireless-on-chip similarity-search fabric serving
+heavy traffic from many users, maps onto the continuous-batching machinery
+of `repro_torch.serving.slotring` and `scheduler.SlotScheduler`:
+
+* `TenantRegistry`: many classifier *tenants* resident at once. Each
+  tenant's prototype bank is one row of ONE store [max_tenants, C, d|W] on
+  the device; onboarding and eviction write or free one row, so the serve
+  step never changes shape.
+* `HDCEngine`: a `SlotRingEngine` whose state is the per-slot query
+  batches, tenant store rows and generators, and whose step is ONE
+  `scaleout.make_mt_ota_serve` call: one bundle over every slot's rows,
+  the PHY fan-out slot by slot, and one banked search launch over every
+  (slot, core[, permuted bank]). Every slot COMPLETES each step, so the
+  emission is the (pred, maxsim) pair itself.
+* `HDCScheduler`: requests name a tenant, admission scatters the query
+  batches into the free slots in one call, and every running slot finishes
+  at the step barrier, where the results come to the host once.
+* `LinkController` and `AdaptiveHDCEngine`: a living channel served with a
+  closed-loop controller at the barrier (EM re-fits, quarantine, fleet-mode
+  switches between prebuilt serve variants).
+
+Per-slot results equal a standalone `make_ota_serve` of that request
+against its tenant's codebook on a generator seeded alike, bit for bit (see
+`make_mt_ota_serve`). The fault-tolerant engine waits for the faults slice
+(ROADMAP §1, faults).
+
+The multi-centroid bank (`multicentroid_bank`, `centroid_to_class`) turns a
+codebook into C*k_c class-major rows, served by a `ScaleOutConfig` with
+``n_classes = C * k_c``; a prediction ``p`` maps back to class ``p // k_c``.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
+from typing import Any, Callable
+
+import numpy as np
 import torch
 
+from repro_torch import device as _device, phy
 from repro_torch.core import classifier, hypervector as hv
-from repro_torch.core.scaleout import ScaleOutConfig
+from repro_torch.core.scaleout import ScaleOutConfig, make_mt_ota_serve
+from repro_torch.serving import slotring
+from repro_torch.serving.scheduler import SlotScheduler
+
+
+@dataclasses.dataclass
+class HDCRequest:
+    rid: int
+    tenant: Any                  # tenant id (registry key)
+    queries: torch.Tensor        # [B, 1, M, d|W]
+    generator: torch.Generator   # the request's PHY noise stream
+    t_submit: float
+
+
+@dataclasses.dataclass
+class HDCCompletion:
+    rid: int
+    tenant: Any
+    pred: np.ndarray             # [B] int32 (baseline) or [B, M] (permuted)
+    maxsim: np.ndarray
+    t_submit: float
+    t_admit: float
+    t_finish: float
+    status: str = "ok"           # "ok" | "evicted" (deadline-expired slot)
+
+    @property
+    def latency(self) -> float:
+        """Submit-to-finish wall time (includes queueing)."""
+        return self.t_finish - self.t_submit
 
 
 def multicentroid_bank(generator: torch.Generator | None, protos: torch.Tensor, k_c: int,
@@ -32,3 +90,381 @@ def centroid_to_class(pred: torch.Tensor, k_c: int) -> torch.Tensor:
     """Class-major centroid predictions (of a `multicentroid_bank` serve) ->
     class labels, elementwise on any shape."""
     return pred // k_c
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class TenantRegistry:
+    """Resident per-tenant prototype banks in one store on the device.
+
+    ``store`` is [max_tenants, n_classes, d|W] (int32 words packed, uint8
+    bits unpacked). ``onboard`` copies a bank into a free row and ``evict``
+    frees a row; an evicted row keeps its stale contents, which is safe
+    because no slot maps to it until onboarding overwrites it."""
+
+    def __init__(self, cfg: ScaleOutConfig, max_tenants: int,
+                 device: str | torch.device | None = "cuda"):
+        if max_tenants < 1:
+            raise ValueError("max_tenants must be >= 1")
+        self.cfg = cfg
+        self.max_tenants = max_tenants
+        last = cfg.words if cfg.packed else cfg.dim
+        dtype = torch.int32 if cfg.packed else torch.uint8
+        self.store = torch.zeros((max_tenants, cfg.n_classes, last), dtype=dtype,
+                                 device=_device.resolve(device))
+        self.rows: dict[Any, int] = {}
+        self._free: list[int] = list(range(max_tenants))
+
+    def onboard(self, tenant_id, protos: torch.Tensor) -> int:
+        """Install a tenant's [C, d|W] prototype bank; returns its store row."""
+        if tenant_id in self.rows:
+            raise ValueError(f"tenant {tenant_id!r} already onboarded")
+        if not self._free:
+            raise ValueError(f"registry full ({self.max_tenants} tenants); evict first")
+        want = tuple(self.store.shape[1:])
+        if tuple(protos.shape) != want or protos.dtype != self.store.dtype:
+            raise ValueError(f"prototype bank must be {want} {self.store.dtype}, got "
+                             f"{tuple(protos.shape)} {protos.dtype}")
+        row = self._free.pop(0)
+        self.store[row].copy_(protos)
+        self.rows[tenant_id] = row
+        return row
+
+    def evict(self, tenant_id) -> None:
+        """Free a tenant's row (contents stay until the row is reused)."""
+        if tenant_id not in self.rows:
+            raise ValueError(f"tenant {tenant_id!r} not onboarded")
+        self._free.append(self.rows.pop(tenant_id))
+
+
+class HDCEngine(slotring.SlotRingEngine):
+    """Slot-ring HDC backend: N resident query batches, one multi-tenant OTA
+    serve a step.
+
+    State: ``queries`` [N, B, 1, M, d|W], ``row`` [N] int32 (the tenant's
+    store row) and ``generator`` (a list of N `torch.Generator`). An empty
+    slot holds a fixed placeholder generator and searches row 0; its result
+    is never collected. Every step serves all N slots (one shape a step),
+    and each admission's generator serves exactly one step: after the step
+    every slot holds the placeholder again, so a finished request's
+    generator is never drawn from again. ``params`` for `step` is (store,
+    channel state), read fresh each step, so onboarding between steps needs
+    no rebuild."""
+
+    def __init__(self, cfg: ScaleOutConfig, chan_state: phy.ChannelState, *,
+                 num_slots: int, max_tenants: int,
+                 device: str | torch.device | None = "cuda"):
+        self.device = _device.resolve(device)
+        self.cfg = cfg
+        self.chan_state = chan_state
+        self.registry = TenantRegistry(cfg, max_tenants, self.device)
+        self._serve = self._build_serve(cfg)
+        self._qshape = (cfg.batch, 1, cfg.m_tx, cfg.words if cfg.packed else cfg.dim)
+        self._qdtype = torch.int32 if cfg.packed else torch.uint8
+        self._placeholder = torch.Generator(device=self.device).manual_seed(0)
+        super().__init__(num_slots)
+
+    def _build_serve(self, cfg: ScaleOutConfig):
+        """The serve function for ``cfg`` (the adaptive engine builds its
+        process form, and one per fleet mode)."""
+        return make_mt_ota_serve(cfg, device=self.device)
+
+    @property
+    def params(self):
+        """(store, channel state), fetched fresh each step."""
+        return self.registry.store, self.chan_state
+
+    def init_state(self) -> dict:
+        n = self.num_slots
+        return {
+            "queries": torch.zeros((n,) + self._qshape, dtype=self._qdtype, device=self.device),
+            "row": torch.zeros((n,), dtype=torch.int32, device=self.device),
+            "generator": [self._placeholder] * n,
+        }
+
+    def _admit_impl(self, state, slots, queries, rows, generators):
+        return slotring.slot_update(
+            state, {"queries": queries, "row": rows, "generator": generators}, slots)
+
+    def _check_queries(self, queries: torch.Tensor) -> None:
+        _device.check_on(self.device, queries=queries)
+        if tuple(queries.shape) != self._qshape or queries.dtype != self._qdtype:
+            raise ValueError(f"queries must be {self._qshape} {self._qdtype}, got "
+                             f"{tuple(queries.shape)} {queries.dtype}")
+
+    def _tenant_row(self, tenant_id) -> int:
+        row = self.registry.rows.get(tenant_id)
+        if row is None:
+            raise ValueError(f"tenant {tenant_id!r} not onboarded")
+        return row
+
+    def admit_many(self, state, queries: list, tenant_ids: list, slots: list,
+                   generators: list) -> dict:
+        """Admit K requests' query batches into ``slots``, bound to their
+        tenants' current store rows and their generators: one ``index_copy_``
+        scatter per state tensor (`slot_update`), not one call a request."""
+        rows = [self._tenant_row(t) for t in tenant_ids]
+        for q in queries:
+            self._check_queries(q)
+        return self.admit(state, slots, torch.stack(queries), rows, generators)
+
+    def _serve_slots(self, params, state):
+        store, chan_state = params
+        return self._serve(store, state["queries"], state["row"], chan_state,
+                           state["generator"])
+
+    def _step_impl(self, params, state):
+        out = self._serve_slots(params, state)
+        state["generator"][:] = [self._placeholder] * self.num_slots
+        return state, out
+
+
+@dataclasses.dataclass(frozen=True)
+class LinkControllerConfig:
+    """Hysteresis knobs of the closed-loop link controller.
+
+    Per-RX actions (cheapest first): ``patience`` consecutive steps with the
+    guard monitor's flip-rate estimate above the analytic band trigger an EM
+    re-fit of that receiver's decision regions; a re-fit whose refreshed BER
+    is STILL above ``quarantine_ber`` (or that failed outright) is a *bad*
+    re-fit, and ``quarantine_after`` consecutive bad re-fits quarantine the
+    core (its classes drop out of the top-1). Quarantined cores keep
+    evolving, being monitored and re-fit; ``release_after`` consecutive
+    re-fits below ``release_ber`` release them. The split thresholds keep a
+    core oscillating around one of them from flapping.
+
+    Fleet action: when the quarantined fraction reaches ``drop_frac`` the
+    controller degrades the whole link (bundling width to ``m_floor``, odd,
+    the other TXs abstaining; the vote collective to ``alt_collective`` if
+    set) and restores the build-time mode once the fraction falls back
+    below."""
+
+    patience: int = 2
+    band_kwargs: dict | None = None
+    quarantine_ber: float = 0.25
+    quarantine_after: int = 3
+    release_ber: float = 0.10
+    release_after: int = 2
+    drop_frac: float = 0.25
+    m_floor: int = 1
+    alt_collective: str | None = None
+
+
+class LinkController:
+    """Host-side closed-loop link adaptation, run at the step barrier.
+
+    Everything here is numpy over values the scheduler's ``_collect`` has
+    already synchronized. Its outputs are a modified process state (re-fit
+    and quarantine masks folded in) and an optional fleet-mode flag that the
+    engine maps to a prebuilt serve variant. Decisions and their step
+    indices accumulate in ``trace``."""
+
+    def __init__(self, cfg: LinkControllerConfig, pstate: phy.ProcessState):
+        self.cfg = cfg
+        self.band = _host(phy.monitor_band(pstate, **(cfg.band_kwargs or {})))
+        n = self.band.shape[0]
+        self._over = np.zeros(n, np.int32)    # consecutive out-of-band steps
+        self._bad = np.zeros(n, np.int32)     # consecutive bad re-fits
+        self._good = np.zeros(n, np.int32)    # consecutive good re-fits
+        self.quarantined = np.zeros(n, bool)
+        self.degraded = False
+        self.trace: list[dict] = []
+        self._t = 0
+
+    @property
+    def n_refits(self) -> int:
+        return sum(len(e["rows"]) for e in self.trace if e["action"] == "refit")
+
+    def act(self, pstate: phy.ProcessState):
+        """One barrier decision. Returns (pstate', degraded | None): the
+        second is not None only on the step the fleet mode flips."""
+        cfg = self.cfg
+        kw = cfg.band_kwargs or {}
+        dev = pstate.est.device
+        self._t += 1
+        self._over = np.where(_host(pstate.est) > self.band, self._over + 1, 0)
+        refit = self._over >= cfg.patience
+        if refit.any():
+            pstate = phy.recharacterize(pstate, torch.from_numpy(refit).to(dev))
+            # refresh the band of the re-fit rows only: a global recompute
+            # would fold every other row's drifting BER into its band
+            self.band = np.where(refit, _host(phy.monitor_band(pstate, **kw)), self.band)
+            self._over[refit] = 0
+            self.trace.append({"t": self._t, "action": "refit",
+                               "rows": np.nonzero(refit)[0].tolist()})
+            # a freshly characterized core whose BER is still bad is
+            # physically degraded (fade, interferer), not stale
+            ber, valid = _host(pstate.chan.ber), _host(pstate.chan.valid)
+            bad_now = refit & (~valid | (ber > cfg.quarantine_ber))
+            good_now = refit & valid & (ber < cfg.release_ber)
+            self._bad = np.where(bad_now, self._bad + 1, np.where(refit, 0, self._bad))
+            self._good = np.where(good_now, self._good + 1, np.where(refit, 0, self._good))
+            newq = (~self.quarantined) & (self._bad >= cfg.quarantine_after)
+            rel = self.quarantined & (self._good >= cfg.release_after)
+            if newq.any() or rel.any():
+                self.quarantined = (self.quarantined | newq) & ~rel
+                pstate = phy.set_quarantine(pstate, torch.from_numpy(self.quarantined).to(dev))
+                if newq.any():
+                    self.trace.append({"t": self._t, "action": "quarantine",
+                                       "rows": np.nonzero(newq)[0].tolist()})
+                if rel.any():
+                    self.trace.append({"t": self._t, "action": "release",
+                                       "rows": np.nonzero(rel)[0].tolist()})
+        frac = float(self.quarantined.mean())
+        want = frac >= cfg.drop_frac
+        switched = None
+        if want != self.degraded:
+            self.degraded = switched = want
+            self.trace.append({"t": self._t, "action": "m_drop" if want else "m_restore",
+                               "quarantined_frac": frac})
+        return pstate, switched
+
+
+class AdaptiveHDCEngine(HDCEngine):
+    """HDCEngine over a LIVING channel with a closed-loop link controller.
+
+    The serve is the process form of `make_mt_ota_serve`: each step first
+    evolves the channel one tick of ``process`` on ``process_generators``,
+    then serves every slot against the evolved channel with quarantined
+    cores masked out of the top-1. The evolved state is staged by the step
+    and committed at the scheduler's barrier (`on_barrier`), where the
+    `LinkController` re-fits, quarantines and switches the fleet mode;
+    fleet-mode switches swap between serve functions built through
+    `step_variant`, keyed on (m_active, collective).
+
+    Needs ``process.guard_dims > 0``: the guard-symbol monitor is the only
+    observation, so without it the controller never acts."""
+
+    def __init__(self, cfg: ScaleOutConfig, chan_state: phy.ChannelState, *, process,
+                 num_slots: int, max_tenants: int,
+                 process_generators: phy.ProcessGenerators | None = None,
+                 controller: LinkControllerConfig | None = None,
+                 device: str | torch.device | None = "cuda"):
+        dev = _device.resolve(device)
+        controller = controller or LinkControllerConfig()
+        if controller.alt_collective is not None:      # unported collectives raise here
+            dataclasses.replace(cfg, collective=controller.alt_collective)
+        self.process = process
+        self.pstate = process.init(chan_state)
+        self.process_generators = (phy.process_generators(0, dev) if process_generators is None
+                                   else process_generators)
+        self.controller = LinkController(controller, self.pstate)
+        self._pending: phy.ProcessState | None = None
+        super().__init__(cfg, chan_state, num_slots=num_slots, max_tenants=max_tenants,
+                         device=dev)
+        self._variants[(cfg.m_act, cfg.collective)] = self._serve
+
+    def _build_serve(self, cfg: ScaleOutConfig):
+        return make_mt_ota_serve(cfg, device=self.device, process=self.process)
+
+    @property
+    def params(self):
+        """(store, process state): the evolving state replaces the static
+        engine's channel state."""
+        return self.registry.store, self.pstate
+
+    def _serve_slots(self, params, state):
+        store, pstate = params
+        pred, maxsim, self._pending = self._serve(
+            store, state["queries"], state["row"], pstate, state["generator"],
+            self.process_generators)
+        return pred, maxsim
+
+    def on_barrier(self):
+        """Commit the step's evolved process state and let the controller
+        act on settled values; what it rewrites (re-fit centroids, the
+        quarantine mask) reaches the NEXT step through ``params``."""
+        if self._pending is None:
+            return
+        self.pstate, self._pending = self._pending, None
+        self.pstate, switched = self.controller.act(self.pstate)
+        if switched is not None:
+            self._apply_fleet_mode(switched)
+
+    def _apply_fleet_mode(self, degraded: bool) -> None:
+        cc = self.controller.cfg
+        if phy.get_channel(self.cfg.channel).wire != "votes":
+            return  # combo wire: no M-drop or vote-collective alternatives
+        if degraded:
+            m = cc.m_floor if cc.m_floor % 2 == 1 else max(cc.m_floor - 1, 1)
+            coll = cc.alt_collective or self.cfg.collective
+        else:
+            m, coll = self.cfg.m_tx, self.cfg.collective
+        live = dataclasses.replace(self.cfg, m_active=None if m == self.cfg.m_tx else m,
+                                   collective=coll)
+        self._serve = self.step_variant((live.m_act, live.collective),
+                                        lambda: self._build_serve(live))
+        self.controller.trace.append({"t": self.controller._t, "action": "link_mode",
+                                      "m_active": live.m_act, "collective": live.collective})
+
+
+class HDCScheduler(SlotScheduler):
+    """Tenant-aware request queue over an `HDCEngine`.
+
+    Every running slot finishes at each step barrier (an HDC request is one
+    serve, not a token loop), so continuous batching here means: free slots
+    refill from the age-ordered queue every step, and one step serves
+    however many tenants are resident."""
+
+    def __init__(self, engine: HDCEngine, clock: Callable[[], float] = time.monotonic,
+                 *, max_slot_steps: int | None = None, max_requeues: int = 1):
+        super().__init__(engine, None, clock, max_slot_steps=max_slot_steps,
+                         max_requeues=max_requeues)
+
+    def submit(self, tenant_id, queries: torch.Tensor, *,
+               generator: torch.Generator | None = None) -> int:
+        """Queue one trial batch [B, 1, M, d|W] for ``tenant_id``.
+        ``generator`` is the request's PHY noise stream (default: a generator
+        on the engine's device seeded with the request id)."""
+        if tenant_id not in self.engine.registry.rows:
+            raise ValueError(f"tenant {tenant_id!r} not onboarded")
+        rid = self._next_rid
+        self._next_rid += 1
+        if generator is None:
+            generator = torch.Generator(device=self.engine.device).manual_seed(rid)
+        req = HDCRequest(rid, tenant_id, queries, generator, self.clock())
+        self.buckets[self._bucket_key(req)].append(req)   # one shape: one bucket
+        return rid
+
+    def _step_params(self):
+        return self.engine.params
+
+    def _fail_eviction(self, slot: int, record):
+        """Deadline eviction (an HDC slot completes every step, so this only
+        fires if the step loop itself stalls): empty result, status marks it."""
+        req, t_admit = record
+        return HDCCompletion(req.rid, req.tenant, np.zeros((0,), np.int32),
+                             np.zeros((0,), np.float32), req.t_submit, t_admit,
+                             self.clock(), status="evicted")
+
+    def _admit(self, batch: list) -> None:
+        """Every matched (request, slot) pair in ONE `HDCEngine.admit_many`
+        call."""
+        for req, _ in batch:
+            # the tenant may have been evicted between submit and admission
+            if req.tenant not in self.engine.registry.rows:
+                raise RuntimeError(
+                    f"tenant {req.tenant!r} evicted with request {req.rid} queued")
+        self.state = self.engine.admit_many(
+            self.state, [r.queries for r, _ in batch], [r.tenant for r, _ in batch],
+            [s for _, s in batch], [r.generator for r, _ in batch])
+        t_admit = self.clock()
+        for req, slot in batch:
+            self.running[slot] = (req, t_admit)
+
+    def _collect(self, emitted) -> list:
+        pred, maxsim = emitted
+        p = _host(pred)             # the step barrier: one copy to the host each
+        s = _host(maxsim)
+        self.engine.on_barrier()    # adaptive engines: commit the evolved state, act
+        finished = []
+        for slot in sorted(self.running):
+            req, t_admit = self.running.pop(slot)
+            done = HDCCompletion(req.rid, req.tenant, p[slot], s[slot], req.t_submit,
+                                 t_admit, self.clock())
+            self.results[req.rid] = done
+            self.free.append(slot)
+            finished.append(done)
+        return finished

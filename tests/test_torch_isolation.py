@@ -42,7 +42,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch, repro_torch.core.scaleout, repro_torch.kernels, "
         "repro_torch.convert, repro_torch.models.zoo, repro_torch.serving.engine, "
         "repro_torch.launch.serve, repro_torch.kernels.flash_attention, "
-        "repro_torch.phy.process, repro_torch.core.classifier\n"
+        "repro_torch.phy.process, repro_torch.core.classifier, repro_torch.serving, "
+        "repro_torch.serving.hdc, repro_torch.serving.scheduler, repro_torch.serving.slotring\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"

@@ -141,7 +141,7 @@ def test_configs_registry():
     assert configs.get_smoke("gemma3-1b").dtype == torch.float32
     for name in ("mixtral_8x22b", "kimi-k2", "whisper-tiny", "qwen2-vl-7b",
                  "falcon-mamba-7b", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="module item 13"):
+        with pytest.raises(NotImplementedError, match="ROADMAP §1, LM stack"):
             configs.get_config(name)
     with pytest.raises(KeyError):
         configs.get_config("llama-9000")

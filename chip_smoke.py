@@ -124,7 +124,28 @@ fallback, and a missing GPU is a failure):
    launches one search kernel and nothing else; under StaticProcess the
    adaptive engine equals `HDCEngine`. Reported: continuous and static
    (one standalone serve a request) trials/s and their ratio, p50/p95
-   latency, ms a step, the drifting run's trials/s and controller actions.
+   latency, ms a step, the drifting run's trials/s and controller actions;
+14. fault tolerance (`repro_torch.faults`, the fault-aware serves, the
+   fault controller and engine): (a) the chaos benchmark's pinned
+   scenario, the serving_faults row of BENCH_BASELINE.json (16 RX, C = 64,
+   d = 512, M = 3, permuted packed psum bsc at BER 0.01, 2 dead cores and
+   1% stuck cells, 8 batches of 64 trials, seed 0): the healthy
+   fault-aware serve == the plain serve, the unaware serve drops at least
+   min_unaware_drop_pts and the aware one stays within max_aware_gap_pts of
+   fault-free (the row's own bounds), the degradation curve over 0-8 dead
+   cores, the stuck sweep and the fault-tolerant engine (4 slots, 32
+   requests, every completion == its standalone fault-aware serve); (b) the
+   paper's configuration on phase 3's state: the healthy fault-aware serve
+   == the fault-free serve in pred and maxsim in the four bsc modes, ideal
+   packed, the four symbol modes, one coarse packed serve and under
+   StaticProcess, each with both serves' ms; the stuck mask and the
+   dead-core zeroing + failover gather alone; vote erasure of TXs 1 and 2
+   == the m_active = 1 serve; 8 of 64 cores dead + 1% stuck cells, aware
+   >= unaware in the four bsc modes; (c) `FaultTolerantHDCEngine` on phase
+   13 (b)'s trace with those faults failed over: every completion == its
+   standalone fault-aware serve, one search launch a step, trials/s and ms
+   a step beside `AdaptiveHDCEngine`'s, then a short `WearoutFaults` run
+   (dead cores and hit rate per step, reported).
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
@@ -132,7 +153,11 @@ Each phase prints its seconds. Then the card line again, a JSON line
 48 Table I calls, the sparse trials and serves at d = 2^20, phase 10's
 serves, recall oracle and multi-centroid calls, phase 11's generates,
 phase 12's serves, trials and drift sweeps, and phase 13's slot-ring runs
-(its standalone comparison serves are not counted); the d = 8192 comparisons, the
+(its standalone comparison serves are not counted), and phase 14's chaos
+serves, fault-aware serves and engine runs (the fault-free serves beside
+them, the vote-erasure comparisons, the timing calls and the standalone
+comparisons are not counted);
+the d = 8192 comparisons, the
 keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
 quarantine check are not counted), and as the last line {"ok": true, ...}.
 
@@ -142,7 +167,8 @@ adds a profile of every serve mode (the symbol modes too), of the sparse
 serve, of the flat and coarse packed serves at 102,400 classes, of one
 multi-tenant step of phase 13's (a) baseline packed and unpacked and (b)
 bsc (the share of the tenant gather, bank_rows packed or store rows
-unpacked, and of the per-slot fan-out), and of the
+unpacked, and of the per-slot fan-out), of phase 14's bsc baseline
+serves at the paper's configuration, fault-free and fault-aware, and of the
 LM prefill (with
 the attention kernel's share of its device time) and decode step under
 torch.profiler (device busy time, idle share, top device ops per call), and
@@ -229,6 +255,17 @@ MT_TRACE = dict(requests=512, slots=16, tenants=4, batch=4)
 MT_BATCH = dict(requests=64, slots=8, tenants=8, batch=256)
 MT_DRIFT = dict(n_rx=16, n_classes=64, sigma=0.1, alpha=0.5, guard=128, cap=0.05, slots=4,
                 tenants=2, requests=32, batch=4)
+# phase 14, fault tolerance: (a) the chaos benchmark's pinned scenario, the
+# serving_faults row of BENCH_BASELINE.json (read from the file with its
+# bounds; benchmarks/faults.py:51-192 for the curve, the sweep and the
+# engine's 4 slots and 32 requests); (b) the paper's configuration with 8 of
+# 64 cores dead and 1% stuck cells, and one coarse packed serve (groups of
+# 10 of each core's 100 classes, 8 kept); (c) the fault-tolerant engine on
+# phase 13 (b)'s trace with the same faults, then a short wearout run
+CHAOS_CURVE, CHAOS_STUCK = (0, 1, 2, 4, 8), (0.0, 0.01, 0.05, 0.1)
+CHAOS_ENGINE = dict(slots=4, requests=32)
+FAULTS_PAPER = dict(k_dead=8, stuck_density=0.01, coarse_group=10, coarse_keep=8)
+WEAROUT = dict(p_die=0.02, stuck_rate=1e-3)
 # serve modes: (serve, PHY tier, permuted bundling, representation)
 MODES = ([("ota", ch, perm, rep) for ch, perm in (("bsc", False), ("bsc", True), ("ideal", False))
           for rep in ("unpacked", "packed")]
@@ -2328,12 +2365,20 @@ def mt_requests(torch, cfg, books, trace, seed0: int = 0) -> list:
              seed0 + 1000 + i) for i, t in enumerate(trace)]
 
 
-def mt_static(torch, cfg, state, banks, reqs) -> tuple:
+def mt_static(torch, cfg, state, banks, reqs, fstate=None) -> tuple:
     """One standalone `make_ota_serve` call per request, each answer brought
-    to the host (what the slot ring is held to): (answers, latencies, wall)."""
+    to the host (what the slot ring is held to): (answers, latencies, wall).
+    With ``fstate``, the fault-aware serve under that (static) fault state."""
+    from repro_torch import faults
     from repro_torch.core import scaleout
 
-    serve = scaleout.make_ota_serve(cfg)
+    if fstate is None:
+        serve = scaleout.make_ota_serve(cfg)
+    else:
+        fserve = scaleout.make_ota_serve(cfg, faults=faults.StaticFaults())
+
+        def serve(protos, q, st, g):
+            return fserve(protos, q, st, g, fstate, None)[:2]
     gens = [cuda_gen(torch, seed) for _, _, seed in reqs]
     serve(banks[0], reqs[0][1], state, cuda_gen(torch, 0))      # warm
     torch.cuda.synchronize()
@@ -2585,6 +2630,340 @@ def phase_mt(torch, state, launches, profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: fault tolerance
+# ---------------------------------------------------------------------------
+
+def injected(torch, cfg, k_dead: int, density: float, failover: bool, seed: int = 7):
+    """The healthy fault state of ``cfg`` with cores 0..k_dead-1 dead and
+    stuck cells at ``density`` (drawn on a generator seeded ``seed``, so
+    every scenario of one density sees the same cells), failed over when
+    asked (one shard on one GPU)."""
+    from repro_torch import faults
+
+    f = faults.healthy_for(cfg)
+    if k_dead:
+        f = faults.inject(f, dead_rx=list(range(k_dead)))
+    if density:
+        s0, s1 = faults.sample_stuck_cells(cuda_gen(torch, seed), cfg.n_rx_cores, cfg.words,
+                                           density)
+        f = faults.inject(f, stuck0=s0, stuck1=s1)
+    return faults.plan_failover(f, cfg.n_rx_cores) if failover else f
+
+
+def chaos(torch, launches) -> dict:
+    """(a) The pinned chaos scenario (BENCH_BASELINE.json serving_faults):
+    zero-fault identity, baseline / unaware / aware draw accuracy held to the
+    row's bounds, the degradation curve, the stuck sweep and the
+    fault-tolerant engine's trials/s."""
+    from repro_torch import faults, phy
+    from repro_torch.core import hypervector as hv, scaleout
+    from repro_torch.serving import FaultControllerConfig, FaultTolerantHDCEngine
+
+    row = json.loads((ROOT / "BENCH_BASELINE.json").read_text())["serving_faults"]
+    sc = row["scenario"]
+    cfg = scaleout.ScaleOutConfig(
+        n_classes=sc["n_classes"], dim=sc["dim"], m_tx=sc["m_tx"], n_rx_cores=sc["n_rx"],
+        batch=sc["batch"], permuted=True, channel=sc["channel"], collective=sc["collective"],
+        representation=sc["representation"])
+    seed = sc["seed"]
+    protos_u = hv.random_hv(cuda_gen(torch, seed), cfg.n_classes, cfg.dim)
+    protos = hv.pack(protos_u)
+    state = phy.state_from_ber(torch.full((cfg.n_rx_cores,), sc["ber"], device="cuda"),
+                               cfg.m_tx)
+    batches = [scaleout.make_queries(cuda_gen(torch, seed + 100 + i), cfg, protos_u)
+               for i in range(sc["n_batches"])]
+    noise = [seed + 200 + i for i in range(sc["n_batches"])]
+    fserve = scaleout.make_ota_serve(cfg, faults=faults.StaticFaults())
+    plain = scaleout.make_ota_serve(cfg)
+    healthy = faults.healthy_for(cfg)
+    p0, s0 = plain(protos, batches[0][1], state, cuda_gen(torch, noise[0]))
+    p1, s1, _ = fserve(protos, batches[0][1], state, cuda_gen(torch, noise[0]), healthy, None)
+    zero_fault_identical = bool(torch.equal(p0, p1) and torch.equal(s0, s1))
+    require(zero_fault_identical, "chaos: the healthy fault-aware serve differs from the plain")
+
+    def acc(f):
+        hits = total = 0
+        for (cls, q), s in zip(batches, noise):
+            pred, _, _ = fserve(protos, q, state, cuda_gen(torch, s), f, None)
+            hits += int((pred == cls).sum())
+            total += pred.numel()
+        return hits / total
+
+    def scenario(k, density, failover):
+        return acc(injected(torch, cfg, k, density, failover, seed + 7))
+
+    def run():
+        out = dict(baseline=scenario(0, 0.0, False),
+                   unaware=scenario(sc["k_dead"], sc["stuck_density"], False),
+                   aware=scenario(sc["k_dead"], sc["stuck_density"], True))
+        out["curve"] = [dict(k_dead=k, unaware=scenario(k, 0.0, False),
+                             aware=scenario(k, 0.0, True)) for k in CHAOS_CURVE]
+        out["stuck"] = [dict(density=p, aware=scenario(0, p, True)) for p in CHAOS_STUCK]
+        return out
+
+    out, sec, counts = counted(torch, run)
+    require_only(counts, ("hamming_topk_banked",), "chaos serves")
+    add_launches(launches, counts)
+    drop = 100.0 * (out["baseline"] - out["unaware"])
+    gap = 100.0 * (out["baseline"] - out["aware"])
+    out.update(zero_fault_identical=zero_fault_identical, unaware_drop_pts=drop,
+               aware_gap_pts=gap, serves_s=sec, launches=counts)
+    print(f"chaos ({sc['n_rx']} RX, C = {cfg.n_classes}, d = {cfg.dim}, M = {cfg.m_tx}, permuted "
+          f"packed psum bsc at BER {sc['ber']}, {sc['k_dead']} dead cores + "
+          f"{100 * sc['stuck_density']:g}% stuck cells, {sc['n_batches']} x {sc['batch']} "
+          f"trials, seed {seed}): zero_fault_identical {zero_fault_identical}; draw accuracy "
+          f"baseline {out['baseline']:.4f}, unaware {out['unaware']:.4f} (drop {drop:.2f} "
+          f"pts, bound >= {row['min_unaware_drop_pts']}), aware {out['aware']:.4f} (gap "
+          f"{gap:.2f} pts, bound <= {row['max_aware_gap_pts']})", flush=True)
+    print("chaos curve (k dead: unaware / aware): " + ", ".join(
+        f"{r['k_dead']}: {r['unaware']:.4f} / {r['aware']:.4f}" for r in out["curve"])
+        + "; stuck sweep (aware): " + ", ".join(
+        f"{r['density']:g}: {r['aware']:.4f}" for r in out["stuck"]), flush=True)
+    require(drop >= row["min_unaware_drop_pts"],
+            f"chaos: the unaware serve drops {drop:.2f} pts < {row['min_unaware_drop_pts']}")
+    require(gap <= row["max_aware_gap_pts"],
+            f"chaos: the aware serve is {gap:.2f} pts off > {row['max_aware_gap_pts']}")
+    e = CHAOS_ENGINE
+    fstate = injected(torch, cfg, sc["k_dead"], 0.0, True)
+    eng = FaultTolerantHDCEngine(cfg, state, process=phy.StaticProcess(),
+                                 fault_model=faults.StaticFaults(), num_slots=e["slots"],
+                                 max_tenants=1, fstate=fstate,
+                                 controller=FaultControllerConfig(band_kwargs={"cap": 0.05}))
+    eng.registry.onboard(0, protos)
+    reqs = [(0, batches[i % len(batches)][1], 1000 + i) for i in range(e["requests"])]
+    static, _, _ = mt_static(torch, cfg, state, [protos], reqs, fstate)
+    done, wall, steps, counts = mt_continuous(torch, eng, reqs, launches, "chaos engine")
+    mt_identity(done, static, "chaos engine")
+    out["engine"] = dict(trials_per_s=e["requests"] * cfg.batch / wall, wall_s=wall,
+                         steps=steps, launches=counts)
+    print(f"chaos engine: FaultTolerantHDCEngine, {e['slots']} slots, {e['requests']} requests "
+          f"x {cfg.batch} trials, {sc['k_dead']} dead cores failed over: "
+          f"{out['engine']['trials_per_s']:.1f} trials/s ({steps} steps), every completion == "
+          f"its standalone fault-aware serve", flush=True)
+    return out
+
+
+def fault_paper(torch, state, launches, profile: bool = False) -> dict:
+    """(b) The paper's configuration on phase 3's state: the healthy
+    fault-aware serve == the fault-free serve in every mode (CALLS calls on
+    the seeds of phases 4-5) with both serves' ms (with ``profile``, the
+    bsc baseline serves of both kinds under torch.profiler too); the stuck
+    mask and the RX-fault gather alone; vote erasure of TXs 1 and 2 ==
+    m_active = 1; and 8 of 64 cores dead + 1% stuck cells, unaware against
+    aware, in the four bsc modes."""
+    import dataclasses
+
+    from repro_torch import faults, phy
+    from repro_torch.core import classifier, hypervector as hv, scaleout
+
+    base = scaleout.ScaleOutConfig()
+    protos_u = classifier.make_codebook(
+        cuda_gen(torch, 0), classifier.HDCTaskConfig(n_classes=base.n_classes, dim=base.dim))
+    healthy = faults.healthy_for(base)
+    static = faults.StaticFaults()
+    modes = ([(f"{ch} {'permuted' if perm else 'baseline'} {rep}",
+               dict(channel=ch, permuted=perm, representation=rep))
+              for ch in ("bsc", "symbol") for perm in (False, True)
+              for rep in ("unpacked", "packed")]
+             + [("ideal baseline packed", dict(channel="ideal", representation="packed")),
+                (f"bsc coarse packed (groups of {FAULTS_PAPER['coarse_group']}, "
+                 f"{FAULTS_PAPER['coarse_keep']} kept)",
+                 dict(representation="packed", coarse_group=FAULTS_PAPER["coarse_group"],
+                      coarse_keep=FAULTS_PAPER["coarse_keep"])),
+                ("bsc baseline packed, StaticProcess",
+                 dict(representation="packed", process="static"))])
+    out = {}
+
+    def setup(kw):
+        kw = dict(kw)
+        proc = phy.StaticProcess() if kw.pop("process", None) else None
+        cfg = dataclasses.replace(base, **kw)
+        protos = hv.pack(protos_u) if cfg.packed else protos_u
+        gq = cuda_gen(torch, 1)
+        batches = [scaleout.make_queries(gq, cfg, protos_u) for _ in range(CALLS)]
+        return cfg, proc, protos, batches
+
+    for label, kw in modes:
+        cfg, proc, protos, batches = setup(kw)
+        chan = proc.init(state) if proc else state
+        tail = (None,) if proc else ()
+        plain = scaleout.make_ota_serve(cfg, process=proc)
+        fserve = scaleout.make_ota_serve(cfg, process=proc, faults=static)
+        gp, gf = cuda_gen(torch, 2), cuda_gen(torch, 2)
+        want = [plain(protos, q, chan, gp, *tail)[:2] for _, q in batches]
+        got, sec, counts = counted(torch, lambda: [
+            fserve(protos, q, chan, gf, *tail, healthy, None)[:2] for _, q in batches])
+        want_k = (("hamming_topk_k_banked",) if cfg.coarse_group
+                  else SERVE_KERNELS[("ota", cfg.representation)])
+        require_only(counts, want_k, f"faults (b) {label}")
+        add_launches(launches, counts)
+        same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                   for a, b in zip(want, got))
+        require(same, f"faults (b) {label}: the healthy fault-aware serve differs from the "
+                      "fault-free serve")
+        q = batches[0][1]
+        ms = call_ms(torch, lambda: plain(protos, q, chan, gp, *tail), samples=5)
+        fms = call_ms(torch, lambda: fserve(protos, q, chan, gf, *tail, healthy, None),
+                      samples=5)
+        out[label] = dict(ms=ms, fault_ms=fms, launches=counts)
+        print(f"faults (b) {label}: healthy fault-aware == fault-free over {CALLS} calls "
+              f"(pred and maxsim); {fms:.4f} ms a call vs {ms:.4f} fault-free", flush=True)
+        if profile and label.startswith("bsc baseline") and proc is None:
+            out[label]["profile"] = {
+                "fault-free": profile_calls(torch, f"faults (b) {label} fault-free", [
+                    lambda q=q: plain(protos, q, chan, gp) for _, q in batches]),
+                "fault-aware": profile_calls(torch, f"faults (b) {label} fault-aware", [
+                    lambda q=q: fserve(protos, q, chan, gf, healthy, None)
+                    for _, q in batches])}
+    # the two fault stages alone, at the serve's shapes
+    f = injected(torch, base, FAULTS_PAPER["k_dead"], FAULTS_PAPER["stuck_density"], True)
+    stages = {}
+    for rep, last in (("packed", base.words), ("unpacked", base.dim)):
+        dtype = torch.int32 if rep == "packed" else torch.uint8
+        store = torch.zeros((1, base.n_rx_cores, base.n_classes // base.n_rx_cores, last),
+                            dtype=dtype, device="cuda")
+        q_rx = torch.zeros((1, base.n_rx_cores, base.batch, last), dtype=dtype, device="cuda")
+        stuck = (f.stuck0, f.stuck1)
+        stages[rep] = dict(
+            stuck_ms=call_ms(torch, lambda: scaleout._apply_stuck(store, stuck, base.dim,
+                                                                  rep == "packed")),
+            rx_faults_ms=call_ms(torch, lambda: scaleout._apply_rx_faults(f, q_rx, None)))
+    out["stages"] = stages
+    print("faults (b) stages alone (CUDA events over 20 back-to-back calls): " + "; ".join(
+        f"{rep}: stuck mask on the store {v['stuck_ms']:.4f} ms, dead-core zeroing + "
+        f"failover gather {v['rx_faults_ms']:.4f} ms" for rep, v in stages.items()), flush=True)
+    # vote erasure of TXs 1 and 2 == the m_active = 1 serve
+    for rep in ("unpacked", "packed"):
+        cfg, _, protos, batches = setup(dict(permuted=True, representation=rep))
+        oracle = scaleout.make_ota_serve(dataclasses.replace(cfg, m_active=1))
+        fserve = scaleout.make_ota_serve(cfg, faults=static)
+        erased = faults.inject(healthy, vote_drop=[1, 2])
+        go, gf = cuda_gen(torch, 2), cuda_gen(torch, 2)
+        for _, q in batches[:2]:
+            a = oracle(protos, q, state, go)
+            b = fserve(protos, q, state, gf, erased, None)
+            require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                    f"faults (b) vote erasure {rep}: differs from the m_active=1 serve")
+    print("faults (b) vote erasure of TXs 1 and 2 == the m_active = 1 serve, permuted "
+          "unpacked and packed", flush=True)
+    # 8 of 64 cores dead + 1% stuck cells: unaware against aware
+    acc = {}
+    for label, kw in modes[:4]:
+        cfg, _, protos, batches = setup(kw)
+        fserve = scaleout.make_ota_serve(cfg, faults=static)
+        row = {}
+        for name, failover in (("unaware", False), ("aware", True)):
+            f = injected(torch, cfg, FAULTS_PAPER["k_dead"], FAULTS_PAPER["stuck_density"],
+                         failover)
+            g = cuda_gen(torch, 2)
+            run, _, counts = counted(torch, lambda: dict(
+                pred=torch.cat([fserve(protos, q, state, g, f, None)[0] for _, q in batches]),
+                classes=torch.cat([c for c, _ in batches])))
+            add_launches(launches, counts)
+            row[name] = hit_rate(torch, run, cfg.permuted)
+        key = "draw_acc" if cfg.permuted else "hit"
+        require(row["aware"][key] >= row["unaware"][key],
+                f"faults (b) {label}: aware {row['aware']} below unaware {row['unaware']}")
+        acc[label] = row
+        print(f"faults (b) {label}, {FAULTS_PAPER['k_dead']} of {cfg.n_rx_cores} cores dead + "
+              f"{100 * FAULTS_PAPER['stuck_density']:g}% stuck cells: unaware "
+              f"{json.dumps(row['unaware'])}, aware {json.dumps(row['aware'])}", flush=True)
+    out["dead_and_stuck"] = acc
+    return out
+
+
+def fault_engine(torch, state, launches) -> dict:
+    """(c) FaultTolerantHDCEngine on phase 13 (b)'s trace (bsc, packed,
+    StaticProcess, StaticFaults; 8 of 64 cores dead, failed over, 1% stuck
+    cells): every completion == its standalone fault-aware serve, one search
+    launch a step, trials/s beside AdaptiveHDCEngine's; then a short
+    WearoutFaults run, reported only."""
+    import dataclasses
+
+    from repro_torch import faults, phy
+    from repro_torch.core import classifier, hypervector as hv, scaleout
+    from repro_torch.serving import AdaptiveHDCEngine, FaultTolerantHDCEngine
+
+    b = MT_BATCH
+    base = scaleout.ScaleOutConfig()
+    cfg = dataclasses.replace(base, batch=b["batch"], representation="packed")
+    task = classifier.HDCTaskConfig(n_classes=base.n_classes, dim=base.dim)
+    books = classifier.make_tenant_codebooks([cuda_gen(torch, t) for t in range(b["tenants"])],
+                                             task)
+    banks = [hv.pack(bk) for bk in books]
+    trace = poisson_race(b["requests"], b["tenants"])
+    reqs = mt_requests(torch, cfg, books, trace)
+    fstate = injected(torch, cfg, FAULTS_PAPER["k_dead"], FAULTS_PAPER["stuck_density"], True)
+
+    def engine(kind, **kw):
+        eng = kind(cfg, state, process=phy.StaticProcess(), num_slots=b["slots"],
+                   max_tenants=b["tenants"], **kw)
+        for t, bank in enumerate(banks):
+            eng.registry.onboard(t, bank)
+        return eng
+
+    static, _, _ = mt_static(torch, cfg, state, banks, reqs, fstate)
+    ft = engine(FaultTolerantHDCEngine, fault_model=faults.StaticFaults(), fstate=fstate)
+    store_c = ft.registry.store.reshape(b["tenants"], cfg.n_rx_cores, -1, cfg.words)
+    stuck_ms = call_ms(torch, lambda: scaleout._apply_stuck(
+        store_c, (fstate.stuck0, fstate.stuck1), cfg.dim, True))
+    done, wall, steps, counts = mt_continuous(torch, ft, reqs, launches, "faults (c)")
+    mt_identity(done, static, "faults (c)")
+    _, a_wall, a_steps, _ = mt_continuous(torch, engine(AdaptiveHDCEngine), reqs, launches,
+                                          "faults (c) adaptive")
+    n_trials = len(reqs) * cfg.batch
+    out = dict(trials_per_s=n_trials / wall, ms_per_step=wall / steps * 1e3, steps=steps,
+               launches=counts, store_stuck_ms=stuck_ms, adaptive=dict(trials_per_s=n_trials / a_wall,
+                                              ms_per_step=a_wall / a_steps * 1e3))
+    print(f"faults (c) FaultTolerantHDCEngine: {len(reqs)} requests x {cfg.batch} trials, "
+          f"{b['tenants']} tenants, {b['slots']} slots, {FAULTS_PAPER['k_dead']} dead cores "
+          f"failed over + {100 * FAULTS_PAPER['stuck_density']:g}% stuck cells: "
+          f"{out['trials_per_s']:.1f} trials/s, {out['ms_per_step']:.4f} ms/step ({steps} "
+          f"steps, launches {counts}); AdaptiveHDCEngine healthy "
+          f"{out['adaptive']['trials_per_s']:.1f} trials/s, "
+          f"{out['adaptive']['ms_per_step']:.4f} ms/step; every completion == its standalone "
+          f"fault-aware serve; the stuck mask on the {b['tenants']}-tenant store alone "
+          f"{stuck_ms:.4f} ms", flush=True)
+    # a short wearout run: cores die and cells stick as the steps go
+    model = faults.WearoutFaults(**WEAROUT)
+    wear = engine(FaultTolerantHDCEngine, fault_model=model,
+                  fault_generator=cuda_gen(torch, 7))
+    dead = []
+    commit = wear.on_barrier
+
+    def on_barrier():
+        commit()
+        dead.append(int(wear.fstate.dead_rx.sum()))
+
+    wear.on_barrier = on_barrier
+    sched_done, _, w_steps, counts = mt_continuous(torch, wear, reqs, launches, "wearout")
+    dead = dead[-w_steps:]                       # the measured run's barriers
+    classes = [scaleout.make_queries(cuda_gen(torch, 100 + i), cfg, books[t])[0]
+               for i, t in enumerate(trace)]
+    hits = [float((torch.from_numpy(c.pred)[:, None] == cls.cpu()).any(1).float().mean())
+            for c, cls in zip(sched_done, classes)]
+    per_step = [sum(hits[i:i + b["slots"]]) / len(hits[i:i + b["slots"]])
+                for i in range(0, len(hits), b["slots"])]
+    out["wearout"] = dict(model=WEAROUT, dead_cores=dead, hit_per_step=per_step)
+    print(f"faults (c) wearout (p_die {WEAROUT['p_die']}, stuck_rate {WEAROUT['stuck_rate']}, "
+          f"no failover): dead cores after each step {dead}, hit rate per step "
+          + ", ".join(f"{h:.4f}" for h in per_step), flush=True)
+    return out
+
+
+def phase_faults(torch, state, launches, profile: bool = False) -> dict:
+    """Phase 14: fault tolerance, parts (a), (b) and (c)."""
+    out = dict(chaos=chaos(torch, launches),
+               paper=fault_paper(torch, state, launches, profile=profile),
+               engine=fault_engine(torch, state, launches))
+    print("fault checks: chaos zero_fault_identical, unaware drop and aware gap within the "
+          "serving_faults bounds, every healthy fault-aware serve == its fault-free serve, "
+          "vote erasure == m_active = 1, aware >= unaware, every engine completion == its "
+          "standalone fault-aware serve, one search launch a step", flush=True)
+    return out
+
+
 def phase_profile(torch, state, protos_u, base) -> dict:
     """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
@@ -2689,6 +3068,8 @@ def main(argv: list[str]) -> int:
                                             profile=args.profile))
     mt = phase("13 multi-tenant serving", lambda: phase_mt(torch, state, launches,
                                                            profile=args.profile))
+    fault = phase("14 fault tolerance", lambda: phase_faults(torch, state, launches,
+                                                             profile=args.profile))
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
 
@@ -2714,6 +3095,7 @@ def main(argv: list[str]) -> int:
             ber=dict(avg=avg, max=mx, ms=pre_ms), kernels=kernels, serves=serves["runs"],
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
+            faults=fault,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

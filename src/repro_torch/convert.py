@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.faults.model import FaultState
 from repro_torch.phy.channel import ChannelState
 from repro_torch.phy.process import ProcessState
 
@@ -61,6 +62,24 @@ def pstate_from_numpy(leaves: dict, device: str | torch.device | None = "cuda"
         for f in ProcessState.FIELDS if f != "chan"})
 
 
+def fstate_from_numpy(leaves: dict, device: str | torch.device | None = "cuda"
+                      ) -> FaultState:
+    """A dict of the eight FaultState leaves as numpy arrays -> the port's
+    FaultState on `device`: uint32 stuck masks become int32 words with the
+    same bits, bool and int32 leaves keep their values (``t`` a 0-dim int32
+    tensor)."""
+    dev = _device.resolve(device)
+    missing = set(FaultState.FIELDS) - set(leaves)
+    if missing:
+        raise KeyError(f"missing FaultState leaves: {sorted(missing)}")
+
+    def leaf(a):
+        a = np.array(a, order="C")                     # a copy; 0-dim stays 0-dim
+        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+
+    return FaultState(*(leaf(leaves[f]) for f in FaultState.FIELDS))
+
+
 def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
@@ -84,9 +103,12 @@ def to_numpy(x, words: bool = False):
     bfloat16, bit for bit); a ChannelState -> the dict of its eight leaves; a
     nested dict of tensors (model parameters, a KV cache) -> the same dict of
     arrays; a ProcessState -> the dict of its leaves, ``chan`` a dict as
-    above."""
+    above; a FaultState -> the dict of its leaves, stuck masks as uint32."""
     if isinstance(x, (ChannelState, ProcessState)):
         return {f: to_numpy(getattr(x, f)) for f in type(x).FIELDS}
+    if isinstance(x, FaultState):
+        return {f: to_numpy(getattr(x, f), words=f in ("stuck0", "stuck1"))
+                for f in FaultState.FIELDS}
     if isinstance(x, dict):
         return {k: to_numpy(v, words) for k, v in x.items()}
     if x.dtype == torch.bfloat16:

@@ -64,11 +64,18 @@ def rx_constellations(h: torch.Tensor, phase_idx: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nm,...bm->...nb", h, tx_sym)
 
 
-def majority_centroids(y: torch.Tensor, maj: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def majority_centroids(y: torch.Tensor, maj: torch.Tensor, mask: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Centroids (c0, c1) of the two majority decision regions: y [..., B]
-    symbols, maj [B] labels -> [...] each."""
+    symbols, maj [B] labels -> [...] each. ``mask`` [B] bool restricts the
+    fit to a sub-constellation (the combos that still occur when encoders
+    are erased, `faults.recenter_state`); None, or all True, fits every
+    combo."""
     m1 = maj.bool()
     m0 = ~m1
+    if mask is not None:
+        mask = mask.to(torch.bool)
+        m0, m1 = m0 & mask, m1 & mask
     zero = torch.zeros((), dtype=y.dtype, device=y.device)
     c0 = torch.where(m0, y, zero).sum(-1) / m0.sum()
     c1 = torch.where(m1, y, zero).sum(-1) / m1.sum()

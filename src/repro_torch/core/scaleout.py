@@ -17,7 +17,12 @@ the fused packed top-1 kernel or the bipolar matmul kernel — and the global
 top-1 is taken over the cores. ``m_active`` drops encoders: slots
 ``g >= m_active`` abstain (vote exactly 0). With a living-channel
 ``process`` the serve first steps the channel, then serves through the
-evolved state and masks quarantined cores out of the top-1.
+evolved state and masks quarantined cores out of the top-1. With a fault
+model (``faults=``, `repro_torch.faults`) it then steps the faults and
+serves through them: erased encoders vote 0 (or radiate bit 0 on the combo
+wire), dead cores' copies are zeroed, each bank searches the copy of its
+``serve_rows`` core, ``rx_mask`` joins the quarantine, and stuck cells
+force the stored (permuted) rows to their rail.
 `make_wired_serve` is the wired baseline: bundle by majority at every core
 (the majority kernel, or the bit-sliced packed majority), then one search
 over all classes (the Hamming or bipolar matmul kernel).
@@ -210,7 +215,8 @@ def precharacterize(cfg: ScaleOutConfig, device: str | torch.device | None = "cu
 # serve-step stages (one model shard: tx = 0, every core local)
 # ---------------------------------------------------------------------------
 
-def _ota_bundle(cfg: ScaleOutConfig, chan: phy.Channel, q_mine: torch.Tensor) -> torch.Tensor:
+def _ota_bundle(cfg: ScaleOutConfig, chan: phy.Channel, q_mine: torch.Tensor,
+                fstate=None) -> torch.Tensor:
     """The OTA collective over the encoders: q_mine [B, M, d|W] -> bundled
     query [B, d|W], or the combo index [B, d] int32 on the combo wire.
 
@@ -219,12 +225,26 @@ def _ota_bundle(cfg: ScaleOutConfig, chan: phy.Channel, q_mine: torch.Tensor) ->
     axis is the reference's ``psum`` over the model axis, and ``tally > 0``
     is the strict majority (even-M ties -> 0). Combo wire: the sum of
     ``bit_g * 2^g`` over the encoders, the received field's index into the
-    constellation."""
+    constellation.
+
+    ``fstate`` (a `faults.FaultState`) erases the slots of ``dead_tx |
+    vote_drop``: on the vote wire an erased slot votes exactly 0, so
+    ``tally > 0`` is the majority of the live voters (even live counts tie
+    to 0); on the combo wire an erased encoder is a stuck carrier, its bit
+    forced 0 (`faults.recenter_state` re-fits the decoder)."""
     q_bits = hv.unpack(q_mine, cfg.dim) if cfg.packed else q_mine
+    if fstate is not None:
+        erased = (fstate.dead_tx | fstate.vote_drop)[:, None]              # [M, 1]
+        if chan.wire == "combo":
+            q_bits = torch.where(erased, 0, q_bits)
+        else:
+            slot = torch.arange(cfg.m_tx, device=erased.device)[:, None]
+            live = (slot < cfg.m_act) & ~erased
     if chan.wire == "combo":
         return phy.combo_index(q_bits, axis=-2)
-    votes = (2 * q_bits[..., :cfg.m_act, :].to(torch.int8) - 1).sum(-2, dtype=torch.int8)
-    bundled = (votes > 0).to(torch.uint8)
+    votes = 2 * q_bits.to(torch.int8) - 1
+    votes = votes[..., :cfg.m_act, :] if fstate is None else torch.where(live, votes, 0)
+    bundled = (votes.sum(-2, dtype=torch.int8) > 0).to(torch.uint8)
     return hv.pack(bundled) if cfg.packed else bundled
 
 
@@ -261,6 +281,30 @@ def _sparse_rx_fanout(cfg: ScaleOutConfig, q_bundled: torch.Tensor,
         return copies
     ber = state.ber[:n].reshape(n, 1, 1)
     return sparse.flip_bits_sparse(generator, copies, ber, cfg.dim)
+
+
+def _apply_stuck(rows: torch.Tensor, stuck, d: int, packed: bool) -> torch.Tensor:
+    """Force stuck stored bits to their rail, per physical core: rows
+    [T, n_core, ..., W|d] (the core axis second), stuck = (stuck0, stuck1)
+    [n_core, W] int32 column masks, unpacked little-endian for bit rows. A
+    stuck column hits every row its core stores, permuted banks included,
+    so callers apply this after permuting. Zero masks change no bit."""
+    if stuck is None:
+        return rows
+    s0, s1 = stuck if packed else hv.unpack(torch.stack(stuck), d)
+    shape = (1, s0.shape[0]) + (1,) * (rows.dim() - 3) + (s0.shape[-1],)
+    return (rows & ~s0.reshape(shape)) | s1.reshape(shape)
+
+
+def _apply_rx_faults(fstate, q_rx: torch.Tensor, qmask: torch.Tensor | None):
+    """Dead-core zeroing, the failover gather and the bank mask: q_rx
+    [N, n_core, B, d|W]. A dead core's copy is zeroed, then bank i's query
+    is core ``serve_rows[i]``'s copy (identity: no remap), and ``rx_mask``
+    joins the quarantine mask so banks with no healthy server never win.
+    The healthy state changes no value."""
+    dead = fstate.dead_rx[None, :, None, None]
+    q_rx = torch.where(dead, 0, q_rx).index_select(1, fstate.serve_rows)
+    return q_rx, fstate.rx_mask if qmask is None else qmask | fstate.rx_mask
 
 
 def _group_summaries(cfg: ScaleOutConfig, banks: torch.Tensor) -> torch.Tensor:
@@ -354,8 +398,8 @@ def _coarse_fine_unpacked(cfg: ScaleOutConfig, banks: torch.Tensor, q: torch.Ten
 
 
 def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor, store: torch.Tensor,
-                rows: torch.Tensor | None = None, qmask: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                rows: torch.Tensor | None = None, qmask: torch.Tensor | None = None,
+                stuck=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Every core of every slot searches its class sub-shard (with the M
     permuted banks when ``cfg.permuted``), in one kernel launch for every
     (slot, core[, permuted bank]). q_rx [N, n_core, B, d|W|k_max]; store
@@ -368,7 +412,10 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor, store: torch.Tensor,
     class: first minimum inside a core, then the first core, per slot.
     ``qmask`` [n_core] bool quarantines cores after the kernel (every slot
     rides the one link): their winner's distance becomes d + 1 (packed) or
-    its similarity -2d (unpacked), so they never win."""
+    its similarity -2d (unpacked), so they never win. ``stuck`` (stuck0,
+    stuck1) [n_core, W] forces the stored bits of each core to their rail
+    (`_apply_stuck`), on the whole T-tenant store after the permutation and
+    before any kernel or coarse summary reads it."""
     n, n_core, b, q_last = q_rx.shape
     t, c, last = store.shape
     d = cfg.dim
@@ -383,6 +430,7 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor, store: torch.Tensor,
         rho = hv.permute_packed if cfg.packed else hv.permute
         # permute the T-tenant store once a call, not once a slot
         banks = torch.stack([rho(store_c, s) for s in range(m)], 2)    # [T, n_core, M, c, -]
+        banks = _apply_stuck(banks, stuck, d, cfg.packed)
         q_rep = q_rx[:, :, None].expand(n, n_core, m, b, last).reshape(n * n_core * m, b, last)
         if cfg.packed:
             bank_rows = None if core_rows is None else (
@@ -410,7 +458,7 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor, store: torch.Tensor,
             core_star = torch.argmax(val_c, 2)
             idx_in_core = torch.gather(idx_c, 2, core_star[:, :, None, :])[:, :, 0, :]
     elif cfg.packed or cfg.sparse:
-        table = store_c.reshape(t * n_core, c_core, last)
+        table = _apply_stuck(store_c, stuck, d, True).reshape(t * n_core, c_core, last)
         q_flat = q_rx.reshape(n * n_core, b, q_last).contiguous()
         if cfg.coarse_group:
             dmin, amin = _coarse_fine_packed(cfg, table, q_flat, bank_rows=core_rows)
@@ -426,6 +474,7 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor, store: torch.Tensor,
         core_star = torch.argmin(dmin, -1)
         idx_in_core = torch.gather(amin, 2, core_star[..., None])[..., 0]
     else:
+        store_c = _apply_stuck(store_c, stuck, d, False)
         q_flat = q_rx.reshape(n * n_core, b, last).contiguous()
         if cfg.coarse_group:
             vg, rg = _coarse_fine_unpacked(cfg, store_c.reshape(t * n_core, c_core, last),
@@ -495,7 +544,8 @@ def _validate_coarse(cfg: ScaleOutConfig) -> None:
                          "overflow int32 — shard wider (more RX cores) or shrink dim")
 
 
-def _check_inputs(cfg: ScaleOutConfig, dev: torch.device, protos, queries, state) -> None:
+def _check_inputs(cfg: ScaleOutConfig, dev: torch.device, protos, queries, state,
+                  fstate=None) -> None:
     _device.check_on(dev, protos=protos, queries=queries, ber=state.ber)
     want = torch.int32 if cfg.packed or cfg.sparse else torch.uint8
     last = cfg.words if cfg.packed or cfg.sparse else cfg.dim
@@ -511,6 +561,12 @@ def _check_inputs(cfg: ScaleOutConfig, dev: torch.device, protos, queries, state
         raise ValueError(f"state has {state.n_rx} cores, cfg {cfg.n_rx_cores}")
     if state.m_tx != cfg.m_tx:
         raise ValueError(f"state characterizes {state.m_tx} TXs, cfg {cfg.m_tx}")
+    if fstate is not None:
+        _device.check_on(dev, dead_rx=fstate.dead_rx, stuck0=fstate.stuck0)
+        got = (fstate.n_rx, fstate.m_slots, fstate.words)
+        if got != (cfg.n_rx_cores, cfg.m_tx, cfg.words):
+            raise ValueError(f"fault state (n_rx, m_slots, words) {got} != "
+                             f"{(cfg.n_rx_cores, cfg.m_tx, cfg.words)} (faults.healthy_for)")
 
 
 def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda",
@@ -548,41 +604,54 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
     the top-1. With `phy.StaticProcess` the predictions equal the
     process-free serve's on the same generator, bit for bit.
 
+    ``faults`` (a `faults.FaultModel`) serves through injected hard faults
+    (see `repro_torch.faults`): the fn takes the fault state and the fault
+    process's generator after the other inputs and returns the evolved
+    state last,
+
+        fn(protos, queries, state, generator, fstate, fault_generator)
+          -> (pred, maxsim, fstate')
+        fn(protos, queries, pstate, generator, process_generators, fstate,
+           fault_generator) -> (pred, maxsim, pstate', fstate')
+
+    Each call steps the channel, then the faults, then serves. The fault
+    step draws only from ``fault_generator``, so with `faults.healthy_for`
+    under `faults.StaticFaults` the predictions equal the fault-free
+    serve's bit for bit.
+
     Sparse (``cfg.representation="sparse"``, or ``"auto"`` resolved to it):
     queries are index lists [B, 1, M, k_max] int32 against packed
     prototypes [C, W] int32, searched by the ``sparse_topk_banked`` kernel;
     predictions equal the packed serve's on the ideal channel whenever no
     bundle saturates k_max. With sparse, ``process`` and ``faults`` raise
-    ValueError, as in the reference; fault injection is not ported yet.
+    ValueError, as in the reference.
     """
     cfg = resolve_representation(cfg)
     if cfg.sparse and (process is not None or faults is not None):
         raise ValueError("representation='sparse' does not compose with living-channel "
                          "processes or fault injection; use representation='packed'")
-    if faults is not None:
-        raise NotImplementedError("make_ota_serve: faults= is not ported yet")
     dev = _device.resolve(device)
     chan = phy.get_channel(cfg.channel)
     _validate_channel(cfg, chan)
     _validate_coarse(cfg)
 
-    def serve_core(protos, queries, state, generator, qmask=None):
-        _check_inputs(cfg, dev, protos, queries, state)
+    def serve_core(protos, queries, state, generator, qmask=None, fstate=None):
+        _check_inputs(cfg, dev, protos, queries, state, fstate)
         if cfg.sparse:
             q_bundled = _sparse_bundle(cfg, queries)
             q_rx = _sparse_rx_fanout(cfg, q_bundled, state, generator)
             val, idx = _shard_top1(cfg, q_rx[None], protos[None])
             return _gather_top1(cfg, val[0], idx[0])
         pred, maxsim = _serve_slots(cfg, chan, protos[None], queries[None], None, state,
-                                    [generator], qmask)
+                                    [generator], qmask, fstate)
         return pred[0], maxsim[0]
 
-    return serve_core if process is None else _with_process(process, serve_core)
+    return _evolving(process, faults, serve_core)
 
 
 def _serve_slots(cfg: ScaleOutConfig, chan: phy.Channel, store: torch.Tensor,
                  queries: torch.Tensor, rows: torch.Tensor | None, state: phy.ChannelState,
-                 generators: list, qmask: torch.Tensor | None = None):
+                 generators: list, qmask: torch.Tensor | None = None, fstate=None):
     """The dense serve of N slots: queries [N, B, 1, M, d|W] against store
     [T, C, d|W] (bank ``rows[s]``, or bank s when ``rows`` is None), slot s
     on ``generators[s]`` -> (pred, maxsim), [N, B] or [N, B, M].
@@ -590,40 +659,67 @@ def _serve_slots(cfg: ScaleOutConfig, chan: phy.Channel, store: torch.Tensor,
     The bundle runs once over the slot-flattened [N*B] rows, elementwise over
     rows, so each row tallies as in a one-slot serve; the PHY fan-out runs
     slot by slot on ``generators[s]`` (merging the slots' draws would change
-    every slot's noise); the search keeps the per-slot reduction order."""
+    every slot's noise); the search keeps the per-slot reduction order.
+    ``fstate`` applies one fault state to every slot (they ride the same
+    hardware): the erasures in the bundle, the dead-core zeroing and the
+    failover gather on the fan-out's copies, the stuck cells in the
+    search."""
     n, b = queries.shape[:2]
     q_mine = queries[:, :, 0].reshape((n * b,) + tuple(queries.shape[3:]))  # [N*B, M, d|W]
     if cfg.permuted:                      # TX g transmits rho^g(q_g)
         rho = hv.permute_packed if cfg.packed else hv.permute
         q_mine = torch.stack([rho(q_mine[:, g], g) for g in range(cfg.m_tx)], 1)
-    q_bundled = _ota_bundle(cfg, chan, q_mine)
+    q_bundled = _ota_bundle(cfg, chan, q_mine, fstate)
     q_bundled = q_bundled.reshape((n, b) + tuple(q_bundled.shape[1:]))
     copies = [_rx_fanout(cfg, chan, q_bundled[s], state, generators[s]) for s in range(n)]
     q_rx = copies[0][None] if n == 1 else torch.stack(copies)   # [N, n_core, B, d|W]
-    val, idx = _shard_top1(cfg, q_rx, store, rows, qmask)
+    stuck = None
+    if fstate is not None:
+        q_rx, qmask = _apply_rx_faults(fstate, q_rx, qmask)
+        stuck = (fstate.stuck0, fstate.stuck1)
+    val, idx = _shard_top1(cfg, q_rx, store, rows, qmask, stuck)
     return _gather_top1(cfg, val, idx)
 
 
-def _with_process(process, serve_core):
-    """The living-channel form of a serve core: ``fn(*inputs, pstate,
-    generator(s), process_generators) -> (pred, maxsim, pstate')`` first
-    steps the channel, then serves through the evolved ``pstate.chan`` with
-    the cores of ``pstate.quarantine`` masked out of the top-1."""
+def _evolving(process, faults, serve_core):
+    """The serve a builder returns: ``serve_core`` itself, or its form that
+    first steps a living channel and/or a fault model,
+
+        fn(*inputs, state | pstate, generator(s)[, process_generators]
+           [, fstate, fault_generator]) -> (pred, maxsim[, pstate'][, fstate'])
+
+    The channel steps first, then the faults (one step for every slot),
+    then the serve runs through the evolved ``pstate.chan`` with the cores
+    of ``pstate.quarantine`` masked out of the top-1, and through the
+    evolved fault state."""
+    if process is None and faults is None:
+        return serve_core
+
     def fn(*args):
-        *inputs, pstate, generators, process_generators = args
-        pstate = process.step(process_generators, pstate)   # evolve, then serve
-        pred, maxsim = serve_core(*inputs, pstate.chan, generators, pstate.quarantine)
-        return pred, maxsim, pstate
+        fstate = qmask = None
+        if faults is not None:
+            *args, fstate, fault_generator = args
+        if process is not None:
+            *args, process_generators = args
+        *inputs, state, generators = args
+        evolved = ()
+        if process is not None:
+            pstate = process.step(process_generators, state)
+            state, qmask, evolved = pstate.chan, pstate.quarantine, (pstate,)
+        if faults is not None:
+            fstate = faults.step(fault_generator, fstate)
+            evolved += (fstate,)
+        return tuple(serve_core(*inputs, state, generators, qmask, fstate)) + evolved
 
     return fn
 
 
 def _check_mt_inputs(cfg: ScaleOutConfig, dev: torch.device, store, queries, rows,
-                     state, generators) -> None:
+                     state, generators, fstate) -> None:
     if store.dim() != 3 or queries.dim() != 5:
         raise ValueError(f"store {tuple(store.shape)} and queries {tuple(queries.shape)} must "
                          "be [T, C, d|W] and [N, B, 1, M, d|W]")
-    _check_inputs(cfg, dev, store[0], queries[0], state)
+    _check_inputs(cfg, dev, store[0], queries[0], state, fstate)
     _device.check_on(dev, rows=rows)
     n = queries.shape[0]
     if rows.dtype != torch.int32 or tuple(rows.shape) != (n,):
@@ -668,26 +764,36 @@ def make_mt_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "
     with one process step a serve step (every slot rides the one link) and
     the cores of ``pstate.quarantine`` masked out of the top-1.
 
+    ``faults`` threads one fault state for every slot, as in
+    `make_ota_serve` (one fault step a serve step, on ``fault_generator``):
+
+        fn(store, queries, rows, state, generators, fstate, fault_generator)
+          -> (pred, maxsim, fstate')
+        fn(store, queries, rows, pstate, generators, process_generators,
+           fstate, fault_generator) -> (pred, maxsim, pstate', fstate')
+
+    The stuck cells hit the whole T-tenant store (one crossbar per core:
+    every tenant's rows on it share the core's faults), as a masked copy
+    before the launch. Row s still equals a standalone fault-aware serve of
+    slot s under the same fault state.
+
     The sparse and ``"auto"`` representations raise ValueError, as in the
-    reference; ``faults`` raises NotImplementedError (fault injection is not
-    ported yet)."""
+    reference."""
     if cfg.representation in ("sparse", "auto"):
         raise ValueError(
             "the multi-tenant serve does not support the sparse "
             "representation (slot-batched bank indirection is a dense-store "
             "contract); use representation='packed'")
-    if faults is not None:
-        raise NotImplementedError("make_mt_ota_serve: faults= is not ported yet")
     dev = _device.resolve(device)
     chan = phy.get_channel(cfg.channel)
     _validate_channel(cfg, chan)
     _validate_coarse(cfg)
 
-    def serve_core(store, queries, rows, state, generators, qmask=None):
-        _check_mt_inputs(cfg, dev, store, queries, rows, state, generators)
-        return _serve_slots(cfg, chan, store, queries, rows, state, generators, qmask)
+    def serve_core(store, queries, rows, state, generators, qmask=None, fstate=None):
+        _check_mt_inputs(cfg, dev, store, queries, rows, state, generators, fstate)
+        return _serve_slots(cfg, chan, store, queries, rows, state, generators, qmask, fstate)
 
-    return serve_core if process is None else _with_process(process, serve_core)
+    return _evolving(process, faults, serve_core)
 
 
 def make_wired_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda"

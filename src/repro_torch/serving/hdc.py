@@ -21,11 +21,15 @@ of `repro_torch.serving.slotring` and `scheduler.SlotScheduler`:
 * `LinkController` and `AdaptiveHDCEngine`: a living channel served with a
   closed-loop controller at the barrier (EM re-fits, quarantine, fleet-mode
   switches between prebuilt serve variants).
+* `FaultController` and `FaultTolerantHDCEngine`: the adaptive engine
+  serving through a `faults.FaultState` as well; the controller promotes a
+  core quarantined for ``remap_after`` barriers to dead and re-deals its
+  bank (`faults.plan_failover`).
 
 Per-slot results equal a standalone `make_ota_serve` of that request
 against its tenant's codebook on a generator seeded alike, bit for bit (see
-`make_mt_ota_serve`). The fault-tolerant engine waits for the faults slice
-(ROADMAP §1, faults).
+`make_mt_ota_serve`); under faults, a standalone fault-aware serve under
+the same fault state.
 
 The multi-centroid bank (`multicentroid_bank`, `centroid_to_class`) turns a
 codebook into C*k_c class-major rows, served by a `ScaleOutConfig` with
@@ -40,7 +44,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch import device as _device, phy
+from repro_torch import device as _device, faults, phy
 from repro_torch.core import classifier, hypervector as hv
 from repro_torch.core.scaleout import ScaleOutConfig, make_mt_ota_serve
 from repro_torch.serving import slotring
@@ -343,18 +347,23 @@ class AdaptiveHDCEngine(HDCEngine):
                  controller: LinkControllerConfig | None = None,
                  device: str | torch.device | None = "cuda"):
         dev = _device.resolve(device)
-        controller = controller or LinkControllerConfig()
-        if controller.alt_collective is not None:      # unported collectives raise here
-            dataclasses.replace(cfg, collective=controller.alt_collective)
         self.process = process
         self.pstate = process.init(chan_state)
         self.process_generators = (phy.process_generators(0, dev) if process_generators is None
                                    else process_generators)
-        self.controller = LinkController(controller, self.pstate)
+        self.controller = self._make_controller(controller, self.pstate)
+        alt = self.controller.cfg.alt_collective
+        if alt is not None:                              # unported collectives raise here
+            dataclasses.replace(cfg, collective=alt)
         self._pending: phy.ProcessState | None = None
         super().__init__(cfg, chan_state, num_slots=num_slots, max_tenants=max_tenants,
                          device=dev)
         self._variants[(cfg.m_act, cfg.collective)] = self._serve
+
+    def _make_controller(self, controller: LinkControllerConfig | None,
+                         pstate: phy.ProcessState) -> LinkController:
+        """The controller (the fault-tolerant engine makes a `FaultController`)."""
+        return LinkController(controller or LinkControllerConfig(), pstate)
 
     def _build_serve(self, cfg: ScaleOutConfig):
         return make_mt_ota_serve(cfg, device=self.device, process=self.process)
@@ -398,6 +407,98 @@ class AdaptiveHDCEngine(HDCEngine):
                                         lambda: self._build_serve(live))
         self.controller.trace.append({"t": self.controller._t, "action": "link_mode",
                                       "m_active": live.m_act, "collective": live.collective})
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultControllerConfig(LinkControllerConfig):
+    """`LinkControllerConfig` plus the promotion from quarantine to failover:
+    ``remap_after`` consecutive barriers spent quarantined declare a core
+    dead in the `faults.FaultState` and fail its bank over onto healthy
+    cores. Promotion is one-way (a remapped bank is served elsewhere, so a
+    release would race the failover), hence ``remap_after`` sits above
+    ``release_after``."""
+
+    remap_after: int = 3
+
+
+class FaultController(LinkController):
+    """`LinkController` that escalates persistent quarantine to failover.
+    `promote` runs after the soft loop at each barrier and counts the
+    barriers each core has spent quarantined; at ``remap_after`` the core
+    joins ``dead_rx`` and `faults.plan_failover` re-deals the shard (the
+    same serve: ``serve_rows``/``rx_mask`` are inputs). Trace action:
+    ``"remap"``."""
+
+    def __init__(self, cfg: FaultControllerConfig, pstate: phy.ProcessState):
+        super().__init__(cfg, pstate)
+        self._q_barriers = np.zeros(self.band.shape[0], np.int32)
+
+    def promote(self, fstate: faults.FaultState, cores_per_shard: int) -> faults.FaultState:
+        """One barrier's promotion; returns the fault state the next step
+        serves under."""
+        self._q_barriers = np.where(self.quarantined, self._q_barriers + 1, 0).astype(np.int32)
+        dead = _host(fstate.dead_rx)
+        newly_dead = (self._q_barriers >= self.cfg.remap_after) & ~dead
+        if not newly_dead.any():
+            return fstate
+        fstate = faults.plan_failover(faults.inject(fstate, dead_rx=dead | newly_dead),
+                                      cores_per_shard)
+        self.trace.append({"t": self._t, "action": "remap",
+                           "rows": np.nonzero(newly_dead)[0].tolist()})
+        return fstate
+
+
+class FaultTolerantHDCEngine(AdaptiveHDCEngine):
+    """`AdaptiveHDCEngine` that also threads a live `faults.FaultState`.
+
+    The serve is the process and faults form of `make_mt_ota_serve`: each
+    step evolves the channel and the faults one tick (the fault model on
+    ``fault_generator``), serves every slot erasure-aware with dead cores'
+    banks failed over, and stages both evolved states. `on_barrier`
+    commits them, runs the inherited soft loop, then lets the
+    `FaultController` promote persistently quarantined cores. Fleet-mode
+    variants are fault serves too (`_build_serve`). With the healthy state
+    under `faults.StaticFaults` it serves as `AdaptiveHDCEngine` does, bit
+    for bit."""
+
+    def __init__(self, cfg: ScaleOutConfig, chan_state: phy.ChannelState, *, process,
+                 fault_model: faults.FaultModel, num_slots: int, max_tenants: int,
+                 process_generators: phy.ProcessGenerators | None = None,
+                 fault_generator: torch.Generator | None = None,
+                 fstate: faults.FaultState | None = None,
+                 controller: FaultControllerConfig | None = None,
+                 device: str | torch.device | None = "cuda"):
+        dev = _device.resolve(device)
+        self.fault_model = fault_model
+        self.fstate = faults.healthy_for(cfg, dev) if fstate is None else fstate
+        self.fault_generator = (torch.Generator(device=dev).manual_seed(1)
+                                if fault_generator is None else fault_generator)
+        self._pending_fstate: faults.FaultState | None = None
+        super().__init__(cfg, chan_state, process=process, num_slots=num_slots,
+                         max_tenants=max_tenants, process_generators=process_generators,
+                         controller=controller, device=dev)
+
+    def _make_controller(self, controller, pstate):
+        return FaultController(controller or FaultControllerConfig(), pstate)
+
+    def _build_serve(self, cfg: ScaleOutConfig):
+        return make_mt_ota_serve(cfg, device=self.device, process=self.process,
+                                 faults=self.fault_model)
+
+    def _serve_slots(self, params, state):
+        store, pstate = params
+        pred, maxsim, self._pending, self._pending_fstate = self._serve(
+            store, state["queries"], state["row"], pstate, state["generator"],
+            self.process_generators, self.fstate, self.fault_generator)
+        return pred, maxsim
+
+    def on_barrier(self):
+        """Commit both evolved states, run the soft loop, then promote (one
+        core shard on one GPU)."""
+        if self._pending_fstate is not None:
+            self.fstate, self._pending_fstate = self._pending_fstate, None
+        super().on_barrier()
+        self.fstate = self.controller.promote(self.fstate, self.cfg.n_rx_cores)
 
 
 class HDCScheduler(SlotScheduler):

@@ -23,6 +23,7 @@ import torch
 
 from repro import phy as jphy
 from repro_torch import convert, phy as tphy
+from repro_torch.faults import StaticFaults, healthy_for
 from repro_torch.core import classifier as tclf, hypervector as thv, scaleout as tscale
 
 CPU = "cpu"
@@ -299,7 +300,8 @@ def test_quarantine_excludes_the_core_classes(states, rep):
 def test_process_serve_steps_then_serves(states):
     """A drifting process serve: the state advances each call, and the call
     serves through the evolved channel (equal to the process-free serve on
-    the state the step produced)."""
+    the state the step produced); its fault-threading form on the healthy
+    fault state steps and answers alike."""
     _, tstate = states
     cfg = tscale.ScaleOutConfig(**SMALL, channel="symbol")
     protos, q = _serve_inputs(cfg)
@@ -318,8 +320,13 @@ def test_process_serve_steps_then_serves(states):
     with pytest.raises(ValueError, match="sparse"):
         tscale.make_ota_serve(tscale.ScaleOutConfig(**SMALL, representation="sparse",
                                                     k_max=64), device=CPU, process=proc)
-    with pytest.raises(NotImplementedError, match="faults"):
-        tscale.make_ota_serve(cfg, device=CPU, faults=object())
+    # with a fault model on the healthy state: the same step, the same answers
+    fserve = tscale.make_ota_serve(cfg, device=CPU, process=proc, faults=StaticFaults())
+    gens.set_state(saved)
+    fpred, fsim, f1, fstate = fserve(protos, q, p0, torch.Generator().manual_seed(6), gens,
+                                     healthy_for(cfg, CPU), None)
+    assert _same(f1, p1) and torch.equal(fpred, pred) and torch.equal(fsim, sim)
+    assert int(fstate.t) == 1
 
 
 def test_drift_sweep_closed_loop_recovers():

@@ -21,7 +21,7 @@ from repro import phy as jphy
 from repro.core import classifier as jclf, hypervector as jhv, scaleout as jscale
 from repro.serving import LinkController as JLinkController
 from repro.serving import LinkControllerConfig as JLinkControllerConfig
-from repro_torch import convert, phy as tphy
+from repro_torch import convert, faults as tfaults, phy as tphy
 from repro_torch.core import classifier as tclf, hypervector as thv, scaleout as tscale
 from repro_torch.launch import serve as launch_serve
 from repro_torch.serving import (AdaptiveHDCEngine, HDCEngine, HDCScheduler, LinkController,
@@ -220,12 +220,14 @@ def test_mt_serve_refusals(books):
                                      jscale.ScaleOutConfig(**BASE, representation=rep,
                                                            k_max=16))
     _, tcfg = _cfgs(representation="packed")
-    with pytest.raises(NotImplementedError, match="faults"):
-        tscale.make_mt_ota_serve(tcfg, device=CPU, faults=object())
-    serve = tscale.make_mt_ota_serve(tcfg, device=CPU)
     store = torch.zeros((2, 40, 16), dtype=torch.int32)
     q = torch.zeros((1, 8, 1, 3, 16), dtype=torch.int32)
     state = tphy.state_from_ber(torch.zeros(4), 3)
+    fserve = tscale.make_mt_ota_serve(tcfg, device=CPU, faults=tfaults.StaticFaults())
+    with pytest.raises(ValueError, match="fault state"):
+        fserve(store, q, torch.zeros(1, dtype=torch.int32), state, _gens(1),
+               tfaults.healthy_state(8, 3, 16, CPU), None)
+    serve = tscale.make_mt_ota_serve(tcfg, device=CPU)
     with pytest.raises(ValueError, match="rows"):
         serve(store, q, torch.zeros(1, dtype=torch.int64), state, _gens(1))
     with pytest.raises(ValueError, match="generators"):

@@ -145,18 +145,37 @@ fallback, and a missing GPU is a failure):
    13 (b)'s trace with those faults failed over: every completion == its
    standalone fault-aware serve, one search launch a step, trials/s and ms
    a step beside `AdaptiveHDCEngine`'s, then a short `WearoutFaults` run
-   (dead cores and hit rate per step, reported).
+   (dead cores and hit rate per step, reported);
+15. continuous LM serving (`ContinuousEngine` + `Scheduler`) at
+   TinyLlama-1.1B's published width and depth, weights from the seed: (a)
+   the reference serving bench's trace (24 requests of 16/32/64 tokens
+   shuffled by seed 0, 4 slots, 16 new, greedy, all queued at t = 0) in
+   bf16 beside static B = 1 generates: tokens/s of both and their ratio,
+   p50/p95 latency, decode steps, ms a step, token agreement (reported);
+   (b) the same trace in f32 with the attention projections at fan-in over
+   their contraction: every completion == its static generate token for
+   token (on a difference the static run's top-2 margin there is printed
+   first) and the first step's logits within 1e-3 of the static decode's;
+   (c) chunked admission in f32 (6 requests of 256/640/1024 tokens, 2
+   slots, chunks of 256 on the attention kernel's q_offset): every
+   completion == its static generate (one-shot prefill), the chunk
+   signatures exact, the 256-token prompts prefilled whole; then bf16 with
+   and without chunks: the longest host-clock gap between decode steps
+   while a 1024-token prompt admits. Every scheduler run launches
+   flash_attention_fwd 22 times a whole-prompt admission or chunk and
+   nothing else, none in a decode step.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
-7-13, each run between a reset and a read of the counters: the serves, the
+7-15, each run between a reset and a read of the counters: the serves, the
 48 Table I calls, the sparse trials and serves at d = 2^20, phase 10's
 serves, recall oracle and multi-centroid calls, phase 11's generates,
 phase 12's serves, trials and drift sweeps, and phase 13's slot-ring runs
-(its standalone comparison serves are not counted), and phase 14's chaos
+(its standalone comparison serves are not counted), phase 14's chaos
 serves, fault-aware serves and engine runs (the fault-free serves beside
 them, the vote-erasure comparisons, the timing calls and the standalone
-comparisons are not counted);
+comparisons are not counted), and phase 15's scheduler runs (the static
+comparison generates are not counted);
 the d = 8192 comparisons, the
 keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
 quarantine check are not counted), and as the last line {"ok": true, ...}.
@@ -168,8 +187,10 @@ serve, of the flat and coarse packed serves at 102,400 classes, of one
 multi-tenant step of phase 13's (a) baseline packed and unpacked and (b)
 bsc (the share of the tenant gather, bank_rows packed or store rows
 unpacked, and of the per-slot fan-out), of phase 14's bsc baseline
-serves at the paper's configuration, fault-free and fault-aware, and of the
-LM prefill (with
+serves at the paper's configuration, fault-free and fault-aware, of one
+continuous LM step at N = 4 beside one static decode step at B = 4 and of a
+1024-token prompt's whole prefill beside its four chunks of 256, and of
+the LM prefill (with
 the attention kernel's share of its device time) and decode step under
 torch.profiler (device busy time, idle share, top device ops per call), and
 writes every number of the run, unrounded, to the JSON file.
@@ -266,6 +287,23 @@ CHAOS_CURVE, CHAOS_STUCK = (0, 1, 2, 4, 8), (0.0, 0.01, 0.05, 0.1)
 CHAOS_ENGINE = dict(slots=4, requests=32)
 FAULTS_PAPER = dict(k_dead=8, stuck_density=0.01, coarse_group=10, coarse_keep=8)
 WEAROUT = dict(p_die=0.02, stuck_rate=1e-3)
+# phase 15, continuous LM serving at TinyLlama-1.1B's published width: (a)
+# and (b) the reference serving bench's trace (benchmarks/serving.py:29-31,
+# :39-44: 24 requests, prompt lengths 16/32/64 shuffled by seed 0, 4 slots,
+# 16 new tokens, greedy, all queued at t = 0); (c) chunked admission: 6
+# requests of 256, 640 and 1024 tokens (shuffled alike), 2 slots, chunks
+# of 256, the chunk signatures that mix must give, and the bound on the
+# first continuous step's f32 logits against the static decode's (phase
+# 11's bound on the f32 prefill logits)
+CONT_TRACE = dict(requests=24, lengths=(16, 32, 64), slots=4, max_new=16)
+CONT_CHUNKED = dict(requests=6, lengths=(256, 640, 1024), slots=2, max_new=16, chunk=256)
+CONT_CHUNK_SIGS = {(0, 256), (256, 256), (512, 128), (512, 256), (768, 256)}
+CONT_LOGIT_TOL = 1e-3
+# the attention kernel against its plain twin: f32 within atol = rtol of it
+# (phase 2's f32 tolerance: only the order of the sums differs); bf16 no
+# further off f64 than this many times the twin (phase 11's per-layer rule)
+FLASH_F32_TOL = 1e-5
+FLASH_BF16_VS_TWIN = 1.5
 # serve modes: (serve, PHY tier, permuted bundling, representation)
 MODES = ([("ota", ch, perm, rep) for ch, perm in (("bsc", False), ("bsc", True), ("ideal", False))
           for rep in ("unpacked", "packed")]
@@ -882,7 +920,7 @@ def flash_cases(torch, gen):
             def lib(qt=qt, kt=kt, vt=vt, mask=mask):
                 return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                       enable_gqa=True)
-        tol = 1e-5 if dt == torch.float32 else 2e-2
+        tol = FLASH_F32_TOL if dt == torch.float32 else 2e-2
         cases.append((
             "flash_attention_fwd",
             f"{label} B={b} Sq={sq} Skv={skv} H={h} KH={kh} D={d} causal={causal} "
@@ -1630,6 +1668,15 @@ def fan_in_over_contraction(params: dict, cfg) -> dict:
     return params
 
 
+def using(fn):
+    """The models' attention entry (`layers.flash_attention_fwd`) swapped
+    for ``fn``."""
+    from unittest import mock
+
+    from repro_torch.models import layers
+    return mock.patch.object(layers, "flash_attention_fwd", fn)
+
+
 def exact_attention(torch, q, k, v, causal=True, window=-1, q_offset=0, **_):
     """Softmax attention in f64: the yardstick of the per-layer check."""
     b, sq, h, d = q.shape
@@ -1704,12 +1751,11 @@ def phase_lm(torch, launches: dict, profile: bool = False) -> dict:
     at the projection shapes is the same with PyTorch's reduced-precision
     reduction flag on and off (`bf16_reduction_check`)."""
     import dataclasses
-    from unittest import mock
 
     from repro_torch import configs
     from repro_torch import kernels as tk
     from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
-    from repro_torch.models import count_params, get_model, init_params, layers
+    from repro_torch.models import count_params, get_model, init_params
     from repro_torch.serving import Engine, ServeConfig
 
     dev = "cuda"
@@ -1733,10 +1779,6 @@ def phase_lm(torch, launches: dict, profile: bool = False) -> dict:
         def cast(t):
             return {k: cast(v) for k, v in t.items()} if isinstance(t, dict) else t.bfloat16()
         return {torch.float32: p32, torch.bfloat16: cast(p32)}
-
-    def using(fn):
-        """The attention entry of the model swapped for `fn`."""
-        return mock.patch.object(layers, "flash_attention_fwd", fn)
 
     def reblocked(q, k, v, **kw):
         return flash_fwd_ref(q, k, v, **dict(kw, block_q=128, block_k=256))
@@ -1829,7 +1871,8 @@ def phase_lm(torch, launches: dict, profile: bool = False) -> dict:
                 tk.flash_attention_fwd(q, k, v, **kw), flash_fwd_ref(q, k, v, **kw))))
         del seen
         name = str(dt).split(".")[-1]
-        require(len(rows) == cfg.n_layers and all(a <= 1.5 * t for a, t in rows),
+        require(len(rows) == cfg.n_layers and all(a <= FLASH_BF16_VS_TWIN * t
+                                                   for a, t in rows),
                 f"lm {name}: a layer's attention off f64 by more than 1.5x the twin's: {rows}")
         layer_err[name] = rows
     lg_k, tk_k = end_to_end(torch.float32, ref[torch.float32], tk.flash_attention_fwd)
@@ -2964,6 +3007,433 @@ def phase_faults(torch, state, launches, profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: continuous LM serving
+# ---------------------------------------------------------------------------
+
+def cont_trace(cfg, spec: dict, seed: int = SEED) -> list:
+    """The reference serving bench's request mix (benchmarks/serving.py:39-44):
+    the lengths cycled over the requests and shuffled, then each prompt drawn
+    from the same numpy generator. Returns the prompts [S] int32 on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lens = [int(spec["lengths"][i % len(spec["lengths"])]) for i in range(spec["requests"])]
+    rng.shuffle(lens)
+    return [torch.as_tensor(rng.integers(0, cfg.vocab, (n,)), dtype=torch.int32, device="cuda")
+            for n in lens]
+
+
+def cont_static(torch, model, params, prompts, max_new: int, warm: bool = True) -> dict:
+    """One static B = 1 `Engine.generate` a request, in order, each result
+    brought to the host (what the continuous run is held to), after one warm
+    generate a prompt length when timed (``warm``): tokens, latencies
+    (queueing included), wall."""
+    from repro_torch.serving import Engine, ServeConfig
+
+    eng = Engine(model, ServeConfig(max_new=max_new))
+    for n in sorted({p.shape[0] for p in prompts}) if warm else ():
+        eng.generate(params, {"tokens": next(p for p in prompts if p.shape[0] == n)[None]})
+    torch.cuda.synchronize()
+    toks, lat = [], []
+    t0 = time.perf_counter()
+    for p in prompts:
+        toks.append(eng.generate(params, {"tokens": p[None]})[0].tolist())
+        lat.append(time.perf_counter() - t0)
+    return dict(tokens=toks, lat=lat, wall=time.perf_counter() - t0)
+
+
+def cont_serve(torch, model, params, prompts, slots: int, max_new: int, chunk=None,
+               watch: int | None = None, what: str = "cont") -> dict:
+    """The requests through `Scheduler` + `ContinuousEngine`, all queued at
+    t = 0, after a warm-up that serves one request of each prompt length;
+    the launch counters set to 0 just before and read just after. Gates
+    `flash_attention_fwd` as the only kernel, with 22 launches (one a layer)
+    for each whole-prompt admission and each prefill chunk, none in a
+    decode step. The kernel's inputs at each call signature of the counted
+    run are kept and, after it, the kernel is held against its plain twin
+    on them (`attention_checks`). Returns the completions in request order,
+    wall, steps, the longest host-clock gap between two successive decode
+    steps, and of those the longest in which a prompt of length ``watch``
+    was admitting, both also over the gaps a request decoded across (the
+    wait between two of its tokens), the counts, those checks, the engine's
+    signature sets and the first step's logits."""
+    from repro_torch import kernels as tk
+    from repro_torch.serving import ContinuousEngine, Scheduler, ServeConfig
+
+    lens = [int(p.shape[0]) for p in prompts]
+    eng = ContinuousEngine(model, ServeConfig(max_new=max_new), num_slots=slots,
+                           max_prompt_len=max(lens), prefill_chunk=chunk)
+    warm = Scheduler(eng, params)
+    for n in sorted(set(lens)):
+        warm.submit(torch.zeros((n,), dtype=torch.int32), max_new=min(2, max_new))
+    warm.run(timeout=600)
+    eng._prefill_sigs.clear()
+    eng._chunk_sigs.clear()
+    first = []
+    sample = eng._sample_slots
+
+    def keep_first(logits, generators):
+        if not first:
+            first.append(logits.clone())
+        return sample(logits, generators)
+
+    eng._sample_slots = keep_first
+    seen = {}
+
+    def record(q, k, v, **kw):
+        """The kernel; its inputs kept at each new call signature (the
+        first layer's), for the check after the run."""
+        sig = (tuple(q.shape), tuple(k.shape), kw.get("q_offset", 0))
+        if sig not in seen:
+            seen[sig] = (q.clone(), k.clone(), v.clone(), kw)
+        return tk.flash_attention_fwd(q, k, v, **kw)
+
+    sched = Scheduler(eng, params, clock=time.perf_counter)
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [sched.submit(p) for p in prompts]
+    last, gaps, touched, first_slots = None, [], set(), None
+    with using(record):
+        while sched.pending or sched.active:
+            running = {rec[0].rid for rec in sched.running.values()}
+            touched |= {req.rid for req, _ in sched.admitting.values()}
+            n = sched.steps
+            sched.step()
+            touched |= {req.rid for req, _ in sched.admitting.values()}
+            touched |= {rec[0].rid for rec in sched.running.values()} - running
+            if sched.steps == n:
+                continue
+            now = time.perf_counter()
+            if last is not None:     # (gap, a `watch` prompt admitting, someone decoding across)
+                gaps.append((now - last,
+                             watch is not None and any(lens[r] == watch for r in touched),
+                             bool(running)))
+            last = now
+            if first_slots is None:
+                first_slots = {slot: rec[0].rid for slot, rec in sched.running.items()}
+            touched = set()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    admissions = sum(-(-n // chunk) if chunk and n > chunk else 1 for n in lens)
+    want = model.cfg.n_layers * admissions
+    require(counts["flash_attention_fwd"] == want and
+            all(v == 0 for k, v in counts.items() if k != "flash_attention_fwd"),
+            f"{what}: launches {counts}, expected {want} flash_attention_fwd "
+            f"({model.cfg.n_layers} a whole-prompt admission or chunk, {admissions} of them, "
+            f"none in {sched.steps} decode steps) and nothing else")
+    checks = attention_checks(torch, seen, what)
+
+    def longest(keep):
+        sel = [g for g, hit, dec in gaps if keep(hit, dec)]
+        return max(sel) * 1e3 if sel else None
+    done = [sched.results[r] for r in rids]
+    n_tok = sum(len(c.tokens) for c in done)
+    return dict(done=done, wall=wall, steps=sched.steps, tokens=n_tok, counts=counts,
+                checks=checks, admissions=admissions, first_logits=first[0],
+                first_slots=first_slots,
+                prefill_sigs=set(eng._prefill_sigs), chunk_sigs=set(eng._chunk_sigs),
+                max_gap_ms=longest(lambda hit, dec: True),
+                watch_gap_ms=longest(lambda hit, dec: hit),
+                watch_token_gap_ms=longest(lambda hit, dec: hit and dec),
+                capacity=eng.capacity)
+
+
+def attention_checks(torch, seen: dict, what: str) -> list:
+    """The attention kernel against its plain twin on the inputs a counted
+    serve gave it, one call a signature (B, Sq, Skv, q_offset): in f32
+    within FLASH_F32_TOL of the twin, in bf16 no further off f64 than
+    FLASH_BF16_VS_TWIN times the twin (the twin rounds P to bf16 at its own
+    blocking, so the two may round apart by more than phase 2's random
+    inputs show). These launches come after the counts are read."""
+    from repro_torch import kernels as tk
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+
+    rows = []
+    for (qs, ks, off), (q, k, v, kw) in sorted(seen.items()):
+        got, want = tk.flash_attention_fwd(q, k, v, **kw), flash_fwd_ref(q, k, v, **kw)
+        dt = str(q.dtype).split(".")[-1]
+        row = dict(shape=f"B={qs[0]} Sq={qs[1]} Skv={ks[1]} H={qs[2]} KH={ks[2]} D={qs[3]} "
+                         f"q_offset={off} {dt}",
+                   max_abs_err=float((got.double() - want.double()).abs().max()))
+        if q.dtype == torch.float32:
+            ok = torch.allclose(got, want, atol=FLASH_F32_TOL, rtol=FLASH_F32_TOL)
+        else:
+            exact = exact_attention(torch, q, k, v, **kw)
+            row["kernel_vs_f64"], row["twin_vs_f64"] = (
+                float((x.double() - exact).abs().max()) for x in (got, want))
+            ok = row["kernel_vs_f64"] <= FLASH_BF16_VS_TWIN * row["twin_vs_f64"]
+        require(ok, f"{what}: flash_attention_fwd [{row['shape']}] off its plain twin: {row}")
+        rows.append(row)
+    return rows
+
+
+def static_margin(torch, model, params, prompt, max_new: int, j: int) -> float:
+    """The static B = 1 run's top-2 logit margin at the logits that chose
+    its token ``j`` (prefill for j = 0, decode step j - 1 after)."""
+    n = prompt.shape[0]
+    logits, cache = model.prefill_fn(params, {"tokens": prompt[None]}, pad_to=n + max_new + 1)
+    for i in range(j):
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        logits, cache = model.decode_fn(params, cache, tok, n + i)
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def cont_identity(torch, model, params, prompts, run, static, max_new: int, what: str) -> None:
+    """Every completion == its static B = 1 generate (run on the attention
+    kernel's plain twin), token for token; on a difference, print where and
+    the static run's top-2 margin there first."""
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+
+    bad = [i for i, (c, s) in enumerate(zip(run["done"], static)) if c.tokens != s]
+    if bad:
+        i = bad[0]
+        got, want = run["done"][i].tokens, static[i]
+        j = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+        with using(flash_fwd_ref):
+            margin = static_margin(torch, model, params, prompts[i], max_new, j)
+        print(f"{what}: request {i} (prompt {prompts[i].shape[0]}) first differs at token {j} "
+              f"(continuous {got[j]}, static {want[j]}); the static run's top-2 logit margin "
+              f"there {margin:.6g}", flush=True)
+    require(not bad, f"{what}: {len(bad)} of {len(static)} completions differ from their "
+                     f"static B = 1 generate (requests {bad[:8]})")
+
+
+def first_step_error(torch, model, params, prompts, run, max_new: int) -> float:
+    """max |logits| difference between the first continuous step's rows and
+    each slot's static B = 1 decode at the same position."""
+    err = 0.0
+    for slot, rid in run["first_slots"].items():
+        p = prompts[rid]
+        n = p.shape[0]
+        logits, cache = model.prefill_fn(params, {"tokens": p[None]}, pad_to=n + max_new + 1)
+        step, _ = model.decode_fn(params, cache, torch.argmax(logits, -1).to(torch.int32), n)
+        err = max(err, float((run["first_logits"][slot] - step[0]).abs().max()))
+    return err
+
+
+def cont_row(run: dict, static: dict | None = None) -> dict:
+    row = dict(steps=run["steps"], tokens=run["tokens"], wall_s=run["wall"],
+               tok_per_s=run["tokens"] / run["wall"], ms_per_step=run["wall"] / run["steps"] * 1e3,
+               max_gap_ms=run["max_gap_ms"], watch_gap_ms=run["watch_gap_ms"],
+               watch_token_gap_ms=run["watch_token_gap_ms"],
+               launches=run["counts"]["flash_attention_fwd"], admissions=run["admissions"],
+               **latency_pcts([c.latency for c in run["done"]]))
+    if static is not None:
+        row["static"] = dict(wall_s=static["wall"], tok_per_s=run["tokens"] / static["wall"],
+                             **latency_pcts(static["lat"]))
+        row["ratio"] = row["tok_per_s"] / row["static"]["tok_per_s"]
+        row["token_agreement"] = sum(
+            a == b for c, s in zip(run["done"], static["tokens"]) for a, b in zip(c.tokens, s)
+        ) / run["tokens"]
+    return row
+
+
+def phase_continuous(torch, launches: dict, profile: bool = False) -> dict:
+    """Phase 15: continuous LM serving (`ContinuousEngine` + `Scheduler`) at
+    TinyLlama-1.1B's published width and depth, weights drawn from the seed.
+
+    (a) the reference serving bench's trace (`CONT_TRACE`) in bf16, on the
+    seed's draw as the launcher takes it, beside static B = 1 generates:
+    tokens/s of both and their ratio, p50/p95 latency, decode steps, ms a
+    step; token agreement reported, not gated (cuBLAS at M = 4 and at M = 1
+    may round bf16 differently). (b) the same trace in f32 with the
+    attention projections at fan-in over their contraction: every
+    completion == its static B = 1 generate, and the first step's logits
+    within CONT_LOGIT_TOL of the static decode's. (c) chunked admission
+    (`CONT_CHUNKED`) in f32: every completion == its static generate (one-shot
+    prefill), the chunk signatures exactly CONT_CHUNK_SIGS and only the
+    256-token prompts prefilled whole; then in bf16 with and without
+    chunking, the longest host-clock gap between decode steps while a
+    1024-token prompt admits. The static runs that (b) and (c) are held to
+    run the attention kernel's plain twin, so those gates hold the kernel
+    against it end to end. Every run through the scheduler is counted: 22
+    attention launches a whole-prompt admission or chunk, none in a decode
+    step, no other kernel; and the kernel is held against its twin on its
+    inputs at every call signature of every counted run, bf16 and f32
+    (`attention_checks`)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    from repro_torch.models import get_model, init_params
+
+    dev = "cuda"
+    cfg = configs.get_config(LM["arch"])
+    bf, f32 = (get_model(dataclasses.replace(cfg, dtype=dt))
+               for dt in (torch.bfloat16, torch.float32))
+    p32 = init_params(f32.specs, torch.Generator(device=dev).manual_seed(SEED), dev)
+
+    def cast(t):
+        return {k: cast(v) for k, v in t.items()} if isinstance(t, dict) else t.bfloat16()
+
+    pbf = cast(p32)                         # the seed's draw in bf16 (phase 11's main path)
+    fan_in_over_contraction(p32, cfg)       # f32, conditioned as in phase 11's gates
+    out = {}
+
+    # (a) the bench's trace in bf16
+    a = CONT_TRACE
+    prompts = cont_trace(cfg, a)
+    static = cont_static(torch, bf, pbf, prompts, a["max_new"])
+    run = cont_serve(torch, bf, pbf, prompts, a["slots"], a["max_new"], what="cont (a) bf16")
+    add_launches(launches, run["counts"])
+    checks = list(run["checks"])
+    out["a_bf16"] = row = cont_row(run, static)
+    st = row["static"]
+    print(f"cont (a) bf16 trace: {a['requests']} requests x {a['max_new']} new, lens "
+          f"{sorted(a['lengths'])}, {a['slots']} slots, all queued at t = 0: continuous "
+          f"{row['tok_per_s']:.1f} tok/s ({row['steps']} decode steps, {row['ms_per_step']:.3f} "
+          f"ms/step, p50 {row['p50_ms']:.1f} ms, p95 {row['p95_ms']:.1f} ms), static B = 1 "
+          f"{st['tok_per_s']:.1f} tok/s (p50 {st['p50_ms']:.1f} ms, p95 {st['p95_ms']:.1f} ms), "
+          f"ratio {row['ratio']:.3f}; tokens agree with static {row['token_agreement']:.4f} (not "
+          f"gated); {row['launches']} attention launches for {row['admissions']} admissions",
+          flush=True)
+
+    # (b) the same trace in f32, conditioned: token for token, first-step logits
+    with using(flash_fwd_ref):
+        static32 = cont_static(torch, f32, p32, prompts, a["max_new"], warm=False)
+    run = cont_serve(torch, f32, p32, prompts, a["slots"], a["max_new"], what="cont (b) f32")
+    add_launches(launches, run["counts"])
+    checks += run["checks"]
+    cont_identity(torch, f32, p32, prompts, run, static32["tokens"], a["max_new"], "cont (b) f32")
+    with using(flash_fwd_ref):
+        err = first_step_error(torch, f32, p32, prompts, run, a["max_new"])
+    require(err <= CONT_LOGIT_TOL, f"cont (b) f32: first step's logits off the static decode's "
+                                   f"by {err} > {CONT_LOGIT_TOL}")
+    out["b_f32"] = row = dict(cont_row(run), first_step_logit_err=err)
+    print(f"cont (b) f32 trace: {a['requests']} of {a['requests']} completions == their static "
+          f"B = 1 generate token for token; first step's logits vs the static decode max |diff| "
+          f"{err:.3g} (bound {CONT_LOGIT_TOL}); continuous {row['tok_per_s']:.1f} tok/s "
+          f"({row['ms_per_step']:.3f} ms/step)", flush=True)
+
+    # (c) chunked admission in f32, then the stall in bf16 with and without chunks
+    c = CONT_CHUNKED
+    prompts = cont_trace(cfg, c)
+    with using(flash_fwd_ref):
+        static32 = cont_static(torch, f32, p32, prompts, c["max_new"], warm=False)
+    run = cont_serve(torch, f32, p32, prompts, c["slots"], c["max_new"], chunk=c["chunk"],
+                     what="cont (c) f32 chunked")
+    add_launches(launches, run["counts"])
+    checks += run["checks"]
+    cont_identity(torch, f32, p32, prompts, run, static32["tokens"], c["max_new"],
+                  "cont (c) f32 chunked")
+    whole = {sig[0][1][1] for sig in run["prefill_sigs"]}
+    require(run["chunk_sigs"] == CONT_CHUNK_SIGS,
+            f"cont (c): chunk signatures {sorted(run['chunk_sigs'])}, expected "
+            f"{sorted(CONT_CHUNK_SIGS)}")
+    require(whole == {c["chunk"]}, f"cont (c): whole prefills at lengths {whole}, expected "
+                                   f"only {c['chunk']}")
+    out["c_f32"] = cont_row(run)
+    print(f"cont (c) f32 chunked: {c['requests']} requests (lens {sorted(c['lengths'])}, chunk "
+          f"{c['chunk']}, {c['slots']} slots, capacity {run['capacity']}): every completion == "
+          f"its static B = 1 generate (one-shot prefill); chunks {sorted(run['chunk_sigs'])}; "
+          f"whole prefills only at {sorted(whole)}; {run['counts']['flash_attention_fwd']} "
+          f"attention launches for {run['admissions']} admissions and chunks", flush=True)
+    del static32, run
+    stall = {}
+    for label, chunk in (("whole", None), ("chunked", c["chunk"])):
+        run = cont_serve(torch, bf, pbf, prompts, c["slots"], c["max_new"], chunk=chunk,
+                         watch=max(c["lengths"]), what=f"cont (c) bf16 {label}")
+        add_launches(launches, run["counts"])
+        checks += run["checks"]
+        stall[label] = cont_row(run)
+        stall[label]["tokens_list"] = [d.tokens for d in run["done"]]
+    agree = sum(x == y for s, t in zip(stall["whole"]["tokens_list"],
+                                       stall["chunked"]["tokens_list"]) for x, y in zip(s, t))
+    for r in stall.values():
+        del r["tokens_list"]
+    out["c_bf16"] = dict(stall, token_agreement=agree / stall["whole"]["tokens"])
+    require(stall["whole"]["watch_gap_ms"] is not None and stall["chunked"]["watch_gap_ms"]
+            is not None, "cont (c) bf16: no decode step ran while a 1024-token prompt admitted")
+    w, ch = stall["whole"], stall["chunked"]
+
+    def ms(x):
+        return "none (no request decoding)" if x is None else f"{x:.3f} ms"
+
+    print(f"cont (c) bf16 stall, while a {max(c['lengths'])}-token prompt admits: longest gap "
+          f"between successive decode steps whole prefill {w['watch_gap_ms']:.3f} ms, chunks of "
+          f"{c['chunk']} {ch['watch_gap_ms']:.3f} ms; longest wait between a decoding request's "
+          f"tokens whole {ms(w['watch_token_gap_ms'])}, chunked {ms(ch['watch_token_gap_ms'])} "
+          f"(longest gap overall {w['max_gap_ms']:.3f} / {ch['max_gap_ms']:.3f} ms; ms/step "
+          f"{w['ms_per_step']:.3f} / {ch['ms_per_step']:.3f}; tok/s {w['tok_per_s']:.1f} / "
+          f"{ch['tok_per_s']:.1f}; p95 {w['p95_ms']:.1f} / {ch['p95_ms']:.1f} ms); chunked vs "
+          f"whole tokens agree {out['c_bf16']['token_agreement']:.4f} (not gated)", flush=True)
+
+    out["attention_checks"] = checks
+    f32_rows = [r for r in checks if "kernel_vs_f64" not in r]
+    bf_rows = [r for r in checks if "kernel_vs_f64" in r]
+    print(f"cont kernel checks: flash_attention_fwd vs its plain twin at every call signature "
+          f"of the counted runs, {len(checks)} signatures "
+          f"({', '.join(r['shape'] for r in checks)}): f32 within atol = rtol = {FLASH_F32_TOL} "
+          f"(max |err| {max(r['max_abs_err'] for r in f32_rows):.3g}); bf16 vs f64 no further "
+          f"off than {FLASH_BF16_VS_TWIN}x the twin (worst ratio "
+          f"{max(r['kernel_vs_f64'] / r['twin_vs_f64'] for r in bf_rows):.3f}, max |kernel - "
+          f"twin| {max(r['max_abs_err'] for r in bf_rows):.3g})", flush=True)
+    if profile:
+        out.update(cont_profile(torch, bf, pbf, cont_trace(cfg, CONT_TRACE), prompts))
+    print(f"cont checks: (b) and (c) every f32 completion == its static B = 1 generate on "
+          f"the kernel's plain twin, first step's logits within the bound, the chunk "
+          f"signatures exact, flash_attention_fwd the only kernel: {cfg.n_layers} launches a "
+          f"whole-prompt admission or chunk, none in a decode step; the kernel within its "
+          f"twin's bounds at every call signature", flush=True)
+    return out
+
+
+def cont_profile(torch, model, params, trace, chunked) -> dict:
+    """``--profile``: one continuous step at N = 4 (every slot decoding)
+    beside one static decode step at B = 4, both bf16 at trace (a)'s longest
+    prompt; and a 1024-token prompt of trace (c) prefilled whole beside the
+    same prompt's four chunks of 256 (each call from a fresh cache)."""
+    from repro_torch.serving import ContinuousEngine, ServeConfig
+
+    a, c = CONT_TRACE, CONT_CHUNKED
+    n, new = a["slots"], a["max_new"]
+    longest = [p for p in trace if p.shape[0] == max(a["lengths"])][:n]
+    eng = ContinuousEngine(model, ServeConfig(max_new=new), num_slots=n,
+                           max_prompt_len=max(a["lengths"]))
+    holder = dict(state=eng.init_state())
+    for slot, p in enumerate(longest):
+        holder["state"], _ = eng.prefill_into_slot(params, holder["state"], {"tokens": p[None]},
+                                                   slot)
+
+    def cont_step():
+        holder["state"], _ = eng.step(params, holder["state"])
+
+    s = longest[0].shape[0]
+    logits, cache = model.prefill_fn(params, {"tokens": torch.stack(longest)}, pad_to=s + new + 1)
+    st = dict(cache=cache, tok=torch.argmax(logits, -1).to(torch.int32), pos=s)
+
+    def static_step():
+        step, st["cache"] = model.decode_fn(params, st["cache"], st["tok"], st["pos"])
+        st["tok"] = torch.argmax(step, -1).to(torch.int32)
+        st["pos"] += 1
+
+    batch = {"tokens": next(p for p in chunked if p.shape[0] == max(c["lengths"]))[None]}
+    ceng = ContinuousEngine(model, ServeConfig(max_new=c["max_new"]), num_slots=1,
+                            max_prompt_len=max(c["lengths"]), prefill_chunk=c["chunk"])
+
+    def whole():
+        model.prefill_fn(params, batch, pad_to=ceng.capacity)
+
+    def chunks():
+        job = ceng.begin_chunked_prefill(params, batch)
+        while not job.done:
+            job = ceng.advance_chunked_prefill(params, job)
+
+    return {"profile continuous step": profile_calls(
+                torch, f"cont step N={n} bf16", [cont_step] * 8),
+            "profile static step": profile_calls(
+                torch, f"static decode step B={n} bf16", [static_step] * 8),
+            "profile whole prefill": profile_calls(
+                torch, f"cont whole prefill {max(c['lengths'])} bf16", [whole] * 4),
+            "profile chunked prefill": profile_calls(
+                torch, f"cont {max(c['lengths'])} in chunks of {c['chunk']} bf16",
+                [chunks] * 4)}
+
 def phase_profile(torch, state, protos_u, base) -> dict:
     """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
@@ -3070,6 +3540,8 @@ def main(argv: list[str]) -> int:
                                                            profile=args.profile))
     fault = phase("14 fault tolerance", lambda: phase_faults(torch, state, launches,
                                                              profile=args.profile))
+    cont = phase("15 continuous LM serving", lambda: phase_continuous(
+        torch, launches, profile=args.profile))
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
 
@@ -3095,7 +3567,7 @@ def main(argv: list[str]) -> int:
             ber=dict(avg=avg, max=mx, ms=pre_ms), kernels=kernels, serves=serves["runs"],
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
-            faults=fault,
+            faults=fault, cont=cont,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

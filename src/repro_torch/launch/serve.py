@@ -1,5 +1,6 @@
-"""Serving launcher: static one-shot generation of a dense decoder, or the
-multi-tenant HDC service replaying a Poisson request trace.
+"""Serving launcher: static one-shot generation of a dense decoder,
+continuous batching replaying a Poisson request trace, or the multi-tenant
+HDC service replaying one.
 
   # on the GPU, TinyLlama-1.1B at its published width, weights from the seed
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -9,15 +10,19 @@ multi-tenant HDC service replaying a Poisson request trace.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --smoke --device cpu
 
+  # continuous batching: a seeded Poisson trace of mixed prompt lengths
+  # through the scheduler (step-granular admission and eviction)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --stream --requests 32 --rate 8 --slots 4 --max-new 16
+
   # the multi-tenant HDC service: tenant-tagged Poisson arrivals through
   # the slot ring, one multi-tenant OTA serve a step (add --device cpu to
   # run it on the CPU)
   PYTHONPATH=src python -m repro_torch.launch.serve --hdc --requests 48 \
       --rate 800 --slots 8 --tenants 4
 
-The weights and the tenants' codebooks are drawn from ``--seed`` (no
-download), as the reference's launcher draws them. Continuous LM batching
-(``--stream``) waits for ROADMAP §1, serving.
+The weights, the trace and the tenants' codebooks are drawn from ``--seed``
+(no download), as the reference's launcher draws them.
 """
 from __future__ import annotations
 
@@ -62,6 +67,61 @@ def run_static(args, cfg, model, params, dev: torch.device) -> torch.Tensor:
           f"warm {secs[1]:.3f} s ({args.batch * args.max_new / secs[1]:.1f} tok/s)")
     print("sample:", toks[0][:12].tolist())
     return toks
+
+
+def run_stream(args, cfg, model, params, dev: torch.device) -> dict:
+    """Continuous batching: a seeded Poisson trace of mixed prompt lengths
+    through `Scheduler` + `ContinuousEngine`. A warm-up admits one request
+    of each length; then the trace is replayed in real time and the
+    tokens/s, decode steps and request latencies (queueing included) are
+    printed."""
+    from repro_torch.serving import ContinuousEngine, Scheduler, ServeConfig
+
+    if args.prompt_lens:
+        lengths = tuple(int(x) for x in args.prompt_lens.split(","))
+    else:
+        lengths = tuple(sorted({max(4, args.prompt_len // 2), args.prompt_len,
+                                args.prompt_len * 2}))
+    rng = np.random.default_rng(args.seed)
+    req_lens = rng.choice(lengths, size=args.requests)
+    arrivals = np.cumsum(rng.exponential(1.0 / args.rate, size=args.requests))
+    prompts = [torch.as_tensor(rng.integers(0, cfg.vocab, (int(n),)), dtype=torch.int32,
+                               device=dev) for n in req_lens]
+    eng = ContinuousEngine(model, ServeConfig(max_new=args.max_new,
+                                              temperature=args.temperature),
+                           num_slots=args.slots, max_prompt_len=max(lengths), device=dev)
+
+    t0 = time.perf_counter()
+    warm = Scheduler(eng, params)
+    for n in lengths:
+        warm.submit(torch.zeros((n,), dtype=torch.int32), max_new=min(2, args.max_new))
+    warm.run(timeout=600)
+    print(f"warm-up: {len(eng._prefill_sigs)} prompt lengths admitted and stepped in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    sched = Scheduler(eng, params)
+    t0 = time.monotonic()
+    nxt = 0
+    while len(sched.results) < args.requests:
+        now = time.monotonic() - t0
+        while nxt < args.requests and arrivals[nxt] <= now:
+            sched.submit(prompts[nxt])
+            nxt += 1
+        if sched.pending or sched.active:
+            sched.step()
+        elif nxt < args.requests:
+            time.sleep(min(arrivals[nxt] - now, 0.01))
+    wall = time.monotonic() - t0
+
+    done = list(sched.results.values())
+    n_tok = sum(len(c.tokens) for c in done)
+    lat = np.asarray([c.latency for c in done])
+    print(f"{args.requests} requests (lens {lengths}, rate {args.rate}/s, {args.slots} slots) "
+          f"on {dev}: {wall:.3f} s wall, {n_tok} tokens, {n_tok / wall:.1f} tok/s, "
+          f"{sched.steps} decode steps")
+    print(f"request latency p50 {np.percentile(lat, 50) * 1e3:.3f} ms  "
+          f"p95 {np.percentile(lat, 95) * 1e3:.3f} ms  max {lat.max() * 1e3:.3f} ms")
+    return sched.results
 
 
 def run_hdc_stream(args, dev: torch.device) -> dict:
@@ -123,7 +183,7 @@ def run_hdc_stream(args, dev: torch.device) -> dict:
     return sched.results
 
 
-def main(argv: list[str] | None = None) -> torch.Tensor | dict | None:
+def main(argv: list[str] | None = None) -> torch.Tensor | dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", help="LM architecture (dense decoders)")
     ap.add_argument("--smoke", action="store_true", help="the reduced f32 config")
@@ -134,12 +194,16 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict | None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
-    ap.add_argument("--stream", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--stream", action="store_true",
+                    help="continuous batching: replay a Poisson request trace")
     ap.add_argument("--hdc", action="store_true",
                     help="multi-tenant HDC serving over the OTA wire path")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--rate", type=float, default=8.0, help="arrivals per second")
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-lens", default="",
+                    help="comma-separated prompt-length buckets (default: derived "
+                         "from --prompt-len)")
     ap.add_argument("--tenants", type=int, default=4)
     ap.add_argument("--hdc-batch", type=int, default=4, help="(--hdc) trials per request")
     ap.add_argument("--classes", type=int, default=128)
@@ -148,9 +212,6 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict | None:
                     help="(--hdc) elementwise representation instead of packed")
     args = ap.parse_args(argv)
 
-    if args.stream:
-        raise SystemExit("--stream is not ported yet: the continuous LM engine waits for "
-                         "ROADMAP §1, serving")
     if args.hdc:
         return run_hdc_stream(args, _device.resolve(args.device))
     if not args.arch:
@@ -163,6 +224,8 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict | None:
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
     model = get_model(cfg)
     params = init_params(model.specs, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    if args.stream:
+        return run_stream(args, cfg, model, params, dev)
     return run_static(args, cfg, model, params, dev)
 
 

@@ -95,14 +95,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     slot_pos: torch.Tensor, cur_pos: int, *,
+                     slot_pos: torch.Tensor, cur_pos: int | torch.Tensor, *,
                      window: int = -1) -> torch.Tensor:
     """Single-token attention over a (ring) KV cache.
 
-    q [B, 1, H, D]; caches [B, Sc, KH, D]; slot_pos [Sc] = absolute position
-    held by each cache slot (-1 = empty); cur_pos = the current decode
-    position. Scores and softmax in f32; P cast to the cache's dtype for the
-    P.V product, as in the reference. The query heads of one kv head are
+    q [B, 1, H, D]; caches [B, Sc, KH, D]; slot_pos [Sc] (one for the whole
+    batch) or [B, Sc] (one a row) = absolute position held by each cache
+    slot (-1 = empty); cur_pos = the current decode position, an int or an
+    int32 tensor [B] (one a row, as the continuous engine's slots decode).
+    Scores and softmax in f32; P cast to the cache's dtype for the P.V
+    product, as in the reference. The query heads of one kv head are
     grouped instead of expanding the cache."""
     b, _, h, d = q.shape
     kh = k_cache.shape[2]
@@ -110,9 +112,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     scale = 1.0 / math.sqrt(d)
     qg = q.reshape(b, kh, g, d).float()                               # [B, KH, G, D]
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale  # [B, KH, G, Sc]
-    ok = (slot_pos >= 0) & (slot_pos <= cur_pos)
+    cur = cur_pos[:, None] if isinstance(cur_pos, torch.Tensor) else cur_pos
+    ok = (slot_pos >= 0) & (slot_pos <= cur)                          # [Sc] or [B, Sc]
     if window > 0:
-        ok &= (cur_pos - slot_pos) < window
+        ok &= (cur - slot_pos) < window
+    if ok.dim() == 2:
+        ok = ok[:, None, None, :]
     s = s.masked_fill(~ok, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())

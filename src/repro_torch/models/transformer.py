@@ -4,8 +4,10 @@
 Layers are stacked along a leading L axis, in the reference's layouts
 (``wq [L, d, H, hd]``, ``wo [L, H, hd, d]``, ...), and run by a Python loop;
 per-layer heterogeneity (sliding window, dual RoPE theta) comes from
-`layer_meta`. The chunked prefill (`run_stack_chunk`) waits for the
-continuous engine (ROADMAP §1, serving).
+`layer_meta`. The decode takes one position for the whole batch (the
+static engine) or one a row on the device (the continuous engine's slots),
+and the chunked prefill (`run_stack_chunk`) runs one chunk of a prompt on
+the attention kernel's ``q_offset``.
 """
 from __future__ import annotations
 
@@ -143,16 +145,20 @@ def attn_block_prefill(blk: dict, cfg: ModelConfig, x: torch.Tensor,
     return _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o)), (k, v)
 
 
-def attn_block_decode(blk: dict, cfg: ModelConfig, x: torch.Tensor, pos: int, window: int,
+def attn_block_decode(blk: dict, cfg: ModelConfig, x: torch.Tensor, pos, window: int,
                       theta: float, kc: torch.Tensor, vc: torch.Tensor,
-                      slot_pos: torch.Tensor, slot: int) -> torch.Tensor:
-    """x [B, 1, d]; kc/vc [B, Sc, KH, hd], written at `slot` in place."""
-    b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+                      slot_pos: torch.Tensor, where: tuple) -> torch.Tensor:
+    """x [B, 1, d]; kc/vc [B, Sc, KH, hd], written in place at ``where``
+    (``(slice(None), slot)`` for one position, ``(rows, slots)`` for one a
+    row); pos an int or an int32 tensor [B]."""
+    if isinstance(pos, torch.Tensor):
+        positions = pos[:, None]
+    else:
+        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
     h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
     q, k, v = _attn_heads(blk["attn"], cfg, h, positions, theta)
-    kc[:, slot] = k[:, 0]
-    vc[:, slot] = v[:, 0]
+    kc[where] = k[:, 0]
+    vc[where] = v[:, 0]
     o = decode_attention(q, kc, vc, slot_pos, pos, window=window)
     return _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o))
 
@@ -228,18 +234,61 @@ def pad_kv_cache(cache: dict, pad_to: int | None) -> dict:
     return out
 
 
-def run_stack_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, pos: int,
-                     cache: dict):
-    """One decode step at position `pos`. Writes the step's K/V into the
-    cache's k/v tensors in place (the reference returns new arrays; the port
-    saves the copy) and returns (hidden, cache with the new slot_pos)."""
+def run_stack_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, pos, cache: dict):
+    """One decode step. ``pos`` is an int (every row at one position; the
+    cache's ``slot_pos`` [Sc]) or an int32 tensor [B] on the device (one
+    position a row; ``slot_pos`` [B, Sc]): each row writes its K/V at its
+    own slot ``pos % Sc`` with one indexed write a layer, and nothing is
+    read back to the host. Writes the step's K/V into the cache's k/v
+    tensors in place (the reference returns new arrays; the port saves the
+    copy) and returns (hidden, cache with the new slot_pos)."""
     windows, thetas = layer_meta(cfg)
-    slot = pos % cache["k"].shape[2]
+    sc = cache["k"].shape[2]
     slot_pos = cache["slot_pos"].clone()
-    slot_pos[slot] = pos
+    if isinstance(pos, torch.Tensor) != (slot_pos.dim() == 2):
+        raise ValueError("per-row positions need a per-row slot_pos [B, Sc], an int "
+                         "position a shared slot_pos [Sc]")
+    if isinstance(pos, torch.Tensor):
+        where = (torch.arange(x.shape[0], device=x.device), (pos % sc).long())
+        slot_pos[where] = pos
+    else:
+        where = (slice(None), pos % sc)
+        slot_pos[pos % sc] = pos
     for i in range(cfg.n_layers):
         x = attn_block_decode(_layer(params["blocks"], i), cfg, x, pos, windows[i],
-                              thetas[i], cache["k"][i], cache["v"][i], slot_pos, slot)
+                              thetas[i], cache["k"][i], cache["v"][i], slot_pos, where)
+    return x, dict(cache, slot_pos=slot_pos)
+
+
+def run_stack_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, cache: dict, start: int):
+    """One prefill chunk: x [B, cs, d] at positions [start, start + cs) of a
+    prompt, attending over the K/V that earlier chunks wrote plus its own.
+
+    Each layer writes the chunk's K/V at [start, stop) of the full-capacity
+    cache, in place, and runs the attention kernel on the cache's prefix
+    ``[:, :stop]`` with ``q_offset = start``: chunks fill the cache front to
+    back, so the causal mask over keys [0, stop) is the full prefill's. The
+    prefix of a B = 1 cache is contiguous, as the kernel needs. Returns
+    (hidden, cache with slot_pos[start:stop] set). Dense decoder only, as
+    in the reference; the cache must not be a ring (the engine checks)."""
+    windows, thetas = layer_meta(cfg)
+    stop = start + x.shape[1]
+    if stop > cache["k"].shape[2]:
+        raise ValueError(f"chunk [{start}, {stop}) past the cache's {cache['k'].shape[2]} slots")
+    slot_pos = cache["slot_pos"].clone()
+    slot_pos[start:stop] = torch.arange(start, stop, dtype=torch.int32, device=x.device)
+    for i in range(cfg.n_layers):
+        blk = _layer(params["blocks"], i)
+        h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
+        q, k, v = _attn_heads(blk["attn"], cfg, h, positions, thetas[i])
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc[:, start:stop] = k
+        vc[:, start:stop] = v
+        o = flash_attention(q, kc[:, :stop], vc[:, :stop], causal=True, window=windows[i],
+                            q_offset=start,
+                            block_q=cfg.flash_block_q, block_k=cfg.flash_block_k)
+        x = _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o))
     return x, dict(cache, slot_pos=slot_pos)
 
 

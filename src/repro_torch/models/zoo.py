@@ -3,9 +3,13 @@
 `get_model(cfg)` returns a `Model` whose members are plain functions:
 
 * prefill_fn(params, batch, pad_to=None) -> (last logits [B, V] f32, cache)
-* decode_fn(params, cache, token [B], pos: int) -> (logits [B, V] f32, cache)
+* decode_fn(params, cache, token [B], pos) -> (logits [B, V] f32, cache);
+  pos an int, or an int32 tensor [B] on the device (one position a row,
+  with a per-row ``slot_pos`` [B, Sc] in the cache)
 * init_cache_fn(batch, seq, device="cuda") -> an empty cache (raises without
   CUDA unless the caller asks for the CPU)
+* prefill_chunk_fn(params, cache, tokens [B, cs], start: int) -> (logits
+  [B, V] f32, cache): one prefill chunk against a full-capacity cache
 
 The port carries the text-only dense decoder (smollm, gemma3, tinyllama,
 deepseek). `loss_fn` waits for the training slice and the other families
@@ -29,6 +33,9 @@ class Model:
     prefill_fn: Callable
     decode_fn: Callable
     init_cache_fn: Callable
+    # One prefill chunk against a full-capacity cache; dense decoders only
+    # (None for the families that cannot chunk, as in the reference).
+    prefill_chunk_fn: Callable | None = None
 
 
 def _last_logits(params: dict, cfg: ModelConfig, h_last: torch.Tensor) -> torch.Tensor:
@@ -50,13 +57,20 @@ def _decoder_model(cfg: ModelConfig) -> Model:
 
     def decode_fn(params, cache, token, pos):
         x = tfm.embed_tokens(params, cfg, token[:, None])
-        h, cache = tfm.run_stack_decode(params, cfg, x, int(pos), cache)
+        h, cache = tfm.run_stack_decode(params, cfg, x, pos, cache)
         return _last_logits(params, cfg, h), cache
 
     def init_cache_fn(batch, seq, device="cuda"):
         return tfm.init_cache(cfg, batch, seq, device=device)
 
-    return Model(cfg, specs, prefill_fn, decode_fn, init_cache_fn)
+    def prefill_chunk_fn(params, cache, tokens, start):
+        b, s = tokens.shape
+        positions = (start + torch.arange(s, dtype=torch.int32, device=tokens.device))[None]
+        x = tfm.embed_tokens(params, cfg, tokens)
+        h, cache = tfm.run_stack_chunk(params, cfg, x, positions.expand(b, s), cache, start)
+        return _last_logits(params, cfg, h[:, -1:]), cache
+
+    return Model(cfg, specs, prefill_fn, decode_fn, init_cache_fn, prefill_chunk_fn)
 
 
 def get_model(cfg: ModelConfig) -> Model:

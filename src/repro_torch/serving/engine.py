@@ -1,18 +1,43 @@
-"""Static-batch LM serving (counterpart of `Engine` in
-`repro/serving/engine.py`).
+"""LM serving engines (counterpart of `repro/serving/engine.py`): the
+static-batch generate and the slot-ring decode backend.
 
-A batch of same-length prompts is prefilled in one pass, with the KV cache
-padded to prompt + max_new + 1, then ``max_new`` decode steps run in a
-Python loop, exactly the reference's schedule: the emitted tokens are the
-carry ``[tok0, ..., tok_{max_new-1}]``, so the last decode's output is not
-used. The reference's compiled-program cache has no counterpart: PyTorch
-runs eagerly. The continuous engine waits for ROADMAP §1, serving.
+* ``Engine`` (static batch): a batch of same-length prompts is prefilled in
+  one pass, with the KV cache padded to prompt + max_new + 1, then
+  ``max_new`` decode steps run in a Python loop, exactly the reference's
+  schedule: the emitted tokens are the carry ``[tok0, ..., tok_{max_new-1}]``,
+  so the last decode's output is not used.
+
+* ``ContinuousEngine``: the LM backend of the slot ring
+  (`repro_torch.serving.slotring`). N decode slots share one multi-slot
+  step, which is the static decode at B = N with one position a row: the
+  cache's batch axis is the slot axis (k/v [L, N, Sc, KH, hd], slot_pos
+  [N, Sc]) and ``pos`` [N] lives on the device, so the step reads nothing
+  back to the host. A request is admitted by a B = 1 prefill whose cache is
+  copied into its slot's row (`slotring.slot_update`), with its next token,
+  position, done flag and generator; finished rows are evicted at step
+  granularity while the others keep decoding. `repro_torch.serving.scheduler`
+  is the queue and admission policy on top.
+
+Chunked prefill (``prefill_chunk=N``): a prompt longer than N admits chunk
+by chunk, one chunk a scheduler step, while its slot is reserved, so one
+long admission does not stall every decoding slot for a whole prefill. Each
+chunk writes its K/V into the request's own full-capacity B = 1 cache and
+attends over the prefix plus itself on the attention kernel's ``q_offset``;
+the last chunk's logits are sampled with the request's generator, so the
+tokens match the one-shot prefill's.
+
+PyTorch runs eagerly: the reference's compiled programs have no
+counterpart, and the signature sets ``_prefill_sigs`` and ``_chunk_sigs``
+only record the distinct prompt shapes and (start, length) chunks seen.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from repro_torch import device as _device
+from repro_torch.serving import slotring
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,3 +87,200 @@ class Engine:
         if not out:
             return torch.empty((tok.shape[0], 0), dtype=torch.int32, device=tok.device)
         return torch.stack(out, 1)
+
+
+def _prompt_sig(batch: dict) -> tuple:
+    """Shape signature of a prompt batch: the shape and dtype of every input."""
+    return tuple(sorted((k, tuple(v.shape), str(v.dtype)) for k, v in batch.items()))
+
+
+@dataclasses.dataclass
+class ChunkedPrefill:
+    """One in-flight chunked admission: the reserved slot's prefill progress.
+
+    ``cache`` is the request's own full-capacity B = 1 cache with K/V
+    written for positions [0, start); ``logits`` holds the last chunk's
+    last-position logits (what the first token is sampled from once
+    ``done``)."""
+
+    batch: dict
+    generator: torch.Generator | None
+    cache: dict
+    start: int
+    logits: torch.Tensor | None = None
+
+    @property
+    def prompt_len(self) -> int:
+        return self.batch["tokens"].shape[1]
+
+    @property
+    def done(self) -> bool:
+        return self.start >= self.prompt_len
+
+
+class ContinuousEngine(slotring.SlotRingEngine):
+    """Slot-ring LM decode backend: step-granular admission and eviction
+    over one multi-slot decode.
+
+    State: ``cache`` (k/v [L, N, Sc, KH, hd], slot_pos [N, Sc]), ``tok``,
+    ``pos`` [N] int32, ``done`` [N] bool and ``generator`` (a list of N
+    `torch.Generator` or None). Every slot's cache has the capacity
+    ``max_prompt_len + max_new + 1`` whatever its prompt's length, so one
+    step serves any mix of requests. Empty and finished slots decode
+    garbage rows (``done`` set, the row masked or stale) until an admission
+    overwrites the whole row.
+
+    ``prefill_chunk=N`` admits text prompts longer than N chunk by chunk on
+    the families with a ``prefill_chunk_fn`` (the dense decoders). The port
+    carries no VLM: a batch holds ``tokens`` alone."""
+
+    def __init__(self, model, cfg: ServeConfig, num_slots: int, max_prompt_len: int,
+                 prefill_chunk: int | None = None, *,
+                 device: str | torch.device | None = "cuda"):
+        if cfg.max_new < 1:
+            raise ValueError("max_new must be >= 1")
+        self.device = _device.resolve(device)
+        self.model = model
+        self.cfg = cfg
+        self.max_prompt_len = max_prompt_len
+        self.capacity = max_prompt_len + cfg.max_new + 1
+        mw = model.cfg.max_window
+        if 0 <= mw < max_prompt_len:
+            raise ValueError(
+                f"pure sliding-window model (window {mw} < max prompt {max_prompt_len}): "
+                "prefill would produce ring caches whose capacity depends on prompt "
+                "length, breaking slot uniformity")
+        self.prefill_chunk = None
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError("prefill_chunk must be >= 1")
+            if model.prefill_chunk_fn is None:
+                raise ValueError("this model family has no chunked prefill "
+                                 "(prefill_chunk_fn is None): dense decoders only")
+            if 0 <= mw < self.capacity:
+                raise ValueError(f"chunked prefill needs a full-capacity cache; window {mw} "
+                                 f"< capacity {self.capacity} would make it a ring")
+            self.prefill_chunk = int(prefill_chunk)
+        self._prefill_sigs: set[tuple] = set()
+        self._chunk_sigs: set[tuple] = set()
+        super().__init__(num_slots)
+
+    # -- state ---------------------------------------------------------------
+
+    def init_state(self) -> dict:
+        n = self.num_slots
+        cache = self.model.init_cache_fn(n, self.capacity, device=self.device)
+        cache["slot_pos"] = torch.full((n, cache["k"].shape[2]), -1, dtype=torch.int32,
+                                       device=self.device)
+        return {
+            "cache": cache,
+            "tok": torch.zeros((n,), dtype=torch.int32, device=self.device),
+            "pos": torch.zeros((n,), dtype=torch.int32, device=self.device),
+            "done": torch.ones((n,), dtype=torch.bool, device=self.device),  # empty: frozen
+            "generator": [None] * n,
+        }
+
+    # -- admission -----------------------------------------------------------
+
+    def _admit_impl(self, state, slots, cache, tok0, pos0, generators):
+        """Copy a B = K cache into rows ``slots`` of the slot-stacked cache
+        (the batch axis, axis 1 of k/v), with each row's first token,
+        position, done flag and generator: the whole row, so no stale key of
+        the slot's last request stays visible."""
+        k = len(slots)
+        slotring.slot_update(state["cache"], {
+            "k": cache["k"], "v": cache["v"],
+            "slot_pos": cache["slot_pos"].reshape(k, -1)}, slots, axes={"k": 1, "v": 1})
+        return slotring.slot_update(state, {"tok": tok0, "pos": pos0, "done": [False] * k,
+                                            "generator": generators}, slots)
+
+    def _check_request(self, batch: dict) -> int:
+        """The prompt length of a B = 1 text batch that fits the capacity."""
+        if set(batch) != {"tokens"}:
+            raise ValueError(f"the port carries no VLM: a batch holds 'tokens' alone, got "
+                             f"{sorted(batch)}")
+        tokens = batch["tokens"]
+        if tokens.shape[0] != 1:
+            raise ValueError("continuous admission is per request (B = 1)")
+        _device.check_on(self.device, tokens=tokens)
+        prompt_len = tokens.shape[1]
+        if prompt_len + self.cfg.max_new + 1 > self.capacity:
+            raise ValueError(f"prompt_len {prompt_len} exceeds engine capacity "
+                             f"{self.capacity} - max_new {self.cfg.max_new} - 1")
+        return prompt_len
+
+    def prefill_into_slot(self, params, state, batch: dict, slot: int,
+                          generator: torch.Generator | None = None) -> tuple[dict, int]:
+        """Prefill one request (B = 1) and copy it into ``slot``. Returns
+        (state, first generated token). Temperature sampling draws from
+        ``generator``."""
+        pos0 = self._check_request(batch)
+        self._prefill_sigs.add(_prompt_sig(batch))
+        logits, cache = self.model.prefill_fn(params, batch, pad_to=self.capacity)
+        tok0 = _sample(self.cfg, logits, generator)
+        state = self.admit(state, [slot], cache, tok0, [pos0], [generator])
+        return state, int(tok0[0])
+
+    # -- chunked admission ---------------------------------------------------
+
+    def supports_chunked_prefill(self, batch: dict) -> bool:
+        """True when this request admits chunk by chunk: chunking is on and
+        the prompt is longer than one chunk (a shorter prompt IS one chunk,
+        and takes the whole-prefill path)."""
+        return self.prefill_chunk is not None and batch["tokens"].shape[1] > self.prefill_chunk
+
+    def begin_chunked_prefill(self, params, batch: dict,
+                              generator: torch.Generator | None = None) -> ChunkedPrefill:
+        """Start a chunked admission: a fresh full-capacity B = 1 cache of
+        the request's own, on the engine's device, with no chunk run yet.
+        ``params`` rides along for parity with `prefill_into_slot`."""
+        del params
+        self._check_request(batch)
+        cache = self.model.init_cache_fn(1, self.capacity, device=self.device)
+        return ChunkedPrefill(batch=batch, generator=generator, cache=cache, start=0)
+
+    def advance_chunked_prefill(self, params, job: ChunkedPrefill) -> ChunkedPrefill:
+        """Run ONE prefill chunk of ``job``."""
+        cs = min(self.prefill_chunk, job.prompt_len - job.start)
+        tokens = job.batch["tokens"][:, job.start:job.start + cs]
+        self._chunk_sigs.add((job.start, cs))
+        logits, cache = self.model.prefill_chunk_fn(params, job.cache, tokens, job.start)
+        return dataclasses.replace(job, cache=cache, start=job.start + cs, logits=logits)
+
+    def admit_chunked(self, state, job: ChunkedPrefill, slot: int) -> tuple[dict, int]:
+        """Copy a completed chunked prefill into ``slot``; the first token is
+        sampled from the last chunk's logits with the request's generator,
+        as the one-shot prefill samples it."""
+        if not job.done:
+            raise ValueError("admit_chunked before the last chunk ran")
+        tok0 = _sample(self.cfg, job.logits, job.generator)
+        state = self.admit(state, [slot], job.cache, tok0, [job.prompt_len], [job.generator])
+        return state, int(tok0[0])
+
+    # -- decode --------------------------------------------------------------
+
+    def _sample_slots(self, logits: torch.Tensor, generators: list) -> torch.Tensor:
+        """Greedy over all rows at once; at a temperature each row draws from
+        its own slot's generator, as a B = 1 static generate draws (a slot
+        with none, empty or finished, takes the greedy token)."""
+        if self.cfg.temperature <= 0.0:
+            return _sample(self.cfg, logits, None)
+        greedy = dataclasses.replace(self.cfg, temperature=0.0)
+        return torch.cat([_sample(self.cfg if g is not None else greedy, logits[i:i + 1], g)
+                          for i, g in enumerate(generators)])
+
+    def _step_impl(self, params, state):
+        """One decode step of every slot, each at its own position, written
+        into the state in place (its tensors keep their addresses). Emits
+        the next token of every slot [N] int32."""
+        cfg = self.cfg
+        logits, cache = self.model.decode_fn(params, state["cache"], state["tok"],
+                                             state["pos"])
+        state["cache"]["slot_pos"].copy_(cache["slot_pos"])
+        nxt = self._sample_slots(logits, state["generator"])
+        if cfg.eos_id is not None:
+            state["done"] |= state["tok"] == cfg.eos_id
+            nxt = torch.where(state["done"], torch.full_like(nxt, cfg.eos_id), nxt)
+        state["tok"].copy_(nxt)
+        state["pos"] += 1
+        return state, nxt

@@ -540,9 +540,9 @@ class HDCScheduler(SlotScheduler):
                              np.zeros((0,), np.float32), req.t_submit, t_admit,
                              self.clock(), status="evicted")
 
-    def _admit(self, batch: list) -> None:
+    def _admit_batch(self, batch: list) -> list:
         """Every matched (request, slot) pair in ONE `HDCEngine.admit_many`
-        call."""
+        call. An HDC admission finishes nothing."""
         for req, _ in batch:
             # the tenant may have been evicted between submit and admission
             if req.tenant not in self.engine.registry.rows:
@@ -554,6 +554,7 @@ class HDCScheduler(SlotScheduler):
         t_admit = self.clock()
         for req, slot in batch:
             self.running[slot] = (req, t_admit)
+        return []
 
     def _collect(self, emitted) -> list:
         pred, maxsim = emitted

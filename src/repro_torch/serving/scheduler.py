@@ -1,15 +1,15 @@
 """Continuous-batching request scheduler: a submit/poll queue and age-fair
-admission over a slot-ring engine (counterpart of the backend-agnostic half
-of `repro/serving/scheduler.py`).
+admission over a slot-ring engine (counterpart of
+`repro/serving/scheduler.py`).
 
-``SlotScheduler`` owns the slot free-list, the FIFO buckets, the completion
-table and the step loop: fill free slots, one multi-slot engine step,
-collect finished slots. Backends specialize the admission and collection
-hooks; the HDC scheduler (`repro_torch.serving.hdc.HDCScheduler`) admits
-query batches into tenant slots and finishes every running slot each step.
-The LM ``Scheduler``, its ``Request``/``Completion`` and its multi-step
-(chunked-prefill) admissions wait for the continuous LM engine (ROADMAP §1,
-serving).
+``SlotScheduler`` is the backend-agnostic half: the slot free-list, the
+per-prompt-shape FIFO buckets, the completion table and the step loop
+(advance in-flight admissions, fill free slots, one multi-slot engine step,
+collect finished slots). Backends specialize the admission and collection
+hooks: the LM ``Scheduler`` admits by a whole or chunked prefill and
+finishes a slot on EOS or ``max_new``; the HDC scheduler
+(`repro_torch.serving.hdc.HDCScheduler`) admits query batches into tenant
+slots in one call and finishes every running slot each step.
 
 Admission is age-fair: each free slot takes the globally oldest pending
 request, re-picked per slot, so a stream into one bucket cannot starve a
@@ -27,10 +27,43 @@ drains.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 from typing import Any, Callable
 
 import torch
+
+from repro_torch.serving.engine import ContinuousEngine, _prompt_sig
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    batch: dict                  # B = 1 model inputs: {'tokens': [1, S]}
+    prompt_len: int
+    max_new: int
+    generator: torch.Generator | None   # the request's sampling stream
+    t_submit: float
+    # the generator's state at submit: every admission starts from it, so a
+    # requeued request draws its tokens again (a JAX key is a value; a
+    # torch generator is consumed by drawing)
+    generator_state: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    tokens: list[int]            # generated tokens (incl. the final EOS, if any)
+    finish_reason: str           # "length" | "eos" | "evicted"
+    prompt_len: int
+    t_submit: float
+    t_admit: float
+    t_finish: float
+
+    @property
+    def latency(self) -> float:
+        """Submit-to-finish wall time (queueing included)."""
+        return self.t_finish - self.t_submit
 
 
 class SlotScheduler:
@@ -38,9 +71,16 @@ class SlotScheduler:
 
     Subclasses implement:
 
-    * ``_admit(batch)``: serve each (request, slot) pair of ``batch``, the
-      requests the age-fair pass matched to free slots, registering each in
-      ``running`` (HDC: one scatter into the engine's state);
+    * ``_start_admission(req, slot) -> list``: begin serving ``req`` on
+      ``slot``: admit it fully (register it in ``running``, possibly
+      finishing at once) or park a multi-step admission in
+      ``self.admitting[slot]``;
+    * ``_admit_batch(pairs) -> list``: admit one pass's matched
+      ``(request, slot)`` pairs (default: ``_start_admission`` for each;
+      a backend whose admissions are cheap scatters, HDC, admits them all
+      in one engine call);
+    * ``_advance_admissions() -> list``: one unit of progress on every
+      in-flight admission (default: none exist);
     * ``_collect(emitted) -> list``: consume one engine step's per-slot
       emissions, finishing and freeing slots as the backend dictates;
     * ``_step_params()``: what ``engine.step`` takes as params (default: the
@@ -60,8 +100,10 @@ class SlotScheduler:
         self.clock = clock
         self.state = engine.init_state()
         self.free: list[int] = list(range(engine.num_slots))
-        # slot -> backend-defined running record (HDC: (request, t_admit))
+        # slot -> backend-defined running record (LM: (request, tokens, t_admit))
         self.running: dict[int, Any] = {}
+        # slot -> backend-defined in-flight admission (LM: (request, ChunkedPrefill))
+        self.admitting: dict[int, Any] = {}
         self.buckets: dict[Any, collections.deque] = collections.defaultdict(
             collections.deque)
         self.results: dict[int, Any] = {}
@@ -83,7 +125,7 @@ class SlotScheduler:
 
     @property
     def active(self) -> int:
-        return len(self.running)
+        return len(self.running) + len(self.admitting)
 
     # -- admission / eviction ------------------------------------------------
 
@@ -94,23 +136,33 @@ class SlotScheduler:
             return None
         return self.buckets[min(live)[2]].popleft()
 
-    def _admit_free_slots(self) -> None:
+    def _admit_free_slots(self) -> list:
         """Match every free slot with the globally oldest pending request,
-        re-picked per slot (age-fair), and admit the matches in one backend
-        call."""
-        batch = []
+        re-picked per slot (age-fair), and admit the matches; a slot freed
+        at admission (an instant finish) is refilled in the same call."""
+        finished = []
         while self.free:
-            req = self._pop_oldest()
-            if req is None:
+            pairs = []
+            while self.free:
+                req = self._pop_oldest()
+                if req is None:
+                    break
+                pairs.append((req, self.free.pop(0)))
+            if not pairs:
                 break
-            batch.append((req, self.free.pop(0)))
-        if batch:
-            self._admit(batch)
+            finished.extend(self._admit_batch(pairs))
+        return finished
 
     # -- backend hooks --------------------------------------------------------
 
-    def _admit(self, batch: list) -> None:
+    def _start_admission(self, req, slot: int) -> list:
         raise NotImplementedError
+
+    def _admit_batch(self, pairs: list) -> list:
+        return [done for req, slot in pairs for done in self._start_admission(req, slot)]
+
+    def _advance_admissions(self) -> list:
+        return []
 
     def _collect(self, emitted) -> list:
         raise NotImplementedError
@@ -164,15 +216,17 @@ class SlotScheduler:
     # -- drive ---------------------------------------------------------------
 
     def step(self) -> list:
-        """Fill free slots, run one multi-slot engine step, collect finished
-        slots. Returns the requests completed during this call."""
-        self._admit_free_slots()
+        """Advance in-flight admissions one unit, fill free slots, run one
+        multi-slot engine step, collect finished slots. Returns the requests
+        completed during this call (at admission too)."""
+        finished = self._advance_admissions()
+        finished.extend(self._admit_free_slots())
         if not self.running:
-            return []
+            return finished
         stepped = list(self.running)
         self.state, emitted = self.engine.step(self._step_params(), self.state)
         self.steps += 1
-        finished = self._collect(emitted)
+        finished.extend(self._collect(emitted))
         if self.max_slot_steps is not None:
             finished.extend(self._enforce_deadlines(stepped))
         return finished
@@ -180,10 +234,117 @@ class SlotScheduler:
     def run(self, timeout: float | None = None) -> dict:
         """Step until the queue and all slots drain. Returns {rid: completion}."""
         t0 = self.clock()
-        while self.pending or self.running:
+        while self.pending or self.running or self.admitting:
             self.step()
             if timeout is not None and self.clock() - t0 > timeout:
                 raise TimeoutError(
                     f"scheduler did not drain within {timeout}s "
                     f"(pending={self.pending}, active={self.active})")
         return self.results
+
+
+class Scheduler(SlotScheduler):
+    """LM request scheduler over a `ContinuousEngine`.
+
+    Short prompts admit with one whole-prompt prefill; prompts longer than
+    the engine's ``prefill_chunk`` (when chunking is on) reserve their slot
+    and run one prefill chunk a scheduler step, the first at reservation,
+    interleaved with the other slots' decode steps."""
+
+    def __init__(self, engine: ContinuousEngine, params,
+                 clock: Callable[[], float] = time.monotonic,
+                 *, max_slot_steps: int | None = None, max_requeues: int = 1):
+        super().__init__(engine, params, clock, max_slot_steps=max_slot_steps,
+                         max_requeues=max_requeues)
+
+    def submit(self, tokens, *, max_new: int | None = None,
+               generator: torch.Generator | None = None) -> int:
+        """Queue one request: ``tokens`` [S] or [1, S] (anything
+        `torch.as_tensor` takes; moved to the engine's device). Temperature
+        sampling draws from ``generator`` (default: one on the engine's
+        device seeded with the request id). Returns the request id."""
+        tokens = torch.as_tensor(tokens, dtype=torch.int32, device=self.engine.device)
+        if tokens.dim() == 1:
+            tokens = tokens[None]
+        batch = {"tokens": tokens}
+        max_new = self.engine.cfg.max_new if max_new is None else max_new
+        if not 1 <= max_new <= self.engine.cfg.max_new:
+            raise ValueError(f"max_new must be in [1, {self.engine.cfg.max_new}]")
+        rid = self._next_rid
+        self._next_rid += 1
+        if generator is None and self.engine.cfg.temperature > 0.0:
+            generator = torch.Generator(device=self.engine.device).manual_seed(rid)
+        req = Request(rid, batch, tokens.shape[1], max_new, generator, self.clock(),
+                      None if generator is None else generator.get_state())
+        self.buckets[self._bucket_key(req)].append(req)
+        return rid
+
+    def _bucket_key(self, req: Request):
+        return _prompt_sig(req.batch)
+
+    def _fail_eviction(self, slot: int, record) -> Completion:
+        req, toks, t_admit = record
+        return Completion(req.rid, toks, "evicted", req.prompt_len, req.t_submit, t_admit,
+                          self.clock())
+
+    def _evict_slot(self, slot: int) -> list:
+        self.state["generator"][slot] = None      # the request's stream is drawn no more
+        return super()._evict_slot(slot)
+
+    def _finish(self, slot: int, reason: str) -> Completion:
+        req, toks, t_admit = self.running.pop(slot)
+        done = Completion(req.rid, toks, reason, req.prompt_len, req.t_submit, t_admit,
+                          self.clock())
+        self.results[req.rid] = done
+        self.free.append(slot)
+        self.state["generator"][slot] = None
+        return done
+
+    def _register(self, req: Request, slot: int, tok0: int) -> list:
+        """Record a freshly admitted request; finish at once on an instant
+        EOS or max_new == 1."""
+        self.running[slot] = (req, [tok0], self.clock())
+        eos = self.engine.cfg.eos_id
+        if eos is not None and tok0 == eos:
+            return [self._finish(slot, "eos")]
+        if req.max_new <= 1:
+            return [self._finish(slot, "length")]
+        return []
+
+    def _start_admission(self, req: Request, slot: int) -> list:
+        if req.generator is not None:
+            req.generator.set_state(req.generator_state)
+        if self.engine.supports_chunked_prefill(req.batch):
+            job = self.engine.begin_chunked_prefill(self.params, req.batch, req.generator)
+            # run the first chunk now, so a reserved slot always has progress
+            self.admitting[slot] = (req, self.engine.advance_chunked_prefill(self.params, job))
+            return []
+        self.state, tok0 = self.engine.prefill_into_slot(self.params, self.state, req.batch,
+                                                         slot, req.generator)
+        return self._register(req, slot, tok0)
+
+    def _advance_admissions(self) -> list:
+        finished = []
+        for slot in sorted(self.admitting):
+            req, job = self.admitting[slot]
+            if not job.done:
+                job = self.engine.advance_chunked_prefill(self.params, job)
+                self.admitting[slot] = (req, job)
+            if job.done:
+                del self.admitting[slot]
+                self.state, tok0 = self.engine.admit_chunked(self.state, job, slot)
+                finished.extend(self._register(req, slot, tok0))
+        return finished
+
+    def _collect(self, emitted) -> list:
+        em = emitted.cpu().tolist()      # the step barrier: one copy to the host
+        eos = self.engine.cfg.eos_id
+        finished = []
+        for slot in sorted(self.running):
+            req, toks, _ = self.running[slot]
+            toks.append(em[slot])
+            if eos is not None and em[slot] == eos:
+                finished.append(self._finish(slot, "eos"))
+            elif len(toks) >= req.max_new:
+                finished.append(self._finish(slot, "length"))
+        return finished

@@ -4,9 +4,9 @@
 A slot ring is a fixed number of resident request *slots*, advanced
 together by one multi-slot step. A backend implements:
 
-* ``init_state()``: a dict whose entries carry a leading ``num_slots`` axis,
-  tensors stacked slot-major, or lists with one entry a slot (the HDC
-  engine's per-slot `torch.Generator`);
+* ``init_state()``: a dict whose entries carry a ``num_slots`` axis,
+  tensors stacked slot-major (the LM cache's k/v slot-second, after the
+  layers), or lists with one entry a slot (per-slot `torch.Generator`s);
 * ``_step_impl(params, state) -> (state, emitted)``: one step of EVERY slot
   (empty slots compute harmlessly, and their results are never read);
 * ``_admit_impl(state, slots, *payload)``: overwrite the rows of K slots
@@ -24,19 +24,22 @@ from __future__ import annotations
 import torch
 
 
-def slot_update(state: dict, new: dict, slots: list[int]) -> dict:
+def slot_update(state: dict, new: dict, slots: list[int], axes: dict | None = None) -> dict:
     """Write the values of ``new`` into rows ``slots`` of the slot-stacked
     ``state``, in place, and return ``state``. A tensor entry's value is
-    stacked along a leading K = len(slots) axis (a tensor, or anything
-    `torch.as_tensor` takes) and lands in one ``index_copy_`` (cast to the
-    live dtype), a copy, never an alias, so a caller may reuse its buffer for
-    the next request; a list entry's value is K objects, one a slot."""
+    stacked along a K = len(slots) axis, the leading one unless ``axes``
+    names another for that entry (the LM cache's k/v carry their slot axis
+    second, after the layers), and lands in one ``index_copy_`` (cast to the
+    live dtype; anything `torch.as_tensor` takes), a copy, never an alias,
+    so a caller may reuse its buffer for the next request; a list entry's
+    value is K objects, one a slot."""
     idx = torch.as_tensor(slots, dtype=torch.int64)
+    axes = axes or {}
     for name, x in new.items():
         live = state[name]
         if isinstance(live, torch.Tensor):
             x = torch.as_tensor(x).to(device=live.device, dtype=live.dtype)
-            live.index_copy_(0, idx.to(live.device), x)
+            live.index_copy_(axes.get(name, 0), idx.to(live.device), x)
         else:
             for slot, obj in zip(slots, x):
                 live[slot] = obj
@@ -60,7 +63,7 @@ class SlotRingEngine:
     # -- backend contract ----------------------------------------------------
 
     def init_state(self) -> dict:
-        """Slot-stacked state (leading num_slots axis on every entry)."""
+        """Slot-stacked state (a num_slots axis on every entry)."""
         raise NotImplementedError
 
     def _step_impl(self, params, state):

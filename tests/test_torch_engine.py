@@ -3,7 +3,7 @@ greedy tokens equal on the tinyllama and smollm smoke configs at two prompt
 lengths, with and without EOS freezing (f32, JAX's weights carried over by
 ``convert.params_from_numpy``); the bf16 round trip of the converter bit for
 bit; temperature sampling from an explicit generator; and the launcher on
-the CPU."""
+the CPU, static and ``--stream``."""
 import dataclasses
 
 import jax
@@ -89,5 +89,12 @@ def test_launch_serve_smoke_on_the_cpu(capsys):
                               "--batch", "2", "--prompt-len", "16", "--max-new", "4"])
     assert toks.shape == (2, 4)
     assert "generated (2, 4) tokens on cpu" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="ROADMAP §1, serving"):
-        launch_serve.main(["--arch", "tinyllama-1.1b", "--stream"])
+    # --stream: the seeded Poisson trace through the continuous engine
+    results = launch_serve.main(["--arch", "tinyllama-1.1b", "--stream", "--smoke", "--device",
+                                 "cpu", "--requests", "6", "--rate", "1000", "--slots", "2"])
+    assert len(results) == 6 and all(len(c.tokens) == 16 for c in results.values())
+    out = capsys.readouterr().out
+    assert "warm-up: 3 prompt lengths" in out
+    assert "6 requests (lens (32, 64, 128), rate 1000.0/s, 2 slots) on cpu" in out
+    assert "96 tokens" in out and "tok/s" in out and "decode steps" in out
+    assert "request latency p50" in out and "p95" in out and "max" in out

@@ -163,19 +163,40 @@ fallback, and a missing GPU is a failure):
    and without chunks: the longest host-clock gap between decode steps
    while a 1024-token prompt admits. Every scheduler run launches
    flash_attention_fwd 22 times a whole-prompt admission or chunk and
-   nothing else, none in a decode step.
+   nothing else, none in a decode step;
+16. training at TinyLlama-1.1B's published width and depth (bf16 parameters
+   from the seed, remat on, batch 8 x 1024 of `SyntheticLM`): (a) the
+   attention backward kernel against its plain twin at the training shape,
+   gemma3-1b's layer (windowed and global), deepseek-coder-33b's, D = 16
+   and 32, non-causal, ragged, a chunk's q_offset, f32 at two small shapes
+   and rows that see no key (the forward's lse held to the twin's too): f32
+   within FLASH_F32_TOL, bf16 no further off f64 than FLASH_BF16_VS_TWIN
+   times the twin, with the kernel's, the twin's and SDPA's backward
+   times and the bound; (b) AdamW (`TRAIN`): 5 steps at the reference's
+   own init, reported (its gradient norm ~1e15 leaves nothing to learn),
+   then 15 steps with the attention projections at fan-in over their
+   contraction, as phases 11 and 15 gate: the loss down by 0.5, 44 forward
+   and 22 backward attention launches a step and no other kernel, every
+   layer's backward kernel held to the twin on the first step's own
+   inputs, ms a step, tokens/s, peak memory, the model-FLOPs share of the
+   bf16 peak; (c) 10 sign_majority steps at OTA BER 0.01 on that draw
+   (`SIGN`): losses finite, the flip rate within 5 sigma; (d) in a child
+   process with deterministic algorithms, a Trainer that fails at step 6
+   and resumes from its step-5 checkpoint == an uninterrupted one, bit for
+   bit (`RESUME`).
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
-7-15, each run between a reset and a read of the counters: the serves, the
+7-16, each run between a reset and a read of the counters: the serves, the
 48 Table I calls, the sparse trials and serves at d = 2^20, phase 10's
 serves, recall oracle and multi-centroid calls, phase 11's generates,
 phase 12's serves, trials and drift sweeps, and phase 13's slot-ring runs
 (its standalone comparison serves are not counted), phase 14's chaos
 serves, fault-aware serves and engine runs (the fault-free serves beside
 them, the vote-erasure comparisons, the timing calls and the standalone
-comparisons are not counted), and phase 15's scheduler runs (the static
-comparison generates are not counted);
+comparisons are not counted), phase 15's scheduler runs (the static
+comparison generates are not counted) and phase 16's training steps and
+Trainer runs (the kernel cases of (a) are not counted);
 the d = 8192 comparisons, the
 keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
 quarantine check are not counted), and as the last line {"ok": true, ...}.
@@ -189,7 +210,8 @@ bsc (the share of the tenant gather, bank_rows packed or store rows
 unpacked, and of the per-slot fan-out), of phase 14's bsc baseline
 serves at the paper's configuration, fault-free and fault-aware, of one
 continuous LM step at N = 4 beside one static decode step at B = 4 and of a
-1024-token prompt's whole prefill beside its four chunks of 256, and of
+1024-token prompt's whole prefill beside its four chunks of 256, of two
+TinyLlama-1.1B training steps (with the backward kernel's share), and of
 the LM prefill (with
 the attention kernel's share of its device time) and decode step under
 torch.profiler (device busy time, idle share, top device ops per call), and
@@ -304,6 +326,35 @@ CONT_LOGIT_TOL = 1e-3
 # further off f64 than this many times the twin (phase 11's per-layer rule)
 FLASH_F32_TOL = 1e-5
 FLASH_BF16_VS_TWIN = 1.5
+# phase 16, training at TinyLlama-1.1B's published width and depth (bf16
+# parameters from the seed, remat on, batch 8 x 1024 of the synthetic stream):
+# (b) AdamW as the reference's test_adamw_loss_decreases sets it
+# (tests/test_train.py: lr 1e-3, warmup 5, 30 total steps, 15 steps, the loss
+# down by 0.5); (c) sign_majority with the OTA BER as
+# tests/test_distributed.py's test_sign_majority_training_converges (lr 3e-4,
+# warmup 5, 40 total steps), 10 steps; (d) crash and resume at 2 layers,
+# checkpoints every 5 steps, the failure at step 6 of 8
+TRAIN = dict(arch="tinyllama-1.1b", batch=8, seq=1024, steps=15, lr=1e-3, warmup=5,
+             total_steps=30, min_drop=0.5, ref_init_steps=5)
+SIGN = dict(steps=10, lr=3e-4, warmup=5, total_steps=40, ber=0.01)
+RESUME = dict(layers=2, steps=8, ckpt_every=5, fail_at=6)
+# phase 16 (a): the backward kernel's cases, label -> (B, Sq, Skv, H, KH, D,
+# causal, window, q_offset, dtype); the training shape first
+FLASH_BWD_CASES = [
+    ("train", (8, 1024, 1024, 32, 4, 64, True, -1, 0, "bfloat16")),
+    ("gemma3-1b local", (8, 1024, 1024, 4, 1, 256, True, 512, 0, "bfloat16")),
+    ("gemma3-1b global", (8, 1024, 1024, 4, 1, 256, True, -1, 0, "bfloat16")),
+    ("deepseek-coder-33b", (2, 1024, 1024, 56, 8, 128, True, -1, 0, "bfloat16")),
+    ("D=16", (2, 300, 300, 4, 2, 16, True, -1, 0, "bfloat16")),
+    ("D=32", (2, 300, 300, 4, 2, 32, True, -1, 0, "bfloat16")),
+    ("non-causal", (8, 512, 512, 32, 4, 64, False, -1, 0, "bfloat16")),
+    ("ragged", (8, 1000, 1000, 32, 4, 64, True, -1, 0, "bfloat16")),
+    ("chunk", (8, 256, 768, 32, 4, 64, True, -1, 512, "bfloat16")),
+    ("f32", (2, 256, 256, 4, 2, 64, True, -1, 0, "float32")),
+    ("f32 windowed chunk", (2, 128, 384, 4, 2, 32, True, 64, 256, "float32")),
+    # queries 0-63 see no key: P = 1 on every key in the backward
+    ("fully masked rows", (2, 128, 128, 4, 2, 64, True, -1, -64, "bfloat16")),
+]
 # serve modes: (serve, PHY tier, permuted bundling, representation)
 MODES = ([("ota", ch, perm, rep) for ch, perm in (("bsc", False), ("bsc", True), ("ideal", False))
           for rep in ("unpacked", "packed")]
@@ -332,6 +383,9 @@ KERNELS = {  # name -> (route, source, the TPU kernel it replaces)
                            "src/repro/kernels/sparse/kernel.py:119"),
     "flash_attention_fwd": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:82"),
+    # the model's FlashAttention-2 custom VJP (a blockwise scan, no Pallas kernel)
+    "flash_attention_bwd": ("cuda", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/layers.py:263"),
 }
 
 
@@ -365,6 +419,9 @@ SASS_RULES = {
     "hamming_topk_k_kernel": (("BMMA", "IMMA"), ()),
     "hamming_top1_kernel": (("BGMMA",), ("BMMA", "IMMA")),
     "majority_kernel": (("LDG.128",), ()),
+    # the attention backward's two passes: f32 products on the CUDA cores
+    "flash_bwd_dkdv_kernel": (("FFMA",), ()),
+    "flash_bwd_dq_kernel": (("FFMA",), ()),
 }
 # kernel symbols that must not be in the library: the retired SIMT top-1,
 # replaced by hamming_top1_kernel
@@ -3434,6 +3491,499 @@ def cont_profile(torch, model, params, trace, chunked) -> dict:
                 torch, f"cont {max(c['lengths'])} in chunks of {c['chunk']} bf16",
                 [chunks] * 4)}
 
+
+# ---------------------------------------------------------------------------
+# phase 16: training
+# ---------------------------------------------------------------------------
+
+def flash_bwd_exact(torch, q, k, v, dout, causal=True, window=-1, q_offset=0, **_):
+    """The attention backward in f64 (dq, dk, dv), batch row by batch row: the
+    yardstick of the backward kernel's bf16 gate. The reference's formula
+    (FlashAttention-2's, P = exp(s - lse)) on exact scores, with O the f64
+    softmax attention; a row that sees no key has lse = -1e30 here too (f64
+    rounds -1e30 + log Skv back to -1e30), so P = 1 on every key, as the
+    reference and the kernel give it."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qp = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    ok = (kp <= qp) if causal else torch.ones_like(qp - kp, dtype=torch.bool)
+    if window > 0:
+        ok &= (qp - kp) < window
+    outs = []
+    for i in range(b):
+        qd, gd = q[i].double(), dout[i].double()
+        kd, vd = (x[i].double().repeat_interleave(g, 1) for x in (k, v))
+        s = torch.einsum("qhd,khd->hqk", qd, kd) / math.sqrt(d)
+        s = s.masked_fill(~ok, -1e30)
+        m = s.amax(-1, keepdim=True)
+        pu = torch.exp(s - m)
+        lsum = pu.sum(-1, keepdim=True)
+        o = torch.einsum("hqk,khd->qhd", pu / lsum, vd)
+        p = torch.exp(s - (m + torch.log(lsum)))
+        del pu
+        dv = torch.einsum("hqk,qhd->khd", p, gd)
+        dp = torch.einsum("qhd,khd->hqk", gd, vd)
+        delta = (gd * o).sum(-1).transpose(0, 1)[..., None]
+        ds = p * (dp - delta) / math.sqrt(d)
+        del p, dp
+        dq = torch.einsum("hqk,khd->qhd", ds, kd)
+        dk = torch.einsum("hqk,qhd->khd", ds, qd)
+        outs.append((dq, dk.reshape(skv, kh, g, d).sum(2), dv.reshape(skv, kh, g, d).sum(2)))
+        del ds
+    return tuple(torch.stack([o[j] for o in outs]) for j in range(3))
+
+
+def bwd_vs_twin(torch, inputs: tuple, got: tuple, kw: dict) -> dict:
+    """The backward kernel's outputs ``got`` on ``inputs`` (q, k, v, out, lse,
+    dout) against its plain twin: f32 within FLASH_F32_TOL; bf16 no further
+    off f64 than FLASH_BF16_VS_TWIN times the twin, for each of dq, dk, dv.
+    Returns the row with its verdict under "ok"."""
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
+
+    q, k, v, out, lse, dout = inputs
+    want = flash_bwd_ref(q, k, v, out, lse, dout, **kw)
+    row = dict(max_abs_err=max(float((a.double() - b.double()).abs().max())
+                               for a, b in zip(got, want)))
+    if q.dtype == torch.float32:
+        row["ok"] = all(torch.allclose(a, b, atol=FLASH_F32_TOL, rtol=FLASH_F32_TOL)
+                        for a, b in zip(got, want))
+    else:
+        exact = flash_bwd_exact(torch, q, k, v, dout, **kw)
+        row["kernel_vs_f64"] = [float((a.double() - e).abs().max()) for a, e in zip(got, exact)]
+        row["twin_vs_f64"] = [float((a.double() - e).abs().max()) for a, e in zip(want, exact)]
+        row["ok"] = all(a <= FLASH_BF16_VS_TWIN * t
+                        for a, t in zip(row["kernel_vs_f64"], row["twin_vs_f64"]))
+    return row
+
+
+def flash_bwd_cases(torch, gen) -> list:
+    """Phase 16 (a): the backward kernel at the training shape first
+    (TinyLlama-1.1B, B = 8, S = 1024, causal, bf16), then gemma3-1b's layer
+    (windowed and global), deepseek-coder-33b's, D = 16 and 32, non-causal, a
+    ragged length, a prefill chunk's q_offset, f32 at two small shapes (one
+    windowed over a cache prefix) and rows that see no key (q_offset -64).
+    Each case runs the forward kernel with its log-sum-exp (held to the
+    twin's within FLASH_F32_TOL), then the backward kernel and the twin on
+    the same (q, k, v, out, lse, dout) (`bwd_vs_twin`); times the kernel
+    (CUDA-graph replay and eager), the twin, and the library: the backward
+    alone of autograd through F.scaled_dot_product_attention on the same
+    tensors (is_causal where that is the mask, else a boolean mask), timed
+    eagerly. The bound counts 10 * pairs * D operations (S and dP recomputed,
+    dQ, dK, dV) at the peak of the inputs' type and each input and output
+    byte once."""
+    import torch.nn.functional as F
+
+    from repro_torch import kernels as tk
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
+
+    rows = []
+    for label, (b, sq, skv, h, kh, d, causal, win, off, dt) in FLASH_BWD_CASES:
+        dt = getattr(torch, dt)
+        q, dout = (torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
+                   for _ in range(2))
+        k, v = (torch.randn(b, skv, kh, d, generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        kw = dict(causal=causal, window=win, q_offset=off)
+        out, lse = tk.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        _, lse_t = flash_fwd_ref(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        lse_err = float((lse - lse_t).abs().max())
+        require(torch.allclose(lse, lse_t, atol=FLASH_F32_TOL, rtol=FLASH_F32_TOL),
+                f"flash_attention_fwd [{label}]: lse off the twin's by {lse_err}")
+        inputs = (q, k, v, out, lse, dout)
+        got = tk.flash_attention_bwd(*inputs, **kw)
+        torch.cuda.synchronize()
+        row = bwd_vs_twin(torch, inputs, got, kw)
+        shape = (f"{label} B={b} Sq={sq} Skv={skv} H={h} KH={kh} D={d} causal={causal} "
+                 f"window={win} q_offset={off} {str(dt).split('.')[-1]}")
+        require(row.pop("ok"), f"flash_attention_bwd [{shape}] off its plain twin: {row}")
+        del got
+
+        def kern(inputs=inputs, kw=kw):
+            return tk.flash_attention_bwd(*inputs, **kw)
+
+        def plain(inputs=inputs, kw=kw):
+            return flash_bwd_ref(*inputs, **kw)
+
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        if win <= 0 and off == 0 and sq == skv:
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                   enable_gqa=True)
+        else:
+            qp = off + torch.arange(sq, device="cuda")[:, None]
+            kp = torch.arange(skv, device="cuda")[None, :]
+            mask = (kp <= qp) if causal else torch.ones_like(qp - kp, dtype=torch.bool)
+            if win > 0:
+                mask &= (qp - kp) < win
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        do_t = dout.transpose(1, 2)
+
+        def lib(o_lib=o_lib, qt=qt, kt=kt, vt=vt, do_t=do_t):
+            return torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True)
+
+        ms, eager_ms = time_ms(torch, kern), call_ms(torch, kern)
+        plain_ms = time_ms(torch, plain, samples=3)
+        lib_ms = call_ms(torch, lib, samples=3)
+        es = q.element_size()
+        nbytes = es * (4 * b * sq * h * d + 4 * b * skv * kh * d) + 4 * b * h * sq
+        ops = 10 * b * h * d * attention_pairs(sq, skv, causal, win, off)
+        kind = "bf16" if dt == torch.bfloat16 else "f32"
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAKS[kind] * 1e3
+        row.update(shape=shape, lse_err=lse_err, ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   library_ms=lib_ms, bytes=nbytes, ops=ops, op_kind=kind,
+                   library_what="autograd.grad through F.scaled_dot_product_attention "
+                                "(backward only, eager)")
+        rows.append(row)
+        vs = ("" if "kernel_vs_f64" not in row else
+              f"; vs f64 dq/dk/dv kernel {'/'.join(f'{x:.3g}' for x in row['kernel_vs_f64'])}"
+              f", twin {'/'.join(f'{x:.3g}' for x in row['twin_vs_f64'])}")
+        print(f"kernel flash_attention_bwd [{shape}]: within its gate (max |err| vs twin "
+              f"{row['max_abs_err']:.3g}{vs}; lse vs twin {lse_err:.3g}), {ms:.4f} ms (eager "
+              f"call {eager_ms:.4f}), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}; {nbytes} B, {ops} {kind} ops)",
+              flush=True)
+        del inputs, out, lse, o_lib, qt, kt, vt
+    return rows
+
+
+@contextlib.contextmanager
+def recorded_bwd(keep_rows: int):
+    """Within the block, every backward of the attention's autograd function
+    runs unchanged and appends its first ``keep_rows`` batch rows: ((q, k, v,
+    out, lse, dout), (dq, dk, dv), kwargs), all cloned. The batch rows of
+    attention are independent, so these rows of the outputs are the
+    kernel's own outputs for those rows' inputs."""
+    from repro_torch.kernels.flash_attention import ops
+
+    orig, log = ops.FlashAttention.backward, []
+
+    def backward(ctx, dout):      # the function's own backward, recording (saved
+        q, k, v, out, lse = ctx.saved_tensors      # tensors unpack once under remat)
+        res = ops.flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
+        log.append((tuple(x[:keep_rows].clone() for x in (q, k, v, out, lse, dout.to(q.dtype))),
+                    tuple(x[:keep_rows].clone() for x in res), dict(ctx.kw)))
+        return (*res, None, None, None, None, None)
+
+    ops.FlashAttention.backward = staticmethod(backward)
+    try:
+        yield log
+    finally:
+        ops.FlashAttention.backward = staticmethod(orig)
+
+
+def train_launches(counts: dict, cfg, steps: int, what: str) -> None:
+    """With remat, a step launches the forward kernel twice a layer (the
+    forward and its recomputation) and the backward kernel once, and no
+    other kernel of the table."""
+    require_only(counts, ("flash_attention_fwd", "flash_attention_bwd"), what)
+    want = (2 * cfg.n_layers * steps, cfg.n_layers * steps)
+    got = (counts["flash_attention_fwd"], counts["flash_attention_bwd"])
+    require(got == want, f"{what}: (forward, backward) launches {got}, expected {want}")
+
+
+def model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """A training step's model FLOPs: 6 N T for the parameters' products plus
+    attention's 12 * B * H * pairs * D a layer (forward 4, backward 8; the
+    remat recomputation not counted)."""
+    pairs = attention_pairs(seq, seq, True, -1, 0)
+    return 6 * n_params * batch * seq + 12 * batch * cfg.n_heads * pairs * cfg.hd * cfg.n_layers
+
+
+def train_steps(torch, fns, pipe, params, opt_state, steps: int, cfg, what: str,
+                launches: dict, record: bool = False, generators=None):
+    """``steps`` counted train steps from step 0 (the counters reset before
+    and read after each, `train_launches` gating each): (params, opt_state,
+    losses, gnorms, host seconds a step, the first step's recorded backward
+    calls when ``record``)."""
+    from repro_torch import kernels as tk
+
+    losses, gnorms, step_s, seen = [], [], [], []
+    for step in range(steps):
+        batch = pipe.batch(step)
+        gen = generators(step) if generators is not None else None
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with (recorded_bwd(2) if record and step == 0 else contextlib.nullcontext([])) as log:
+            params, opt_state, m = fns.step(params, opt_state, batch, gen)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        gnorms.append(float(m["gnorm"]) if "gnorm" in m else None)
+        seen += log
+        counts = tk.launch_counts()
+        train_launches(counts, cfg, 1, f"{what} step {step}")
+        add_launches(launches, counts)
+    return params, opt_state, losses, gnorms, step_s, seen
+
+
+def phase_train_adamw(torch, launches: dict, profile: bool = False) -> dict:
+    """Phase 16 (b): AdamW at TinyLlama-1.1B's published width and depth (bf16
+    parameters from the seed, remat on), B x S of `SyntheticLM` (`TRAIN`).
+
+    First, reported: TRAIN["ref_init_steps"] steps at the reference's own
+    init, under which nothing learns at this width: the attention
+    projections' fan-in over the head axis (`fan_in_over_contraction`)
+    grows the residual stream layer by layer, the global gradient norm is
+    ~1e15, and the clipped gradients sit far below AdamW's eps. Then, gated,
+    the same draw with the attention projections at fan-in over their
+    contraction, as phases 11 and 15 gate: every loss finite, the last below
+    the first by TRAIN["min_drop"], each step 44 forward and 22 backward
+    attention launches and no other kernel; during the first step every
+    layer's backward inputs are captured (first two batch rows) and the
+    kernel's outputs held to the twin (`bwd_vs_twin`). Reported: ms a step
+    (median of steps 3-15, host clock), tokens/s, peak device memory, the
+    model-FLOPs share of the bf16 peak."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import count_params, get_model
+    from repro_torch.train.loop import build_train_fns
+    from repro_torch.train.optimizer import OptConfig
+
+    t = TRAIN
+    cfg = configs.get_config(t["arch"])
+    model = get_model(cfg)
+    fns = build_train_fns(model, OptConfig(lr=t["lr"], warmup=t["warmup"],
+                                           total_steps=t["total_steps"]), device="cuda")
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=t["seq"], global_batch=t["batch"]),
+                       device="cuda")
+    n_params = count_params(model.specs)
+    params, opt_state = fns.init(SEED)
+    *_, ref_losses, ref_gnorms, _, _ = train_steps(
+        torch, fns, pipe, params, opt_state, t["ref_init_steps"], cfg,
+        "train adamw, reference init", launches)
+    print(f"train adamw, the reference's init (reported): loss " + " ".join(
+        f"{x:.4f}" for x in ref_losses) + ", gradient norm " + " ".join(
+        f"{g:.3g}" for g in ref_gnorms), flush=True)
+    del params, opt_state
+
+    params, opt_state = fns.init(SEED)
+    fan_in_over_contraction(params, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, losses, gnorms, step_s, seen = train_steps(
+        torch, fns, pipe, params, opt_state, t["steps"], cfg, "train adamw", launches,
+        record=True)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses), f"train adamw: a loss is not finite: {losses}")
+    require(losses[-1] <= losses[0] - t["min_drop"],
+            f"train adamw: loss {losses[0]:.4f} -> {losses[-1]:.4f}, fell by less than "
+            f"{t['min_drop']}: {losses}")
+    rows = []
+    for inputs, got, kw in seen:
+        row = bwd_vs_twin(torch, inputs, got, kw)
+        require(row.pop("ok"), f"train adamw: a layer's backward kernel off its twin: {row}")
+        rows.append(row)
+    require(len(rows) == cfg.n_layers, f"train adamw: {len(rows)} backward calls captured")
+    prof = None
+    if profile:                 # two more steps under torch.profiler, not counted
+        state = dict(p=params, s=opt_state)
+
+        def step():
+            state["p"], state["s"], _ = fns.step(state["p"], state["s"], pipe.batch(0))
+
+        prof = profile_calls(torch, "train step bf16", [step] * 2, share_of="flash_bwd")
+        del state, step
+    del seen, params, opt_state
+    ms = statistics.median(step_s[2:]) * 1e3
+    tokens = t["batch"] * t["seq"]
+    flops = model_flops(cfg, n_params, t["batch"], t["seq"])
+    out = dict(arch=cfg.name, params=n_params, batch=t["batch"], seq=t["seq"], losses=losses,
+               gnorms=gnorms, ref_init_losses=ref_losses, ref_init_gnorms=ref_gnorms,
+               step_s=step_s, ms_per_step=ms, tokens_per_s=tokens / ms * 1e3,
+               max_memory_allocated=peak, model_flops=flops,
+               mfu_bf16=flops / (ms / 1e3) / BF16_FLOPS_PER_S, layer_bwd=rows,
+               launches_per_step=(2 * cfg.n_layers, cfg.n_layers), profile=prof)
+    worst = max((r["kernel_vs_f64"][i] / r["twin_vs_f64"][i] for r in rows for i in range(3)
+                 if r["twin_vs_f64"][i] > 0), default=float("nan"))
+    print(f"train adamw: {cfg.name} ({n_params} parameters, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, bf16, remat, attention projections at fan-in over their "
+          f"contraction), batch {t['batch']} x seq {t['seq']}, {t['steps']} steps: loss "
+          + " ".join(f"{x:.4f}" for x in losses) + ", gradient norm "
+          + " ".join(f"{g:.3g}" for g in gnorms), flush=True)
+    print(f"train adamw: {ms:.2f} ms a step (median of steps 3-{t['steps']}, host clock; "
+          f"first {step_s[0] * 1e3:.1f} ms), {out['tokens_per_s']:.0f} tokens/s, peak "
+          f"memory {peak / 2**30:.2f} GiB, model FLOPs {flops:.4g} a step = "
+          f"{out['mfu_bf16']:.4f} of the bf16 peak (989 TFLOP/s)", flush=True)
+    print(f"train adamw checks: losses finite, fell {losses[0] - losses[-1]:.4f} >= "
+          f"{t['min_drop']}; {2 * cfg.n_layers} forward and {cfg.n_layers} backward attention "
+          f"launches every step, no other kernel; every layer's backward kernel within its "
+          f"twin's bound on the step's own inputs (worst kernel/twin error vs f64 "
+          f"{worst:.4f})", flush=True)
+    return out
+
+
+def phase_train_sign(torch, launches: dict) -> dict:
+    """Phase 16 (c): sign_majority with the OTA BER at TinyLlama-1.1B's width
+    (`SIGN`), on (b)'s conditioned draw: every loss finite, the launches as
+    (b)'s, and in the first step the share of flipped votes among the
+    gradient's nonzero elements within 5 sigma of the BER. The loss
+    trajectory is reported, not gated: lr * sign at the first warm-up steps
+    is below half a bf16 ulp of most weights."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import collectives
+    from repro_torch.models import get_model
+    from repro_torch.train.loop import build_train_fns, step_generator
+    from repro_torch.train.optimizer import OptConfig
+
+    t, s = TRAIN, SIGN
+    cfg = configs.get_config(t["arch"])
+    fns = build_train_fns(get_model(cfg), OptConfig(
+        kind="sign_majority", lr=s["lr"], warmup=s["warmup"], total_steps=s["total_steps"]),
+        ota_ber=s["ber"], device="cuda")
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=t["seq"], global_batch=t["batch"]),
+                       device="cuda")
+    params, opt_state = fns.init(SEED)
+    fan_in_over_contraction(params, cfg)
+    votes = dict(n=0, flipped=0, step=None)
+    orig = collectives.sign_allreduce
+
+    def counting(x, **kw):
+        out = orig(x, **kw)
+        if votes["step"] == 0:
+            live = x != 0
+            votes["n"] += int(live.sum())
+            votes["flipped"] += int(((out != torch.sign(x)) & live).sum())
+        return out
+
+    def generators(step):          # the first step's votes are counted
+        votes["step"] = step
+        return step_generator(SEED, step, "cuda")
+
+    collectives.sign_allreduce = counting
+    try:
+        params, opt_state, losses, _, step_s, _ = train_steps(
+            torch, fns, pipe, params, opt_state, s["steps"], cfg, "train sign_majority",
+            launches, generators=generators)
+    finally:
+        collectives.sign_allreduce = orig
+    del params, opt_state
+    rate = votes["flipped"] / max(votes["n"], 1)
+    sigma = math.sqrt(s["ber"] * (1 - s["ber"]) / max(votes["n"], 1))
+    require(all(math.isfinite(x) for x in losses),
+            f"train sign_majority: a loss is not finite: {losses}")
+    require(votes["n"] > 0 and abs(rate - s["ber"]) <= 5 * sigma,
+            f"train sign_majority: flip rate {rate} over {votes['n']} votes, not within 5 "
+            f"sigma ({sigma}) of {s['ber']}")
+    ms = statistics.median(step_s[2:]) * 1e3
+    print(f"train sign_majority (OTA BER {s['ber']}): loss " + " ".join(
+        f"{x:.4f}" for x in losses) + f" (reported, not gated); {ms:.2f} ms a step; "
+        f"flip rate {rate:.6f} over {votes['n']} nonzero votes of the first step, within 5 "
+        f"sigma ({5 * sigma:.2e}) of {s['ber']}; launches as (b)", flush=True)
+    return dict(losses=losses, step_s=step_s, ms_per_step=ms, flip_rate=rate,
+                votes=votes["n"], sigma=sigma)
+
+
+def resume_child(ckpt_root: str) -> int:
+    """Phase 16 (d), in a child process started with CUBLAS_WORKSPACE_CONFIG
+    set and deterministic algorithms on: TinyLlama-1.1B's width at RESUME's
+    depth, bf16, one uninterrupted Trainer run against one that fails at
+    RESUME["fail_at"] and resumes from its checkpoint. Prints one JSON line."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch import kernels as tk
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import get_model
+    from repro_torch.train.loop import Trainer, TrainerConfig, build_train_fns
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import tree_leaves
+
+    torch.use_deterministic_algorithms(True)
+    t, r = TRAIN, RESUME
+    cfg = dataclasses.replace(configs.get_config(t["arch"]), n_layers=r["layers"])
+    fns = build_train_fns(get_model(cfg), OptConfig(lr=t["lr"], warmup=t["warmup"],
+                                                    total_steps=t["total_steps"]), device="cuda")
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=t["seq"], global_batch=t["batch"]),
+                       device="cuda")
+
+    def trainer(name):
+        return Trainer(fns, pipe, TrainerConfig(steps=r["steps"], ckpt_every=r["ckpt_every"],
+                                                ckpt_dir=os.path.join(ckpt_root, name),
+                                                keep=1))
+
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    pa, sa, la = trainer("a").run(SEED, quiet=True)
+    shutil.rmtree(os.path.join(ckpt_root, "a"))
+    crashed = trainer("b")
+    try:
+        crashed.run(SEED, fail_at=r["fail_at"], quiet=True)
+        failed = False
+    except RuntimeError:
+        failed = True
+    pb, sb, lb = crashed.run(SEED, quiet=True)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    leaves = list(zip(tree_leaves((pa, sa)), tree_leaves((pb, sb))))
+    print(json.dumps(dict(
+        failed=failed, equal=all(torch.equal(x, y) for x, y in leaves), leaves=len(leaves),
+        losses_a=la, losses_b=lb, launches=counts, seconds=time.perf_counter() - t0,
+        steps_run=len(la) + r["fail_at"] + len(lb), disk_free=shutil.disk_usage(ckpt_root).free)))
+    return 0
+
+
+def phase_train_resume(torch, launches: dict) -> dict:
+    """Phase 16 (d): `resume_child` in a child process (deterministic
+    algorithms need CUBLAS_WORKSPACE_CONFIG before CUDA starts, and this
+    process started CUDA in phase 1), checkpoints under a temporary
+    directory that the phase deletes. Gates: the injected failure raised,
+    the resumed run's parameters and optimizer state equal the uninterrupted
+    run's bit for bit, the last loss equal, the launches as (b)'s."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import configs
+
+    r = RESUME
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                   PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--resume-child", root], env=env, capture_output=True,
+                              text=True, timeout=900)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(proc.returncode == 0, f"train resume: the child exited {proc.returncode}:\n"
+                                  f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    cfg = dataclasses.replace(configs.get_config(TRAIN["arch"]), n_layers=r["layers"])
+    train_launches(res["launches"], cfg, res["steps_run"], "train resume")
+    add_launches(launches, res["launches"])
+    require(res["failed"], "train resume: the injected failure did not raise")
+    require(res["equal"], "train resume: the resumed run's parameters or optimizer state "
+                          "differ from the uninterrupted run's")
+    require(res["losses_a"][-1] == res["losses_b"][-1],
+            f"train resume: last loss {res['losses_b'][-1]} != {res['losses_a'][-1]}")
+    print(f"train resume ({cfg.name} width, {r['layers']} layers, bf16, deterministic "
+          f"algorithms): failure injected at step {r['fail_at']}, resumed from step "
+          f"{r['ckpt_every']}: {res['leaves']} parameter and optimizer leaves equal bit for "
+          f"bit, last loss {res['losses_b'][-1]:.6f} == {res['losses_a'][-1]:.6f}; child "
+          f"{res['seconds']:.1f} s, {res['disk_free'] / 2**30:.1f} GiB free", flush=True)
+    return res
+
+
+def phase_train(torch, launches: dict, profile: bool = False) -> dict:
+    """Phase 16: training. (a) the backward kernel against its twin
+    (`flash_bwd_cases`; its rows go to the kernels line), (b) AdamW (with
+    ``profile``, two more steps under torch.profiler: device busy, idle
+    share, top ops, the backward kernel's share), (c) sign_majority and (d)
+    crash and resume."""
+    out = dict(kernel_cases=flash_bwd_cases(torch, torch.Generator(device="cuda").manual_seed(1)))
+    out["adamw"] = phase_train_adamw(torch, launches, profile=profile)
+    out["sign_majority"] = phase_train_sign(torch, launches)
+    out["resume"] = phase_train_resume(torch, launches)
+    return out
+
+
 def phase_profile(torch, state, protos_u, base) -> dict:
     """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
@@ -3454,6 +4004,7 @@ def main(argv: list[str]) -> int:
                     help="also profile every serve mode under torch.profiler")
     ap.add_argument("--json", type=Path, default=None,
                     help="write every number of the run to this JSON file")
+    ap.add_argument("--resume-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3461,6 +4012,8 @@ def main(argv: list[str]) -> int:
               file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repository)
+    if args.resume_child is not None:      # phase 16 (d)'s child process
+        return resume_child(args.resume_child)
     from repro_torch.core import classifier, scaleout
     from repro_torch.kernels import _build
 
@@ -3542,6 +4095,8 @@ def main(argv: list[str]) -> int:
                                                              profile=args.profile))
     cont = phase("15 continuous LM serving", lambda: phase_continuous(
         torch, launches, profile=args.profile))
+    train = phase("16 training", lambda: phase_train(torch, launches, profile=args.profile))
+    kernels["flash_attention_bwd"] = train["kernel_cases"]
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
 
@@ -3567,7 +4122,7 @@ def main(argv: list[str]) -> int:
             ber=dict(avg=avg, max=mx, ms=pre_ms), kernels=kernels, serves=serves["runs"],
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
-            faults=fault, cont=cont,
+            faults=fault, cont=cont, train=train,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

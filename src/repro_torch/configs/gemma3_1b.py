@@ -37,4 +37,5 @@ def smoke_config() -> ModelConfig:
     return dataclasses.replace(
         CONFIG, n_layers=6, d_model=96, n_heads=2, n_kv_heads=1, head_dim=32,
         d_ff=256, vocab=512, window_pattern=tuple((64 if (i + 1) % 6 != 0 else -1) for i in range(6)),
+        loss_chunk=64, remat=False,
     )

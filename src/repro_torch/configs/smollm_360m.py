@@ -24,5 +24,5 @@ CONFIG = ModelConfig(
 def smoke_config() -> ModelConfig:
     return dataclasses.replace(
         CONFIG, n_layers=2, d_model=96, n_heads=3, n_kv_heads=1, d_ff=256,
-        vocab=512,
+        vocab=512, loss_chunk=64, remat=False,
     )

@@ -23,5 +23,5 @@ CONFIG = ModelConfig(
 def smoke_config() -> ModelConfig:
     return dataclasses.replace(
         CONFIG, n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=384,
-        vocab=512,
+        vocab=512, loss_chunk=64, remat=False,
     )

@@ -97,6 +97,18 @@ def params_from_numpy(tree, device: str | torch.device | None = "cuda"):
     return _tensor_from_numpy(np.asarray(tree)).to(dev)
 
 
+def opt_state_from_numpy(state: dict, device: str | torch.device | None = "cuda") -> dict:
+    """A JAX optimizer state through ``np.asarray`` -- AdamW's {"m", "v",
+    "step"} or signum's {"mom", "step"} -> the port's: the moment trees as
+    `params_from_numpy` carries parameters, ``step`` a 0-dim int32 tensor."""
+    dev = _device.resolve(device)
+    if set(state) not in ({"m", "v", "step"}, {"mom", "step"}):
+        raise KeyError(f"expected AdamW's m, v, step or signum's mom, step; got {sorted(state)}")
+    out = {k: params_from_numpy(v, dev) for k, v in state.items() if k != "step"}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=dev)
+    return out
+
+
 def to_numpy(x, words: bool = False):
     """Tensor -> numpy (``words=True`` views int32 words as uint32; index
     lists stay int32 with the default ``words=False``; bf16 -> ml_dtypes'

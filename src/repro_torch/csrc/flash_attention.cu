@@ -15,6 +15,13 @@
 // that sees no key (which, as in the reference, gets the mean of V over all
 // Skv keys: a block holding such a row visits every kv tile).
 //
+// Given an `lse` pointer (the training forward; null on every serve path,
+// which then writes nothing more) it also writes each row's log-sum-exp
+// [B, H, Sq] in f32, in natural-log units of the scaled scores as the
+// reference's `m + log(max(l, 1e-30))`: the backward kernel
+// (flash_attention_bwd.cu) recomputes P = exp(s - lse) from it. A row that
+// sees no key keeps m = NEG_INF, and -1e30 + log(l) rounds back to -1e30.
+//
 // What bounds it on the H100: operations. At the prefill shape (B = 8,
 // S = 1024, H = 32, KH = 4, D = 64, causal, bf16) it moves 75.5 MB (0.0225 ms
 // at 3.35 TB/s) and does 34.4 GFLOP over the causal pairs (0.0347 ms at the
@@ -302,8 +309,9 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t d
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 2 : 1)   // two blocks an SM
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int Skv,
-                     int H, int KH, int causal, int window, int q_offset, float scale_log2) {
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int Sq, int Skv, int H, int KH, int causal,
+                     int window, int q_offset, float scale_log2, float scale) {
   using M = Mma<D>;
   constexpr int BK = M::BK, CH = M::CH;
   constexpr int NT = BK / 8;       // n8 tiles of keys in S
@@ -491,6 +499,17 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   // the warp's 16 rows of Q in shared memory are its own: stage the output there
   const int r0 = 16 * warp + (lane >> 2);
+  if (lse != nullptr && (lane & 3) == 0) {
+    // m is a raw score (the scale lives in the exponent): back to the scaled
+    // scores' natural log; NEG_INF stays NEG_INF, as the reference's m does
+    float* lrow = lse + ((size_t)b * H + h) * Sq + i0;
+    if ((lane >> 2) < wlive) {
+      lrow[r0] = (m0 == NEG_INF ? NEG_INF : m0 * scale) + logf(fmaxf(l0, 1e-30f));
+    }
+    if ((lane >> 2) + 8 < wlive) {
+      lrow[r0 + 8] = (m1 == NEG_INF ? NEG_INF : m1 * scale) + logf(fmaxf(l1, 1e-30f));
+    }
+  }
   const int cb = 4 * (lane & 3);                      // byte offset inside a chunk
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
@@ -535,8 +554,9 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ out, int Sq, int Skv,
-                      int H, int KH, int causal, int window, int q_offset, float scale) {
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, int Sq, int Skv, int H, int KH, int causal,
+                      int window, int q_offset, float scale) {
   constexpr int BK = Tile<D>::BK;
   constexpr int NC = Tile<D>::NC;
   extern __shared__ float4 smem4[];
@@ -635,6 +655,9 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (!live) return;
+  if (lse != nullptr && lane == 0) {
+    lse[((size_t)b * H + h) * Sq + i] = m + logf(fmaxf(l, 1e-30f));
+  }
   const float inv = 1.f / fmaxf(l, 1e-30f);
   float* orow = out + ((size_t)b * Sq + i) * H * D + (size_t)h * D;
 #pragma unroll
@@ -649,24 +672,24 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-                int H, int KH, int causal, int window, int q_offset, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+                int Skv, int H, int KH, int causal, int window, int q_offset, cudaStream_t stream) {
   const size_t smem = Mma<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Sq + MMA_BQ - 1) / MMA_BQ);
-  const float scale_log2 = (float)(1.0 / sqrt((double)D)) * LOG2E;
+  const float scale = (float)(1.0 / sqrt((double)D));
   flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, Sq, Skv, H, KH, causal,
-      window, q_offset, scale_log2);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, lse, Sq, Skv, H, KH, causal,
+      window, q_offset, scale * LOG2E, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-               int H, int KH, int causal, int window, int q_offset, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+               int Skv, int H, int KH, int causal, int window, int q_offset, cudaStream_t stream) {
   const size_t smem = Tile<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_simt_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -675,34 +698,38 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   const float scale = (float)(1.0 / sqrt((double)D));
   flash_fwd_simt_kernel<D><<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Skv, H, KH, causal,
-      window, q_offset, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, Sq, Skv, H, KH,
+      causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-           int H, int KH, int causal, int window, int q_offset, int is_bf16, cudaStream_t s) {
-  return is_bf16 ? launch_bf16<D>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, s)
-                 : launch_f32<D>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, s);
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+           int Skv, int H, int KH, int causal, int window, int q_offset, int is_bf16,
+           cudaStream_t s) {
+  return is_bf16
+             ? launch_bf16<D>(q, k, v, out, lse, B, Sq, Skv, H, KH, causal, window, q_offset, s)
+             : launch_f32<D>(q, k, v, out, lse, B, Sq, Skv, H, KH, causal, window, q_offset, s);
 }
 
 }  // namespace
 
+// lse: [B, H, Sq] f32, or null to write none (the serve paths)
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
-                                          void* out, int B, int Sq, int Skv, int H, int KH,
-                                          int D, int causal, int window, int q_offset,
+                                          void* out, void* lse, int B, int Sq, int Skv, int H,
+                                          int KH, int D, int causal, int window, int q_offset,
                                           int bf16, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || KH <= 0 || H % KH || Skv < 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = (float*)lse;
   switch (D) {
-    case 16: return launch<16>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
-    case 32: return launch<32>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
-    case 64: return launch<64>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
-    case 128: return launch<128>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
-    case 256: return launch<256>(q, k, v, out, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 16: return launch<16>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 32: return launch<32>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 64: return launch<64>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 128: return launch<128>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 256: return launch<256>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,10 +1,13 @@
-"""The per-receiver binary symmetric channel of the OTA serve and the sparse
-index-list wire (counterpart of `ota_noise`, `ota_noise_packed` and
-`sparse_index_allgather` in `repro/distributed/collectives.py`).
+"""The per-receiver binary symmetric channel of the OTA serve, the sparse
+index-list wire and the sign-majority vote of the gradients (counterpart of
+`ota_noise`, `ota_noise_packed`, `sparse_index_allgather` and
+`sign_allreduce` in `repro/distributed/collectives.py`).
 
-One GPU carries the whole ``model`` axis in this port, so the reference's
-collectives reduce to local sums and reshapes inside `core.scaleout`; the
-multi-GPU collectives over `torch.distributed` are not ported yet.
+One GPU carries the whole ``model`` axis and the whole data axis in this
+port, so the reference's collectives reduce to local sums and reshapes inside
+`core.scaleout`, and the sign vote over the data axis to the one rank's sign.
+The multi-GPU collectives over `torch.distributed`, the multi-rank vote
+among them, wait for the multi-rank slice (ROADMAP §1 item 1).
 """
 from __future__ import annotations
 
@@ -43,3 +46,18 @@ def sparse_index_allgather(idx: torch.Tensor) -> torch.Tensor:
     reference's shard-major order. With the model axis of size S = 1 there
     is nothing to gather: this is the slot-flattening reshape."""
     return idx.reshape(idx.shape[:-3] + (idx.shape[-3] * idx.shape[-2], idx.shape[-1]))
+
+
+def sign_allreduce(x: torch.Tensor, *, generator: torch.Generator | None = None,
+                   ber: float | None = None) -> torch.Tensor:
+    """Majority-vote sign aggregation of a gradient, in x's dtype: the vote
+    of the one rank on the data axis is its own sign(x) in {-1, 0, +1}. With
+    ``ber``, the received vote goes through the OTA channel: each element
+    flips sign with probability ``ber``, drawn from ``generator`` as
+    `ota_noise` draws its flips (a zero stays zero)."""
+    out = torch.sign(x.float())
+    if ber is not None:
+        if generator is None:
+            raise ValueError("sign_allreduce: OTA noise needs a generator")
+        out = torch.where(hv._bernoulli(generator, ber, out.shape, out.device), -out, out)
+    return out.to(x.dtype)

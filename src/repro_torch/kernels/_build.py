@@ -20,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("hamming.cu", "assoc_matmul.cu", "majority.cu", "sparse.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,9 +43,14 @@ SIGNATURES = {
     "sparse_search_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, protos, dist, idx, G, B, C, W, K, c_real, then the plan: qpw, wseg, stride; stream
     "sparse_topk_banked_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, out, B, Sq, Skv, H, KH, D, causal, window, q_offset, bf16, stream
-    "flash_attention_fwd_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                   _P],
+    # q, k, v, out, lse (or null), B, Sq, Skv, H, KH, D, causal, window, q_offset,
+    # bf16, stream
+    "flash_attention_fwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _P],
+    # q, k, v, out, dout, lse, delta scratch, dq, dk, dv, B, Sq, Skv, H, KH, D,
+    # causal, window, q_offset, bf16, stream
+    "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,1 +1,2 @@
-from repro_torch.kernels.flash_attention.ops import flash_attention_fwd  # noqa: F401
+from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
+    FlashAttention, flash_attention_bwd, flash_attention_fwd)

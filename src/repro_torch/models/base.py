@@ -60,5 +60,17 @@ def init_params(specs: Any, generator: torch.Generator, device=None) -> dict:
     return out
 
 
+def abstract_params(specs: Any) -> dict:
+    """The tree `init_params` draws, as meta tensors: shapes and dtypes
+    without storage (the structure a checkpoint restores into)."""
+    out: dict = {}
+    for path, spec in _leaves(specs):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.empty(spec.shape, dtype=spec.dtype, device="meta")
+    return out
+
+
 def count_params(specs: Any) -> int:
     return sum(math.prod(s.shape) for _, s in _leaves(specs))

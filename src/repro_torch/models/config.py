@@ -2,8 +2,8 @@
 `repro/models/config.py`).
 
 Only the fields the dense decoder reads are carried: the MoE, SSM, enc-dec and
-VLM sections, the sharding rules and the training knobs (remat, scanned
-layers, the loss chunk) come back with the slices that read them.
+VLM sections come back with the slices that read them; the sharding rules
+and scanned layers have nothing to do on one GPU.
 """
 from __future__ import annotations
 
@@ -32,8 +32,10 @@ class ModelConfig:
     act: str = "silu"            # silu | gelu
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True           # recompute each layer's forward in the backward
     flash_block_q: int = 512     # block sizes of the attention's plain twin
     flash_block_k: int = 1024
+    loss_chunk: int = 512        # chunked cross-entropy sequence chunk
 
     @property
     def hd(self) -> int:

@@ -5,7 +5,9 @@ and attention.
 Norm, RoPE and softmax math runs in f32 whatever the activation dtype, and
 products accumulate in f32, as the reference's do. The prefill attention is
 the hand-written kernel behind `kernels.flash_attention.flash_attention_fwd`
-(its plain twin on CPU tensors); the decode attention over the (ring) KV
+(its plain twin on CPU tensors) and, when an input needs a gradient, the
+autograd function `FlashAttention`, whose backward is the hand-written
+backward kernel (its twin on the CPU); the decode attention over the (ring) KV
 cache is plain tensor code, as in the reference, which has no kernel there.
 The reference's A/B switches (custom VJP, early KV expansion, bf16 P, bf16
 reductions) are not carried: the port behaves as their defaults do.
@@ -17,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+from repro_torch.kernels.flash_attention.ops import FlashAttention, flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import NEG_INF, expand_kv, largest_divisor
 
 _expand_kv = expand_kv
@@ -89,7 +91,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B, Skv, KH, D] with H % KH == 0. `window` > 0 masks keys with
     q_pos - k_pos >= window; -1 (or any negative) means global. Query i sits
     at position ``q_offset + i``. ``block_q``/``block_k`` tile the plain twin
-    (clipped to divisors of the sequence lengths, as in the reference)."""
+    (clipped to divisors of the sequence lengths, as in the reference). When
+    grad mode is on and an input needs a gradient, the call goes through
+    `FlashAttention` (the forward kernel with its log-sum-exp, then the
+    backward kernel); otherwise it is the serve paths' forward alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, int(window), int(q_offset), block_q,
+                                    block_k)
     return flash_attention_fwd(q, k, v, causal=causal, window=int(window),
                                q_offset=int(q_offset), block_q=block_q, block_k=block_k)
 

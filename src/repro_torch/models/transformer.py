@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models.base import ParamSpec
@@ -99,6 +100,18 @@ def _layer(tree: dict, i: int) -> dict:
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i]) for k, v in tree.items()}
 
 
+def _layers(tree: dict, n: int) -> list[dict]:
+    """The n layers of a stacked parameter tree, one ``unbind`` a leaf: its
+    backward stacks the layers' gradients once, where indexing layer by
+    layer would scatter each layer's gradient into a full-size zero tensor."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -134,15 +147,17 @@ def _mlp_residual(blk: dict, cfg: ModelConfig, x: torch.Tensor, o: torch.Tensor)
     return x + m
 
 
-def attn_block_prefill(blk: dict, cfg: ModelConfig, x: torch.Tensor,
-                       positions: torch.Tensor, window: int, theta: float):
-    """The forward of the reference's ``attn_block_train(return_kv=True)``:
-    returns (x, (k, v)) with k after qk-norm and RoPE."""
+def attn_block_train(blk: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                     window: int, theta: float, return_kv: bool = False):
+    """One full-sequence causal block: x, or (x, (k, v)) with k after qk-norm
+    and RoPE when ``return_kv`` (the prefill). The dense decoder's aux loss
+    is 0 and is added by `run_stack_train`."""
     h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
     q, k, v = _attn_heads(blk["attn"], cfg, h, positions, theta)
     o = flash_attention(q, k, v, causal=True, window=window,
                         block_q=cfg.flash_block_q, block_k=cfg.flash_block_k)
-    return _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o)), (k, v)
+    x = _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o))
+    return (x, (k, v)) if return_kv else x
 
 
 def attn_block_decode(blk: dict, cfg: ModelConfig, x: torch.Tensor, pos, window: int,
@@ -174,12 +189,16 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.
     return x.to(cfg.dtype)
 
 
+def head_weight(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The vocabulary projection [d, V]: the embedding's transpose when tied."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 def logits_head(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """Final norm and the vocabulary projection; f32 logits, as the
     reference's f32-accumulated einsum gives them."""
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(h.float(), w.float())
+    return torch.matmul(h.float(), head_weight(params, cfg).float())
 
 
 def run_stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -189,11 +208,30 @@ def run_stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
     windows, thetas = layer_meta(cfg)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = attn_block_prefill(_layer(params["blocks"], i), cfg, x, positions,
-                                       windows[i], thetas[i])
+        x, (k, v) = attn_block_train(_layer(params["blocks"], i), cfg, x, positions,
+                                     windows[i], thetas[i], return_kv=True)
         ks.append(k)
         vs.append(v)
     return x, (torch.stack(ks), torch.stack(vs))
+
+
+def run_stack_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor):
+    """Full-sequence causal stack for training: (hidden [B, S, d], aux loss,
+    0 for the dense decoder). With ``cfg.remat`` each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+    reference's ``jax.checkpoint(body)``: the forward keeps only each
+    layer's input and the backward recomputes the layer, attention kernel
+    included, before its gradient."""
+    windows, thetas = layer_meta(cfg)
+    for blk, window, theta in zip(_layers(params["blocks"], cfg.n_layers), windows, thetas):
+        if cfg.remat:
+            # the block draws no random numbers: no RNG state to keep
+            x = checkpoint(attn_block_train, blk, cfg, x, positions, window, theta,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = attn_block_train(blk, cfg, x, positions, window, theta)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def cache_from_kv(cfg: ModelConfig, kv, seq: int, pad_to: int | None = None) -> dict:

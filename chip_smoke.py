@@ -183,7 +183,34 @@ fallback, and a missing GPU is a failure):
    (`SIGN`): losses finite, the flip rate within 5 sigma; (d) in a child
    process with deterministic algorithms, a Trainer that fails at step 6
    and resumes from its step-5 checkpoint == an uninterrupted one, bit for
-   bit (`RESUME`).
+   bit (`RESUME`);
+17. the scale-out serve across ranks (`launch.mesh.spawn`, gloo; every
+   rank a process on the one card, the port's `mesh=` builders on its
+   shard, `shard_inputs`): at the paper's configuration on (data, model)
+   grids of 1x2, 1x4 and 2x4 ranks, the four modes x psum, psum_packed and
+   rs_ag on the ideal channel == the one-rank serve of the same inputs ==
+   `serve_reference` (plain PyTorch) on the card (pred and maxsim); the bsc
+   masks and the symbol tier's draws replayed by core index
+   (``bsc_replay`` in the four modes x three collectives, ``symbol_replay``
+   on psum) == the one-rank serve bit for bit; on bsc at a per-core BER
+   ramp (MR_HOT_BER), every rank drawing from its own generator, the three
+   collectives equal bit for bit and the hit rate, at most 0.95 on one
+   rank, within 3 binomial sigmas (of the difference) of the one-rank
+   serve's; the symbol tier (psum) on its own draws, packed == unpacked
+   and the hit rate as on bsc; on 1x4 also phase 10's flat packed serve at
+   C = 102,400 (25,600 classes a rank) with each collective and its coarse
+   screen (held to the one-rank serve on the plain top-k twin), the wired
+   serve and the sparse serve at d = 8192 (index_ag and the dense
+   psum_packed wire) == one rank == `serve_reference`; on 2x4 also the
+   one-shot training == one rank == the plain one-hot class sums and, on
+   EXPERIMENTS.md:10-19's 2x4 cell (C = 4096, d = 1024, 8 cores, B = 128),
+   the bytes every rank's collectives move (operand + result): 133,632
+   (psum), 55,296 (psum_packed), 53,760 (rs_ag packed); on a 4-rank model
+   axis the packed lanes whose bit 31 is set sum as uint32. Each case's ms
+   a call on rank 0 (host clock, median of MR_TIMED; the replayed cases
+   untimed) beside the one-rank serve's, with the backend named: gloo
+   through host memory, which says nothing of NVLink.
+   A rank that fails or outlives MR_TIMEOUT fails the phase.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
@@ -195,8 +222,10 @@ phase 12's serves, trials and drift sweeps, and phase 13's slot-ring runs
 serves, fault-aware serves and engine runs (the fault-free serves beside
 them, the vote-erasure comparisons, the timing calls and the standalone
 comparisons are not counted), phase 15's scheduler runs (the static
-comparison generates are not counted) and phase 16's training steps and
-Trainer runs (the kernel cases of (a) are not counted);
+comparison generates are not counted), phase 16's training steps and
+Trainer runs (the kernel cases of (a) are not counted) and one counted call
+of every case on every rank of phase 17 (the one-rank comparison serves and
+the timed calls are not counted);
 the d = 8192 comparisons, the
 keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
 quarantine check are not counted), and as the last line {"ok": true, ...}.
@@ -338,6 +367,22 @@ TRAIN = dict(arch="tinyllama-1.1b", batch=8, seq=1024, steps=15, lr=1e-3, warmup
              total_steps=30, min_drop=0.5, ref_init_steps=5)
 SIGN = dict(steps=10, lr=3e-4, warmup=5, total_steps=40, ber=0.01)
 RESUME = dict(layers=2, steps=8, ckpt_every=5, fail_at=6)
+# phase 17: the scale-out serve over (data, model) grids of gloo ranks on the
+# one card, at the paper's configuration (ScaleOutConfig's defaults);
+# EXPERIMENTS.md:10-19's 2x4 cell and its per-device collective bytes
+MR_GRIDS = ((1, 2), (1, 4), (2, 4))
+MR_MODES = ((False, "unpacked"), (False, "packed"), (True, "unpacked"), (True, "packed"))
+MR_COLLECTIVES = ("psum", "psum_packed", "rs_ag")
+MR_TIMED = 5                     # timed calls a case, after its counted call
+MR_TIMEOUT = 300                 # seconds a grid's ranks may take, their start included
+MR_CELL = dict(n_classes=4096, dim=1024, m_tx=3, n_rx_cores=8, batch=128)
+MR_CELL_BYTES = {("psum", "unpacked"): 133_632, ("psum", "packed"): 133_632,
+                 ("psum_packed", "packed"): 55_296, ("rs_ag", "packed"): 53_760}
+# the bsc cases' per-core BER, a ramp over the cores (core i at lo + (hi -
+# lo) * i / (n - 1)): hits well below 1, and a rank that reads another
+# core's BER moves them; the replayed tiers' draws come from MR_REPLAY_SEED
+MR_HOT_BER = (0.25, 0.5)
+MR_REPLAY_SEED = 17
 # phase 16 (a): the backward kernel's cases, label -> (B, Sq, Skv, H, KH, D,
 # causal, window, q_offset, dtype); the training shape first
 FLASH_BWD_CASES = [
@@ -3984,6 +4029,420 @@ def phase_train(torch, launches: dict, profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the scale-out serve across ranks (gloo, every rank on cuda:0)
+# ---------------------------------------------------------------------------
+
+def mr_cases(grid: tuple) -> list:
+    """Phase 17's serves on one (data, model) grid: each a dict of name,
+    kind (ota, wired or train), codebook and configuration."""
+    cases = [dict(name=f"{ch} {'permuted' if perm else 'baseline'} {rep} {coll}", kind="ota",
+                  book="paper", cfg=dict(channel=ch, permuted=perm, representation=rep,
+                                         collective=coll))
+             for ch in ("ideal", "bsc") for perm, rep in MR_MODES for coll in MR_COLLECTIVES]
+    # the noise replayed by core index (untimed): the same bits on ranks as on one rank
+    cases += [dict(name=f"bsc_replay {'permuted' if perm else 'baseline'} {rep} {coll}",
+                   kind="ota", book="paper", timed=0,
+                   cfg=dict(channel="bsc_replay", permuted=perm, representation=rep,
+                            collective=coll))
+              for perm, rep in MR_MODES for coll in MR_COLLECTIVES]
+    cases += [dict(name=f"{ch} {'permuted' if perm else 'baseline'} {rep} psum", kind="ota",
+                   book="paper", timed=0 if ch == "symbol_replay" else MR_TIMED,
+                   cfg=dict(channel=ch, permuted=perm, representation=rep))
+              for ch in ("symbol", "symbol_replay") for perm, rep in MR_MODES]
+    if grid == (1, 4):
+        flat = dict(COARSE, channel="ideal", representation="packed")
+        cases += [dict(name=f"flat packed C={COARSE['n_classes']} {coll}", kind="ota",
+                       book="coarse", cfg=dict(flat, collective=coll))
+                  for coll in MR_COLLECTIVES]
+        cases += [dict(name=f"coarse packed C={COARSE['n_classes']} psum_packed", kind="ota",
+                       book="coarse", cfg=dict(flat, collective="psum_packed",
+                                               coarse_group=COARSE_GS,
+                                               coarse_keep=COARSE_KEEP))]
+        cases += [dict(name=f"wired {rep}", kind="wired", book="paper",
+                       cfg=dict(channel="ideal", representation=rep))
+                  for rep in ("unpacked", "packed")]
+        cases += [dict(name=f"sparse d={NARROW_DIM} {coll}", kind="ota", book="narrow",
+                       cfg=dict(channel="ideal", representation="sparse", dim=NARROW_DIM,
+                                k_max=NARROW_K, collective=coll))
+                  for coll in ("index_ag", "psum_packed")]
+    if grid == (2, 4):
+        cases += [dict(name=f"cell {coll} {rep}", kind="ota", book="cell",
+                       cfg=dict(MR_CELL, channel="ideal", representation=rep, collective=coll))
+                  for coll, rep in MR_CELL_BYTES]
+        cases += [dict(name=f"train {rep}", kind="train", book="paper",
+                       cfg=dict(representation=rep)) for rep in ("unpacked", "packed")]
+    return cases
+
+
+MR_KERNELS = {  # (kind, representation, coarse) -> the kernels a rank's call launches
+    ("ota", "unpacked", False): ("assoc_matmul",),
+    ("ota", "packed", False): ("hamming_topk_banked",),
+    ("ota", "packed", True): ("hamming_topk_k_banked",),
+    ("ota", "sparse", False): ("sparse_topk_banked",),
+    ("wired", "unpacked", False): ("majority_bundle", "assoc_matmul"),
+    ("wired", "packed", False): ("hamming_search",),
+    ("train", "unpacked", False): (), ("train", "packed", False): (),
+}
+
+
+def mr_books(torch, names) -> dict:
+    """The codebooks of phase 17, made on the card from seeds (the same in
+    every process): (unpacked bits or index lists, the serve's prototypes
+    packed or not is decided per case)."""
+    from repro_torch.core import classifier, hypervector as hv
+
+    books = {}
+    if "paper" in names:
+        books["paper"] = classifier.make_codebook(
+            cuda_gen(torch, 0), classifier.HDCTaskConfig(n_classes=6400, dim=512),
+            device="cuda")
+    if "coarse" in names:
+        books["coarse"] = hv.random_hv(cuda_gen(torch, SEED), COARSE["n_classes"],
+                                       COARSE["dim"], "cuda")
+    if "narrow" in names:
+        books["narrow"] = sparse_codebook(torch, cuda_gen(torch, SEED), 6400, NARROW_DIM,
+                                          NARROW_K, NARROW_DENSITY)
+    if "cell" in names:
+        books["cell"] = hv.random_hv(cuda_gen(torch, 5), MR_CELL["n_classes"], MR_CELL["dim"],
+                                     "cuda")
+    return books
+
+
+def mr_hot_ber(torch, n: int):
+    lo, hi = MR_HOT_BER
+    return lo + (hi - lo) * torch.arange(n, device="cuda", dtype=torch.float32) / (n - 1)
+
+
+def mr_replay_tiers(torch, mesh) -> None:
+    """Register the tiers ``bsc_replay`` and ``symbol_replay``: the BSC's
+    flip masks (at `mr_hot_ber`) and the symbol tier's draws made before
+    the serve from MR_REPLAY_SEED for every core and trial of the paper's
+    configuration, each core taking those of its global index ``rx_base +
+    i`` and each rank its rows of the batch (``mesh=None``: all of them),
+    as the tests' replayed tiers do."""
+    from repro_torch import phy
+    from repro_torch.core import hypervector as hv, scaleout
+
+    cfg = scaleout.ScaleOutConfig()
+    g = torch.Generator().manual_seed(MR_REPLAY_SEED)       # the host's: the same everywhere
+    full = (cfg.n_rx_cores, cfg.batch, cfg.dim)
+    masks = (torch.rand(full, generator=g) < mr_hot_ber(torch, cfg.n_rx_cores).cpu()[:, None, None])
+    nr, ni = torch.randn(full, generator=g), torch.randn(full, generator=g)
+    flips = torch.rand(full, generator=g) < 0.01
+    mine = lambda x: scaleout.shard_batch(mesh, x, 1).cuda()              # noqa: E731
+    masks, nr, ni, flips = (mine(x) for x in (masks.to(torch.uint8), nr, ni, flips))
+
+    class BSCReplay(phy.Channel):
+        name, wire = "bsc_replay", "votes"
+
+        def rx_copies(self, generator, reduced, state, rx_base, n_cores, *, packed, dim,
+                      noise, planes=16):
+            m = masks[rx_base:rx_base + n_cores]
+            return reduced[None] ^ (hv.pack(m) if packed else m)
+
+    class SymbolReplay(phy.SymbolChannel):
+        name = "symbol_replay"
+
+        def draws(self, generator, state, rx_base, n_cores, shape):
+            rows = slice(rx_base, rx_base + n_cores)
+            return nr[rows], ni[rows], flips[rows]
+
+    phy.register_channel(BSCReplay(), override=True)
+    phy.register_channel(SymbolReplay(), override=True)
+
+
+def mr_plain_topk(q, protos, *, k=None, bank_rows=None):
+    """`hamming_topk_banked`'s plain twin, for the coarse oracle."""
+    from repro_torch.kernels.hamming import ref
+
+    if k is None:
+        return ref.hamming_topk_banked_ref(q, protos, protos.shape[1], bank_rows)
+    return ref.hamming_topk_k_banked_ref(q, protos, k, protos.shape[1], bank_rows)
+
+
+def mr_oracle(torch, cfg, case: dict, a, b, serve_one):
+    """The plain answer of an ideal case on the whole inputs (``a, b``: the
+    prototypes and queries, or the examples and labels): the one-shot
+    training as a one-hot product in f64, the coarse screen as the one-rank
+    serve with its kernel swapped for the plain twin, every other serve
+    `serve_reference` (plain PyTorch, no kernel)."""
+    from unittest import mock
+
+    from repro_torch.core import hypervector as hv, scaleout
+
+    if case["kind"] == "train":
+        ex, labels = a, b
+        ex_u = hv.unpack(ex, cfg.dim) if cfg.packed else ex
+        onehot = torch.nn.functional.one_hot(labels, cfg.n_classes).to(torch.float64)
+        sums = onehot.T @ (2.0 * ex_u.to(torch.float64) - 1.0)             # [C, d]
+        protos = (sums > 0).to(torch.uint8)
+        return (hv.pack(protos) if cfg.packed else protos).cpu().numpy()
+    if cfg.coarse_group:
+        with mock.patch.object(scaleout, "hamming_topk_banked", mr_plain_topk):
+            out = serve_one()
+    else:
+        out = scaleout.serve_reference(cfg, a, b)
+    return out[0].cpu().numpy(), out[1].cpu().numpy()
+
+
+def mr_serve(torch, case: dict, mesh, books: dict, state) -> dict:
+    """One case of phase 17 on this rank's shard (``mesh=None``: the
+    one-rank serve of the whole inputs, with the plain oracle of an ideal
+    case): its rows' answers, the launches and wire bytes of one counted
+    call, and ``case["timed"]`` (default MR_TIMED) more calls' ms (host
+    clock, each ending in a synchronize). The bsc tiers serve at the BER
+    ramp `mr_hot_ber`, the symbol tiers through the paper's state."""
+    from repro_torch import kernels as tk, phy
+    from repro_torch.core import hypervector as hv, scaleout
+    from repro_torch.distributed import collectives
+
+    cfg = scaleout.ScaleOutConfig(**case["cfg"])
+    s = 1 if mesh is None else mesh.axis_size("model")
+    dpos, _ = scaleout._dpos(mesh)
+    tx = 0 if mesh is None else mesh.index("model")
+    if case["book"] != "paper":
+        state = phy.state_from_ber(torch.zeros(cfg.n_rx_cores, device="cuda"), cfg.m_tx)
+    elif cfg.channel.startswith("bsc"):
+        state = phy.state_from_ber(mr_hot_ber(torch, cfg.n_rx_cores), cfg.m_tx)
+    if case["kind"] == "train":
+        book = books["paper"]
+        g = cuda_gen(torch, 4)
+        labels = torch.randint(0, cfg.n_classes, (cfg.batch,), generator=g, device="cuda")
+        ex = book[labels] ^ (torch.rand(book[labels].shape, generator=g, device="cuda")
+                             < 0.1).to(torch.uint8)
+        ex = hv.pack(ex) if cfg.packed else ex
+        fn = scaleout.make_hdc_train(cfg, device="cuda", mesh=mesh)
+        args = (scaleout.shard_batch(mesh, ex), scaleout.shard_batch(mesh, labels))
+        call = lambda: fn(*args)                                         # noqa: E731
+        whole = (ex, labels)
+    else:
+        if case["book"] == "narrow":
+            codes, protos = books["narrow"]
+            classes, q = scaleout.make_queries(cuda_gen(torch, 1), cfg, codes, model_size=s)
+        else:
+            book = books[case["book"]]
+            classes, q = scaleout.make_queries(cuda_gen(torch, 1), cfg, book, model_size=s)
+            protos = (torch.cat([hv.pack(book[i:i + 8192]) for i in range(0, len(book), 8192)])
+                      if cfg.packed else book)
+        whole = (protos, q)
+        protos, q, st = scaleout.shard_inputs(cfg, mesh, protos, q, state)
+        build = scaleout.make_wired_serve if case["kind"] == "wired" else scaleout.make_ota_serve
+        fn = build(cfg, device="cuda", mesh=mesh)
+        seed = 1000 + 100 * dpos + tx                      # this rank's own noise
+        call = lambda: fn(protos, q, st, cuda_gen(torch, seed))          # noqa: E731
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    collectives.reset_wire_bytes()
+    out = call()
+    torch.cuda.synchronize()
+    res = dict(launches=tk.launch_counts(), bytes=collectives.wire_bytes(),
+               coords=(dpos, tx))
+    if case["kind"] == "train":
+        res["protos"] = out.cpu().numpy()
+    else:
+        res.update(pred=out[0].cpu().numpy(), sim=out[1].cpu().numpy(),
+                   classes=classes.cpu().numpy())
+    if mesh is None and (case["kind"] == "train" or cfg.channel == "ideal"):
+        res["oracle"] = mr_oracle(torch, cfg, case, *whole, call)
+    ms = []
+    for _ in range(case.get("timed", MR_TIMED)):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    res["ms"] = ms
+    return res
+
+
+def mr_rank(mesh, state_np: dict, cases: list) -> dict:
+    """What each rank of a phase-17 grid runs on cuda:0: every case on its
+    shard. Returns {name: that case's rank results}."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import phy
+
+    from repro_torch.distributed import collectives
+
+    state = phy.ChannelState(**{f: torch.from_numpy(v).cuda() for f, v in state_np.items()})
+    books = mr_books(torch, {c["book"] for c in cases})
+    mr_replay_tiers(torch, mesh)
+    g, s = mesh.group("model"), mesh.axis_size("model")
+    out = {"backend": dist.get_backend(g)}
+    # slot-blind fields of a 4-rank axis are 4 bits, 8 to a lane: every vote
+    # +1 sums the top field to 8, bit 31, so the int32 sum must wrap as uint32
+    votes = torch.ones((4, 64), dtype=torch.int8, device="cuda")
+    fbits, k = collectives.vote_field_spec(s)
+    lanes = collectives.all_reduce(collectives._pack_vote_fields(votes, 1, fbits, k), g)
+    out["bit31"] = (bool((lanes < 0).all()) if fbits * k == 32 else None,
+                    bool((collectives.packed_vote_allreduce(votes, g) == s).all()))
+    for case in cases:
+        out[case["name"]] = mr_serve(torch, case, mesh, books, state)
+    return out
+
+
+def mr_assemble(np, results: list, name: str, key: str):
+    """One case's global answer from its ranks: every model rank of a data
+    row must answer alike, the data rows in order; training: every data
+    rank alike, the model ranks' classes in order."""
+    by = {r[name]["coords"]: r[name][key] for r in results}
+    n_data, n_model = 1 + max(d for d, _ in by), 1 + max(t for _, t in by)
+    if key == "protos":
+        require(all(np.array_equal(by[(d, t)], by[(0, t)])
+                    for d in range(n_data) for t in range(n_model)),
+                f"mr {name}: data ranks learned different prototypes")
+        return np.concatenate([by[(0, t)] for t in range(n_model)])
+    require(all(np.array_equal(by[(d, t)], by[(d, 0)])
+                for d in range(n_data) for t in range(n_model)),
+            f"mr {name}: model ranks answer differently")
+    return np.concatenate([by[(d, 0)] for d in range(n_data)])
+
+
+def mr_hit(np, pred, classes, permuted: bool) -> tuple:
+    """(hit rate, trials): the share of trials answered from the sent set
+    (baseline) or of draws answered (permuted)."""
+    if permuted:
+        return float((pred == classes).mean()), pred.size
+    return float((pred[:, None] == classes).any(1).mean()), len(pred)
+
+
+def phase_multirank(torch, state, launches: dict) -> dict:
+    """Phase 17: each grid's ranks (gloo, all on cuda:0) serve every case;
+    the one-rank serves of the same inputs in this process, and on ideal
+    their plain oracles, are what they are held to."""
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as tmesh
+
+    state_np = {f: getattr(state, f).cpu().numpy() for f in state.FIELDS}
+    grids = {g: mr_cases(g) for g in MR_GRIDS}
+    every = {c["name"]: c for cases in grids.values() for c in cases}
+    books = mr_books(torch, {c["book"] for c in every.values()})
+    mr_replay_tiers(torch, None)
+    one = {name: mr_serve(torch, c, None, books, state) for name, c in every.items()}
+    for name, r in one.items():
+        if "oracle" in r:
+            got = (r["protos"],) if every[name]["kind"] == "train" else (r["pred"], r["sim"])
+            want = (r["oracle"],) if every[name]["kind"] == "train" else r["oracle"]
+            require(all(np.array_equal(a, b) for a, b in zip(got, want)),
+                    f"mr one rank {name}: differs from its plain oracle")
+    del books
+    torch.cuda.empty_cache()
+    out = {"one_rank_ms": {n: statistics.median(r["ms"]) for n, r in one.items() if r["ms"]},
+           "grids": {}}
+    _build.build()             # the ranks load the library built here
+    for grid, cases in grids.items():
+        t0 = time.perf_counter()
+        results = tmesh.spawn(mr_rank, grid, (state_np, cases), timeout=MR_TIMEOUT,
+                              threads=None)
+        wall = time.perf_counter() - t0
+        label = f"{grid[0]}x{grid[1]}"
+        backend = results[0]["backend"]
+        for r in results:
+            require(r["bit31"][1] and r["bit31"][0] in (True, None),
+                    f"mr {label}: the packed lanes' sum {r['bit31']} is not the uint32 sum")
+        rows, hits = {}, {}
+        for c in cases:
+            name = c["name"]
+            rep = c["cfg"].get("representation", "unpacked")
+            want = MR_KERNELS[(c["kind"], rep, bool(c["cfg"].get("coarse_group")))]
+            for r in results:
+                counts = r[name]["launches"]
+                require(all(counts[k] > 0 for k in want)
+                        and all(v == 0 for k, v in counts.items() if k not in want),
+                        f"mr {label} {name}: launches {counts}, expected {want}")
+                add_launches(launches, counts)
+                require(c["kind"] == "train" or r[name]["bytes"] > 0,
+                        f"mr {label} {name}: no bytes on the wire")
+            if c["kind"] == "train":
+                got = mr_assemble(np, results, name, "protos")
+                require(np.array_equal(got, one[name]["protos"])
+                        and np.array_equal(got, one[name]["oracle"]),
+                        f"mr {label} {name}: prototypes differ from the one-rank training "
+                        "or the plain one-hot sums")
+                continue
+            pred = mr_assemble(np, results, name, "pred")
+            sim = mr_assemble(np, results, name, "sim")
+            rows[name] = (pred, sim)
+            ch = c["cfg"].get("channel", "bsc")
+            if ch in ("ideal", "bsc_replay", "symbol_replay"):
+                require(np.array_equal(pred, one[name]["pred"])
+                        and np.array_equal(sim, one[name]["sim"]),
+                        f"mr {label} {name}: differs from the one-rank serve")
+            if ch == "ideal":
+                require(all(np.array_equal(a, b) for a, b in zip((pred, sim),
+                                                                  one[name]["oracle"])),
+                        f"mr {label} {name}: differs from its plain oracle")
+            if ch in ("bsc", "symbol"):
+                perm = c["cfg"]["permuted"]
+                h, n = mr_hit(np, pred, one[name]["classes"], perm)
+                h1, _ = mr_hit(np, one[name]["pred"], one[name]["classes"], perm)
+                pbar = (h + h1) / 2
+                sigma = math.sqrt(2 * pbar * (1 - pbar) / n)
+                hits[name] = (h, h1, sigma)
+                require(abs(h - h1) <= 3 * sigma,
+                        f"mr {label} {name}: hit {h} vs one rank {h1}, beyond 3 sigma {sigma}")
+                require(ch == "symbol" or h1 <= 0.95,
+                        f"mr {label} {name}: one-rank hit {h1} at the BER ramp "
+                        f"{MR_HOT_BER}; the 3-sigma gate sees nothing")
+            if c["book"] == "cell":
+                got = [r[name]["bytes"] for r in results]
+                want_b = MR_CELL_BYTES[(c["cfg"]["collective"], c["cfg"]["representation"])]
+                require(got == [want_b] * len(results),
+                        f"mr {label} {name}: wire bytes {got}, expected {want_b} on every rank")
+        # on bsc every collective answers alike on the same per-rank
+        # generators, and on the symbol tier packed answers as unpacked
+        for perm, rep in MR_MODES:
+            tag = f"{'permuted' if perm else 'baseline'} {rep}"
+            first = rows[f"bsc {tag} psum"]
+            for coll in MR_COLLECTIVES[1:]:
+                other = rows[f"bsc {tag} {coll}"]
+                require(all(np.array_equal(a, b) for a, b in zip(first, other)),
+                        f"mr {label} bsc {tag}: {coll} differs from psum")
+            if rep == "packed":
+                u = rows[f"symbol {'permuted' if perm else 'baseline'} unpacked psum"]
+                require(all(np.array_equal(a, b)
+                            for a, b in zip(u, rows[f"symbol {tag} psum"])),
+                        f"mr {label} symbol {tag}: packed differs from unpacked")
+        ms = {c["name"]: statistics.median(results[0][c["name"]]["ms"]) for c in cases
+              if results[0][c["name"]]["ms"]}
+        for ch in ("ideal", "bsc"):
+            for perm, rep in MR_MODES:
+                tag = f"{ch} {'permuted' if perm else 'baseline'} {rep}"
+                print(f"mr {label} {tag}: " + ", ".join(
+                    f"{coll} {ms[f'{tag} {coll}']:.3f}" for coll in MR_COLLECTIVES)
+                    + f" ms a call (one rank {out['one_rank_ms'][f'{tag} psum']:.3f})"
+                    + ("" if ch == "ideal" else ", hit {:.4f} vs one rank {:.4f}".format(
+                        *hits[f"{tag} psum"][:2])), flush=True)
+        extra = [c["name"] for c in cases if c["name"] in ms
+                 and not c["name"].startswith(("ideal", "bsc")) and c["kind"] != "train"]
+        print(f"mr {label} " + "; ".join(
+            f"{n} {ms[n]:.3f} ms (one rank {out['one_rank_ms'][n]:.3f})" for n in extra),
+            flush=True)
+        bytes0 = {c["name"]: results[0][c["name"]]["bytes"] for c in cases}
+        out["grids"][label] = dict(backend=backend, wall_s=wall, ms=ms, hits=hits,
+                                   bytes=bytes0, bit31=results[0]["bit31"][0])
+        print(f"mr {label}: {len(results)} ranks over {backend} on cuda:0, "
+              f"{len(cases)} cases, ideal == one rank == the plain oracle, replayed bsc "
+              f"and symbol == one rank, bsc collectives equal and hit within 3 sigma, "
+              f"lanes with bit 31 set sum as uint32: "
+              f"{results[0]['bit31'][0]}, {wall:.1f} s with the ranks' start", flush=True)
+    cell = out["grids"]["2x4"]["bytes"]
+    print("mr wire bytes per rank, 2x4 cell (C = 4096, d = 1024, M = 3, 8 cores, B = 128): "
+          + ", ".join(f"{coll} {rep} {cell[f'cell {coll} {rep}']:,}"
+                      for coll, rep in MR_CELL_BYTES), flush=True)
+    print("mr checks: every grid's ideal serves == the one-rank serve == the plain oracle "
+          "(serve_reference; the coarse screen on the plain top-k; the training as one-hot "
+          f"sums) in pred and maxsim, the flat packed serve at C = {COARSE['n_classes']} on "
+          "1x4 too; the bsc masks and symbol draws replayed by core index == the one-rank "
+          f"serve; at the bsc BER ramp {MR_HOT_BER} psum == psum_packed == rs_ag on the same "
+          "per-rank generators and the hit rate within 3 sigma of one rank's; the byte "
+          "totals of EXPERIMENTS.md:16-19 on every rank", flush=True)
+    return out
+
+
 def phase_profile(torch, state, protos_u, base) -> dict:
     """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
@@ -4096,6 +4555,8 @@ def main(argv: list[str]) -> int:
     cont = phase("15 continuous LM serving", lambda: phase_continuous(
         torch, launches, profile=args.profile))
     train = phase("16 training", lambda: phase_train(torch, launches, profile=args.profile))
+    multirank = phase("17 scale-out serve across ranks",
+                      lambda: phase_multirank(torch, state, launches))
     kernels["flash_attention_bwd"] = train["kernel_cases"]
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
@@ -4122,7 +4583,7 @@ def main(argv: list[str]) -> int:
             ber=dict(avg=avg, max=mx, ms=pre_ms), kernels=kernels, serves=serves["runs"],
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
-            faults=fault, cont=cont, train=train,
+            faults=fault, cont=cont, train=train, multirank=multirank,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

@@ -1,13 +1,24 @@
-"""Scale-out of IMC-based HDC similarity search on one GPU (counterpart of
-`repro/core/scaleout.py`, paper Fig. 3b).
+"""Scale-out of IMC-based HDC similarity search (counterpart of
+`repro/core/scaleout.py`, paper Fig. 3b), on one GPU or over ranks.
 
-The reference maps encoders and IMC cores onto a ``model`` mesh axis inside
-``shard_map``. This port runs on one GPU, so that axis has size 1: every
-encoder sits in column 0 (``e_per = m_tx``, ``tx = 0``), every core in the one
-shard (``cores_per_shard = n_rx_cores``), and the OTA ``psum`` over the axis
-(reference line 372) is the local sum over the encoder axis. ``vmap`` over
-cores becomes a written-out leading core axis, which is also the bank axis of
-the kernels: one launch searches every core.
+The reference maps encoders and IMC cores onto a ``model`` mesh axis and
+trials onto the ``data`` (and ``pod``) axes inside ``shard_map``. Here a
+builder takes ``mesh=`` (a `distributed.mesh.RankMesh`) and each rank of the
+mesh calls the built function on its own inputs (`shard_inputs` cuts them
+from the global ones, the reference's ``in_specs``): model rank ``tx`` holds
+classes [tx*C/S, (tx+1)*C/S), the ``n_rx_cores/S`` cores that store them
+and the encoder slots ``tx*e_per .. tx*e_per + e_per - 1`` (``e_per =
+ceil(M/S)``; slots ``g >= m_tx`` are empty and abstain), and each data rank
+its share of the batch. The OTA bundle is a collective over the model
+ranks (`distributed.collectives`): the int8 vote all-reduce (``psum``), the
+guard-bit packed all-reduce (``psum_packed``), the reduce-scatter and
+all-gather (``rs_ag``), or the index-list all-gather of sparse queries
+(``index_ag``); the global top-1 is an all-gather of every model rank's
+(value, index). Without a mesh (one rank) the model axis has size 1:
+every encoder sits in column 0 (``e_per = m_tx``, ``tx = 0``), every core in
+the one shard, and each collective is its rank's own value. ``vmap`` over
+cores becomes a written-out leading core axis, which is also the bank axis
+of the kernels: one launch searches every core of the rank.
 
 Dataflow of `make_ota_serve`: encoders vote (sum of bipolar votes, strict
 majority), every core receives its own copy through the PHY tier (``ideal``,
@@ -34,8 +45,10 @@ slot by slot, one banked search over every (slot, core).
 ``representation="sparse"`` serves ultra-sparse queries as sorted int32
 index lists (`core.sparse`) against the unchanged packed prototypes: the
 OTA wire is the index-list all-gather (``collective="index_ag"``, the
-slot-flattening reshape on one GPU) and a local sparse majority (the dense
-``psum`` fallback gives the same lists); the per-core BSC is the O(k)
+slot-flattening reshape on one rank) and a local sparse majority; the dense
+``psum``/``psum_packed`` wires densify, vote and re-sparsify across model
+ranks, which gives the same lists (on one rank they take the index path,
+with no wire to choose); the per-core BSC is the O(k)
 drop+insert channel, and the top-1 the gather-overlap ``sparse_topk_banked``
 kernel.
 ``"auto"`` picks sparse or packed from the density crossover
@@ -52,7 +65,13 @@ flat winner survives the screen.
 Randomness: an explicit `torch.Generator` replaces the reference's key, so
 the BSC and AWGN noise is not the reference's bits; the tests hold the noisy
 serve by replaying JAX-drawn draws through a registered tier (dense) or in
-place of `sparse._noise_draws` (sparse).
+place of `sparse._noise_draws` (sparse). Over ranks each rank draws its
+cores' noise from its own generator, so a multi-rank noisy serve draws other
+bits than the one-rank serve; a tier that replays masks by core index
+(``rx_base + i``) gives both the same noise.
+
+Living channels (``process=``) and faults (``faults=``) run on one rank; on
+a mesh of more than one rank they raise NotImplementedError (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -69,6 +88,7 @@ from repro_torch.kernels.common import popcount32
 from repro_torch.kernels.hamming import hamming_search, hamming_topk_banked
 from repro_torch.kernels.majority import majority_bundle
 from repro_torch.kernels.sparse import sparse_topk_banked
+from repro_torch.distributed.mesh import RankMesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +96,14 @@ class ScaleOutConfig:
     """The reference's configuration (same defaults — the paper's 6400
     classes over 64 cores, d = 512, M = 3, 7 dB, batch 256) minus
     ``use_kernels`` (the port dispatches on the tensors' device instead).
-    Combinations the reference rejects raise ValueError here, as there; the
-    multi-GPU collectives, not ported yet, raise NotImplementedError.
+    Combinations the reference rejects raise ValueError here, as there.
+
+    ``collective`` is the OTA vote's wire over the model ranks: ``"psum"``
+    (the int8 all-reduce), ``"psum_packed"`` (the guard-bit packed
+    all-reduce, slot-aware fields), ``"rs_ag"`` (reduce-scatter the packed
+    votes, threshold the local d/S block, all-gather its bits) or
+    ``"index_ag"`` (the sparse index lists' all-gather). All give the same
+    tally; on one rank nothing is sent.
 
     ``channel`` is the PHY tier: ``"ideal"``, ``"bsc"`` (the default, the
     paper's Eq. 1 abstraction) or ``"symbol"`` (the physics; it needs a real
@@ -154,11 +180,8 @@ class ScaleOutConfig:
             raise ValueError(
                 "collective='index_ag' is the sparse index-list wire; "
                 f"representation={self.representation!r} has no index lists")
-        if self.collective not in ("psum", "index_ag"):
-            raise NotImplementedError(
-                f"ScaleOutConfig: collective={self.collective!r} is not ported yet (only "
-                "'psum' and the sparse 'index_ag' are; the one-GPU model axis has no "
-                "wire to pack)")
+        if self.collective not in ("psum", "psum_packed", "rs_ag", "index_ag"):
+            raise ValueError(f"unknown collective {self.collective!r}")
         if self.dim % hv.WORD:
             raise ValueError(f"dim={self.dim} must be a multiple of {hv.WORD}")
         if self.n_classes % self.n_rx_cores:
@@ -172,20 +195,28 @@ class ScaleOutConfig:
 
 # Sparse wins below this query density (k_max / dim): the wire-parity point,
 # where k_max int32 indices cost as much as d/32 packed words.
+# `set_crossover_table` installs a measured one.
 DEFAULT_CROSSOVER = {"density": 1.0 / 32.0}
+_crossover_table = dict(DEFAULT_CROSSOVER)
+
+
+def set_crossover_table(table: dict | None) -> None:
+    """Install a measured crossover fit ({"density": float}); None restores
+    DEFAULT_CROSSOVER."""
+    global _crossover_table
+    _crossover_table = dict(DEFAULT_CROSSOVER if table is None else table)
 
 
 def resolve_representation(cfg: ScaleOutConfig) -> ScaleOutConfig:
     """Materialize ``representation="auto"``: "sparse" with the
     ``index_ag`` wire when ``k_max / dim`` lies below the crossover density,
-    else "packed". The reference gives packed its ``psum_packed`` wire; on one
-    GPU the vote is a local sum either way, so the port gives it ``psum``.
-    Other configs pass through untouched."""
+    else "packed" with the guard-bit ``psum_packed`` wire. Other configs
+    pass through untouched."""
     if cfg.representation != "auto":
         return cfg
-    if cfg.k_max / cfg.dim < DEFAULT_CROSSOVER["density"]:
-        return dataclasses.replace(cfg, representation="sparse", collective="index_ag")
-    return dataclasses.replace(cfg, representation="packed", collective="psum")
+    rep = "sparse" if cfg.k_max / cfg.dim < _crossover_table["density"] else "packed"
+    coll = "index_ag" if rep == "sparse" else "psum_packed"
+    return dataclasses.replace(cfg, representation=rep, collective=coll)
 
 
 def precharacterize_state(cfg: ScaleOutConfig, geom: em.PackageGeometry | None = None,
@@ -212,70 +243,195 @@ def precharacterize(cfg: ScaleOutConfig, device: str | torch.device | None = "cu
 
 
 # ---------------------------------------------------------------------------
-# serve-step stages (one model shard: tx = 0, every core local)
+# this rank's place on the mesh
 # ---------------------------------------------------------------------------
 
-def _ota_bundle(cfg: ScaleOutConfig, chan: phy.Channel, q_mine: torch.Tensor,
-                fstate=None) -> torch.Tensor:
-    """The OTA collective over the encoders: q_mine [B, M, d|W] -> bundled
-    query [B, d|W], or the combo index [B, d] int32 on the combo wire.
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """Where one rank's part of a serve sits: column ``tx`` of a model axis
+    of ``model_size`` ranks (``model_group`` their process group, None for
+    one rank), its ``e_per`` encoder slots (global ids ``tx*e_per + j``) and
+    ``cores`` IMC cores, and the process groups of the data axes of more
+    than one rank (pod first) over ``data_size`` data ranks in all. Its
+    first ``n_tx`` slots hold encoders (``g < m_tx``) and its first
+    ``n_live`` vote (``g < m_act``): the rest abstain, which folds the M-drop
+    into the same mechanism as the empty slots."""
 
-    Vote wire: each active encoder votes +-1 per dimension and the
-    abstaining slots ``g >= m_act`` vote exactly 0; the sum over the encoder
-    axis is the reference's ``psum`` over the model axis, and ``tally > 0``
-    is the strict majority (even-M ties -> 0). Combo wire: the sum of
-    ``bit_g * 2^g`` over the encoders, the received field's index into the
+    model_size: int
+    tx: int
+    e_per: int
+    cores: int
+    model_group: object
+    data_groups: tuple
+    data_size: int
+    n_tx: int
+    n_live: int
+
+    @property
+    def ranks(self) -> int:
+        return self.model_size * self.data_size
+
+
+def _dp_axes(mesh: RankMesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _dpos(mesh: RankMesh | None) -> tuple[int, int]:
+    """(flat data-parallel position of this rank (pod-major), data ranks)."""
+    pos, size = 0, 1
+    for ax in () if mesh is None else _dp_axes(mesh):
+        pos = pos * mesh.axis_size(ax) + mesh.index(ax)
+        size *= mesh.axis_size(ax)
+    return pos, size
+
+
+def _shard_of(cfg: ScaleOutConfig, mesh: RankMesh | None) -> _Shard:
+    """This rank's `_Shard` of ``cfg`` on ``mesh`` (None: one rank). The
+    cores must divide over the model ranks."""
+    if mesh is None:
+        s, tx, group, dgroups = 1, 0, None, ()
+    else:
+        if "model" not in mesh.axis_names:
+            raise ValueError(f"mesh axes {mesh.axis_names} have no 'model' axis")
+        s, tx, group = mesh.axis_size("model"), mesh.index("model"), mesh.group("model")
+        dgroups = tuple(mesh.group(a) for a in _dp_axes(mesh) if mesh.axis_size(a) > 1)
+    if cfg.n_rx_cores % s:
+        raise ValueError(f"n_rx_cores={cfg.n_rx_cores} must divide over the {s} model ranks")
+    e_per = -(-cfg.m_tx // s)
+    mine = lambda m: min(max(m - tx * e_per, 0), e_per)  # noqa: E731  (slots g < m here)
+    return _Shard(model_size=s, tx=tx, e_per=e_per, cores=cfg.n_rx_cores // s,
+                  model_group=group, data_groups=dgroups, data_size=_dpos(mesh)[1],
+                  n_tx=mine(cfg.m_tx), n_live=mine(cfg.m_act))
+
+
+def _one_rank_only(sh: _Shard, process, faults) -> None:
+    if sh.ranks > 1 and (process is not None or faults is not None):
+        raise NotImplementedError(
+            "process= and faults= run on one rank; on a mesh of "
+            f"{sh.ranks} ranks they wait for pstate_spec/fstate_spec (ROADMAP.md §1)")
+
+
+def _validate_wire(cfg: ScaleOutConfig, sh: _Shard) -> None:
+    """The rs_ag layout: each model rank's d/S block must pack whole words
+    (packed) or bytes (unpacked) for the all-gather (reference lines 386,
+    396)."""
+    if cfg.collective == "rs_ag":
+        unit = hv.WORD if cfg.packed else 8
+        if cfg.dim % (sh.model_size * unit):
+            raise ValueError(f"collective='rs_ag' needs dim={cfg.dim} divisible by "
+                             f"{sh.model_size} model ranks x {unit} bits")
+
+
+# ---------------------------------------------------------------------------
+# serve-step stages (one rank's shard; every stage is elementwise over rows)
+# ---------------------------------------------------------------------------
+
+def _pack_bytes(bits: torch.Tensor) -> torch.Tensor:
+    """{0,1} bits [..., n] -> uint8 [..., n/8], little-endian in a byte."""
+    w = bits.reshape(tuple(bits.shape[:-1]) + (-1, 8))
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    return (w << shifts).sum(-1, dtype=torch.uint8)
+
+
+def _unpack_bytes(b: torch.Tensor, d: int) -> torch.Tensor:
+    shifts = torch.arange(8, dtype=torch.uint8, device=b.device)
+    return ((b[..., None] >> shifts) & 1).reshape(tuple(b.shape[:-1]) + (d,))
+
+
+def _ota_bundle(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard, q_mine: torch.Tensor,
+                fstate=None) -> torch.Tensor:
+    """The OTA collective over the model ranks: this column's encoder slots
+    q_mine [R, e_per, d|W] -> the bundled query [R, d|W], or the combo index
+    [R, d] int32 on the combo wire.
+
+    Vote wire: each live slot votes +-1 per dimension and the abstaining
+    slots ``g >= m_act`` vote exactly 0; the tally is the sum over every
+    rank's slots (``cfg.collective``), and ``tally > 0`` the strict majority
+    (even-M ties -> 0). ``rs_ag`` tallies this rank's d/S block, thresholds
+    it and all-gathers the bits (words packed, bytes unpacked). Combo wire:
+    the sum of ``bit_g * 2^g`` over the encoders, sent in the smallest int
+    that holds 2^m_tx - 1, the received field's index into the
     constellation.
 
-    ``fstate`` (a `faults.FaultState`) erases the slots of ``dead_tx |
-    vote_drop``: on the vote wire an erased slot votes exactly 0, so
-    ``tally > 0`` is the majority of the live voters (even live counts tie
-    to 0); on the combo wire an erased encoder is a stuck carrier, its bit
-    forced 0 (`faults.recenter_state` re-fits the decoder)."""
+    ``fstate`` (a `faults.FaultState`, one rank) erases the slots of
+    ``dead_tx | vote_drop``: on the vote wire an erased slot votes exactly 0,
+    so ``tally > 0`` is the majority of the live voters (even live counts
+    tie to 0); on the combo wire an erased encoder is a stuck carrier, its
+    bit forced 0 (`faults.recenter_state` re-fits the decoder)."""
     q_bits = hv.unpack(q_mine, cfg.dim) if cfg.packed else q_mine
-    if fstate is not None:
-        erased = (fstate.dead_tx | fstate.vote_drop)[:, None]              # [M, 1]
-        if chan.wire == "combo":
-            q_bits = torch.where(erased, 0, q_bits)
-        else:
-            slot = torch.arange(cfg.m_tx, device=erased.device)[:, None]
-            live = (slot < cfg.m_act) & ~erased
+    g = sh.model_group
+    erased = None if fstate is None else (fstate.dead_tx | fstate.vote_drop)[:, None]
     if chan.wire == "combo":
-        return phy.combo_index(q_bits, axis=-2)
+        if erased is not None:
+            q_bits = torch.where(erased, 0, q_bits)
+        # encoder g weighs 2^g: this column's weigh 2^(tx*e_per + j)
+        partial = phy.combo_index(q_bits[..., :sh.n_tx, :], axis=-2)
+        if sh.tx:
+            partial = partial << (sh.tx * sh.e_per)
+        cdt = torch.int8 if cfg.m_tx <= 7 else torch.int16 if cfg.m_tx <= 15 else torch.int32
+        return collectives.all_reduce(partial, g, wire_dtype=cdt)
     votes = 2 * q_bits.to(torch.int8) - 1
-    votes = votes[..., :cfg.m_act, :] if fstate is None else torch.where(live, votes, 0)
-    bundled = (votes.sum(-2, dtype=torch.int8) > 0).to(torch.uint8)
+    live = None
+    if erased is None:
+        votes = votes[..., :sh.n_live, :]
+    else:                                       # one rank: slots are encoders 0..M-1
+        slot = torch.arange(cfg.m_tx, device=erased.device)[:, None]
+        live = (slot < cfg.m_act) & ~erased
+        votes = torch.where(live, votes, 0)
+    votes = votes.sum(-2, dtype=torch.int8)
+    if cfg.collective == "psum":
+        bundled = (collectives.all_reduce(votes, g) > 0).to(torch.uint8)
+        return hv.pack(bundled) if cfg.packed else bundled
+    # guard-bit fields sized for m_act voters; each rank biases by its own
+    # live count, and erased voters lower the total the unpack subtracts
+    local = sh.n_live if live is None else live.sum()
+    slots = dict(group_size=sh.model_size, e_per=sh.e_per, n_active=cfg.m_act,
+                 local_active=local, total_active=None if live is None else local)
+    if cfg.collective == "rs_ag":
+        part = collectives.packed_vote_psum_scatter(votes, g, **slots)   # [R, d/S]
+        bits = (part > 0).to(torch.uint8)
+        if cfg.packed:       # the gathered words are the bundled packed query
+            return collectives.all_gather_last(hv.pack(bits), g)
+        return _unpack_bytes(collectives.all_gather_last(_pack_bytes(bits), g), cfg.dim)
+    bundled = (collectives.packed_vote_allreduce(votes, g, **slots) > 0).to(torch.uint8)
     return hv.pack(bundled) if cfg.packed else bundled
 
 
-def _rx_fanout(cfg: ScaleOutConfig, chan: phy.Channel, q_bundled: torch.Tensor,
+def _rx_fanout(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard, q_bundled: torch.Tensor,
                state: phy.ChannelState, generator) -> torch.Tensor:
-    """Per-core decode through the PHY tier: [n_cores, B, d|W]."""
-    return chan.rx_copies(generator, q_bundled, state, rx_base=0,
-                          n_cores=cfg.n_rx_cores, packed=cfg.packed, dim=cfg.dim,
+    """Per-core decode through the PHY tier: this rank's cores' copies
+    [cores, R, d|W], core i being RX ``tx*cores + i``."""
+    return chan.rx_copies(generator, q_bundled, state, rx_base=sh.tx * sh.cores,
+                          n_cores=sh.cores, packed=cfg.packed, dim=cfg.dim,
                           noise=cfg.noise, planes=cfg.noise_planes)
 
 
-def _sparse_bundle(cfg: ScaleOutConfig, queries: torch.Tensor) -> torch.Tensor:
-    """The OTA vote on sparse index lists: queries [B, 1, M, k_max] ->
-    bundled [B, k_max], the sparse strict majority over the gathered lists.
-    Abstaining slots (``g >= m_act``) are emptied to all-SENTINEL, a dense
-    all-zero vote, and the threshold runs at m_act. The reference's ``psum``
-    fallback densifies, votes and re-sparsifies, which gives the same lists;
-    it differs only on a multi-GPU wire, so on one GPU both collectives take
-    this path."""
-    stack = collectives.sparse_index_allgather(queries)       # [B, M, k_max]
-    active = torch.arange(stack.shape[-2], device=stack.device)[:, None] < cfg.m_act
-    stack = torch.where(active, stack, sparse.SENTINEL)
-    return sparse.bundle(stack, m=cfg.m_act)
+def _sparse_bundle(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard,
+                   q_mine: torch.Tensor) -> torch.Tensor:
+    """The OTA vote on sparse index lists: this column's slots q_mine
+    [R, e_per, k_max] -> bundled [R, k_max].
+
+    ``index_ag`` gathers every rank's lists (shard-major, global encoder
+    order), empties the abstaining slots (``g >= m_act``) to all-SENTINEL,
+    a dense all-zero vote, and takes the sparse strict majority at m_act.
+    ``psum``/``psum_packed`` across model ranks densify the lists, run the
+    dense vote wire of `_ota_bundle` and re-sparsify, which gives the same
+    lists; on one rank there is no wire, and they take the index path."""
+    if cfg.collective == "index_ag" or sh.model_group is None:
+        stack = collectives.sparse_index_allgather(q_mine, sh.model_group)  # [R, S*e, k]
+        active = torch.arange(stack.shape[-2], device=stack.device)[:, None] < cfg.m_act
+        stack = torch.where(active, stack, sparse.SENTINEL)
+        return sparse.bundle(stack, m=cfg.m_act)
+    bits = _ota_bundle(cfg, chan, sh, sparse.densify(q_mine, cfg.dim))
+    return sparse.sparsify(bits, cfg.k_max)
 
 
-def _sparse_rx_fanout(cfg: ScaleOutConfig, q_bundled: torch.Tensor,
+def _sparse_rx_fanout(cfg: ScaleOutConfig, sh: _Shard, q_bundled: torch.Tensor,
                       state: phy.ChannelState, generator) -> torch.Tensor:
-    """Per-core sparse decode: [n_cores, B, k_max]. ``ideal`` broadcasts the
-    bundle; ``bsc`` runs the drop+insert channel at each core's BER, every
-    core's draws in one call."""
-    n = cfg.n_rx_cores
+    """Per-core sparse decode: [cores, R, k_max]. ``ideal`` broadcasts the
+    bundle; ``bsc`` runs the drop+insert channel at each core's BER (the
+    state holds this rank's cores), every core's draws in one call."""
+    n = sh.cores
     copies = q_bundled[None].expand((n,) + tuple(q_bundled.shape))
     if cfg.channel == "ideal":
         return copies
@@ -399,7 +555,7 @@ def _coarse_fine_unpacked(cfg: ScaleOutConfig, banks: torch.Tensor, q: torch.Ten
 
 def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor, store: torch.Tensor,
                 rows: torch.Tensor | None = None, qmask: torch.Tensor | None = None,
-                stuck=None) -> tuple[torch.Tensor, torch.Tensor]:
+                stuck=None, tx: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Every core of every slot searches its class sub-shard (with the M
     permuted banks when ``cfg.permuted``), in one kernel launch for every
     (slot, core[, permuted bank]). q_rx [N, n_core, B, d|W|k_max]; store
@@ -408,7 +564,8 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor, store: torch.Tensor,
     those rows (unpacked), or, with ``rows=None``, bank s itself (T == N: no
     indirection and no gather; the standalone serve is N = 1). Returns (val,
     idx): the winner's similarity (d - 2*dist, int32 packed / f32 unpacked)
-    and global class index, [N, B] or [N, B, M]. Ties go to the lowest
+    and global class index (this rank's store holds classes from ``tx*C``
+    on, C its class count), [N, B] or [N, B, M]. Ties go to the lowest
     class: first minimum inside a core, then the first core, per slot.
     ``qmask`` [n_core] bool quarantines cores after the kernel (every slot
     rides the one link): their winner's distance becomes d + 1 (packed) or
@@ -431,7 +588,10 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor, store: torch.Tensor,
         # permute the T-tenant store once a call, not once a slot
         banks = torch.stack([rho(store_c, s) for s in range(m)], 2)    # [T, n_core, M, c, -]
         banks = _apply_stuck(banks, stuck, d, cfg.packed)
-        q_rep = q_rx[:, :, None].expand(n, n_core, m, b, last).reshape(n * n_core * m, b, last)
+        # contiguous: on the ideal tier q_rx is a stride-0 expand, which the
+        # reshape keeps as a view, and the kernels take dense tensors only
+        q_rep = q_rx[:, :, None].expand(n, n_core, m, b, last).reshape(
+            n * n_core * m, b, last).contiguous()
         if cfg.packed:
             bank_rows = None if core_rows is None else (
                 core_rows[:, None] * m
@@ -493,12 +653,20 @@ def _shard_top1(cfg: ScaleOutConfig, q_rx: torch.Tensor, store: torch.Tensor,
         core_star = torch.argmax(val_c, -1)
         idx_in_core = torch.gather(idx_c, 2, core_star[..., None])[..., 0]
     idx = (core_star * c_core + idx_in_core).to(torch.int32)
-    return val, idx
+    return val, idx + tx * c if tx else idx
 
 
-def _gather_top1(cfg: ScaleOutConfig, val: torch.Tensor, idx: torch.Tensor):
-    """Global top-1 over the model shards — here the one shard — and the
-    similarity normalized to [0, 1]."""
+def _gather_top1(cfg: ScaleOutConfig, sh: _Shard, val: torch.Tensor, idx: torch.Tensor):
+    """Global top-1 over the model ranks, an all-gather of every rank's
+    (value, index): the highest value wins and among equal values the first
+    rank, whose classes come first, so ties go to the lowest class. Returns
+    (pred, the similarity normalized to [0, 1])."""
+    if sh.model_group is not None:
+        vals = collectives.all_gather(val, sh.model_group)        # [S, ...]
+        idxs = collectives.all_gather(idx, sh.model_group)
+        star = torch.argmax(vals, 0)                              # the first maximum
+        idx = torch.gather(idxs, 0, star[None])[0]
+        val = vals.max(0).values
     return idx, val / (2.0 * cfg.dim) + 0.5
 
 
@@ -544,21 +712,23 @@ def _validate_coarse(cfg: ScaleOutConfig) -> None:
                          "overflow int32 — shard wider (more RX cores) or shrink dim")
 
 
-def _check_inputs(cfg: ScaleOutConfig, dev: torch.device, protos, queries, state,
-                  fstate=None) -> None:
+def _check_inputs(cfg: ScaleOutConfig, sh: _Shard, dev: torch.device, protos, queries,
+                  state, fstate=None) -> None:
     _device.check_on(dev, protos=protos, queries=queries, ber=state.ber)
     want = torch.int32 if cfg.packed or cfg.sparse else torch.uint8
     last = cfg.words if cfg.packed or cfg.sparse else cfg.dim
     q_last = cfg.k_max if cfg.sparse else last
     if protos.dtype != want or queries.dtype != want:
         raise TypeError(f"{cfg.representation} serve takes {want} protos and queries")
-    if tuple(protos.shape) != (cfg.n_classes, last):
-        raise ValueError(f"protos {tuple(protos.shape)} != {(cfg.n_classes, last)}")
-    if queries.dim() != 4 or queries.shape[1] != 1 or queries.shape[2:] != (cfg.m_tx, q_last):
-        raise ValueError(f"queries {tuple(queries.shape)} != [B, 1, {cfg.m_tx}, {q_last}] "
-                         "(one model shard)")
-    if state.n_rx != cfg.n_rx_cores:
-        raise ValueError(f"state has {state.n_rx} cores, cfg {cfg.n_rx_cores}")
+    c_l = cfg.n_classes // sh.model_size
+    if tuple(protos.shape) != (c_l, last):
+        raise ValueError(f"protos {tuple(protos.shape)} != {(c_l, last)} (this rank's classes)")
+    if queries.dim() != 4 or queries.shape[1] != 1 or queries.shape[2:] != (sh.e_per, q_last):
+        raise ValueError(f"queries {tuple(queries.shape)} != [B, 1, {sh.e_per}, {q_last}] "
+                         "(this rank's model column)")
+    if state.n_rx != sh.cores:
+        raise ValueError(f"state has {state.n_rx} cores, this rank {sh.cores} "
+                         f"(cfg {cfg.n_rx_cores} over {sh.model_size} model ranks)")
     if state.m_tx != cfg.m_tx:
         raise ValueError(f"state characterizes {state.m_tx} TXs, cfg {cfg.m_tx}")
     if fstate is not None:
@@ -570,12 +740,24 @@ def _check_inputs(cfg: ScaleOutConfig, dev: torch.device, protos, queries, state
 
 
 def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda",
-                   process=None, faults=None) -> Callable[..., tuple[torch.Tensor, ...]]:
+                   process=None, faults=None, mesh: RankMesh | None = None
+                   ) -> Callable[..., tuple[torch.Tensor, ...]]:
     """Build the OTA serve step.
 
     fn(protos [C, d|W], queries [B, 1, M, d|W], state phy.ChannelState,
        generator) -> (pred, maxsim); pred int32 [B] (baseline) or [B, M]
     (permuted), maxsim f32 in [0, 1].
+
+    With ``mesh`` (a `distributed.mesh.RankMesh` with a ``model`` axis and
+    optional ``data``/``pod`` axes) every rank of the mesh calls fn with its
+    own inputs, as `shard_inputs` cuts them: its classes [C/S, d|W], its
+    rows of the batch and its model column of the queries [B/D, 1, e_per,
+    d|W] (``e_per = ceil(M/S)``, the layout of `make_queries` at
+    ``model_size=S``), its cores' state (`phy.shard_state`) and its own
+    generator; it returns its rows' (pred, maxsim), the same on every model
+    rank. The bundle is ``cfg.collective`` over the model ranks and the
+    top-1 an all-gather over them; on ideal (or on a tier that replays noise
+    by core) the answers equal the one-rank serve's, bit for bit.
 
     Unpacked tensors are uint8 {0,1}; packed ones int32 words (``hv.pack``).
     Encoder g transmits rho^g of its query when ``cfg.permuted``; encoders
@@ -585,12 +767,14 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
     vote by the combo index and decodes the physics at every core, bits
     packed afterwards when the serve is packed. The per-core search is the
     fused top-1 kernel (packed) or the bipolar matmul kernel (unpacked), one
-    launch for all cores and banks; with ``cfg.coarse_group`` it is the
-    coarse-to-fine screen (the fused top-k kernel or the matmul kernel over
-    the group summaries, then an exact rescore of the survivors).
-    ``coarse_group`` with permuted bundling, shapes the screen cannot tile,
-    the symbol tier with another collective or with ``m_active``, and an
-    even or out-of-range ``m_active`` raise ValueError here.
+    launch for all the rank's cores and banks; with ``cfg.coarse_group`` it
+    is the coarse-to-fine screen (the fused top-k kernel or the matmul
+    kernel over the group summaries, then an exact rescore of the
+    survivors). ``coarse_group`` with permuted bundling, shapes the screen
+    cannot tile, the symbol tier with another collective or with
+    ``m_active``, an even or out-of-range ``m_active``, cores that do not
+    divide over the model ranks and an ``rs_ag`` layout that does not tile
+    raise ValueError here.
 
     ``process`` (a `phy.ChannelProcess`) serves a living channel: the
     built fn becomes
@@ -617,7 +801,8 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
     Each call steps the channel, then the faults, then serves. The fault
     step draws only from ``fault_generator``, so with `faults.healthy_for`
     under `faults.StaticFaults` the predictions equal the fault-free
-    serve's bit for bit.
+    serve's bit for bit. ``process`` and ``faults`` on a mesh of more than
+    one rank raise NotImplementedError.
 
     Sparse (``cfg.representation="sparse"``, or ``"auto"`` resolved to it):
     queries are index lists [B, 1, M, k_max] int32 against packed
@@ -631,30 +816,34 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
         raise ValueError("representation='sparse' does not compose with living-channel "
                          "processes or fault injection; use representation='packed'")
     dev = _device.resolve(device)
+    sh = _shard_of(cfg, mesh)
+    _one_rank_only(sh, process, faults)
     chan = phy.get_channel(cfg.channel)
     _validate_channel(cfg, chan)
     _validate_coarse(cfg)
+    _validate_wire(cfg, sh)
 
     def serve_core(protos, queries, state, generator, qmask=None, fstate=None):
-        _check_inputs(cfg, dev, protos, queries, state, fstate)
+        _check_inputs(cfg, sh, dev, protos, queries, state, fstate)
         if cfg.sparse:
-            q_bundled = _sparse_bundle(cfg, queries)
-            q_rx = _sparse_rx_fanout(cfg, q_bundled, state, generator)
-            val, idx = _shard_top1(cfg, q_rx[None], protos[None])
-            return _gather_top1(cfg, val[0], idx[0])
-        pred, maxsim = _serve_slots(cfg, chan, protos[None], queries[None], None, state,
+            q_bundled = _sparse_bundle(cfg, chan, sh, queries[:, 0])
+            q_rx = _sparse_rx_fanout(cfg, sh, q_bundled, state, generator)
+            val, idx = _shard_top1(cfg, q_rx[None], protos[None], tx=sh.tx)
+            return _gather_top1(cfg, sh, val[0], idx[0])
+        pred, maxsim = _serve_slots(cfg, chan, sh, protos[None], queries[None], None, state,
                                     [generator], qmask, fstate)
         return pred[0], maxsim[0]
 
     return _evolving(process, faults, serve_core)
 
 
-def _serve_slots(cfg: ScaleOutConfig, chan: phy.Channel, store: torch.Tensor,
+def _serve_slots(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard, store: torch.Tensor,
                  queries: torch.Tensor, rows: torch.Tensor | None, state: phy.ChannelState,
                  generators: list, qmask: torch.Tensor | None = None, fstate=None):
-    """The dense serve of N slots: queries [N, B, 1, M, d|W] against store
-    [T, C, d|W] (bank ``rows[s]``, or bank s when ``rows`` is None), slot s
-    on ``generators[s]`` -> (pred, maxsim), [N, B] or [N, B, M].
+    """The dense serve of N slots on one rank: queries [N, B, 1, e_per, d|W]
+    against store [T, C_l, d|W] (bank ``rows[s]``, or bank s when ``rows``
+    is None), slot s on ``generators[s]`` -> (pred, maxsim), [N, B] or
+    [N, B, M].
 
     The bundle runs once over the slot-flattened [N*B] rows, elementwise over
     rows, so each row tallies as in a one-slot serve; the PHY fan-out runs
@@ -665,20 +854,21 @@ def _serve_slots(cfg: ScaleOutConfig, chan: phy.Channel, store: torch.Tensor,
     failover gather on the fan-out's copies, the stuck cells in the
     search."""
     n, b = queries.shape[:2]
-    q_mine = queries[:, :, 0].reshape((n * b,) + tuple(queries.shape[3:]))  # [N*B, M, d|W]
+    q_mine = queries[:, :, 0].reshape((n * b,) + tuple(queries.shape[3:]))  # [N*B, e, d|W]
     if cfg.permuted:                      # TX g transmits rho^g(q_g)
         rho = hv.permute_packed if cfg.packed else hv.permute
-        q_mine = torch.stack([rho(q_mine[:, g], g) for g in range(cfg.m_tx)], 1)
-    q_bundled = _ota_bundle(cfg, chan, q_mine, fstate)
+        q_mine = torch.stack([rho(q_mine[:, j], sh.tx * sh.e_per + j)
+                              for j in range(sh.e_per)], 1)
+    q_bundled = _ota_bundle(cfg, chan, sh, q_mine, fstate)
     q_bundled = q_bundled.reshape((n, b) + tuple(q_bundled.shape[1:]))
-    copies = [_rx_fanout(cfg, chan, q_bundled[s], state, generators[s]) for s in range(n)]
-    q_rx = copies[0][None] if n == 1 else torch.stack(copies)   # [N, n_core, B, d|W]
+    copies = [_rx_fanout(cfg, chan, sh, q_bundled[s], state, generators[s]) for s in range(n)]
+    q_rx = copies[0][None] if n == 1 else torch.stack(copies)   # [N, cores, B, d|W]
     stuck = None
     if fstate is not None:
         q_rx, qmask = _apply_rx_faults(fstate, q_rx, qmask)
         stuck = (fstate.stuck0, fstate.stuck1)
-    val, idx = _shard_top1(cfg, q_rx, store, rows, qmask, stuck)
-    return _gather_top1(cfg, val, idx)
+    val, idx = _shard_top1(cfg, q_rx, store, rows, qmask, stuck, tx=sh.tx)
+    return _gather_top1(cfg, sh, val, idx)
 
 
 def _evolving(process, faults, serve_core):
@@ -714,12 +904,12 @@ def _evolving(process, faults, serve_core):
     return fn
 
 
-def _check_mt_inputs(cfg: ScaleOutConfig, dev: torch.device, store, queries, rows,
+def _check_mt_inputs(cfg: ScaleOutConfig, sh: _Shard, dev: torch.device, store, queries, rows,
                      state, generators, fstate) -> None:
     if store.dim() != 3 or queries.dim() != 5:
         raise ValueError(f"store {tuple(store.shape)} and queries {tuple(queries.shape)} must "
-                         "be [T, C, d|W] and [N, B, 1, M, d|W]")
-    _check_inputs(cfg, dev, store[0], queries[0], state, fstate)
+                         "be [T, C, d|W] and [N, B, 1, e_per, d|W]")
+    _check_inputs(cfg, sh, dev, store[0], queries[0], state, fstate)
     _device.check_on(dev, rows=rows)
     n = queries.shape[0]
     if rows.dtype != torch.int32 or tuple(rows.shape) != (n,):
@@ -729,7 +919,8 @@ def _check_mt_inputs(cfg: ScaleOutConfig, dev: torch.device, store, queries, row
 
 
 def make_mt_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda",
-                      process=None, faults=None) -> Callable[..., tuple[torch.Tensor, ...]]:
+                      process=None, faults=None, mesh: RankMesh | None = None
+                      ) -> Callable[..., tuple[torch.Tensor, ...]]:
     """Build the multi-tenant slot-batched OTA serve step.
 
     fn(store [T, C, d|W], queries [N, B, 1, M, d|W], rows [N] int32,
@@ -739,6 +930,10 @@ def make_mt_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "
     One call serves N resident slots against a T-tenant store; slot s
     searches tenant bank ``rows[s]`` (each in [0, T): the caller keeps the
     rows, as `serving.hdc.TenantRegistry` does) with its own generator.
+    With ``mesh`` each rank passes its classes of every tenant [T, C/S,
+    d|W], its rows and model column of every slot's queries [N, B/D, 1,
+    e_per, d|W] (`shard_inputs` with ``slots=True``), its cores' state and
+    its own N generators, as in `make_ota_serve`.
 
     Per-slot identity with `make_ota_serve`: the bundle runs once over the
     slot-flattened [N*B] rows, elementwise over rows, so each row tallies as
@@ -775,7 +970,8 @@ def make_mt_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "
     The stuck cells hit the whole T-tenant store (one crossbar per core:
     every tenant's rows on it share the core's faults), as a masked copy
     before the launch. Row s still equals a standalone fault-aware serve of
-    slot s under the same fault state.
+    slot s under the same fault state. ``process`` and ``faults`` on a
+    mesh of more than one rank raise NotImplementedError.
 
     The sparse and ``"auto"`` representations raise ValueError, as in the
     reference."""
@@ -785,23 +981,30 @@ def make_mt_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "
             "representation (slot-batched bank indirection is a dense-store "
             "contract); use representation='packed'")
     dev = _device.resolve(device)
+    sh = _shard_of(cfg, mesh)
+    _one_rank_only(sh, process, faults)
     chan = phy.get_channel(cfg.channel)
     _validate_channel(cfg, chan)
     _validate_coarse(cfg)
+    _validate_wire(cfg, sh)
 
     def serve_core(store, queries, rows, state, generators, qmask=None, fstate=None):
-        _check_mt_inputs(cfg, dev, store, queries, rows, state, generators, fstate)
-        return _serve_slots(cfg, chan, store, queries, rows, state, generators, qmask, fstate)
+        _check_mt_inputs(cfg, sh, dev, store, queries, rows, state, generators, fstate)
+        return _serve_slots(cfg, chan, sh, store, queries, rows, state, generators, qmask,
+                            fstate)
 
     return _evolving(process, faults, serve_core)
 
 
-def make_wired_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda"
+def make_wired_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda",
+                     mesh: RankMesh | None = None
                      ) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
     """Wired-baseline dataflow: every core receives all M queries over the
-    NoC and bundles them itself (error-free wires), then searches all
-    classes. Same signature and outputs as `make_ota_serve` with baseline
-    bundling; the state and generator ride along unused.
+    NoC and bundles them itself (error-free wires), then searches its
+    classes. Same signature, inputs (``mesh`` included) and outputs as
+    `make_ota_serve` with baseline bundling; the state and generator ride
+    along unused. Over ranks the NoC broadcast is an all-gather of every
+    model rank's query slots, M*d bytes a trial where the OTA vote sends d.
 
     Unpacked: the majority kernel, then the bipolar matmul kernel. Packed:
     the bit-sliced carry-save majority, then the Hamming search kernel.
@@ -811,40 +1014,53 @@ def make_wired_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "c
         raise ValueError("the wired serve has no sparse representation; use "
                          "representation='packed'")
     dev = _device.resolve(device)
+    sh = _shard_of(cfg, mesh)
 
     def fn(protos, queries, state, generator=None):
-        _check_inputs(cfg, dev, protos, queries, state)
-        d = cfg.dim
-        q_act = queries[:, 0].transpose(0, 1)[: cfg.m_tx].contiguous()  # [M, B, d|W]
+        _check_inputs(cfg, sh, dev, protos, queries, state)
+        d, last = cfg.dim, queries.shape[-1]
+        q_all = collectives.all_gather(queries[:, 0], sh.model_group)   # [S, B, e, d|W]
+        q_act = q_all.transpose(1, 2).reshape(-1, queries.shape[0], last)[: cfg.m_tx]
+        q_act = q_act.contiguous()                                       # [M, B, d|W]
         if cfg.packed:
             q_bundled = hv.majority_packed(q_act)
             sims = d - 2 * hamming_search(q_bundled, protos)
         else:
             q_bundled = majority_bundle(q_act)
-            sims = assoc_matmul(q_bundled, protos)            # [B, C]
+            sims = assoc_matmul(q_bundled, protos)            # [B, C_l]
         val = sims.max(-1).values
         idx = torch.argmax(sims, -1).to(torch.int32)
-        return _gather_top1(cfg, val, idx)
+        return _gather_top1(cfg, sh, val, idx + sh.tx * protos.shape[0] if sh.tx else idx)
 
     return fn
 
 
-def make_hdc_train(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda"
+def make_hdc_train(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda",
+                   mesh: RankMesh | None = None
                    ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """One-shot HDC training: bundle every class's examples into its
     prototype. fn(examples [B, d|W], labels [B] int) -> protos [C, d|W]: the
     bipolar per-class sums, thresholded at > 0; labels outside [0, C) add
     nothing. Packed examples are unpacked for the tally and the prototypes
-    are packed again."""
+    are packed again. With ``mesh`` each rank passes its rows of the batch
+    (`shard_batch`) and gets its model rank's classes [C/S, d|W]; the class
+    sums are all-reduced over the data axes, the learning counterpart of
+    the OTA reduction."""
     dev = _device.resolve(device)
+    sh = _shard_of(cfg, mesh)
+    c_l = cfg.n_classes // sh.model_size
+    lo = sh.tx * c_l
 
     def fn(examples, labels):
         _device.check_on(dev, examples=examples, labels=labels)
         ex = hv.unpack(examples, cfg.dim) if cfg.packed else examples
         bipolar = 2 * ex.to(torch.int32) - 1                  # [B, d]
-        keep = (labels >= 0) & (labels < cfg.n_classes)
-        sums = torch.zeros((cfg.n_classes, cfg.dim), dtype=torch.int32, device=dev)
-        sums.index_add_(0, labels[keep].to(torch.int64), bipolar[keep])
+        keep = (labels >= lo) & (labels < lo + c_l)
+        sums = torch.zeros((c_l, cfg.dim), dtype=torch.int32, device=dev)
+        rows = labels[keep] - lo if lo else labels[keep]
+        sums.index_add_(0, rows.to(torch.int64), bipolar[keep])
+        for g in sh.data_groups:
+            sums = collectives.all_reduce(sums, g)
         protos = (sums > 0).to(torch.uint8)
         return hv.pack(protos) if cfg.packed else protos
 
@@ -855,24 +1071,65 @@ def make_hdc_train(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
 # host-level helpers (inputs + single-device oracle)
 # ---------------------------------------------------------------------------
 
-def make_queries(generator: torch.Generator, cfg: ScaleOutConfig, protos: torch.Tensor
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
+def make_queries(generator: torch.Generator, cfg: ScaleOutConfig, protos: torch.Tensor,
+                 model_size: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """Random trial queries from the unpacked codebook ``protos`` [C, d]:
-    classes [B, M] int64 and queries [B, 1, M, d] uint8 (packed to
-    [B, 1, M, W] int32 words for a packed cfg). For a sparse cfg the same
-    classes draw gives index lists [B, 1, M, k_max] int32; ``protos`` may
-    then also be the codebook's index lists [C, k_max] int32 (`sparsify`
-    of it), which spares a dense codebook at d = 2^20."""
+    classes [B, M] int64 and queries [B, S, e_per, d] uint8 (packed to
+    [B, S, e_per, W] int32 words for a packed cfg), S = ``model_size`` and
+    ``e_per = ceil(M/S)``: encoder g = s*e_per + j sits in column s, and the
+    slots g >= M hold zeros (they abstain in the serve, as do g >= m_active).
+    At S = 1 this is [B, 1, M, d]. For a sparse cfg the same classes draw
+    gives index lists [B, S, e_per, k_max] int32, the empty slots
+    all-SENTINEL; ``protos`` may then also be the codebook's index lists
+    [C, k_max] int32 (`sparsify` of it), which spares a dense codebook at
+    d = 2^20."""
     cfg = resolve_representation(cfg)
+    e_per = -(-cfg.m_tx // model_size)
+    pad = model_size * e_per - cfg.m_tx
     classes = torch.randint(0, cfg.n_classes, (cfg.batch, cfg.m_tx),
                             generator=generator, device=protos.device)
     if cfg.sparse:
         codes = protos if protos.dtype == torch.int32 else sparse.sparsify(protos, cfg.k_max)
         if codes.shape[-1] != cfg.k_max:
             raise ValueError(f"index lists hold {codes.shape[-1]} slots, cfg.k_max={cfg.k_max}")
-        return classes, codes[classes].reshape(cfg.batch, 1, cfg.m_tx, cfg.k_max)
-    q = protos[classes].reshape(cfg.batch, 1, cfg.m_tx, cfg.dim)
+        q = torch.nn.functional.pad(codes[classes], (0, 0, 0, pad), value=sparse.SENTINEL)
+        return classes, q.reshape(cfg.batch, model_size, e_per, cfg.k_max)
+    q = torch.nn.functional.pad(protos[classes], (0, 0, 0, pad))
+    q = q.reshape(cfg.batch, model_size, e_per, cfg.dim)
     return classes, (hv.pack(q) if cfg.packed else q)
+
+
+def shard_batch(mesh: RankMesh | None, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """This rank's rows of a global batch along ``axis``: the data ranks
+    split it in order of their flat position (pod-major)."""
+    pos, size = _dpos(mesh)
+    n = x.shape[axis]
+    if n % size:
+        raise ValueError(f"batch of {n} does not split over {size} data ranks")
+    return x.narrow(axis, pos * (n // size), n // size)
+
+
+def shard_inputs(cfg: ScaleOutConfig, mesh: RankMesh | None, protos: torch.Tensor,
+                 queries: torch.Tensor, state: phy.ChannelState | None = None, *,
+                 slots: bool = False):
+    """This rank's inputs of a serve (the reference's ``in_specs``) from the
+    global ones: its model rank's classes of ``protos`` [C, d|W] (of every
+    tenant of a store [T, C, d|W] with ``slots``), its rows and model column
+    of ``queries`` [B, S, e_per, ...] (of every slot's [N, B, S, e_per, ...]
+    with ``slots``; `make_queries` at ``model_size=S``) and its cores'
+    ``state`` (`phy.shard_state`; None passes through). Returns
+    (protos, queries, state)."""
+    sh = _shard_of(cfg, mesh)
+    lead = 1 if slots else 0
+    c_l = cfg.n_classes // sh.model_size
+    protos = protos.narrow(lead, sh.tx * c_l, c_l)
+    if queries.shape[lead + 1] != sh.model_size:
+        raise ValueError(f"queries {tuple(queries.shape)} have {queries.shape[lead + 1]} "
+                         f"model columns, the mesh {sh.model_size}")
+    queries = shard_batch(mesh, queries, lead).narrow(lead + 1, sh.tx, 1)
+    if state is not None:
+        state = phy.shard_state(state, sh.tx * sh.cores, sh.cores)
+    return protos, queries, state
 
 
 def serve_reference(cfg: ScaleOutConfig, protos: torch.Tensor,

@@ -1,20 +1,107 @@
-"""The per-receiver binary symmetric channel of the OTA serve, the sparse
-index-list wire and the sign-majority vote of the gradients (counterpart of
-`ota_noise`, `ota_noise_packed`, `sparse_index_allgather` and
-`sign_allreduce` in `repro/distributed/collectives.py`).
+"""The OTA majority as collectives over `torch.distributed` (counterpart of
+`repro/distributed/collectives.py`): the per-receiver binary symmetric
+channel, the guard-bit packed vote all-reduce and reduce-scatter, the sparse
+index-list all-gather, the majority all-reduce and the sign-majority vote of
+the gradients.
 
-One GPU carries the whole ``model`` axis and the whole data axis in this
-port, so the reference's collectives reduce to local sums and reshapes inside
-`core.scaleout`, and the sign vote over the data axis to the one rank's sign.
-The multi-GPU collectives over `torch.distributed`, the multi-rank vote
-among them, wait for the multi-rank slice (ROADMAP §1 item 1).
+Every collective takes a ``group``: a `torch.distributed` process group over
+the ranks of one mesh axis (`repro_torch.distributed.mesh.RankMesh.group`), or
+``None`` for an axis of one rank, where nothing is sent and the reduction
+is the rank's own value. The backend is the group's: NCCL across GPUs, gloo
+for ranks that share one GPU or run on the CPU. Both take the payload on
+the tensor's own device (gloo takes CUDA tensors for all three operations
+used here), so no payload is staged by this module.
+
+A per-process counter adds up the bytes each call moves, as operand plus
+result bytes: an all-reduce of N bytes counts 2N, an all-gather of N bytes
+over S ranks N + S*N, a reduce-scatter of N bytes N + N/S (the counting of
+`repro/analysis/hlo_cost.py`). `wire_bytes` reads it and
+`reset_wire_bytes` sets it to 0.
+
+Packed lanes are uint32 words in the reference. Neither gloo nor NCCL
+reduces torch.uint32, so the lanes travel as int32 with the same bits: the
+int32 sum wraps modulo 2^32, which is the uint32 sum bit for bit (a lane's
+fields never carry into each other, so the true sum is below 2^32).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import hypervector as hv
 
+_wire = [0]          # bytes moved by this process's collectives
+
+
+def wire_bytes() -> int:
+    """Bytes this process's collectives moved since the last reset."""
+    return _wire[0]
+
+
+def reset_wire_bytes() -> int:
+    """Set the byte counter to 0; returns what it held."""
+    held, _wire[0] = _wire[0], 0
+    return held
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def ranks(group) -> int:
+    """Ranks in ``group`` (1 for ``None``)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_reduce(x: torch.Tensor, group, wire_dtype: torch.dtype | None = None
+               ) -> torch.Tensor:
+    """Sum of ``x`` over the group's ranks, in x's dtype, sent as
+    ``wire_dtype`` (default x's): a new tensor, x is left as it was."""
+    if group is None:
+        return x
+    buf = x.to(wire_dtype or x.dtype, copy=True).contiguous()
+    dist.all_reduce(buf, group=group)
+    _wire[0] += 2 * _nbytes(buf)
+    return buf.to(x.dtype)
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` stacked in rank order: [S, *x.shape]."""
+    if group is None:
+        return x[None]
+    flat = x.reshape(-1).contiguous()
+    out = torch.empty((ranks(group) * flat.numel(),), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, flat, group=group)
+    _wire[0] += _nbytes(flat) + _nbytes(out)
+    return out.reshape((-1,) + tuple(x.shape))
+
+
+def all_gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """All-gather tiled along the last axis: [..., n] -> [..., S*n], rank s's
+    block at [s*n, (s+1)*n)."""
+    g = all_gather(x, group)                                   # [S, ..., n]
+    return g.movedim(0, -2).reshape(tuple(x.shape[:-1]) + (-1,))
+
+
+def reduce_scatter_last(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group's ranks scattered along the last axis: [..., n] ->
+    this rank's contiguous block [..., n/S] of the sum."""
+    if group is None:
+        return x
+    s = ranks(group)
+    n = x.shape[-1]
+    if n % s:
+        raise ValueError(f"reduce-scatter of {n} elements over {s} ranks does not tile")
+    inp = x.reshape(tuple(x.shape[:-1]) + (s, n // s)).movedim(-2, 0).contiguous()
+    out = torch.empty((inp.numel() // s,), dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, inp.reshape(-1), group=group)
+    _wire[0] += _nbytes(inp) + _nbytes(out)
+    return out.reshape(tuple(inp.shape[1:]))
+
+
+# ---------------------------------------------------------------------------
+# the per-receiver binary symmetric channel
+# ---------------------------------------------------------------------------
 
 def ota_noise(generator: torch.Generator, bits: torch.Tensor, ber) -> torch.Tensor:
     """BSC at rate `ber` (float, or a tensor broadcasting against `bits`) on
@@ -39,23 +126,162 @@ def ota_noise_packed(generator: torch.Generator, words: torch.Tensor, ber,
     raise ValueError(f"unknown packed noise mode {mode!r}")
 
 
-def sparse_index_allgather(idx: torch.Tensor) -> torch.Tensor:
-    """The index-list wire of the sparse OTA majority on one GPU: idx int32
-    [..., S, e, k_max] (every model shard's ``e`` encoder slots, all local)
-    -> [..., S*e, k_max], slot s*e + j holding shard s's slot j, the
-    reference's shard-major order. With the model axis of size S = 1 there
-    is nothing to gather: this is the slot-flattening reshape."""
-    return idx.reshape(idx.shape[:-3] + (idx.shape[-3] * idx.shape[-2], idx.shape[-1]))
+# ---------------------------------------------------------------------------
+# guard-bit packed vote all-reduce
+#
+# The int8 vote all-reduce sends 1 byte per dimension though the tally only
+# spans [-S*e_per, S*e_per]. Bias each vote to non-negative, give every field
+# enough bits that the summed field cannot carry into its neighbour, pack k
+# fields per 32-bit lane, reduce the lanes once, unpack, un-bias: the tally
+# equals the int8 one bit for bit at 32/(8k) of its bytes.
+# ---------------------------------------------------------------------------
+
+def vote_field_spec(group_size: int, e_per: int = 1, pow2_fields: bool = False,
+                    n_active: int | None = None) -> tuple[int, int]:
+    """(field_bits, fields_per_lane) of the guard-bit packed vote reduction.
+
+    ``group_size`` ranks each contribute a vote in [-e_per, e_per], so the
+    biased tally spans [0, 2*group_size*e_per] and needs ``ceil(log2(span +
+    1))`` bits; ``k = 32 // field_bits`` fields fill a lane, rounded down to
+    a power of two with ``pow2_fields`` (the reduce-scatter needs whole lanes
+    to tile the ranks). With ``n_active`` only that many voters are live in
+    the whole group, so the span is [-n_active, n_active] whatever the
+    group's width (the slot-aware fields: 3 bits, k = 10 at M = 3); the
+    callers then bias each rank by its own live count."""
+    span = 2 * (group_size * e_per if n_active is None else n_active)
+    fbits = max(1, span.bit_length())
+    k = 32 // fbits
+    if k < 1:
+        raise ValueError(f"vote span {span} does not fit a 32-bit lane")
+    if pow2_fields:
+        k = 1 << (k.bit_length() - 1)
+    return fbits, k
 
 
-def sign_allreduce(x: torch.Tensor, *, generator: torch.Generator | None = None,
+def _to_i32(lanes: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same 32 bits."""
+    return torch.where(lanes >= 2**31, lanes - 2**32, lanes).to(torch.int32)
+
+
+def _pack_vote_fields(votes: torch.Tensor, bias, fbits: int, k: int) -> torch.Tensor:
+    """Bias int votes [..., d] by ``bias`` (non-negative: an int or a tensor
+    broadcasting against the votes' leading axes) and pack k fields per
+    int32 lane: [..., ceil(d/k)]. Field i of lane j holds element j*k + i at
+    bit i*fbits; the d % k padding holds the bias, a zero vote."""
+    d = votes.shape[-1]
+    pad = (-d) % k
+    biased = votes.to(torch.int64) + torch.as_tensor(bias, dtype=torch.int64,
+                                                     device=votes.device)
+    if pad:
+        fill = torch.as_tensor(bias, dtype=torch.int64, device=votes.device)
+        fill = fill.expand(tuple(votes.shape[:-1]) + (pad,))
+        biased = torch.cat([biased, fill], dim=-1)
+    blocks = biased.reshape(tuple(biased.shape[:-1]) + (-1, k))
+    shifts = torch.arange(k, dtype=torch.int64, device=votes.device) * fbits
+    return _to_i32((blocks << shifts).sum(-1))
+
+
+def _unpack_vote_fields(lanes: torch.Tensor, d: int, bias, fbits: int, k: int
+                        ) -> torch.Tensor:
+    """Inverse of `_pack_vote_fields` after the reduction: the int32 tally
+    [..., d], ``bias`` being the accumulated offset of a field."""
+    u = lanes.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(k, dtype=torch.int64, device=lanes.device) * fbits
+    fields = (u[..., None] >> shifts) & ((1 << fbits) - 1)
+    flat = fields.reshape(tuple(lanes.shape[:-1]) + (-1,))[..., :d]
+    return (flat - torch.as_tensor(bias, dtype=torch.int64, device=lanes.device)
+            ).to(torch.int32)
+
+
+def _biases(group_size: int, e_per: int, n_active, local_active, total_active):
+    """(this rank's bias, the accumulated bias the unpack subtracts)."""
+    if n_active is None:
+        return e_per, group_size * e_per
+    if local_active is None:
+        raise ValueError("slot-aware packing needs local_active")
+    return local_active, n_active if total_active is None else total_active
+
+
+def packed_vote_allreduce(votes: torch.Tensor, group, *, group_size: int | None = None,
+                          e_per: int = 1, n_active: int | None = None, local_active=None,
+                          total_active=None) -> torch.Tensor:
+    """Guard-bit packed vote all-reduce: int votes [..., d] -> int32 tally
+    [..., d], equal to the int8 all-reduce of the votes bit for bit, while
+    ``ceil(d/k)`` 32-bit lanes travel instead of d bytes.
+
+    Slot-aware fields (``n_active`` + ``local_active``): when only
+    ``n_active`` voters of the whole group are live (the others vote exactly
+    0), the fields shrink to the [-n_active, n_active] span and each rank
+    biases by ``local_active``, its own live count (an int or a 0-d
+    tensor). The caller's contract: |votes| <= local_active elementwise and
+    the group's sum of local_active is n_active. ``total_active`` replaces
+    n_active as the subtracted bias when fewer voters are live than the
+    fields were sized for (erased voters); the wire format does not change.
+
+    ``group_size`` defaults to the group's size; on ``group=None`` (one
+    rank) the votes are packed and unpacked with nothing sent."""
+    s = ranks(group) if group_size is None else group_size
+    fbits, k = vote_field_spec(s, e_per, n_active=n_active)
+    bias, total_bias = _biases(s, e_per, n_active, local_active, total_active)
+    lanes = all_reduce(_pack_vote_fields(votes, bias, fbits, k), group)
+    return _unpack_vote_fields(lanes, votes.shape[-1], total_bias, fbits, k)
+
+
+def packed_vote_psum_scatter(votes: torch.Tensor, group, *, group_size: int | None = None,
+                             e_per: int = 1, n_active: int | None = None, local_active=None,
+                             total_active=None) -> torch.Tensor:
+    """Guard-bit packed reduce-scatter of votes along their last axis: this
+    rank's contiguous tally block [..., d/S] int32, equal to the int8
+    reduce-scatter's bit for bit. The fields per lane are rounded down to a
+    power of two so whole lanes tile the ranks; where d does not divide into
+    k*S the votes are reduce-scattered as they are (int8 while the span fits
+    int8, else int32), with no saving. ``n_active``, ``local_active`` and
+    ``total_active`` are those of `packed_vote_allreduce`."""
+    s = ranks(group) if group_size is None else group_size
+    d = votes.shape[-1]
+    fbits, k = vote_field_spec(s, e_per, pow2_fields=True, n_active=n_active)
+    if d % (k * s):
+        wire = votes if s * e_per <= 127 else votes.to(torch.int32)
+        return reduce_scatter_last(wire, group).to(torch.int32)
+    bias, total_bias = _biases(s, e_per, n_active, local_active, total_active)
+    part = reduce_scatter_last(_pack_vote_fields(votes, bias, fbits, k), group)
+    return _unpack_vote_fields(part, d // s, total_bias, fbits, k)
+
+
+def sparse_index_allgather(idx: torch.Tensor, group) -> torch.Tensor:
+    """The index-list wire of the sparse OTA majority: this rank's ``e``
+    encoder slots idx int32 [..., e, k_max] -> every rank's [..., S*e,
+    k_max], slot s*e + j holding rank s's slot j (the reference's
+    shard-major order, global encoder ids ``tx*e + j``)."""
+    g = all_gather(idx, group)                                 # [S, ..., e, k]
+    g = g.movedim(0, -3)                                       # [..., S, e, k]
+    return g.reshape(tuple(g.shape[:-3]) + (-1, g.shape[-1]))
+
+
+def majority_allreduce(bits: torch.Tensor, group, *, generator: torch.Generator | None = None,
+                       ber=None) -> torch.Tensor:
+    """OTA majority over the group's ranks: uint8 {0,1} bits -> the strict
+    majority (even group sizes tie to 0), one int32 all-reduce of the
+    bipolar votes. With ``ber`` the received copy goes through this rank's
+    BSC, drawn from ``generator``."""
+    votes = all_reduce(2 * bits.to(torch.int32) - 1, group)
+    out = (votes > 0).to(torch.uint8)
+    if ber is not None:
+        if generator is None:
+            raise ValueError("majority_allreduce: OTA noise needs a generator")
+        out = ota_noise(generator, out, ber)
+    return out
+
+
+def sign_allreduce(x: torch.Tensor, group=None, *, generator: torch.Generator | None = None,
                    ber: float | None = None) -> torch.Tensor:
-    """Majority-vote sign aggregation of a gradient, in x's dtype: the vote
-    of the one rank on the data axis is its own sign(x) in {-1, 0, +1}. With
-    ``ber``, the received vote goes through the OTA channel: each element
-    flips sign with probability ``ber``, drawn from ``generator`` as
-    `ota_noise` draws its flips (a zero stays zero)."""
-    out = torch.sign(x.float())
+    """Majority-vote sign aggregation of a gradient, in x's dtype: the sign
+    of the f32 sum of every rank's sign(x), in {-1, 0, +1} (on one rank,
+    ``group=None``, its own sign). With ``ber`` the received vote goes
+    through the OTA channel: each element flips sign with probability
+    ``ber``, drawn from ``generator`` as `ota_noise` draws its flips (a zero
+    stays zero)."""
+    out = torch.sign(all_reduce(torch.sign(x.float()), group))
     if ber is not None:
         if generator is None:
             raise ValueError("sign_allreduce: OTA noise needs a generator")

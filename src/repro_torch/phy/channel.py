@@ -84,6 +84,21 @@ def state_from_ber(ber: torch.Tensor, m_tx: int) -> ChannelState:
     )
 
 
+RX_FIELDS = ("ber", "valid", "h", "symbols", "c0", "c1")   # the RX-leading leaves
+
+
+def shard_state(state: ChannelState, rx_base: int, n_cores: int) -> ChannelState:
+    """The state of cores [rx_base, rx_base + n_cores): the RX-leading
+    leaves cut to those rows, ``phase_idx`` and ``n0`` whole (the
+    counterpart of the reference's ``state_spec``, which shards the same
+    leaves over the model axis)."""
+    if rx_base < 0 or rx_base + n_cores > state.n_rx:
+        raise ValueError(f"cores [{rx_base}, {rx_base + n_cores}) outside the state's "
+                         f"{state.n_rx}")
+    return dataclasses.replace(state, **{f: getattr(state, f)[rx_base:rx_base + n_cores]
+                                         for f in RX_FIELDS})
+
+
 def combo_index(bits: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """TX bit combo index along `axis`: bits [.., M, ..] {0,1} -> int32 [..],
     LSB-first as `ota.bit_combos`."""
@@ -106,7 +121,9 @@ class Channel:
     [B, d] uint8, or [B, W] int32 words when ``packed``) or ``"combo"``
     (`rx_copies` gets the TX bit-combo index [B, d] int32 and decodes the
     physics). `rx_copies` returns every core's received copy
-    [n_cores, B, d|W]; core i is RX ``rx_base + i`` of the state. The tier
+    [n_cores, B, d|W]. The state holds these cores (`shard_state` cuts a
+    rank's from the whole): core i is its row i and RX ``rx_base + i`` of
+    the whole link, the index a tier that replays noise by core uses. The tier
     draws its noise from ``generator``; ``noise`` and ``planes`` are the
     packed BSC's mask mode and bitplane precision."""
 
@@ -133,7 +150,7 @@ class BSCChannel(Channel):
     """Per-RX binary symmetric channel at the precharacterized BER (Eq. 1).
 
     All cores draw in one call: one [n_cores, B, d] uniform draw compared
-    with ``state.ber[rx_base + i]`` per core, the same draw in both
+    with ``state.ber[i]`` per core, the same draw in both
     representations (the packed tier packs it), so packed and unpacked
     serves agree on one generator. ``noise="bitplane"`` (packed only) draws
     the masks as words instead (`hv.bernoulli_words`, ``planes`` bits)."""
@@ -143,7 +160,7 @@ class BSCChannel(Channel):
 
     def rx_copies(self, generator, reduced, state, rx_base, n_cores,
                   *, packed, dim, noise, planes=16):
-        ber = state.ber[rx_base:rx_base + n_cores]
+        ber = state.ber[:n_cores]
         copies = reduced[None].expand((n_cores,) + tuple(reduced.shape))
         p = ber.reshape((n_cores,) + (1,) * reduced.dim())
         if packed:
@@ -156,7 +173,7 @@ class SymbolChannel(Channel):
     """Physical OTA: constellation superposition, AWGN, decision regions.
 
     ``reduced`` is the combo index [B, d] int32. Core i looks up its
-    noiseless symbol ``symbols[rx_base + i][combo]``, adds complex AWGN at
+    noiseless symbol ``symbols[i][combo]``, adds complex AWGN at
     ``n0`` and decides against its (c0, c1) (`ota.awgn_decide`): the
     reference's `ota.simulate_ota_bundle` over cores x batch x dimensions.
     It decodes bits and packs them when ``packed``: the same bits either way.
@@ -181,13 +198,13 @@ class SymbolChannel(Channel):
         full = (n_cores,) + tuple(shape)
         dev = state.symbols.device
         nr, ni = ota.awgn_draws(generator, full, dev)
-        ber = state.ber[rx_base:rx_base + n_cores].reshape((n_cores,) + (1,) * len(shape))
+        ber = state.ber[:n_cores].reshape((n_cores,) + (1,) * len(shape))
         flips = torch.rand(full, generator=generator, device=dev) < ber
         return nr, ni, flips
 
     def rx_copies(self, generator, reduced, state, rx_base, n_cores,
                   *, packed, dim, noise, planes=16):
-        rows = slice(rx_base, rx_base + n_cores)
+        rows = slice(0, n_cores)
         lead = (n_cores,) + (1,) * reduced.dim()
         nr, ni, flips = self.draws(generator, state, rx_base, n_cores, reduced.shape)
         combo = reduced.to(torch.int64)

@@ -37,6 +37,7 @@ import dataclasses
 import torch
 
 from repro_torch import device as _device
+from repro_torch.distributed.mesh import one_rank
 from repro_torch.serving import slotring
 
 
@@ -61,6 +62,7 @@ class Engine:
     """Static-batch engine over a model's ``prefill_fn`` / ``decode_fn``."""
 
     def __init__(self, model, cfg: ServeConfig):
+        one_rank("Engine")
         self.model = model
         self.cfg = cfg
 

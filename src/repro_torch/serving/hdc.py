@@ -353,7 +353,7 @@ class AdaptiveHDCEngine(HDCEngine):
                                    else process_generators)
         self.controller = self._make_controller(controller, self.pstate)
         alt = self.controller.cfg.alt_collective
-        if alt is not None:                              # unported collectives raise here
+        if alt is not None:                              # an unknown collective raises here
             dataclasses.replace(cfg, collective=alt)
         self._pending: phy.ProcessState | None = None
         super().__init__(cfg, chan_state, num_slots=num_slots, max_tenants=max_tenants,

@@ -38,6 +38,7 @@ import torch
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.device import resolve
 from repro_torch.distributed import collectives
+from repro_torch.distributed.mesh import one_rank
 from repro_torch.models.base import abstract_params, init_params
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -149,6 +150,7 @@ class Trainer:
     (batch, step and reading the loss back)."""
 
     def __init__(self, fns: TrainFns, pipeline, tcfg: TrainerConfig):
+        one_rank("Trainer")
         self.fns = fns
         self.pipeline = pipeline
         self.tcfg = tcfg

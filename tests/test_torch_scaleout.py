@@ -242,12 +242,79 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
                                  dict(collective="rs_ag"),
                                  dict(m_active=1, collective="psum_packed"),
                                  dict(representation="packed", collective="rs_ag")])
-def test_unported_config_values_raise(bad):
-    """The multi-GPU collectives are the config's only unported values; the
-    symbol tier, bitplane noise and m_active are taken (see
-    tests/test_torch_phy.py), but not with such a collective."""
-    with pytest.raises(NotImplementedError):
-        tscale.ScaleOutConfig(**SMALL, **bad)
+def test_unported_config_values_raise(mesh, codebook, bad):
+    """The multi-rank collectives on one rank, as the reference takes them:
+    where its serve build rejects a combination (the symbol tier with
+    another collective than psum) the port raises ValueError in the same
+    words; elsewhere the port's ideal serve equals JAX's on its (1, 1)
+    mesh, and the port's psum serve, bit for bit."""
+    kw = {**SMALL, "channel": "ideal", **bad}
+    jcfg = jscale.ScaleOutConfig(**kw, use_kernels=False)
+    tcfg = tscale.ScaleOutConfig(**kw)
+    if jcfg.channel == "symbol":
+        with pytest.raises(ValueError) as ref:
+            jscale.make_ota_serve(mesh, jcfg)
+        with pytest.raises(ValueError) as got:
+            tscale.make_ota_serve(tcfg, device=CPU)
+        assert str(got.value) == str(ref.value)
+        return
+    protos = jnp.asarray(codebook[0])
+    _, jq = jscale.make_queries(jax.random.PRNGKey(1), jcfg, protos, 1)
+    jp = protos if tcfg.representation == "unpacked" else jhv.pack(protos)
+    words = tcfg.representation != "unpacked"
+    tp = convert.hv_from_numpy(np.asarray(jp), CPU)
+    tq = (torch.from_numpy(np.array(jq)) if tcfg.sparse
+          else convert.hv_from_numpy(np.asarray(jq), CPU))
+    jstate = jphy.state_from_ber(jnp.asarray(BER), 3)
+    tstate = tphy.state_from_ber(torch.from_numpy(BER), 3)
+    jpred, jsim = jscale.make_ota_serve(mesh, jcfg)(jp, jq, jstate, jax.random.PRNGKey(2))
+    pred, sim = tscale.make_ota_serve(tcfg, device=CPU)(tp, tq, tstate, torch.Generator())
+    _eq(pred, jpred)
+    _eq(sim, jsim)
+    psum = dataclasses.replace(tcfg, collective="psum")
+    ppred, psim = tscale.make_ota_serve(psum, device=CPU)(tp, tq, tstate, torch.Generator())
+    assert torch.equal(pred, ppred) and torch.equal(sim, psim)
+    assert words == (tp.dtype == torch.int32)
+
+
+KERNELS = ("assoc_matmul", "assoc_matmul_banked", "hamming_search", "hamming_topk_banked",
+           "majority_bundle", "sparse_topk_banked")
+
+
+@pytest.mark.parametrize("channel", ["ideal", "bsc"])
+@pytest.mark.parametrize("permuted,rep", MODES)
+def test_serves_hand_the_kernels_dense_tensors(codebook, monkeypatch, permuted, rep, channel):
+    """The CUDA kernels take contiguous tensors only (their CPU twins take
+    any), so every tensor a serve hands a kernel wrapper must be dense:
+    the standalone, multi-tenant and wired serves, on inputs cut as
+    `shard_inputs` cuts them (views of larger tensors). The ideal tier's
+    copies are a stride-0 expand, which a reshape keeps as a view."""
+    seen = []
+
+    def dense(name, fn):
+        def wrapper(*args, **kwargs):
+            seen.append(name)
+            for a in args:
+                if isinstance(a, torch.Tensor):
+                    assert a.is_contiguous(), f"{name} got a non-contiguous {tuple(a.shape)}"
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name in KERNELS:
+        monkeypatch.setattr(tscale, name, dense(name, getattr(tscale, name)))
+    _, tcfg = _cfgs(permuted, rep, channel=channel)
+    _, _, tp, tq = _inputs(codebook, rep == "packed")
+    state = tphy.state_from_ber(torch.from_numpy(BER), 3)
+    wide = torch.cat([tq, tq], 1)[:, :1]                      # a view, as a rank's column
+    tscale.make_ota_serve(tcfg, device=CPU)(tp, wide, state, torch.Generator())
+    store = torch.stack([tp, tp])
+    store = torch.cat([store, store], 1)[:, :tp.shape[0]]     # a view, as a rank's classes
+    tscale.make_mt_ota_serve(tcfg, device=CPU)(store, torch.stack([wide, wide]),
+                                               torch.tensor([1, 0], dtype=torch.int32), state,
+                                               [torch.Generator(), torch.Generator()])
+    if not permuted:
+        tscale.make_wired_serve(tcfg, device=CPU)(tp, wide, state)
+    assert seen
 
 
 # ---------------------------------------------------------------------------

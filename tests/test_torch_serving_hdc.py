@@ -585,7 +585,16 @@ def test_adaptive_engine_fleet_switch_builds_each_variant_once(books, sym_state)
         eng._apply_fleet_mode(degraded)
     assert sorted(builds) == [(1, "psum"), (3, "psum")]
     assert len(sched.results) == 8
-    with pytest.raises(NotImplementedError):
-        AdaptiveHDCEngine(cfg, sym_state, process=tphy.StaticProcess(), num_slots=1,
-                          max_tenants=1, device=CPU,
-                          controller=LinkControllerConfig(alt_collective="rs_ag"))
+    # the alternative collective: the degraded variant is (m_floor, "rs_ag"),
+    # which on one rank answers as the psum variant does, bit for bit
+    alt = Counting(cfg, sym_state, process=tphy.StaticProcess(), num_slots=1,
+                   max_tenants=1, device=CPU,
+                   controller=LinkControllerConfig(alt_collective="rs_ag"))
+    alt._apply_fleet_mode(True)
+    assert builds[-1] == (1, "rs_ag") and alt.controller.trace[-1]["collective"] == "rs_ag"
+    store, q = _protos(cfg, books[0])[None], _query(cfg, books[0], 50)[None]
+    outs = [serve(store, q, torch.zeros(1, dtype=torch.int32), alt.pstate,
+                  [torch.Generator().manual_seed(5)], alt.process_generators)[:2]
+            for serve in (alt._variants[(1, "rs_ag")],
+                          alt._build_serve(dataclasses.replace(cfg, m_active=1)))]
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])

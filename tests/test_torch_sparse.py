@@ -398,8 +398,8 @@ def test_auto_resolution_and_crossover_table():
     lo = tscale.resolve_representation(cfg)
     assert lo.representation == "sparse" and lo.collective == "index_ag"
     hi = tscale.resolve_representation(dataclasses.replace(cfg, k_max=256))
-    # the reference's psum_packed wire is a local sum on one GPU
-    assert hi.representation == "packed" and hi.collective == "psum"
+    # packed takes the reference's guard-bit psum_packed wire
+    assert hi.representation == "packed" and hi.collective == "psum_packed"
     for k_max, want in ((32, lo), (256, hi), (64, hi), (63, lo)):   # 64 / 2048 = 1/32
         jcfg = jscale.ScaleOutConfig(n_classes=16, dim=2048, m_tx=3, n_rx_cores=4, batch=4,
                                      representation="auto", k_max=k_max, collective="psum")
@@ -410,6 +410,14 @@ def test_auto_resolution_and_crossover_table():
     assert tscale.resolve_representation(lo) is lo
     headline = tscale.ScaleOutConfig(representation="auto", dim=2**20, k_max=2048)
     assert tscale.resolve_representation(headline).representation == "sparse"
+    mid = dataclasses.replace(cfg, k_max=128)                  # density 1/16
+    assert tscale.resolve_representation(mid).representation == "packed"
+    try:
+        tscale.set_crossover_table({"density": 1.0 / 8.0})    # clears the cache
+        assert tscale.resolve_representation(mid).representation == "sparse"
+    finally:
+        tscale.set_crossover_table(None)
+    assert tscale.resolve_representation(mid).representation == "packed"
 
 
 def test_sparse_unsupported_serves_raise():

@@ -210,7 +210,33 @@ fallback, and a missing GPU is a failure):
    a call on rank 0 (host clock, median of MR_TIMED; the replayed cases
    untimed) beside the one-rank serve's, with the backend named: gloo
    through host memory, which says nothing of NVLink.
-   A rank that fails or outlives MR_TIMEOUT fails the phase.
+   A rank that fails or outlives MR_TIMEOUT fails the phase;
+18. living channels, faults and the HDC engines across ranks (the same
+   gloo ranks on the one card; each model rank holds its cores' rows of
+   the process and fault state, `phy.shard_pstate` and
+   `faults.shard_fstate`), at the paper's configuration on phase 3's state:
+   (a) on 1x2, 1x4 and 2x4 a PhaseDriftProcess serve on the replayed
+   symbol draws (unpacked) and on the replayed bsc masks (packed), psum,
+   LR_STEPS steps: every rank's process-state rows == the one-rank
+   rollout's bit for bit (on both data replicas of 2x4), pred and maxsim
+   == the one-rank serve's; (b) on 1x4 and 2x4 phase 14 (b)'s scenario on
+   the replayed bsc masks in the four modes: the healthy fault-aware serve
+   == the fault-free serve on ranks (psum), 8 of 64 cores dead (two on each
+   model rank of 1x4, LR_DEAD), failed over in shards of 16, + 1% stuck
+   cells (psum_packed), the votes of TXs 1 and 2 erased (rs_ag), each ==
+   the one-rank fault serve, one coarse packed fault serve on 1x4, and a
+   WearoutFaults rollout whose rows == the one-rank rollout's; (c) on 1x4
+   the engines: HDCEngine on phase 13 (b)'s trace and
+   FaultTolerantHDCEngine under (b)'s dead cores and stuck cells, every
+   completion == its rank-standalone serve on `rank_generator` and the four
+   ranks' completion lists identical, rank 0's ms a step and trials/s
+   beside the one-rank engine's; AdaptiveHDCEngine at phase 13 (c)'s drift
+   point on replayed symbol draws, its controller trace and completions ==
+   the one-rank engine's; a FaultTolerantHDCEngine on a fading channel
+   (LR_FADE, WearoutFaults, bsc_replay) whose trace (re-fits, quarantines,
+   the fleet-mode drop, remaps) == the one-rank engine's. Each engine
+   launches one search kernel a step and nothing else. A rank that fails
+   or outlives LR_TIMEOUT fails the phase.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
@@ -223,9 +249,12 @@ serves, fault-aware serves and engine runs (the fault-free serves beside
 them, the vote-erasure comparisons, the timing calls and the standalone
 comparisons are not counted), phase 15's scheduler runs (the static
 comparison generates are not counted), phase 16's training steps and
-Trainer runs (the kernel cases of (a) are not counted) and one counted call
+Trainer runs (the kernel cases of (a) are not counted), one counted call
 of every case on every rank of phase 17 (the one-rank comparison serves and
-the timed calls are not counted);
+the timed calls are not counted) and, on every rank of phase 18, the
+process serves of (a), the fault-aware serves of (b) and the engines' runs
+of (c) (the one-rank runs, the fault-free and standalone comparison serves
+and the warm rings are not counted);
 the d = 8192 comparisons, the
 keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
 quarantine check are not counted), and as the last line {"ok": true, ...}.
@@ -383,6 +412,20 @@ MR_CELL_BYTES = {("psum", "unpacked"): 133_632, ("psum", "packed"): 133_632,
 # core's BER moves them; the replayed tiers' draws come from MR_REPLAY_SEED
 MR_HOT_BER = (0.25, 0.5)
 MR_REPLAY_SEED = 17
+# phase 18: living channels, faults and the HDC engines on the same grids, at
+# the paper's configuration on phase 3's state (the parts each grid runs);
+# (a) a PhaseDriftProcess serve LR_STEPS steps on replayed noise; (b) phase
+# 14 (b)'s scenario with its 8 dead cores spread two to each of 4 model ranks
+# (one failover plan, in shards of 16 cores, on one rank and on ranks); (c)
+# the engines on 1x4: phase 13 (b)'s trace, phase 13 (c)'s drift point and
+# phase 14 (c)'s faults, then a fading channel whose controller re-fits,
+# quarantines, drops the fleet mode and remaps (LR_FADE)
+LR_GRIDS = {(1, 2): ("a",), (1, 4): ("a", "b", "c"), (2, 4): ("a", "b")}
+LR_STEPS = 5
+LR_DEAD = (3, 9, 17, 30, 36, 40, 51, 60)
+LR_SHARD = 16
+LR_FADE = dict(sigma_db=8.0, requests=16, slots=4)
+LR_TIMEOUT = 300                 # seconds a grid's ranks may take, their start included
 # phase 16 (a): the backward kernel's cases, label -> (B, Sq, Skv, H, KH, D,
 # causal, window, q_offset, dtype); the training shape first
 FLASH_BWD_CASES = [
@@ -4443,6 +4486,489 @@ def phase_multirank(torch, state, launches: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: living channels, faults and the HDC engines across ranks (gloo,
+# every rank on cuda:0)
+# ---------------------------------------------------------------------------
+
+def lr_leaves(p) -> dict:
+    """A process or fault state's leaves on the host (the channel's under
+    chan/)."""
+    out = {}
+    for f in p.FIELDS:
+        x = getattr(p, f)
+        if hasattr(x, "FIELDS"):
+            out.update({f"chan/{g}": getattr(x, g).cpu().numpy() for g in x.FIELDS})
+        else:
+            out[f] = x.cpu().numpy()
+    return out
+
+
+def lr_fstate(torch, cfg, scenario: str, model_size: int):
+    """The global fault state of a scenario on a model axis of ``model_size``
+    ranks: "healthy"; "dead": LR_DEAD dead, failed over in shards of
+    LR_SHARD cores, and 1% stuck cells (phase 14 (b)'s density and cells);
+    "erased": the votes of TXs 1 and 2 dropped."""
+    from repro_torch import faults
+
+    f = faults.healthy_for(cfg, model_size=model_size)
+    if scenario == "dead":
+        s0, s1 = faults.sample_stuck_cells(cuda_gen(torch, 7), cfg.n_rx_cores, cfg.words,
+                                           FAULTS_PAPER["stuck_density"])
+        f = faults.plan_failover(faults.inject(f, dead_rx=list(LR_DEAD), stuck0=s0, stuck1=s1),
+                                 LR_SHARD)
+    elif scenario == "erased":
+        f = faults.inject(f, vote_drop=[1, 2])
+    return f
+
+
+def lr_replay_drift(torch, mesh) -> None:
+    """Register ``symbol_replay16``: the symbol tier on normals and flips
+    drawn before the serve (MR_REPLAY_SEED + 1) for every core and trial of
+    phase 13 (c)'s drift point (16 RX, batch 4), each core taking those of
+    its global index and each rank its rows of the batch."""
+    from repro_torch import phy
+    from repro_torch.core import scaleout
+
+    d = MT_DRIFT
+    g = torch.Generator().manual_seed(MR_REPLAY_SEED + 1)
+    full = (d["n_rx"], d["batch"], 512)
+    nr, ni = torch.randn(full, generator=g), torch.randn(full, generator=g)
+    flips = torch.rand(full, generator=g) < 0.01
+    nr, ni, flips = (scaleout.shard_batch(mesh, x, 1).cuda() for x in (nr, ni, flips))
+
+    class SymbolReplay16(phy.SymbolChannel):
+        name = "symbol_replay16"
+
+        def draws(self, generator, state, rx_base, n_cores, shape):
+            rows = slice(rx_base, rx_base + n_cores)
+            return nr[rows], ni[rows], flips[rows]
+
+    phy.register_channel(SymbolReplay16(), override=True)
+
+
+def lr_living(torch, mesh, state, books) -> dict:
+    """(a) A PhaseDriftProcess serve on symbol_replay (unpacked) and on
+    bsc_replay (packed), psum, LR_STEPS steps on process generators seeded
+    alike: each step's answers and the evolved state's leaves (this rank's
+    rows), one counted run."""
+    import numpy as np
+
+    from repro_torch import phy
+    from repro_torch.core import hypervector as hv, scaleout
+
+    s = 1 if mesh is None else mesh.axis_size("model")
+    out = {}
+    for ch, rep in (("symbol_replay", "unpacked"), ("bsc_replay", "packed")):
+        cfg = scaleout.ScaleOutConfig(channel=ch, representation=rep)
+        proc = phy.PhaseDriftProcess(guard_dims=64)
+        book = books["paper"]
+        _, q = scaleout.make_queries(cuda_gen(torch, 1), cfg, book, model_size=s)
+        protos, q, pst = scaleout.shard_inputs(cfg, mesh, hv.pack(book) if cfg.packed else book,
+                                               q, proc.init(state))
+        fn = scaleout.make_ota_serve(cfg, process=proc, mesh=mesh)
+        gens, g = phy.process_generators(11, "cuda"), cuda_gen(torch, 2)
+
+        def run(pst=pst):
+            steps = []
+            for _ in range(LR_STEPS):
+                pred, sim, pst = fn(protos, q, pst, g, gens)
+                steps.append((pred, sim, pst))
+            return steps
+
+        steps, _, counts = counted(torch, run)
+        out[f"{ch} {rep}"] = dict(
+            launches=counts, pred=np.stack([p.cpu().numpy() for p, _, _ in steps]),
+            sim=np.stack([x.cpu().numpy() for _, x, _ in steps]),
+            pstate=[lr_leaves(p) for _, _, p in steps])
+    return out
+
+
+def lr_fault_cases(coarse: bool) -> list:
+    """(b)'s serves: (name, cfg overrides, scenario); the coarse one on 1x4
+    and one rank."""
+    cases = [(f"{'permuted' if perm else 'baseline'} {rep} {sc} {coll}",
+              dict(permuted=perm, representation=rep, collective=coll), sc)
+             for perm, rep in MR_MODES
+             for sc, coll in (("healthy", "psum"), ("dead", "psum_packed"), ("erased", "rs_ag"))]
+    if coarse:
+        cases.append((f"coarse packed dead psum (groups of {FAULTS_PAPER['coarse_group']}, "
+                      f"{FAULTS_PAPER['coarse_keep']} kept)",
+                      dict(representation="packed", coarse_group=FAULTS_PAPER["coarse_group"],
+                           coarse_keep=FAULTS_PAPER["coarse_keep"]), "dead"))
+    return cases
+
+
+def lr_faults(torch, mesh, state, books, coarse: bool) -> dict:
+    """(b) Every fault serve on bsc_replay on this rank (one counted call
+    each; the healthy ones also beside the fault-free serve on the same
+    ranks) and a WearoutFaults rollout of LR_STEPS steps on a fault
+    generator seeded alike: its leaves after every step."""
+    from repro_torch import faults
+    from repro_torch.core import hypervector as hv, scaleout
+
+    sh_s = 1 if mesh is None else mesh.axis_size("model")
+    out = {}
+    for name, kw, sc in lr_fault_cases(coarse):
+        cfg = scaleout.ScaleOutConfig(channel="bsc_replay", **kw)
+        book = books["paper"]
+        _, q = scaleout.make_queries(cuda_gen(torch, 1), cfg, book, model_size=sh_s)
+        protos, q, st, fs = scaleout.shard_inputs(
+            cfg, mesh, hv.pack(book) if cfg.packed else book, q, state,
+            fstate=lr_fstate(torch, cfg, sc, sh_s))
+        fserve = scaleout.make_ota_serve(cfg, faults=faults.StaticFaults(), mesh=mesh)
+        (pred, sim, _), _, counts = counted(torch, lambda: fserve(protos, q, st, cuda_gen(torch, 2),
+                                                                  fs, None))
+        res = dict(pred=pred.cpu().numpy(), sim=sim.cpu().numpy(), launches=counts)
+        if sc == "healthy":
+            p2, s2 = scaleout.make_ota_serve(cfg, mesh=mesh)(protos, q, st, cuda_gen(torch, 2))
+            res["healthy_equal"] = bool(torch.equal(pred, p2) and torch.equal(sim, s2))
+        out[name] = res
+    cfg = scaleout.ScaleOutConfig()
+    sh = scaleout._shard_of(cfg, mesh)
+    f = scaleout.shard_state_of(cfg, mesh, faults.healthy_for(cfg, model_size=sh.model_size))
+    model, g, wear = faults.WearoutFaults(**WEAROUT), cuda_gen(torch, 13), []
+    for _ in range(LR_STEPS):
+        f = model.step(g, f, rx_base=sh.tx * sh.cores, n_rx=cfg.n_rx_cores)
+        wear.append(lr_leaves(f))
+    out["wearout"] = wear
+    return out
+
+
+def lr_sched(torch, eng, banks, reqs) -> dict:
+    """Onboard ``banks``, run one warm full ring, then every request queued
+    at once on generators seeded alike, the launch counters set to 0 just
+    before and read just after: the completions (pred, maxsim, status) in
+    request order, the host-clock wall, steps and counts, the trace."""
+    from repro_torch import kernels as tk
+    from repro_torch.serving import HDCScheduler
+
+    for t, b in enumerate(banks):
+        eng.registry.onboard(t, b)
+    warm = HDCScheduler(eng)
+    for _ in range(eng.num_slots):
+        warm.submit(reqs[0][0], reqs[0][1], generator=cuda_gen(torch, 0))
+    warm.run(timeout=600)
+    sched = HDCScheduler(eng, clock=time.perf_counter)
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [sched.submit(t, q, generator=cuda_gen(torch, seed)) for t, q, seed in reqs]
+    sched.run(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = [sched.results[r] for r in rids]
+    ctl = getattr(eng, "controller", None)
+    return dict(done=[(c.pred, c.maxsim, c.status) for c in done], wall=wall,
+                steps=sched.steps, launches=tk.launch_counts(),
+                trace=None if ctl is None else ctl.trace)
+
+
+def lr_standalone_equal(torch, cfg, mesh, state, banks, reqs, done, fstate=None) -> bool:
+    """Every completion == its standalone serve on this rank (its rows of
+    the batch on `rank_generator` of the request's generator; fault-aware
+    under the static global ``fstate`` when given)."""
+    import numpy as np
+
+    from repro_torch import faults
+    from repro_torch.core import scaleout
+    from repro_torch.serving.hdc import rank_generator
+
+    if fstate is None:
+        fn = scaleout.make_ota_serve(cfg, mesh=mesh)
+    else:
+        f_rows = scaleout.shard_state_of(cfg, mesh, fstate)
+        fserve = scaleout.make_ota_serve(cfg, faults=faults.StaticFaults(), mesh=mesh)
+        fn = lambda *a: fserve(*a, f_rows, None)[:2]                       # noqa: E731
+    for (t, q, seed), (pred, sim, status) in zip(reqs, done):
+        protos, q_l, st = scaleout.shard_inputs(cfg, mesh, banks[t], q, state)
+        p, s = fn(protos, q_l, st, rank_generator(cuda_gen(torch, seed), mesh))
+        if status != "ok" or not (np.array_equal(p.cpu().numpy(), pred)
+                                  and np.array_equal(s.cpu().numpy(), sim)):
+            return False
+    return True
+
+
+def lr_engines(torch, mesh, state, state16) -> dict:
+    """(c) The three engines on this rank: HDCEngine on phase 13 (b)'s trace
+    and FaultTolerantHDCEngine under phase 14 (c)'s faults (LR_DEAD failed
+    over, 1% stuck; StaticProcess, StaticFaults), each against its
+    rank-standalone serves; AdaptiveHDCEngine at phase 13 (c)'s drift point
+    on replayed noise; and a FaultTolerantHDCEngine on a fading channel
+    (LR_FADE, WearoutFaults) on bsc_replay whose controller re-fits,
+    quarantines, drops the fleet mode and remaps."""
+    import dataclasses
+
+    from repro_torch import faults, phy
+    from repro_torch.core import classifier, hypervector as hv, scaleout
+    from repro_torch.serving import (AdaptiveHDCEngine, FaultControllerConfig,
+                                     FaultTolerantHDCEngine, HDCEngine, LinkControllerConfig)
+
+    s = 1 if mesh is None else mesh.axis_size("model")
+    b = MT_BATCH
+    base = scaleout.ScaleOutConfig()
+    cfg = dataclasses.replace(base, batch=b["batch"], representation="packed")
+    books = classifier.make_tenant_codebooks(
+        [cuda_gen(torch, t) for t in range(b["tenants"])],
+        classifier.HDCTaskConfig(n_classes=base.n_classes, dim=base.dim))
+    banks = [hv.pack(bk) for bk in books]
+    reqs = [(t, scaleout.make_queries(cuda_gen(torch, 100 + i), cfg, books[t], model_size=s)[1],
+             1000 + i) for i, t in enumerate(poisson_race(b["requests"], b["tenants"]))]
+    out = {}
+    kw = dict(num_slots=b["slots"], max_tenants=b["tenants"], mesh=mesh)
+    out["engine"] = run = lr_sched(torch, HDCEngine(cfg, state, **kw), banks, reqs)
+    run["standalone_equal"] = lr_standalone_equal(torch, cfg, mesh, state, banks, reqs,
+                                                  run["done"])
+    fstate = lr_fstate(torch, cfg, "dead", s)
+    ft = FaultTolerantHDCEngine(cfg, state, process=phy.StaticProcess(),
+                                fault_model=faults.StaticFaults(), fstate=fstate, **kw)
+    out["ft static"] = run = lr_sched(torch, ft, banks, reqs)
+    run["standalone_equal"] = lr_standalone_equal(torch, cfg, mesh, state, banks, reqs,
+                                                  run["done"], fstate)
+    d = MT_DRIFT
+    cfg16 = scaleout.ScaleOutConfig(n_classes=d["n_classes"], n_rx_cores=d["n_rx"],
+                                    batch=d["batch"], channel="symbol_replay16")
+    books16 = classifier.make_tenant_codebooks(
+        [cuda_gen(torch, t) for t in range(d["tenants"])],
+        classifier.HDCTaskConfig(n_classes=d["n_classes"], dim=cfg16.dim))
+    reqs16 = [(i % d["tenants"], scaleout.make_queries(cuda_gen(torch, 100 + i), cfg16,
+                                                       books16[i % d["tenants"]],
+                                                       model_size=s)[1], 1000 + i)
+              for i in range(d["requests"])]
+    eng = AdaptiveHDCEngine(
+        cfg16, state16, process=phy.PhaseDriftProcess(sigma=d["sigma"], alpha=d["alpha"],
+                                                      guard_dims=d["guard"]),
+        num_slots=d["slots"], max_tenants=d["tenants"], mesh=mesh,
+        controller=LinkControllerConfig(patience=1, band_kwargs={"cap": d["cap"]}))
+    out["adaptive"] = lr_sched(torch, eng, books16, reqs16)
+    fade = dataclasses.replace(cfg, channel="bsc_replay")
+    ctl = FaultControllerConfig(patience=1, band_kwargs={"cap": 0.02}, quarantine_ber=0.05,
+                                quarantine_after=1, release_ber=0.01, release_after=2,
+                                drop_frac=0.25, m_floor=1, alt_collective="psum_packed",
+                                remap_after=2)
+    eng = FaultTolerantHDCEngine(
+        fade, state, process=phy.BlockFadingProcess(sigma_db=LR_FADE["sigma_db"], block=1),
+        fault_model=faults.WearoutFaults(**WEAROUT), fault_generator=cuda_gen(torch, 4),
+        controller=ctl, num_slots=LR_FADE["slots"], max_tenants=b["tenants"], mesh=mesh)
+    out["ft fading"] = run = lr_sched(torch, eng, banks, reqs[:LR_FADE["requests"]])
+    run["pstate"], run["fstate"] = lr_leaves(eng.pstate), lr_leaves(eng.fstate)
+    return out
+
+
+def lr_run(torch, mesh, states: dict, parts: tuple) -> dict:
+    """Phase 18's parts on this rank (``mesh=None``: one rank, the whole
+    inputs), on phase 3's state (and phase 13 (c)'s 16-RX state)."""
+    from repro_torch import phy
+
+    state, state16 = (phy.ChannelState(**{f: torch.from_numpy(v).cuda() for f, v in st.items()})
+                      for st in (states["paper"], states["drift"]))
+    books = mr_books(torch, {"paper"})
+    mr_replay_tiers(torch, mesh)
+    lr_replay_drift(torch, mesh)
+    out = {}
+    if "a" in parts:
+        out["a"] = lr_living(torch, mesh, state, books)
+    if "b" in parts:
+        out["b"] = lr_faults(torch, mesh, state, books,
+                             coarse=mesh is None or mesh.shape == (1, 4))
+    if "c" in parts:
+        out["c"] = lr_engines(torch, mesh, state, state16)
+    return out
+
+
+def lr_rank(mesh, states: dict, parts: tuple) -> dict:
+    """What each rank of a phase-18 grid runs on cuda:0."""
+    import torch
+
+    from repro_torch.core import scaleout
+
+    out = lr_run(torch, mesh, states, parts)
+    out["coords"] = (scaleout._dpos(mesh)[0], mesh.index("model"))
+    return out
+
+
+def lr_data_rows(results, get, axis: int, what: str):
+    """The global answer of the ranks' rows of the batch (``axis``): every
+    model rank of a data row alike, the data rows in order."""
+    import numpy as np
+
+    by = {r["coords"]: get(r) for r in results}
+    n_data, n_model = 1 + max(d for d, _ in by), 1 + max(t for _, t in by)
+    require(all(np.array_equal(by[(d, t)], by[(d, 0)])
+                for d in range(n_data) for t in range(n_model)),
+            f"{what}: model ranks answer differently")
+    return np.concatenate([by[(d, 0)] for d in range(n_data)], axis=axis)
+
+
+def lr_state_equal(results, get, want: dict, what: str) -> None:
+    """Every leaf of a process or fault state on the ranks == the one-rank
+    state's: a row-leading leaf as every data replica's rows of its model
+    column in order (the replicas alike), ``t``, the TX leaves (over the M
+    encoders) and the channel's phase assignment and noise density whole
+    on every rank."""
+    import numpy as np
+
+    by = {r["coords"]: get(r) for r in results}
+    n_data, n_model = 1 + max(d for d, _ in by), 1 + max(t for _, t in by)
+    for leaf, w in want.items():
+        if leaf in ("t", "dead_tx", "vote_drop", "chan/phase_idx", "chan/n0"):
+            got = [x[leaf][:len(w)] if leaf in ("dead_tx", "vote_drop") else x[leaf]
+                   for x in by.values()]
+            require(all(np.array_equal(g, w) for g in got), f"{what}: {leaf} differs")
+            continue
+        require(all(np.array_equal(by[(d, t)][leaf], by[(0, t)][leaf])
+                    for d in range(n_data) for t in range(n_model)),
+                f"{what}: the data replicas' {leaf} rows differ")
+        got = np.concatenate([by[(0, t)][leaf] for t in range(n_model)])
+        require(np.array_equal(got, w), f"{what}: the ranks' {leaf} rows differ from one rank's")
+
+
+def lr_gate_launches(counts: dict, want: tuple, what: str, steps: int | None = None) -> None:
+    require(all(counts[k] == steps if steps is not None else counts[k] > 0 for k in want)
+            and all(v == 0 for k, v in counts.items() if k not in want),
+            f"{what}: launches {counts}, expected {want}"
+            + ("" if steps is None else f" {steps} times (one a step)") + " and nothing else")
+
+
+def phase_living_ranks(torch, state, launches: dict) -> dict:
+    """Phase 18: each grid's ranks (gloo, all on cuda:0) run their parts of
+    LR_GRIDS; the one-rank runs of the same inputs in this process are what
+    they are held to."""
+    import numpy as np
+
+    from repro_torch.core import scaleout
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as tmesh
+
+    d = MT_DRIFT
+    state16 = scaleout.precharacterize_state(scaleout.ScaleOutConfig(
+        n_classes=d["n_classes"], n_rx_cores=d["n_rx"], batch=d["batch"], channel="symbol"))
+    states = {k: {f: getattr(st, f).cpu().numpy() for f in st.FIELDS}
+              for k, st in (("paper", state), ("drift", state16))}
+    one = lr_run(torch, None, states, ("a", "b", "c"))
+    kern = lambda rep: (("hamming_topk_banked",) if rep == "packed"           # noqa: E731
+                        else ("assoc_matmul",))
+    for name, res in one["c"].items():
+        require(res["standalone_equal"] if "standalone_equal" in res else True,
+                f"lr one rank (c) {name}: a completion differs from its standalone serve")
+    acts = {e["action"] for e in one["c"]["ft fading"]["trace"]}
+    require({"refit", "quarantine", "m_drop", "link_mode", "remap"} <= acts,
+            f"lr one rank (c) ft fading: the controller took only {sorted(acts)}; "
+            "the trace gate would see nothing")
+    out = {"one_rank": {k: dict(ms_per_step=r["wall"] / r["steps"] * 1e3,
+                                trials_per_s=len(r["done"]) * MT_BATCH["batch"] / r["wall"])
+                        for k, r in one["c"].items() if k in ("engine", "ft static")},
+           "grids": {}}
+    _build.build()             # the ranks load the library built here
+    for grid, parts in LR_GRIDS.items():
+        label = f"{grid[0]}x{grid[1]}"
+        t0 = time.perf_counter()
+        results = tmesh.spawn(lr_rank, grid, (states, parts), timeout=LR_TIMEOUT, threads=None)
+        wall = time.perf_counter() - t0
+        row = dict(wall_s=wall)
+        if "a" in parts:
+            for name, want in one["a"].items():
+                what = f"lr {label} (a) {name}"
+                for r in results:
+                    lr_gate_launches(r["a"][name]["launches"], kern(name.split()[1]), what)
+                    add_launches(launches, r["a"][name]["launches"])
+                for key in ("pred", "sim"):
+                    got = lr_data_rows(results, lambda r: r["a"][name][key], 1, what)
+                    require(np.array_equal(got, want[key]), f"{what}: {key} differs from one rank")
+                for k in range(LR_STEPS):
+                    lr_state_equal(results, lambda r: r["a"][name]["pstate"][k],
+                                   want["pstate"][k], f"{what} step {k + 1}")
+            print(f"lr {label} (a) living channel: PhaseDriftProcess on "
+                  + " and ".join(one["a"]) + f", psum, {LR_STEPS} steps: every rank's "
+                  "process-state rows == the one-rank rollout's"
+                  + (" on both data replicas" if grid[0] > 1 else "")
+                  + ", pred and maxsim == the one-rank serve's", flush=True)
+        if "b" in parts:
+            names = [n for n, _, _ in lr_fault_cases(grid == (1, 4))]
+            for name in names:
+                what = f"lr {label} (b) {name}"
+                want = one["b"][name]
+                rep = "packed" if " packed " in f" {name} " else "unpacked"
+                k = ("hamming_topk_k_banked",) if name.startswith("coarse") else kern(rep)
+                for r in results:
+                    lr_gate_launches(r["b"][name]["launches"], k, what)
+                    add_launches(launches, r["b"][name]["launches"])
+                    require(r["b"][name].get("healthy_equal", True),
+                            f"{what}: healthy fault-aware differs from fault-free on a rank")
+                for key in ("pred", "sim"):
+                    got = lr_data_rows(results, lambda r: r["b"][name][key], 0, what)
+                    require(np.array_equal(got, want[key]), f"{what}: {key} differs from one rank")
+            for k in range(LR_STEPS):
+                lr_state_equal(results, lambda r: r["b"]["wearout"][k], one["b"]["wearout"][k],
+                               f"lr {label} (b) wearout step {k + 1}")
+            dead = int(one["b"]["wearout"][-1]["dead_rx"].sum())
+            print(f"lr {label} (b) faults on bsc_replay, four modes: healthy fault-aware == "
+                  f"fault-free on ranks (psum); {len(LR_DEAD)} of 64 cores dead (two on each "
+                  f"model rank of 1x4), failed over in shards of {LR_SHARD}, + "
+                  f"{100 * FAULTS_PAPER['stuck_density']:g}% stuck cells (psum_packed); the "
+                  "votes of TXs 1 and 2 erased (rs_ag)"
+                  + ("; coarse packed with the dead cores" if grid == (1, 4) else "")
+                  + f": every serve == the one-rank fault serve; WearoutFaults {LR_STEPS} "
+                  f"steps ({dead} cores dead): rows == the one-rank rollout's", flush=True)
+        if "c" in parts:
+            c = {}
+            for name, want in one["c"].items():
+                what = f"lr {label} (c) {name}"
+                runs = [r["c"][name] for r in results]
+                for run in runs:
+                    require(run["steps"] == want["steps"],
+                            f"{what}: {run['steps']} steps, one rank {want['steps']}")
+                    require(run.get("standalone_equal", True),
+                            f"{what}: a completion differs from its rank-standalone serve")
+                    require(run["trace"] == want["trace"],
+                            f"{what}: the controller trace differs from the one-rank engine's")
+                    require(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                                and a[2] == b[2] for a, b in zip(run["done"], runs[0]["done"])),
+                            f"{what}: the ranks' completion lists differ")
+                    rep = "unpacked" if name == "adaptive" else "packed"
+                    lr_gate_launches(run["launches"], kern(rep), what, run["steps"])
+                    add_launches(launches, run["launches"])
+                if name == "adaptive":              # replayed noise: the one-rank answers
+                    require(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                                for a, b in zip(runs[0]["done"], want["done"])),
+                            f"{what}: completions differ from the one-rank engine's")
+                if name == "ft fading":
+                    lr_state_equal(results, lambda r: r["c"][name]["pstate"], want["pstate"],
+                                   f"{what} process state")
+                r0 = runs[0]
+                c[name] = dict(ms_per_step=r0["wall"] / r0["steps"] * 1e3, steps=r0["steps"],
+                               trials_per_s=len(r0["done"]) * MT_BATCH["batch"] / r0["wall"],
+                               actions=sorted({e["action"] for e in (r0["trace"] or [])}))
+            row["c"] = c
+            o = out["one_rank"]
+            for name in ("engine", "ft static"):
+                print(f"lr {label} (c) {'HDCEngine' if name == 'engine' else 'FaultTolerantHDCEngine'}"
+                      f" ({MT_BATCH['requests']} requests x {MT_BATCH['batch']} trials, "
+                      f"{MT_BATCH['tenants']} tenants, {MT_BATCH['slots']} slots, packed bsc"
+                      + (f", {len(LR_DEAD)} dead cores failed over + 1% stuck" if name != "engine"
+                         else "") + f"): rank 0 {c[name]['ms_per_step']:.3f} ms a step, "
+                      f"{c[name]['trials_per_s']:.1f} trials/s (one rank "
+                      f"{o[name]['ms_per_step']:.3f} ms, {o[name]['trials_per_s']:.1f} trials/s; "
+                      "gloo through host memory); every completion == its rank-standalone "
+                      "serve, the four ranks' completions identical", flush=True)
+            print(f"lr {label} (c) AdaptiveHDCEngine (phase 13 (c)'s drift point, replayed "
+                  f"symbol noise): controller trace == the one-rank engine's "
+                  f"({len(one['c']['adaptive']['trace'])} actions), completions == its; "
+                  f"FaultTolerantHDCEngine on a fading channel (BlockFadingProcess "
+                  f"{LR_FADE['sigma_db']} dB, WearoutFaults, bsc_replay): trace == one rank's "
+                  f"({', '.join(c['ft fading']['actions'])}), process-state rows == its",
+                  flush=True)
+        out["grids"][label] = row
+        print(f"lr {label}: {len(results)} ranks over gloo on cuda:0, parts {', '.join(parts)}, "
+              f"{wall:.1f} s with the ranks' start", flush=True)
+    print("lr checks: every rank's process and fault rows == the one-rank rollout's (data "
+          "replicas alike), the process and fault serves == the one-rank serves on replayed "
+          "noise, healthy fault-aware == fault-free on ranks, the engines' completions == "
+          "their rank-standalone serves and alike on every rank, the controller traces == "
+          "the one-rank engines'", flush=True)
+    return out
+
+
 def phase_profile(torch, state, protos_u, base) -> dict:
     """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
@@ -4557,6 +5083,8 @@ def main(argv: list[str]) -> int:
     train = phase("16 training", lambda: phase_train(torch, launches, profile=args.profile))
     multirank = phase("17 scale-out serve across ranks",
                       lambda: phase_multirank(torch, state, launches))
+    living = phase("18 living channels, faults and the HDC engines across ranks",
+                   lambda: phase_living_ranks(torch, state, launches))
     kernels["flash_attention_bwd"] = train["kernel_cases"]
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
@@ -4583,7 +5111,7 @@ def main(argv: list[str]) -> int:
             ber=dict(avg=avg, max=mx, ms=pre_ms), kernels=kernels, serves=serves["runs"],
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
-            faults=fault, cont=cont, train=train, multirank=multirank,
+            faults=fault, cont=cont, train=train, multirank=multirank, living_ranks=living,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

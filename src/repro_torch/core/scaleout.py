@@ -70,8 +70,13 @@ cores' noise from its own generator, so a multi-rank noisy serve draws other
 bits than the one-rank serve; a tier that replays masks by core index
 (``rx_base + i``) gives both the same noise.
 
-Living channels (``process=``) and faults (``faults=``) run on one rank; on
-a mesh of more than one rank they raise NotImplementedError (ROADMAP.md §1).
+Living channels (``process=``) and faults (``faults=``) run on any mesh the
+serve takes: each model rank holds its cores' rows of the process and fault
+state (`phy.shard_pstate`, `faults.shard_fstate`; `shard_inputs` cuts both)
+and steps them at ``rx_base = tx * cores`` (the reference's ``pstate_spec``
+and ``fstate_spec`` in its shard_map), which gives the one-rank state's rows
+bit for bit; the fault state's TX leaves are whole on every rank, so each
+column derives the global live-voter count without a collective.
 """
 from __future__ import annotations
 
@@ -80,7 +85,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch import device as _device, phy
+from repro_torch import device as _device, faults as _faults, phy
 from repro_torch.core import em, hypervector as hv, ota, sparse
 from repro_torch.distributed import collectives
 from repro_torch.kernels.assoc_matmul import assoc_matmul, assoc_matmul_banked
@@ -304,13 +309,6 @@ def _shard_of(cfg: ScaleOutConfig, mesh: RankMesh | None) -> _Shard:
                   n_tx=mine(cfg.m_tx), n_live=mine(cfg.m_act))
 
 
-def _one_rank_only(sh: _Shard, process, faults) -> None:
-    if sh.ranks > 1 and (process is not None or faults is not None):
-        raise NotImplementedError(
-            "process= and faults= run on one rank; on a mesh of "
-            f"{sh.ranks} ranks they wait for pstate_spec/fstate_spec (ROADMAP.md §1)")
-
-
 def _validate_wire(cfg: ScaleOutConfig, sh: _Shard) -> None:
     """The rs_ag layout: each model rank's d/S block must pack whole words
     (packed) or bytes (unpacked) for the all-gather (reference lines 386,
@@ -353,14 +351,19 @@ def _ota_bundle(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard, q_mine: torc
     that holds 2^m_tx - 1, the received field's index into the
     constellation.
 
-    ``fstate`` (a `faults.FaultState`, one rank) erases the slots of
-    ``dead_tx | vote_drop``: on the vote wire an erased slot votes exactly 0,
-    so ``tally > 0`` is the majority of the live voters (even live counts
-    tie to 0); on the combo wire an erased encoder is a stuck carrier, its
+    ``fstate`` (a `faults.FaultState`; its TX leaves whole, [S*e_per]) erases
+    the slots of ``dead_tx | vote_drop``: on the vote wire an erased slot
+    votes exactly 0, so ``tally > 0`` is the majority of the live voters
+    (even live counts tie to 0), and the guard-bit wires bias by this
+    rank's live count and subtract the global one, both read from the whole
+    TX leaves; on the combo wire an erased encoder is a stuck carrier, its
     bit forced 0 (`faults.recenter_state` re-fits the decoder)."""
     q_bits = hv.unpack(q_mine, cfg.dim) if cfg.packed else q_mine
     g = sh.model_group
-    erased = None if fstate is None else (fstate.dead_tx | fstate.vote_drop)[:, None]
+    erased = erased_all = None
+    if fstate is not None:
+        erased_all = fstate.dead_tx | fstate.vote_drop                     # [S*e_per]
+        erased = erased_all[sh.tx * sh.e_per:(sh.tx + 1) * sh.e_per, None]  # this column's
     if chan.wire == "combo":
         if erased is not None:
             q_bits = torch.where(erased, 0, q_bits)
@@ -374,9 +377,9 @@ def _ota_bundle(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard, q_mine: torc
     live = None
     if erased is None:
         votes = votes[..., :sh.n_live, :]
-    else:                                       # one rank: slots are encoders 0..M-1
-        slot = torch.arange(cfg.m_tx, device=erased.device)[:, None]
-        live = (slot < cfg.m_act) & ~erased
+    else:                                       # global slot ids tx*e_per + j
+        gid = sh.tx * sh.e_per + torch.arange(sh.e_per, device=erased.device)[:, None]
+        live = (gid < cfg.m_act) & ~erased
         votes = torch.where(live, votes, 0)
     votes = votes.sum(-2, dtype=torch.int8)
     if cfg.collective == "psum":
@@ -384,9 +387,14 @@ def _ota_bundle(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard, q_mine: torc
         return hv.pack(bundled) if cfg.packed else bundled
     # guard-bit fields sized for m_act voters; each rank biases by its own
     # live count, and erased voters lower the total the unpack subtracts
-    local = sh.n_live if live is None else live.sum()
+    local, total = sh.n_live, None
+    if live is not None:
+        local = total = live.sum()               # one rank: every slot is local
+        if sh.model_size > 1:
+            slot = torch.arange(erased_all.shape[0], device=erased_all.device)
+            total = ((slot < cfg.m_act) & ~erased_all).sum()
     slots = dict(group_size=sh.model_size, e_per=sh.e_per, n_active=cfg.m_act,
-                 local_active=local, total_active=None if live is None else local)
+                 local_active=local, total_active=total)
     if cfg.collective == "rs_ag":
         part = collectives.packed_vote_psum_scatter(votes, g, **slots)   # [R, d/S]
         bits = (part > 0).to(torch.uint8)
@@ -452,14 +460,18 @@ def _apply_stuck(rows: torch.Tensor, stuck, d: int, packed: bool) -> torch.Tenso
     return (rows & ~s0.reshape(shape)) | s1.reshape(shape)
 
 
-def _apply_rx_faults(fstate, q_rx: torch.Tensor, qmask: torch.Tensor | None):
+def _apply_rx_faults(fstate, q_rx: torch.Tensor, qmask: torch.Tensor | None,
+                     rx_base: int = 0):
     """Dead-core zeroing, the failover gather and the bank mask: q_rx
-    [N, n_core, B, d|W]. A dead core's copy is zeroed, then bank i's query
-    is core ``serve_rows[i]``'s copy (identity: no remap), and ``rx_mask``
-    joins the quarantine mask so banks with no healthy server never win.
-    The healthy state changes no value."""
+    [N, n_core, B, d|W], this rank's cores from global id ``rx_base``. A
+    dead core's copy is zeroed, then bank i's query is core
+    ``serve_rows[i]``'s copy (global ids, made local by subtracting
+    ``rx_base``: failover stays inside a shard; identity: no remap), and
+    ``rx_mask`` joins the quarantine mask so banks with no healthy server
+    never win. The healthy state changes no value."""
     dead = fstate.dead_rx[None, :, None, None]
-    q_rx = torch.where(dead, 0, q_rx).index_select(1, fstate.serve_rows)
+    rows = fstate.serve_rows - rx_base if rx_base else fstate.serve_rows
+    q_rx = torch.where(dead, 0, q_rx).index_select(1, rows)
     return q_rx, fstate.rx_mask if qmask is None else qmask | fstate.rx_mask
 
 
@@ -734,9 +746,10 @@ def _check_inputs(cfg: ScaleOutConfig, sh: _Shard, dev: torch.device, protos, qu
     if fstate is not None:
         _device.check_on(dev, dead_rx=fstate.dead_rx, stuck0=fstate.stuck0)
         got = (fstate.n_rx, fstate.m_slots, fstate.words)
-        if got != (cfg.n_rx_cores, cfg.m_tx, cfg.words):
-            raise ValueError(f"fault state (n_rx, m_slots, words) {got} != "
-                             f"{(cfg.n_rx_cores, cfg.m_tx, cfg.words)} (faults.healthy_for)")
+        want = (sh.cores, sh.model_size * sh.e_per, cfg.words)
+        if got != want:
+            raise ValueError(f"fault state (n_rx, m_slots, words) {got} != {want} (this "
+                             "rank's cores: faults.healthy_for at model_size, shard_fstate)")
 
 
 def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda",
@@ -801,8 +814,14 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
     Each call steps the channel, then the faults, then serves. The fault
     step draws only from ``fault_generator``, so with `faults.healthy_for`
     under `faults.StaticFaults` the predictions equal the fault-free
-    serve's bit for bit. ``process`` and ``faults`` on a mesh of more than
-    one rank raise NotImplementedError.
+    serve's bit for bit. With ``mesh``, ``pstate`` and ``fstate`` are this
+    rank's rows (`shard_inputs`, or `phy.shard_pstate` and
+    `faults.shard_fstate`), stepped at ``rx_base = tx * cores`` on
+    generators seeded alike on every rank (the process and fault
+    generators are the same on every rank; only the serve's noise
+    generator is the rank's own): the evolved rows equal the one-rank
+    rollout's, and with noise replayed by core the answers equal the
+    one-rank serve's.
 
     Sparse (``cfg.representation="sparse"``, or ``"auto"`` resolved to it):
     queries are index lists [B, 1, M, k_max] int32 against packed
@@ -817,7 +836,6 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
                          "processes or fault injection; use representation='packed'")
     dev = _device.resolve(device)
     sh = _shard_of(cfg, mesh)
-    _one_rank_only(sh, process, faults)
     chan = phy.get_channel(cfg.channel)
     _validate_channel(cfg, chan)
     _validate_coarse(cfg)
@@ -834,7 +852,7 @@ def make_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
                                     [generator], qmask, fstate)
         return pred[0], maxsim[0]
 
-    return _evolving(process, faults, serve_core)
+    return _evolving(cfg, sh, process, faults, serve_core)
 
 
 def _serve_slots(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard, store: torch.Tensor,
@@ -865,13 +883,13 @@ def _serve_slots(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard, store: torc
     q_rx = copies[0][None] if n == 1 else torch.stack(copies)   # [N, cores, B, d|W]
     stuck = None
     if fstate is not None:
-        q_rx, qmask = _apply_rx_faults(fstate, q_rx, qmask)
+        q_rx, qmask = _apply_rx_faults(fstate, q_rx, qmask, sh.tx * sh.cores)
         stuck = (fstate.stuck0, fstate.stuck1)
     val, idx = _shard_top1(cfg, q_rx, store, rows, qmask, stuck, tx=sh.tx)
     return _gather_top1(cfg, sh, val, idx)
 
 
-def _evolving(process, faults, serve_core):
+def _evolving(cfg: ScaleOutConfig, sh: _Shard, process, faults, serve_core):
     """The serve a builder returns: ``serve_core`` itself, or its form that
     first steps a living channel and/or a fault model,
 
@@ -879,9 +897,11 @@ def _evolving(process, faults, serve_core):
            [, fstate, fault_generator]) -> (pred, maxsim[, pstate'][, fstate'])
 
     The channel steps first, then the faults (one step for every slot),
-    then the serve runs through the evolved ``pstate.chan`` with the cores
-    of ``pstate.quarantine`` masked out of the top-1, and through the
-    evolved fault state."""
+    each on this rank's rows at ``rx_base = tx * cores`` of the global
+    ``n_rx_cores``, then the serve runs through the evolved ``pstate.chan``
+    with the cores of ``pstate.quarantine`` masked out of the top-1, and
+    through the evolved fault state."""
+    rows = dict(rx_base=sh.tx * sh.cores, n_rx=cfg.n_rx_cores)
     if process is None and faults is None:
         return serve_core
 
@@ -894,10 +914,10 @@ def _evolving(process, faults, serve_core):
         *inputs, state, generators = args
         evolved = ()
         if process is not None:
-            pstate = process.step(process_generators, state)
+            pstate = process.step(process_generators, state, **rows)
             state, qmask, evolved = pstate.chan, pstate.quarantine, (pstate,)
         if faults is not None:
-            fstate = faults.step(fault_generator, fstate)
+            fstate = faults.step(fault_generator, fstate, **rows)
             evolved += (fstate,)
         return tuple(serve_core(*inputs, state, generators, qmask, fstate)) + evolved
 
@@ -970,8 +990,8 @@ def make_mt_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "
     The stuck cells hit the whole T-tenant store (one crossbar per core:
     every tenant's rows on it share the core's faults), as a masked copy
     before the launch. Row s still equals a standalone fault-aware serve of
-    slot s under the same fault state. ``process`` and ``faults`` on a
-    mesh of more than one rank raise NotImplementedError.
+    slot s under the same fault state. With ``mesh`` both states are this
+    rank's rows, as in `make_ota_serve`.
 
     The sparse and ``"auto"`` representations raise ValueError, as in the
     reference."""
@@ -982,7 +1002,6 @@ def make_mt_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "
             "contract); use representation='packed'")
     dev = _device.resolve(device)
     sh = _shard_of(cfg, mesh)
-    _one_rank_only(sh, process, faults)
     chan = phy.get_channel(cfg.channel)
     _validate_channel(cfg, chan)
     _validate_coarse(cfg)
@@ -993,7 +1012,7 @@ def make_mt_ota_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "
         return _serve_slots(cfg, chan, sh, store, queries, rows, state, generators, qmask,
                             fstate)
 
-    return _evolving(process, faults, serve_core)
+    return _evolving(cfg, sh, process, faults, serve_core)
 
 
 def make_wired_serve(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda",
@@ -1109,16 +1128,30 @@ def shard_batch(mesh: RankMesh | None, x: torch.Tensor, axis: int = 0) -> torch.
     return x.narrow(axis, pos * (n // size), n // size)
 
 
+def shard_state_of(cfg: ScaleOutConfig, mesh: RankMesh | None, state):
+    """This rank's cores' rows of a global state: a `phy.ChannelState`
+    (`phy.shard_state`), a `phy.ProcessState` (`phy.shard_pstate`) or a
+    `faults.FaultState` (`faults.shard_fstate`); None passes through."""
+    if state is None:
+        return None
+    sh = _shard_of(cfg, mesh)
+    cut = (phy.shard_pstate if isinstance(state, phy.ProcessState)
+           else _faults.shard_fstate if isinstance(state, _faults.FaultState)
+           else phy.shard_state)
+    return cut(state, sh.tx * sh.cores, sh.cores)
+
+
 def shard_inputs(cfg: ScaleOutConfig, mesh: RankMesh | None, protos: torch.Tensor,
-                 queries: torch.Tensor, state: phy.ChannelState | None = None, *,
-                 slots: bool = False):
+                 queries: torch.Tensor, state=None, *, slots: bool = False, fstate=None):
     """This rank's inputs of a serve (the reference's ``in_specs``) from the
     global ones: its model rank's classes of ``protos`` [C, d|W] (of every
     tenant of a store [T, C, d|W] with ``slots``), its rows and model column
     of ``queries`` [B, S, e_per, ...] (of every slot's [N, B, S, e_per, ...]
-    with ``slots``; `make_queries` at ``model_size=S``) and its cores'
-    ``state`` (`phy.shard_state`; None passes through). Returns
-    (protos, queries, state)."""
+    with ``slots``; `make_queries` at ``model_size=S``) and its cores' rows
+    of ``state``, a channel or process state (`shard_state_of`; None passes
+    through). Returns (protos, queries, state), and the rank's rows of a
+    fault state last when ``fstate`` is given (global: `faults.healthy_for`
+    at ``model_size=S``)."""
     sh = _shard_of(cfg, mesh)
     lead = 1 if slots else 0
     c_l = cfg.n_classes // sh.model_size
@@ -1127,9 +1160,8 @@ def shard_inputs(cfg: ScaleOutConfig, mesh: RankMesh | None, protos: torch.Tenso
         raise ValueError(f"queries {tuple(queries.shape)} have {queries.shape[lead + 1]} "
                          f"model columns, the mesh {sh.model_size}")
     queries = shard_batch(mesh, queries, lead).narrow(lead + 1, sh.tx, 1)
-    if state is not None:
-        state = phy.shard_state(state, sh.tx * sh.cores, sh.cores)
-    return protos, queries, state
+    out = (protos, queries, shard_state_of(cfg, mesh, state))
+    return out if fstate is None else out + (shard_state_of(cfg, mesh, fstate),)
 
 
 def serve_reference(cfg: ScaleOutConfig, protos: torch.Tensor,

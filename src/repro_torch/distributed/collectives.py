@@ -16,7 +16,9 @@ A per-process counter adds up the bytes each call moves, as operand plus
 result bytes: an all-reduce of N bytes counts 2N, an all-gather of N bytes
 over S ranks N + S*N, a reduce-scatter of N bytes N + N/S (the counting of
 `repro/analysis/hlo_cost.py`). `wire_bytes` reads it and
-`reset_wire_bytes` sets it to 0.
+`reset_wire_bytes` sets it to 0. It counts the serve's collectives only:
+the step barrier's host-side helpers (`gather_rows`, `SharedClock`), the
+SPMD counterpart of the reference's single controller, are not counted.
 
 Packed lanes are uint32 words in the reference. Neither gloo nor NCCL
 reduces torch.uint32, so the lanes travel as int32 with the same bits: the
@@ -97,6 +99,55 @@ def reduce_scatter_last(x: torch.Tensor, group) -> torch.Tensor:
     dist.reduce_scatter_tensor(out, inp.reshape(-1), group=group)
     _wire[0] += _nbytes(inp) + _nbytes(out)
     return out.reshape(tuple(inp.shape[1:]))
+
+
+# ---------------------------------------------------------------------------
+# the step barrier's host-side helpers (not counted as wire bytes)
+# ---------------------------------------------------------------------------
+
+def gather_rows(xs: list, group) -> list:
+    """Every rank's rows of each tensor of ``xs`` (each [n, ...], n the same
+    for all) concatenated in rank order: [S*n, ...] each (``group=None``:
+    the tensors themselves). A model rank's [N/S] leaves of the process or
+    fault state become the global [N] ones, so every rank takes the
+    host-side decisions of the step barrier on the same values. The leaves
+    travel as their bytes in one all-gather (bool as uint8)."""
+    if group is None:
+        return list(xs)
+    n = xs[0].shape[0]
+    flat = [(x.to(torch.uint8) if x.dtype == torch.bool else x).reshape(n, -1).contiguous()
+            for x in xs]
+    byts = [f.view(torch.uint8) for f in flat]
+    wire = torch.cat(byts, 1)
+    out = torch.empty((ranks(group) * n, wire.shape[1]), dtype=torch.uint8, device=wire.device)
+    dist.all_gather_into_tensor(out, wire, group=group)
+    got, lo = [], 0
+    for x, f, b in zip(xs, flat, byts):
+        part = out[:, lo:lo + b.shape[1]].contiguous().view(f.dtype)
+        part = part.reshape((-1,) + tuple(x.shape[1:]))
+        got.append(part.to(torch.bool) if x.dtype == torch.bool else part)
+        lo += b.shape[1]
+    return got
+
+
+class SharedClock:
+    """A clock every rank reads alike: each call returns rank 0's reading of
+    ``clock`` (a float), broadcast over ``group`` (the world when None). The
+    scheduler on ranks reads it, so its admissions, requeues, deadline
+    evictions and timestamps are the same on every rank (the ranks then
+    call the same collectives in the same order). Every rank must call it
+    the same number of times."""
+
+    def __init__(self, clock, group=None):
+        self.clock = clock
+        self.group = group
+
+    def __call__(self) -> float:
+        dev = "cuda" if dist.get_backend(self.group) == "nccl" else "cpu"
+        t = torch.tensor([self.clock()], dtype=torch.float64, device=dev)
+        dist.broadcast(t, src=dist.get_global_rank(self.group, 0) if self.group else 0,
+                       group=self.group)
+        return float(t[0])
 
 
 # ---------------------------------------------------------------------------

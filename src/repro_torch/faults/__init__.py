@@ -4,8 +4,9 @@ host-side failover planner and the combo-wire erasure helpers.
 `core.scaleout.make_ota_serve` and `make_mt_ota_serve` thread the state
 through the serve when built with ``faults=``; `serving.FaultController`
 promotes persistently quarantined cores to a failover remap at the step
-barrier. The reference's sharding and AOT helpers (`fstate_spec`,
-`fstate_shape_structs`) wait for the dry run (ROADMAP §1)."""
+barrier. `shard_fstate` (the reference's ``fstate_spec``) cuts a model
+rank's rows and `gather_fstate` gathers them back at the barrier; the AOT
+helper ``fstate_shape_structs`` waits for the dry run (ROADMAP §1)."""
 from repro_torch.faults.model import (
     FAULTS,
     FaultModel,
@@ -13,6 +14,7 @@ from repro_torch.faults.model import (
     StaticFaults,
     TransientVoteFaults,
     WearoutFaults,
+    gather_fstate,
     get_fault_model,
     healthy_for,
     healthy_state,
@@ -24,6 +26,7 @@ from repro_torch.faults.model import (
     register_fault_model,
     sample_stuck_cells,
     sample_word_dropout,
+    shard_fstate,
 )
 
 __all__ = [
@@ -33,6 +36,7 @@ __all__ = [
     "StaticFaults",
     "TransientVoteFaults",
     "WearoutFaults",
+    "gather_fstate",
     "get_fault_model",
     "healthy_for",
     "healthy_state",
@@ -44,4 +48,5 @@ __all__ = [
     "register_fault_model",
     "sample_stuck_cells",
     "sample_word_dropout",
+    "shard_fstate",
 ]

@@ -31,8 +31,17 @@ so fault evolution never consumes the serve or process streams; ``draws=``
 takes the draws from outside instead (the tests replay JAX's). ``t`` stays
 on the device, and no step reads a value back to the host.
 
-On one GPU the reference's model axis has size 1, so ``m_slots = m_tx`` and
-one shard holds every core (``cores_per_shard = n_rx_cores``).
+Over ranks (the counterpart of the reference's ``fstate_spec``) a model rank
+holds its own cores' rows of ``dead_rx``, ``stuck0``, ``stuck1``,
+``serve_rows`` and ``rx_mask`` (`shard_fstate`) and the whole ``dead_tx``,
+``vote_drop`` and ``t``: every column needs the global live-voter count.
+``serve_rows`` keeps global core ids (failover never leaves a shard, so a
+rank's rows name its own cores). A model steps its rows with
+``step(..., rx_base=, n_rx=)``: the draws span the global rows, made on
+generators seeded alike on every rank, and the rank keeps its own, so its
+rows equal the one-rank state's. On one rank the model axis has size 1:
+``m_slots = m_tx`` and one shard holds every core (``cores_per_shard =
+n_rx_cores``).
 """
 from __future__ import annotations
 
@@ -43,7 +52,9 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import hypervector as hv, ota
+from repro_torch.distributed import collectives
 from repro_torch.phy.channel import ChannelState
+from repro_torch.phy.process import draw_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,10 +108,39 @@ def healthy_state(n_rx: int, m_slots: int, words: int,
     )
 
 
-def healthy_for(cfg, device: str | torch.device | None = "cuda") -> FaultState:
-    """`healthy_state` sized for a `ScaleOutConfig` on one GPU (m_slots =
-    m_tx: the model axis has size 1)."""
-    return healthy_state(cfg.n_rx_cores, cfg.m_tx, cfg.words, device)
+def healthy_for(cfg, device: str | torch.device | None = "cuda", *,
+                model_size: int = 1) -> FaultState:
+    """`healthy_state` sized for a `ScaleOutConfig` on a model axis of
+    ``model_size`` ranks: ``m_slots = model_size * ceil(M / model_size)``,
+    every encoder slot of the serve (the empty ones abstain). The global
+    state: `shard_fstate` cuts a rank's rows."""
+    m_slots = model_size * -(-cfg.m_tx // model_size)
+    return healthy_state(cfg.n_rx_cores, m_slots, cfg.words, device)
+
+
+RX_LEAVES = ("dead_rx", "stuck0", "stuck1", "serve_rows", "rx_mask")   # [N]-leading
+
+
+def shard_fstate(fstate: FaultState, rx_base: int, n_cores: int) -> FaultState:
+    """The fault state of cores [rx_base, rx_base + n_cores): the RX-leading
+    leaves cut to those rows (``serve_rows`` keeps global core ids),
+    ``dead_tx``, ``vote_drop`` and ``t`` whole (the counterpart of the
+    reference's ``fstate_spec``)."""
+    if rx_base < 0 or rx_base + n_cores > fstate.n_rx:
+        raise ValueError(f"cores [{rx_base}, {rx_base + n_cores}) outside the state's "
+                         f"{fstate.n_rx}")
+    return dataclasses.replace(fstate, **{f: getattr(fstate, f)[rx_base:rx_base + n_cores]
+                                          for f in RX_LEAVES})
+
+
+def gather_fstate(fstate: FaultState, group) -> FaultState:
+    """Every model rank's rows of ``fstate`` in rank order (the global
+    state; ``group=None``: the state itself), for the failover planning at
+    the step barrier. Every rank of the group must call it."""
+    if group is None:
+        return fstate
+    got = collectives.gather_rows([getattr(fstate, f) for f in RX_LEAVES], group)
+    return dataclasses.replace(fstate, **dict(zip(RX_LEAVES, got)))
 
 
 def _coerce(ref: torch.Tensor, name: str, val) -> torch.Tensor:
@@ -248,7 +288,10 @@ class FaultModel:
         return healthy_state(n_rx, m_slots, words, device)
 
     def step(self, generator: torch.Generator | None, f: FaultState, *,
-             draws: dict | None = None) -> FaultState:
+             draws: dict | None = None, rx_base: int = 0,
+             n_rx: int | None = None) -> FaultState:
+        """One step. On a model rank ``f`` holds rows [rx_base, rx_base +
+        cores) of ``n_rx`` cores (`shard_fstate`); row draws span them all."""
         return dataclasses.replace(f, t=f.t + 1)
 
 
@@ -265,12 +308,13 @@ class TransientVoteFaults(StaticFaults):
     """Per-step wire erasures: each encoder slot's vote drops out of this
     step's superposition with probability ``p_drop``, redrawn every step.
     ``draws={"vote_drop": [m_slots] bool}`` replays a draw. Node and memory
-    leaves pass through."""
+    leaves pass through. Every rank draws the same [m_slots] (its
+    ``vote_drop`` is whole)."""
 
     name = "transient_votes"
     p_drop: float = 0.05
 
-    def step(self, generator, f, *, draws=None):
+    def step(self, generator, f, *, draws=None, rx_base=0, n_rx=None):
         drop = (draws or {}).get("vote_drop")
         if drop is None:
             g = _need(generator)
@@ -286,22 +330,24 @@ class WearoutFaults(FaultModel):
     (split evenly between the rails; faults only accrue). The controller's
     remap, not this model, updates ``serve_rows``/``rx_mask``.
     ``draws={"die": [N] bool, "stuck0": [N, W], "stuck1": [N, W] words}``
-    replays a step's draws."""
+    replays a step's draws (global rows on a model rank)."""
 
     name = "wearout"
     p_die: float = 0.001
     stuck_rate: float = 1e-4
 
-    def step(self, generator, f, *, draws=None):
+    def step(self, generator, f, *, draws=None, rx_base=0, n_rx=None):
         draws = draws or {}
         n, words = f.n_rx, f.words
+        n_all = n if n_rx is None else n_rx
         if draws:
             die, s0, s1 = draws["die"], draws["stuck0"], draws["stuck1"]
         else:
             g = _need(generator)
-            die = torch.rand((n,), generator=g, device=g.device) < self.p_die
-            s0, s1 = (hv.bernoulli_words(g, self.stuck_rate / 2.0, (n, words))
+            die = torch.rand((n_all,), generator=g, device=g.device) < self.p_die
+            s0, s1 = (hv.bernoulli_words(g, self.stuck_rate / 2.0, (n_all, words))
                       for _ in range(2))
+        die, s0, s1 = (draw_rows(x, rx_base, n) for x in (die, s0, s1))
         stuck0 = f.stuck0 | s0
         return dataclasses.replace(f, dead_rx=f.dead_rx | die, stuck0=stuck0,
                                    stuck1=(f.stuck1 | s1) & ~stuck0, t=f.t + 1)

@@ -36,6 +36,15 @@ so the result is the same).
 
 `StaticProcess.step` advances only ``t`` and draws nothing: serving through
 it equals the static-state serve bit for bit.
+
+Over ranks (the counterpart of the reference's ``pstate_spec``) a model rank
+holds only its own cores' rows of every RX-leading leaf (`shard_pstate`) and
+steps them with ``step(..., rx_base=, n_rx=)``. Every draw is made for the
+global [N, ...] rows on generators seeded alike on every rank, and the rank
+keeps rows [rx_base, rx_base + cores): the rank's rows then equal the
+one-rank rollout's, and data replicas evolve alike (the reference folds the
+global row id into its keys, `row_keys`, for the same invariance). At the
+paper's 64 cores the extra draws are negligible.
 """
 from __future__ import annotations
 
@@ -44,7 +53,8 @@ import dataclasses
 import torch
 
 from repro_torch.core import em, ota
-from repro_torch.phy.channel import ChannelState
+from repro_torch.distributed import collectives
+from repro_torch.phy.channel import RX_FIELDS, ChannelState, shard_state
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +111,62 @@ def process_generators(seed: int, device: str | torch.device = "cuda") -> Proces
                                for s in seeds))
 
 
+RX_LEAVES = ("base_h", "phase", "fade", "igain", "est", "quarantine")  # [N]-leading, besides chan
+
+
+def shard_pstate(pstate: ProcessState, rx_base: int, n_cores: int) -> ProcessState:
+    """The process state of cores [rx_base, rx_base + n_cores): ``chan`` cut
+    by `phy.shard_state` and the RX-leading leaves to those rows, ``t``
+    whole (the counterpart of the reference's ``pstate_spec``)."""
+    return dataclasses.replace(
+        pstate, chan=shard_state(pstate.chan, rx_base, n_cores),
+        **{f: getattr(pstate, f)[rx_base:rx_base + n_cores] for f in RX_LEAVES})
+
+
+def gather_pstate(pstate: ProcessState, group) -> ProcessState:
+    """Every model rank's rows of ``pstate`` in rank order (the global
+    state; ``group=None``: the state itself), for the host-side decisions
+    of the step barrier. Every rank of the group must call it."""
+    if group is None:
+        return pstate
+    got = collectives.gather_rows([getattr(pstate.chan, f) for f in RX_FIELDS]
+                                  + [getattr(pstate, f) for f in RX_LEAVES], group)
+    chan = dataclasses.replace(pstate.chan, **dict(zip(RX_FIELDS, got)))
+    return dataclasses.replace(pstate, chan=chan, **dict(zip(RX_LEAVES, got[len(RX_FIELDS):])))
+
+
+def draw_rows(x: torch.Tensor, rx_base: int, n: int) -> torch.Tensor:
+    """Rows [rx_base, rx_base + n) of a draw over the global rows (the
+    whole draw on one rank): what a model rank keeps of it."""
+    return x if rx_base == 0 and x.shape[0] == n else x[rx_base:rx_base + n]
+
+
+def _cmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Complex product from real products and sums. Each real op rounds
+    once, so the result does not depend on how many rows a call holds: on
+    the CPU torch's complex product takes a vector path or a fused scalar
+    tail by the tensor's length, which gives a row other bits on a rank's
+    shard than in the one-rank state."""
+    re = a.real * b.real - a.imag * b.imag
+    im = a.real * b.imag + a.imag * b.real
+    return torch.complex(re, im)
+
+
+def _constellations(h: torch.Tensor, phase_idx: torch.Tensor) -> torch.Tensor:
+    """`ota.rx_constellations` row by row: y [N, 2^M] = sum over m of
+    h[:, m] * exp(j phi_m(b_m)), summed in TX order with `_cmul`, so a row's
+    symbols are the same bits whatever rows the state holds (a batched
+    complex product picks its algorithm by shape)."""
+    combos = ota.bit_combos(h.shape[1], h.device).bool()               # [B, M]
+    tx_phase = ota.phase_codebook(h.device)[phase_idx]                 # [M, 2]
+    sel = torch.where(combos, tx_phase[:, 1], tx_phase[:, 0])
+    tx_sym = torch.polar(torch.ones_like(sel), sel)                    # [B, M]
+    y = _cmul(h[:, None, 0], tx_sym[None, :, 0])
+    for m in range(1, h.shape[1]):
+        y = y + _cmul(h[:, None, m], tx_sym[None, :, m])
+    return y
+
+
 def _need(generator: torch.Generator | None) -> torch.Generator:
     """A draw's generator: a process never falls back on torch's global one."""
     if generator is None:
@@ -119,7 +185,7 @@ class ChannelProcess:
 
     Subclasses override `_evolve` (advance the drift) and optionally
     `_inject` (add an external field); the `step` template re-derives the
-    live symbols (`ota.rx_constellations`), recomputes the true per-RX flip
+    live symbols (`ota.rx_constellations`, row by row), recomputes the true per-RX flip
     rate against the receiver's current centroids and updates the guard
     monitor. Rows with ``valid=False`` carry no physics: their BER and
     estimate pass through unchanged.
@@ -130,7 +196,11 @@ class ChannelProcess:
     ``draws`` of `step`, for replay, is a dict with any of ``"evolve"`` (the
     subclass's draw: the phase increments [N, M], the new fades [N]) and
     ``"guard"`` (combos [N, G] int64 and the AWGN's standard normals
-    (real, imaginary) [N, G] each); what it lacks is drawn."""
+    (real, imaginary) [N, G] each); what it lacks is drawn. On a model rank
+    (``rx_base``, and ``n_rx`` the global core count) the state holds rows
+    [rx_base, rx_base + cores) (`shard_pstate`); draws, made or replayed,
+    span the global N rows and the rank keeps its own, so its rows evolve
+    as the one-rank state's do."""
 
     name = "?"
     guard_dims: int = 64
@@ -151,7 +221,10 @@ class ChannelProcess:
         )
 
     # --- subclass hooks ---------------------------------------------------
-    def _evolve(self, generator, p: ProcessState, draw=None):
+    # ``span`` = (rx_base, global N): a hook draws for all N rows and keeps
+    # the state's rows [rx_base, rx_base + p.n_rx) (`draw_rows`)
+
+    def _evolve(self, generator, p: ProcessState, draw=None, span=None):
         """Advance (phase [N, M], fade [N]) one step."""
         return p.phase, p.fade
 
@@ -161,32 +234,37 @@ class ChannelProcess:
 
     # --- the template -----------------------------------------------------
     def step(self, generators: ProcessGenerators | None, p: ProcessState, *,
-             draws: dict | None = None) -> ProcessState:
+             draws: dict | None = None, rx_base: int = 0,
+             n_rx: int | None = None) -> ProcessState:
         draws = draws or {}
         m = p.chan.m_tx
-        phase, fade = self._evolve(generators and generators.evolve, p, draws.get("evolve"))
-        h = (p.base_h * torch.exp(1j * phase) * fade[:, None]).to(torch.complex64)
-        y = ota.rx_constellations(h, p.chan.phase_idx)
+        span = (rx_base, p.n_rx if n_rx is None else n_rx)
+        phase, fade = self._evolve(generators and generators.evolve, p, draws.get("evolve"),
+                                   span)
+        h = (_cmul(p.base_h, torch.exp(1j * phase)) * fade[:, None]).to(torch.complex64)
+        y = _constellations(h, p.chan.phase_idx)
         y = self._inject(generators and generators.inject, y, p).to(torch.complex64)
         maj = ota.majority_labels(m, y.device)
         ber_true = ota.per_symbol_ber(y, p.chan.c0, p.chan.c1, maj, p.chan.n0)
         ber = torch.where(p.chan.valid, ber_true, p.chan.ber).to(torch.float32)
         chan = dataclasses.replace(p.chan, h=h, symbols=y, ber=ber)
-        est = self._observe(generators and generators.guard, chan, p.est, draws.get("guard"))
+        est = self._observe(generators and generators.guard, chan, p.est, draws.get("guard"),
+                            span)
         return dataclasses.replace(p, chan=chan, phase=phase, fade=fade, est=est, t=p.t + 1)
 
     def _observe(self, generator, chan: ChannelState, est: torch.Tensor,
-                 draw=None) -> torch.Tensor:
+                 draw=None, span=None) -> torch.Tensor:
         """Guard-symbol monitor: EW-MA of the decode-vs-truth flip rate."""
         if self.guard_dims <= 0:
             return est
         n, b = chan.symbols.shape
+        base, n_all = span or (0, n)
         dev = chan.symbols.device
         if draw is None:
             g = _need(generator)
-            combos = torch.randint(0, b, (n, self.guard_dims), generator=g, device=dev)
-            draw = (combos,) + ota.awgn_draws(g, (n, self.guard_dims), dev)
-        combos, nr, ni = draw
+            combos = torch.randint(0, b, (n_all, self.guard_dims), generator=g, device=dev)
+            draw = (combos,) + ota.awgn_draws(g, (n_all, self.guard_dims), dev)
+        combos, nr, ni = (draw_rows(x, base, n) for x in draw)
         sym = torch.gather(chan.symbols, 1, combos)
         dec = ota.awgn_decide(None, sym, chan.c0[:, None], chan.c1[:, None], chan.n0,
                               noise=(nr, ni))
@@ -205,7 +283,7 @@ class StaticProcess(ChannelProcess):
     name = "static"
     guard_dims: int = 0
 
-    def step(self, generators, p, *, draws=None):
+    def step(self, generators, p, *, draws=None, rx_base=0, n_rx=None):
         return dataclasses.replace(p, t=p.t + 1)
 
 
@@ -222,14 +300,15 @@ class PhaseDriftProcess(ChannelProcess):
     sigma: float = 0.08
     tx_sigma: float = 0.0
 
-    def _evolve(self, generator, p, draw=None):
+    def _evolve(self, generator, p, draw=None, span=None):
+        n, m = p.phase.shape
+        base, n_all = span or (0, n)
         if draw is None:
-            n, m = p.phase.shape
             g = _need(generator)
-            d = self.sigma * torch.randn((n,), generator=g, device=p.phase.device)
-            dtx = self.tx_sigma * torch.randn((n, m), generator=g, device=p.phase.device)
+            d = self.sigma * torch.randn((n_all,), generator=g, device=p.phase.device)
+            dtx = self.tx_sigma * torch.randn((n_all, m), generator=g, device=p.phase.device)
             draw = d[:, None] + dtx
-        return p.phase + draw, p.fade
+        return p.phase + draw_rows(draw, base, n), p.fade
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,11 +322,13 @@ class BlockFadingProcess(ChannelProcess):
     sigma_db: float = 4.0
     block: int = 8
 
-    def _evolve(self, generator, p, draw=None):
+    def _evolve(self, generator, p, draw=None, span=None):
+        n = p.fade.shape[0]
+        base, n_all = span or (0, n)
         if draw is None:
-            z = torch.randn(p.fade.shape, generator=_need(generator), device=p.fade.device)
+            z = torch.randn((n_all,), generator=_need(generator), device=p.fade.device)
             draw = (10.0 ** (self.sigma_db * z / 20.0)).to(torch.float32)
-        return p.phase, torch.where(p.t % self.block == 0, draw, p.fade)
+        return p.phase, torch.where(p.t % self.block == 0, draw_rows(draw, base, n), p.fade)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,7 +357,7 @@ class InterfererProcess(ChannelProcess):
 
     def _inject(self, generator, y, p):
         tone = torch.exp(1j * self.omega * p.t.to(torch.float32))
-        return y + self.amp * p.igain[:, None] * tone
+        return y + _cmul(self.amp * p.igain[:, None], tone)
 
 
 # ---------------------------------------------------------------------------

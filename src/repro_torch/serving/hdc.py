@@ -31,6 +31,21 @@ against its tenant's codebook on a generator seeded alike, bit for bit (see
 `make_mt_ota_serve`); under faults, a standalone fault-aware serve under
 the same fault state.
 
+On a mesh (``mesh=``, a `distributed.mesh.RankMesh`; the reference's
+engines take a ``Mesh``) every rank runs the same engine and scheduler on
+its shard: the registry holds its classes of every tenant, a slot its data
+rows and model column of the queries, the adaptive engines its cores' rows
+of the process and fault state, and each step is the multi-rank
+`make_mt_ota_serve`. A slot's noise generator on a rank is `rank_generator`
+of the request's. At the barrier the rows of the batch are gathered over
+the data ranks, so every rank completes the whole batch, and the
+controllers decide on the global process and fault state, gathered over the
+model ranks (`phy.gather_pstate`, `faults.gather_fstate`): every rank takes
+the same action and keeps its own rows of the result. With the scheduler's
+shared clock (`collectives.SharedClock`) every rank makes the same
+admissions, evictions, re-fits, quarantines, fleet-mode switches and
+failover remaps, so the ranks call the same collectives in the same order.
+
 The multi-centroid bank (`multicentroid_bank`, `centroid_to_class`) turns a
 codebook into C*k_c class-major rows, served by a `ScaleOutConfig` with
 ``n_classes = C * k_c``; a prediction ``p`` maps back to class ``p // k_c``.
@@ -38,6 +53,7 @@ codebook into C*k_c class-major rows, served by a `ScaleOutConfig` with
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Any, Callable
 
@@ -45,8 +61,10 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device, faults, phy
-from repro_torch.core import classifier, hypervector as hv
+from repro_torch.core import classifier, hypervector as hv, scaleout
 from repro_torch.core.scaleout import ScaleOutConfig, make_mt_ota_serve
+from repro_torch.distributed import collectives
+from repro_torch.distributed.mesh import RankMesh
 from repro_torch.serving import slotring
 from repro_torch.serving.scheduler import SlotScheduler
 
@@ -55,7 +73,7 @@ from repro_torch.serving.scheduler import SlotScheduler
 class HDCRequest:
     rid: int
     tenant: Any                  # tenant id (registry key)
-    queries: torch.Tensor        # [B, 1, M, d|W]
+    queries: torch.Tensor        # [B, S, e_per, d|W] (S model columns; one rank: [B, 1, M, d|W])
     generator: torch.Generator   # the request's PHY noise stream
     t_submit: float
 
@@ -100,39 +118,66 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def rank_generator(generator: torch.Generator, mesh: RankMesh | None) -> torch.Generator:
+    """This rank's noise generator for a request drawn on ``generator``: on
+    one rank the request's generator itself; on a mesh of more than one
+    rank a new generator on its device, seeded with a 63-bit digest
+    (BLAKE2b) of the request generator's state and this rank's (data
+    position, model column). Deterministic, so a standalone serve on the
+    same derivation draws the same bits; the request's generator is not
+    drawn from. The reference's per-query noise is per mesh too (its key is
+    folded by the data position)."""
+    if mesh is None or mesh.size == 1:
+        return generator
+    dpos, _ = scaleout._dpos(mesh)
+    coords = np.array([dpos, mesh.index("model")], np.int64).tobytes()
+    digest = hashlib.blake2b(generator.get_state().cpu().numpy().tobytes() + coords,
+                             digest_size=8).digest()
+    seed = int.from_bytes(digest, "little") >> 1
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
 class TenantRegistry:
     """Resident per-tenant prototype banks in one store on the device.
 
     ``store`` is [max_tenants, n_classes, d|W] (int32 words packed, uint8
-    bits unpacked). ``onboard`` copies a bank into a free row and ``evict``
-    frees a row; an evicted row keeps its stale contents, which is safe
-    because no slot maps to it until onboarding overwrites it."""
+    bits unpacked); with ``mesh`` it holds this model rank's classes of
+    every tenant, [max_tenants, n_classes/S, d|W] (the reference's store
+    sharded ``P(None, "model", None)``). ``onboard`` takes a tenant's whole
+    bank and copies this rank's classes into a free row; ``evict`` frees a
+    row; an evicted row keeps its stale contents, which is safe because no
+    slot maps to it until onboarding overwrites it. Every rank onboards and
+    evicts alike, so the rows agree."""
 
     def __init__(self, cfg: ScaleOutConfig, max_tenants: int,
-                 device: str | torch.device | None = "cuda"):
+                 device: str | torch.device | None = "cuda", mesh: RankMesh | None = None):
         if max_tenants < 1:
             raise ValueError("max_tenants must be >= 1")
         self.cfg = cfg
         self.max_tenants = max_tenants
+        sh = scaleout._shard_of(cfg, mesh)
+        self._classes = cfg.n_classes // sh.model_size
+        self._lo = sh.tx * self._classes
         last = cfg.words if cfg.packed else cfg.dim
         dtype = torch.int32 if cfg.packed else torch.uint8
-        self.store = torch.zeros((max_tenants, cfg.n_classes, last), dtype=dtype,
+        self.store = torch.zeros((max_tenants, self._classes, last), dtype=dtype,
                                  device=_device.resolve(device))
         self.rows: dict[Any, int] = {}
         self._free: list[int] = list(range(max_tenants))
 
     def onboard(self, tenant_id, protos: torch.Tensor) -> int:
-        """Install a tenant's [C, d|W] prototype bank; returns its store row."""
+        """Install a tenant's whole [C, d|W] prototype bank (this rank keeps
+        its classes); returns its store row."""
         if tenant_id in self.rows:
             raise ValueError(f"tenant {tenant_id!r} already onboarded")
         if not self._free:
             raise ValueError(f"registry full ({self.max_tenants} tenants); evict first")
-        want = tuple(self.store.shape[1:])
+        want = (self.cfg.n_classes,) + tuple(self.store.shape[2:])
         if tuple(protos.shape) != want or protos.dtype != self.store.dtype:
             raise ValueError(f"prototype bank must be {want} {self.store.dtype}, got "
                              f"{tuple(protos.shape)} {protos.dtype}")
         row = self._free.pop(0)
-        self.store[row].copy_(protos)
+        self.store[row].copy_(protos[self._lo:self._lo + self._classes])
         self.rows[tenant_id] = row
         return row
 
@@ -155,25 +200,41 @@ class HDCEngine(slotring.SlotRingEngine):
     every slot holds the placeholder again, so a finished request's
     generator is never drawn from again. ``params`` for `step` is (store,
     channel state), read fresh each step, so onboarding between steps needs
-    no rebuild."""
+    no rebuild.
+
+    With ``mesh`` (S model ranks, D data ranks) ``chan_state`` is the global
+    state and the engine keeps its cores' rows; a request's queries are
+    [B, S, e_per, d|W] (`scaleout.make_queries` at ``model_size=S``, the
+    reference's query shape) and a slot holds this rank's [B/D, 1, e_per,
+    d|W] of them, drawn on `rank_generator` of the request's generator; a
+    step's answers are gathered over the data ranks, [N, B] on every rank."""
 
     def __init__(self, cfg: ScaleOutConfig, chan_state: phy.ChannelState, *,
                  num_slots: int, max_tenants: int,
-                 device: str | torch.device | None = "cuda"):
+                 device: str | torch.device | None = "cuda", mesh: RankMesh | None = None):
         self.device = _device.resolve(device)
         self.cfg = cfg
-        self.chan_state = chan_state
-        self.registry = TenantRegistry(cfg, max_tenants, self.device)
+        self.mesh = mesh
+        self._shard = sh = scaleout._shard_of(cfg, mesh)
+        self.chan_state = self._rows_of(chan_state)
+        self.registry = TenantRegistry(cfg, max_tenants, self.device, mesh)
         self._serve = self._build_serve(cfg)
-        self._qshape = (cfg.batch, 1, cfg.m_tx, cfg.words if cfg.packed else cfg.dim)
+        self._qshape = (cfg.batch, sh.model_size, sh.e_per,
+                        cfg.words if cfg.packed else cfg.dim)
         self._qdtype = torch.int32 if cfg.packed else torch.uint8
         self._placeholder = torch.Generator(device=self.device).manual_seed(0)
         super().__init__(num_slots)
 
+    def _rows_of(self, state):
+        """This rank's cores' rows of a global channel, process or fault
+        state (the state itself on one rank)."""
+        return state if self.mesh is None else scaleout.shard_state_of(self.cfg, self.mesh,
+                                                                       state)
+
     def _build_serve(self, cfg: ScaleOutConfig):
         """The serve function for ``cfg`` (the adaptive engine builds its
         process form, and one per fleet mode)."""
-        return make_mt_ota_serve(cfg, device=self.device)
+        return make_mt_ota_serve(cfg, device=self.device, mesh=self.mesh)
 
     @property
     def params(self):
@@ -181,9 +242,10 @@ class HDCEngine(slotring.SlotRingEngine):
         return self.registry.store, self.chan_state
 
     def init_state(self) -> dict:
-        n = self.num_slots
+        n, (b, _, e_per, last) = self.num_slots, self._qshape
+        mine = (b // self._shard.data_size, 1, e_per, last)
         return {
-            "queries": torch.zeros((n,) + self._qshape, dtype=self._qdtype, device=self.device),
+            "queries": torch.zeros((n,) + mine, dtype=self._qdtype, device=self.device),
             "row": torch.zeros((n,), dtype=torch.int32, device=self.device),
             "generator": [self._placeholder] * n,
         }
@@ -207,20 +269,33 @@ class HDCEngine(slotring.SlotRingEngine):
     def admit_many(self, state, queries: list, tenant_ids: list, slots: list,
                    generators: list) -> dict:
         """Admit K requests' query batches into ``slots``, bound to their
-        tenants' current store rows and their generators: one ``index_copy_``
-        scatter per state tensor (`slot_update`), not one call a request."""
+        tenants' current store rows and their generators (this rank's,
+        `rank_generator`): one ``index_copy_`` scatter per state tensor
+        (`slot_update`), not one call a request."""
         rows = [self._tenant_row(t) for t in tenant_ids]
         for q in queries:
             self._check_queries(q)
-        return self.admit(state, slots, torch.stack(queries), rows, generators)
+        q = torch.stack(queries)
+        if self.mesh is not None:                    # this rank's rows and model column
+            q = scaleout.shard_batch(self.mesh, q, 1).narrow(2, self._shard.tx, 1)
+        return self.admit(state, slots, q, rows,
+                          [rank_generator(g, self.mesh) for g in generators])
 
     def _serve_slots(self, params, state):
         store, chan_state = params
         return self._serve(store, state["queries"], state["row"], chan_state,
                            state["generator"])
 
+    def _whole_batch(self, pred: torch.Tensor, maxsim: torch.Tensor):
+        """[N, B/D] answers of this rank's rows -> [N, B], gathered over the
+        data axes (pod-major), the same on every rank."""
+        for g in reversed(self._shard.data_groups):      # data, then pod
+            pred, maxsim = (x.transpose(0, 1) for x in collectives.gather_rows(
+                [pred.transpose(0, 1), maxsim.transpose(0, 1)], g))
+        return pred, maxsim
+
     def _step_impl(self, params, state):
-        out = self._serve_slots(params, state)
+        out = self._whole_batch(*self._serve_slots(params, state))
         state["generator"][:] = [self._placeholder] * self.num_slots
         return state, out
 
@@ -339,25 +414,32 @@ class AdaptiveHDCEngine(HDCEngine):
     `step_variant`, keyed on (m_active, collective).
 
     Needs ``process.guard_dims > 0``: the guard-symbol monitor is the only
-    observation, so without it the controller never acts."""
+    observation, so without it the controller never acts.
+
+    With ``mesh`` the process starts from the global ``chan_state`` and the
+    engine keeps its cores' rows, stepped on ``process_generators`` seeded
+    alike on every rank; at the barrier the controller acts on the global
+    state gathered over the model ranks (`phy.gather_pstate`), the same on
+    every rank, and each rank keeps its rows of the result."""
 
     def __init__(self, cfg: ScaleOutConfig, chan_state: phy.ChannelState, *, process,
                  num_slots: int, max_tenants: int,
                  process_generators: phy.ProcessGenerators | None = None,
                  controller: LinkControllerConfig | None = None,
-                 device: str | torch.device | None = "cuda"):
+                 device: str | torch.device | None = "cuda", mesh: RankMesh | None = None):
         dev = _device.resolve(device)
         self.process = process
-        self.pstate = process.init(chan_state)
+        pstate = process.init(chan_state)
         self.process_generators = (phy.process_generators(0, dev) if process_generators is None
                                    else process_generators)
-        self.controller = self._make_controller(controller, self.pstate)
+        self.controller = self._make_controller(controller, pstate)
         alt = self.controller.cfg.alt_collective
         if alt is not None:                              # an unknown collective raises here
             dataclasses.replace(cfg, collective=alt)
         self._pending: phy.ProcessState | None = None
         super().__init__(cfg, chan_state, num_slots=num_slots, max_tenants=max_tenants,
-                         device=dev)
+                         device=dev, mesh=mesh)
+        self.pstate = self._rows_of(pstate)
         self._variants[(cfg.m_act, cfg.collective)] = self._serve
 
     def _make_controller(self, controller: LinkControllerConfig | None,
@@ -366,7 +448,7 @@ class AdaptiveHDCEngine(HDCEngine):
         return LinkController(controller or LinkControllerConfig(), pstate)
 
     def _build_serve(self, cfg: ScaleOutConfig):
-        return make_mt_ota_serve(cfg, device=self.device, process=self.process)
+        return make_mt_ota_serve(cfg, device=self.device, process=self.process, mesh=self.mesh)
 
     @property
     def params(self):
@@ -381,14 +463,21 @@ class AdaptiveHDCEngine(HDCEngine):
             self.process_generators)
         return pred, maxsim
 
+    def _global(self, state, gather):
+        """The global state of this rank's rows (``gather`` over the model
+        ranks; the state itself on one rank)."""
+        return state if self.mesh is None else gather(state, self._shard.model_group)
+
     def on_barrier(self):
         """Commit the step's evolved process state and let the controller
-        act on settled values; what it rewrites (re-fit centroids, the
-        quarantine mask) reaches the NEXT step through ``params``."""
+        act on settled values (on ranks: the global state, and each rank
+        keeps its rows); what it rewrites (re-fit centroids, the quarantine
+        mask) reaches the NEXT step through ``params``."""
         if self._pending is None:
             return
         self.pstate, self._pending = self._pending, None
-        self.pstate, switched = self.controller.act(self.pstate)
+        pstate, switched = self.controller.act(self._global(self.pstate, phy.gather_pstate))
+        self.pstate = self._rows_of(pstate)
         if switched is not None:
             self._apply_fleet_mode(switched)
 
@@ -459,7 +548,14 @@ class FaultTolerantHDCEngine(AdaptiveHDCEngine):
     `FaultController` promote persistently quarantined cores. Fleet-mode
     variants are fault serves too (`_build_serve`). With the healthy state
     under `faults.StaticFaults` it serves as `AdaptiveHDCEngine` does, bit
-    for bit."""
+    for bit.
+
+    With ``mesh`` ``fstate`` is the global state (`faults.healthy_for` at
+    ``model_size=S`` by default) and the engine keeps its cores' rows,
+    stepped on ``fault_generator`` seeded alike on every rank; the
+    controller promotes on the global state gathered over the model ranks
+    (`faults.gather_fstate`) with shards of ``n_rx_cores / S`` cores, so a
+    failover never leaves its rank."""
 
     def __init__(self, cfg: ScaleOutConfig, chan_state: phy.ChannelState, *, process,
                  fault_model: faults.FaultModel, num_slots: int, max_tenants: int,
@@ -467,23 +563,25 @@ class FaultTolerantHDCEngine(AdaptiveHDCEngine):
                  fault_generator: torch.Generator | None = None,
                  fstate: faults.FaultState | None = None,
                  controller: FaultControllerConfig | None = None,
-                 device: str | torch.device | None = "cuda"):
+                 device: str | torch.device | None = "cuda", mesh: RankMesh | None = None):
         dev = _device.resolve(device)
         self.fault_model = fault_model
-        self.fstate = faults.healthy_for(cfg, dev) if fstate is None else fstate
+        s = scaleout._shard_of(cfg, mesh).model_size
+        fstate = faults.healthy_for(cfg, dev, model_size=s) if fstate is None else fstate
         self.fault_generator = (torch.Generator(device=dev).manual_seed(1)
                                 if fault_generator is None else fault_generator)
         self._pending_fstate: faults.FaultState | None = None
         super().__init__(cfg, chan_state, process=process, num_slots=num_slots,
                          max_tenants=max_tenants, process_generators=process_generators,
-                         controller=controller, device=dev)
+                         controller=controller, device=dev, mesh=mesh)
+        self.fstate = self._rows_of(fstate)
 
     def _make_controller(self, controller, pstate):
         return FaultController(controller or FaultControllerConfig(), pstate)
 
     def _build_serve(self, cfg: ScaleOutConfig):
         return make_mt_ota_serve(cfg, device=self.device, process=self.process,
-                                 faults=self.fault_model)
+                                 faults=self.fault_model, mesh=self.mesh)
 
     def _serve_slots(self, params, state):
         store, pstate = params
@@ -493,12 +591,15 @@ class FaultTolerantHDCEngine(AdaptiveHDCEngine):
         return pred, maxsim
 
     def on_barrier(self):
-        """Commit both evolved states, run the soft loop, then promote (one
-        core shard on one GPU)."""
+        """Commit both evolved states, run the soft loop, then promote on
+        the global fault state, shard by shard of ``n_rx_cores / S`` cores
+        (one shard on one rank)."""
         if self._pending_fstate is not None:
             self.fstate, self._pending_fstate = self._pending_fstate, None
         super().on_barrier()
-        self.fstate = self.controller.promote(self.fstate, self.cfg.n_rx_cores)
+        fstate = self.controller.promote(self._global(self.fstate, faults.gather_fstate),
+                                         self._shard.cores)
+        self.fstate = self._rows_of(fstate)
 
 
 class HDCScheduler(SlotScheduler):
@@ -507,7 +608,11 @@ class HDCScheduler(SlotScheduler):
     Every running slot finishes at each step barrier (an HDC request is one
     serve, not a token loop), so continuous batching here means: free slots
     refill from the age-ordered queue every step, and one step serves
-    however many tenants are resident."""
+    however many tenants are resident. On a mesh every rank runs the same
+    scheduler: each submits the same requests in the same order (queries
+    in the global layout, ``generator`` the request's own), and the
+    shared clock makes every decision and completion the same on every
+    rank (`SlotScheduler`)."""
 
     def __init__(self, engine: HDCEngine, clock: Callable[[], float] = time.monotonic,
                  *, max_slot_steps: int | None = None, max_requeues: int = 1):
@@ -516,7 +621,8 @@ class HDCScheduler(SlotScheduler):
 
     def submit(self, tenant_id, queries: torch.Tensor, *,
                generator: torch.Generator | None = None) -> int:
-        """Queue one trial batch [B, 1, M, d|W] for ``tenant_id``.
+        """Queue one trial batch [B, S, e_per, d|W] ([B, 1, M, d|W] on one
+        rank; `HDCEngine`) for ``tenant_id``.
         ``generator`` is the request's PHY noise stream (default: a generator
         on the engine's device seeded with the request id)."""
         if tenant_id not in self.engine.registry.rows:
@@ -562,10 +668,11 @@ class HDCScheduler(SlotScheduler):
         s = _host(maxsim)
         self.engine.on_barrier()    # adaptive engines: commit the evolved state, act
         finished = []
+        t_finish = self.clock()     # every running slot finishes at the barrier
         for slot in sorted(self.running):
             req, t_admit = self.running.pop(slot)
             done = HDCCompletion(req.rid, req.tenant, p[slot], s[slot], req.t_submit,
-                                 t_admit, self.clock())
+                                 t_admit, t_finish)
             self.results[req.rid] = done
             self.free.append(slot)
             finished.append(done)

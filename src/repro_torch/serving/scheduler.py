@@ -23,6 +23,13 @@ consume. An expired slot is force-evicted (freed, ``engine.on_evict``), and
 its request is requeued at the head of its bucket up to ``max_requeues``
 times, then failed with an ``"evicted"`` completion, so the queue always
 drains.
+
+Over ranks (an engine with a ``mesh`` of more than one rank, the HDC
+engines) every rank runs the same scheduler, and its one per-rank input,
+the clock, becomes rank 0's reading broadcast at every read
+(`collectives.SharedClock`): every rank then admits, requeues, evicts and
+stamps alike, and so calls the same collectives in the same order (the
+SPMD counterpart of the reference's single controller).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.serving.engine import ContinuousEngine, _prompt_sig
 
 
@@ -97,7 +105,8 @@ class SlotScheduler:
             raise ValueError("max_slot_steps must be >= 1")
         self.engine = engine
         self.params = params
-        self.clock = clock
+        mesh = getattr(engine, "mesh", None)
+        self.clock = clock if mesh is None or mesh.size == 1 else collectives.SharedClock(clock)
         self.state = engine.init_state()
         self.free: list[int] = list(range(engine.num_slots))
         # slot -> backend-defined running record (LM: (request, tokens, t_admit))

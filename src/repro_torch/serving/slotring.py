@@ -23,8 +23,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.mesh import one_rank
-
 
 def slot_update(state: dict, new: dict, slots: list[int], axes: dict | None = None) -> dict:
     """Write the values of ``new`` into rows ``slots`` of the slot-stacked
@@ -59,7 +57,6 @@ class SlotRingEngine:
     def __init__(self, num_slots: int):
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
-        one_rank(type(self).__name__)
         self.num_slots = num_slots
         self._variants: dict = {}
 

@@ -120,21 +120,15 @@ def _serve_case(mesh, inputs, case, model_size):
 
 
 def refusals(mesh) -> dict:
-    """What a rank of a multi-rank world refuses: process=, faults=, the
-    engines and the trainer each raise NotImplementedError naming ROADMAP.md
-    §1."""
-    from repro_torch import faults as tfaults
-    from repro_torch.serving.hdc import HDCEngine
+    """What a rank of a multi-rank world refuses: the LM `Engine`, the
+    `ContinuousEngine` and the `Trainer` each raise NotImplementedError
+    naming ROADMAP.md §1 (they wait for the tensor-parallel rules)."""
+    from repro_torch.serving.engine import ContinuousEngine, Engine
     from repro_torch.train.loop import Trainer, TrainerConfig
 
-    cfg = scaleout.ScaleOutConfig(n_classes=64, dim=256, m_tx=3, n_rx_cores=8, batch=8)
-    state = phy.state_from_ber(torch.zeros(8), 3)
     tries = {
-        "process": lambda: scaleout.make_ota_serve(cfg, device=CPU, mesh=mesh,
-                                                   process=phy.StaticProcess()),
-        "faults": lambda: scaleout.make_mt_ota_serve(cfg, device=CPU, mesh=mesh,
-                                                     faults=tfaults.StaticFaults()),
-        "engine": lambda: HDCEngine(cfg, state, num_slots=1, max_tenants=1, device=CPU),
+        "engine": lambda: Engine(None, None),
+        "continuous": lambda: ContinuousEngine(None, None, 1, 8, device=CPU),
         "trainer": lambda: Trainer(None, None, TrainerConfig()),
     }
     out = {}

@@ -117,7 +117,8 @@ def test_multi_rank_serve_equals_one_rank(worlds, reference, grid, name):
 
 @pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
 def test_process_faults_engines_and_trainer_refuse_ranks(worlds, grid):
-    """On a mesh of more than one rank, process=, faults=, the engines and
-    the trainer raise NotImplementedError naming ROADMAP.md §1."""
+    """On a mesh of more than one rank the LM engines and the trainer raise
+    NotImplementedError naming ROADMAP.md §1 (process=, faults= and the HDC
+    engines run on ranks: tests/test_torch_distributed_living.py)."""
     for r in worlds(grid):
-        assert r["refusals"] == dict(process=True, faults=True, engine=True, trainer=True)
+        assert r["refusals"] == dict(engine=True, continuous=True, trainer=True)

@@ -193,11 +193,14 @@ fallback, and a missing GPU is a failure):
    masks and the symbol tier's draws replayed by core index
    (``bsc_replay`` in the four modes x three collectives, ``symbol_replay``
    on psum) == the one-rank serve bit for bit; on bsc at a per-core BER
-   ramp (MR_HOT_BER), every rank drawing from its own generator, the three
-   collectives equal bit for bit and the hit rate, at most 0.95 on one
-   rank, within 3 binomial sigmas (of the difference) of the one-rank
-   serve's; the symbol tier (psum) on its own draws, packed == unpacked
-   and the hit rate as on bsc; on 1x4 also phase 10's flat packed serve at
+   ramp (MR_HOT_BER), every model rank of a data row drawing over the
+   global cores on that row's generator and keeping its own, the three
+   collectives equal bit for bit and, with the hit rate at most 0.95, on
+   1x2 and 1x4 the real bsc and symbol serves == the one-rank serve bit for
+   bit (the draws are mesh-layout invariant), on 2x4 (each data row its own
+   generator) the hit rate within 3 binomial sigmas (of the difference) of
+   the one-rank serve's; the symbol tier (psum) packed == unpacked; on 1x4
+   also phase 10's flat packed serve at
    C = 102,400 (25,600 classes a rank) with each collective and its coarse
    screen (held to the one-rank serve on the plain top-k twin), the wired
    serve and the sparse serve at d = 8192 (index_ag and the dense
@@ -228,7 +231,8 @@ fallback, and a missing GPU is a failure):
    WearoutFaults rollout whose rows == the one-rank rollout's; (c) on 1x4
    the engines: HDCEngine on phase 13 (b)'s trace and
    FaultTolerantHDCEngine under (b)'s dead cores and stuck cells, every
-   completion == its rank-standalone serve on `rank_generator` and the four
+   completion == its rank-standalone serve on `rank_generator` and == the
+   one-rank engine's (one data row: the request's own generator), the four
    ranks' completion lists identical, rank 0's ms a step and trials/s
    beside the one-rank engine's; AdaptiveHDCEngine at phase 13 (c)'s drift
    point on replayed symbol draws, its controller trace and completions ==
@@ -236,7 +240,26 @@ fallback, and a missing GPU is a failure):
    (LR_FADE, WearoutFaults, bsc_replay) whose trace (re-fits, quarantines,
    the fleet-mode drop, remaps) == the one-rank engine's. Each engine
    launches one search kernel a step and nothing else. A rank that fails
-   or outlives LR_TIMEOUT fails the phase.
+   or outlives LR_TIMEOUT fails the phase;
+19. training across ranks (gloo ranks sharing the card; NCCL refuses two
+   ranks on one device): TinyLlama-1.1B at its published width and depth
+   (bf16, remat) from phase 16's conditioned draw, B 4 x S 1024 of the
+   synthetic stream, TR["steps"] steps: AdamW on 1x2 (the Megatron split:
+   16 heads, 2 kv heads, 2816 of d_ff and 16,000 of the vocabulary a rank,
+   the vocabulary-split loss), AdamW on 2x1 (data parallel, ZeRO-1 moments)
+   and signum at the OTA BER 0.01 on 2x1 (the int8 sign vote), and AdamW
+   on 2x2 cut to 2 layers: every rank reports the same loss; every AdamW
+   step's loss within TR["loss_rtol"] and its step-1 gradient norm within
+   TR["gnorm_rtol"] of one rank's AdamW steps on the same parameters and
+   batches (this process), signum's step-1 loss within TR["loss_rtol"] of
+   it too (a vote over the data ranks' halves is not one rank's step), the
+   last loss below the first,
+   every rank's parameter + optimizer bytes == the bytes of its resolved
+   shards (`sharding.local_bytes`), and every step on every rank launches
+   the attention forward twice a layer and the backward once, and nothing
+   else of the table; rank 0's ms a step and tokens/s, each rank's peak
+   memory and wire bytes a step. A rank that fails or outlives TR_TIMEOUT
+   fails the phase.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
@@ -254,7 +277,8 @@ of every case on every rank of phase 17 (the one-rank comparison serves and
 the timed calls are not counted) and, on every rank of phase 18, the
 process serves of (a), the fault-aware serves of (b) and the engines' runs
 of (c) (the one-rank runs, the fault-free and standalone comparison serves
-and the warm rings are not counted);
+and the warm rings are not counted), and every training step on every rank
+of phase 19 (the one-rank comparison steps are not counted);
 the d = 8192 comparisons, the
 keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
 quarantine check are not counted), and as the last line {"ok": true, ...}.
@@ -426,6 +450,30 @@ LR_DEAD = (3, 9, 17, 30, 36, 40, 51, 60)
 LR_SHARD = 16
 LR_FADE = dict(sigma_db=8.0, requests=16, slots=4)
 LR_TIMEOUT = 300                 # seconds a grid's ranks may take, their start included
+# phase 19: sharded training over gloo ranks on the one card, TinyLlama-1.1B
+# at its published width and depth from phase 16's conditioned draw, B x S
+# of the synthetic stream (B cut from phase 16's 8 to 4: at 8, 1x2 and 2x1
+# took 133.7 s together on an H100 80GB HBM3 at 700 W, PERF.md §4): AdamW
+# on 1x2 (Megatron split: 16 heads, 2 kv heads, 2816 of d_ff and 16,000 of
+# the vocabulary a rank) and on 2x1 (data
+# parallel, ZeRO-1), signum at the OTA BER on 2x1, and AdamW on 2x2 cut to
+# 2 layers (both groups at once); every AdamW step's loss held to one
+# rank's steps on the same parameters and batches within TR["loss_rtol"]
+# and the step-1 gradient norm within TR["gnorm_rtol"]: sound runs read up
+# to 6.78e-05 and 5.21e-03 (the norm on 2x2; bf16 partial gradients summed),
+# planted faults on 1x2 / 2x1 at least 1.67e-03 (the loss, MLP input
+# gradient not all-reduced) and 0.212 (the norm, any of three faults;
+# H100 80GB HBM3 at 700 W, PERF.md §6). The learning rate is
+# held at 3e-5 from the first step: at phase 16's schedule (1e-3 after a
+# warm-up of 5) the first steps move every parameter by ~2e-4 and the loss
+# rises for 6 steps on one rank (phase 16's AdamW: 10.75, 11.96, 14.11,
+# 13.74, ...), where a 6e-5 step lowers it (its signum: 10.75, 9.69)
+TR = dict(arch="tinyllama-1.1b", batch=4, seq=1024, steps=4, loss_rtol=5e-4, gnorm_rtol=2e-2,
+          adamw=dict(kind="adamw", lr=3e-5, warmup=1, total_steps=30),
+          sign=dict(kind="sign_majority", lr=3e-5, warmup=1, total_steps=30, ber=0.01))
+TR_RUNS = {(1, 2): (("adamw", None),), (2, 1): (("adamw", None), ("sign", None)),
+           (2, 2): (("adamw", 2),)}
+TR_TIMEOUT = 600                 # seconds a grid's ranks may take, their start included
 # phase 16 (a): the backward kernel's cases, label -> (B, Sq, Skv, H, KH, D,
 # causal, window, q_offset, dtype); the training shape first
 FLASH_BWD_CASES = [
@@ -3799,6 +3847,7 @@ def train_steps(torch, fns, pipe, params, opt_state, steps: int, cfg, what: str,
         with (recorded_bwd(2) if record and step == 0 else contextlib.nullcontext([])) as log:
             params, opt_state, m = fns.step(params, opt_state, batch, gen)
         losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]) if "gnorm" in m else None)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         gnorms.append(float(m["gnorm"]) if "gnorm" in m else None)
@@ -3931,8 +3980,8 @@ def phase_train_sign(torch, launches: dict) -> dict:
     votes = dict(n=0, flipped=0, step=None)
     orig = collectives.sign_allreduce
 
-    def counting(x, **kw):
-        out = orig(x, **kw)
+    def counting(x, *args, **kw):
+        out = orig(x, *args, **kw)
         if votes["step"] == 0:
             live = x != 0
             votes["n"] += int(live.sum())
@@ -4180,14 +4229,14 @@ def mr_replay_tiers(torch, mesh) -> None:
         name, wire = "bsc_replay", "votes"
 
         def rx_copies(self, generator, reduced, state, rx_base, n_cores, *, packed, dim,
-                      noise, planes=16):
+                      noise, planes=16, n_all=None):
             m = masks[rx_base:rx_base + n_cores]
             return reduced[None] ^ (hv.pack(m) if packed else m)
 
     class SymbolReplay(phy.SymbolChannel):
         name = "symbol_replay"
 
-        def draws(self, generator, state, rx_base, n_cores, shape):
+        def draws(self, generator, state, rx_base, n_cores, shape, n_all=None):
             rows = slice(rx_base, rx_base + n_cores)
             return nr[rows], ni[rows], flips[rows]
 
@@ -4272,7 +4321,9 @@ def mr_serve(torch, case: dict, mesh, books: dict, state) -> dict:
         protos, q, st = scaleout.shard_inputs(cfg, mesh, protos, q, state)
         build = scaleout.make_wired_serve if case["kind"] == "wired" else scaleout.make_ota_serve
         fn = build(cfg, device="cuda", mesh=mesh)
-        seed = 1000 + 100 * dpos + tx                      # this rank's own noise
+        # the data row's noise: every model rank draws over the global cores
+        # on this generator and keeps its own (one rank: seed 1000)
+        seed = 1000 + 100 * dpos
         call = lambda: fn(protos, q, st, cuda_gen(torch, seed))          # noqa: E731
     torch.cuda.synchronize()
     tk.reset_launch_counts()
@@ -4418,7 +4469,18 @@ def phase_multirank(torch, state, launches: dict) -> dict:
                 require(all(np.array_equal(a, b) for a, b in zip((pred, sim),
                                                                   one[name]["oracle"])),
                         f"mr {label} {name}: differs from its plain oracle")
-            if ch in ("bsc", "symbol"):
+            if ch in ("bsc", "symbol") and grid[0] == 1:
+                # one data row: the same generator as the one-rank serve, and
+                # each core's noise a function of (generator, core) alone
+                require(np.array_equal(pred, one[name]["pred"])
+                        and np.array_equal(sim, one[name]["sim"]),
+                        f"mr {label} {name}: real noise differs from the one-rank serve")
+                h, _ = mr_hit(np, pred, one[name]["classes"], c["cfg"]["permuted"])
+                hits[name] = (h, h, 0.0)
+                require(ch == "symbol" or h <= 0.95,
+                        f"mr {label} {name}: hit {h} at the BER ramp {MR_HOT_BER}; "
+                        "the noise does nothing")
+            elif ch in ("bsc", "symbol"):
                 perm = c["cfg"]["permuted"]
                 h, n = mr_hit(np, pred, one[name]["classes"], perm)
                 h1, _ = mr_hit(np, one[name]["pred"], one[name]["classes"], perm)
@@ -4467,9 +4529,12 @@ def phase_multirank(torch, state, launches: dict) -> dict:
         bytes0 = {c["name"]: results[0][c["name"]]["bytes"] for c in cases}
         out["grids"][label] = dict(backend=backend, wall_s=wall, ms=ms, hits=hits,
                                    bytes=bytes0, bit31=results[0]["bit31"][0])
+        real = ("real bsc and symbol == one rank bit for bit" if grid[0] == 1 else
+                "real bsc and symbol hit within 3 sigma of one rank (each data row its "
+                "own generator)")
         print(f"mr {label}: {len(results)} ranks over {backend} on cuda:0, "
               f"{len(cases)} cases, ideal == one rank == the plain oracle, replayed bsc "
-              f"and symbol == one rank, bsc collectives equal and hit within 3 sigma, "
+              f"and symbol == one rank, bsc collectives equal, {real}, "
               f"lanes with bit 31 set sum as uint32: "
               f"{results[0]['bit31'][0]}, {wall:.1f} s with the ranks' start", flush=True)
     cell = out["grids"]["2x4"]["bytes"]
@@ -4481,8 +4546,9 @@ def phase_multirank(torch, state, launches: dict) -> dict:
           f"sums) in pred and maxsim, the flat packed serve at C = {COARSE['n_classes']} on "
           "1x4 too; the bsc masks and symbol draws replayed by core index == the one-rank "
           f"serve; at the bsc BER ramp {MR_HOT_BER} psum == psum_packed == rs_ag on the same "
-          "per-rank generators and the hit rate within 3 sigma of one rank's; the byte "
-          "totals of EXPERIMENTS.md:16-19 on every rank", flush=True)
+          "generators; real bsc and symbol noise on 1x2 and 1x4 == the one-rank serve bit "
+          "for bit (mesh-layout invariant draws), on 2x4 the hit rate within 3 sigma of "
+          "one rank's; the byte totals of EXPERIMENTS.md:16-19 on every rank", flush=True)
     return out
 
 
@@ -4540,7 +4606,7 @@ def lr_replay_drift(torch, mesh) -> None:
     class SymbolReplay16(phy.SymbolChannel):
         name = "symbol_replay16"
 
-        def draws(self, generator, state, rx_base, n_cores, shape):
+        def draws(self, generator, state, rx_base, n_cores, shape, n_all=None):
             rows = slice(rx_base, rx_base + n_cores)
             return nr[rows], ni[rows], flips[rows]
 
@@ -4928,9 +4994,11 @@ def phase_living_ranks(torch, state, launches: dict) -> dict:
                     rep = "unpacked" if name == "adaptive" else "packed"
                     lr_gate_launches(run["launches"], kern(rep), what, run["steps"])
                     add_launches(launches, run["launches"])
-                if name == "adaptive":              # replayed noise: the one-rank answers
+                if name == "adaptive" or (grid[0] == 1 and name in ("engine", "ft static")):
+                    # replayed noise, or real noise on the request's own generator
+                    # (one data row): the one-rank engine's answers
                     require(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
-                                for a, b in zip(runs[0]["done"], want["done"])),
+                                and a[2] == b[2] for a, b in zip(runs[0]["done"], want["done"])),
                             f"{what}: completions differ from the one-rank engine's")
                 if name == "ft fading":
                     lr_state_equal(results, lambda r: r["c"][name]["pstate"], want["pstate"],
@@ -4950,7 +5018,8 @@ def phase_living_ranks(torch, state, launches: dict) -> dict:
                       f"{c[name]['trials_per_s']:.1f} trials/s (one rank "
                       f"{o[name]['ms_per_step']:.3f} ms, {o[name]['trials_per_s']:.1f} trials/s; "
                       "gloo through host memory); every completion == its rank-standalone "
-                      "serve, the four ranks' completions identical", flush=True)
+                      "serve and == the one-rank engine's, the four ranks' completions "
+                      "identical", flush=True)
             print(f"lr {label} (c) AdaptiveHDCEngine (phase 13 (c)'s drift point, replayed "
                   f"symbol noise): controller trace == the one-rank engine's "
                   f"({len(one['c']['adaptive']['trace'])} actions), completions == its; "
@@ -4964,8 +5033,208 @@ def phase_living_ranks(torch, state, launches: dict) -> dict:
     print("lr checks: every rank's process and fault rows == the one-rank rollout's (data "
           "replicas alike), the process and fault serves == the one-rank serves on replayed "
           "noise, healthy fault-aware == fault-free on ranks, the engines' completions == "
-          "their rank-standalone serves and alike on every rank, the controller traces == "
-          "the one-rank engines'", flush=True)
+          "their rank-standalone serves and alike on every rank, on 1x4 == the one-rank "
+          "engines' (HDCEngine and the static fault-tolerant engine on real bsc noise), the "
+          "controller traces == the one-rank engines'", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: sharded training across ranks (gloo, every rank on cuda:0)
+# ---------------------------------------------------------------------------
+
+def tr_config(layers):
+    """TinyLlama-1.1B's published config, its depth cut to ``layers`` when
+    given."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(TR["arch"])
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def tr_params(torch, model, cfg):
+    """Phase 16's conditioned draw: the parameters from SEED, the attention
+    projections at fan-in over their contraction."""
+    from repro_torch.models import init_params
+
+    return fan_in_over_contraction(init_params(model.specs, cuda_gen(torch, SEED), "cuda"), cfg)
+
+
+def tr_one_rank(torch, layers) -> dict:
+    """One rank's TR["steps"] AdamW steps from the conditioned parameters on
+    the same batches: the losses and gradient norms every grid is held to
+    (not counted: launches of comparison runs)."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import get_model
+    from repro_torch.train.loop import build_train_fns
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = tr_config(layers)
+    model = get_model(cfg)
+    fns = build_train_fns(model, OptConfig(**TR["adamw"]), device="cuda")
+    params, state = fns.shard_params(tr_params(torch, model, cfg))
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=TR["seq"], global_batch=TR["batch"]),
+                       device="cuda")
+    losses, gnorms = [], []
+    for step in range(TR["steps"]):
+        params, state, m = fns.step(params, state, pipe.batch(step))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    del params, state
+    torch.cuda.empty_cache()
+    return dict(losses=losses, gnorms=gnorms)
+
+
+def tr_train(torch, mesh, kind: str, layers) -> dict:
+    """TR["steps"] steps of ``kind`` on this rank's shards: the losses (the
+    global step's, alike on every rank), host seconds a step (each ending in
+    a synchronize), each step's launches and wire bytes (counters set to 0
+    just before and read just after), the peak device memory, and the
+    bytes of the parameters and optimizer state held beside those of the
+    resolved shards."""
+    from repro_torch import kernels as tk
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.models import get_model
+    from repro_torch.train.loop import build_train_fns, step_generator
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import tree_leaves
+
+    o = dict(TR[kind])
+    ber = o.pop("ber", None)
+    cfg = tr_config(layers)
+    model = get_model(cfg)
+    fns = build_train_fns(model, OptConfig(**o), mesh=mesh, ota_ber=ber, device="cuda")
+    params, state = fns.shard_params(tr_params(torch, model, cfg))
+    torch.cuda.empty_cache()
+    held = sum(x.numel() * x.element_size() for x in tree_leaves((params, state)))
+    resolved = sharding.local_bytes(fns.placements, (params, state), fns.mesh)
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=TR["seq"], global_batch=TR["batch"]),
+                       device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, step_s, counts, wire = [], [], [], [], []
+    for step in range(TR["steps"]):
+        batch = pipe.batch(step)
+        gen = step_generator(SEED, step, "cuda", fns.data_index) if ber is not None else None
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        collectives.reset_wire_bytes()
+        t0 = time.perf_counter()
+        params, state, m = fns.step(params, state, batch, gen)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]) if "gnorm" in m else None)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        counts.append(tk.launch_counts())
+        wire.append(collectives.wire_bytes())
+    peak = torch.cuda.max_memory_allocated()
+    del params, state
+    torch.cuda.empty_cache()
+    return dict(losses=losses, gnorms=gnorms, step_s=step_s, counts=counts, wire=wire,
+                peak=peak, held=held, resolved=resolved, layers=cfg.n_layers)
+
+
+def tr_rank(mesh, runs: tuple) -> dict:
+    """What each rank of a phase-19 grid runs on cuda:0: its runs in
+    order."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"coords": (mesh.index("data"), mesh.index("model"))}
+    for kind, layers in runs:
+        out[(kind, layers)] = tr_train(torch, mesh, kind, layers)
+    return out
+
+
+def phase_train_ranks(torch, launches: dict) -> dict:
+    """Phase 19: each grid's ranks (gloo, all on cuda:0) train TR_RUNS. One
+    rank's AdamW steps on the same parameters and batches (this process)
+    are what the grids' AdamW losses, every step, and step-1 gradient norm
+    are held to; signum's step-1 loss (before any update) too."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as tmesh
+
+    layers_set = sorted({lay for runs in TR_RUNS.values() for _, lay in runs},
+                        key=lambda x: -1 if x is None else x)
+    ref = {lay: tr_one_rank(torch, lay) for lay in layers_set}
+    torch.cuda.empty_cache()
+    _build.build()             # the ranks load the library built here
+    out = {"one_rank": {str(k): v for k, v in ref.items()}, "grids": {}}
+    for grid, runs in TR_RUNS.items():
+        label = f"{grid[0]}x{grid[1]}"
+        t0 = time.perf_counter()
+        results = tmesh.spawn(tr_rank, grid, (runs,), timeout=TR_TIMEOUT, threads=None)
+        wall = time.perf_counter() - t0
+        row = {"wall_s": wall}
+        for kind, layers in runs:
+            what = f"tr {label} {TR[kind]['kind']}" + ("" if layers is None else
+                                                      f" ({layers} layers)")
+            rs = [r[(kind, layers)] for r in results]
+            cfg = tr_config(layers)
+            losses, want = rs[0]["losses"], ref[layers]
+            require(all(r["losses"] == losses for r in rs),
+                    f"{what}: the ranks report different losses")
+            require(all(math.isfinite(x) for x in losses), f"{what}: a loss is not finite")
+            held_to = len(losses) if kind == "adamw" else 1
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses[:held_to], want["losses"])]
+            gn_rel = (abs(rs[0]["gnorms"][0] - want["gnorms"][0]) / want["gnorms"][0]
+                      if kind == "adamw" else None)
+            print(f"{what}: loss against one rank's, relative, step by step: "
+                  + " ".join(f"{x:.3g}" for x in rel) + ("" if gn_rel is None else
+                                                          f"; step-1 gradient norm "
+                                                          f"{rs[0]['gnorms'][0]:.6g} vs "
+                                                          f"{want['gnorms'][0]:.6g}, relative "
+                                                          f"{gn_rel:.3g}"), flush=True)
+            require(max(rel) <= TR["loss_rtol"],
+                    f"{what}: losses {losses[:held_to]} vs one rank {want['losses'][:held_to]} "
+                    f"(relative {max(rel):.3g} > {TR['loss_rtol']})")
+            if gn_rel is not None:
+                require(gn_rel <= TR["gnorm_rtol"], f"{what}: step-1 gradient norm relative "
+                        f"{gn_rel:.3g} > {TR['gnorm_rtol']}")
+            require(losses[-1] < losses[0], f"{what}: the loss did not fall: {losses}")
+            for r in rs:
+                require(r["held"] == r["resolved"],
+                        f"{what}: a rank holds {r['held']} B of parameters and optimizer "
+                        f"state, its resolved shards {r['resolved']} B")
+                for step, counts in enumerate(r["counts"]):
+                    train_launches(counts, cfg, 1, f"{what} step {step}")
+                    add_launches(launches, counts)
+            ms = statistics.median(rs[0]["step_s"][1:]) * 1e3
+            tokens = TR["batch"] * TR["seq"]
+            res = dict(losses=losses, gnorms=rs[0]["gnorms"], one_rank=want, loss_rel=rel,
+                       gnorm_rel=gn_rel, ms_per_step=ms, step_s=rs[0]["step_s"],
+                       tokens_per_s=tokens / ms * 1e3,
+                       peak=[r["peak"] for r in rs], held=[r["held"] for r in rs],
+                       wire=[statistics.median(r["wire"]) for r in rs],
+                       launches_per_step=(2 * cfg.n_layers, cfg.n_layers))
+            row[TR[kind]["kind"] + ("" if layers is None else f"-{layers}L")] = res
+            print(f"{what}: {cfg.name} ({cfg.n_layers} layers, bf16, remat), batch "
+                  f"{TR['batch']} x seq {TR['seq']}, {TR['steps']} steps: loss "
+                  + " ".join(f"{x:.4f}" for x in losses)
+                  + "; one rank " + " ".join(f"{x:.4f}" for x in want["losses"][:held_to])
+                  + f" (relative <= {TR['loss_rtol']})", flush=True)
+            print(f"{what}: rank 0 {ms:.1f} ms a step (median of steps 2-{TR['steps']}, host "
+                  f"clock; first {rs[0]['step_s'][0] * 1e3:.1f} ms), {res['tokens_per_s']:.0f} "
+                  f"tokens/s; peak memory a rank " + ", ".join(
+                      f"{p / 2**30:.2f}" for p in res["peak"]) + " GiB; parameters + "
+                  f"optimizer a rank " + ", ".join(f"{h:,}" for h in res["held"])
+                  + " B (== the resolved shards); wire bytes a step a rank " + ", ".join(
+                      f"{int(w):,}" for w in res["wire"]) + f"; {2 * cfg.n_layers} forward and "
+                  f"{cfg.n_layers} backward attention launches every step on every rank",
+                  flush=True)
+        out["grids"][label] = row
+        print(f"tr {label}: {len(results)} ranks over gloo on cuda:0, {wall:.1f} s with the "
+              "ranks' start", flush=True)
+    print("tr checks: on every grid and run the ranks report one loss, finite, the last "
+          f"below the first; every AdamW step's loss within {TR['loss_rtol']} of one rank's "
+          f"on the same parameters and batches and its step-1 gradient norm within "
+          f"{TR['gnorm_rtol']}, signum's step-1 loss within {TR['loss_rtol']}; every rank "
+          "holds exactly its resolved shards' bytes; every step on every rank launches the "
+          "attention forward (2 a layer, remat) and backward (1 a layer) kernels and no "
+          "other kernel of the table", flush=True)
     return out
 
 
@@ -5085,6 +5354,8 @@ def main(argv: list[str]) -> int:
                       lambda: phase_multirank(torch, state, launches))
     living = phase("18 living channels, faults and the HDC engines across ranks",
                    lambda: phase_living_ranks(torch, state, launches))
+    train_ranks = phase("19 training across ranks",
+                        lambda: phase_train_ranks(torch, launches))
     kernels["flash_attention_bwd"] = train["kernel_cases"]
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
@@ -5112,6 +5383,7 @@ def main(argv: list[str]) -> int:
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
             faults=fault, cont=cont, train=train, multirank=multirank, living_ranks=living,
+            train_ranks=train_ranks,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

@@ -17,6 +17,7 @@ CONFIG = ModelConfig(
     d_ff=19200,
     vocab=32256,
     rope_theta=100_000.0,
+    rules_override={"embed": "data", "kv_seq": "model"},
 )
 
 

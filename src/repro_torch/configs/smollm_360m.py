@@ -18,6 +18,7 @@ CONFIG = ModelConfig(
     vocab=49152,
     rope_theta=10_000.0,
     tie_embeddings=True,
+    rules_override={"embed": "data", "kv_seq": "model"},
 )
 
 

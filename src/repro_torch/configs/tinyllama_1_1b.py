@@ -17,6 +17,7 @@ CONFIG = ModelConfig(
     d_ff=5632,
     vocab=32000,
     rope_theta=10_000.0,
+    rules_override={"kv_seq": "model"},
 )
 
 

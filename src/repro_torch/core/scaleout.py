@@ -65,10 +65,13 @@ flat winner survives the screen.
 Randomness: an explicit `torch.Generator` replaces the reference's key, so
 the BSC and AWGN noise is not the reference's bits; the tests hold the noisy
 serve by replaying JAX-drawn draws through a registered tier (dense) or in
-place of `sparse._noise_draws` (sparse). Over ranks each rank draws its
-cores' noise from its own generator, so a multi-rank noisy serve draws other
-bits than the one-rank serve; a tier that replays masks by core index
-(``rx_base + i``) gives both the same noise.
+place of `sparse._noise_draws` (sparse). Over model ranks the serve is
+mesh-layout invariant, as the reference's is: every model rank of a data
+row draws over the global cores on a generator seeded alike and keeps its
+cores' rows, so core g's noise depends on (generator, g) alone and a 1xS
+noisy serve equals the one-rank serve bit for bit. A data row draws on its
+own generator for its rows of the batch (the caller's choice; the
+reference folds the data position into its key).
 
 Living channels (``process=``) and faults (``faults=``) run on any mesh the
 serve takes: each model rank holds its cores' rows of the process and fault
@@ -408,10 +411,14 @@ def _ota_bundle(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard, q_mine: torc
 def _rx_fanout(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard, q_bundled: torch.Tensor,
                state: phy.ChannelState, generator) -> torch.Tensor:
     """Per-core decode through the PHY tier: this rank's cores' copies
-    [cores, R, d|W], core i being RX ``tx*cores + i``."""
+    [cores, R, d|W], core i being RX ``tx*cores + i``. Across model ranks
+    the tier gets the global core count (``n_all``) and draws over every
+    core, so each core's noise is the one-rank serve's; on one rank it gets
+    none, so a replay tier written for one rank needs no ``n_all``."""
+    extra = {"n_all": sh.cores * sh.model_size} if sh.model_size > 1 else {}
     return chan.rx_copies(generator, q_bundled, state, rx_base=sh.tx * sh.cores,
                           n_cores=sh.cores, packed=cfg.packed, dim=cfg.dim,
-                          noise=cfg.noise, planes=cfg.noise_planes)
+                          noise=cfg.noise, planes=cfg.noise_planes, **extra)
 
 
 def _sparse_bundle(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard,
@@ -438,13 +445,20 @@ def _sparse_rx_fanout(cfg: ScaleOutConfig, sh: _Shard, q_bundled: torch.Tensor,
                       state: phy.ChannelState, generator) -> torch.Tensor:
     """Per-core sparse decode: [cores, R, k_max]. ``ideal`` broadcasts the
     bundle; ``bsc`` runs the drop+insert channel at each core's BER (the
-    state holds this rank's cores), every core's draws in one call."""
+    state holds this rank's cores), every core's draws in one call. Across
+    model ranks the draws span the global cores [cores * S, R, k_max] (every
+    rank's slab compared with this rank's BERs, a view on one rank) and the
+    rank keeps its own rows: each core's noise is the one-rank serve's."""
     n = sh.cores
     copies = q_bundled[None].expand((n,) + tuple(q_bundled.shape))
     if cfg.channel == "ideal":
         return copies
-    ber = state.ber[:n].reshape(n, 1, 1)
-    return sparse.flip_bits_sparse(generator, copies, ber, cfg.dim)
+    n_all = n * sh.model_size
+    ber = state.ber[:n].reshape(n, 1, 1).expand(sh.model_size, n, 1, 1).reshape(n_all, 1, 1)
+    draws = sparse._noise_draws(generator, (n_all,) + tuple(copies.shape[1:]), ber,
+                                cfg.dim, copies.shape[-1])
+    return sparse.apply_noise(copies, *(phy.channel._draw_rows(x, sh.tx * n, n)
+                                        for x in draws))
 
 
 def _apply_stuck(rows: torch.Tensor, stuck, d: int, packed: bool) -> torch.Tensor:

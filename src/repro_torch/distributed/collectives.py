@@ -2,7 +2,12 @@
 `repro/distributed/collectives.py`): the per-receiver binary symmetric
 channel, the guard-bit packed vote all-reduce and reduce-scatter, the sparse
 index-list all-gather, the majority all-reduce and the sign-majority vote of
-the gradients.
+the gradients; and the tensor-parallel autograd ops of sharded training
+(`copy_to_group`, `reduce_from_group`, `gather_from_group`, `vocab_embed`),
+the explicit collectives that stand where the reference's GSPMD inserts
+its own. Their wire dtypes: an activation all-reduce travels in f32 for a
+bf16 tensor (`_wire_of`), a parameter's all-gather and its gradient's
+reduce-scatter in the tensor's own dtype.
 
 Every collective takes a ``group``: a `torch.distributed` process group over
 the ranks of one mesh axis (`repro_torch.distributed.mesh.RankMesh.group`), or
@@ -26,6 +31,9 @@ int32 sum wraps modulo 2^32, which is the uint32 sum bit for bit (a lane's
 fields never carry into each other, so the true sum is below 2^32).
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
@@ -331,10 +339,152 @@ def sign_allreduce(x: torch.Tensor, group=None, *, generator: torch.Generator | 
     ``group=None``, its own sign). With ``ber`` the received vote goes
     through the OTA channel: each element flips sign with probability
     ``ber``, drawn from ``generator`` as `ota_noise` draws its flips (a zero
-    stays zero)."""
-    out = torch.sign(all_reduce(torch.sign(x.float()), group))
+    stays zero). ``group`` may be a tuple of groups (the pod and data axes),
+    the vote then summing over all of them. The votes travel as int8 (the
+    tally of at most 127 ranks fits; int32 beyond), 1 byte an element where
+    the reference's psum carries f32: the same tally, a quarter of the
+    bytes."""
+    groups = tuple(group) if isinstance(group, (tuple, list)) else (group,)
+    n = math.prod(ranks(g) for g in groups)
+    votes = torch.sign(x).to(torch.int8 if n <= 127 else torch.int32)
+    out = torch.sign(all_reduce_groups(votes, groups))
     if ber is not None:
         if generator is None:
             raise ValueError("sign_allreduce: OTA noise needs a generator")
         out = torch.where(hv._bernoulli(generator, ber, out.shape, out.device), -out, out)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# collectives along a dimension, and the tensor-parallel autograd ops
+# ---------------------------------------------------------------------------
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    if group is None:
+        return x
+    return torch.cat(all_gather(x, group).unbind(0), dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Sum over the group's ranks, this rank's contiguous block of ``dim``
+    (of size x.shape[dim] / S)."""
+    if group is None:
+        return x
+    return reduce_scatter_last(x.movedim(dim, -1), group).movedim(-1, dim).contiguous()
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise maximum over the group's ranks (a new tensor)."""
+    if group is None:
+        return x
+    buf = x.clone().contiguous()
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+    _wire[0] += 2 * _nbytes(buf)
+    return buf
+
+
+def _wire_of(x: torch.Tensor) -> torch.dtype:
+    """The wire dtype of an activation all-reduce: f32 for a half-precision
+    tensor. Each rank's partial is already rounded once to the model's
+    dtype by its matmul; the sum of the S partials is then rounded once
+    more, as one rank's product rounds its f32 accumulator once, where a
+    bf16 wire would round at every step of the reduction, in an order the
+    backend picks."""
+    return torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward, all-reduce (sum) backward: the input of a
+    column-split projection, whose ranks each add their part of the input's
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group, _wire_of(g)), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """All-reduce (sum) forward, identity backward: the output of a
+    row-split projection, each rank holding a partial sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group, _wire_of(x))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """All-gather forward along ``dim``, reduce-scatter backward: a
+    parameter cut over the data ranks, gathered whole for the step; its
+    gradient arrives summed over the ranks, this rank's piece only. The
+    reduce-scatter travels in the gradient's dtype (the reference's
+    GSPMD reduce-scatter does too)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """`_CopyToGroup` (x itself when ``group`` is None)."""
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """`_ReduceFromGroup` (x itself when ``group`` is None)."""
+    return x if group is None else _ReduceFromGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """`_GatherFromGroup` (x itself when ``group`` is None)."""
+    return x if group is None else _GatherFromGroup.apply(x, dim, group)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, start: int, group
+                ) -> torch.Tensor:
+    """Embedding lookup in a vocabulary cut over ``group``: ``table`` holds
+    rows [start, start + V_l) of the vocabulary; each rank looks up the
+    tokens it holds (zero rows for the others) and the sum over the group
+    (`reduce_from_group`) is the whole lookup. Its backward reaches only
+    the rows this rank holds."""
+    if group is None:
+        return table[tokens]
+    local = tokens.long() - start
+    ok = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(ok, local, 0)] * ok[..., None].to(table.dtype)
+    return reduce_from_group(rows, group)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """Where a rank sits for the model's layers: the ``group`` of its model
+    axis (None for one model rank) with its coordinate ``rank`` there, and
+    the process groups ``data_groups`` of its data axes, over which the
+    loss counts its tokens (the global batch's mean)."""
+
+    group: object = None
+    rank: int = 0
+    data_groups: tuple = ()
+
+
+def all_reduce_groups(x: torch.Tensor, groups, wire_dtype: torch.dtype | None = None
+                      ) -> torch.Tensor:
+    """The sum of ``x`` over the product of ``groups`` (one all-reduce
+    each; groups that are None are skipped)."""
+    for g in groups:
+        x = all_reduce(x, g, wire_dtype)
+    return x

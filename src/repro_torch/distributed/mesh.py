@@ -95,9 +95,9 @@ def _ravel(coords: tuple[int, ...], shape: tuple[int, ...]) -> int:
 
 def one_rank(what: str) -> None:
     """Raise NotImplementedError when this process is one of several ranks:
-    ``what`` runs on one rank only (ROADMAP.md §1 queues its multi-rank
-    form)."""
+    ``what`` runs on one rank only, as the reference's takes no mesh
+    (ROADMAP.md §1)."""
     if dist.is_initialized() and dist.get_world_size() > 1:
         raise NotImplementedError(
             f"{what} runs on one rank; this process is rank {dist.get_rank()} of "
-            f"{dist.get_world_size()} (multi-rank form queued in ROADMAP.md §1)")
+            f"{dist.get_world_size()} (the reference's takes no mesh; ROADMAP.md §1)")

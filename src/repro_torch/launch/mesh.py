@@ -24,12 +24,18 @@ from repro_torch.distributed.mesh import RankMesh, make_mesh
 AXES = ("pod", "data", "model")          # a mesh's axes, outermost first
 
 
-def make_host_mesh() -> RankMesh:
-    """The world as ("data", "model"): the model axis takes the larger of the
-    two closest factors of the world size (1 rank without a process group)."""
-    n = dist.get_world_size() if dist.is_initialized() else 1
+def host_mesh_shape(n: int) -> tuple[int, int]:
+    """(data, model) for ``n`` ranks: the model axis takes the larger of the
+    two closest factors of ``n``."""
     d = next(c for c in range(math.isqrt(n), 0, -1) if n % c == 0)
-    return make_mesh((d, n // d), ("data", "model"))
+    return d, n // d
+
+
+def make_host_mesh() -> RankMesh:
+    """The world as ("data", "model") of `host_mesh_shape` (1 rank without a
+    process group)."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    return make_mesh(host_mesh_shape(n), ("data", "model"))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Spec-first parameters (counterpart of `repro/models/base.py`).
 
 A model declares its parameters as a nested dict of `ParamSpec`s;
-`init_params` draws the same tree of tensors. The JAX spec's logical
-sharding axes are not carried: nothing on one GPU reads them.
+`init_params` draws the same tree of tensors and `param_axes` gives each
+leaf's logical sharding axes (one name or None a dimension, the
+reference's), which `distributed.sharding` resolves to a placement on a
+rank mesh.
 """
 from __future__ import annotations
 
@@ -16,9 +18,15 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]          # logical axis names, len == len(shape)
     init: str = "normal"                  # normal | zeros | ones | fan_in
     scale: float = 0.02
     dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"ParamSpec: shape {self.shape} and axes {self.axes} differ "
+                             "in length")
 
 
 def _leaves(specs: Any, prefix: tuple = ()):
@@ -63,13 +71,27 @@ def init_params(specs: Any, generator: torch.Generator, device=None) -> dict:
 def abstract_params(specs: Any) -> dict:
     """The tree `init_params` draws, as meta tensors: shapes and dtypes
     without storage (the structure a checkpoint restores into)."""
+    return _tree_of(specs, lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"))
+
+
+def _tree_of(specs: Any, fn) -> dict:
     out: dict = {}
     for path, spec in _leaves(specs):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = torch.empty(spec.shape, dtype=spec.dtype, device="meta")
+        node[path[-1]] = fn(spec)
     return out
+
+
+def param_axes(specs: Any) -> dict:
+    """Each leaf's logical axes tuple, in the tree of `specs`."""
+    return _tree_of(specs, lambda s: s.axes)
+
+
+def param_shapes(specs: Any) -> dict:
+    """Each leaf's shape tuple, in the tree of `specs`."""
+    return _tree_of(specs, lambda s: tuple(s.shape))
 
 
 def count_params(specs: Any) -> int:

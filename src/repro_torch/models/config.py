@@ -2,12 +2,15 @@
 `repro/models/config.py`).
 
 Only the fields the dense decoder reads are carried: the MoE, SSM, enc-dec and
-VLM sections come back with the slices that read them; the sharding rules
-and scanned layers have nothing to do on one GPU.
+VLM sections come back with the slices that read them, and the scanned
+layers have nothing to do in a Python loop. ``rules_override`` is each
+config's change to `distributed.sharding.DEFAULT_RULES`, the reference's
+letter for letter.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Mapping
 
 import torch
 
@@ -36,6 +39,7 @@ class ModelConfig:
     flash_block_q: int = 512     # block sizes of the attention's plain twin
     flash_block_k: int = 1024
     loss_chunk: int = 512        # chunked cross-entropy sequence chunk
+    rules_override: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def hd(self) -> int:

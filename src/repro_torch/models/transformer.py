@@ -7,7 +7,9 @@ per-layer heterogeneity (sliding window, dual RoPE theta) comes from
 `layer_meta`. The decode takes one position for the whole batch (the
 static engine) or one a row on the device (the continuous engine's slots),
 and the chunked prefill (`run_stack_chunk`) runs one chunk of a prompt on
-the attention kernel's ``q_offset``.
+the attention kernel's ``q_offset``. Training on ranks (``tp=``) runs the
+rank's shards of the heads, the MLP and the vocabulary, with the widths read
+from the weight shards.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -36,15 +39,20 @@ def attn_specs(cfg: ModelConfig, layers: int | None = None) -> dict:
     l = cfg.n_layers if layers is None else layers
     hd, h, kh, d = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
     lead = () if l == 0 else (l,)
+    la = () if l == 0 else (None,)
     p = {
-        "wq": ParamSpec(lead + (d, h, hd), "fan_in", dtype=cfg.dtype),
-        "wk": ParamSpec(lead + (d, kh, hd), "fan_in", dtype=cfg.dtype),
-        "wv": ParamSpec(lead + (d, kh, hd), "fan_in", dtype=cfg.dtype),
-        "wo": ParamSpec(lead + (h, hd, d), "fan_in", dtype=cfg.dtype),
+        "wq": ParamSpec(lead + (d, h, hd), la + ("embed", "heads", "head_dim"), "fan_in",
+                        dtype=cfg.dtype),
+        "wk": ParamSpec(lead + (d, kh, hd), la + ("embed", "kv_heads", "head_dim"), "fan_in",
+                        dtype=cfg.dtype),
+        "wv": ParamSpec(lead + (d, kh, hd), la + ("embed", "kv_heads", "head_dim"), "fan_in",
+                        dtype=cfg.dtype),
+        "wo": ParamSpec(lead + (h, hd, d), la + ("heads", "head_dim", "embed"), "fan_in",
+                        dtype=cfg.dtype),
     }
     if cfg.qk_norm:
-        p["q_norm"] = ParamSpec(lead + (hd,), "zeros", dtype=cfg.dtype)
-        p["k_norm"] = ParamSpec(lead + (hd,), "zeros", dtype=cfg.dtype)
+        p["q_norm"] = ParamSpec(lead + (hd,), la + (None,), "zeros", dtype=cfg.dtype)
+        p["k_norm"] = ParamSpec(lead + (hd,), la + (None,), "zeros", dtype=cfg.dtype)
     return p
 
 
@@ -52,31 +60,30 @@ def mlp_specs(cfg: ModelConfig, layers: int | None = None) -> dict:
     l = cfg.n_layers if layers is None else layers
     d, f = cfg.d_model, cfg.d_ff
     lead = () if l == 0 else (l,)
+    la = () if l == 0 else (None,)
     return {
-        "wg": ParamSpec(lead + (d, f), "fan_in", dtype=cfg.dtype),
-        "wu": ParamSpec(lead + (d, f), "fan_in", dtype=cfg.dtype),
-        "wd": ParamSpec(lead + (f, d), "fan_in", dtype=cfg.dtype),
+        "wg": ParamSpec(lead + (d, f), la + ("embed", "mlp"), "fan_in", dtype=cfg.dtype),
+        "wu": ParamSpec(lead + (d, f), la + ("embed", "mlp"), "fan_in", dtype=cfg.dtype),
+        "wd": ParamSpec(lead + (f, d), la + ("mlp", "embed"), "fan_in", dtype=cfg.dtype),
     }
 
 
 def decoder_specs(cfg: ModelConfig) -> dict:
     l, d = cfg.n_layers, cfg.d_model
-    blocks: dict[str, Any] = {
-        "attn": attn_specs(cfg),
-        "ln1": ParamSpec((l, d), "zeros", dtype=cfg.dtype),
-        "ln2": ParamSpec((l, d), "zeros", dtype=cfg.dtype),
-    }
+    norm = ParamSpec((l, d), (None, "embed"), "zeros", dtype=cfg.dtype)
+    blocks: dict[str, Any] = {"attn": attn_specs(cfg), "ln1": norm, "ln2": norm}
     if cfg.sandwich_norm:
-        blocks["ln1_post"] = ParamSpec((l, d), "zeros", dtype=cfg.dtype)
-        blocks["ln2_post"] = ParamSpec((l, d), "zeros", dtype=cfg.dtype)
+        blocks["ln1_post"] = norm
+        blocks["ln2_post"] = norm
     blocks["mlp"] = mlp_specs(cfg)
     specs = {
-        "embed": ParamSpec((cfg.vocab, d), "normal", 0.02, cfg.dtype),
+        "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed"), "normal", 0.02, cfg.dtype),
         "blocks": blocks,
-        "final_norm": ParamSpec((d,), "zeros", dtype=cfg.dtype),
+        "final_norm": ParamSpec((d,), ("embed",), "zeros", dtype=cfg.dtype),
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = ParamSpec((d, cfg.vocab), "fan_in", dtype=cfg.dtype)
+        specs["lm_head"] = ParamSpec((d, cfg.vocab), ("embed", "vocab"), "fan_in",
+                                     dtype=cfg.dtype)
     return specs
 
 
@@ -116,47 +123,98 @@ def _layers(tree: dict, n: int) -> list[dict]:
 # blocks
 # ---------------------------------------------------------------------------
 
+def _split(tp, local: int, whole: int):
+    """The model group when a width is cut over it (the rank's shard holds
+    ``local`` of ``whole``), else None."""
+    return tp.group if tp is not None and local < whole else None
+
+
+def _kv_for_rank(w: torch.Tensor, tp, h: int, cfg: ModelConfig) -> torch.Tensor:
+    """The kv heads a rank's ``h`` query heads read, from the whole kv
+    projection w [d, KH, hd]: global q head ``rank*h + j`` reads kv head
+    ``(rank*h + j) // (H/KH)``. A contiguous span of whole groups, or one
+    kv head when the rank's heads sit inside one group; otherwise one kv
+    head for each q head."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = tp.rank * h
+    if h % g == 0:
+        return w.narrow(1, first // g, h // g)
+    if g % h == 0:
+        return w.narrow(1, first // g, 1)
+    ids = torch.tensor([(first + j) // g for j in range(h)], device=w.device)
+    return w.index_select(1, ids)
+
+
 def _attn_heads(blk: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                theta: float):
+                theta: float, tp=None):
+    """q, k, v [B, S, heads, hd] at the rank's own heads: the widths come
+    from the weight shards. With the heads cut over the model group
+    (``tp``), x enters through `copy_to_group`; kv heads that are whole on
+    every rank are narrowed to the ones the rank's q heads read, through
+    `copy_to_group` too, since each rank adds only its heads' part of
+    their gradient; so are the whole q and k norms, which act on the
+    rank's heads alone."""
     b, s, d = x.shape
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h, hd = blk["wq"].shape[-2], blk["wq"].shape[-1]
+    wk, wv = blk["wk"], blk["wv"]
+    q_norm, k_norm = blk.get("q_norm"), blk.get("k_norm")
+    group = _split(tp, h, cfg.n_heads)
+    if group is not None:
+        x = collectives.copy_to_group(x, group)
+        if wk.shape[-2] == cfg.n_kv_heads:
+            wk = _kv_for_rank(collectives.copy_to_group(wk, group), tp, h, cfg)
+            wv = _kv_for_rank(collectives.copy_to_group(wv, group), tp, h, cfg)
+        if cfg.qk_norm:
+            q_norm = collectives.copy_to_group(q_norm, group)
+            k_norm = collectives.copy_to_group(k_norm, group)
+    kh = wk.shape[-2]
     q = (x @ blk["wq"].reshape(d, h * hd)).reshape(b, s, h, hd)
-    k = (x @ blk["wk"].reshape(d, kh * hd)).reshape(b, s, kh, hd)
-    v = (x @ blk["wv"].reshape(d, kh * hd)).reshape(b, s, kh, hd)
+    k = (x @ wk.reshape(d, kh * hd)).reshape(b, s, kh, hd)
+    v = (x @ wv.reshape(d, kh * hd)).reshape(b, s, kh, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, blk["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, blk["k_norm"], cfg.norm_eps)
+        q = rmsnorm(q, q_norm, cfg.norm_eps)
+        k = rmsnorm(k, k_norm, cfg.norm_eps)
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
     return q, k, v
 
 
-def _attn_out(blk: dict, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
-    b, s = o.shape[:2]
-    return o.reshape(b, s, cfg.n_heads * cfg.hd) @ blk["wo"].reshape(-1, cfg.d_model)
+def _attn_out(blk: dict, cfg: ModelConfig, o: torch.Tensor, tp=None) -> torch.Tensor:
+    """The output projection of the rank's heads; a partial sum over the
+    heads when they are cut, summed over the model group."""
+    b, s, h, hd = o.shape
+    out = o.reshape(b, s, h * hd) @ blk["wo"].reshape(h * hd, -1)
+    return collectives.reduce_from_group(out, _split(tp, h, cfg.n_heads))
 
 
-def _mlp_residual(blk: dict, cfg: ModelConfig, x: torch.Tensor, o: torch.Tensor):
+def _mlp_residual(blk: dict, cfg: ModelConfig, x: torch.Tensor, o: torch.Tensor, tp=None):
     if cfg.sandwich_norm:
         o = rmsnorm(o, blk["ln1_post"], cfg.norm_eps)
     x = x + o
     h = rmsnorm(x, blk["ln2"], cfg.norm_eps)
-    m = gated_mlp(h, blk["mlp"]["wg"], blk["mlp"]["wu"], blk["mlp"]["wd"], cfg.act)
+    mlp = blk["mlp"]
+    group = _split(tp, mlp["wg"].shape[-1], cfg.d_ff)
+    h = collectives.copy_to_group(h, group)
+    m = gated_mlp(h, mlp["wg"], mlp["wu"], mlp["wd"], cfg.act)
+    m = collectives.reduce_from_group(m, group)
     if cfg.sandwich_norm:
         m = rmsnorm(m, blk["ln2_post"], cfg.norm_eps)
     return x + m
 
 
 def attn_block_train(blk: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                     window: int, theta: float, return_kv: bool = False):
+                     window: int, theta: float, return_kv: bool = False, tp=None):
     """One full-sequence causal block: x, or (x, (k, v)) with k after qk-norm
     and RoPE when ``return_kv`` (the prefill). The dense decoder's aux loss
-    is 0 and is added by `run_stack_train`."""
+    is 0 and is added by `run_stack_train`. ``tp`` (a
+    `collectives.TensorParallel`) runs the block on the rank's shards of
+    the heads and the MLP (Megatron's split: column-split q/k/v and gate/up,
+    row-split output and down projections, one all-reduce after each)."""
     h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
-    q, k, v = _attn_heads(blk["attn"], cfg, h, positions, theta)
+    q, k, v = _attn_heads(blk["attn"], cfg, h, positions, theta, tp)
     o = flash_attention(q, k, v, causal=True, window=window,
                         block_q=cfg.flash_block_q, block_k=cfg.flash_block_k)
-    x = _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o))
+    x = _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o, tp), tp)
     return (x, (k, v)) if return_kv else x
 
 
@@ -182,8 +240,16 @@ def attn_block_decode(blk: dict, cfg: ModelConfig, x: torch.Tensor, pos, window:
 # stack runners
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor, tp=None
+                 ) -> torch.Tensor:
+    """The embedding of ``tokens``; with the vocabulary cut over the model
+    group (``tp``) a masked lookup of the rank's rows, summed over it."""
+    table = params["embed"]
+    group = _split(tp, table.shape[0], cfg.vocab)
+    if group is None:
+        x = table[tokens]
+    else:
+        x = collectives.vocab_embed(table, tokens, tp.rank * table.shape[0], group)
     if cfg.emb_scale:    # sqrt(d) rounded to the model's dtype first, as in the reference
         x = x * float(torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype))
     return x.to(cfg.dtype)
@@ -216,21 +282,23 @@ def run_stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def run_stack_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor):
+                    positions: torch.Tensor, tp=None):
     """Full-sequence causal stack for training: (hidden [B, S, d], aux loss,
     0 for the dense decoder). With ``cfg.remat`` each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
     reference's ``jax.checkpoint(body)``: the forward keeps only each
     layer's input and the backward recomputes the layer, attention kernel
-    included, before its gradient."""
+    included, before its gradient. ``tp`` runs each block on the rank's
+    shards (`attn_block_train`); the recompute calls the block's forward
+    collectives again, on every rank in the same order."""
     windows, thetas = layer_meta(cfg)
     for blk, window, theta in zip(_layers(params["blocks"], cfg.n_layers), windows, thetas):
         if cfg.remat:
             # the block draws no random numbers: no RNG state to keep
-            x = checkpoint(attn_block_train, blk, cfg, x, positions, window, theta,
+            x = checkpoint(attn_block_train, blk, cfg, x, positions, window, theta, False, tp,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = attn_block_train(blk, cfg, x, positions, window, theta)
+            x = attn_block_train(blk, cfg, x, positions, window, theta, tp=tp)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -2,9 +2,11 @@
 
 `get_model(cfg)` returns a `Model` whose members are plain functions:
 
-* loss_fn(params, batch) -> (loss, metrics {"ce", "aux"}): the training
-  loss, differentiable through the attention kernels (aux is 0 for the
-  dense decoder)
+* loss_fn(params, batch, tp=None) -> (loss, metrics {"ce", "aux"}): the
+  training loss, differentiable through the attention kernels (aux is 0
+  for the dense decoder); with ``tp`` (a `collectives.TensorParallel`)
+  on the rank's tensor-parallel shards, the loss being this data rank's
+  share of the global batch's mean
 * prefill_fn(params, batch, pad_to=None) -> (last logits [B, V] f32, cache)
 * decode_fn(params, cache, token [B], pos) -> (logits [B, V] f32, cache);
   pos an int, or an int32 tensor [B] on the device (one position a row,
@@ -25,6 +27,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm
@@ -45,9 +48,17 @@ class Model:
 
 
 def _final_loss(params: dict, cfg: ModelConfig, h: torch.Tensor, targets: torch.Tensor,
-                aux: torch.Tensor):
+                aux: torch.Tensor, tp=None):
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    ce = chunked_cross_entropy(h, tfm.head_weight(params, cfg), targets, chunk=cfg.loss_chunk)
+    w = tfm.head_weight(params, cfg)
+    if tp is None:
+        ce = chunked_cross_entropy(h, w, targets, chunk=cfg.loss_chunk)
+        return ce + aux, {"ce": ce, "aux": aux}
+    group = tfm._split(tp, w.shape[1], cfg.vocab)
+    ce = chunked_cross_entropy(collectives.copy_to_group(h, group), w, targets,
+                               chunk=cfg.loss_chunk, group=group,
+                               vocab_start=tp.rank * w.shape[1] if group else 0,
+                               count_groups=tp.data_groups)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -64,10 +75,10 @@ def _last_logits(params: dict, cfg: ModelConfig, h_last: torch.Tensor) -> torch.
 def _decoder_model(cfg: ModelConfig) -> Model:
     specs = tfm.decoder_specs(cfg)
 
-    def loss_fn(params, batch):
-        x = tfm.embed_tokens(params, cfg, batch["tokens"])
-        h, aux = tfm.run_stack_train(params, cfg, x, _positions(batch["tokens"]))
-        return _final_loss(params, cfg, h, batch["targets"], aux)
+    def loss_fn(params, batch, tp=None):
+        x = tfm.embed_tokens(params, cfg, batch["tokens"], tp)
+        h, aux = tfm.run_stack_train(params, cfg, x, _positions(batch["tokens"]), tp)
+        return _final_loss(params, cfg, h, batch["targets"], aux, tp)
 
     def prefill_fn(params, batch, pad_to=None):
         tokens = batch["tokens"]

@@ -24,7 +24,6 @@ import dataclasses
 import torch
 
 from repro_torch.core import hypervector as hv, ota
-from repro_torch.distributed import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,14 +124,38 @@ class Channel:
     rank's from the whole): core i is its row i and RX ``rx_base + i`` of
     the whole link, the index a tier that replays noise by core uses. The tier
     draws its noise from ``generator``; ``noise`` and ``planes`` are the
-    packed BSC's mask mode and bitplane precision."""
+    packed BSC's mask mode and bitplane precision.
+
+    Across model ranks the serve also passes ``n_all``, the link's cores in
+    all. The built-in tiers draw over the global rows [n_all, ...] (all
+    ``n_cores`` rows when it is absent, as on one rank) on the rank's
+    generator and keep rows [rx_base, rx_base + n_cores) (`_span`,
+    `_draw_rows`): core g's noise is a function of (generator, g) alone,
+    whatever the model split, as the reference's ``fold_in(key, g)`` is. The
+    serve passes ``n_all`` only across ranks, so a tier that replays noise
+    by core index (``rx_base + i``) and serves one rank need not take it."""
 
     name: str = "?"
     wire: str = "votes"
 
     def rx_copies(self, generator, reduced, state: ChannelState, rx_base, n_cores: int,
-                  *, packed: bool, dim: int, noise: str, planes: int = 16) -> torch.Tensor:
+                  *, packed: bool, dim: int, noise: str, planes: int = 16,
+                  n_all: int | None = None) -> torch.Tensor:
         raise NotImplementedError
+
+
+def _span(rx_base: int, n_cores: int, n_all: int | None) -> tuple[int, int]:
+    """(first row kept, rows drawn) of a draw over the link's cores: this
+    rank's rows [rx_base, rx_base + n_cores) of ``n_all``, or all
+    ``n_cores`` rows when the serve passes no ``n_all`` (one rank)."""
+    return (0, n_cores) if n_all is None else (rx_base, n_all)
+
+
+def _draw_rows(x: torch.Tensor, base: int, n: int, dim: int = 0) -> torch.Tensor:
+    """Rows [base, base + n) along ``dim`` of a draw over the global cores
+    (the draw itself on one rank); `phy.process.draw_rows`, kept here so
+    that the channel does not import the process module."""
+    return x if x.shape[dim] == n else x.narrow(dim, base, n)
 
 
 class IdealChannel(Channel):
@@ -142,7 +165,7 @@ class IdealChannel(Channel):
     wire = "votes"
 
     def rx_copies(self, generator, reduced, state, rx_base, n_cores,
-                  *, packed, dim, noise, planes=16):
+                  *, packed, dim, noise, planes=16, n_all=None):
         return reduced[None].expand((n_cores,) + tuple(reduced.shape))
 
 
@@ -153,20 +176,32 @@ class BSCChannel(Channel):
     with ``state.ber[i]`` per core, the same draw in both
     representations (the packed tier packs it), so packed and unpacked
     serves agree on one generator. ``noise="bitplane"`` (packed only) draws
-    the masks as words instead (`hv.bernoulli_words`, ``planes`` bits)."""
+    the masks as words instead (`hv.bernoulli_words`, ``planes`` bits).
+    With ``n_all`` the draw spans the global cores and the rank keeps its
+    rows, so each core's copy equals the one-rank serve's."""
 
     name = "bsc"
     wire = "votes"
 
     def rx_copies(self, generator, reduced, state, rx_base, n_cores,
-                  *, packed, dim, noise, planes=16):
+                  *, packed, dim, noise, planes=16, n_all=None):
         ber = state.ber[:n_cores]
         copies = reduced[None].expand((n_cores,) + tuple(reduced.shape))
         p = ber.reshape((n_cores,) + (1,) * reduced.dim())
+        base, n_all = _span(rx_base, n_cores, n_all)
+        rows = (n_all,) + tuple(reduced.shape)
+        dev = reduced.device
+        if packed and noise == "bitplane":
+            words = _draw_rows(hv._random_words(generator, (planes,) + rows, dev),
+                               base, n_cores, dim=1)
+            return copies ^ hv.bernoulli_words(None, p, copies.shape, precision=planes,
+                                               planes=words)
+        if packed and noise != "exact":
+            raise ValueError(f"unknown packed noise mode {noise!r}")
         if packed:
-            return collectives.ota_noise_packed(generator, copies, p, mode=noise,
-                                                planes=planes)
-        return collectives.ota_noise(generator, copies, p)
+            rows = rows[:-1] + (dim,)
+        flips = _draw_rows(torch.rand(rows, generator=generator, device=dev), base, n_cores) < p
+        return copies ^ (hv.pack(flips.to(torch.uint8)) if packed else flips.to(copies.dtype))
 
 
 class SymbolChannel(Channel):
@@ -191,22 +226,27 @@ class SymbolChannel(Channel):
     name = "symbol"
     wire = "combo"
 
-    def draws(self, generator, state, rx_base, n_cores, shape):
+    def draws(self, generator, state, rx_base, n_cores, shape, n_all=None):
         """One call's randomness: the AWGN's standard normals (real,
         imaginary) and the fallback's flip mask (bool), each
-        [n_cores, *shape]. A test overrides this to replay JAX's draws."""
-        full = (n_cores,) + tuple(shape)
+        [n_cores, *shape]; with ``n_all`` drawn over the global cores
+        [n_all, *shape] in the same order and cut to this rank's rows. A
+        test overrides this to replay JAX's draws."""
+        base, n = _span(rx_base, n_cores, n_all)
+        full = (n,) + tuple(shape)
         dev = state.symbols.device
         nr, ni = ota.awgn_draws(generator, full, dev)
+        u = torch.rand(full, generator=generator, device=dev)
+        nr, ni, u = (_draw_rows(x, base, n_cores) for x in (nr, ni, u))
         ber = state.ber[:n_cores].reshape((n_cores,) + (1,) * len(shape))
-        flips = torch.rand(full, generator=generator, device=dev) < ber
-        return nr, ni, flips
+        return nr, ni, u < ber
 
     def rx_copies(self, generator, reduced, state, rx_base, n_cores,
-                  *, packed, dim, noise, planes=16):
+                  *, packed, dim, noise, planes=16, n_all=None):
         rows = slice(0, n_cores)
         lead = (n_cores,) + (1,) * reduced.dim()
-        nr, ni, flips = self.draws(generator, state, rx_base, n_cores, reduced.shape)
+        extra = {} if n_all is None else {"n_all": n_all}
+        nr, ni, flips = self.draws(generator, state, rx_base, n_cores, reduced.shape, **extra)
         combo = reduced.to(torch.int64)
         sym = state.symbols[rows][:, combo]                   # [n, B, d]
         bits = ota.awgn_decide(None, sym, state.c0[rows].reshape(lead),

@@ -139,7 +139,7 @@ class ContinuousEngine(slotring.SlotRingEngine):
     def __init__(self, model, cfg: ServeConfig, num_slots: int, max_prompt_len: int,
                  prefill_chunk: int | None = None, *,
                  device: str | torch.device | None = "cuda"):
-        one_rank("ContinuousEngine")     # the LM on ranks waits for the tensor-parallel rules
+        one_rank("ContinuousEngine")     # the reference's engines take no mesh either
         if cfg.max_new < 1:
             raise ValueError("max_new must be >= 1")
         self.device = _device.resolve(device)

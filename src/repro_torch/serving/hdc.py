@@ -37,7 +37,9 @@ its shard: the registry holds its classes of every tenant, a slot its data
 rows and model column of the queries, the adaptive engines its cores' rows
 of the process and fault state, and each step is the multi-rank
 `make_mt_ota_serve`. A slot's noise generator on a rank is `rank_generator`
-of the request's. At the barrier the rows of the batch are gathered over
+of the request's, the same on every model rank of a data row (the
+request's own when the data axes hold one rank, so a 1xS engine completes
+every request as the one-rank engine does). At the barrier the rows of the batch are gathered over
 the data ranks, so every rank completes the whole batch, and the
 controllers decide on the global process and fault state, gathered over the
 model ranks (`phy.gather_pstate`, `faults.gather_fstate`): every rank takes
@@ -119,18 +121,21 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def rank_generator(generator: torch.Generator, mesh: RankMesh | None) -> torch.Generator:
-    """This rank's noise generator for a request drawn on ``generator``: on
-    one rank the request's generator itself; on a mesh of more than one
-    rank a new generator on its device, seeded with a 63-bit digest
-    (BLAKE2b) of the request generator's state and this rank's (data
-    position, model column). Deterministic, so a standalone serve on the
-    same derivation draws the same bits; the request's generator is not
-    drawn from. The reference's per-query noise is per mesh too (its key is
-    folded by the data position)."""
-    if mesh is None or mesh.size == 1:
+    """This rank's noise generator for a request drawn on ``generator``.
+    Every model rank of a data row gets the same one, since the serve's
+    noise draws span the global cores and each rank keeps its own
+    (`core.scaleout`): on one rank, or on a mesh whose data axes hold one
+    rank, the request's generator itself, so a 1xS engine draws what the
+    one-rank engine draws; with more than one data rank a new generator on
+    its device, seeded with a 63-bit digest (BLAKE2b) of the request
+    generator's state and this rank's data position. Deterministic, so a
+    standalone serve on the same derivation draws the same bits; the
+    request's generator is not drawn from then. The reference's per-query
+    noise is per data position too (its key is folded by it)."""
+    dpos, dsize = scaleout._dpos(mesh)
+    if dsize == 1:
         return generator
-    dpos, _ = scaleout._dpos(mesh)
-    coords = np.array([dpos, mesh.index("model")], np.int64).tobytes()
+    coords = np.array([dpos], np.int64).tobytes()
     digest = hashlib.blake2b(generator.get_state().cpu().numpy().tobytes() + coords,
                              digest_size=8).digest()
     seed = int.from_bytes(digest, "little") >> 1

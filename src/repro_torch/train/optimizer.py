@@ -12,8 +12,17 @@ write the new parameters into the ``params`` tensors and the new moments
 into the state's tensors, and return the same tree objects, so a step holds
 no second copy of the parameters or of the optimizer state (at
 TinyLlama-1.1B's width that is 2.2 GB of bf16 parameters and 8.8 GB of f32
-moments). ZeRO-1's ``zero1_axes`` shards state over data ranks and waits for
-the multi-rank slice, with ``distributed/sharding.py`` (ROADMAP §1 item 1).
+moments).
+
+On a rank mesh (`Zero1`) AdamW is ZeRO-1: each rank holds its piece of m and
+v as `distributed.sharding.zero1_axes` places them, takes the matching
+piece of the gradient reduced over the data ranks (a reduce-scatter, or the
+piece of what the parameter's own all-gather backward reduce-scattered),
+updates that piece of the parameter and all-gathers it over the data ranks
+into its parameter shard. The clipping norm counts every element once
+across the model group and the data pieces, so it is one rank's norm.
+Signum's momentum sits where the parameter does (`strip_dp`: no data
+axis) and its update is local.
 """
 from __future__ import annotations
 
@@ -22,6 +31,8 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import DP_AXES, Placement, gather_cut
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -59,12 +70,14 @@ def _device(params) -> torch.device:
 # AdamW
 # ---------------------------------------------------------------------------
 
-def adamw_init(cfg: OptConfig, params) -> dict:
+def adamw_init(cfg: OptConfig, params, device=None) -> dict:
+    """Zero moments shaped as ``params`` (on ``device``, default the
+    parameters')."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+        return torch.zeros(p.shape, dtype=cfg.state_dtype, device=device or p.device)
 
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=_device(params))}
+            "step": torch.zeros((), dtype=torch.int32, device=device or _device(params))}
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -72,27 +85,124 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
 
 
+@dataclasses.dataclass(frozen=True)
+class Zero1:
+    """Where AdamW's pieces sit on a rank mesh: the parameters'
+    placements ``params`` and the moments' ``state`` (trees of
+    `Placement`s, as the parameters)."""
+
+    mesh: object
+    params: object
+    state: object
+
+
+def _data_groups(mesh, axes) -> list:
+    return [mesh.group(a) for a in axes]
+
+
+def _piece(x: torch.Tensor, cut, pl: Placement, mesh) -> torch.Tensor:
+    """This rank's piece of a data cut of ``x`` (whole over the data)."""
+    if cut is None:
+        return x
+    d = cut[0]
+    n = x.shape[d] // pl.pieces(mesh, d)
+    return x.narrow(d, pl.index(mesh, d) * n, n)
+
+
+def _zero1_grad(g: torch.Tensor, pp: Placement, zp: Placement, mesh) -> torch.Tensor:
+    """The gradient's piece of the moments' placement, summed over the data
+    ranks. A parameter cut over the data ranks has its gradient summed
+    already (its all-gather's backward); otherwise the sum is a
+    reduce-scatter onto the moments' cut, or an all-reduce when they have
+    none."""
+    pc, zc = pp.cut_over(DP_AXES), zp.cut_over(DP_AXES)
+    if pc is not None:
+        return g if pc == zc else _piece(gather_cut(g, pc, mesh), zc, zp, mesh)
+    if zc is None:
+        return collectives.all_reduce_groups(
+            g, _data_groups(mesh, [a for a in DP_AXES if a in mesh.axis_names]))
+    d, axes = zc
+    for a in axes:
+        g = collectives.reduce_scatter_dim(g, d, mesh.group(a))
+    return g
+
+
+def _zero1_norm(pieces: list, zps: list, mesh) -> torch.Tensor:
+    """sqrt of the sum of squares of the global gradient: each rank adds the
+    pieces it owns (`Placement.owns`), then one sum over every mesh axis."""
+    own = [torch.sum(torch.square(g.float())) for g, zp in zip(pieces, zps) if zp.owns(mesh)]
+    dev = pieces[0].device
+    tot = sum(own) if own else torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.sqrt(collectives.all_reduce_groups(tot, _data_groups(mesh, mesh.axis_names)))
+
+
+def _zero1_write(p: torch.Tensor, new: torch.Tensor, pp: Placement, zp: Placement, mesh
+                 ) -> None:
+    """Write the updated piece ``new`` (the moments' placement) into the
+    parameter shard ``p``: an all-gather over the data ranks, then the
+    parameter's own data piece."""
+    pc, zc = pp.cut_over(DP_AXES), zp.cut_over(DP_AXES)
+    if pc == zc:
+        p.copy_(new)
+        return
+    p.copy_(_piece(gather_cut(new, zc, mesh), pc, pp, mesh))
+
+
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, grads, state: dict, params):
+def adamw_update(cfg: OptConfig, grads, state: dict, params, zero1: Zero1 | None = None):
     """One AdamW step, in place: returns (params, state, {"lr", "gnorm"})
     with the parameters and moments written into the given tensors and
     ``state["step"]`` a new tensor. Gradients (any float dtype) are clipped
-    to ``grad_clip`` global norm in f32."""
+    to ``grad_clip`` global norm in f32. With ``zero1`` the gradients are
+    this rank's unreduced shards and the moments its ZeRO-1 pieces (see the
+    module's docstring)."""
+    if zero1 is not None:
+        return _adamw_zero1(cfg, grads, state, params, zero1)
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-    bc1 = 1 - torch.pow(cfg.b1, step.float())
-    bc2 = 1 - torch.pow(cfg.b2, step.float())
+    bc = _bias_corrections(cfg, step)
     for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]),
                           tree_leaves(params)):
-        g = g.float() * scale
-        m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
-        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps) + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        m.copy_(m32)
-        v.copy_(v32)
+        p.copy_(_adam_leaf(cfg, g, m, v, p, scale, lr, bc))
+    return params, dict(state, step=step), {"lr": lr, "gnorm": gnorm}
+
+
+def _bias_corrections(cfg: OptConfig, step) -> tuple[torch.Tensor, torch.Tensor]:
+    return 1 - torch.pow(cfg.b1, step.float()), 1 - torch.pow(cfg.b2, step.float())
+
+
+def _adam_leaf(cfg: OptConfig, g, m, v, p, scale, lr, bc) -> torch.Tensor:
+    """One leaf's AdamW update in f32 (``bc`` the step's bias corrections):
+    writes the new moments into ``m`` and ``v`` and returns the new
+    parameter (f32)."""
+    bc1, bc2 = bc
+    g = g.float() * scale
+    m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
+    v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
+    delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps) + cfg.weight_decay * p.float()
+    m.copy_(m32)
+    v.copy_(v32)
+    return p.float() - lr * delta
+
+
+def _adamw_zero1(cfg: OptConfig, grads, state: dict, params, zero1: Zero1):
+    mesh = zero1.mesh
+    pps, zps = tree_leaves(zero1.params), tree_leaves(zero1.state)
+    ps = tree_leaves(params)
+    gs = [_zero1_grad(g, pp, zp, mesh) for g, pp, zp in zip(tree_leaves(grads), pps, zps)]
+    step = state["step"] + 1
+    lr = lr_at(cfg, step)
+    gnorm = _zero1_norm(gs, zps, mesh)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+    bc = _bias_corrections(cfg, step)
+    for g, m, v, p, pp, zp in zip(gs, tree_leaves(state["m"]), tree_leaves(state["v"]), ps,
+                                  pps, zps):
+        pc, zc = pp.cut_over(DP_AXES), zp.cut_over(DP_AXES)
+        pz = p if pc == zc else _piece(gather_cut(p, pc, mesh), zc, zp, mesh)
+        new = _adam_leaf(cfg, g, m, v, pz, scale, lr, bc).to(p.dtype)
+        _zero1_write(p, new, pp, zp, mesh)
     return params, dict(state, step=step), {"lr": lr, "gnorm": gnorm}
 
 
@@ -100,10 +210,10 @@ def adamw_update(cfg: OptConfig, grads, state: dict, params):
 # majority-vote signSGD (signum)
 # ---------------------------------------------------------------------------
 
-def sign_init(cfg: OptConfig, params) -> dict:
+def sign_init(cfg: OptConfig, params, device=None) -> dict:
     return {"mom": tree_map(lambda p: torch.zeros(p.shape, dtype=cfg.state_dtype,
-                                                  device=p.device), params),
-            "step": torch.zeros((), dtype=torch.int32, device=_device(params))}
+                                                  device=device or p.device), params),
+            "step": torch.zeros((), dtype=torch.int32, device=device or _device(params))}
 
 
 @torch.no_grad()

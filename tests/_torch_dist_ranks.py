@@ -16,6 +16,8 @@ model-column layout [B, S', e', d|W|k] under the name a case gives.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -38,7 +40,7 @@ class ReplayChannel(phy.Channel):
         self.masks = masks
 
     def rx_copies(self, generator, reduced, state, rx_base, n_cores,
-                  *, packed, dim, noise, planes):
+                  *, packed, dim, noise, planes, n_all=None):
         m = self.masks[rx_base:rx_base + n_cores]
         return reduced[None] ^ (hv.pack(m) if packed else m)
 
@@ -51,7 +53,7 @@ class SymbolReplay(phy.SymbolChannel):
     def __init__(self, nr, ni, flips):
         self.nr, self.ni, self.flips = nr, ni, flips
 
-    def draws(self, generator, state, rx_base, n_cores, shape):
+    def draws(self, generator, state, rx_base, n_cores, shape, n_all=None):
         rows = slice(rx_base, rx_base + n_cores)
         return self.nr[rows], self.ni[rows], self.flips[rows]
 
@@ -88,6 +90,10 @@ def _serve_case(mesh, inputs, case, model_size):
     protos_u = torch.from_numpy(np.array(inputs[case.get("book", "protos_u")]))
     words = cfg.packed or cfg.sparse
     state = _state(inputs, cfg)
+    if case.get("state") == "hot":
+        # a BER ramp of 0.25-0.5 over the cores: the real state flips ~1e-5 of
+        # the bits, and a core at BER 0 would win every sparse top-1
+        state = phy.state_from_ber(torch.linspace(0.25, 0.5, cfg.n_rx_cores), cfg.m_tx)
     kind = case.get("kind", "ota")
     if kind == "train":
         fn = scaleout.make_hdc_train(cfg, device=CPU, mesh=mesh)
@@ -110,6 +116,10 @@ def _serve_case(mesh, inputs, case, model_size):
                                                                            gens)
         return dict(pred=pred.numpy(), sim=sim.numpy(), bytes=collectives.wire_bytes())
     q = _queries(inputs, case, cfg, protos_u, model_size, case.get("seed", 1))
+    if "batch_rows" in case:          # one data row's rows of the batch, on one rank
+        lo, hi = case["batch_rows"]
+        q = q[lo:hi]
+        cfg = dataclasses.replace(cfg, batch=hi - lo)
     protos = hv.pack(protos_u) if words else protos_u
     protos, q, st = scaleout.shard_inputs(cfg, mesh, protos, q, state)
     build = scaleout.make_wired_serve if kind == "wired" else scaleout.make_ota_serve
@@ -120,9 +130,10 @@ def _serve_case(mesh, inputs, case, model_size):
 
 
 def refusals(mesh) -> dict:
-    """What a rank of a multi-rank world refuses: the LM `Engine`, the
-    `ContinuousEngine` and the `Trainer` each raise NotImplementedError
-    naming ROADMAP.md §1 (they wait for the tensor-parallel rules)."""
+    """What a rank of a multi-rank world refuses: the LM `Engine` and the
+    `ContinuousEngine` each raise NotImplementedError naming ROADMAP.md §1
+    (the reference's engines take no mesh); the `Trainer` takes the ranks
+    ("ran": sharded training, tests/test_torch_distributed_train.py)."""
     from repro_torch.serving.engine import ContinuousEngine, Engine
     from repro_torch.train.loop import Trainer, TrainerConfig
 

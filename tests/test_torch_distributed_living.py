@@ -23,7 +23,9 @@ Bit for bit:
   on `rank_generator`, and the adaptive and fault-tolerant engines on a
   fading channel take the one-rank engine's controller trace (re-fits,
   quarantines, the fleet-mode drop and failover remaps), every rank's
-  completion list being the same;
+  completion list being the same; on 1x2 and 1x4 every engine's
+  completions equal the one-rank engine's (the noise draws are
+  mesh-layout invariant);
 * a scheduler whose ranks read skewed clocks completes alike on every rank,
   timestamps included (`collectives.SharedClock`).
 
@@ -189,13 +191,30 @@ def test_dead_core_on_a_later_rank_is_failed_over_inside_it(inputs):
     assert inputs["B/rx_mask"].tolist() == [False] * 6 + [True, True]
 
 
+def check_one_rank_completions(results, want: list, what: str) -> None:
+    """Every rank's completions carry the one-rank engine's answers: the
+    same requests, tenants, predictions, maxsims and status (the
+    timestamps are each run's own clock)."""
+    for r in results:
+        done = r[what.split()[-1]]["done"]
+        assert len(done) == len(want)
+        for a, b in zip(done, want):
+            assert (a[0], a[1], a[-1]) == (b[0], b[1], b[-1]), what
+            np.testing.assert_array_equal(a[2], b[2], err_msg=f"{what} rid {a[0]} pred")
+            np.testing.assert_array_equal(a[3], b[3], err_msg=f"{what} rid {a[0]} sim")
+
+
 @pytest.mark.parametrize("grid", GRIDS, ids=GRID_IDS)
 @pytest.mark.parametrize("name", ["engine", "ft-static"])
-def test_engine_completes_as_the_rank_standalone_serve(worlds, grid, name):
+def test_engine_completes_as_the_rank_standalone_serve(worlds, one, grid, name):
     """Every rank completes the same requests alike (the whole batch,
     gathered over the data ranks), each == its standalone serve on this
-    rank's `rank_generator` (fault-aware under scenario A for ft-static)."""
+    rank's `rank_generator` (fault-aware under scenario A for ft-static);
+    on 1xS grids, where every rank draws on the request's own generator,
+    each completion also == the one-rank engine's."""
     results = worlds(grid)
+    if grid[0] == 1:
+        check_one_rank_completions(results, one[name]["done"], f"{grid} {name}")
     done = results[0][name]["done"]
     assert len(done) == len(lranks.TRACE) and all(c[-1] == "ok" for c in done)
     for r in results:
@@ -216,8 +235,13 @@ def test_controller_trace_equals_the_one_rank_engine(worlds, one, grid, name):
     fleet mode (a rebuilt serve on the mesh) and, fault-tolerant, remaps:
     the same actions at the same barriers as the one-rank engine, the
     committed states' rows its states', and the same completions on every
-    rank (the noise is each rank's own, so not the one-rank answers)."""
+    rank; on 1xS grids, whose ranks draw on the request's own generator,
+    the adaptive engine's completions are the one-rank engine's too (the
+    fault-tolerant engine's failover remaps keep inside a rank's shard,
+    where one rank's may cross it, so its answers after a remap differ)."""
     results = worlds(grid)
+    if grid[0] == 1 and name == "adaptive":
+        check_one_rank_completions(results, one[name]["done"], f"{grid} {name}")
     trace = one[name]["trace"]
     acts = {e["action"] for e in trace}
     assert {"refit", "quarantine", "m_drop", "link_mode"} <= acts

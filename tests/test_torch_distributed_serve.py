@@ -12,7 +12,11 @@ replayed by core (the port's ranks draw their noise from their own
 generators, so a replayed draw is what makes the noisy serves comparable);
 the symbol tier on replayed draws, the sparse serve (index_ag and the dense
 psum_packed wire), the coarse packed screen, the multi-tenant serve, the
-wired serve and the one-shot training."""
+wired serve and the one-shot training. With real noise (bsc dense and
+sparse, the bitplane masks, the symbol tier) on one generator seed the
+serve is mesh-layout invariant: every model rank draws over the global
+cores and keeps its own, so 1x2 and 1x4 equal one rank bit for bit, and
+each data row of 2x2 equals a one-rank serve of its rows."""
 import numpy as np
 import pytest
 import torch
@@ -28,7 +32,7 @@ GRIDS = [(1, 2), (1, 4), (2, 2)]
 
 def _case(name, **kw):
     kind = kw.pop("kind", "ota")
-    extra = {k: kw.pop(k) for k in ("rows", "book") if k in kw}
+    extra = {k: kw.pop(k) for k in ("rows", "book", "state") if k in kw}
     return dict(name=name, kind=kind, cfg={**SMALL, **kw}, **extra)
 
 
@@ -54,6 +58,21 @@ CASES = (
        _case("wired-packed", kind="wired", representation="packed", channel="ideal"),
        _case("train-unpacked", kind="train"),
        _case("train-packed", kind="train", representation="packed")])
+
+# Real noise on one generator seed: every model rank draws over the global
+# cores and keeps its own, so on 1xS these equal the one-rank serve bit for
+# bit, and on 2x2 each data row equals a one-rank serve of its rows.
+REAL = [_case("real-bsc-unpacked-base", channel="bsc", state="hot"),
+        _case("real-bsc-packed-perm", channel="bsc", representation="packed", permuted=True,
+              state="hot"),
+        _case("real-bsc-packed-bitplane", channel="bsc", representation="packed",
+              collective="psum_packed", noise="bitplane", state="hot"),
+        _case("real-symbol-unpacked-base", channel="symbol"),
+        _case("real-symbol-packed-perm", channel="symbol", representation="packed",
+              permuted=True),
+        _case("real-sparse-bsc", representation="sparse", k_max=24, collective="index_ag",
+              channel="bsc", book="protos_s", state="hot")]
+CASES = CASES + REAL
 
 
 @pytest.fixture(scope="module")
@@ -85,6 +104,15 @@ def reference(inputs):
 
 
 @pytest.fixture(scope="module")
+def row_reference(inputs):
+    """The real-noise cases served on one rank for each half of the batch
+    (the 2x2 grid's data rows), on the generator every rank uses."""
+    half = SMALL["batch"] // 2
+    return [ranks.run(None, inputs, [dict(c, batch_rows=(i * half, (i + 1) * half))
+                                     for c in REAL]) for i in range(2)]
+
+
+@pytest.fixture(scope="module")
 def worlds(inputs, tmp_path_factory):
     """grid -> every rank's results, each grid's ranks started once."""
     cache = {}
@@ -105,8 +133,15 @@ def worlds(inputs, tmp_path_factory):
 
 @pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
 @pytest.mark.parametrize("name", [c["name"] for c in CASES])
-def test_multi_rank_serve_equals_one_rank(worlds, reference, grid, name):
+def test_multi_rank_serve_equals_one_rank(worlds, reference, row_reference, grid, name):
     results = worlds(grid)
+    if name.startswith("real") and grid[0] > 1:
+        # each data row draws its rows' noise: a one-rank serve of those rows
+        for key in ("pred", "sim"):
+            got = ranks.assemble(results, name, key)
+            want = np.concatenate([r[name][key] for r in row_reference])
+            np.testing.assert_array_equal(got, want, err_msg=f"{grid} {name} {key}")
+        return
     keys = ("protos",) if name.startswith("train") else ("pred", "sim")
     for key in keys:
         np.testing.assert_array_equal(ranks.assemble(results, name, key),
@@ -117,8 +152,10 @@ def test_multi_rank_serve_equals_one_rank(worlds, reference, grid, name):
 
 @pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
 def test_process_faults_engines_and_trainer_refuse_ranks(worlds, grid):
-    """On a mesh of more than one rank the LM engines and the trainer raise
+    """On a mesh of more than one rank the LM engines raise
     NotImplementedError naming ROADMAP.md §1 (process=, faults= and the HDC
-    engines run on ranks: tests/test_torch_distributed_living.py)."""
+    engines run on ranks: tests/test_torch_distributed_living.py); the
+    trainer no longer refuses (sharded training:
+    tests/test_torch_distributed_train.py)."""
     for r in worlds(grid):
-        assert r["refusals"] == dict(engine=True, continuous=True, trainer=True)
+        assert r["refusals"] == dict(engine=True, continuous=True, trainer="ran")

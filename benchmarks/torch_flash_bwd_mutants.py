@@ -4,9 +4,11 @@
     python3 benchmarks/torch_flash_bwd_mutants.py
 
 Each mutant is a temporary copy of the tree (outside it, deleted after)
-with one source line of a kernel broken: the backward's dK/dV pass dropping
-the last query head of each kv head, and the bf16 forward writing its
-log-sum-exp without the NEG_INF rule for rows that see no key. In each
+with one source line of a kernel broken: the bf16 backward's dK/dV pass
+dropping the last query head of each kv head, or its dV product dropping
+the lo term of P (a kernel that rounds P to bf16 alone), and the bf16
+forward writing its log-sum-exp without the NEG_INF rule for rows that see
+no key. In each
 copy, phase 16 (a) runs at the training shape and on rows that see no key,
 then (b) runs 3 AdamW steps with its in-path check (every layer's backward
 kernel against the twin on the step's own inputs; the loss gate off).
@@ -23,8 +25,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 MUTANTS = {
     "dK/dV drop the last query head of each kv head": (
-        "src/repro_torch/csrc/flash_attention_bwd.cu", "for (int g = 0; g < G; ++g) {",
-        "for (int g = 0; g < (G > 1 ? G - 1 : G); ++g) {"),
+        "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "const int G = H / KH, nqt = (Sq + BQ - 1) / BQ, total = G * nqt;",
+        "const int G = H / KH, nqt = (Sq + BQ - 1) / BQ, total = (G > 1 ? G - 1 : G) * nqt;"),
+    "dV drops the lo term of P (P rounded to bf16 alone)": (
+        "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "      wgmma_rs<DH>(&acc_v[0][0], al[ks], db);\n", ""),
     "bf16 forward lse loses the NEG_INF rule": (
         "src/repro_torch/csrc/flash_attention.cu", "(m0 == NEG_INF ? NEG_INF : m0 * scale)",
         "(m0 * scale)"),

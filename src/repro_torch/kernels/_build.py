@@ -21,6 +21,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("hamming.cu", "assoc_matmul.cu", "majority.cu", "sparse.cu",
            "flash_attention.cu", "flash_attention_bwd.cu")
+HEADERS = ("flash_mma.cuh",)        # included by sources; part of the build's hash
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -68,7 +69,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -28,6 +28,17 @@ def expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     return k[:, :, :, None, :].expand(b, s, kh, groups, d).reshape(b, s, kh * groups, d)
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even), back in f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16x2(x: torch.Tensor) -> torch.Tensor:
+    """x as the sum of two bf16 terms, hi = bf16(x) and lo = bf16(x - hi)."""
+    hi = _bf16(x)
+    return hi + _bf16(x - hi)
+
+
 def _mask(causal: bool, window: int, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
     ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
     if causal:
@@ -90,7 +101,7 @@ def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                   lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
                   window: int = -1, q_offset: int = 0, block_q: int = 512,
-                  block_k: int = 1024):
+                  block_k: int = 1024, p_bf16: int = 0):
     """The attention backward: (dq [B, Sq, H, D], dk, dv [B, Skv, KH, D]) in
     the inputs' dtypes, from the forward's ``out`` and ``lse`` [B, H, Sq].
 
@@ -100,13 +111,27 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     ``FLASH_P_BF16 = False``), dS = P * (dP - delta) * scale in f32; dK and dV
     accumulated over the q blocks on the expanded heads, then the G query
     heads of each kv head summed onto it; dQ accumulated over kv blocks in
-    f32. A row that sees no key has lse = -1e30 and so P = 1 on every key."""
+    f32. A row that sees no key has lse = -1e30 and so P = 1 on every key.
+
+    ``p_bf16`` is the number of bf16 terms that carry P and dS into the
+    three gradient products dV += P^T dO, dK += dS^T q and dQ = dS k, whose
+    other operands dO, k and q are then rounded to bf16 too (exact for bf16
+    inputs); every product still sums in f32. 0 keeps P and dS in f32. 1
+    rounds each to bf16, the reference's ``FLASH_P_BF16 = True`` (dS formed
+    from the rounded P). 2 carries each as bf16 hi + lo, hi = bf16(x) and
+    lo = bf16(x - hi), 16 significant bits: the bf16 kernel's arithmetic
+    (dS formed from the f32 P)."""
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
     bq, bk = largest_divisor(sq, block_q), largest_divisor(max(skv, 1), block_k)
     scale = 1.0 / math.sqrt(d)
     dev = q.device
+    if p_bf16 not in (0, 1, 2):
+        raise ValueError(f"flash_bwd_ref: p_bf16 must be 0, 1 or 2, got {p_bf16}")
+    same = lambda x: x                          # noqa: E731
+    op = _bf16 if p_bf16 else same              # dO, k, q in a gradient product
+    terms = {0: same, 1: _bf16, 2: _bf16x2}[p_bf16]     # P and dS in one
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)      # [B, H, Sq]
     dq = torch.zeros((b, sq, h, d), dtype=torch.float32, device=dev)
     dks, dvs = [], []
@@ -123,11 +148,13 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
             s = torch.einsum("bqhd,bkhd->bhqk", q_blk, k_full) * scale
             s = s.masked_fill(~_mask(causal, window, q_pos, k_pos)[None, None], NEG_INF)
             p = torch.exp(s - lse[:, :, i0:i0 + bq, None])               # [B, H, bq, bk]
-            dv_acc = dv_acc + torch.einsum("bhqk,bqhd->bkhd", p, do_blk)
+            if p_bf16 == 1:
+                p = _bf16(p)
+            dv_acc = dv_acc + torch.einsum("bhqk,bqhd->bkhd", terms(p), op(do_blk))
             dp = torch.einsum("bqhd,bkhd->bhqk", do_blk, v_full)
-            ds = p * (dp - delta[:, :, i0:i0 + bq, None]) * scale
-            dq[:, i0:i0 + bq] += torch.einsum("bhqk,bkhd->bqhd", ds, k_full)
-            dk_acc = dk_acc + torch.einsum("bhqk,bqhd->bkhd", ds, q_blk)
+            ds = terms(p * (dp - delta[:, :, i0:i0 + bq, None]) * scale)
+            dq[:, i0:i0 + bq] += torch.einsum("bhqk,bkhd->bqhd", ds, op(k_full))
+            dk_acc = dk_acc + torch.einsum("bhqk,bqhd->bkhd", ds, op(q_blk))
         dks.append(dk_acc.reshape(b, bk, kh, g, d).sum(3))
         dvs.append(dv_acc.reshape(b, bk, kh, g, d).sum(3))
     if dks:
@@ -135,3 +162,40 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     else:
         dk, dv = torch.zeros_like(k, dtype=torch.float32), torch.zeros_like(v, dtype=torch.float32)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_exact(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, *,
+                    causal: bool = True, window: int = -1, q_offset: int = 0):
+    """The attention backward in f64 (dq, dk, dv), batch row by batch row:
+    the yardstick the bf16 backward is held to. The reference's formula
+    (FlashAttention-2's, P = exp(s - lse)) on exact scores, with O the f64
+    softmax attention; a row that sees no key has lse = -1e30 here too (f64
+    rounds -1e30 + log Skv back to -1e30), so P = 1 on every key, as the
+    reference and the kernel give it."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    ok = _mask(causal, window, q_offset + torch.arange(sq, device=q.device),
+               torch.arange(skv, device=q.device))
+    outs = []
+    for i in range(b):
+        qd, gd = q[i].double(), dout[i].double()
+        kd, vd = (x[i].double().repeat_interleave(g, 1) for x in (k, v))
+        s = torch.einsum("qhd,khd->hqk", qd, kd) / math.sqrt(d)
+        s = s.masked_fill(~ok, NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        pu = torch.exp(s - m)
+        lsum = pu.sum(-1, keepdim=True)
+        o = torch.einsum("hqk,khd->qhd", pu / lsum, vd)
+        p = torch.exp(s - (m + torch.log(lsum)))
+        del pu
+        dv = torch.einsum("hqk,qhd->khd", p, gd)
+        dp = torch.einsum("qhd,khd->hqk", gd, vd)
+        delta = (gd * o).sum(-1).transpose(0, 1)[..., None]
+        ds = p * (dp - delta) / math.sqrt(d)
+        del p, dp
+        dq = torch.einsum("hqk,khd->qhd", ds, kd)
+        dk = torch.einsum("hqk,qhd->khd", ds, qd)
+        outs.append((dq, dk.reshape(skv, kh, g, d).sum(2), dv.reshape(skv, kh, g, d).sum(2)))
+        del ds
+    return tuple(torch.stack([o[j] for o in outs]) for j in range(3))

@@ -24,7 +24,7 @@ from repro_torch.distributed import sharding
 from repro_torch.models import get_model
 from repro_torch.train.loop import Trainer, TrainerConfig, build_train_fns
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.tree import tree_flatten, tree_leaves
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 CPU = "cpu"
 DENSE = ("tinyllama_1_1b", "smollm_360m", "gemma3_1b", "deepseek_coder_33b")
@@ -73,30 +73,87 @@ def shard_shapes(mesh) -> dict:
     return out
 
 
+def _moments(whole: dict) -> dict:
+    return {k: v for k, v in whole.items() if k.startswith("1/m/")}
+
+
+def _params(whole: dict) -> dict:
+    return {k: v for k, v in whole.items() if k.startswith("0/")}
+
+
+def _pieces(fns, params) -> dict:
+    """This rank's piece of every parameter leaf, keyed by (path, the
+    piece's slices): ranks holding the same piece hold copies of it."""
+    return {(k, str(z.slices(fns.mesh))): _np(x) for (k, x), z in
+            zip(_paths(params).items(), tree_leaves(fns.placements[0]))}
+
+
+def _tree(like, whole: dict):
+    """The tree ``like`` holding ``whole``'s arrays (path -> numpy, as
+    `_whole` gives them) at ``like``'s dtypes."""
+    return tree_unflatten(like, [torch.tensor(whole[k], dtype=x.dtype)
+                                 for k, x in _paths(like).items()])
+
+
 def train_losses(mesh, arch: str, steps: int, opt=ADAMW, seq=64, batch=8, states=False,
-                 **kw) -> dict:
+                 one=None, **kw) -> dict:
     """``steps`` steps from seed 0 on the port's stream: each step's loss
-    and gradient norm and, with ``states`` (rank 0 only), the global first
-    moment after step 1 (0.1 x the clipped gradient, leaf by leaf) and the
-    global parameters after the last step."""
+    and gradient norm and, with ``states``, the global first moment after
+    each step (``m``, rank 0 only: after step 1 it is 0.1 x the clipped
+    gradient, leaf by leaf), the global parameters after the last step
+    (rank 0 only) and, on one rank, the whole global state after each step
+    but the last (``states``); on a mesh, this rank's piece of every
+    parameter leaf after each step (``pieces``). ``one``, one rank's
+    ``states``, adds ``same`` and ``carried`` (`_steps_from_one_rank`)."""
     _, fns = _fns(arch, mesh, opt, **kw)
     pipe = _pipe(arch, seq, batch)
     params, state = fns.init(0)
-    out = dict(losses=[], gnorms=[])
+    out = dict(losses=[], gnorms=[], m=[], pieces=[], states=[])
     keep = states and (mesh is None or torch.distributed.get_rank() == 0)
     for s in range(steps):
         params, state, m = fns.step(params, state, pipe.batch(s), None)
         out["losses"].append(float(m["loss"]))
         out["gnorms"].append(float(m["gnorm"]))
-        if states and s == 0:
+        if states:
             whole = _whole(fns, params, state)
             if keep:
-                out["m1"] = {k: v for k, v in whole.items() if k.startswith("1/m/")}
-    if states:
-        whole = _whole(fns, params, state)
-        if keep:
-            out["params"] = {k: v for k, v in whole.items() if k.startswith("0/")}
+                out["m"].append(_moments(whole))
+            if mesh is None and s < steps - 1:
+                out["states"].append(whole)
+            if mesh is not None:
+                out["pieces"].append(_pieces(fns, params))
+    if states and keep:
+        out["params"] = _params(whole)
+    if one is not None:
+        out.update(_steps_from_one_rank(fns, arch, opt, one, pipe, keep, **kw))
     return out
+
+
+def _steps_from_one_rank(fns, arch: str, opt, wholes: list, pipe, keep: bool, **kw) -> dict:
+    """On ``fns``'s mesh, from ``wholes``, one rank's global state after
+    each step s = 1 .. n - 1 (resharded with `sharding.shard_tree`):
+    ``same``, step s + 1 from each, its loss, gradient norm and (rank 0
+    only) first moment and parameters after it; ``carried`` (rank 0 only),
+    the parameters after steps 2 .. n all taken on the mesh from one
+    rank's state after step 1, the mesh carrying its own optimizer state
+    from step to step."""
+    like = _fns(arch, None, opt, **kw)[1].init(0)
+
+    def sharded(whole):
+        return sharding.shard_tree(_tree(like, whole), fns.placements, fns.mesh)
+
+    same = []
+    for s, whole in enumerate(wholes, start=1):
+        p, st, m = fns.step(*sharded(whole), pipe.batch(s), None)
+        after = _whole(fns, p, st)
+        same.append(dict(loss=float(m["loss"]), gnorm=float(m["gnorm"]),
+                         m=_moments(after) if keep else None,
+                         params=_params(after) if keep else None))
+    p, st = sharded(wholes[0])
+    for s in range(1, len(wholes) + 1):
+        p, st, _ = fns.step(p, st, pipe.batch(s), None)
+    carried = _params(_whole(fns, p, st))
+    return dict(same=same, carried=carried if keep else None)
 
 
 def from_jax(mesh, inputs: dict, arch: str, steps: int) -> dict:
@@ -201,7 +258,9 @@ def run(mesh, inputs: dict, tmp: str) -> dict:
         if case == "shapes":
             out[case] = shard_shapes(mesh)
         elif case == "losses":
-            out[case] = {a: train_losses(mesh, a, 3, states=True) for a in DENSE}
+            one = inputs.get("one_states", {})
+            out[case] = {a: train_losses(mesh, a, 3, states=True, one=one.get(a))
+                         for a in DENSE}
         elif case == "pin-adamw":
             out[case] = train_losses(mesh, "smollm_360m", 5)
         elif case == "pin-adamw-jax":

@@ -5,7 +5,10 @@ backward kernel is held against on the card, and autograd through
 tests/test_models.py's four shapes and with ``q_offset``; the forward's
 log-sum-exp against `_flash_fwd_impl`'s; and a row that sees no key. f32,
 atol = rtol = 2e-5: the blocks are the reference's, only the order of some
-sums differs."""
+sums differs. The twin's ``p_bf16`` arithmetic: P and dS rounded to bf16
+against `_flash_vjp_bwd` under the reference's FLASH_P_BF16, and split into
+bf16 hi + lo (the bf16 kernel's) against the f32 twin. The f64 backward
+`flash_bwd_exact` against the same ``jax.grad``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +18,8 @@ import torch
 from repro.models import layers as jlayers
 from repro_torch import kernels as tk
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention_bwd
-from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_bwd_ref, flash_fwd_ref
+from repro_torch.kernels.flash_attention.ref import (NEG_INF, flash_bwd_exact, flash_bwd_ref,
+                                                     flash_fwd_ref)
 from repro_torch.models import layers as tlayers
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -120,6 +124,78 @@ def test_row_that_sees_no_key_matches_jax_grad(q_offset, win, causal):
         want_dv = only_blind.reshape(2, 128, 2, 2, 32).sum((1, 3))       # [B, KH, D]
         np.testing.assert_allclose(dv.numpy(), want_dv[:, None].expand(2, 128, 2, 32).numpy(),
                                    **TOL)
+
+
+BLIND = [(-64, -1, True), (-40, 32, True), (100, 24, False)]   # rows that see no key
+P_BF16_CASES = ([c for c in CASES]
+                + [(128, 128, off, 4, 2, 32, win, causal) for off, win, causal in BLIND])
+
+
+def _twin_and_reference(sq, skv, q_offset, h, kh, d, win, causal, p_bf16, monkeypatch):
+    """The port's twin with ``p_bf16`` and the reference's `_flash_vjp_bwd`
+    with FLASH_P_BF16 = True, on the same inputs and the same forward (the
+    twin's out and lse), as numpy (dq, dk, dv) pairs."""
+    q, k, v, ct = _inputs(sq + skv + h * d + q_offset + 5, 2, sq, skv, h, kh, d)
+    tq, tk_, tv, tct = (torch.from_numpy(a) for a in (q, k, v, ct))
+    kw = dict(causal=causal, window=win, q_offset=q_offset, **BLOCKS)
+    out, lse = flash_fwd_ref(tq, tk_, tv, return_lse=True, **kw)
+    got = flash_bwd_ref(tq, tk_, tv, out, lse, tct, p_bf16=p_bf16, **kw)
+    monkeypatch.setattr(jlayers, "FLASH_P_BF16", True)
+    res = tuple(jnp.asarray(a) for a in (q, k, v, out.numpy(), lse.numpy())) + (jnp.int32(win),)
+    want = jlayers._flash_vjp_bwd(causal, q_offset, 64, 64, res, jnp.asarray(ct))[:3]
+    return [(g.numpy(), np.asarray(w)) for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("sq,skv,q_offset,h,kh,d,win,causal", P_BF16_CASES)
+def test_bf16_operand_twin_matches_flash_p_bf16(sq, skv, q_offset, h, kh, d, win, causal,
+                                                monkeypatch):
+    """``p_bf16=1`` (P and dS rounded to bf16, and the gradient products'
+    dO, k and q) against the reference's backward under FLASH_P_BF16, on
+    the same out and lse: within 2e-4 of each gradient's largest entry (a P
+    or dS entry that the f32 sums' order rounds to the other bf16 neighbour
+    moves an output by one bf16 ulp of that term; measured: up to 7.6e-5),
+    where the f32 twin is more than 5x that off (measured: 1.7e-3 to
+    6.0e-3), so the rounding is what agrees."""
+    for got, want in _twin_and_reference(sq, skv, q_offset, h, kh, d, win, causal, 1,
+                                         monkeypatch):
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-4 * np.abs(want).max())
+    off = max(np.abs(got - want).max() / np.abs(want).max() for got, want in
+              _twin_and_reference(sq, skv, q_offset, h, kh, d, win, causal, 0, monkeypatch))
+    assert off > 5 * 2e-4, off
+
+
+@pytest.mark.parametrize("sq,skv,q_offset,h,kh,d,win,causal", P_BF16_CASES)
+def test_split_twin_carries_f32_p(sq, skv, q_offset, h, kh, d, win, causal):
+    """``p_bf16=2`` (P and dS as bf16 hi + lo, the bf16 kernel's arithmetic)
+    on bf16-exact inputs held in f32: within 2e-5 of each gradient's largest
+    entry of the f32 twin (hi + lo carries 16 significant bits)."""
+    q, k, v, ct = (torch.from_numpy(a).bfloat16().float()
+                   for a in _inputs(sq + skv + d, 2, sq, skv, h, kh, d))
+    kw = dict(causal=causal, window=win, q_offset=q_offset, **BLOCKS)
+    out, lse = flash_fwd_ref(q, k, v, return_lse=True, **kw)
+    want = flash_bwd_ref(q, k, v, out, lse, ct, **kw)
+    def off(p_bf16):
+        got = flash_bwd_ref(q, k, v, out, lse, ct, p_bf16=p_bf16, **kw)
+        return max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+
+    assert off(2) <= 2e-5
+    assert off(1) > 2e-4                          # P and dS rounded to bf16 alone
+    with pytest.raises(ValueError, match="p_bf16"):
+        flash_bwd_ref(q, k, v, out, lse, ct, p_bf16=3, **kw)
+
+
+@pytest.mark.parametrize("sq,skv,q_offset,h,kh,d,win,causal", P_BF16_CASES)
+def test_exact_backward_matches_jax_grad(sq, skv, q_offset, h, kh, d, win, causal):
+    """`flash_bwd_exact`, the f64 yardstick of the bf16 kernel on the card,
+    against ``jax.grad`` through the reference's attention (f32) at TOL,
+    rows that see no key included."""
+    q, k, v, ct = _inputs(sq + skv + h * d + q_offset + 9, 2, sq, skv, h, kh, d)
+    kw = dict(causal=causal, window=win, q_offset=q_offset)
+    want = _jax_grads(q, k, v, ct, **kw, **BLOCKS)
+    got = flash_bwd_exact(*(torch.from_numpy(a) for a in (q, k, v, ct)), **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64
+        np.testing.assert_allclose(a.numpy(), b, **TOL)
 
 
 def test_bf16_backward_rounds_once_at_the_output():

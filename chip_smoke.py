@@ -9,7 +9,8 @@ fallback, and a missing GPU is a failure):
 1. card: the GPU's name and power limit (nvidia-smi); build the CUDA kernels
    from src/repro_torch/csrc with nvcc and print the build seconds; count
    instructions in the built library's SASS (cuobjdump): HGMMA/HMMA in the
-   bf16 attention kernel, IGMMA/IMMA and no IDP4A in assoc_matmul, LDGSTS
+   bf16 attention kernel (HGMMA in its D = 112 instance), IGMMA/IMMA and no
+   IDP4A in assoc_matmul, LDGSTS
    (16-byte cp.async) in the sparse kernels, BMMA (1-bit tensor-core
    products) in the Hamming search and top-k kernels and BGMMA (1-bit
    warpgroup products) in the top-1, 16-byte loads in the majority kernel,
@@ -38,8 +39,11 @@ fallback, and a missing GPU is a failure):
    bf16), gemma3-1b's layer shape (4 heads over 1, D = 256, window 512 and
    global), non-causal, ragged, a prefill chunk (q_offset 512), f32,
    deepseek-coder-33b's layer shape (56 heads over 8, D = 128), D = 16 and
-   32, and rows that see no key (q_offset -64) -- within atol = rtol = 2e-2
-   in bf16 and 1e-5 in f32; each with the kernel's median
+   32, rows that see no key (q_offset -64), Mixtral-8x22B's layer (48 heads
+   over 8, D = 128, window 4096) at B = 8 x 1024 and B = 1 x 8192, and
+   Kimi-K2's (64 heads over 8, D = 112) in bf16 and f32 -- within atol =
+   rtol = 2e-2 in bf16 and 1e-5 in f32 (the backward kernel refuses D = 112
+   by name, before any launch); each with the kernel's median
    device time (CUDA-graph replay) and eager call time, the plain version's
    time, one PyTorch library call's where one computes the same function
    (for the Hamming searches also one bf16 `torch.bmm` on the +-1
@@ -261,7 +265,26 @@ fallback, and a missing GPU is a failure):
    the attention forward twice a layer and the backward once, and nothing
    else of the table; rank 0's ms a step and tokens/s, each rank's peak
    memory and wire bytes a step. A rank that fails or outlives TR_TIMEOUT
-   fails the phase.
+   fails the phase;
+20. the MoE decoder at its published widths, depth cut to fit the card
+   (MOE_RUNS; bf16 weights drawn from the seed, large leaves slice by
+   slice): Mixtral-8x22B at 12 of 56 layers, then Kimi-K2 at 1 of 61, one
+   model on the card at a time, each on phase 11's trace through
+   `Engine.generate`: the layer count of attention launches a generate
+   and no other kernel (Kimi's at D = 112), two generates bit-identical,
+   time to first token, decode ms a token, tokens/s, peak memory; in a
+   recorded prefill every (group, expert) keeps min(load, C) of its
+   assignments (the drop share at capacity 1.25 printed), every layer's
+   attention on its own inputs no further off f64 than FLASH_BF16_VS_TWIN
+   times its twin, and layer 0's MoE block on its own input against its
+   f64 evaluation expert by expert: every assignment whose f64 margin
+   exceeds MOE_MARGIN routed alike, max |diff| over the tokens routed
+   alike within MOE_BF16_BOUND; where a prefill's device time goes (CUDA
+   events on layer 0's parts: attention, routing, dispatch, expert GEMMs,
+   combine, the rest). Between the two, Mixtral at 2 layers in f32 with
+   nothing dropped (MOE_RING): a 4352-token prompt into the 4096-slot
+   ring, 16 decodes through it, each within 5e-3 of the whole sequence's
+   prefill at its position.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
@@ -280,7 +303,9 @@ the timed calls are not counted) and, on every rank of phase 18, the
 process serves of (a), the fault-aware serves of (b) and the engines' runs
 of (c) (the one-rank runs, the fault-free and standalone comparison serves
 and the warm rings are not counted), and every training step on every rank
-of phase 19 (the one-rank comparison steps are not counted);
+of phase 19 (the one-rank comparison steps are not counted), and phase
+20's generates (its recorded prefills, checks, timings and the ring check
+are not counted);
 the d = 8192 comparisons, the
 keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
 quarantine check are not counted), and as the last line {"ok": true, ...}.
@@ -295,7 +320,8 @@ unpacked, and of the per-slot fan-out), of phase 14's bsc baseline
 serves at the paper's configuration, fault-free and fault-aware, of one
 continuous LM step at N = 4 beside one static decode step at B = 4 and of a
 1024-token prompt's whole prefill beside its four chunks of 256, of two
-TinyLlama-1.1B training steps (with the backward kernel's share), and of
+TinyLlama-1.1B training steps (with the backward kernel's share), of
+phase 20's two MoE prefills (the attention kernel's share), and of
 the LM prefill (with
 the attention kernel's share of its device time) and decode step under
 torch.profiler (device busy time, idle share, top device ops per call), and
@@ -483,6 +509,23 @@ TR = dict(arch="tinyllama-1.1b", batch=4, seq=1024, steps=4, loss_rtol=5e-4, gno
 TR_RUNS = {(1, 2): (("adamw", None),), (2, 1): (("adamw", None), ("sign", None)),
            (2, 2): (("adamw", 2),)}
 TR_TIMEOUT = 600                 # seconds a grid's ranks may take, their start included
+# phase 20: the MoE decoder at its published widths on one card, depth cut to
+# fit 80 GB (src/repro/configs/mixtral_8x22b.py and kimi_k2.py; bf16 weights
+# drawn from the seed): Mixtral-8x22B at 12 of 56 layers (30.45 B parameters,
+# 60.9 GB) and Kimi-K2 at 1 of 61 (38.8 GB; 2 layers would need 73 GB), each
+# on phase 11's trace (LM); then Mixtral's ring decode past its 4096 window at
+# 2 layers in f32, capacity_factor E/k so that nothing drops, B 1 x prompt
+# 4352 x 16 new (the 2-layer f32 model, 21.6 GB, alone on the card)
+MOE_RUNS = (("mixtral-8x22b", 12), ("kimi-k2", 1))
+MOE_RING = dict(arch="mixtral-8x22b", layers=2, prompt_len=4352, new=16)
+# one MoE layer in bf16 on the prefill's layer-0 input against its f64
+# evaluation: every (token, k) assignment whose f64 probability margin to its
+# neighbours in rank exceeds MOE_MARGIN routed alike, and over the tokens
+# routed alike max |diff| within MOE_BF16_BOUND: about 3x what this tree
+# shows on an H100 80GB HBM3 at 700 W (0.01776 and 0.01895, max |f64 out|
+# 2.748 and 3.813; PERF.md §6)
+MOE_MARGIN = 1e-5
+MOE_BF16_BOUND = {"mixtral-8x22b": 0.05, "kimi-k2": 0.06}
 # phase 16 (a): the backward kernel's cases, label -> (B, Sq, Skv, H, KH, D,
 # causal, window, q_offset, dtype); the training shape first
 FLASH_BWD_CASES = [
@@ -597,19 +640,24 @@ def sass_counts(lib: Path) -> dict:
     ops = sorted({op for want, bad in SASS_RULES.values() for op in want + bad})
     pats = {op: re.compile(_op_pattern(op)) for op in ops}
     counts = {name: dict.fromkeys(ops, 0) for name in SASS_RULES}
-    simt, gone, current = {n: [] for n in SIMT_ATTENTION}, [], None
+    simt, gone, current, fn = {n: [] for n in SIMT_ATTENTION}, [], None, None
+    instances = {}
     for line in text.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             current = next((n for n in SASS_RULES if n in fn), None)
+            if current is not None:
+                instances[fn] = dict.fromkeys(ops, 0)
             for n in SIMT_ATTENTION:
                 if n in fn:
                     simt[n].append(fn)
             gone += [fn for n in GONE if n in fn]
         elif current is not None:
             for op, pat in pats.items():
-                counts[current][op] += len(pat.findall(line))
-    return dict(counts=counts, simt_attention=simt, gone=gone)
+                hits = len(pat.findall(line))
+                counts[current][op] += hits
+                instances[fn][op] += hits
+    return dict(counts=counts, instances=instances, simt_attention=simt, gone=gone)
 
 
 def ptxas_report(lib: Path) -> dict:
@@ -637,21 +685,22 @@ def _events(torch):
     return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
 
-def call_ms(torch, fn, samples: int = 7) -> float:
-    """Median time of one eager call of `fn` issued back to back from Python:
-    the device time or, when the host issues slower than the device runs,
-    the host's cost per call (what an eager caller pays)."""
+def call_ms(torch, fn, samples: int = 7, reps: int = 20) -> float:
+    """Median time of one eager call of `fn` issued back to back from Python
+    (``samples`` runs of ``reps`` calls): the device time or, when the host
+    issues slower than the device runs, the host's cost per call (what an
+    eager caller pays). Calls of tens of ms take one sample of a few."""
     fn()
     torch.cuda.synchronize()
     start, end = _events(torch)
     per_call = []
     for _ in range(samples):
         start.record()
-        for _ in range(20):
+        for _ in range(reps):
             fn()
         end.record()
         end.synchronize()
-        per_call.append(start.elapsed_time(end) / 20)
+        per_call.append(start.elapsed_time(end) / reps)
     return statistics.median(per_call)
 
 
@@ -1085,8 +1134,11 @@ def flash_cases(torch, gen):
     layer shape at its full width (windowed and global), non-causal, a ragged
     length, a prefill chunk (q_offset = 512 over a 768-key prefix), f32 at
     the prefill's shape, deepseek-coder-33b's layer shape (B = 2), the two
-    smallest head dims, and a causal q_offset of -64 (queries 0-63 see no
-    key and take the mean of V over all keys). Tolerances: f32 atol = rtol =
+    smallest head dims, a causal q_offset of -64 (queries 0-63 see no
+    key and take the mean of V over all keys), and phase 20's layers:
+    Mixtral-8x22B's (48 heads over 8, D = 128, window 4096) at B = 8 x 1024
+    and at B = 1 x 8192, past the window, and Kimi-K2's (64 heads over 8,
+    D = 112) in bf16 and f32. Tolerances: f32 atol = rtol =
     1e-5 (only the order of the sums differs); bf16 atol = rtol = 2e-2, compared in f32 (both
     sides round to bf16 once at the output). The library call is
     F.scaled_dot_product_attention on the same tensors (is_causal where that
@@ -1109,7 +1161,14 @@ def flash_cases(torch, gen):
             ("D=16", (2, 300, 300, 4, 2, 16, True, -1, 0, torch.bfloat16)),
             ("D=32", (2, 300, 300, 4, 2, 32, True, -1, 0, torch.bfloat16)),
             # queries 0-63 see no key: the mean of V over all 128 keys
-            ("fully masked rows", (2, 128, 128, 4, 2, 64, True, -1, -64, torch.bfloat16))]:
+            ("fully masked rows", (2, 128, 128, 4, 2, 64, True, -1, -64, torch.bfloat16)),
+            # phase 20's layers: Mixtral-8x22B (window 4096 on every layer) at the
+            # serve's shape and past its window, Kimi-K2 at D = 112
+            ("mixtral-8x22b", (8, 1024, 1024, 48, 8, 128, True, 4096, 0, torch.bfloat16)),
+            ("mixtral-8x22b windowed", (1, 8192, 8192, 48, 8, 128, True, 4096, 0,
+                                        torch.bfloat16)),
+            ("kimi-k2", (8, 1024, 1024, 64, 8, 112, True, -1, 0, torch.bfloat16)),
+            ("kimi-k2 f32", (8, 1024, 1024, 64, 8, 112, True, -1, 0, torch.float32))]:
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, skv, kh, d, generator=gen, device="cuda").to(dt)
                 for _ in range(2))
@@ -1194,7 +1253,30 @@ def phase_kernels(torch, gen) -> dict:
               f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms"
               f"{'' if bmm_ms is None else f', bf16 bmm {bmm_ms:.5f} ms'}, bound "
               f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {ops} {kind} ops)", flush=True)
+    results["flash_attention_bwd D=112"] = bwd_refuses_112(torch)
     return results
+
+
+def bwd_refuses_112(torch) -> str:
+    """The backward kernel is not built for Kimi-K2's D = 112 (the forward
+    is): on CUDA tensors its wrapper refuses before any launch, naming the
+    ROADMAP."""
+    from repro_torch import kernels as tk
+
+    q, k, v = (torch.zeros(1, 64, 2, 112, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    out, lse = tk.flash_attention_fwd(q, k, v, return_lse=True)
+    before = tk.flash_attention_bwd.launches
+    try:
+        tk.flash_attention_bwd(q, k, v, out, lse, out)
+        said = None
+    except NotImplementedError as e:
+        said = str(e)
+    require(said is not None and "ROADMAP" in said and tk.flash_attention_bwd.launches == before,
+            f"flash_attention_bwd at D = 112: not refused by name before a launch ({said})")
+    print(f"kernel flash_attention_bwd [D=112 bf16]: refused before any launch: {said}",
+          flush=True)
+    return said
 
 
 # ---------------------------------------------------------------------------
@@ -5237,6 +5319,370 @@ def phase_train_ranks(torch, launches: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the MoE decoder (Mixtral-8x22B and Kimi-K2 at published width)
+# ---------------------------------------------------------------------------
+
+def moe_cfg(arch: str, layers: int, dtype=None, **moe_changes):
+    """The published config cut to its first ``layers`` layers (the window
+    pattern with them), in ``dtype`` and with ``moe_changes`` if given."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    kw = dict(n_layers=layers)
+    if cfg.window_pattern is not None:
+        kw["window_pattern"] = cfg.window_pattern[:layers]
+    if moe_changes:
+        kw["moe"] = dataclasses.replace(cfg.moe, **moe_changes)
+    if dtype is not None:
+        kw["dtype"] = dtype
+    return dataclasses.replace(cfg, **kw)
+
+
+@contextlib.contextmanager
+def moe_taps():
+    """Within the block, the MoE module's ``route`` results (a list, one a
+    layer a call) and the first ``apply`` call's input (``first["x"]``) are
+    kept; both run unchanged."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    routes, first = [], {}
+    route, apply = moe.route, moe.apply
+
+    def tap_route(*args, **kwargs):
+        routes.append(route(*args, **kwargs))
+        return routes[-1]
+
+    def tap_apply(p, cfg, x, *args, **kwargs):
+        first.setdefault("x", x)
+        return apply(p, cfg, x, *args, **kwargs)
+
+    with mock.patch.object(moe, "route", tap_route), mock.patch.object(moe, "apply", tap_apply):
+        yield routes, first
+
+
+def moe_routing_stats(torch, routes) -> dict:
+    """Over a prefill's routings (one a layer): how many (group, expert)
+    cells keep other than min(load, C) of their assignments (the gate: 0),
+    and the (token, k) assignments dropped at capacity."""
+    off = kept = total = 0
+    for r in routes:
+        oh = torch.zeros(r.idx.shape + (r.probs.shape[-1],), device=r.idx.device)
+        oh.scatter_(-1, r.idx[..., None], 1.0)                       # [G, Tg, K, E]
+        load = oh.sum(dim=(1, 2))                                     # [G, E]
+        held = (oh * r.keep[..., None]).sum(dim=(1, 2))
+        off += int((held != load.clamp_max(r.capacity)).sum())
+        kept += int(r.keep.sum())
+        total += r.keep.numel()
+    return dict(cells_off=off, dropped=total - kept, assignments=total,
+                drop_share=(total - kept) / total, capacity=routes[0].capacity,
+                groups=routes[0].idx.shape[0], group_tokens=routes[0].idx.shape[1])
+
+
+def moe_layer_vs_f64(torch, p: dict, cfg, x) -> dict:
+    """One MoE layer, `moe.apply` in bf16 on its input x, against its f64
+    evaluation expert by expert (a whole f64 layer of Mixtral-8x22B is 19 GB
+    and does not fit beside the model). The f64 routing is written here
+    apart from `moe.route` and `moe.combine_weights`, so that a fault of
+    theirs shows: the top-k by k first-index argmaxes (ties to the lower
+    expert), the slot-major cumsum over a one-hot, and the combine weights
+    as the reference's dense one-hot product. Each expert's slots go
+    through its weights widened to f64 one expert at a time; the shared
+    expert in f64. Each (token, k) assignment's margin is the f64
+    probability gap to its neighbours in rank; those above MOE_MARGIN must
+    route alike. The error is over the tokens whose experts and kept flags
+    agree."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+    from repro_torch.models.layers import act_fn
+
+    m, act = cfg.moe, act_fn(cfg.act)
+    b, s, d = x.shape
+    e_n, k = m.n_experts, m.top_k
+    tg = min(m.group_size, b * s)
+    while (b * s) % tg:
+        tg -= 1
+    g = b * s // tg
+    got, _ = moe.apply(p, cfg, x)
+    rb = moe.route(p["router"], cfg, x.reshape(g, tg, d))
+    x64 = x.double().reshape(g, tg, d)
+    probs = torch.softmax(x64 @ p["router"].double(), dim=-1)          # [G, Tg, E]
+    left, picks = probs.clone(), []
+    for _ in range(k):
+        j = left.argmax(-1)                                            # the first maximum
+        picks.append(j)
+        left.scatter_(-1, j[..., None], -math.inf)
+    idx = torch.stack(picks, -1)                                       # [G, Tg, K]
+    gate = probs.gather(-1, idx)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    oh = F.one_hot(idx.transpose(1, 2).reshape(g, k * tg), e_n)         # slot-major
+    pos = ((oh.cumsum(1) - 1) * oh).sum(-1).reshape(g, k, tg).transpose(1, 2)
+    c = max(4, -(-math.ceil(tg * k / e_n * m.capacity_factor) // 4) * 4)
+    keep = pos < c
+    comb = torch.einsum("gtke,gtkc->gtec", F.one_hot(idx, e_n).double() * (gate * keep)[..., None],
+                        F.one_hot(pos.clamp_max(c), c + 1)[..., :c].double())
+    want = torch.zeros_like(x64)
+    for e in range(e_n):
+        ce = comb[:, :, e]                                             # [G, Tg, C]
+        xe = torch.bmm((ce > 0).double().transpose(1, 2), x64).reshape(g * c, d)
+        h = act(xe @ p["wg"][e].double()) * (xe @ p["wu"][e].double())
+        want += torch.bmm(ce, (h @ p["wd"][e].double()).reshape(g, c, d))
+    if m.n_shared:
+        sh, xs = p["shared"], x64.reshape(g * tg, d)
+        want += ((act(xs @ sh["wg"].double()) * (xs @ sh["wu"].double()))
+                 @ sh["wd"].double()).reshape(g, tg, d)
+    ranked = torch.sort(probs, dim=-1, descending=True).values
+    gaps = ranked[..., :-1] - ranked[..., 1:]                          # rank j vs j + 1
+    below = gaps[..., :k]
+    above = torch.cat([torch.full_like(below[..., :1], math.inf), gaps[..., :k - 1]], -1)
+    sure = torch.minimum(below, above) > MOE_MARGIN                    # [G, Tg, K]
+    same = rb.idx == idx
+    alike = (same & (rb.keep == keep)).all(-1)                         # [G, Tg]
+    err = (got.double().reshape(g, tg, d) - want).abs().amax(-1)
+    return dict(assignments=sure.numel(), checked=int(sure.sum()),
+                checked_differ=int((sure & ~same).sum()), differ=int((~same).sum()),
+                tokens=alike.numel(), tokens_alike=int(alike.sum()),
+                err=float(err[alike].max()), err_all_tokens=float(err.max()),
+                f64_max=float(want.abs().max()), drop_share_f64=float(1 - keep.double().mean()))
+
+
+def moe_serve(torch, arch: str, layers: int, launches: dict, profile: bool) -> dict:
+    """One MoE decoder at its published width, cut to ``layers`` layers, bf16
+    weights from the seed, on phase 11's trace: the counted generates, time
+    to first token, decode ms a token, tokens/s and peak memory; then one
+    recorded prefill (every layer's attention inputs, routing, and layer 0's
+    MoE input) for the gates and the device-time breakdown."""
+    from repro_torch import kernels as tk
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    from repro_torch.models import count_params, get_model, init_params, moe
+    from repro_torch.models.transformer import _layer
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.tree import tree_leaves
+
+    dev = "cuda"
+    b, s, new = LM["batch"], LM["prompt_len"], LM["max_new"]
+    cfg = moe_cfg(arch, layers)
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_gib = torch.cuda.memory_allocated() / 2**30      # what earlier phases hold
+    t0 = time.perf_counter()
+    params = init_params(model.specs, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    toks = torch.randint(0, cfg.vocab, (b, s), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    prompt = {"tokens": toks}
+    eng = Engine(model, ServeConfig(max_new=new))
+    what = f"moe {arch} ({layers} layers)"
+
+    gen_s, outs = [], []
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    for _ in range(LM_GENERATES):
+        t0 = time.perf_counter()
+        outs.append(eng.generate(params, prompt))
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    counts = tk.launch_counts()
+    require_only(counts, ("flash_attention_fwd",), f"{what} generate")
+    require(counts["flash_attention_fwd"] == layers * LM_GENERATES,
+            f"{what}: {counts['flash_attention_fwd']} attention launches in {LM_GENERATES} "
+            f"generates, expected {layers} a generate")
+    add_launches(launches, counts)
+    require(tuple(outs[0].shape) == (b, new) and
+            bool(((outs[0] >= 0) & (outs[0] < cfg.vocab)).all()),
+            f"{what}: tokens {tuple(outs[0].shape)} out of shape or range")
+    require(torch.equal(outs[0], outs[1]), f"{what}: two generates differ in "
+                                           f"{int((outs[0] != outs[1]).sum())} tokens")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    ttft_ms, dec_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill_fn(params, prompt, pad_to=s + new + 1)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(new):
+            step, cache = model.decode_fn(params, cache, tok, s + i)
+            tok = torch.argmax(step, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        ttft_ms.append((t1 - t0) * 1e3)
+        dec_ms.append((time.perf_counter() - t1) / new * 1e3)
+    require(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all()),
+            f"{what}: logits not finite")
+    del cache, logits, step
+    tok_s = b * new / statistics.median(gen_s[1:])
+    out = dict(arch=cfg.name, layers=layers, params=count_params(model.specs),
+               weight_gb=weight_gb, init_s=init_s, generate_s=gen_s, ttft_ms=ttft_ms,
+               decode_ms_per_token=dec_ms, tokens_per_s=tok_s, peak_gib=peak_gib,
+               held_before_gib=before_gib, launches=counts["flash_attention_fwd"])
+    print(f"moe serve: {cfg.name} at {layers} of its layers ({out['params']} parameters, "
+          f"{weight_gb:.2f} GB, drawn in {init_s:.1f} s; d {cfg.d_model}, {cfg.moe.n_experts} "
+          f"experts top-{cfg.moe.top_k}, head dim {cfg.hd}, bf16), batch {b} x prompt {s} x "
+          f"{new} new, greedy: prefill (time to first token) {statistics.median(ttft_ms):.3f} ms, "
+          f"decode {statistics.median(dec_ms):.3f} ms/token, generate {gen_s[0]:.3f} s cold / "
+          f"{statistics.median(gen_s[1:]):.3f} s warm ({tok_s:.1f} generated tokens/s), peak "
+          f"memory {peak_gib:.2f} GiB ({before_gib:.2f} held before the draw)", flush=True)
+
+    # one recorded prefill: the gates' inputs
+    seen, whole = [], {}
+
+    def record(q, k, v, **kw):
+        whole.setdefault("qkv", (q, k, v, kw))
+        seen.append((q[:2], k[:2], v[:2], kw))
+        return tk.flash_attention_fwd(q, k, v, **kw)
+
+    with using(record), moe_taps() as (routes, first):
+        model.prefill_fn(params, prompt)
+    stats = moe_routing_stats(torch, routes)
+    require(len(routes) == layers and stats["cells_off"] == 0,
+            f"{what}: {stats['cells_off']} (group, expert) cells keep other than "
+            f"min(load, C) over {len(routes)} layers")
+    rows = []
+    for q, k, v, kw in seen:
+        want = exact_attention(torch, q, k, v, **kw)
+        rows.append(tuple(float((got.double() - want).abs().max()) for got in (
+            tk.flash_attention_fwd(q, k, v, **kw), flash_fwd_ref(q, k, v, **kw))))
+        del want
+    del seen
+    require(len(rows) == layers and all(a <= FLASH_BF16_VS_TWIN * t for a, t in rows),
+            f"{what}: a layer's attention off f64 by more than {FLASH_BF16_VS_TWIN}x the "
+            f"twin's: {rows}")
+    p0 = _layer(params["blocks"], 0)["mlp"]
+    x0 = first["x"]
+    f64 = moe_layer_vs_f64(torch, p0, cfg, x0)
+    require(f64["checked_differ"] == 0,
+            f"{what}: {f64['checked_differ']} assignments with f64 margin > {MOE_MARGIN} "
+            f"routed unlike the f64 evaluation")
+    require(f64["err"] <= MOE_BF16_BOUND[arch],
+            f"{what}: layer 0's MoE off its f64 evaluation by {f64['err']} > "
+            f"{MOE_BF16_BOUND[arch]}")
+    out.update(routing=stats, attention_err_vs_f64=rows, moe_vs_f64=f64)
+
+    # where a prefill's device time goes: layer 0's parts on its own input
+    m = cfg.moe
+    tg = moe.group_tokens(b * s, m.group_size)
+    g, e, d = b * s // tg, m.n_experts, cfg.d_model
+    xg = x0.reshape(g, tg, d)
+    comb = moe.combine_weights(moe.route(p0["router"], cfg, xg), cfg.dtype)
+    c = comb.shape[-1] // e
+    xe = moe.dispatch(xg, comb).reshape(g, e, c, d).transpose(0, 1).reshape(e, g * c, d)
+    ye = moe.experts(p0, cfg, xe).reshape(e, g, c, d).transpose(0, 1).reshape(g, e * c, d)
+    q, k, v, kw = whole["qkv"]
+    parts = dict(
+        prefill=call_ms(torch, lambda: model.prefill_fn(params, prompt), 1, 2),
+        attention=call_ms(torch, lambda: tk.flash_attention_fwd(q, k, v, **kw), 1, 3),
+        moe_layer=call_ms(torch, lambda: moe.apply(p0, cfg, x0), 1, 3),
+        route=call_ms(torch, lambda: moe.combine_weights(moe.route(p0["router"], cfg, xg),
+                                                        cfg.dtype), 1, 3),
+        dispatch=call_ms(torch, lambda: moe.dispatch(xg, comb), 1, 3),
+        experts=call_ms(torch, lambda: moe.experts(p0, cfg, xe), 1, 3),
+        combine=call_ms(torch, lambda: moe.combine(comb, ye), 1, 3))
+    del xe, ye, comb, whole
+    per_layer = parts["attention"] + parts["moe_layer"]
+    parts["rest"] = parts["prefill"] - layers * per_layer
+    flops = dict(dispatch_combine=2 * 2 * b * s * e * c * d,
+                 experts=3 * 2 * e * g * c * d * m.d_expert)
+    out.update(prefill_parts_ms=parts, moe_flops=flops)
+    print(f"moe profile {arch} prefill (CUDA events; layer 0's parts on its own input, x "
+          f"{layers} layers): prefill {parts['prefill']:.3f} ms; a layer: attention kernel "
+          f"{parts['attention']:.3f}, MoE block {parts['moe_layer']:.3f} (routing and slots "
+          f"{parts['route']:.3f}, dispatch {parts['dispatch']:.3f}, expert GEMMs "
+          f"{parts['experts']:.3f}, combine {parts['combine']:.3f}); the rest of the prefill "
+          f"{parts['rest']:.3f} (projections, norms, RoPE, head); G {g} x Tg {tg}, C {c}: "
+          f"dispatch + combine {flops['dispatch_combine'] / 1e12:.3f} TFLOP, experts "
+          f"{flops['experts'] / 1e12:.3f} TFLOP a layer", flush=True)
+    if profile:
+        out["profile prefill"] = profile_calls(torch, f"moe {arch} prefill bf16", [
+            lambda: model.prefill_fn(params, prompt)], share_of="flash_fwd")
+    worst = max(a for a, _ in rows), max(t for _, t in rows)
+    print(f"moe checks {arch}: {out['launches']} attention launches in {LM_GENERATES} "
+          f"generates ({layers} each, D = {cfg.hd}), nothing else launched; two generates "
+          f"bit-identical; every (group, expert) keeps min(load, C = {stats['capacity']}), "
+          f"{stats['dropped']} of {stats['assignments']} (token, k) assignments dropped "
+          f"({stats['drop_share']:.4f}) in the prefill; every layer's attention vs f64, "
+          f"worst max |err| kernel / twin {worst[0]:.4g} / {worst[1]:.4g}; layer 0's MoE vs "
+          f"f64: {f64['checked']} of {f64['assignments']} assignments with margin > "
+          f"{MOE_MARGIN} all routed alike ({f64['differ']} differ in all), max |err| over "
+          f"{f64['tokens_alike']} of {f64['tokens']} tokens routed alike {f64['err']:.4g} "
+          f"(bound {MOE_BF16_BOUND[arch]}; all tokens {f64['err_all_tokens']:.4g}, max "
+          f"|f64| {f64['f64_max']:.4g})", flush=True)
+    del params, prompt, eng, x0, first, p0, routes
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_ring(torch) -> dict:
+    """Mixtral-8x22B at its published width, MOE_RING's 2 layers in f32
+    (capacity_factor E/k: an expert's capacity is its group's tokens, so
+    nothing drops and grouping cannot change a token's output), with the
+    attention projections at fan-in over their contraction (phase 11's f32
+    gates): B 1 x prompt 4352 prefilled into the 4096-slot ring, then 16
+    decodes through it, each step's logits against the prefill of the whole
+    sequence at that position (causal: prefill(x ‖ t[:i+1])'s last logits)
+    within 5e-3."""
+    from repro_torch.models import get_model, init_params
+    from repro_torch.models import transformer as tfm
+
+    dev = "cuda"
+    base = moe_cfg(MOE_RING["arch"], MOE_RING["layers"])
+    cfg = moe_cfg(MOE_RING["arch"], MOE_RING["layers"], dtype=torch.float32,
+                  capacity_factor=base.moe.n_experts / base.moe.top_k)
+    n, new = MOE_RING["prompt_len"], MOE_RING["new"]
+    model = get_model(cfg)
+    params = init_params(model.specs, torch.Generator(device=dev).manual_seed(SEED + 2), dev)
+    fan_in_over_contraction(params, cfg)
+    toks = torch.randint(0, cfg.vocab, (1, n + new), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(SEED + 3))
+    with moe_taps() as (routes, _):
+        _, cache = model.prefill_fn(params, {"tokens": toks[:, :n]})
+    require(cache["k"].shape[2] == cfg.max_window < n and all(bool(r.keep.all()) for r in routes),
+            f"moe ring: cache of {cache['k'].shape[2]} slots, or an assignment dropped at "
+            f"capacity_factor {cfg.moe.capacity_factor}")
+    steps = []
+    for i in range(new):
+        lg, cache = model.decode_fn(params, cache, toks[:, n + i], n + i)
+        steps.append(lg)
+    positions = torch.arange(n + new, dtype=torch.int32, device=dev)[None]
+    h, _ = tfm.run_stack_prefill(params, cfg, tfm.embed_tokens(params, cfg, toks), positions)
+    full = tfm.logits_head(params, cfg, h[:, n:])
+    errs = [float((steps[i] - full[:, i]).abs().max()) for i in range(new)]
+    require(max(errs) < 5e-3, f"moe ring: decode(prefill(x), t) vs prefill(x + t) differ by "
+                              f"{max(errs)}")
+    out = dict(layers=cfg.n_layers, prompt_len=n, new=new, ring_slots=cache["k"].shape[2],
+               capacity=routes[0].capacity, group_tokens=routes[0].idx.shape[1],
+               step_errs=errs, logit_max=float(full.abs().max()))
+    print(f"moe ring {cfg.name} ({cfg.n_layers} layers, f32, capacity_factor "
+          f"{cfg.moe.capacity_factor}: C {out['capacity']} = Tg {out['group_tokens']}, none "
+          f"dropped): prompt {n} into a {out['ring_slots']}-slot ring, {new} decodes through it; "
+          f"each step's logits vs the whole sequence's prefill at that position, worst max "
+          f"|diff| {max(errs):.3g} (bound 5e-3; max |logit| {out['logit_max']:.3g})", flush=True)
+    del params, cache, h, full, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(torch, launches: dict, profile: bool = False) -> dict:
+    """Phase 20: the MoE decoder at its published widths (MOE_RUNS), one model
+    on the card at a time, and Mixtral's ring decode (MOE_RING)."""
+    out = {}
+    arch, layers = MOE_RUNS[0]
+    out[arch] = moe_serve(torch, arch, layers, launches, profile)
+    out["ring"] = moe_ring(torch)
+    for arch, layers in MOE_RUNS[1:]:
+        out[arch] = moe_serve(torch, arch, layers, launches, profile)
+    return out
+
+
 def phase_profile(torch, state, protos_u, base) -> dict:
     """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
@@ -5291,6 +5737,12 @@ def main(argv: list[str]) -> int:
         require(sum(got[op] for op in want) > 0, f"sass {name}: no {'/'.join(want)} instruction")
         require(all(got[op] == 0 for op in bad), f"sass {name}: {bad} present: {got}")
     require(not sass["gone"], f"sass: retired kernels still built: {sass['gone']}")
+    # Kimi-K2's D = 112 runs in the D = 128 tiles: its bf16 instance on wgmma too
+    d112 = {fn: c["HGMMA"] for fn, c in sass["instances"].items()
+            if "flash_fwd_mma_kernel" in fn and "Li112E" in fn}
+    print(f"sass flash_fwd_mma_kernel<112>: HGMMA {sum(d112.values())}", flush=True)
+    require(len(d112) == 1 and all(n > 0 for n in d112.values()),
+            f"sass: the D = 112 instance of flash_fwd_mma_kernel has no HGMMA: {d112}")
     # the SIMT attention kernels are built for f32 only (no bf16 instance)
     for name, fns in sass["simt_attention"].items():
         print(f"sass {name}: {len(fns)} instances, bf16 among them: "
@@ -5356,6 +5808,8 @@ def main(argv: list[str]) -> int:
                    lambda: phase_living_ranks(torch, state, launches))
     train_ranks = phase("19 training across ranks",
                         lambda: phase_train_ranks(torch, launches))
+    moe_dec = phase("20 the MoE decoder", lambda: phase_moe(torch, launches,
+                                                           profile=args.profile))
     kernels["flash_attention_bwd"] = train["kernel_cases"]
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
@@ -5383,7 +5837,7 @@ def main(argv: list[str]) -> int:
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
             faults=fault, cont=cont, train=train, multirank=multirank, living_ranks=living,
-            train_ranks=train_ranks,
+            train_ranks=train_ranks, moe=moe_dec,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

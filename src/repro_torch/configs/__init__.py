@@ -2,8 +2,8 @@
 
 `get_config(name)` returns the full published config and `get_smoke(name)` a
 reduced same-family config, forced to f32, for CPU tests. The port carries
-the four dense decoders; the MoE, SSM, hybrid, enc-dec and VLM architectures
-raise until their slice (ROADMAP §1, LM stack).
+the four dense decoders and the two MoE decoders; the SSM, hybrid, enc-dec
+and VLM architectures raise until their slice (ROADMAP §1, LM stack).
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ ARCHS = (
     "kimi_k2",
 )
 DENSE = ("smollm_360m", "gemma3_1b", "tinyllama_1_1b", "deepseek_coder_33b")
+MOE = ("mixtral_8x22b", "kimi_k2")
 
 ALIASES = {a.replace("_", "-"): a for a in ARCHS} | {
     "tinyllama-1.1b": "tinyllama_1_1b",
@@ -38,11 +39,11 @@ def _mod(name: str):
     name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if name not in ARCHS:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
-    if name not in DENSE:
+    if name not in DENSE + MOE:
         raise NotImplementedError(
             f"{name} is not ported yet: the port carries the dense decoders "
-            f"{DENSE}; MoE, SSM, hybrid, enc-dec and VLM wait for ROADMAP §1, "
-            "LM stack")
+            f"{DENSE} and the MoE decoders {MOE}; SSM, hybrid, enc-dec and VLM "
+            "wait for ROADMAP §1, LM stack")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -50,6 +50,14 @@
 // staged in shared memory and written in 16-byte rows. Query tiles run
 // heaviest first. D <= 64 is held to 128 registers: two blocks an SM.
 //
+// D = 112 (Kimi-K2's head dim, 7168 / 64): the bf16 kernel runs the D = 128
+// tiles, swizzle and wgmma shapes with shared-memory columns 112-127 of Q, K
+// and V zero-filled (cp.async with no source bytes): they add nothing to
+// Q.K^T and give output columns that are never stored. Global loads and
+// stores touch only the 112 real columns, and the scale is 1/sqrt(112), from
+// the true D. The tensor cores do 128/112 of the products they must; the
+// SIMT kernel takes D = 112 as it is (seven float4 chunks a lane).
+//
 // f32: the SIMT kernel (flash_fwd_simt_kernel), f32 FMAs on the CUDA cores
 // (67 TFLOP/s at best). It beats SDPA in f32 on this card, and TF32 tensor
 // cores would round the inputs to 10 bits, which the f32 model's identity
@@ -79,11 +87,15 @@ constexpr int WG_ROWS = 64;                 // query rows a warpgroup owns
 constexpr int MMA_BQ = 2 * WG_ROWS;         // query rows per block (two warpgroups)
 constexpr int MMA_THREADS = 256;
 
+// D: the head dim in device memory; DP: the tiles' width in shared memory
+// (D = 112 in the D = 128 tiles, its last two chunks a row zero)
 template <int D> struct Mma {
-  static constexpr int BK = D >= 256 ? 32 : 64;     // keys per kv tile
-  static constexpr int CH = D / 8;                  // 16-byte chunks a row
-  static constexpr size_t Q_BYTES = (size_t)MMA_BQ * D * 2;
-  static constexpr size_t KV_BYTES = (size_t)BK * D * 2;        // one K or V tile
+  static constexpr int DP = D == 112 ? 128 : D;
+  static constexpr int BK = DP >= 256 ? 32 : 64;    // keys per kv tile
+  static constexpr int CH = DP / 8;                 // 16-byte chunks a tile row
+  static constexpr int CHR = D / 8;                 // of them, the ones in memory
+  static constexpr size_t Q_BYTES = (size_t)MMA_BQ * DP * 2;
+  static constexpr size_t KV_BYTES = (size_t)BK * DP * 2;       // one K or V tile
   // Q, K and V in two stages, and the 1024-byte alignment of the swizzle atoms
   static constexpr size_t SMEM = Q_BYTES + 4 * KV_BYTES + 1024;
 };
@@ -95,10 +107,10 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      float* __restrict__ lse, int Sq, int Skv, int H, int KH, int causal,
                      int window, int q_offset, float scale_log2, float scale) {
   using M = Mma<D>;
-  constexpr int BK = M::BK, CH = M::CH;
+  constexpr int DP = M::DP, BK = M::BK, CH = M::CH, CHR = M::CHR;
   constexpr int NT = BK / 8;       // n8 tiles of keys in S
-  constexpr int DT = D / 8;        // n8 tiles of the output
-  constexpr int KS = D / 16;       // k16 steps of Q.K^T
+  constexpr int DT = DP / 8;       // n8 tiles of the output
+  constexpr int KS = DP / 16;      // k16 steps of Q.K^T
   constexpr int PS = BK / 16;      // k16 steps of P.V
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -126,18 +138,18 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     unsigned char* sv = sk + M::KV_BYTES;
     for (int e = tid; e < BK * CH; e += MMA_THREADS) {
       const int r = e / CH, c = e % CH;
-      const bool ok = k0 + r < Skv;
-      const size_t off = (ok ? (size_t)(k0 + r) * kv_row : 0) + (size_t)c * 8;
-      cp_async16(sk + tile_off<D>(r, c, BK), kbase + off, ok ? 16 : 0);
-      cp_async16(sv + tile_off<D>(r, c, BK), vbase + off, ok ? 16 : 0);
+      const bool ok = k0 + r < Skv && c < CHR;
+      const size_t off = ok ? (size_t)(k0 + r) * kv_row + (size_t)c * 8 : 0;
+      cp_async16(sk + tile_off<DP>(r, c, BK), kbase + off, ok ? 16 : 0);
+      cp_async16(sv + tile_off<DP>(r, c, BK), vbase + off, ok ? 16 : 0);
     }
   };
 
   for (int e = tid; e < MMA_BQ * CH; e += MMA_THREADS) {
     const int r = e / CH, c = e % CH;
-    const bool ok = r < nrows;
-    cp_async16(sq + tile_off<D>(r, c, MMA_BQ),
-               qbase + (ok ? (size_t)r * q_row : 0) + (size_t)c * 8, ok ? 16 : 0);
+    const bool ok = r < nrows && c < CHR;
+    cp_async16(sq + tile_off<DP>(r, c, MMA_BQ),
+               qbase + (ok ? (size_t)r * q_row + (size_t)c * 8 : 0), ok ? 16 : 0);
   }
   if (ntiles > 0) load_kv(0, 0);
   asm volatile("cp.async.commit_group;\n" ::);
@@ -180,8 +192,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      wgmma_ss<BK>(&s[0][0], kmajor_desc<D>(sq_addr, MMA_BQ, wgr0, kk),
-                   kmajor_desc<D>(sk_addr, BK, 0, kk));
+      wgmma_ss<BK>(&s[0][0], kmajor_desc<DP>(sq_addr, MMA_BQ, wgr0, kk),
+                   kmajor_desc<DP>(sk_addr, BK, 0, kk));
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -265,7 +277,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int ks = 0; ks < PS; ++ks) {
-      wgmma_rs<D>(&o[0][0], pa[ks], mnmajor_desc<D>(sv_addr, BK, ks));
+      wgmma_rs<DP>(&o[0][0], pa[ks], mnmajor_desc<DP>(sv_addr, BK, ks));
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -295,18 +307,18 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int cb = 4 * (lane & 3);                      // byte offset inside a chunk
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
-    *reinterpret_cast<uint32_t*>(sq + tile_off<D>(r0, j, MMA_BQ) + cb) =
+    *reinterpret_cast<uint32_t*>(sq + tile_off<DP>(r0, j, MMA_BQ) + cb) =
         pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
-    *reinterpret_cast<uint32_t*>(sq + tile_off<D>(r0 + 8, j, MMA_BQ) + cb) =
+    *reinterpret_cast<uint32_t*>(sq + tile_off<DP>(r0 + 8, j, MMA_BQ) + cb) =
         pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
   }
   __syncwarp();
   bf16* obase = out + ((size_t)b * Sq + i0) * q_row + (size_t)h * D;
-  for (int e = lane; e < 16 * CH; e += 32) {
-    const int r = e / CH, c = e % CH;
+  for (int e = lane; e < 16 * CHR; e += 32) {        // the D real columns only
+    const int r = e / CHR, c = e % CHR;
     if (r < wlive) {
       *reinterpret_cast<uint4*>(obase + (size_t)(16 * warp + r) * q_row + c * 8) =
-          *reinterpret_cast<const uint4*>(sq + tile_off<D>(16 * warp + r, c, MMA_BQ));
+          *reinterpret_cast<const uint4*>(sq + tile_off<DP>(16 * warp + r, c, MMA_BQ));
     }
   }
 }
@@ -510,6 +522,7 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
     case 16: return launch<16>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 32: return launch<32>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 64: return launch<64>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 112: return launch<112>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 128: return launch<128>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 256: return launch<256>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     default: return (int)cudaErrorInvalidValue;

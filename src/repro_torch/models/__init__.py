@@ -1,4 +1,4 @@
-"""The dense-decoder LM stack (counterpart of `repro.models`): parameters are
+"""The decoder LM stack, dense and MoE (counterpart of `repro.models`): parameters are
 a plain nested dict of tensors with the JAX pytree's key paths and layouts,
 declared by a tree of `ParamSpec`s and drawn by `init_params`."""
 from repro_torch.models.base import (  # noqa: F401

@@ -39,7 +39,20 @@ def _leaves(specs: Any, prefix: tuple = ()):
         yield from _leaves(specs[k], prefix + (k,))
 
 
+# A leaf whose f32 draw would take more bytes than this is drawn slice by
+# slice along its leading axes (see `_init_one`).
+DRAW_BYTES = 2 << 30
+
+
 def _init_one(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tensor:
+    """One leaf: zeros, ones, or normals drawn in f32, scaled, then cast.
+
+    A leaf whose f32 draw would pass `DRAW_BYTES` (Mixtral-8x22B's stacked
+    expert weights are 38.7 GB in f32 at 12 layers) is drawn into a
+    preallocated leaf of its own dtype, a run of its leading slices at a
+    time: only one run, at most `DRAW_BYTES`, is f32 at once. Its bits are
+    not a one-shot draw's; every smaller leaf is the one-shot draw, bit for
+    bit."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
@@ -50,8 +63,22 @@ def _init_one(spec: ParamSpec, generator: torch.Generator, device) -> torch.Tens
         s = 1.0 / math.sqrt(spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1])
     else:
         raise ValueError(spec.init)
-    x = torch.randn(spec.shape, generator=generator, device=device, dtype=torch.float32)
-    return (x.mul_(s)).to(spec.dtype)     # drawn in f32, then cast
+    shape = tuple(spec.shape)
+    if math.prod(shape) * 4 <= DRAW_BYTES:
+        x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (x.mul_(s)).to(spec.dtype)     # drawn in f32, then cast
+    # the fewest leading axes whose slices fit, then as many slices a draw as fit
+    lead = next(j for j in range(1, len(shape) + 1)
+                if math.prod(shape[j:]) * 4 <= DRAW_BYTES)
+    rest = shape[lead:]
+    out = torch.empty(shape, dtype=spec.dtype, device=device)
+    rows = out.view((math.prod(shape[:lead]),) + rest)
+    step = max(1, DRAW_BYTES // (math.prod(rest) * 4))
+    for r0 in range(0, rows.shape[0], step):
+        n = min(step, rows.shape[0] - r0)
+        x = torch.randn((n,) + rest, generator=generator, device=device, dtype=torch.float32)
+        rows[r0:r0 + n] = x.mul_(s)           # cast into the leaf
+    return out
 
 
 def init_params(specs: Any, generator: torch.Generator, device=None) -> dict:

@@ -1,11 +1,11 @@
-"""Model configuration of the dense decoder (counterpart of
+"""Model configuration of the dense and MoE decoders (counterpart of
 `repro/models/config.py`).
 
-Only the fields the dense decoder reads are carried: the MoE, SSM, enc-dec and
-VLM sections come back with the slices that read them, and the scanned
-layers have nothing to do in a Python loop. ``rules_override`` is each
-config's change to `distributed.sharding.DEFAULT_RULES`, the reference's
-letter for letter.
+Only the fields the decoders read are carried: the SSM, enc-dec and VLM
+sections come back with the slices that read them, and the scanned layers
+have nothing to do in a Python loop. ``rules_override`` is each config's
+change to `distributed.sharding.DEFAULT_RULES`, the reference's letter for
+letter.
 """
 from __future__ import annotations
 
@@ -13,6 +13,17 @@ import dataclasses
 from typing import Any, Mapping
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESettings:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0            # always-on shared experts (Kimi-style)
+    group_size: int = 1024       # tokens per dispatch group (GShard-style)
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +45,7 @@ class ModelConfig:
     emb_scale: bool = False      # gemma-style sqrt(d) embedding scaling
     act: str = "silu"            # silu | gelu
     norm_eps: float = 1e-6
+    moe: MoESettings | None = None
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True           # recompute each layer's forward in the backward
     flash_block_q: int = 512     # block sizes of the attention's plain twin

@@ -1,5 +1,6 @@
-"""Dense decoder-only transformer stack (counterpart of
-`repro/models/transformer.py`; llama/gemma family).
+"""Decoder-only transformer stack (counterpart of
+`repro/models/transformer.py`; llama/gemma family, and the MoE decoders,
+whose block MLP is `moe.apply`).
 
 Layers are stacked along a leading L axis, in the reference's layouts
 (``wq [L, d, H, hd]``, ``wo [L, H, hd, d]``, ...), and run by a Python loop;
@@ -20,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.distributed import collectives
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -75,7 +77,7 @@ def decoder_specs(cfg: ModelConfig) -> dict:
     if cfg.sandwich_norm:
         blocks["ln1_post"] = norm
         blocks["ln2_post"] = norm
-    blocks["mlp"] = mlp_specs(cfg)
+    blocks["mlp"] = moe_lib.moe_specs(cfg) if cfg.moe else mlp_specs(cfg)
     specs = {
         "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed"), "normal", 0.02, cfg.dtype),
         "blocks": blocks,
@@ -187,35 +189,43 @@ def _attn_out(blk: dict, cfg: ModelConfig, o: torch.Tensor, tp=None) -> torch.Te
     return collectives.reduce_from_group(out, _split(tp, h, cfg.n_heads))
 
 
-def _mlp_residual(blk: dict, cfg: ModelConfig, x: torch.Tensor, o: torch.Tensor, tp=None):
+def _mlp_residual(blk: dict, cfg: ModelConfig, x: torch.Tensor, o: torch.Tensor, tp=None,
+                  group_size: int | None = None):
+    """(x + o + MLP, the MLP's aux loss): the MoE block's on MoE configs
+    (routed in groups of ``group_size`` tokens, the config's when None),
+    else 0 (a Python float)."""
     if cfg.sandwich_norm:
         o = rmsnorm(o, blk["ln1_post"], cfg.norm_eps)
     x = x + o
     h = rmsnorm(x, blk["ln2"], cfg.norm_eps)
     mlp = blk["mlp"]
-    group = _split(tp, mlp["wg"].shape[-1], cfg.d_ff)
-    h = collectives.copy_to_group(h, group)
-    m = gated_mlp(h, mlp["wg"], mlp["wu"], mlp["wd"], cfg.act)
-    m = collectives.reduce_from_group(m, group)
+    if cfg.moe:
+        m, aux = moe_lib.apply(mlp, cfg, h, tp, group_size)
+    else:
+        group = _split(tp, mlp["wg"].shape[-1], cfg.d_ff)
+        h = collectives.copy_to_group(h, group)
+        m = gated_mlp(h, mlp["wg"], mlp["wu"], mlp["wd"], cfg.act)
+        m, aux = collectives.reduce_from_group(m, group), 0.0
     if cfg.sandwich_norm:
         m = rmsnorm(m, blk["ln2_post"], cfg.norm_eps)
-    return x + m
+    return x + m, aux
 
 
 def attn_block_train(blk: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                      window: int, theta: float, return_kv: bool = False, tp=None):
-    """One full-sequence causal block: x, or (x, (k, v)) with k after qk-norm
-    and RoPE when ``return_kv`` (the prefill). The dense decoder's aux loss
-    is 0 and is added by `run_stack_train`. ``tp`` (a
-    `collectives.TensorParallel`) runs the block on the rank's shards of
-    the heads and the MLP (Megatron's split: column-split q/k/v and gate/up,
-    row-split output and down projections, one all-reduce after each)."""
+    """One full-sequence causal block: (x, aux), or (x, aux, (k, v)) with k
+    after qk-norm and RoPE when ``return_kv`` (the prefill); aux is the MoE
+    block's load-balancing loss (0 on a dense config), summed over the
+    layers by `run_stack_train`. ``tp`` (a `collectives.TensorParallel`)
+    runs the block on the rank's shards of the heads and the MLP
+    (Megatron's split: column-split q/k/v and gate/up, row-split output and
+    down projections, one all-reduce after each)."""
     h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
     q, k, v = _attn_heads(blk["attn"], cfg, h, positions, theta, tp)
     o = flash_attention(q, k, v, causal=True, window=window,
                         block_q=cfg.flash_block_q, block_k=cfg.flash_block_k)
-    x = _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o, tp), tp)
-    return (x, (k, v)) if return_kv else x
+    x, aux = _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o, tp), tp)
+    return (x, aux, (k, v)) if return_kv else (x, aux)
 
 
 def attn_block_decode(blk: dict, cfg: ModelConfig, x: torch.Tensor, pos, window: int,
@@ -223,8 +233,13 @@ def attn_block_decode(blk: dict, cfg: ModelConfig, x: torch.Tensor, pos, window:
                       slot_pos: torch.Tensor, where: tuple) -> torch.Tensor:
     """x [B, 1, d]; kc/vc [B, Sc, KH, hd], written in place at ``where``
     (``(slice(None), slot)`` for one position, ``(rows, slots)`` for one a
-    row); pos an int or an int32 tensor [B]."""
-    if isinstance(pos, torch.Tensor):
+    row); pos an int or an int32 tensor [B]. An MoE block routes the B
+    tokens of one position as one group (t = B), as the reference's decode
+    does; at per-row positions each row is a request of its own, which the
+    reference decodes as a vmap of B = 1 decodes, so each row is routed as
+    a group of its own (its experts never drop for its neighbours)."""
+    per_row = isinstance(pos, torch.Tensor)
+    if per_row:
         positions = pos[:, None]
     else:
         positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
@@ -233,7 +248,8 @@ def attn_block_decode(blk: dict, cfg: ModelConfig, x: torch.Tensor, pos, window:
     kc[where] = k[:, 0]
     vc[where] = v[:, 0]
     o = decode_attention(q, kc, vc, slot_pos, pos, window=window)
-    return _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o))
+    return _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o),
+                         group_size=1 if per_row else None)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -274,8 +290,8 @@ def run_stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
     windows, thetas = layer_meta(cfg)
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = attn_block_train(_layer(params["blocks"], i), cfg, x, positions,
-                                     windows[i], thetas[i], return_kv=True)
+        x, _, (k, v) = attn_block_train(_layer(params["blocks"], i), cfg, x, positions,
+                                        windows[i], thetas[i], return_kv=True)
         ks.append(k)
         vs.append(v)
     return x, (torch.stack(ks), torch.stack(vs))
@@ -283,23 +299,27 @@ def run_stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def run_stack_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, tp=None):
-    """Full-sequence causal stack for training: (hidden [B, S, d], aux loss,
-    0 for the dense decoder). With ``cfg.remat`` each layer runs under
+    """Full-sequence causal stack for training: (hidden [B, S, d], aux loss
+    summed over the layers in f32: the MoE blocks', 0 for the dense
+    decoder). With ``cfg.remat`` each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
     reference's ``jax.checkpoint(body)``: the forward keeps only each
     layer's input and the backward recomputes the layer, attention kernel
-    included, before its gradient. ``tp`` runs each block on the rank's
+    included, before its gradient (the aux loss comes out of the
+    checkpointed function too). ``tp`` runs each block on the rank's
     shards (`attn_block_train`); the recompute calls the block's forward
     collectives again, on every rank in the same order."""
     windows, thetas = layer_meta(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk, window, theta in zip(_layers(params["blocks"], cfg.n_layers), windows, thetas):
         if cfg.remat:
             # the block draws no random numbers: no RNG state to keep
-            x = checkpoint(attn_block_train, blk, cfg, x, positions, window, theta, False, tp,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(attn_block_train, blk, cfg, x, positions, window, theta, False,
+                              tp, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = attn_block_train(blk, cfg, x, positions, window, theta, tp=tp)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = attn_block_train(blk, cfg, x, positions, window, theta, tp=tp)
+        aux = aux + a
+    return x, aux
 
 
 def cache_from_kv(cfg: ModelConfig, kv, seq: int, pad_to: int | None = None) -> dict:
@@ -377,7 +397,12 @@ def run_stack_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
     back, so the causal mask over keys [0, stop) is the full prefill's. The
     prefix of a B = 1 cache is contiguous, as the kernel needs. Returns
     (hidden, cache with slot_pos[start:stop] set). Dense decoder only, as
-    in the reference; the cache must not be a ring (the engine checks)."""
+    in the reference (the MoE routes over the token axis, so chunk
+    boundaries would change its drops); the cache must not be a ring (the
+    engine checks)."""
+    if cfg.moe is not None:
+        raise ValueError("chunked prefill is dense-decoder only: the MoE block routes "
+                         "over the token axis, so chunk boundaries would change its drops")
     windows, thetas = layer_meta(cfg)
     stop = start + x.shape[1]
     if stop > cache["k"].shape[2]:
@@ -394,7 +419,7 @@ def run_stack_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
         o = flash_attention(q, kc[:, :stop], vc[:, :stop], causal=True, window=windows[i],
                             q_offset=start,
                             block_q=cfg.flash_block_q, block_k=cfg.flash_block_k)
-        x = _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o))
+        x, _ = _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o))
     return x, dict(cache, slot_pos=slot_pos)
 
 

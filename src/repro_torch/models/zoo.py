@@ -3,8 +3,9 @@
 `get_model(cfg)` returns a `Model` whose members are plain functions:
 
 * loss_fn(params, batch, tp=None) -> (loss, metrics {"ce", "aux"}): the
-  training loss, differentiable through the attention kernels (aux is 0
-  for the dense decoder); with ``tp`` (a `collectives.TensorParallel`)
+  training loss ce + aux, differentiable through the attention kernels (aux
+  the MoE blocks' load-balancing loss summed over the layers, 0 for the
+  dense decoder); with ``tp`` (a `collectives.TensorParallel`)
   on the rank's tensor-parallel shards, the loss being this data rank's
   share of the global batch's mean
 * prefill_fn(params, batch, pad_to=None) -> (last logits [B, V] f32, cache)
@@ -14,11 +15,13 @@
 * init_cache_fn(batch, seq, device="cuda") -> an empty cache (raises without
   CUDA unless the caller asks for the CPU)
 * prefill_chunk_fn(params, cache, tokens [B, cs], start: int) -> (logits
-  [B, V] f32, cache): one prefill chunk against a full-capacity cache
+  [B, V] f32, cache): one prefill chunk against a full-capacity cache; None
+  for the MoE decoders, as in the reference (routing over the token axis
+  makes chunk boundaries change the experts' drops)
 
 The port carries the text-only dense decoder (smollm, gemma3, tinyllama,
-deepseek); the other families (MoE, VLM, SSM, hybrid, enc-dec) wait for
-their slices (ROADMAP §1, LM stack).
+deepseek) and the MoE decoder (mixtral, kimi); the other families (VLM,
+SSM, hybrid, enc-dec) wait for their slices (ROADMAP §1, LM stack).
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ class Model:
     decode_fn: Callable
     init_cache_fn: Callable
     # One prefill chunk against a full-capacity cache; dense decoders only
-    # (None for the families that cannot chunk, as in the reference).
+    # (None for the MoE decoders, as in the reference).
     prefill_chunk_fn: Callable | None = None
 
 
@@ -100,12 +103,13 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         h, cache = tfm.run_stack_chunk(params, cfg, x, _positions(tokens, start), cache, start)
         return _last_logits(params, cfg, h[:, -1:]), cache
 
-    return Model(cfg, specs, loss_fn, prefill_fn, decode_fn, init_cache_fn, prefill_chunk_fn)
+    return Model(cfg, specs, loss_fn, prefill_fn, decode_fn, init_cache_fn,
+                 None if cfg.moe else prefill_chunk_fn)
 
 
 def get_model(cfg: ModelConfig) -> Model:
     if not isinstance(cfg, ModelConfig):
         raise NotImplementedError(
-            f"{type(cfg).__name__}: the port carries the dense decoder only; the other "
-            "model families wait for ROADMAP §1, LM stack")
+            f"{type(cfg).__name__}: the port carries the dense and MoE decoders only; "
+            "the other model families wait for ROADMAP §1, LM stack")
     return _decoder_model(cfg)

@@ -134,3 +134,31 @@ def test_fully_masked_rows_take_the_mean_of_every_value():
     mean_v = np.repeat(v, 2, axis=2).mean(1, keepdims=True)        # [B, 1, H, D]
     np.testing.assert_allclose(got[:, :64], np.broadcast_to(mean_v, got[:, :64].shape),
                                **TOL)
+
+
+@pytest.mark.parametrize("causal,win", [(True, -1), (True, 48), (False, -1)])
+def test_kimi_head_dim_112_against_pallas_interpret(causal, win):
+    """Kimi-K2's head dim, 7168 / 64 = 112: the Pallas kernel takes any D, and
+    so does the twin the D = 112 kernel is held against on the card."""
+    q, k, v = _qkv(112 + win, 2, 128, 128, 4, 2, 112)
+    want = j_flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                       window=win, block_q=64, block_k=64, interpret=True)
+    got = _port(q, k, v, causal=causal, window=win, block_q=64, block_k=64)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_head_dims_of_the_forward_and_the_backward_kernels():
+    """The forward kernel is built for D = 112 (Kimi-K2's), the backward is
+    not: its check refuses 112 by name, pointing at the ROADMAP, before any
+    launch (the check the wrapper runs on CUDA tensors, called here without
+    one); a D neither is built for is refused as before."""
+    from repro_torch.kernels.flash_attention import ops
+
+    assert 112 in ops.HEAD_DIMS and 112 not in ops.BWD_HEAD_DIMS
+    assert set(ops.BWD_HEAD_DIMS) < set(ops.HEAD_DIMS)
+    ops._check_head_dim("flash_attention_fwd", 112, ops.HEAD_DIMS)
+    with pytest.raises(NotImplementedError, match="ROADMAP §1"):
+        ops._check_head_dim("flash_attention_bwd", 112, ops.BWD_HEAD_DIMS)
+    for dims in (ops.HEAD_DIMS, ops.BWD_HEAD_DIMS):
+        with pytest.raises(ValueError, match="not in the kernel's"):
+            ops._check_head_dim("flash_attention_fwd", 96, dims)

@@ -1,5 +1,7 @@
 """The port's dense-decoder stack against the JAX package on the smoke
-configs of the four dense decoders (tinyllama, smollm, gemma3, deepseek),
+configs of the four dense decoders (tinyllama, smollm, gemma3, deepseek;
+the MoE decoders' counterparts are in tests/test_torch_moe.py, and their
+spec trees and configs here),
 with JAX's weights carried over by ``convert.params_from_numpy`` and prompts
 from numpy seeds: the prefill's last logits within 1e-4 elementwise and its
 K/V cache within 1e-4 of its own scale (f32; see `_close_scaled`),
@@ -25,6 +27,7 @@ from repro_torch.models import count_params, get_model, init_params
 from repro_torch.models import transformer as ttfm
 
 DENSE = ("tinyllama_1_1b", "smollm_360m", "gemma3_1b", "deepseek_coder_33b")
+MOE = ("mixtral_8x22b", "kimi_k2")
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -107,10 +110,12 @@ def test_ring_cache_decoded_past_the_window_matches_jax():
     assert float((t_lg - t_ref).abs().max()) < 5e-3
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_specs_match_the_reference_tree(arch):
     """Same key paths, shapes and parameter count as the JAX spec tree, at the
-    smoke and the published sizes; the port's own init draws every leaf."""
+    smoke and the published sizes; the port's own init draws every leaf (the
+    MoE decoders' ``mlp.wg`` is the experts' leaf [L, E, d, f], fan-in over
+    d as the dense one's)."""
     for jcfg, tcfg in ((jconfigs.get_smoke(arch), configs.get_smoke(arch)),
                        (jconfigs.get_config(arch), configs.get_config(arch))):
         jshapes = {jax.tree_util.keystr(p): tuple(s.shape) for p, s in
@@ -139,18 +144,24 @@ def test_configs_registry():
     assert configs.get_config("tinyllama-1.1b").n_layers == 22
     assert configs.get_config("tinyllama-1.1b").dtype == torch.bfloat16
     assert configs.get_smoke("gemma3-1b").dtype == torch.float32
-    for name in ("mixtral_8x22b", "kimi-k2", "whisper-tiny", "qwen2-vl-7b",
-                 "falcon-mamba-7b", "zamba2-2.7b"):
+    for name in ("whisper-tiny", "qwen2-vl-7b", "falcon-mamba-7b", "zamba2-2.7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP §1, LM stack"):
             configs.get_config(name)
     with pytest.raises(KeyError):
         configs.get_config("llama-9000")
-    for arch in DENSE:
-        j, t = jconfigs.get_config(arch), configs.get_config(arch)
-        for f in dataclasses.fields(t):
-            if f.name != "dtype":
-                assert getattr(t, f.name) == getattr(j, f.name), (arch, f.name)
-        assert (t.hd, t.windows, t.max_window) == (j.hd, j.windows, j.max_window)
+    for arch in DENSE + MOE:
+        for j, t in ((jconfigs.get_config(arch), configs.get_config(arch)),
+                     (jconfigs.get_smoke(arch), configs.get_smoke(arch))):
+            for f in dataclasses.fields(t):
+                if f.name == "moe":     # the two packages' MoESettings, field for field
+                    assert (t.moe is None) == (j.moe is None), arch
+                    if t.moe is not None:
+                        assert dataclasses.asdict(t.moe) == dataclasses.asdict(j.moe), arch
+                elif f.name != "dtype":
+                    assert getattr(t, f.name) == getattr(j, f.name), (arch, f.name)
+            assert (t.hd, t.windows, t.max_window) == (j.hd, j.windows, j.max_window)
+    assert configs.get_config("kimi-k2").hd == 112
+    assert configs.get_config("mixtral-8x22b").max_window == 4096
 
 
 def test_empty_cache_defaults_to_the_card(monkeypatch):

@@ -9,7 +9,7 @@ fallback, and a missing GPU is a failure):
 1. card: the GPU's name and power limit (nvidia-smi); build the CUDA kernels
    from src/repro_torch/csrc with nvcc and print the build seconds; count
    instructions in the built library's SASS (cuobjdump): HGMMA/HMMA in the
-   bf16 attention kernel (HGMMA in its D = 112 instance), IGMMA/IMMA and no
+   bf16 attention kernel (HGMMA in its D = 112 and D = 80 instances), IGMMA/IMMA and no
    IDP4A in assoc_matmul, LDGSTS
    (16-byte cp.async) in the sparse kernels, BMMA (1-bit tensor-core
    products) in the Hamming search and top-k kernels and BGMMA (1-bit
@@ -40,10 +40,11 @@ fallback, and a missing GPU is a failure):
    global), non-causal, ragged, a prefill chunk (q_offset 512), f32,
    deepseek-coder-33b's layer shape (56 heads over 8, D = 128), D = 16 and
    32, rows that see no key (q_offset -64), Mixtral-8x22B's layer (48 heads
-   over 8, D = 128, window 4096) at B = 8 x 1024 and B = 1 x 8192, and
-   Kimi-K2's (64 heads over 8, D = 112) in bf16 and f32 -- within atol =
-   rtol = 2e-2 in bf16 and 1e-5 in f32 (the backward kernel refuses D = 112
-   by name, before any launch); each with the kernel's median
+   over 8, D = 128, window 4096) at B = 8 x 1024 and B = 1 x 8192,
+   Kimi-K2's (64 heads over 8, D = 112) and Zamba2-2.7B's (32 heads over
+   32, D = 80) in bf16 and f32 -- within atol = rtol = 2e-2 in bf16 and
+   1e-5 in f32 (the backward kernel refuses D = 112 and D = 80 by name,
+   before any launch); each with the kernel's median
    device time (CUDA-graph replay) and eager call time, the plain version's
    time, one PyTorch library call's where one computes the same function
    (for the Hamming searches also one bf16 `torch.bmm` on the +-1
@@ -284,7 +285,26 @@ fallback, and a missing GPU is a failure):
    combine, the rest). Between the two, Mixtral at 2 layers in f32 with
    nothing dropped (MOE_RING): a 4352-token prompt into the 4096-slot
    ring, 16 decodes through it, each within 5e-3 of the whole sequence's
-   prefill at its position.
+   prefill at its position;
+21. the SSM and hybrid decoders at their published widths and depths
+   (SSM_RUNS: Falcon-Mamba-7B, 64 Mamba-1 layers, and Zamba2-2.7B, 54
+   Mamba-2 layers in 9 groups with one shared attention block at D = 80;
+   bf16 weights from the seed, one model on the card at a time), each on
+   phase 11's trace through `Engine.generate`: time to first token, decode
+   ms a token, tokens/s, peak memory; the attention kernel launched once a
+   group in Zamba2's prefill (9) and in no decode step, nothing launched
+   by Falcon-Mamba; two generates bit-identical; layer 0's block in bf16
+   against its f64 evaluation (the sequential recurrence, `selective_scan_ref`
+   / `ssd_ref`, in f64) within SSM_BF16_REL of max |f64|, and the chunked
+   scan in f32 on the layer's own inputs against that recurrence within
+   SSM_SCAN_REL (final state and y - D u); CUDA-event times of layer 0's
+   parts (in_proj, conv, x_proj/dt, the scan, gate and out_proj; Zamba2's
+   shared attention and MLP) and the scans' share of the first token. Then
+   each at SSM_SMALL's 2 layers in f32 (Zamba2 in 2 groups of 1, its shared
+   attention at fan-in over its contraction): decode(prefill(x), t) within
+   5e-3 of prefill(x ‖ t), the ContinuousEngine's completions == static
+   B = 1 generates (slots reused), and no aten op given a CPU tensor in a
+   prefill and a decode step.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
@@ -303,9 +323,10 @@ the timed calls are not counted) and, on every rank of phase 18, the
 process serves of (a), the fault-aware serves of (b) and the engines' runs
 of (c) (the one-rank runs, the fault-free and standalone comparison serves
 and the warm rings are not counted), and every training step on every rank
-of phase 19 (the one-rank comparison steps are not counted), and phase
+of phase 19 (the one-rank comparison steps are not counted), phase
 20's generates (its recorded prefills, checks, timings and the ring check
-are not counted);
+are not counted), and phase 21's generates (its timed prefill and decodes,
+gates, part timings and SSM_SMALL's runs are not counted);
 the d = 8192 comparisons, the
 keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
 quarantine check are not counted), and as the last line {"ok": true, ...}.
@@ -321,7 +342,8 @@ serves at the paper's configuration, fault-free and fault-aware, of one
 continuous LM step at N = 4 beside one static decode step at B = 4 and of a
 1024-token prompt's whole prefill beside its four chunks of 256, of two
 TinyLlama-1.1B training steps (with the backward kernel's share), of
-phase 20's two MoE prefills (the attention kernel's share), and of
+phase 20's two MoE prefills (the attention kernel's share), of phase 21's
+prefills and decode steps (Zamba2's with the attention kernel's share), and of
 the LM prefill (with
 the attention kernel's share of its device time) and decode step under
 torch.profiler (device busy time, idle share, top device ops per call), and
@@ -526,6 +548,23 @@ MOE_RING = dict(arch="mixtral-8x22b", layers=2, prompt_len=4352, new=16)
 # 2.748 and 3.813; PERF.md §6)
 MOE_MARGIN = 1e-5
 MOE_BF16_BOUND = {"mixtral-8x22b": 0.05, "kimi-k2": 0.06}
+# phase 21: the SSM and hybrid decoders at their published widths and depths
+# (src/repro/configs/falcon_mamba_7b.py, 64 Mamba-1 layers, 14.5 GB of bf16
+# weights; zamba2_2_7b.py, 54 Mamba-2 layers in 9 groups and one shared
+# attention block at D = 80, 4.9 GB; weights from the seed), each on phase
+# 11's trace (LM). Layer 0's block in bf16 against its f64 evaluation within
+# SSM_BF16_REL of max |f64| (8 bf16 roundings, 2^-5), and the chunked scan
+# in f32 against the f64 sequential recurrence on the layer's own inputs
+# within SSM_SCAN_REL of each output's largest entry (f32 sums over the
+# chunks of 128; the reference's own tolerance of its scans against their
+# oracles is 1e-4). SSM_SMALL: the f32 gates at 2 layers (the hybrid at 2
+# groups of 1): decode == prefill of S + 1 within the reference's 5e-3, and
+# the continuous engine's completions == static generates
+SSM_RUNS = ("falcon-mamba-7b", "zamba2-2.7b")
+SSM_BF16_REL = 2.0 ** -5
+SSM_SCAN_REL = 1e-4
+SSM_SMALL = dict(layers=2, batch=2, prompt_len=200, steps=3, tol=5e-3, requests=6,
+                 lengths=(16, 40, 96), slots=3, max_new=8)
 # phase 16 (a): the backward kernel's cases, label -> (B, Sq, Skv, H, KH, D,
 # causal, window, q_offset, dtype); the training shape first
 FLASH_BWD_CASES = [
@@ -1135,10 +1174,11 @@ def flash_cases(torch, gen):
     length, a prefill chunk (q_offset = 512 over a 768-key prefix), f32 at
     the prefill's shape, deepseek-coder-33b's layer shape (B = 2), the two
     smallest head dims, a causal q_offset of -64 (queries 0-63 see no
-    key and take the mean of V over all keys), and phase 20's layers:
+    key and take the mean of V over all keys), phase 20's layers:
     Mixtral-8x22B's (48 heads over 8, D = 128, window 4096) at B = 8 x 1024
     and at B = 1 x 8192, past the window, and Kimi-K2's (64 heads over 8,
-    D = 112) in bf16 and f32. Tolerances: f32 atol = rtol =
+    D = 112) in bf16 and f32, and phase 21's shared attention block,
+    Zamba2-2.7B's (32 heads over 32, D = 80), in bf16 and f32. Tolerances: f32 atol = rtol =
     1e-5 (only the order of the sums differs); bf16 atol = rtol = 2e-2, compared in f32 (both
     sides round to bf16 once at the output). The library call is
     F.scaled_dot_product_attention on the same tensors (is_causal where that
@@ -1168,7 +1208,10 @@ def flash_cases(torch, gen):
             ("mixtral-8x22b windowed", (1, 8192, 8192, 48, 8, 128, True, 4096, 0,
                                         torch.bfloat16)),
             ("kimi-k2", (8, 1024, 1024, 64, 8, 112, True, -1, 0, torch.bfloat16)),
-            ("kimi-k2 f32", (8, 1024, 1024, 64, 8, 112, True, -1, 0, torch.float32))]:
+            ("kimi-k2 f32", (8, 1024, 1024, 64, 8, 112, True, -1, 0, torch.float32)),
+            # phase 21's shared attention block: Zamba2-2.7B (32 heads over 32, D = 80)
+            ("zamba2-2.7b", (8, 1024, 1024, 32, 32, 80, True, -1, 0, torch.bfloat16)),
+            ("zamba2-2.7b f32", (8, 1024, 1024, 32, 32, 80, True, -1, 0, torch.float32))]:
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, skv, kh, d, generator=gen, device="cuda").to(dt)
                 for _ in range(2))
@@ -1253,17 +1296,18 @@ def phase_kernels(torch, gen) -> dict:
               f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms"
               f"{'' if bmm_ms is None else f', bf16 bmm {bmm_ms:.5f} ms'}, bound "
               f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {ops} {kind} ops)", flush=True)
-    results["flash_attention_bwd D=112"] = bwd_refuses_112(torch)
+    for d in (112, 80):
+        results[f"flash_attention_bwd D={d}"] = bwd_refuses(torch, d)
     return results
 
 
-def bwd_refuses_112(torch) -> str:
-    """The backward kernel is not built for Kimi-K2's D = 112 (the forward
-    is): on CUDA tensors its wrapper refuses before any launch, naming the
-    ROADMAP."""
+def bwd_refuses(torch, d: int) -> str:
+    """The backward kernel is not built for Kimi-K2's D = 112 or Zamba2's
+    D = 80 (the forward is): on CUDA tensors its wrapper refuses before any
+    launch, naming the ROADMAP."""
     from repro_torch import kernels as tk
 
-    q, k, v = (torch.zeros(1, 64, 2, 112, device="cuda", dtype=torch.bfloat16)
+    q, k, v = (torch.zeros(1, 64, 2, d, device="cuda", dtype=torch.bfloat16)
                for _ in range(3))
     out, lse = tk.flash_attention_fwd(q, k, v, return_lse=True)
     before = tk.flash_attention_bwd.launches
@@ -1272,9 +1316,10 @@ def bwd_refuses_112(torch) -> str:
         said = None
     except NotImplementedError as e:
         said = str(e)
-    require(said is not None and "ROADMAP" in said and tk.flash_attention_bwd.launches == before,
-            f"flash_attention_bwd at D = 112: not refused by name before a launch ({said})")
-    print(f"kernel flash_attention_bwd [D=112 bf16]: refused before any launch: {said}",
+    require(said is not None and "ROADMAP" in said and f"D = {d}" in said
+            and tk.flash_attention_bwd.launches == before,
+            f"flash_attention_bwd at D = {d}: not refused by name before a launch ({said})")
+    print(f"kernel flash_attention_bwd [D={d} bf16]: refused before any launch: {said}",
           flush=True)
     return said
 
@@ -5683,6 +5728,449 @@ def phase_moe(torch, launches: dict, profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the SSM and hybrid decoders (Falcon-Mamba-7B and Zamba2-2.7B)
+# ---------------------------------------------------------------------------
+
+def ssm_cfg(arch: str, layers: int | None = None, dtype=None):
+    """The published config, or cut to ``layers`` layers (the hybrid's
+    groups then hold one Mamba-2 layer each), in ``dtype`` if given."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    kw = {}
+    if layers is not None:
+        kw["n_layers"] = layers
+        if cfg.shared_attn_every:
+            kw["shared_attn_every"] = 1
+    if dtype is not None:
+        kw["dtype"] = dtype
+    return dataclasses.replace(cfg, **kw)
+
+
+def ssm_block_f64(torch, p: dict, cfg, x):
+    """Layer 0's Mamba block in f64, written apart from `models.mamba` but
+    for the sequential recurrence itself (`selective_scan_ref` / `ssd_ref`
+    run in f64): (block output, the recurrence's inputs, its y and final
+    state)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import mamba
+
+    s_cfg, (b, s, d) = cfg.ssm, x.shape
+    din, k = s_cfg.expand * d, s_cfg.d_conv
+    P = {n: t.double() for n, t in p.items()}
+    xd = x.double()
+
+    def rms(v, gain):
+        return v * torch.rsqrt((v * v).mean(-1, keepdim=True) + cfg.norm_eps) * (1 + gain)
+
+    def conv(v):
+        vp = F.pad(v, (0, 0, k - 1, 0))
+        return F.silu(sum(vp[:, j:j + s] * P["conv_w"][:, j] for j in range(k)) + P["conv_b"])
+
+    h = rms(xd, P["norm"])
+    if s_cfg.kind == "mamba1":
+        r, n = s_cfg.dt_rank or d // 16, s_cfg.d_state
+        xin, z = (h @ P["in_proj"]).split(din, -1)
+        xc = conv(xin)
+        dt_raw, bm, cm = (xc @ P["x_proj"]).split([r, n, n], -1)
+        dt = F.softplus(dt_raw @ P["dt_proj"] + P["dt_bias"])
+        args = (xc, dt, -torch.exp(P["A_log"]), bm, cm, P["D"])
+        y, hf = mamba.selective_scan_ref(*args, torch.zeros((b, din, n), dtype=torch.float64,
+                                                            device=x.device))
+        gated = y * F.silu(z)
+    else:
+        nh, gn = din // s_cfg.head_dim, s_cfg.n_groups * s_cfg.d_state
+        z, xbc, dt_raw = (h @ P["in_proj"]).split([din, din + 2 * gn, nh], -1)
+        xin, bm, cm = conv(xbc).split([din, gn, gn], -1)
+        groups = (b, s, s_cfg.n_groups, s_cfg.d_state)
+        args = (xin.reshape(b, s, nh, s_cfg.head_dim), F.softplus(dt_raw + P["dt_bias"]),
+                -torch.exp(P["A_log"]), bm.reshape(groups), cm.reshape(groups), P["D"])
+        y, hf = mamba.ssd_ref(*args, torch.zeros((b, nh, s_cfg.d_state, s_cfg.head_dim),
+                                                 dtype=torch.float64, device=x.device))
+        gated = rms(y.reshape(b, s, din) * F.silu(z), P["gate_norm"])
+    return xd + gated @ P["out_proj"], args, y, hf
+
+
+def ssm_layer_vs_f64(torch, p: dict, cfg, x) -> dict:
+    """Layer 0's block at full width: (a) the port's block in bf16 on its
+    input x against the f64 evaluation, max |diff| over max |f64|, within
+    SSM_BF16_REL; (b) the port's chunked scan (`selective_scan` / `ssd`, f32)
+    on the f64 evaluation's own scan inputs, rounded to f32, against the
+    f64 sequential recurrence: its final state, and the recurrence's part
+    of y (y - D u: the f32 scan run with D = 0, since the skip D u is ~1000x
+    the recurrence's part at the seeded init and an f32 y would round the
+    part away), each within SSM_SCAN_REL of its largest entry."""
+    from repro_torch.models import mamba
+
+    kind = cfg.ssm.kind
+    block = mamba.mamba1_block if kind == "mamba1" else mamba.mamba2_block
+    scan = mamba.selective_scan if kind == "mamba1" else mamba.ssd
+    got, _ = block(p, cfg, x)
+    want, args, y64, h64 = ssm_block_f64(torch, p, cfg, x)
+    block_err = float((got.double() - want).abs().max()) / float(want.abs().max())
+    a32 = [t.float() for t in args[:5]] + [torch.zeros_like(args[5], dtype=torch.float32)]
+    h0 = torch.zeros_like(h64, dtype=torch.float32)
+    rec32, h32 = scan(*a32, h0, cfg.ssm.chunk)
+    u64, d64 = args[0], (args[5][:, None] if kind == "mamba2" else args[5])
+    rec64 = y64 - u64 * d64
+    out = dict(block_rel_err=block_err, f64_max=float(want.abs().max()),
+               state_rel_err=float((h32.double() - h64).abs().max() / h64.abs().max()),
+               rec_rel_err=float((rec32.double() - rec64).abs().max() / rec64.abs().max()),
+               state_max=float(h64.abs().max()), rec_max=float(rec64.abs().max()),
+               skip_max=float((u64 * d64).abs().max()))
+    del got, want, args, y64, h64, a32, rec32, h32, rec64
+    return out
+
+
+def ssm_layer_parts(torch, params: dict, cfg, x) -> dict:
+    """CUDA-event times (ms) of layer 0's parts on its own input x at the
+    prefill's shape: norm + in_proj, the conv (and SiLU), x_proj/dt (Mamba-1:
+    x_proj, dt_proj, softplus; Mamba-2: softplus), the scan (selective_scan
+    or SSD), the gate and out_proj, and the whole block; for the hybrid also
+    group 0's shared block, its attention (norm, projections, RoPE, the
+    kernel, output projection) and its MLP."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import hybrid, mamba
+    from repro_torch.models.layers import dense, rmsnorm
+
+    s_cfg, (b, s, d) = cfg.ssm, x.shape
+    din = s_cfg.expand * d
+    hyb = bool(cfg.shared_attn_every)
+    p = hybrid._mamba_layer(params["groups"], 0, 0) if hyb else {
+        k: v[0] for k, v in params["blocks"].items()}
+
+    def t(fn):
+        return call_ms(torch, fn, 1, 3)
+
+    parts = {}
+    proj = lambda: dense(rmsnorm(x, p["norm"], cfg.norm_eps), p["in_proj"])  # noqa: E731
+    parts["in_proj"] = t(proj)
+    xz = proj()
+    if s_cfg.kind == "mamba1":
+        r, n = s_cfg.dt_rank or d // 16, s_cfg.d_state
+        xin, z = xz.split(din, -1)
+        conv = lambda: F.silu(mamba.causal_conv1d(xin, p["conv_w"], p["conv_b"]).float()  # noqa: E731
+                              ).to(x.dtype)
+        parts["conv"] = t(conv)
+        xc = conv()
+
+        def xdt():
+            dt_raw, bm, cm = mamba._dot_f32(xc, p["x_proj"]).split([r, n, n], -1)
+            return F.softplus(dt_raw @ p["dt_proj"].float() + p["dt_bias"]), bm, cm
+
+        parts["x_proj_dt"] = t(xdt)
+        dt, bm, cm = xdt()
+        h0 = torch.zeros((b, din, n), dtype=torch.float32, device=x.device)
+        scan = lambda: mamba.selective_scan(xc, dt, -torch.exp(p["A_log"]), bm, cm,  # noqa: E731
+                                            p["D"], h0, s_cfg.chunk)
+        parts["scan"] = t(scan)
+        y = scan()[0]
+        gate = lambda: dense((y.float() * F.silu(z.float())).to(x.dtype),  # noqa: E731
+                             p["out_proj"])
+        parts["gate_out_proj"] = t(gate)
+        parts["block"] = t(lambda: mamba.mamba1_block(p, cfg, x))
+    else:
+        nh, gn = din // s_cfg.head_dim, s_cfg.n_groups * s_cfg.d_state
+        z, xbc, dt_raw = xz.split([din, din + 2 * gn, nh], -1)
+        conv = lambda: F.silu(mamba.causal_conv1d(xbc, p["conv_w"], p["conv_b"]).float()  # noqa: E731
+                              ).to(x.dtype)
+        parts["conv"] = t(conv)
+        xin, bm, cm = conv().split([din, gn, gn], -1)
+        soft = lambda: F.softplus(dt_raw.float() + p["dt_bias"])  # noqa: E731
+        parts["x_proj_dt"] = t(soft)
+        dt = soft()
+        groups = (b, s, s_cfg.n_groups, s_cfg.d_state)
+        h0 = torch.zeros((b, nh, s_cfg.d_state, s_cfg.head_dim), dtype=torch.float32,
+                         device=x.device)
+        scan = lambda: mamba.ssd(xin.reshape(b, s, nh, s_cfg.head_dim), dt,  # noqa: E731
+                                 -torch.exp(p["A_log"]), bm.reshape(groups),
+                                 cm.reshape(groups), p["D"], h0, s_cfg.chunk)
+        parts["scan"] = t(scan)
+        y = scan()[0].reshape(b, s, din)
+        gate = lambda: dense(rmsnorm((y.float() * F.silu(z.float())).to(x.dtype),  # noqa: E731
+                                     p["gate_norm"], cfg.norm_eps), p["out_proj"])
+        parts["gate_out_proj"] = t(gate)
+        parts["block"] = t(lambda: mamba.mamba2_block(p, cfg, x))
+        shared, grp = params["shared"], params["groups"]
+        pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+
+        def attn():
+            h = rmsnorm(x, grp["ln1"][0], cfg.norm_eps)
+            q, k, v = hybrid._attn_heads(shared["attn"], cfg, h, pos, cfg.rope_theta)
+            o = hybrid.flash_attention(q, k, v, causal=True)
+            return x + hybrid._attn_out(shared["attn"], cfg, o)
+
+        parts["shared_attention"] = t(attn)
+        xa = attn()
+        parts["shared_mlp"] = t(lambda: hybrid._shared_mlp(shared, grp["ln2"][0], cfg, xa))
+    return parts
+
+
+def cpu_op_watch(torch):
+    """A dispatch mode that records the aten ops given a CPU tensor (gate 5:
+    nothing on the path reads or writes the host's memory): ``cpu_ops``
+    those with a CPU tensor of one or more dimensions, ``cpu_scalars``
+    those with a 0-dim one only (a host scalar, as a Python number is)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Watch(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.cpu_ops, self.cpu_scalars = [], []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            flat = []
+            for a in list(args) + list(kwargs.values()):
+                flat.extend(a if isinstance(a, (list, tuple)) else [a])
+            cpu = [a for a in flat if isinstance(a, torch.Tensor) and a.device.type == "cpu"]
+            if any(a.dim() > 0 for a in cpu):
+                self.cpu_ops.append(str(func))
+            elif cpu:
+                self.cpu_scalars.append(str(func))
+            return func(*args, **kwargs)
+
+    return Watch()
+
+
+def ssm_small(torch, arch: str, launches: dict) -> dict:
+    """Gates 1, 3 and 5 at SSM_SMALL's reduced depth in f32 (the hybrid's
+    two groups hold one Mamba-2 layer each; its shared attention at fan-in
+    over its contraction, phase 11's f32 conditioning): decode(prefill(x),
+    t) against prefill(x ‖ t) at each of SSM_SMALL's steps within
+    SSM_SMALL["tol"] (the reference's bound, tests/test_models.py); the
+    ContinuousEngine's completions on SSM_SMALL's trace == static B = 1
+    generates, greedy, slots reused; and no aten op on a CPU tensor in a
+    prefill and a decode step. Launches here are not counted."""
+    from repro_torch.models import get_model, init_params
+    from repro_torch.serving import ContinuousEngine, Engine, Scheduler, ServeConfig
+
+    dev = "cuda"
+    sm = SSM_SMALL
+    cfg = ssm_cfg(arch, sm["layers"], torch.float32)
+    model = get_model(cfg)
+    params = init_params(model.specs, torch.Generator(device=dev).manual_seed(SEED + 4), dev)
+    if cfg.shared_attn_every:       # the shared attention block, as phase 11's layers
+        fan_in_over_contraction({"blocks": {"attn": params["shared"]["attn"]}}, cfg)
+    n, steps = sm["prompt_len"], sm["steps"]
+    toks = torch.randint(0, cfg.vocab, (sm["batch"], n + steps), device=dev,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(SEED + 5))
+    watch = cpu_op_watch(torch)
+    with watch:
+        _, cache = model.prefill_fn(params, {"tokens": toks[:, :n]}, pad_to=n + steps + 1)
+        lg, cache = model.decode_fn(params, cache, toks[:, n], n)
+    require(not watch.cpu_ops and all(t.is_cuda for t in cache.values()) and lg.is_cuda,
+            f"ssm {arch}: ops on CPU tensors in a prefill and a decode: "
+            f"{sorted(set(watch.cpu_ops))[:8]}")
+    errs = []
+    for i in range(steps):
+        if i:
+            lg, cache = model.decode_fn(params, cache, toks[:, n + i], n + i)
+        full, _ = model.prefill_fn(params, {"tokens": toks[:, :n + i + 1]})
+        errs.append(float((lg - full).abs().max()))
+    require(max(errs) < sm["tol"], f"ssm {arch}: decode(prefill(x), t) vs prefill(x + t) "
+                                   f"differ by {max(errs)} (bound {sm['tol']})")
+    # continuous == static, slots reused
+    rng = torch.Generator(device=dev).manual_seed(SEED + 6)
+    lengths = [sm["lengths"][i % len(sm["lengths"])] for i in range(sm["requests"])]
+    prompts = [torch.randint(0, cfg.vocab, (m,), device=dev, dtype=torch.int32, generator=rng)
+               for m in lengths]
+    scfg = ServeConfig(max_new=sm["max_new"])
+    eng = ContinuousEngine(model, scfg, num_slots=sm["slots"], max_prompt_len=max(lengths))
+    sched = Scheduler(eng, params)
+    rids = [sched.submit(p) for p in prompts]
+    sched.run(timeout=600)
+    same = 0
+    for rid, p in zip(rids, prompts):
+        want = Engine(model, scfg).generate(params, {"tokens": p[None]})[0]
+        same += sched.poll(rid).tokens == want.tolist()
+    require(same == len(prompts), f"ssm {arch}: {same} of {len(prompts)} continuous "
+                                  f"completions == their static B = 1 generate")
+    out = dict(layers=cfg.n_layers, step_errs=errs, cont_equal=same, requests=len(prompts),
+               cont_steps=sched.steps, cpu_ops=len(watch.cpu_ops),
+               cpu_scalar_ops=sorted(set(watch.cpu_scalars)))
+    print(f"ssm small {cfg.name} ({cfg.n_layers} layers, f32): decode(prefill(x), t) vs "
+          f"prefill(x + t), {steps} steps from prompt {n}, worst max |diff| {max(errs):.3g} "
+          f"(bound {sm['tol']}); continuous, {sm['slots']} slots: {same} of {len(prompts)} "
+          f"completions == their static B = 1 generate ({sched.steps} steps); aten ops on "
+          f"CPU tensors in a prefill and a decode: {len(watch.cpu_ops)} (on CPU scalars: "
+          f"{len(watch.cpu_scalars)})", flush=True)
+    del params, cache, eng, sched
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_serve(torch, arch: str, launches: dict, profile: bool) -> dict:
+    """One SSM-family decoder at its published width and depth, bf16 weights
+    from the seed, on phase 11's trace (LM) through `Engine.generate`: the
+    counted generates (the hybrid's attention kernel once a group in a
+    prefill, nothing else launched; nothing at all for the SSM), time to
+    first token, decode ms a token, tokens/s and peak memory; layer 0's
+    block against f64 (gate 2) and its parts' CUDA-event times."""
+    import dataclasses
+
+    from repro_torch import kernels as tk
+    from repro_torch.models import count_params, get_model, hybrid, init_params, zoo
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.tree import tree_leaves
+
+    dev = "cuda"
+    b, s, new = LM["batch"], LM["prompt_len"], LM["max_new"]
+    cfg = ssm_cfg(arch)
+    hyb = bool(cfg.shared_attn_every)
+    groups = cfg.n_layers // cfg.shared_attn_every if hyb else 0
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    params = init_params(model.specs, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    toks = torch.randint(0, cfg.vocab, (b, s), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    prompt = {"tokens": toks}
+    what = f"ssm {arch} ({cfg.n_layers} layers)"
+    # the engine's prefill timed inside each generate (time to first token;
+    # the decode's ms a token is the rest of the generate over its steps),
+    # with its launches and its last logits kept
+    seen = {"prefill_s": [], "prefill_launches": []}
+
+    def timed_prefill(params, batch, pad_to=None):
+        torch.cuda.synchronize()
+        before, t0 = tk.launch_counts(), time.perf_counter()
+        logits, cache = model.prefill_fn(params, batch, pad_to=pad_to)
+        torch.cuda.synchronize()
+        seen["prefill_s"].append(time.perf_counter() - t0)
+        seen["prefill_launches"].append(tk.launch_counts()["flash_attention_fwd"]
+                                        - before["flash_attention_fwd"])
+        seen["prefill_logits"] = logits
+        return logits, cache
+
+    def kept_decode(params, cache, token, pos):
+        seen["decode_logits"], cache = model.decode_fn(params, cache, token, pos)
+        return seen["decode_logits"], cache
+
+    eng = Engine(dataclasses.replace(model, prefill_fn=timed_prefill, decode_fn=kept_decode),
+                 ServeConfig(max_new=new))
+
+    gen_s, outs = [], []
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    for _ in range(LM_GENERATES):
+        t0 = time.perf_counter()
+        outs.append(eng.generate(params, prompt))
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    counts = tk.launch_counts()
+    if hyb:
+        require_only(counts, ("flash_attention_fwd",), f"{what} generate")
+        require(seen["prefill_launches"] == [groups] * LM_GENERATES
+                and counts["flash_attention_fwd"] == groups * LM_GENERATES,
+                f"{what}: {seen['prefill_launches']} attention launches in the prefills of "
+                f"{LM_GENERATES} generates and {counts['flash_attention_fwd']} in all, "
+                f"expected {groups} a prefill (one a group) and none in a decode step")
+    else:
+        require(all(v == 0 for v in counts.values()), f"{what}: launches {counts}, expected none")
+    add_launches(launches, counts)
+    require(tuple(outs[0].shape) == (b, new) and
+            bool(((outs[0] >= 0) & (outs[0] < cfg.vocab)).all()),
+            f"{what}: tokens {tuple(outs[0].shape)} out of shape or range")
+    require(torch.equal(outs[0], outs[1]), f"{what}: two generates differ in "
+                                           f"{int((outs[0] != outs[1]).sum())} tokens")
+    require(bool(torch.isfinite(seen["prefill_logits"]).all()) and
+            bool(torch.isfinite(seen["decode_logits"]).all()), f"{what}: logits not finite")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ttft_ms = statistics.median(seen["prefill_s"][1:]) * 1e3
+    dec_ms = statistics.median((g - p) / new * 1e3 for g, p in
+                               zip(gen_s[1:], seen["prefill_s"][1:]))
+    tok_s = b * new / statistics.median(gen_s[1:])
+    out = dict(arch=cfg.name, layers=cfg.n_layers, params=count_params(model.specs),
+               weight_gb=weight_gb, init_s=init_s, generate_s=gen_s,
+               prefill_s=seen["prefill_s"], ttft_ms=ttft_ms,
+               decode_ms_per_token=dec_ms, tokens_per_s=tok_s, peak_gib=peak_gib,
+               held_before_gib=before_gib, launches=counts.get("flash_attention_fwd", 0))
+    print(f"ssm serve: {cfg.name} at {cfg.n_layers} of its {cfg.n_layers} layers "
+          f"({out['params']} parameters, {weight_gb:.2f} GB, drawn in {init_s:.1f} s; d "
+          f"{cfg.d_model}, {cfg.ssm.kind}, d_inner {cfg.ssm.expand * cfg.d_model}, N "
+          f"{cfg.ssm.d_state}{f', {groups} shared-attention calls at D {cfg.hd}' if hyb else ''}"
+          f", bf16), batch {b} x prompt {s} x {new} new, greedy, the warm generate: prefill "
+          f"(time to first token) {ttft_ms:.3f} ms, decode {dec_ms:.3f} ms/token, generate "
+          f"{gen_s[0]:.3f} s cold / {statistics.median(gen_s[1:]):.3f} s warm ({tok_s:.1f} "
+          f"generated tokens/s), peak memory {peak_gib:.2f} GiB ({before_gib:.2f} held before "
+          f"the draw)", flush=True)
+    del seen
+
+    # layer 0's input (the embedding, or after group 0's shared block), the
+    # gates and the parts
+    x0 = tfm.embed_tokens(params, cfg, toks)
+    if hyb:
+        grp = params["groups"]
+        x0 = hybrid._shared_attn_train(params["shared"], grp["ln1"][0], grp["ln2"][0], cfg, x0,
+                                       zoo._positions(toks))[0]
+        p0 = hybrid._mamba_layer(grp, 0, 0)
+    else:
+        p0 = {k: v[0] for k, v in params["blocks"].items()}
+    f64 = ssm_layer_vs_f64(torch, p0, cfg, x0)
+    require(f64["block_rel_err"] <= SSM_BF16_REL,
+            f"{what}: layer 0's block off its f64 evaluation by {f64['block_rel_err']} of "
+            f"max |f64| > {SSM_BF16_REL}")
+    require(max(f64["state_rel_err"], f64["rec_rel_err"]) <= SSM_SCAN_REL,
+            f"{what}: the chunked scan off the f64 recurrence: state {f64['state_rel_err']}, "
+            f"y - D u {f64['rec_rel_err']} of their max > {SSM_SCAN_REL}")
+    parts = ssm_layer_parts(torch, params, cfg, x0)
+    parts["scan_share_of_first_token"] = cfg.n_layers * parts["scan"] / ttft_ms
+    out.update(layer0_vs_f64=f64, prefill_parts_ms=parts)
+    extra = (f", shared block: attention {parts['shared_attention']:.3f} (the kernel at D "
+             f"{cfg.hd} inside), MLP {parts['shared_mlp']:.3f} (x {groups})" if hyb else "")
+    print(f"ssm profile {arch} prefill (CUDA events; layer 0's parts on its own input, x "
+          f"{cfg.n_layers} layers): first token {ttft_ms:.3f} ms; a layer: norm + in_proj "
+          f"{parts['in_proj']:.3f}, conv {parts['conv']:.3f}, x_proj/dt {parts['x_proj_dt']:.3f}, "
+          f"scan {parts['scan']:.3f}, gate + out_proj {parts['gate_out_proj']:.3f}; the block "
+          f"{parts['block']:.3f}{extra}; the scans {parts['scan_share_of_first_token']:.3f} of "
+          f"the first token", flush=True)
+    if profile:
+        out["profile prefill"] = profile_calls(torch, f"ssm {arch} prefill bf16", [
+            lambda: model.prefill_fn(params, prompt)],
+            share_of="flash_fwd" if hyb else None)
+        _, cache = model.prefill_fn(params, prompt, pad_to=s + new + 1)
+        tok = torch.zeros((b,), dtype=torch.int32, device=dev)
+        out["profile decode"] = profile_calls(torch, f"ssm {arch} decode step bf16", [
+            lambda i=i: model.decode_fn(params, cache, tok, s + i) for i in range(4)])
+        del cache
+    print(f"ssm checks {arch}: {out['launches']} attention launches in {LM_GENERATES} "
+          f"generates ({groups if hyb else 0} each, none in a decode step), nothing else "
+          f"launched; two generates bit-identical; layer 0's block (bf16) vs f64: "
+          f"{f64['block_rel_err']:.3g} of max |f64| {f64['f64_max']:.4g} (bound "
+          f"{SSM_BF16_REL}); the chunked scan (f32) vs the f64 sequential recurrence on the "
+          f"layer's inputs: final state {f64['state_rel_err']:.3g} of {f64['state_max']:.4g}, "
+          f"y - D u {f64['rec_rel_err']:.3g} of {f64['rec_max']:.4g} (bound {SSM_SCAN_REL}; "
+          f"max |D u| {f64['skip_max']:.4g})", flush=True)
+    del params, prompt, eng, x0, p0
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ssm(torch, launches: dict, profile: bool = False) -> dict:
+    """Phase 21: the SSM and hybrid decoders at their published widths and
+    depths (SSM_RUNS), one model on the card at a time, then SSM_SMALL's
+    f32 gates of each."""
+    out = {}
+    for arch in SSM_RUNS:
+        out[arch] = ssm_serve(torch, arch, launches, profile)
+    for arch in SSM_RUNS:
+        out[f"{arch} small"] = ssm_small(torch, arch, launches)
+    return out
+
+
 def phase_profile(torch, state, protos_u, base) -> dict:
     """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
@@ -5737,12 +6225,14 @@ def main(argv: list[str]) -> int:
         require(sum(got[op] for op in want) > 0, f"sass {name}: no {'/'.join(want)} instruction")
         require(all(got[op] == 0 for op in bad), f"sass {name}: {bad} present: {got}")
     require(not sass["gone"], f"sass: retired kernels still built: {sass['gone']}")
-    # Kimi-K2's D = 112 runs in the D = 128 tiles: its bf16 instance on wgmma too
-    d112 = {fn: c["HGMMA"] for fn, c in sass["instances"].items()
-            if "flash_fwd_mma_kernel" in fn and "Li112E" in fn}
-    print(f"sass flash_fwd_mma_kernel<112>: HGMMA {sum(d112.values())}", flush=True)
-    require(len(d112) == 1 and all(n > 0 for n in d112.values()),
-            f"sass: the D = 112 instance of flash_fwd_mma_kernel has no HGMMA: {d112}")
+    # Kimi-K2's D = 112 and Zamba2's D = 80 run in the D = 128 tiles: their
+    # bf16 instances on wgmma too
+    for d in (112, 80):
+        inst = {fn: c["HGMMA"] for fn, c in sass["instances"].items()
+                if "flash_fwd_mma_kernel" in fn and f"Li{d}E" in fn}
+        print(f"sass flash_fwd_mma_kernel<{d}>: HGMMA {sum(inst.values())}", flush=True)
+        require(len(inst) == 1 and all(n > 0 for n in inst.values()),
+                f"sass: the D = {d} instance of flash_fwd_mma_kernel has no HGMMA: {inst}")
     # the SIMT attention kernels are built for f32 only (no bf16 instance)
     for name, fns in sass["simt_attention"].items():
         print(f"sass {name}: {len(fns)} instances, bf16 among them: "
@@ -5810,6 +6300,8 @@ def main(argv: list[str]) -> int:
                         lambda: phase_train_ranks(torch, launches))
     moe_dec = phase("20 the MoE decoder", lambda: phase_moe(torch, launches,
                                                            profile=args.profile))
+    ssm_dec = phase("21 the SSM and hybrid decoders", lambda: phase_ssm(
+        torch, launches, profile=args.profile))
     kernels["flash_attention_bwd"] = train["kernel_cases"]
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
@@ -5837,7 +6329,7 @@ def main(argv: list[str]) -> int:
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
             faults=fault, cont=cont, train=train, multirank=multirank, living_ranks=living,
-            train_ranks=train_ranks, moe=moe_dec,
+            train_ranks=train_ranks, moe=moe_dec, ssm=ssm_dec,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

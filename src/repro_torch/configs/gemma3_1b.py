@@ -30,6 +30,7 @@ CONFIG = ModelConfig(
     tie_embeddings=True,
     emb_scale=True,
     act="gelu",
+    subquadratic=True,
     rules_override={"embed": "data", "kv_seq": "model"},
 )
 

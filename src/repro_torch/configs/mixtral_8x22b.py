@@ -3,9 +3,7 @@
 56L d_model=6144 48H (GQA kv=8, head_dim 128) expert d_ff=16384 vocab=32768,
 window 4096 on every layer (per assignment). Sharding: 8 experts don't divide the
 16-way model axis -> TP *inside* experts (d_expert 16384/16), experts replicated;
-heads TP (48/16). Pure SWA -> ring KV cache -> long_500k runs. The
-reference's ``subquadratic`` marker (read by its dry run's shape cells only)
-is not carried.
+heads TP (48/16). Pure SWA -> ring KV cache -> long_500k runs.
 """
 from __future__ import annotations
 
@@ -24,6 +22,7 @@ CONFIG = ModelConfig(
     rope_theta=1_000_000.0,
     window_pattern=(4096,) * 56,
     moe=MoESettings(n_experts=8, top_k=2, d_expert=16384, group_size=1024, capacity_factor=1.25),
+    subquadratic=True,
     rules_override={"experts": None, "expert_mlp": "model", "kv_seq": "model"},
 )
 

@@ -50,13 +50,15 @@
 // staged in shared memory and written in 16-byte rows. Query tiles run
 // heaviest first. D <= 64 is held to 128 registers: two blocks an SM.
 //
-// D = 112 (Kimi-K2's head dim, 7168 / 64): the bf16 kernel runs the D = 128
-// tiles, swizzle and wgmma shapes with shared-memory columns 112-127 of Q, K
-// and V zero-filled (cp.async with no source bytes): they add nothing to
-// Q.K^T and give output columns that are never stored. Global loads and
-// stores touch only the 112 real columns, and the scale is 1/sqrt(112), from
-// the true D. The tensor cores do 128/112 of the products they must; the
-// SIMT kernel takes D = 112 as it is (seven float4 chunks a lane).
+// D = 80 (Zamba2's head dim, 2560 / 32) and D = 112 (Kimi-K2's, 7168 / 64):
+// the bf16 kernel runs the D = 128 tiles, swizzle and wgmma shapes with
+// shared-memory columns D-127 of Q, K and V zero-filled (cp.async with no
+// source bytes): they add nothing to Q.K^T and give output columns that are
+// never stored (rows of 160 or 224 bytes fit no swizzle). Global loads and
+// stores touch only the D real columns, and the scale is 1/sqrt(D), from the
+// true D. The tensor cores do 128/80 = 1.6x or 128/112 of the products they
+// must; the SIMT kernel takes D = 80 and 112 as they are (five and seven
+// float4 chunks a lane).
 //
 // f32: the SIMT kernel (flash_fwd_simt_kernel), f32 FMAs on the CUDA cores
 // (67 TFLOP/s at best). It beats SDPA in f32 on this card, and TF32 tensor
@@ -88,9 +90,9 @@ constexpr int MMA_BQ = 2 * WG_ROWS;         // query rows per block (two warpgro
 constexpr int MMA_THREADS = 256;
 
 // D: the head dim in device memory; DP: the tiles' width in shared memory
-// (D = 112 in the D = 128 tiles, its last two chunks a row zero)
+// (D = 80 and 112 in the D = 128 tiles, their last chunks a row zero)
 template <int D> struct Mma {
-  static constexpr int DP = D == 112 ? 128 : D;
+  static constexpr int DP = D == 80 || D == 112 ? 128 : D;
   static constexpr int BK = DP >= 256 ? 32 : 64;    // keys per kv tile
   static constexpr int CH = DP / 8;                 // 16-byte chunks a tile row
   static constexpr int CHR = D / 8;                 // of them, the ones in memory
@@ -522,6 +524,7 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
     case 16: return launch<16>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 32: return launch<32>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 64: return launch<64>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 80: return launch<80>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 112: return launch<112>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 128: return launch<128>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 256: return launch<256>(q, k, v, out, l, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);

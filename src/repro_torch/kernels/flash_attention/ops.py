@@ -14,9 +14,9 @@ from repro_torch.kernels.common import check_contiguous, dispatch
 from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
 
 # Head dims the kernels are instantiated for: the forward
-# (csrc/flash_attention.cu; D = 112 runs in the D = 128 tiles) and the
+# (csrc/flash_attention.cu; D = 80 and 112 run in the D = 128 tiles) and the
 # backward (csrc/flash_attention_bwd.cu).
-HEAD_DIMS = (16, 32, 64, 112, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
 BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID = 65535   # grid y limit
@@ -40,14 +40,14 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 
 def _check_head_dim(name: str, d: int, dims: tuple) -> None:
     """D must be one the kernel is built for. The backward refuses the
-    forward's D = 112 (Kimi-K2's) by name: it comes with MoE training on
-    the card."""
+    forward's D = 80 (Zamba2's) and D = 112 (Kimi-K2's) by name: they come
+    with hybrid and MoE training on the card."""
     if d in dims:
         return
     if d in HEAD_DIMS:
         raise NotImplementedError(
             f"{name}: head dim {d} runs in the forward kernel only; the backward at "
-            f"D = {d} waits for MoE training on the card (ROADMAP §1, LM stack)")
+            f"D = {d} waits for hybrid and MoE training on the card (ROADMAP §1, LM stack)")
     raise ValueError(f"{name}: head dim {d} not in the kernel's {dims}")
 
 
@@ -104,7 +104,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     """The gradients (dq [B, Sq, H, D], dk, dv [B, Skv, KH, D]) of
     `flash_attention_fwd` with respect to q, k, v, from its ``out`` and
     ``lse`` and the output's gradient ``dout``, in the inputs' dtype. The
-    kernel takes what the forward kernel takes but D = 112 (`BWD_HEAD_DIMS`);
+    kernel takes what the forward kernel takes but D = 80 and 112
+    (`BWD_HEAD_DIMS`);
     ``block_q``/``block_k`` tile the plain version only."""
     _check_qkv("flash_attention_bwd", q, k, v)
     b, sq, h, d = q.shape

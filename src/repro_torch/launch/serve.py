@@ -1,6 +1,6 @@
-"""Serving launcher: static one-shot generation of a dense decoder,
-continuous batching replaying a Poisson request trace, or the multi-tenant
-HDC service replaying one.
+"""Serving launcher: static one-shot generation of an LM (the dense, MoE,
+SSM and hybrid decoders), continuous batching replaying a Poisson request
+trace, or the multi-tenant HDC service replaying one.
 
   # on the GPU, TinyLlama-1.1B at its published width, weights from the seed
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -9,6 +9,11 @@ HDC service replaying one.
   # on the CPU, the reduced same-family config
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --smoke --device cpu
+
+  # the SSM decoder (Falcon-Mamba-7B) and the hybrid (Zamba2-2.7B): any
+  # --arch the registry carries, static or --stream
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --smoke --device cpu --stream
 
   # continuous batching: a seeded Poisson trace of mixed prompt lengths
   # through the scheduler (step-granular admission and eviction)
@@ -185,7 +190,8 @@ def run_hdc_stream(args, dev: torch.device) -> dict:
 
 def main(argv: list[str] | None = None) -> torch.Tensor | dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", help="LM architecture (dense decoders)")
+    ap.add_argument("--arch", help="LM architecture: a dense, MoE, SSM (falcon-mamba-7b) or "
+                                   "hybrid (zamba2-2.7b) decoder")
     ap.add_argument("--smoke", action="store_true", help="the reduced f32 config")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

@@ -1,11 +1,12 @@
-"""Model configuration of the dense and MoE decoders (counterpart of
-`repro/models/config.py`).
+"""Model configuration of the dense, MoE, SSM and hybrid decoders
+(counterpart of `repro/models/config.py`).
 
-Only the fields the decoders read are carried: the SSM, enc-dec and VLM
+Only the fields these families read are carried: the enc-dec and VLM
 sections come back with the slices that read them, and the scanned layers
 have nothing to do in a Python loop. ``rules_override`` is each config's
 change to `distributed.sharding.DEFAULT_RULES`, the reference's letter for
-letter.
+letter; ``subquadratic`` is the reference's long-context marker, carried
+as the reference sets it.
 """
 from __future__ import annotations
 
@@ -24,6 +25,18 @@ class MoESettings:
     group_size: int = 1024       # tokens per dispatch group (GShard-style)
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMSettings:
+    kind: str                    # "mamba1" | "mamba2"
+    d_state: int
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64           # mamba2 only
+    n_groups: int = 1            # mamba2 only
+    dt_rank: int | None = None   # mamba1; default d_model // 16
+    chunk: int = 128             # selective-scan chunk length
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,12 +59,16 @@ class ModelConfig:
     act: str = "silu"            # silu | gelu
     norm_eps: float = 1e-6
     moe: MoESettings | None = None
+    ssm: SSMSettings | None = None
+    shared_attn_every: int = 0   # zamba2: one shared attn block every k ssm layers
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True           # recompute each layer's forward in the backward
     flash_block_q: int = 512     # block sizes of the attention's plain twin
     flash_block_k: int = 1024
     loss_chunk: int = 512        # chunked cross-entropy sequence chunk
     rules_override: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    # long-context marker (the reference's dry run skips its 500k cell without it)
+    subquadratic: bool = False
 
     @property
     def hd(self) -> int:

@@ -1,0 +1,406 @@
+"""Mamba-1 (selective scan) and Mamba-2 (SSD) blocks (counterpart of
+`repro/models/mamba.py`).
+
+Both scans are the reference's chunked formulations in plain PyTorch: a
+Python loop over chunks carrying the SSM state, with the work inside a chunk
+written as (a) a log-step (Hillis–Steele) scan of the pairs (a, b) under the
+reference's ``combine`` (mamba-1, a diagonal state per channel) or (b) the
+SSD matmuls against the masked segment sums (mamba-2). Mamba-1's
+``dA``/``dBu`` [B, Q, D_in, N] exist one chunk at a time, never over the
+whole sequence. A sequence that is no multiple of the chunk is padded with
+dt = 0 steps (decay 1, zero input: the state is unchanged) and the output
+sliced, as in the reference. The sequential ``*_ref`` recurrences are the
+oracles. No kernel runs here: each op is PyTorch's own (cuBLAS for the
+products on the card).
+
+Precision follows the reference's defaults: products accumulate in f32; the
+in/out projections return the activation dtype, while ``x_proj``'s output
+(dt_raw, B, C) and ``dt_proj`` stay f32 in a bf16 model (the reference's
+``preferred_element_type=f32``, `_dot_f32`); the recurrences run in f32.
+``softplus`` is `F.softplus`, whose threshold of 20 differs from
+``jax.nn.softplus`` by under 3e-9 relative.
+
+Both blocks have a full-sequence form, returning the final (conv_state,
+ssm_state) for the decode, and a single-token decode against that cache.
+The conv state after a prefill is the last K-1 *pre-conv* inputs, zero-padded
+in front for prompts shorter than K-1.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.base import ParamSpec
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dense, rmsnorm
+
+
+def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N] summed and returned in f32 (the reference's
+    ``preferred_element_type=f32`` kept as f32): bf16 operands on the card
+    write f32 through cuBLAS (``out_dtype``); on the CPU they are widened
+    first, which sums the same exact products in f32."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(x.shape[:-1] + (w.shape[-1],))
+    return torch.matmul(x.float(), w.float())
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``pad`` zero steps appended on axis 1."""
+    return torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])], dim=1)
+
+
+def _last_inputs(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The conv state after a prefill: the last k-1 steps of x [B, S, C],
+    zero-padded in front when S < k-1 (the reference's dynamic slice of the
+    front-padded stream)."""
+    s = x.shape[1]
+    if s >= k - 1:
+        return x[:, s - (k - 1):].clone()
+    return torch.cat([x.new_zeros((x.shape[0], k - 1 - s, x.shape[2])), x], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [B, S, C], w [C, K], b [C]: depthwise causal conv (tap K-1 = current),
+    summed in f32 tap by tap, in x's dtype."""
+    k = w.shape[-1]
+    s = x.shape[1]
+    xp = torch.cat([x.new_zeros((x.shape[0], k - 1, x.shape[2])), x], dim=1)
+    wf = w.float()
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(k):
+        out = out + xp[:, j:j + s].float() * wf[:, j]
+    return (out + b.float()).to(x.dtype)
+
+
+def conv_step(state: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """Decode: state [B, K-1, C] (oldest first), x_t [B, C] -> (new_state, out [B, C])."""
+    window = torch.cat([state, x_t[:, None, :]], dim=1)                 # [B, K, C]
+    out = (window.float() * w.T[None].float()).sum(1) + b.float()
+    return window[:, 1:, :], out.to(x_t.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1: diagonal selective scan
+# ---------------------------------------------------------------------------
+
+def mamba1_specs(cfg: ModelConfig, layers: int | None = None) -> dict:
+    s = cfg.ssm
+    l = cfg.n_layers if layers is None else layers
+    d = cfg.d_model
+    din = s.expand * d
+    r = s.dt_rank or d // 16
+    n = s.d_state
+    lead, la = ((l,), (None,)) if l else ((), ())
+    f32 = torch.float32
+    return {
+        "norm": ParamSpec(lead + (d,), la + ("embed",), "zeros", dtype=cfg.dtype),
+        "in_proj": ParamSpec(lead + (d, 2 * din), la + ("embed", "inner"), "fan_in",
+                             dtype=cfg.dtype),
+        "conv_w": ParamSpec(lead + (din, s.d_conv), la + ("inner", None), "fan_in",
+                            dtype=cfg.dtype),
+        "conv_b": ParamSpec(lead + (din,), la + ("inner",), "zeros", dtype=cfg.dtype),
+        "x_proj": ParamSpec(lead + (din, r + 2 * n), la + ("inner", None), "fan_in",
+                            dtype=cfg.dtype),
+        "dt_proj": ParamSpec(lead + (r, din), la + (None, "inner"), "fan_in", dtype=cfg.dtype),
+        "dt_bias": ParamSpec(lead + (din,), la + ("inner",), "zeros", dtype=f32),
+        "A_log": ParamSpec(lead + (din, n), la + ("inner", None), "zeros", dtype=f32),
+        "D": ParamSpec(lead + (din,), la + ("inner",), "ones", dtype=f32),
+        "out_proj": ParamSpec(lead + (din, d), la + ("inner", "embed"), "fan_in",
+                              dtype=cfg.dtype),
+    }
+
+
+def _hillis_steele(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan along axis 1 of the pairs (a, b) under the reference's
+    ``combine((a_l, b_l), (a_r, b_r)) = (a_l a_r, b_l a_r + b_r)``, in
+    log2(Q) steps: at offset d each step t >= d combines step t - d into t.
+
+    Each step reads what it overwrites, so it writes into a second pair of
+    buffers (the products straight into rows d.. through ``out=``, the first
+    d rows copied) and the pairs swap: ~7 passes over a chunk a step. When
+    autograd records the scan (``out=`` cannot be differentiated), each
+    step joins the untouched rows to the products with ``torch.cat``
+    instead, whose copy kernel took half of Falcon-Mamba-7B's prefill on an
+    H100 (PERF.md §6); the two paths do the same arithmetic."""
+    q = a.shape[1]
+    d = 1
+    if a.requires_grad or b.requires_grad:
+        while d < q:
+            b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], b[:, :-d], a[:, d:])], dim=1)
+            a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+            d *= 2
+        return a, b
+    a2, b2 = torch.empty_like(a), torch.empty_like(b)
+    while d < q:
+        b2[:, :d] = b[:, :d]
+        torch.addcmul(b[:, d:], b[:, :-d], a[:, d:], out=b2[:, d:])
+        a2[:, :d] = a[:, :d]
+        torch.mul(a[:, :-d], a[:, d:], out=a2[:, d:])
+        a, a2, b, b2 = a2, a, b2, b
+        d *= 2
+    return a, b
+
+
+def selective_scan(u, dt, A, B, C, D, h0, chunk: int):
+    """Chunked diagonal selective scan.
+
+    u, dt [B, S, D_in]; A [D_in, N]; B, C [B, S, N]; D [D_in]; h0 [B, D_in, N] f32.
+    Returns (y [B, S, D_in] in u's dtype, h_final f32). h_t = exp(dt_t A) h_{t-1}
+    + dt_t B_t u_t; y_t = C_t · h_t + D u_t.
+    """
+    b, s, din = u.shape
+    q = min(chunk, s)
+    if s % q:  # pad with dt=0 steps: decay exp(0)=1, zero input -> state unchanged
+        pad = q - s % q
+        y, h = selective_scan(*(_pad_seq(t, pad) for t in (u, dt)), A,
+                              *(_pad_seq(t, pad) for t in (B, C)), D, h0, chunk)
+        return y[:, :s], h
+    dtf, uf = dt.float(), u.float()
+    dtu = dtf * uf
+    Bf, Cf = B.float(), C.float()
+    h = h0
+    ys = []
+    for c0 in range(0, s, q):
+        a = torch.exp(dtf[:, c0:c0 + q, :, None] * A)                     # [B, Q, din, N]
+        bb = dtu[:, c0:c0 + q, :, None] * Bf[:, c0:c0 + q, None, :]
+        acum, bcum = _hillis_steele(a, bb)
+        h_t = torch.addcmul(bcum, acum, h[:, None])                       # [B, Q, din, N]
+        ys.append(torch.einsum("bqdn,bqn->bqd", h_t, Cf[:, c0:c0 + q]))
+        h = h_t[:, -1].clone()
+        del a, bb, acum, bcum, h_t
+    y = torch.cat(ys, dim=1) + uf * D
+    return y.to(u.dtype), h
+
+
+def selective_scan_ref(u, dt, A, B, C, D, h0):
+    """Naive sequential oracle, in the dtype of ``h0`` (f32 as the reference;
+    f64 for a yardstick)."""
+    s = u.shape[1]
+    acc = h0.dtype
+    A, D = A.to(acc), D.to(acc)
+    h = h0
+    ys = []
+    for t in range(s):
+        dA = torch.exp(dt[:, t].to(acc)[..., None] * A[None])
+        h = dA * h + (dt[:, t].to(acc) * u[:, t].to(acc))[..., None] * B[:, t].to(acc)[:, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t].to(acc)))
+    y = torch.stack(ys, 1) + u.to(acc) * D[None, None]
+    return y.to(u.dtype) if acc == torch.float32 else y, h
+
+
+def mamba1_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state=None):
+    """Full-sequence mamba-1 block. state=None -> zero initial state.
+
+    Returns (x + out [B, S, d], (conv_state, ssm_state)) — final states for chaining.
+    """
+    s_cfg = cfg.ssm
+    b, s, d = x.shape
+    din = s_cfg.expand * d
+    r = s_cfg.dt_rank or d // 16
+    n = s_cfg.d_state
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    xz = dense(h, p["in_proj"])
+    xin, z = xz.split(din, dim=-1)
+    xc = causal_conv1d(xin, p["conv_w"], p["conv_b"])
+    xc = F.silu(xc.float()).to(x.dtype)
+    dbc = _dot_f32(xc, p["x_proj"])
+    dt_raw, Bm, Cm = dbc.split([r, n, n], dim=-1)
+    dt = F.softplus(torch.matmul(dt_raw, p["dt_proj"].float()) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    h0 = torch.zeros((b, din, n), dtype=torch.float32, device=x.device) if state is None else state
+    y, h_fin = selective_scan(xc, dt, A, Bm, Cm, p["D"], h0, s_cfg.chunk)
+    y = (y.float() * F.silu(z.float())).to(x.dtype)
+    out = dense(y, p["out_proj"])
+    return x + out, (_last_inputs(xin, s_cfg.d_conv), h_fin)
+
+
+def mamba1_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tensor,
+                  ssm_state: torch.Tensor):
+    """x [B, 1, d]; conv_state [B, K-1, din]; ssm_state [B, din, N] f32.
+    Returns (x + out, new conv_state, new ssm_state)."""
+    s_cfg = cfg.ssm
+    d = x.shape[-1]
+    din = s_cfg.expand * d
+    r = s_cfg.dt_rank or d // 16
+    n = s_cfg.d_state
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    xz = dense(h, p["in_proj"])
+    xin, z = xz[:, 0].split(din, dim=-1)
+    conv_state, xc = conv_step(conv_state, xin, p["conv_w"], p["conv_b"])
+    xc = F.silu(xc.float()).to(x.dtype)
+    dbc = _dot_f32(xc, p["x_proj"])
+    dt_raw, Bm, Cm = dbc.split([r, n, n], dim=-1)
+    dt = F.softplus(torch.matmul(dt_raw, p["dt_proj"].float()) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt[..., None] * A[None])
+    xcf = xc.float()
+    ssm_state = dA * ssm_state + (dt * xcf)[..., None] * Bm[:, None, :]
+    y = torch.einsum("bdn,bn->bd", ssm_state, Cm) + xcf * p["D"][None]
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = dense(y, p["out_proj"])
+    return x + out[:, None], conv_state, ssm_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2: SSD (scalar decay per head, matmul formulation)
+# ---------------------------------------------------------------------------
+
+def mamba2_specs(cfg: ModelConfig, layers: int | None = None) -> dict:
+    s = cfg.ssm
+    l = cfg.n_layers if layers is None else layers
+    d = cfg.d_model
+    din = s.expand * d
+    nh = din // s.head_dim
+    gn = s.n_groups * s.d_state
+    conv_dim = din + 2 * gn
+    lead, la = ((l,), (None,)) if l else ((), ())
+    f32 = torch.float32
+    return {
+        "norm": ParamSpec(lead + (d,), la + ("embed",), "zeros", dtype=cfg.dtype),
+        "in_proj": ParamSpec(lead + (d, 2 * din + 2 * gn + nh), la + ("embed", "inner"),
+                             "fan_in", dtype=cfg.dtype),
+        "conv_w": ParamSpec(lead + (conv_dim, s.d_conv), la + ("inner", None), "fan_in",
+                            dtype=cfg.dtype),
+        "conv_b": ParamSpec(lead + (conv_dim,), la + ("inner",), "zeros", dtype=cfg.dtype),
+        "A_log": ParamSpec(lead + (nh,), la + (None,), "zeros", dtype=f32),
+        "dt_bias": ParamSpec(lead + (nh,), la + (None,), "zeros", dtype=f32),
+        "D": ParamSpec(lead + (nh,), la + (None,), "ones", dtype=f32),
+        "gate_norm": ParamSpec(lead + (din,), la + ("inner",), "zeros", dtype=cfg.dtype),
+        "out_proj": ParamSpec(lead + (din, d), la + ("inner", "embed"), "fan_in",
+                              dtype=cfg.dtype),
+    }
+
+
+def _segsum(dA: torch.Tensor) -> torch.Tensor:
+    """dA [..., Q] -> L [..., Q, Q], L[i,j] = sum_{j<k<=i} dA[k] for i>=j else -inf."""
+    q = dA.shape[-1]
+    cs = torch.cumsum(dA, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=dA.device).tril()
+    return diff.masked_fill(~mask, -torch.inf)
+
+
+def _heads(t: torch.Tensor, rep: int, acc: torch.dtype) -> torch.Tensor:
+    """B or C [B, S, G, N] broadcast to the heads [B, S, G * rep, N] in ``acc``."""
+    return t.to(acc).repeat_interleave(rep, dim=2)
+
+
+def ssd(x, dt, A, B, C, D, h0, chunk: int):
+    """SSD chunked scan.
+
+    x [B,S,H,P]; dt [B,S,H]; A [H] (negative); B,C [B,S,G,N] (G groups broadcast
+    to heads); D [H]; h0 [B,H,N,P] f32. Returns (y [B,S,H,P] in x's dtype, h_final).
+    """
+    b, s, nh, pdim = x.shape
+    rep = nh // B.shape[2]
+    q = min(chunk, s)
+    if s % q:  # pad with dt=0 steps (decay 1, zero input): state unchanged
+        pad = q - s % q
+        y, h = ssd(*(_pad_seq(t, pad) for t in (x, dt)), A,
+                   *(_pad_seq(t, pad) for t in (B, C)), D, h0, chunk)
+        return y[:, :s], h
+    dA = dt.float() * A                                                    # [B,S,H]
+    xr = x.float() * dt.float()[..., None]                                 # [B,S,H,P]
+    Br, Cr = _heads(B, rep, torch.float32), _heads(C, rep, torch.float32)  # [B,S,H,N]
+    h = h0
+    ys = []
+    for c0 in range(0, s, q):
+        dA_c, x_c = dA[:, c0:c0 + q], xr[:, c0:c0 + q]
+        B_c, C_c = Br[:, c0:c0 + q], Cr[:, c0:c0 + q]
+        cum = torch.cumsum(dA_c, dim=1)                                    # [B,Q,H]
+        L = torch.exp(_segsum(dA_c.transpose(1, 2)))                       # [B,H,Q,Q]
+        scores = torch.einsum("bqhn,bkhn->bhqk", C_c, B_c) * L
+        y_intra = torch.einsum("bhqk,bkhp->bqhp", scores, x_c)
+        decay0 = torch.exp(cum)                                            # [B,Q,H]
+        y_state = torch.einsum("bqhn,bhnp->bqhp", C_c * decay0[..., None], h)
+        decay_to_end = torch.exp(cum[:, -1:, :] - cum)                     # [B,Q,H]
+        h = torch.exp(cum[:, -1])[..., None, None] * h + torch.einsum(
+            "bqhn,bqhp->bhnp", B_c * decay_to_end[..., None], x_c)
+        ys.append(y_intra + y_state)
+    y = torch.cat(ys, dim=1) + x.float() * D[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def ssd_ref(x, dt, A, B, C, D, h0):
+    """Naive sequential oracle for SSD, in the dtype of ``h0`` (f32 as the
+    reference; f64 for a yardstick)."""
+    s = x.shape[1]
+    acc = h0.dtype
+    rep = x.shape[2] // B.shape[2]
+    Br, Cr = _heads(B, rep, acc), _heads(C, rep, acc)
+    A, D = A.to(acc), D.to(acc)
+    h = h0
+    ys = []
+    for t in range(s):
+        a = torch.exp(dt[:, t].to(acc) * A[None])                          # [B,H]
+        xt = x[:, t].to(acc) * dt[:, t].to(acc)[..., None]
+        h = a[..., None, None] * h + torch.einsum("bhn,bhp->bhnp", Br[:, t], xt)
+        ys.append(torch.einsum("bhn,bhnp->bhp", Cr[:, t], h))
+    y = torch.stack(ys, 1) + x.to(acc) * D[None, None, :, None]
+    return y.to(x.dtype) if acc == torch.float32 else y, h
+
+
+def mamba2_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state=None):
+    """Full-sequence mamba-2 block; returns (x + out, (conv_state, ssm_state))."""
+    s_cfg = cfg.ssm
+    b, s, d = x.shape
+    din = s_cfg.expand * d
+    nh = din // s_cfg.head_dim
+    gn = s_cfg.n_groups * s_cfg.d_state
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    zxbcdt = dense(h, p["in_proj"])
+    z, xbc_pre, dt_raw = zxbcdt.split([din, din + 2 * gn, nh], dim=-1)
+    xbc = causal_conv1d(xbc_pre, p["conv_w"], p["conv_b"])
+    xbc = F.silu(xbc.float()).to(x.dtype)
+    xin, Bm, Cm = xbc.split([din, gn, gn], dim=-1)
+    xh = xin.reshape(b, s, nh, s_cfg.head_dim)
+    Bh = Bm.reshape(b, s, s_cfg.n_groups, s_cfg.d_state)
+    Ch = Cm.reshape(b, s, s_cfg.n_groups, s_cfg.d_state)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    h0 = (torch.zeros((b, nh, s_cfg.d_state, s_cfg.head_dim), dtype=torch.float32,
+                      device=x.device) if state is None else state)
+    y, h_fin = ssd(xh, dt, A, Bh, Ch, p["D"], h0, s_cfg.chunk)
+    y = y.reshape(b, s, din)
+    y = rmsnorm((y.float() * F.silu(z.float())).to(x.dtype), p["gate_norm"], cfg.norm_eps)
+    out = dense(y, p["out_proj"])
+    return x + out, (_last_inputs(xbc_pre, s_cfg.d_conv), h_fin)
+
+
+def mamba2_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tensor,
+                  ssm_state: torch.Tensor):
+    """x [B,1,d]; conv_state [B,K-1,conv_dim]; ssm_state [B,H,N,P] f32.
+    Returns (x + out, new conv_state, new ssm_state)."""
+    s_cfg = cfg.ssm
+    b, _, d = x.shape
+    din = s_cfg.expand * d
+    nh = din // s_cfg.head_dim
+    gn = s_cfg.n_groups * s_cfg.d_state
+    h = rmsnorm(x, p["norm"], cfg.norm_eps)
+    zxbcdt = dense(h, p["in_proj"])
+    z, xbc, dt_raw = zxbcdt[:, 0].split([din, din + 2 * gn, nh], dim=-1)
+    conv_state, xbc = conv_step(conv_state, xbc, p["conv_w"], p["conv_b"])
+    xbc = F.silu(xbc.float()).to(x.dtype)
+    xin, Bm, Cm = xbc.split([din, gn, gn], dim=-1)
+    xh = xin.reshape(b, nh, s_cfg.head_dim).float()
+    rep = nh // s_cfg.n_groups
+    Bh = Bm.reshape(b, s_cfg.n_groups, s_cfg.d_state).float().repeat_interleave(rep, dim=1)
+    Ch = Cm.reshape(b, s_cfg.n_groups, s_cfg.d_state).float().repeat_interleave(rep, dim=1)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])                         # [B,H]
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt * A[None])
+    xdt = xh * dt[..., None]
+    ssm_state = a[..., None, None] * ssm_state + torch.einsum("bhn,bhp->bhnp", Bh, xdt)
+    y = torch.einsum("bhn,bhnp->bhp", Ch, ssm_state) + xh * p["D"][None, :, None]
+    y = y.reshape(b, din)
+    y = rmsnorm((y * F.silu(z.float())).to(x.dtype), p["gate_norm"], cfg.norm_eps)
+    out = dense(y, p["out_proj"])
+    return x + out[:, None], conv_state, ssm_state

@@ -14,14 +14,22 @@
   with a per-row ``slot_pos`` [B, Sc] in the cache)
 * init_cache_fn(batch, seq, device="cuda") -> an empty cache (raises without
   CUDA unless the caller asks for the CPU)
+* cache_axes: each cache leaf's logical axes, the reference's
+  ``cache_specs_fn`` axes; the "batch" axis is the continuous engine's slot
+  axis
 * prefill_chunk_fn(params, cache, tokens [B, cs], start: int) -> (logits
   [B, V] f32, cache): one prefill chunk against a full-capacity cache; None
   for the MoE decoders, as in the reference (routing over the token axis
-  makes chunk boundaries change the experts' drops)
+  makes chunk boundaries change the experts' drops), and for the SSM and
+  hybrid decoders
 
 The port carries the text-only dense decoder (smollm, gemma3, tinyllama,
-deepseek) and the MoE decoder (mixtral, kimi); the other families (VLM,
-SSM, hybrid, enc-dec) wait for their slices (ROADMAP §1, LM stack).
+deepseek), the MoE decoder (mixtral, kimi), the SSM decoder (falcon-mamba:
+Mamba-1 blocks, a cache of conv and SSM states) and the hybrid (zamba2:
+Mamba-2 blocks and one shared attention block, both caches); VLM and
+enc-dec wait for their slices (ROADMAP §1, LM stack). The SSM and hybrid
+decode steps write the new states into the cache's tensors in place, as
+every family's decode writes its K/V.
 """
 from __future__ import annotations
 
@@ -29,9 +37,14 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import resolve
 from repro_torch.distributed import collectives
+from repro_torch.models import hybrid
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import transformer as tfm
+from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm
 from repro_torch.train.loss import chunked_cross_entropy
@@ -45,8 +58,9 @@ class Model:
     prefill_fn: Callable
     decode_fn: Callable
     init_cache_fn: Callable
+    cache_axes: dict
     # One prefill chunk against a full-capacity cache; dense decoders only
-    # (None for the MoE decoders, as in the reference).
+    # (None for the other families, as in the reference).
     prefill_chunk_fn: Callable | None = None
 
 
@@ -103,13 +117,133 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         h, cache = tfm.run_stack_chunk(params, cfg, x, _positions(tokens, start), cache, start)
         return _last_logits(params, cfg, h[:, -1:]), cache
 
+    kv_axes = (None, "batch", "kv_seq", "kv_heads", "head_dim")
     return Model(cfg, specs, loss_fn, prefill_fn, decode_fn, init_cache_fn,
+                 {"k": kv_axes, "v": kv_axes, "slot_pos": (None,)},
                  None if cfg.moe else prefill_chunk_fn)
+
+
+def _no_tp(tp, cfg: ModelConfig) -> None:
+    if tp is not None:
+        raise NotImplementedError(f"{cfg.name}: training across ranks is dense-decoder only; "
+                                  "SSM and hybrid training wait for ROADMAP §1, LM stack")
+
+
+# ---------------------------------------------------------------------------
+# SSM (falcon-mamba)
+# ---------------------------------------------------------------------------
+
+def _ssm_specs(cfg: ModelConfig) -> dict:
+    return {
+        "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"), "normal", 0.02,
+                           cfg.dtype),
+        "blocks": mamba_lib.mamba1_specs(cfg),
+        "final_norm": ParamSpec((cfg.d_model,), ("embed",), "zeros", dtype=cfg.dtype),
+        "lm_head": ParamSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"), "fan_in",
+                             dtype=cfg.dtype),
+    }
+
+
+def _ssm_model(cfg: ModelConfig) -> Model:
+    specs = _ssm_specs(cfg)
+    s = cfg.ssm
+    din = s.expand * cfg.d_model
+
+    def run_train(params, x, return_state=False):
+        """(hidden, (conv [L, B, K-1, din], ssm [L, B, din, N]) or None); with
+        ``cfg.remat`` and no states asked for, each layer runs under
+        ``torch.utils.checkpoint``, as the reference checkpoints its body."""
+        convs, ssms = [], []
+        for blk in tfm._layers(params["blocks"], cfg.n_layers):
+            if cfg.remat and not return_state:
+                x = checkpoint(lambda blk, x: mamba_lib.mamba1_block(blk, cfg, x)[0], blk, x,
+                               use_reentrant=False, preserve_rng_state=False)
+                continue
+            x, (cst, sst) = mamba_lib.mamba1_block(blk, cfg, x)
+            if return_state:
+                convs.append(cst)
+                ssms.append(sst)
+        return x, ((torch.stack(convs), torch.stack(ssms)) if return_state else None)
+
+    def loss_fn(params, batch, tp=None):
+        _no_tp(tp, cfg)
+        x = tfm.embed_tokens(params, cfg, batch["tokens"])
+        h, _ = run_train(params, x)
+        return _final_loss(params, cfg, h, batch["targets"],
+                           torch.zeros((), dtype=torch.float32, device=h.device))
+
+    def prefill_fn(params, batch, pad_to=None):
+        del pad_to  # SSM state is O(1); no cache capacity
+        x = tfm.embed_tokens(params, cfg, batch["tokens"])
+        h, (conv, ssm) = run_train(params, x, return_state=True)
+        return _last_logits(params, cfg, h[:, -1:]), {"conv": conv, "ssm": ssm}
+
+    def decode_fn(params, cache, token, pos):
+        del pos  # the state carries the position
+        x = tfm.embed_tokens(params, cfg, token[:, None])
+        for i in range(cfg.n_layers):
+            x, cst, sst = mamba_lib.mamba1_decode(tfm._layer(params["blocks"], i), cfg, x,
+                                                  cache["conv"][i], cache["ssm"][i])
+            cache["conv"][i].copy_(cst)
+            cache["ssm"][i].copy_(sst)
+        return _last_logits(params, cfg, x), dict(cache)
+
+    def init_cache_fn(batch, seq, device="cuda"):
+        device = resolve(device)
+        l = cfg.n_layers
+        return {
+            "conv": torch.zeros((l, batch, s.d_conv - 1, din), dtype=cfg.dtype, device=device),
+            "ssm": torch.zeros((l, batch, din, s.d_state), dtype=torch.float32, device=device),
+        }
+
+    axes = {"conv": (None, "batch", None, "inner"), "ssm": (None, "batch", "inner", "state")}
+    return Model(cfg, specs, loss_fn, prefill_fn, decode_fn, init_cache_fn, axes)
+
+
+# ---------------------------------------------------------------------------
+# hybrid (zamba2)
+# ---------------------------------------------------------------------------
+
+def _hybrid_model(cfg: ModelConfig) -> Model:
+    specs = hybrid.hybrid_specs(cfg)
+
+    def loss_fn(params, batch, tp=None):
+        _no_tp(tp, cfg)
+        tokens = batch["tokens"]
+        x = tfm.embed_tokens(params, cfg, tokens)
+        h, _, _ = hybrid.run_hybrid_train(params, cfg, x, _positions(tokens))
+        return _final_loss(params, cfg, h, batch["targets"],
+                           torch.zeros((), dtype=torch.float32, device=h.device))
+
+    def prefill_fn(params, batch, pad_to=None):
+        tokens = batch["tokens"]
+        x = tfm.embed_tokens(params, cfg, tokens)
+        h, _, ((k, v), (conv, ssm)) = hybrid.run_hybrid_train(
+            params, cfg, x, _positions(tokens), return_kv=True)
+        slot_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+        cache = tfm.pad_kv_cache({"k": k, "v": v, "slot_pos": slot_pos}, pad_to)
+        cache.update(conv=conv, ssm=ssm)
+        return _last_logits(params, cfg, h[:, -1:]), cache
+
+    def decode_fn(params, cache, token, pos):
+        x = tfm.embed_tokens(params, cfg, token[:, None])
+        h, cache = hybrid.run_hybrid_decode(params, cfg, x, pos, cache)
+        return _last_logits(params, cfg, h), cache
+
+    def init_cache_fn(batch, seq, device="cuda"):
+        return hybrid.hybrid_init_cache(cfg, batch, seq, device=device)
+
+    _, axes = hybrid.hybrid_cache_specs(cfg, 1, 1)
+    return Model(cfg, specs, loss_fn, prefill_fn, decode_fn, init_cache_fn, axes)
 
 
 def get_model(cfg: ModelConfig) -> Model:
     if not isinstance(cfg, ModelConfig):
         raise NotImplementedError(
-            f"{type(cfg).__name__}: the port carries the dense and MoE decoders only; "
-            "the other model families wait for ROADMAP §1, LM stack")
+            f"{type(cfg).__name__}: the port carries the dense, MoE, SSM and hybrid "
+            "decoders; the other model families wait for ROADMAP §1, LM stack")
+    if cfg.shared_attn_every:
+        return _hybrid_model(cfg)
+    if cfg.ssm is not None:
+        return _ssm_model(cfg)
     return _decoder_model(cfg)

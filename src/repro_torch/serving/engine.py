@@ -9,13 +9,16 @@ static-batch generate and the slot-ring decode backend.
 
 * ``ContinuousEngine``: the LM backend of the slot ring
   (`repro_torch.serving.slotring`). N decode slots share one multi-slot
-  step, which is the static decode at B = N with one position a row: the
-  cache's batch axis is the slot axis (k/v [L, N, Sc, KH, hd], slot_pos
-  [N, Sc]) and ``pos`` [N] lives on the device, so the step reads nothing
-  back to the host. A request is admitted by a B = 1 prefill whose cache is
-  copied into its slot's row (`slotring.slot_update`), with its next token,
-  position, done flag and generator; finished rows are evicted at step
-  granularity while the others keep decoding. `repro_torch.serving.scheduler`
+  step, which is the static decode at B = N with one position a row: every
+  cache leaf's batch axis (the model's ``cache_axes``) is the slot axis
+  (k/v [L, N, Sc, KH, hd]; the SSM's conv/ssm [L, N, ...]; the hybrid's
+  k/v [G, N, ...] and conv/ssm [G, per, N, ...]), ``slot_pos`` is [N, Sc]
+  where the family has a KV cache, and ``pos`` [N] lives on the device, so
+  the step reads nothing back to the host. A request is admitted by a
+  B = 1 prefill whose cache is copied into its slot's row
+  (`slotring.slot_update`), with its next token, position, done flag and
+  generator; finished rows are evicted at step granularity while the
+  others keep decoding. `repro_torch.serving.scheduler`
   is the queue and admission policy on top.
 
 Chunked prefill (``prefill_chunk=N``): a prompt longer than N admits chunk
@@ -124,13 +127,14 @@ class ContinuousEngine(slotring.SlotRingEngine):
     """Slot-ring LM decode backend: step-granular admission and eviction
     over one multi-slot decode.
 
-    State: ``cache`` (k/v [L, N, Sc, KH, hd], slot_pos [N, Sc]), ``tok``,
-    ``pos`` [N] int32, ``done`` [N] bool and ``generator`` (a list of N
-    `torch.Generator` or None). Every slot's cache has the capacity
-    ``max_prompt_len + max_new + 1`` whatever its prompt's length, so one
-    step serves any mix of requests. Empty and finished slots decode
-    garbage rows (``done`` set, the row masked or stale) until an admission
-    overwrites the whole row.
+    State: ``cache`` (the model's cache at B = N, any tree of leaves with a
+    batch axis, e.g. k/v [L, N, Sc, KH, hd], and slot_pos [N, Sc] where the
+    family has a KV cache), ``tok``, ``pos`` [N] int32, ``done`` [N] bool
+    and ``generator`` (a list of N `torch.Generator` or None). Every slot's
+    cache has the capacity ``max_prompt_len + max_new + 1`` whatever its
+    prompt's length, so one step serves any mix of requests. Empty and
+    finished slots decode garbage rows (``done`` set, the row masked or
+    stale) until an admission overwrites the whole row.
 
     ``prefill_chunk=N`` admits text prompts longer than N chunk by chunk on
     the families with a ``prefill_chunk_fn`` (the dense decoders). The port
@@ -173,8 +177,9 @@ class ContinuousEngine(slotring.SlotRingEngine):
     def init_state(self) -> dict:
         n = self.num_slots
         cache = self.model.init_cache_fn(n, self.capacity, device=self.device)
-        cache["slot_pos"] = torch.full((n, cache["k"].shape[2]), -1, dtype=torch.int32,
-                                       device=self.device)
+        if "slot_pos" in cache:      # one row of slot positions a slot
+            cache["slot_pos"] = torch.full((n, cache["slot_pos"].shape[0]), -1,
+                                           dtype=torch.int32, device=self.device)
         return {
             "cache": cache,
             "tok": torch.zeros((n,), dtype=torch.int32, device=self.device),
@@ -187,13 +192,15 @@ class ContinuousEngine(slotring.SlotRingEngine):
 
     def _admit_impl(self, state, slots, cache, tok0, pos0, generators):
         """Copy a B = K cache into rows ``slots`` of the slot-stacked cache
-        (the batch axis, axis 1 of k/v), with each row's first token,
-        position, done flag and generator: the whole row, so no stale key of
-        the slot's last request stays visible."""
+        (each leaf's batch axis, from the model's ``cache_axes``; slot_pos
+        [Sc] becomes K rows), with each row's first token, position, done
+        flag and generator: the whole row, so no stale key or state of the
+        slot's last request stays visible."""
         k = len(slots)
-        slotring.slot_update(state["cache"], {
-            "k": cache["k"], "v": cache["v"],
-            "slot_pos": cache["slot_pos"].reshape(k, -1)}, slots, axes={"k": 1, "v": 1})
+        new = {name: t.reshape(k, -1) if name == "slot_pos" else t for name, t in cache.items()}
+        axes = {name: self.model.cache_axes[name].index("batch")
+                for name in new if name != "slot_pos"}
+        slotring.slot_update(state["cache"], new, slots, axes=axes)
         return slotring.slot_update(state, {"tok": tok0, "pos": pos0, "done": [False] * k,
                                             "generator": generators}, slots)
 
@@ -279,7 +286,9 @@ class ContinuousEngine(slotring.SlotRingEngine):
         cfg = self.cfg
         logits, cache = self.model.decode_fn(params, state["cache"], state["tok"],
                                              state["pos"])
-        state["cache"]["slot_pos"].copy_(cache["slot_pos"])
+        for name, live in state["cache"].items():    # what the decode did not write in place
+            if cache[name] is not live:
+                live.copy_(cache[name])
         nxt = self._sample_slots(logits, state["generator"])
         if cfg.eos_id is not None:
             state["done"] |= state["tok"] == cfg.eos_id

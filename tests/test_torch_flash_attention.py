@@ -147,18 +147,31 @@ def test_kimi_head_dim_112_against_pallas_interpret(causal, win):
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("causal,win", [(True, -1), (False, -1)])
+def test_zamba2_head_dim_80_against_pallas_interpret(causal, win):
+    """Zamba2's head dim, 2560 / 32 = 80 (32 heads over 32): the twin the
+    D = 80 kernel is held against on the card, against the Pallas kernel."""
+    q, k, v = _qkv(80 + int(causal), 2, 128, 128, 4, 4, 80)
+    want = j_flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                       window=win, block_q=64, block_k=64, interpret=True)
+    got = _port(q, k, v, causal=causal, window=win, block_q=64, block_k=64)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
 def test_head_dims_of_the_forward_and_the_backward_kernels():
-    """The forward kernel is built for D = 112 (Kimi-K2's), the backward is
-    not: its check refuses 112 by name, pointing at the ROADMAP, before any
-    launch (the check the wrapper runs on CUDA tensors, called here without
-    one); a D neither is built for is refused as before."""
+    """The forward kernel is built for D = 80 (Zamba2's) and D = 112
+    (Kimi-K2's), the backward is not: its check refuses each by name,
+    pointing at the ROADMAP, before any launch (the check the wrapper runs
+    on CUDA tensors, called here without one); a D neither is built for is
+    refused as before."""
     from repro_torch.kernels.flash_attention import ops
 
-    assert 112 in ops.HEAD_DIMS and 112 not in ops.BWD_HEAD_DIMS
     assert set(ops.BWD_HEAD_DIMS) < set(ops.HEAD_DIMS)
-    ops._check_head_dim("flash_attention_fwd", 112, ops.HEAD_DIMS)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1"):
-        ops._check_head_dim("flash_attention_bwd", 112, ops.BWD_HEAD_DIMS)
+    for d in (80, 112):
+        assert d in ops.HEAD_DIMS and d not in ops.BWD_HEAD_DIMS
+        ops._check_head_dim("flash_attention_fwd", d, ops.HEAD_DIMS)
+        with pytest.raises(NotImplementedError, match=f"D = {d} waits for .*ROADMAP §1"):
+            ops._check_head_dim("flash_attention_bwd", d, ops.BWD_HEAD_DIMS)
     for dims in (ops.HEAD_DIMS, ops.BWD_HEAD_DIMS):
         with pytest.raises(ValueError, match="not in the kernel's"):
             ops._check_head_dim("flash_attention_fwd", 96, dims)

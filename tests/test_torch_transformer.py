@@ -144,24 +144,31 @@ def test_configs_registry():
     assert configs.get_config("tinyllama-1.1b").n_layers == 22
     assert configs.get_config("tinyllama-1.1b").dtype == torch.bfloat16
     assert configs.get_smoke("gemma3-1b").dtype == torch.float32
-    for name in ("whisper-tiny", "qwen2-vl-7b", "falcon-mamba-7b", "zamba2-2.7b"):
+    for name in ("whisper-tiny", "qwen2-vl-7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP §1, LM stack"):
             configs.get_config(name)
     with pytest.raises(KeyError):
         configs.get_config("llama-9000")
-    for arch in DENSE + MOE:
+    for arch in DENSE + MOE + configs.SSM:
         for j, t in ((jconfigs.get_config(arch), configs.get_config(arch)),
                      (jconfigs.get_smoke(arch), configs.get_smoke(arch))):
             for f in dataclasses.fields(t):
-                if f.name == "moe":     # the two packages' MoESettings, field for field
-                    assert (t.moe is None) == (j.moe is None), arch
-                    if t.moe is not None:
-                        assert dataclasses.asdict(t.moe) == dataclasses.asdict(j.moe), arch
+                if f.name in ("moe", "ssm"):   # the two packages' settings, field for field
+                    jt, tt = getattr(j, f.name), getattr(t, f.name)
+                    assert (tt is None) == (jt is None), (arch, f.name)
+                    if tt is not None:
+                        assert dataclasses.asdict(tt) == dataclasses.asdict(jt), (arch, f.name)
                 elif f.name != "dtype":
                     assert getattr(t, f.name) == getattr(j, f.name), (arch, f.name)
-            assert (t.hd, t.windows, t.max_window) == (j.hd, j.windows, j.max_window)
+            assert (t.windows, t.max_window) == (j.windows, j.max_window)
+            if t.n_heads:               # falcon-mamba has no heads
+                assert t.hd == j.hd
     assert configs.get_config("kimi-k2").hd == 112
     assert configs.get_config("mixtral-8x22b").max_window == 4096
+    assert configs.get_config("zamba2-2.7b").hd == 80
+    assert configs.get_config("falcon-mamba-7b").ssm.kind == "mamba1"
+    for arch in configs.SSM:
+        get_model(configs.get_config(arch))
 
 
 def test_empty_cache_defaults_to_the_card(monkeypatch):

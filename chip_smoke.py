@@ -304,7 +304,27 @@ fallback, and a missing GPU is a failure):
    attention at fan-in over its contraction): decode(prefill(x), t) within
    5e-3 of prefill(x ‖ t), the ContinuousEngine's completions == static
    B = 1 generates (slots reused), and no aten op given a CPU tensor in a
-   prefill and a decode step.
+   prefill and a decode step;
+22. the enc-dec and VLM decoders at their published widths and depths
+   (XD_RUNS: Whisper-tiny, 4 + 4 layers, B 32 clips of 1500 stub frames,
+   32-token prompts, 64 new; Qwen2-VL-7B, 28 layers, B 8 with one image of
+   256 patch embeddings a row and its M-RoPE positions, 1024 text tokens,
+   32 new; the batches from the launcher's `build_batch`, bf16 weights from
+   the seed, one model on the card at a time) through `Engine.generate`:
+   time to first token (Whisper: and the encoder's time), decode ms a
+   token, tokens/s, peak memory; the attention kernel launched 12 times a
+   Whisper generate (4 encoder, non-causal over 1500 frames; 4 causal self;
+   4 cross, Sq 32 over Skv 1500) and 28 a Qwen2-VL one, none in a decode
+   step, nothing else launched; two generates bit-identical; the first
+   decode at prompt + vision prefix; layer 0's block (Whisper's encoder
+   and decoder blocks) in bf16 against its f64 evaluation: the kernel no
+   further off than FLASH_BF16_VS_TWIN x the twin, and with its attention
+   at fan-in over its contraction within XD_BF16_REL of max |f64|. Then
+   each at XD_SMALL's 2 layers in f32: decode(prefill(x), t) within 5e-3
+   of prefill(x ‖ t), the ContinuousEngine's completions at 4 slots ==
+   static B = 1 generates (each request with its own frames or image, two
+   image grids), and no aten op given a CPU tensor in a prefill and a
+   decode step.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
@@ -326,7 +346,9 @@ and the warm rings are not counted), and every training step on every rank
 of phase 19 (the one-rank comparison steps are not counted), phase
 20's generates (its recorded prefills, checks, timings and the ring check
 are not counted), and phase 21's generates (its timed prefill and decodes,
-gates, part timings and SSM_SMALL's runs are not counted);
+gates, part timings and SSM_SMALL's runs are not counted), and phase
+22's generates (its encoder timing, layer-0 checks and XD_SMALL's runs
+are not counted);
 the d = 8192 comparisons, the
 keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
 quarantine check are not counted), and as the last line {"ok": true, ...}.
@@ -343,7 +365,8 @@ continuous LM step at N = 4 beside one static decode step at B = 4 and of a
 1024-token prompt's whole prefill beside its four chunks of 256, of two
 TinyLlama-1.1B training steps (with the backward kernel's share), of
 phase 20's two MoE prefills (the attention kernel's share), of phase 21's
-prefills and decode steps (Zamba2's with the attention kernel's share), and of
+prefills and decode steps (Zamba2's with the attention kernel's share), of
+phase 22's prefills (the attention kernel's share) and decode steps, and of
 the LM prefill (with
 the attention kernel's share of its device time) and decode step under
 torch.profiler (device busy time, idle share, top device ops per call), and
@@ -565,6 +588,28 @@ SSM_BF16_REL = 2.0 ** -5
 SSM_SCAN_REL = 1e-4
 SSM_SMALL = dict(layers=2, batch=2, prompt_len=200, steps=3, tol=5e-3, requests=6,
                  lengths=(16, 40, 96), slots=3, max_new=8)
+# phase 22: the enc-dec and VLM decoders at their published widths and depths
+# (src/repro/configs/whisper_tiny.py: 4 + 4 layers, d 384, 6 heads of 64, 1500
+# stub frames, ~41 M parameters; qwen2_vl_7b.py: 28 layers, d 3584, 28 heads
+# over 4 of 128, M-RoPE sections (16, 24, 24), ~8.3 B parameters drawn in
+# slices of at most 2 GiB; weights from the seed). Whisper: B 32 clips of
+# 1500 frames (the stub frontend's output, drawn as the launcher draws it),
+# 32-token prompts, 64 new; Qwen2-VL: B 8, one image a row (a 16 x 16 grid
+# of 256 patch embeddings: a 448 x 448 image after the merger), 1024 text
+# tokens, 32 new. Layer 0 in bf16 on the first two rows against its f64
+# evaluation: at the seeded init (a near-hard attention) the kernel's block
+# no further off than FLASH_BF16_VS_TWIN x the twin's, and with its
+# attention at fan-in over its contraction within XD_BF16_REL of max |f64|
+# (SSM_BF16_REL's 2^-5). XD_SMALL: the f32 gates at 2 layers (Whisper 2 + 2)
+# with the attention at fan-in over its contraction: decode == prefill of
+# S + 1 within the SSM phase's 5e-3, continuous (4 slots, each request with
+# its own frames or image, two image grids) == static B = 1 generates, and
+# no aten op given a CPU tensor in a prefill and a decode step
+XD_RUNS = {"whisper-tiny": dict(batch=32, prompt_len=32, max_new=64),
+           "qwen2-vl-7b": dict(batch=8, prompt_len=1024, max_new=32, grid=(16, 16))}
+XD_BF16_REL = 2.0 ** -5
+XD_SMALL = dict(layers=2, batch=2, prompt_len=200, steps=3, tol=5e-3, requests=6,
+                lengths=(16, 40, 96), grids=((16, 16), (8, 8)), slots=4, max_new=8)
 # phase 16 (a): the backward kernel's cases, label -> (B, Sq, Skv, H, KH, D,
 # causal, window, q_offset, dtype); the training shape first
 FLASH_BWD_CASES = [
@@ -1177,8 +1222,11 @@ def flash_cases(torch, gen):
     key and take the mean of V over all keys), phase 20's layers:
     Mixtral-8x22B's (48 heads over 8, D = 128, window 4096) at B = 8 x 1024
     and at B = 1 x 8192, past the window, and Kimi-K2's (64 heads over 8,
-    D = 112) in bf16 and f32, and phase 21's shared attention block,
-    Zamba2-2.7B's (32 heads over 32, D = 80), in bf16 and f32. Tolerances: f32 atol = rtol =
+    D = 112) in bf16 and f32, phase 21's shared attention block,
+    Zamba2-2.7B's (32 heads over 32, D = 80), in bf16 and f32, and phase
+    22's layers: Whisper-tiny's encoder (B 32, non-causal over 1500 frames)
+    and cross-attention (Sq 32 over Skv 1500, non-causal), and Qwen2-VL-7B's
+    prefill (28 heads over 4, D = 128, 256 + 1024 positions). Tolerances: f32 atol = rtol =
     1e-5 (only the order of the sums differs); bf16 atol = rtol = 2e-2, compared in f32 (both
     sides round to bf16 once at the output). The library call is
     F.scaled_dot_product_attention on the same tensors (is_causal where that
@@ -1211,7 +1259,14 @@ def flash_cases(torch, gen):
             ("kimi-k2 f32", (8, 1024, 1024, 64, 8, 112, True, -1, 0, torch.float32)),
             # phase 21's shared attention block: Zamba2-2.7B (32 heads over 32, D = 80)
             ("zamba2-2.7b", (8, 1024, 1024, 32, 32, 80, True, -1, 0, torch.bfloat16)),
-            ("zamba2-2.7b f32", (8, 1024, 1024, 32, 32, 80, True, -1, 0, torch.float32))]:
+            ("zamba2-2.7b f32", (8, 1024, 1024, 32, 32, 80, True, -1, 0, torch.float32)),
+            # phase 22's layers: Whisper-tiny's encoder (non-causal over 1500 frames,
+            # no multiple of any tile) and cross-attention (Sq 32 != Skv 1500), and
+            # Qwen2-VL-7B's prefill of an image and its text (256 + 1024)
+            ("whisper-tiny encoder", (32, 1500, 1500, 6, 6, 64, False, -1, 0,
+                                      torch.bfloat16)),
+            ("whisper-tiny cross", (32, 32, 1500, 6, 6, 64, False, -1, 0, torch.bfloat16)),
+            ("qwen2-vl-7b", (8, 1280, 1280, 28, 4, 128, True, -1, 0, torch.bfloat16))]:
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
         k, v = (torch.randn(b, skv, kh, d, generator=gen, device="cuda").to(dt)
                 for _ in range(2))
@@ -6171,6 +6226,404 @@ def phase_ssm(torch, launches: dict, profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the enc-dec and VLM decoders (Whisper-tiny and Qwen2-VL-7B)
+# ---------------------------------------------------------------------------
+
+def xd_cfg(arch: str, layers: int | None = None, dtype=None):
+    """The published config, or cut to ``layers`` layers (Whisper's encoder
+    too), in ``dtype`` if given."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    kw = {}
+    if layers is not None:
+        kw["n_layers"] = layers
+        if cfg.kind == "encdec":
+            kw["n_enc_layers"] = layers
+    if dtype is not None:
+        kw["dtype"] = dtype
+    return dataclasses.replace(cfg, **kw)
+
+
+def xd_attention_trees(params: dict, cfg) -> list:
+    """Every attention projection set of a model: Whisper's encoder, decoder
+    and cross-attention, or the decoder stack's."""
+    if cfg.kind == "encdec":
+        return [params["enc_blocks"]["attn"], params["dec_blocks"]["attn"],
+                params["dec_blocks"]["xattn"]]
+    return [params["blocks"]["attn"]]
+
+
+def xd_condition(params: dict, cfg) -> dict:
+    """`fan_in_over_contraction` on every attention projection set."""
+    for a in xd_attention_trees(params, cfg):
+        fan_in_over_contraction({"blocks": {"attn": a}}, cfg)
+    return params
+
+
+def xd_mrope64(torch, x, positions, theta: float, sections: tuple):
+    """M-RoPE in f64, written apart from `layers.apply_rope`: each of the D/2
+    frequency slots rotates by its section's position stream."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / theta ** (torch.arange(half, dtype=torch.float64, device=x.device) / half)
+    sec = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)], device=x.device)
+    p = positions.double().gather(-1, sec.expand(*positions.shape[:-1], half))
+    cos, sin = torch.cos(p * freqs)[..., None, :], torch.sin(p * freqs)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+
+def xd_block_f64(torch, blk: dict, cfg, x, enc=None, positions=None, causal=True):
+    """One block in f64, written apart from the port's modules: pre-RMSNorm
+    attention (Whisper: no RoPE; Qwen2-VL: M-RoPE), Whisper's decoder
+    cross-attention over ``enc`` when given, and the gated MLP. Weights are
+    the block's, widened."""
+    import torch.nn.functional as F
+
+    def rms(v, gain):
+        return v * torch.rsqrt((v * v).mean(-1, keepdim=True) + cfg.norm_eps) * (
+            1 + gain.double())
+
+    def attend(a, xq, xkv, causal, rope):
+        q = torch.einsum("bsd,dhk->bshk", xq, a["wq"].double())
+        k = torch.einsum("bsd,dhk->bshk", xkv, a["wk"].double())
+        v = torch.einsum("bsd,dhk->bshk", xkv, a["wv"].double())
+        if rope:
+            q = xd_mrope64(torch, q, positions, cfg.rope_theta, cfg.mrope_sections)
+            k = xd_mrope64(torch, k, positions, cfg.rope_theta, cfg.mrope_sections)
+        o = exact_attention(torch, q, k, v, causal=causal)
+        return torch.einsum("bshk,hkd->bsd", o, a["wo"].double())
+
+    act = F.silu if cfg.act == "silu" else (lambda t: F.gelu(t, approximate="tanh"))
+    x = x.double()
+    x = x + attend(blk["attn"], rms(x, blk["ln1"]), rms(x, blk["ln1"]), causal,
+                   cfg.mrope_sections is not None)
+    if enc is not None:
+        h = rms(x, blk["lnx"])
+        x = x + attend(blk["xattn"], h, enc.double(), False, False)
+    h, m = rms(x, blk["ln2"]), blk["mlp"]
+    return x + (act(h @ m["wg"].double()) * (h @ m["wu"].double())) @ m["wd"].double()
+
+
+def xd_layer_vs_f64(torch, params: dict, cfg, batch: dict) -> dict:
+    """Layer 0's block (Whisper: the encoder's and the decoder's) in bf16 on
+    the first two rows of the serve's batch against `xd_block_f64` on the
+    same inputs: max |diff| over max |f64| with the kernel and with the
+    plain twin in the block (at the seeded init), and with the kernel again
+    after the layer's attention is put at fan-in over its contraction."""
+    import copy
+
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+    from repro_torch.models import encdec, vlm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import sinusoid_positions
+
+    two = {k: v[:2] for k, v in batch.items()}
+    cases = []
+    if cfg.kind == "encdec":
+        xe = (two["frames"] + sinusoid_positions(cfg.enc_seq, cfg.d_model, "cuda")[None]
+              ).to(cfg.dtype)
+        enc = encdec.run_encoder(params, cfg, two["frames"])
+        s = two["tokens"].shape[1]
+        xd = (params["embed"][two["tokens"]].to(cfg.dtype)
+              + sinusoid_positions(s, cfg.d_model, "cuda")[None].to(cfg.dtype))
+        eb, db = (tfm._layer(params[n], 0) for n in ("enc_blocks", "dec_blocks"))
+        cases.append(("encoder", eb, lambda b: encdec._enc_block(b, cfg, xe),
+                      lambda b: xd_block_f64(torch, b, cfg, xe, causal=False)))
+        cases.append(("decoder", db, lambda b: encdec._dec_block(b, cfg, xd, enc)[0],
+                      lambda b: xd_block_f64(torch, b, cfg, xd, enc=enc)))
+    else:
+        x0 = vlm.assemble_sequence(params, cfg, two["tokens"], two["patch_embeds"])
+        pos = two["positions"]
+        blk = tfm._layer(params["blocks"], 0)
+        cases.append(("layer 0", blk,
+                      lambda b: tfm.attn_block_train(b, cfg, x0, pos, -1, cfg.rope_theta)[0],
+                      lambda b: xd_block_f64(torch, b, cfg, x0, positions=pos)))
+    out = {}
+    for name, blk, run, run64 in cases:
+        want = run64(blk)
+        scale = float(want.abs().max())
+        rel = lambda got, want=want, scale=scale: float((got.double() - want).abs().max()) / scale  # noqa: E731
+        kernel = rel(run(blk))
+        with using(lambda q, k, v, **kw: flash_fwd_ref(q, k, v, **kw)):
+            twin = rel(run(blk))
+        cond = copy.copy(blk)
+        cond["attn"] = {k: v.clone() for k, v in blk["attn"].items()}
+        fan_in_over_contraction({"blocks": {"attn": cond["attn"]}}, cfg)
+        if "xattn" in blk:
+            cond["xattn"] = {k: v.clone() for k, v in blk["xattn"].items()}
+            fan_in_over_contraction({"blocks": {"attn": cond["xattn"]}}, cfg)
+        want_c = run64(cond)
+        conditioned = float((run(cond).double() - want_c).abs().max()) / float(
+            want_c.abs().max())
+        out[name] = dict(kernel_rel=kernel, twin_rel=twin, f64_max=scale,
+                         conditioned_rel=conditioned, conditioned_f64_max=float(
+                             want_c.abs().max()))
+        del want, want_c, cond
+    torch.cuda.empty_cache()
+    return out
+
+
+def xd_serve(torch, arch: str, launches: dict, profile: bool) -> dict:
+    """One model of phase 22 at its published width and depth, bf16 weights
+    from the seed, its batch from the launcher's `build_batch` (Whisper's
+    frames; Qwen2-VL's patch embeddings and M-RoPE positions), through
+    `Engine.generate`: the counted generates (the attention kernel Whisper's
+    4 encoder, 4 self and 4 cross times a prefill, Qwen2-VL's 28; none in a
+    decode step; nothing else launched), time to first token (Whisper: and
+    the encoder's time), decode ms a token, tokens/s and peak memory; layer
+    0 against f64."""
+    import dataclasses
+
+    from repro_torch import kernels as tk
+    from repro_torch.launch.serve import build_batch
+    from repro_torch.models import count_params, encdec, get_model, init_params
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.tree import tree_leaves
+
+    dev = "cuda"
+    run = XD_RUNS[arch]
+    b, s, new = run["batch"], run["prompt_len"], run["max_new"]
+    cfg = xd_cfg(arch)
+    is_encdec = cfg.kind == "encdec"
+    per_generate = cfg.n_enc_layers + 2 * cfg.n_layers if is_encdec else cfg.n_layers
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    params = init_params(model.specs, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    batch = build_batch(cfg, torch.Generator(device=dev).manual_seed(SEED + 1), b, s,
+                        run.get("grid", (4, 4)))
+    prefix = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    what = f"xd {arch} ({cfg.n_layers} layers)"
+    seen = {"prefill_s": [], "prefill_launches": []}
+
+    def timed_prefill(params, batch, pad_to=None):
+        torch.cuda.synchronize()
+        before, t0 = tk.launch_counts(), time.perf_counter()
+        logits, cache = model.prefill_fn(params, batch, pad_to=pad_to)
+        torch.cuda.synchronize()
+        seen["prefill_s"].append(time.perf_counter() - t0)
+        seen["prefill_launches"].append(tk.launch_counts()["flash_attention_fwd"]
+                                        - before["flash_attention_fwd"])
+        seen["prefill_logits"], seen["cache_shapes"] = logits, {
+            k: tuple(v.shape) for k, v in cache.items()}
+        return logits, cache
+
+    def kept_decode(params, cache, token, pos):
+        seen.setdefault("decode_pos", []).append(pos)
+        seen["decode_logits"], cache = model.decode_fn(params, cache, token, pos)
+        return seen["decode_logits"], cache
+
+    eng = Engine(dataclasses.replace(model, prefill_fn=timed_prefill, decode_fn=kept_decode),
+                 ServeConfig(max_new=new))
+    gen_s, outs = [], []
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    for _ in range(LM_GENERATES):
+        t0 = time.perf_counter()
+        outs.append(eng.generate(params, batch))
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    counts = tk.launch_counts()
+    require_only(counts, ("flash_attention_fwd",), f"{what} generate")
+    require(seen["prefill_launches"] == [per_generate] * LM_GENERATES
+            and counts["flash_attention_fwd"] == per_generate * LM_GENERATES,
+            f"{what}: {seen['prefill_launches']} attention launches in the prefills of "
+            f"{LM_GENERATES} generates and {counts['flash_attention_fwd']} in all, expected "
+            f"{per_generate} a prefill and none in a decode step")
+    add_launches(launches, counts)
+    require(tuple(outs[0].shape) == (b, new) and
+            bool(((outs[0] >= 0) & (outs[0] < cfg.vocab)).all()),
+            f"{what}: tokens {tuple(outs[0].shape)} out of shape or range")
+    require(torch.equal(outs[0], outs[1]), f"{what}: two generates differ in "
+                                           f"{int((outs[0] != outs[1]).sum())} tokens")
+    require(bool(torch.isfinite(seen["prefill_logits"]).all()) and
+            bool(torch.isfinite(seen["decode_logits"]).all()), f"{what}: logits not finite")
+    require(seen["decode_pos"][0] == s + prefix and seen["cache_shapes"]["k"][2] ==
+            s + prefix + new + 1, f"{what}: the first decode at {seen['decode_pos'][0]}, cache "
+                                  f"{seen['cache_shapes']['k']}; expected {s} + prefix {prefix}")
+    if is_encdec:
+        require(seen["cache_shapes"]["ck"] == (cfg.n_layers, b, cfg.enc_seq, cfg.n_kv_heads,
+                                               cfg.hd), f"{what}: cross cache "
+                                                        f"{seen['cache_shapes']['ck']}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ttft_ms = statistics.median(seen["prefill_s"][1:]) * 1e3
+    dec_ms = statistics.median((g - p) / new * 1e3 for g, p in
+                               zip(gen_s[1:], seen["prefill_s"][1:]))
+    tok_s = b * new / statistics.median(gen_s[1:])
+    enc_ms = (call_ms(torch, lambda: encdec.run_encoder(params, cfg, batch["frames"]), 1, 3)
+              if is_encdec else None)
+    out = dict(arch=cfg.name, layers=cfg.n_layers, enc_layers=cfg.n_enc_layers,
+               params=count_params(model.specs), weight_gb=weight_gb, init_s=init_s,
+               generate_s=gen_s, prefill_s=seen["prefill_s"], ttft_ms=ttft_ms,
+               encoder_ms=enc_ms, decode_ms_per_token=dec_ms, tokens_per_s=tok_s,
+               peak_gib=peak_gib, held_before_gib=before_gib, prefix=prefix,
+               launches=counts["flash_attention_fwd"])
+    shape = (f"{cfg.n_enc_layers} + {cfg.n_layers} of its {cfg.n_enc_layers} + {cfg.n_layers} "
+             f"layers" if is_encdec else f"{cfg.n_layers} of its {cfg.n_layers} layers")
+    inputs = (f"{cfg.enc_seq} frames a clip" if is_encdec else
+              f"an image of {prefix} patch embeddings a row ({run['grid'][0]} x "
+              f"{run['grid'][1]}), M-RoPE {cfg.mrope_sections}")
+    print(f"xd serve: {cfg.name} at {shape} ({out['params']} parameters, {weight_gb:.2f} GB, "
+          f"drawn in {init_s:.1f} s; d {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} of {cfg.hd}, bf16), batch {b} x prompt {s} x {new} new, "
+          f"{inputs}, greedy, the warm generate: prefill (time to first token) {ttft_ms:.3f} ms"
+          f"{f' (the encoder alone, CUDA events: {enc_ms:.3f} ms)' if is_encdec else ''}, decode "
+          f"{dec_ms:.3f} ms/token, generate {gen_s[0]:.3f} s cold / "
+          f"{statistics.median(gen_s[1:]):.3f} s warm ({tok_s:.1f} generated tokens/s), peak "
+          f"memory {peak_gib:.2f} GiB ({before_gib:.2f} held before the draw)", flush=True)
+    del seen
+
+    f64 = xd_layer_vs_f64(torch, params, cfg, batch)
+    for name, row in f64.items():
+        require(row["kernel_rel"] <= FLASH_BF16_VS_TWIN * row["twin_rel"],
+                f"{what}: {name}'s block (bf16) off f64 by {row['kernel_rel']} of max |f64|, "
+                f"more than {FLASH_BF16_VS_TWIN}x the twin's {row['twin_rel']}")
+        require(row["conditioned_rel"] <= XD_BF16_REL,
+                f"{what}: {name}'s block with its attention at fan-in over its contraction "
+                f"off f64 by {row['conditioned_rel']} of max |f64| > {XD_BF16_REL}")
+    out["layer0_vs_f64"] = f64
+    if profile:
+        out["profile prefill"] = profile_calls(torch, f"xd {arch} prefill bf16", [
+            lambda: model.prefill_fn(params, batch)], share_of="flash_fwd")
+        _, cache = model.prefill_fn(params, batch, pad_to=s + prefix + new + 1)
+        tok = torch.zeros((b,), dtype=torch.int32, device=dev)
+        out["profile decode"] = profile_calls(torch, f"xd {arch} decode step bf16", [
+            lambda i=i: model.decode_fn(params, cache, tok, s + prefix + i) for i in range(4)])
+        del cache
+    print(f"xd checks {arch}: {out['launches']} attention launches in {LM_GENERATES} generates "
+          f"({per_generate} each, D = {cfg.hd}, none in a decode step), nothing else launched; "
+          f"two generates bit-identical; the first decode at prompt + prefix = {s + prefix}; "
+          + "; ".join(f"{name}'s block (bf16) vs f64: kernel {r['kernel_rel']:.3g}, twin "
+                      f"{r['twin_rel']:.3g} of max |f64| {r['f64_max']:.4g} (kernel <= "
+                      f"{FLASH_BF16_VS_TWIN}x twin), with its attention at fan-in over its "
+                      f"contraction {r['conditioned_rel']:.3g} of {r['conditioned_f64_max']:.4g} "
+                      f"(bound {XD_BF16_REL})" for name, r in f64.items()), flush=True)
+    del params, batch, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def xd_request(torch, cfg, gen, n: int, grid=None) -> dict:
+    """One B = 1 request of ``n`` tokens with its own unit-scale stub frames
+    (Whisper) or image of ``grid`` patch embeddings and its default M-RoPE
+    positions (Qwen2-VL), drawn from ``gen``."""
+    from repro_torch.models import vlm
+
+    dev = "cuda"
+    req = {"tokens": torch.randint(0, cfg.vocab, (1, n), device=dev, dtype=torch.int32,
+                                   generator=gen)}
+    if cfg.kind == "encdec":
+        req["frames"] = torch.randn((1, cfg.enc_seq, cfg.d_model), device=dev, generator=gen,
+                                    dtype=cfg.dtype)
+    else:
+        sv = grid[0] * grid[1]
+        req["patch_embeds"] = torch.randn((1, sv, cfg.d_model), device=dev, generator=gen,
+                                          dtype=cfg.dtype)
+        req["positions"] = vlm.default_positions(1, sv, n, grid, device=dev)
+    return req
+
+
+def xd_small(torch, arch: str) -> dict:
+    """Gates at XD_SMALL's 2 layers (Whisper 2 + 2) in f32 with every
+    attention at fan-in over its contraction: decode(prefill(x), t) against
+    prefill(x ‖ t) at each of XD_SMALL's steps within XD_SMALL["tol"] (the
+    first decode at prompt + prefix); the ContinuousEngine's completions at
+    4 slots == static B = 1 generates, greedy, each request with its own
+    frames or image (two grids, so two prefix lengths: ``max_prefix``),
+    slots reused; and no aten op on a CPU tensor in a prefill and a decode.
+    Launches here are not counted."""
+    from repro_torch.models import get_model, init_params
+    from repro_torch.models import vlm
+    from repro_torch.serving import ContinuousEngine, Engine, Scheduler, ServeConfig
+
+    dev = "cuda"
+    sm = XD_SMALL
+    cfg = xd_cfg(arch, sm["layers"], torch.float32)
+    model = get_model(cfg)
+    params = init_params(model.specs, torch.Generator(device=dev).manual_seed(SEED + 4), dev)
+    xd_condition(params, cfg)
+    n, steps, bsz = sm["prompt_len"], sm["steps"], sm["batch"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows = [xd_request(torch, cfg, gen, n + steps, sm["grids"][0]) for _ in range(bsz)]
+    full = {k: torch.cat([r[k] for r in rows]) for k in rows[0]}
+    prefix = full["patch_embeds"].shape[1] if "patch_embeds" in full else 0
+
+    def upto(m):            # the batch at its first m text tokens
+        out = dict(full, tokens=full["tokens"][:, :m])
+        if "positions" in out:
+            out["positions"] = full["positions"][:, :prefix + m]
+        return out
+
+    watch = cpu_op_watch(torch)
+    with watch:
+        _, cache = model.prefill_fn(params, upto(n), pad_to=prefix + n + steps + 1)
+        lg, cache = model.decode_fn(params, cache, full["tokens"][:, n], prefix + n)
+    require(not watch.cpu_ops and all(t.is_cuda for t in cache.values()) and lg.is_cuda,
+            f"xd {arch}: ops on CPU tensors in a prefill and a decode: "
+            f"{sorted(set(watch.cpu_ops))[:8]}")
+    errs = []
+    for i in range(steps):
+        if i:
+            lg, cache = model.decode_fn(params, cache, full["tokens"][:, n + i], prefix + n + i)
+        whole, _ = model.prefill_fn(params, upto(n + i + 1))
+        errs.append(float((lg - whole).abs().max()))
+    require(max(errs) < sm["tol"], f"xd {arch}: decode(prefill(x), t) vs prefill(x + t) "
+                                   f"differ by {max(errs)} (bound {sm['tol']})")
+    del cache
+    # continuous == static, slots reused, each request its own frames or image
+    lengths = [sm["lengths"][i % len(sm["lengths"])] for i in range(sm["requests"])]
+    grids = [sm["grids"][i % len(sm["grids"])] for i in range(sm["requests"])]
+    reqs = [xd_request(torch, cfg, gen, m, g) for m, g in zip(lengths, grids)]
+    max_prefix = 0 if cfg.kind == "encdec" else max(g[0] * g[1] for g in grids)
+    scfg = ServeConfig(max_new=sm["max_new"])
+    eng = ContinuousEngine(model, scfg, num_slots=sm["slots"], max_prompt_len=max(lengths),
+                           max_prefix=max_prefix)
+    sched = Scheduler(eng, params)
+    rids = [sched.submit(r["tokens"][0], extras={k: v for k, v in r.items() if k != "tokens"})
+            for r in reqs]
+    sched.run(timeout=600)
+    same = 0
+    for rid, r in zip(rids, reqs):
+        want = Engine(model, scfg).generate(params, r)[0]
+        same += sched.poll(rid).tokens == want.tolist()
+    require(same == len(reqs), f"xd {arch}: {same} of {len(reqs)} continuous completions == "
+                               f"their static B = 1 generate")
+    out = dict(layers=cfg.n_layers, step_errs=errs, cont_equal=same, requests=len(reqs),
+               cont_steps=sched.steps, prefix=prefix, max_prefix=max_prefix,
+               cpu_ops=len(watch.cpu_ops), cpu_scalar_ops=sorted(set(watch.cpu_scalars)))
+    print(f"xd small {cfg.name} ({cfg.n_layers} layers, f32, attention at fan-in over its "
+          f"contraction): decode(prefill(x), t) vs prefill(x + t), {steps} steps from prompt "
+          f"{n} + prefix {prefix}, worst max |diff| {max(errs):.3g} (bound {sm['tol']}); "
+          f"continuous, {sm['slots']} slots{f', max_prefix {max_prefix}' if max_prefix else ''}: "
+          f"{same} of {len(reqs)} completions == their static B = 1 generate ({sched.steps} "
+          f"steps); aten ops on CPU tensors in a prefill and a decode: {len(watch.cpu_ops)} (on "
+          f"CPU scalars: {len(watch.cpu_scalars)})", flush=True)
+    del params, eng, sched, reqs, rows, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_xd(torch, launches: dict, profile: bool = False) -> dict:
+    """Phase 22: the enc-dec and VLM decoders at their published widths and
+    depths (XD_RUNS), one model on the card at a time, then XD_SMALL's f32
+    gates of each."""
+    out = {}
+    for arch in XD_RUNS:
+        out[arch] = xd_serve(torch, arch, launches, profile)
+    for arch in XD_RUNS:
+        out[f"{arch} small"] = xd_small(torch, arch)
+    return out
+
+
 def phase_profile(torch, state, protos_u, base) -> dict:
     """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
@@ -6302,6 +6755,8 @@ def main(argv: list[str]) -> int:
                                                            profile=args.profile))
     ssm_dec = phase("21 the SSM and hybrid decoders", lambda: phase_ssm(
         torch, launches, profile=args.profile))
+    xd_dec = phase("22 the enc-dec and VLM decoders", lambda: phase_xd(
+        torch, launches, profile=args.profile))
     kernels["flash_attention_bwd"] = train["kernel_cases"]
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
@@ -6329,7 +6784,7 @@ def main(argv: list[str]) -> int:
             flip_rate=flip, table1=table, sparse_trials=sparse_trials,
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
             faults=fault, cont=cont, train=train, multirank=multirank, living_ranks=living,
-            train_ranks=train_ranks, moe=moe_dec, ssm=ssm_dec,
+            train_ranks=train_ranks, moe=moe_dec, ssm=ssm_dec, xd=xd_dec,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

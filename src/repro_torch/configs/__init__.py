@@ -2,9 +2,9 @@
 
 `get_config(name)` returns the full published config and `get_smoke(name)` a
 reduced same-family config, forced to f32, for CPU tests. The port carries
-the four dense decoders, the two MoE decoders, the SSM decoder
-(falcon-mamba) and the hybrid (zamba2); the enc-dec and VLM architectures
-raise until their slice (ROADMAP §1, LM stack).
+every architecture of the reference: the four dense decoders, the two MoE
+decoders, the SSM decoder (falcon-mamba), the hybrid (zamba2), the
+encoder-decoder (whisper-tiny) and the VLM (qwen2-vl).
 """
 from __future__ import annotations
 
@@ -28,6 +28,8 @@ ARCHS = (
 DENSE = ("smollm_360m", "gemma3_1b", "tinyllama_1_1b", "deepseek_coder_33b")
 MOE = ("mixtral_8x22b", "kimi_k2")
 SSM = ("falcon_mamba_7b", "zamba2_2_7b")
+ENCDEC = ("whisper_tiny",)
+VLM = ("qwen2_vl_7b",)
 
 ALIASES = {a.replace("_", "-"): a for a in ARCHS} | {
     "tinyllama-1.1b": "tinyllama_1_1b",
@@ -41,11 +43,6 @@ def _mod(name: str):
     name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if name not in ARCHS:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
-    if name not in DENSE + MOE + SSM:
-        raise NotImplementedError(
-            f"{name} is not ported yet: the port carries the dense decoders "
-            f"{DENSE}, the MoE decoders {MOE} and the SSM and hybrid decoders {SSM}; "
-            "enc-dec and VLM wait for ROADMAP §1, LM stack")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

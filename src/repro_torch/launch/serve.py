@@ -1,6 +1,7 @@
-"""Serving launcher: static one-shot generation of an LM (the dense, MoE,
-SSM and hybrid decoders), continuous batching replaying a Poisson request
-trace, or the multi-tenant HDC service replaying one.
+"""Serving launcher: static one-shot generation of an LM (any family: the
+dense, MoE, SSM and hybrid decoders, the VLM and the encoder-decoder),
+continuous batching replaying a Poisson request trace (the decoder
+families), or the multi-tenant HDC service replaying one.
 
   # on the GPU, TinyLlama-1.1B at its published width, weights from the seed
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -14,6 +15,14 @@ trace, or the multi-tenant HDC service replaying one.
   # --arch the registry carries, static or --stream
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
       --smoke --device cpu --stream
+
+  # the encoder-decoder (Whisper-tiny: 1500 stub frames a request) and the
+  # VLM (Qwen2-VL-7B: 16 stub patch embeddings of a 4 x 4 grid, M-RoPE),
+  # static generation
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --batch 32 --prompt-len 32 --max-new 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \
+      --smoke --device cpu
 
   # continuous batching: a seeded Poisson trace of mixed prompt lengths
   # through the scheduler (step-granular admission and eviction)
@@ -40,11 +49,29 @@ import torch
 from repro_torch import device as _device
 
 
-def build_batch(cfg, generator: torch.Generator, batch_size: int, prompt_len: int) -> dict:
-    """Random decoder prompts [B, S] in [0, vocab), on the generator's device."""
-    return {"tokens": torch.randint(0, cfg.vocab, (batch_size, prompt_len),
-                                    generator=generator, device=generator.device,
-                                    dtype=torch.int32)}
+def build_batch(cfg, generator: torch.Generator, batch_size: int, prompt_len: int,
+                grid_hw: tuple[int, int] = (4, 4)) -> dict:
+    """Random prompts [B, S] in [0, vocab), on the generator's device, and
+    the inputs the family reads, drawn from the generator as the reference's
+    launcher draws them: the enc-dec's stub frames [B, enc_seq, d] (0.02 x
+    normals), the VLM's stub patch embeddings [B, gh * gw, d] (the same)
+    and their M-RoPE positions (`vlm.default_positions`)."""
+    dev = generator.device
+    batch = {"tokens": torch.randint(0, cfg.vocab, (batch_size, prompt_len),
+                                     generator=generator, device=dev, dtype=torch.int32)}
+    if cfg.kind == "encdec":
+        batch["frames"] = (0.02 * torch.randn((batch_size, cfg.enc_seq, cfg.d_model),
+                                              generator=generator, device=dev)).to(cfg.dtype)
+    if cfg.kind == "vlm":
+        from repro_torch.models import vlm
+
+        sv = grid_hw[0] * grid_hw[1]
+        batch["patch_embeds"] = (0.02 * torch.randn((batch_size, sv, cfg.d_model),
+                                                    generator=generator, device=dev)
+                                 ).to(cfg.dtype)
+        batch["positions"] = vlm.default_positions(batch_size, sv, prompt_len, grid_hw,
+                                                   device=dev)
+    return batch
 
 
 def _sync(dev: torch.device) -> None:
@@ -191,7 +218,8 @@ def run_hdc_stream(args, dev: torch.device) -> dict:
 def main(argv: list[str] | None = None) -> torch.Tensor | dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", help="LM architecture: a dense, MoE, SSM (falcon-mamba-7b) or "
-                                   "hybrid (zamba2-2.7b) decoder")
+                                   "hybrid (zamba2-2.7b) decoder, the VLM (qwen2-vl-7b) or "
+                                   "the encoder-decoder (whisper-tiny)")
     ap.add_argument("--smoke", action="store_true", help="the reduced f32 config")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -228,6 +256,11 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict:
 
     dev = _device.resolve(args.device)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get_config(args.arch)
+    if args.stream and cfg.kind != "decoder":
+        raise SystemExit(f"--stream replays token-only requests, as the reference's trace "
+                         f"does; {cfg.name} ({cfg.kind}) needs its "
+                         f"{'frames' if cfg.kind == 'encdec' else 'patch embeddings'} too: "
+                         "serve it statically (without --stream)")
     model = get_model(cfg)
     params = init_params(model.specs, torch.Generator(device=dev).manual_seed(args.seed), dev)
     if args.stream:

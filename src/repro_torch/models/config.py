@@ -1,9 +1,13 @@
-"""Model configuration of the dense, MoE, SSM and hybrid decoders
-(counterpart of `repro/models/config.py`).
+"""Model configuration of every model family: the dense, MoE, SSM and
+hybrid decoders, the encoder-decoder and the VLM (counterpart of
+`repro/models/config.py`).
 
-Only the fields these families read are carried: the enc-dec and VLM
-sections come back with the slices that read them, and the scanned layers
-have nothing to do in a Python loop. ``rules_override`` is each config's
+Only the fields the port reads are carried: ``vision_seq`` (read by no
+function of the reference) and ``scan_layers`` (the scanned layers have
+nothing to do in a Python loop) are not. ``kind`` picks the enc-dec and
+VLM facades; ``n_enc_layers`` and ``enc_seq`` size Whisper's encoder and
+its cross K/V, ``mrope_sections`` splits the rotary frequencies over
+Qwen2-VL's (t, h, w) positions. ``rules_override`` is each config's
 change to `distributed.sharding.DEFAULT_RULES`, the reference's letter for
 letter; ``subquadratic`` is the reference's long-context marker, carried
 as the reference sets it.
@@ -48,6 +52,7 @@ class ModelConfig:
     n_kv_heads: int
     d_ff: int
     vocab: int
+    kind: str = "decoder"        # decoder | encdec | vlm
     head_dim: int | None = None  # default d_model // n_heads
     rope_theta: float = 10_000.0
     local_rope_theta: float | None = None   # gemma3 dual-theta (local layers)
@@ -61,6 +66,9 @@ class ModelConfig:
     moe: MoESettings | None = None
     ssm: SSMSettings | None = None
     shared_attn_every: int = 0   # zamba2: one shared attn block every k ssm layers
+    n_enc_layers: int = 0        # whisper encoder depth
+    enc_seq: int = 1500          # whisper frame count (stub frontend output)
+    mrope_sections: tuple[int, ...] | None = None  # qwen2-vl M-RoPE (t, h, w)
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True           # recompute each layer's forward in the backward
     flash_block_q: int = 512     # block sizes of the attention's plain twin

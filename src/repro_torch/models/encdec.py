@@ -1,0 +1,225 @@
+"""Whisper-style encoder-decoder backbone (counterpart of
+`repro/models/encdec.py`).
+
+The conv/mel frontend is a stub, as in the reference: the batch holds
+precomputed frame embeddings ``frames`` [B, T_enc, d]. The encoder is a
+non-causal transformer over the frames with fixed sinusoid positions; the
+decoder adds causal self-attention and cross-attention to the encoder's
+output, with sinusoid positions in place of Whisper's learned table (so any
+cache length is defined). Blocks are pre-RMSNorm, as the reference's are.
+Attention projections carry no RoPE and no qk-norm, so this module has its
+own projections rather than `transformer._attn_heads`, which rotates.
+
+Every prefill attention (the encoder's, the decoder's self- and
+cross-attention) is the hand-written forward kernel behind
+`layers.flash_attention` (its plain twin on CPU tensors); the decode step
+attends over its caches with the plain `layers.decode_attention`, as the
+reference does. The decode writes its K/V into the cache's tensors in place
+at each row's slot; the cross K/V (``ck``/``cv``) are read, never written.
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.device import resolve
+from repro_torch.models.base import ParamSpec
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    decode_attention,
+    flash_attention,
+    gated_mlp,
+    rmsnorm,
+    sinusoid_positions,
+)
+from repro_torch.models.transformer import _layers, attn_specs, mlp_specs
+
+
+def encdec_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    le, ld = cfg.n_enc_layers, cfg.n_layers
+
+    def blockset(l):
+        return {
+            "attn": attn_specs(cfg, layers=l),
+            "mlp": mlp_specs(cfg, layers=l),
+            "ln1": ParamSpec((l, d), (None, "embed"), "zeros", dtype=cfg.dtype),
+            "ln2": ParamSpec((l, d), (None, "embed"), "zeros", dtype=cfg.dtype),
+        }
+
+    dec = blockset(ld)
+    dec["xattn"] = attn_specs(cfg, layers=ld)
+    dec["lnx"] = ParamSpec((ld, d), (None, "embed"), "zeros", dtype=cfg.dtype)
+    return {
+        "embed": ParamSpec((cfg.vocab, d), ("vocab", "embed"), "normal", 0.02, cfg.dtype),
+        "enc_blocks": blockset(le),
+        "dec_blocks": dec,
+        "enc_norm": ParamSpec((d,), ("embed",), "zeros", dtype=cfg.dtype),
+        "final_norm": ParamSpec((d,), ("embed",), "zeros", dtype=cfg.dtype),
+    }
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, S, d] @ w [d, heads, hd] -> [B, S, heads, hd] in x's dtype."""
+    b, s, d = x.shape
+    return (x @ w.reshape(d, -1)).reshape(b, s, w.shape[-2], w.shape[-1])
+
+
+def _proj_qkv(blk: dict, xq: torch.Tensor, xkv: torch.Tensor):
+    """q from ``xq``, k and v from ``xkv``: no RoPE, no qk-norm."""
+    return _proj(xq, blk["wq"]), _proj(xkv, blk["wk"]), _proj(xkv, blk["wv"])
+
+
+def _out(blk: dict, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    b, s, h, hd = o.shape
+    return (o.reshape(b, s, h * hd) @ blk["wo"].reshape(h * hd, -1)).to(dtype)
+
+
+def _mlp(blk: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    h = rmsnorm(x, blk["ln2"], cfg.norm_eps)
+    m = blk["mlp"]
+    return x + gated_mlp(h, m["wg"], m["wu"], m["wd"], cfg.act)
+
+
+def _attend(cfg: ModelConfig, q, k, v, causal: bool) -> torch.Tensor:
+    return flash_attention(q, k, v, causal=causal, block_q=cfg.flash_block_q,
+                           block_k=cfg.flash_block_k)
+
+
+def _enc_block(blk: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
+    q, k, v = _proj_qkv(blk["attn"], h, h)
+    x = x + _out(blk["attn"], _attend(cfg, q, k, v, causal=False), x.dtype)
+    return _mlp(blk, cfg, x)
+
+
+def run_encoder(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """frames [B, T, d] (the stub frontend's output) -> encoder states
+    [B, T, d]. The sinusoid is added in f32 and the sum rounded once to the
+    model's dtype, as in the reference. With ``cfg.remat`` each layer runs
+    under ``torch.utils.checkpoint``."""
+    t = frames.shape[1]
+    x = (frames + sinusoid_positions(t, cfg.d_model, frames.device)[None]).to(cfg.dtype)
+    for blk in _layers(params["enc_blocks"], cfg.n_enc_layers):
+        if cfg.remat:
+            x = checkpoint(_enc_block, blk, cfg, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _enc_block(blk, cfg, x)
+    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_block(blk: dict, cfg: ModelConfig, x: torch.Tensor, enc: torch.Tensor):
+    """One decoder block: (x, (k, v, cross k, cross v))."""
+    h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
+    q, k, v = _proj_qkv(blk["attn"], h, h)
+    x = x + _out(blk["attn"], _attend(cfg, q, k, v, causal=True), x.dtype)
+    h = rmsnorm(x, blk["lnx"], cfg.norm_eps)
+    qx, kx, vx = _proj_qkv(blk["xattn"], h, enc)
+    x = x + _out(blk["xattn"], _attend(cfg, qx, kx, vx, causal=False), x.dtype)
+    return _mlp(blk, cfg, x), (k, v, kx, vx)
+
+
+def run_decoder_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                      enc: torch.Tensor, return_kv: bool = False):
+    """tokens [B, S]; enc [B, T, d] -> (hidden [B, S, d], kv or None), kv the
+    stacks (k, v [L, B, S, KH, hd], cross k, v [L, B, T, KH, hd]). The
+    embedding and the sinusoid are each rounded to the model's dtype, then
+    added, as in the reference. With ``cfg.remat`` and no K/V asked for,
+    each layer runs under ``torch.utils.checkpoint``."""
+    s = tokens.shape[1]
+    x = (params["embed"][tokens].to(cfg.dtype)
+         + sinusoid_positions(s, cfg.d_model, tokens.device)[None].to(cfg.dtype))
+    kvs = []
+    for blk in _layers(params["dec_blocks"], cfg.n_layers):
+        if cfg.remat and not return_kv:
+            x = checkpoint(lambda blk, x, enc: _dec_block(blk, cfg, x, enc)[0], blk, x, enc,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
+        x, kv = _dec_block(blk, cfg, x, enc)
+        if return_kv:
+            kvs.append(kv)
+    if not return_kv:
+        return x, None
+    return x, tuple(torch.stack(t) for t in zip(*kvs))
+
+
+def _step_sinusoid(cfg: ModelConfig, pos, device) -> torch.Tensor:
+    """The decode position's sinusoid [B or 1, 1, d] (f32), with the log
+    taken in f32 as the reference's ``jnp.log`` takes it; one a row for
+    per-row positions."""
+    half = cfg.d_model // 2
+    log = torch.full((), 10000.0, device=device).log()
+    freqs = torch.exp(-log * torch.arange(half, device=device) / (half - 1))
+    if isinstance(pos, torch.Tensor):
+        ang = pos.float()[:, None] * freqs                            # [B, half]
+    else:
+        ang = float(pos) * freqs[None]                                # [1, half]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, None]
+
+
+def run_decoder_step(params: dict, cfg: ModelConfig, token: torch.Tensor, pos, cache: dict):
+    """One decode step. token [B]; cache k/v [L, B, Sc, KH, hd] with
+    slot_pos [Sc] (``pos`` an int) or [B, Sc] (``pos`` an int32 tensor [B]
+    on the device, one position a row, as `transformer.run_stack_decode`
+    takes it), and the cross ck/cv [L, B, T, KH, hd]. Writes the step's K/V
+    at each row's slot ``pos % Sc`` in place; the cross-attention reads all
+    T frames (slot positions 0..T-1 at position T) whatever form ``pos``
+    takes. Returns (hidden [B, 1, d], cache with the new slot_pos)."""
+    b = token.shape[0]
+    sc = cache["k"].shape[2]
+    slot_pos = cache["slot_pos"].clone()
+    if isinstance(pos, torch.Tensor) != (slot_pos.dim() == 2):
+        raise ValueError("per-row positions need a per-row slot_pos [B, Sc], an int "
+                         "position a shared slot_pos [Sc]")
+    if isinstance(pos, torch.Tensor):
+        where = (torch.arange(b, device=token.device), (pos % sc).long())
+        slot_pos[where] = pos
+    else:
+        where = (slice(None), pos % sc)
+        slot_pos[pos % sc] = pos
+    x = (params["embed"][token][:, None].to(cfg.dtype)
+         + _step_sinusoid(cfg, pos, token.device).to(cfg.dtype))
+    t = cache["ck"].shape[2]
+    frame_pos = torch.arange(t, dtype=torch.int32, device=token.device)
+    for i, blk in enumerate(_layers(params["dec_blocks"], cfg.n_layers)):
+        h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
+        q, k, v = _proj_qkv(blk["attn"], h, h)
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc[where] = k[:, 0]
+        vc[where] = v[:, 0]
+        x = x + _out(blk["attn"], decode_attention(q, kc, vc, slot_pos, pos), x.dtype)
+        h = rmsnorm(x, blk["lnx"], cfg.norm_eps)
+        qx = _proj(h, blk["xattn"]["wq"])
+        ox = decode_attention(qx, cache["ck"][i], cache["cv"][i], frame_pos, t, window=-1)
+        x = _mlp(blk, cfg, x + _out(blk["xattn"], ox, x.dtype))
+    return x, dict(cache, slot_pos=slot_pos)
+
+
+def encdec_cache_specs(cfg: ModelConfig, batch: int, seq: int) -> tuple[dict, dict]:
+    """Each cache leaf's (shape, dtype), and its logical axes (the batch axis
+    is the continuous engine's slot axis): the self-attention's k/v over
+    ``seq`` slots and the cross k/v over the config's ``enc_seq`` frames."""
+    l = cfg.n_layers
+    kv = (l, batch, seq, cfg.n_kv_heads, cfg.hd)
+    xkv = (l, batch, cfg.enc_seq, cfg.n_kv_heads, cfg.hd)
+    kv_axes = (None, "batch", "kv_seq", "kv_heads", "head_dim")
+    shapes = {
+        "k": (kv, cfg.dtype),
+        "v": (kv, cfg.dtype),
+        "ck": (xkv, cfg.dtype),
+        "cv": (xkv, cfg.dtype),
+        "slot_pos": ((seq,), torch.int32),
+    }
+    axes = {"k": kv_axes, "v": kv_axes, "ck": kv_axes, "cv": kv_axes, "slot_pos": (None,)}
+    return shapes, axes
+
+
+def encdec_init_cache(cfg: ModelConfig, batch: int, seq: int, device="cuda") -> dict:
+    """An empty cache on ``device`` (the card unless the caller asks for
+    another; raises without CUDA): zeros, and slot_pos -1 (every slot empty)."""
+    device = resolve(device)
+    shapes, _ = encdec_cache_specs(cfg, batch, seq)
+    cache = {k: torch.zeros(shape, dtype=dt, device=device) for k, (shape, dt) in shapes.items()}
+    cache["slot_pos"].fill_(-1)
+    return cache

@@ -1,6 +1,7 @@
-"""Building blocks of the dense decoder (counterpart of
+"""Building blocks of the LM families (counterpart of
 `repro/models/layers.py`): norms, activations, projections, rotate-half RoPE
-and attention.
+(with Qwen2-VL's M-RoPE sections), Whisper's sinusoid positions and
+attention.
 
 Norm, RoPE and softmax math runs in f32 whatever the activation dtype, and
 products accumulate in f32, as the reference's do. The prefill attention is
@@ -14,6 +15,7 @@ reductions) are not carried: the port behaves as their defaults do.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -38,6 +40,16 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Ten
     return (out * (1.0 + gain.float())).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in f32 (biased variance), scaled by ``gain`` plus ``bias``."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gain.float() + bias.float()).to(x.dtype)
+
+
 def act_fn(name: str):
     return {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
 
@@ -54,7 +66,7 @@ def gated_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, wd: torch.Ten
 
 
 # ---------------------------------------------------------------------------
-# rotary position embeddings (rotate-half)
+# rotary position embeddings (rotate-half, and M-RoPE) and sinusoids
 # ---------------------------------------------------------------------------
 
 def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.Tensor:
@@ -67,17 +79,43 @@ def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> torch.
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                sections: tuple[int, ...] | None = None) -> torch.Tensor:
-    """Rotate q/k: x [B, S, H, D], positions [B, S]. The first half of D
-    pairs with the second half (rotate-half, not interleaved pairs)."""
-    if sections is not None:
-        raise NotImplementedError("M-RoPE sections wait for the VLM slice "
-                                  "(ROADMAP §1, LM stack)")
-    ang = _rope_angles(positions, x.shape[-1], theta)            # [B, S, D/2]
+    """Rotate q/k: x [B, S, H, D], positions [B, S], or [B, S, K] under
+    M-RoPE (Qwen2-VL). The first half of D pairs with the second half
+    (rotate-half, not interleaved pairs). M-RoPE splits the D/2 frequency
+    slots into ``sections`` (t, h, w): slot group i takes its angle from
+    positions[..., i]; text tokens carry t = h = w, so for them M-RoPE is
+    1-D RoPE."""
+    d = x.shape[-1]
+    if sections is None:
+        ang = _rope_angles(positions, d, theta)                  # [B, S, D/2]
+    else:
+        if positions.shape[-1] != len(sections):
+            raise ValueError(f"M-RoPE positions {tuple(positions.shape)} need one stream a "
+                             f"section of {sections}")
+        if sum(sections) != d // 2:
+            raise ValueError(f"M-RoPE sections {sections} must cover the {d // 2} "
+                             "frequency slots of D/2")
+        ang_k = _rope_angles(positions, d, theta)                # [B, S, K, D/2]
+        slot = torch.arange(d // 2, device=x.device)
+        sec_id = torch.zeros_like(slot)                          # [D/2]: each slot's stream
+        for edge in itertools.accumulate(sections[:-1]):
+            sec_id += slot >= edge
+        ang = ang_k.gather(-2, sec_id.expand(*ang_k.shape[:-2], 1, d // 2))[..., 0, :]
     cos = torch.cos(ang)[..., None, :]                            # [B, S, 1, D/2]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_positions(seq: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings [seq, d_model] (f32): sines
+    of the first half, cosines of the second, at geometric frequencies from
+    1 to 1/10000."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, device=device) / (half - 1))
+    ang = torch.arange(seq, device=device)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Decoder-only transformer stack (counterpart of
-`repro/models/transformer.py`; llama/gemma family, and the MoE decoders,
-whose block MLP is `moe.apply`).
+`repro/models/transformer.py`; llama/gemma family, the MoE decoders, whose
+block MLP is `moe.apply`, and the VLM's language model, whose RoPE takes
+the config's M-RoPE sections over [B, S, 3] positions).
 
 Layers are stacked along a leading L axis, in the reference's layouts
 (``wq [L, d, H, hd]``, ``wo [L, H, hd, d]``, ...), and run by a Python loop;
@@ -176,8 +177,8 @@ def _attn_heads(blk: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     if cfg.qk_norm:
         q = rmsnorm(q, q_norm, cfg.norm_eps)
         k = rmsnorm(k, k_norm, cfg.norm_eps)
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
+    q = apply_rope(q, positions, theta, cfg.mrope_sections)
+    k = apply_rope(k, positions, theta, cfg.mrope_sections)
     return q, k, v
 
 
@@ -233,7 +234,8 @@ def attn_block_decode(blk: dict, cfg: ModelConfig, x: torch.Tensor, pos, window:
                       slot_pos: torch.Tensor, where: tuple) -> torch.Tensor:
     """x [B, 1, d]; kc/vc [B, Sc, KH, hd], written in place at ``where``
     (``(slice(None), slot)`` for one position, ``(rows, slots)`` for one a
-    row); pos an int or an int32 tensor [B]. An MoE block routes the B
+    row); pos an int or an int32 tensor [B] (under M-RoPE every stream of
+    the [B, 1, 3] positions is ``pos``). An MoE block routes the B
     tokens of one position as one group (t = B), as the reference's decode
     does; at per-row positions each row is a request of its own, which the
     reference decodes as a vmap of B = 1 decodes, so each row is routed as
@@ -243,6 +245,8 @@ def attn_block_decode(blk: dict, cfg: ModelConfig, x: torch.Tensor, pos, window:
         positions = pos[:, None]
     else:
         positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.mrope_sections is not None:      # every M-RoPE stream at the decode position
+        positions = positions[..., None].expand(-1, -1, len(cfg.mrope_sections))
     h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
     q, k, v = _attn_heads(blk["attn"], cfg, h, positions, theta)
     kc[where] = k[:, 0]

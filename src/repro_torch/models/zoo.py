@@ -23,13 +23,21 @@
   makes chunk boundaries change the experts' drops), and for the SSM and
   hybrid decoders
 
-The port carries the text-only dense decoder (smollm, gemma3, tinyllama,
-deepseek), the MoE decoder (mixtral, kimi), the SSM decoder (falcon-mamba:
-Mamba-1 blocks, a cache of conv and SSM states) and the hybrid (zamba2:
-Mamba-2 blocks and one shared attention block, both caches); VLM and
-enc-dec wait for their slices (ROADMAP §1, LM stack). The SSM and hybrid
-decode steps write the new states into the cache's tensors in place, as
-every family's decode writes its K/V.
+* inputs: the batch entries a prefill reads ("tokens"; "frames" for the
+  enc-dec, "patch_embeds" and "positions" for the VLM); the engines refuse
+  any other by name
+
+The port carries every family of the reference: the text-only dense
+decoder (smollm, gemma3, tinyllama, deepseek), the MoE decoder (mixtral,
+kimi), the SSM decoder (falcon-mamba: Mamba-1 blocks, a cache of conv and
+SSM states), the hybrid (zamba2: Mamba-2 blocks and one shared attention
+block, both caches), the VLM (qwen2-vl: the dense decoder with a vision
+prefix and M-RoPE positions from the batch) and the encoder-decoder
+(whisper: a frame encoder, a decoder with cross-attention, a cache of
+self K/V and the encoder's cross K/V). The SSM and hybrid decode steps
+write the new states into the cache's tensors in place, as every family's
+decode writes its K/V. Training across ranks (``tp=``) is dense-decoder
+only.
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.distributed import collectives
-from repro_torch.models import hybrid
+from repro_torch.models import encdec, hybrid, vlm
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.base import ParamSpec
@@ -62,6 +70,7 @@ class Model:
     # One prefill chunk against a full-capacity cache; dense decoders only
     # (None for the other families, as in the reference).
     prefill_chunk_fn: Callable | None = None
+    inputs: tuple[str, ...] = ("tokens",)
 
 
 def _final_loss(params: dict, cfg: ModelConfig, h: torch.Tensor, targets: torch.Tensor,
@@ -90,18 +99,40 @@ def _last_logits(params: dict, cfg: ModelConfig, h_last: torch.Tensor) -> torch.
 
 
 def _decoder_model(cfg: ModelConfig) -> Model:
-    specs = tfm.decoder_specs(cfg)
+    """The dense and MoE decoders, and the VLM: the same stack, which on the
+    VLM takes a vision prefix (``patch_embeds``, optional) ahead of the
+    tokens and its M-RoPE positions from the batch."""
+    is_vlm = cfg.kind == "vlm"
+    specs = vlm.vlm_specs(cfg) if is_vlm else tfm.decoder_specs(cfg)
+
+    def vlm_positions(batch):
+        if "positions" not in batch:
+            raise ValueError(f"{cfg.name}: the VLM's M-RoPE positions come from the batch "
+                             "('positions' [B, S_vis + S_text, 3]; see vlm.default_positions)")
+        return batch["positions"]
 
     def loss_fn(params, batch, tp=None):
+        if is_vlm:
+            _no_tp(tp, cfg)
+            h, aux = vlm.run_vlm_train(params, cfg, batch["tokens"], batch.get("patch_embeds"),
+                                       vlm_positions(batch))
+            return _final_loss(params, cfg, h, batch["targets"], aux)
         x = tfm.embed_tokens(params, cfg, batch["tokens"], tp)
         h, aux = tfm.run_stack_train(params, cfg, x, _positions(batch["tokens"]), tp)
         return _final_loss(params, cfg, h, batch["targets"], aux, tp)
 
     def prefill_fn(params, batch, pad_to=None):
         tokens = batch["tokens"]
-        x = tfm.embed_tokens(params, cfg, tokens)
-        h, kv = tfm.run_stack_prefill(params, cfg, x, _positions(tokens))
-        cache = tfm.cache_from_kv(cfg, kv, tokens.shape[1], pad_to)
+        if is_vlm:
+            positions = vlm_positions(batch)
+            h, kv = vlm.run_vlm_prefill(params, cfg, tokens, batch.get("patch_embeds"),
+                                        positions)
+            seq = positions.shape[1]
+        else:
+            x = tfm.embed_tokens(params, cfg, tokens)
+            h, kv = tfm.run_stack_prefill(params, cfg, x, _positions(tokens))
+            seq = tokens.shape[1]
+        cache = tfm.cache_from_kv(cfg, kv, seq, pad_to)
         return _last_logits(params, cfg, h[:, -1:]), cache
 
     def decode_fn(params, cache, token, pos):
@@ -120,13 +151,15 @@ def _decoder_model(cfg: ModelConfig) -> Model:
     kv_axes = (None, "batch", "kv_seq", "kv_heads", "head_dim")
     return Model(cfg, specs, loss_fn, prefill_fn, decode_fn, init_cache_fn,
                  {"k": kv_axes, "v": kv_axes, "slot_pos": (None,)},
-                 None if cfg.moe else prefill_chunk_fn)
+                 None if cfg.moe or is_vlm else prefill_chunk_fn,
+                 ("tokens", "patch_embeds", "positions") if is_vlm else ("tokens",))
 
 
 def _no_tp(tp, cfg: ModelConfig) -> None:
     if tp is not None:
         raise NotImplementedError(f"{cfg.name}: training across ranks is dense-decoder only; "
-                                  "SSM and hybrid training wait for ROADMAP §1, LM stack")
+                                  "the other families' training waits for ROADMAP §1, "
+                                  "LM stack")
 
 
 # ---------------------------------------------------------------------------
@@ -237,11 +270,46 @@ def _hybrid_model(cfg: ModelConfig) -> Model:
     return Model(cfg, specs, loss_fn, prefill_fn, decode_fn, init_cache_fn, axes)
 
 
+# ---------------------------------------------------------------------------
+# enc-dec (whisper)
+# ---------------------------------------------------------------------------
+
+def _encdec_model(cfg: ModelConfig) -> Model:
+    specs = encdec.encdec_specs(cfg)
+
+    def loss_fn(params, batch, tp=None):
+        _no_tp(tp, cfg)
+        enc = encdec.run_encoder(params, cfg, batch["frames"])
+        h, _ = encdec.run_decoder_train(params, cfg, batch["tokens"], enc)
+        return _final_loss(params, cfg, h, batch["targets"],
+                           torch.zeros((), dtype=torch.float32, device=h.device))
+
+    def prefill_fn(params, batch, pad_to=None):
+        tokens = batch["tokens"]
+        enc = encdec.run_encoder(params, cfg, batch["frames"])
+        h, (k, v, ck, cv) = encdec.run_decoder_train(params, cfg, tokens, enc, return_kv=True)
+        slot_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
+        cache = tfm.pad_kv_cache({"k": k, "v": v, "slot_pos": slot_pos}, pad_to)
+        cache.update(ck=ck, cv=cv)        # the cross K/V over the frames: not padded
+        return _last_logits(params, cfg, h[:, -1:]), cache
+
+    def decode_fn(params, cache, token, pos):
+        h, cache = encdec.run_decoder_step(params, cfg, token, pos, cache)
+        return _last_logits(params, cfg, h), cache
+
+    def init_cache_fn(batch, seq, device="cuda"):
+        return encdec.encdec_init_cache(cfg, batch, seq, device=device)
+
+    _, axes = encdec.encdec_cache_specs(cfg, 1, 1)
+    return Model(cfg, specs, loss_fn, prefill_fn, decode_fn, init_cache_fn, axes,
+                 inputs=("tokens", "frames"))
+
+
 def get_model(cfg: ModelConfig) -> Model:
     if not isinstance(cfg, ModelConfig):
-        raise NotImplementedError(
-            f"{type(cfg).__name__}: the port carries the dense, MoE, SSM and hybrid "
-            "decoders; the other model families wait for ROADMAP §1, LM stack")
+        raise TypeError(f"get_model takes a ModelConfig, got {type(cfg).__name__}")
+    if cfg.kind == "encdec":
+        return _encdec_model(cfg)
     if cfg.shared_attn_every:
         return _hybrid_model(cfg)
     if cfg.ssm is not None:

@@ -2,7 +2,8 @@
 static-batch generate and the slot-ring decode backend.
 
 * ``Engine`` (static batch): a batch of same-length prompts is prefilled in
-  one pass, with the KV cache padded to prompt + max_new + 1, then
+  one pass, with the KV cache padded to prefix + prompt + max_new + 1 (the
+  prefix: a VLM's patch embeddings, which sit ahead of the text), then
   ``max_new`` decode steps run in a Python loop, exactly the reference's
   schedule: the emitted tokens are the carry ``[tok0, ..., tok_{max_new-1}]``,
   so the last decode's output is not used.
@@ -12,12 +13,15 @@ static-batch generate and the slot-ring decode backend.
   step, which is the static decode at B = N with one position a row: every
   cache leaf's batch axis (the model's ``cache_axes``) is the slot axis
   (k/v [L, N, Sc, KH, hd]; the SSM's conv/ssm [L, N, ...]; the hybrid's
-  k/v [G, N, ...] and conv/ssm [G, per, N, ...]), ``slot_pos`` is [N, Sc]
+  k/v [G, N, ...] and conv/ssm [G, per, N, ...]; the enc-dec's cross
+  ck/cv [L, N, T, KH, hd]), ``slot_pos`` is [N, Sc]
   where the family has a KV cache, and ``pos`` [N] lives on the device, so
   the step reads nothing back to the host. A request is admitted by a
   B = 1 prefill whose cache is copied into its slot's row
   (`slotring.slot_update`), with its next token, position, done flag and
-  generator; finished rows are evicted at step granularity while the
+  generator; a request carries the inputs its model's family reads (the
+  enc-dec's ``frames``, the VLM's ``patch_embeds`` and ``positions``), and
+  nothing else; finished rows are evicted at step granularity while the
   others keep decoding. `repro_torch.serving.scheduler`
   is the queue and admission policy on top.
 
@@ -61,6 +65,23 @@ def _sample(cfg: ServeConfig, logits: torch.Tensor,
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
+def _vision_prefix(batch: dict) -> int:
+    """Decoder positions in front of the prompt (the VLM's patch embeddings)."""
+    return batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+
+
+def _check_inputs(model, batch: dict) -> None:
+    """Refuse, by name, a batch entry that the model's family does not read
+    (the reference's engine would count a dense decoder's ``patch_embeds``
+    as a prefix and shift its positions; the port refuses it)."""
+    extra = sorted(set(batch) - set(model.inputs))
+    if extra:
+        raise ValueError(f"{model.cfg.name} reads no {extra}: its batch holds "
+                         f"{list(model.inputs)}")
+    if "tokens" not in batch:
+        raise ValueError(f"{model.cfg.name}: a batch needs 'tokens'")
+
+
 class Engine:
     """Static-batch engine over a model's ``prefill_fn`` / ``decode_fn``."""
 
@@ -71,12 +92,16 @@ class Engine:
 
     def generate(self, params: dict, batch: dict,
                  generator: torch.Generator | None = None) -> torch.Tensor:
-        """batch: {'tokens': [B, S_prompt]}. Returns int32 [B, max_new].
-        Temperature sampling draws from `generator` (required then)."""
+        """batch: {'tokens': [B, S_prompt]} and the inputs the model's family
+        reads (``frames``; ``patch_embeds``, ``positions``). Returns int32
+        [B, max_new]. The first decode sits at the prompt's length plus the
+        vision prefix. Temperature sampling draws from `generator` (required
+        then)."""
         model, cfg = self.model, self.cfg
         if cfg.temperature > 0.0 and generator is None:
             raise ValueError("temperature sampling needs a torch.Generator")
-        pos0 = batch["tokens"].shape[1]
+        _check_inputs(model, batch)
+        pos0 = batch["tokens"].shape[1] + _vision_prefix(batch)
         logits, cache = model.prefill_fn(params, batch, pad_to=pos0 + cfg.max_new + 1)
         tok = _sample(cfg, logits, generator)
         done = torch.zeros(tok.shape, dtype=torch.bool, device=tok.device)
@@ -131,32 +156,35 @@ class ContinuousEngine(slotring.SlotRingEngine):
     batch axis, e.g. k/v [L, N, Sc, KH, hd], and slot_pos [N, Sc] where the
     family has a KV cache), ``tok``, ``pos`` [N] int32, ``done`` [N] bool
     and ``generator`` (a list of N `torch.Generator` or None). Every slot's
-    cache has the capacity ``max_prompt_len + max_new + 1`` whatever its
-    prompt's length, so one step serves any mix of requests. Empty and
-    finished slots decode garbage rows (``done`` set, the row masked or
-    stale) until an admission overwrites the whole row.
+    cache has the capacity ``max_prompt_len + max_prefix + max_new + 1``
+    whatever its prompt's length (``max_prefix``: the longest vision
+    prefix a VLM request brings), so one step serves any mix of requests.
+    Empty and finished slots decode garbage rows (``done`` set, the row
+    masked or stale) until an admission overwrites the whole row.
 
     ``prefill_chunk=N`` admits text prompts longer than N chunk by chunk on
-    the families with a ``prefill_chunk_fn`` (the dense decoders). The port
-    carries no VLM: a batch holds ``tokens`` alone."""
+    the families with a ``prefill_chunk_fn`` (the dense decoders); a
+    request with a vision prefix prefills whole."""
 
     def __init__(self, model, cfg: ServeConfig, num_slots: int, max_prompt_len: int,
-                 prefill_chunk: int | None = None, *,
+                 max_prefix: int = 0, prefill_chunk: int | None = None, *,
                  device: str | torch.device | None = "cuda"):
         one_rank("ContinuousEngine")     # the reference's engines take no mesh either
         if cfg.max_new < 1:
             raise ValueError("max_new must be >= 1")
+        if max_prefix < 0:
+            raise ValueError("max_prefix must be >= 0")
         self.device = _device.resolve(device)
         self.model = model
         self.cfg = cfg
         self.max_prompt_len = max_prompt_len
-        self.capacity = max_prompt_len + cfg.max_new + 1
+        self.capacity = max_prompt_len + max_prefix + cfg.max_new + 1
         mw = model.cfg.max_window
-        if 0 <= mw < max_prompt_len:
+        if 0 <= mw < max_prompt_len + max_prefix:
             raise ValueError(
-                f"pure sliding-window model (window {mw} < max prompt {max_prompt_len}): "
-                "prefill would produce ring caches whose capacity depends on prompt "
-                "length, breaking slot uniformity")
+                f"pure sliding-window model (window {mw} < max prompt "
+                f"{max_prompt_len + max_prefix}): prefill would produce ring caches whose "
+                "capacity depends on prompt length, breaking slot uniformity")
         self.prefill_chunk = None
         if prefill_chunk is not None:
             if prefill_chunk < 1:
@@ -205,19 +233,28 @@ class ContinuousEngine(slotring.SlotRingEngine):
                                             "generator": generators}, slots)
 
     def _check_request(self, batch: dict) -> int:
-        """The prompt length of a B = 1 text batch that fits the capacity."""
-        if set(batch) != {"tokens"}:
-            raise ValueError(f"the port carries no VLM: a batch holds 'tokens' alone, got "
-                             f"{sorted(batch)}")
-        tokens = batch["tokens"]
-        if tokens.shape[0] != 1:
-            raise ValueError("continuous admission is per request (B = 1)")
-        _device.check_on(self.device, tokens=tokens)
-        prompt_len = tokens.shape[1]
-        if prompt_len + self.cfg.max_new + 1 > self.capacity:
-            raise ValueError(f"prompt_len {prompt_len} exceeds engine capacity "
-                             f"{self.capacity} - max_new {self.cfg.max_new} - 1")
-        return prompt_len
+        """The first decode position (prompt length plus vision prefix) of a
+        B = 1 batch that holds only what the model's family reads, on the
+        engine's device, and fits the capacity: the continuous
+        counterpart of the reference's ``_check_capacity``."""
+        _check_inputs(self.model, batch)
+        if any(t.shape[0] != 1 for t in batch.values()):
+            raise ValueError("continuous admission is per request (B = 1), got "
+                             f"{ {k: tuple(t.shape) for k, t in batch.items()} }")
+        _device.check_on(self.device, **batch)
+        cfg = self.model.cfg
+        if "frames" in batch and tuple(batch["frames"].shape[1:]) != (cfg.enc_seq,
+                                                                      cfg.d_model):
+            raise ValueError(f"frames {tuple(batch['frames'].shape)}: a slot's cross K/V "
+                             f"holds [1, {cfg.enc_seq}, {cfg.d_model}] frames")
+        prompt_len, prefix = batch["tokens"].shape[1], _vision_prefix(batch)
+        if "positions" in batch and batch["positions"].shape[1] != prefix + prompt_len:
+            raise ValueError(f"positions {tuple(batch['positions'].shape)} do not cover the "
+                             f"prefix {prefix} and the prompt {prompt_len}")
+        if prompt_len + prefix + self.cfg.max_new + 1 > self.capacity:
+            raise ValueError(f"prompt_len {prompt_len} (+prefix {prefix}) exceeds engine "
+                             f"capacity {self.capacity} - max_new {self.cfg.max_new} - 1")
+        return prompt_len + prefix
 
     def prefill_into_slot(self, params, state, batch: dict, slot: int,
                           generator: torch.Generator | None = None) -> tuple[dict, int]:
@@ -234,10 +271,12 @@ class ContinuousEngine(slotring.SlotRingEngine):
     # -- chunked admission ---------------------------------------------------
 
     def supports_chunked_prefill(self, batch: dict) -> bool:
-        """True when this request admits chunk by chunk: chunking is on and
+        """True when this request admits chunk by chunk: chunking is on, the
+        request has no vision prefix (which changes the position map) and
         the prompt is longer than one chunk (a shorter prompt IS one chunk,
         and takes the whole-prefill path)."""
-        return self.prefill_chunk is not None and batch["tokens"].shape[1] > self.prefill_chunk
+        return (self.prefill_chunk is not None and "patch_embeds" not in batch
+                and batch["tokens"].shape[1] > self.prefill_chunk)
 
     def begin_chunked_prefill(self, params, batch: dict,
                               generator: torch.Generator | None = None) -> ChunkedPrefill:

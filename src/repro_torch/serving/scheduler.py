@@ -47,7 +47,7 @@ from repro_torch.serving.engine import ContinuousEngine, _prompt_sig
 @dataclasses.dataclass
 class Request:
     rid: int
-    batch: dict                  # B = 1 model inputs: {'tokens': [1, S]}
+    batch: dict                  # B = 1 model inputs: {'tokens': [1, S], extras...}
     prompt_len: int
     max_new: int
     generator: torch.Generator | None   # the request's sampling stream
@@ -266,16 +266,21 @@ class Scheduler(SlotScheduler):
         super().__init__(engine, params, clock, max_slot_steps=max_slot_steps,
                          max_requeues=max_requeues)
 
-    def submit(self, tokens, *, max_new: int | None = None,
+    def submit(self, tokens, *, extras: dict | None = None, max_new: int | None = None,
                generator: torch.Generator | None = None) -> int:
         """Queue one request: ``tokens`` [S] or [1, S] (anything
-        `torch.as_tensor` takes; moved to the engine's device). Temperature
-        sampling draws from ``generator`` (default: one on the engine's
-        device seeded with the request id). Returns the request id."""
+        `torch.as_tensor` takes; moved to the engine's device); ``extras``
+        the other B = 1 inputs of the model's family (the enc-dec's
+        ``frames``, the VLM's ``patch_embeds`` and ``positions``), tensors
+        on the engine's device, which the engine checks at admission. The
+        request keeps them with its tokens, so a requeued request replays
+        them. Temperature sampling draws from ``generator`` (default: one on
+        the engine's device seeded with the request id). Returns the
+        request id."""
         tokens = torch.as_tensor(tokens, dtype=torch.int32, device=self.engine.device)
         if tokens.dim() == 1:
             tokens = tokens[None]
-        batch = {"tokens": tokens}
+        batch = {"tokens": tokens, **(extras or {})}
         max_new = self.engine.cfg.max_new if max_new is None else max_new
         if not 1 <= max_new <= self.engine.cfg.max_new:
             raise ValueError(f"max_new must be in [1, {self.engine.cfg.max_new}]")

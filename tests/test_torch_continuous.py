@@ -336,7 +336,8 @@ def test_engine_refusals_and_device(monkeypatch):
     eng = ContinuousEngine(tm, scfg, 2, 8, device=CPU)
     state = eng.init_state()
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(ValueError, match="no VLM"):
+    # a dense decoder reads tokens alone: a vision prefix is refused by name
+    with pytest.raises(ValueError, match=r"reads no \['patch_embeds'\]"):
         eng.prefill_into_slot(tp, state, {"tokens": toks, "patch_embeds": toks}, 0)
     with pytest.raises(ValueError, match="capacity"):
         eng.prefill_into_slot(tp, state, {"tokens": torch.zeros((1, 9), dtype=torch.int32)}, 0)

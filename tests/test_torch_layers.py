@@ -1,8 +1,9 @@
 """The port's model building blocks against `repro.models.layers` on shared
-numpy inputs, in f32: rmsnorm (``1 + gain``), rotate-half RoPE at both of
-gemma3's thetas, the gated MLP (silu and tanh-gelu) and the decode attention
-over a cache with empty slots and a window. atol = rtol = 1e-5 (f32; only
-the order of sums and the libm of the two frameworks differ)."""
+numpy inputs, in f32: rmsnorm (``1 + gain``), layernorm, rotate-half RoPE
+at both of gemma3's thetas, M-RoPE over (t, h, w) sections, the gated MLP
+(silu and tanh-gelu) and the decode attention over a cache with empty slots
+and a window. atol = rtol = 1e-5 (f32; only the order of sums and the libm
+of the two frameworks differ); M-RoPE at VLM positions within 1e-6."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,8 +43,54 @@ def test_apply_rope_rotate_half(theta, d):
     got = tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta).numpy()
     want = jl.apply_rope(jnp.asarray(x), jnp.asarray(pos), jnp.float32(theta))
     np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError):
-        tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta, sections=(2, 3, 3))
+    # M-RoPE sections want one position stream a section: [B, S] positions refused
+    half = d // 2
+    sections = (half // 4, half // 4, half - 2 * (half // 4))
+    with pytest.raises(ValueError, match="one stream a section"):
+        tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta, sections=sections)
+
+
+def test_layernorm_matches_jax():
+    rng = _rng(3)
+    x, g, b = _f32(rng, 2, 5, 48, scale=3.0) + 1.5, _f32(rng, 48) + 1, _f32(rng, 48, scale=0.5)
+    for eps in (1e-5, 1e-6):
+        got = tl.layernorm(*(torch.from_numpy(a) for a in (x, g, b)), eps).numpy()
+        want = jl.layernorm(*(jnp.asarray(a) for a in (x, g, b)), eps)
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    # unit gain, zero bias: zero mean and unit variance a row
+    z = tl.layernorm(torch.from_numpy(x), torch.ones(48), torch.zeros(48)).numpy()
+    np.testing.assert_allclose(z.mean(-1), 0.0, atol=1e-5)
+    np.testing.assert_allclose(z.var(-1), 1.0, atol=1e-3)
+
+
+@pytest.mark.parametrize("theta,d,sections", [(1_000_000.0, 128, (16, 24, 24)),
+                                              (10_000.0, 32, (4, 6, 6)),
+                                              (1_000_000.0, 16, (2, 3, 3))])
+def test_apply_rope_mrope_sections_match_jax(theta, d, sections):
+    """M-RoPE against the reference's `apply_rope(sections=)` within 1e-6, on
+    (t, h, w) positions of an image grid then text, as Qwen2-VL's prefix
+    gives them, and on three unequal streams; text tokens (t = h = w) are
+    1-D RoPE. Positions of the wrong width and sections that miss D/2 are
+    refused."""
+    rng = _rng(d)
+    x = _f32(rng, 2, 40, 3, d)
+    grid = np.stack([np.zeros(16), np.repeat(np.arange(4), 4), np.tile(np.arange(4), 4)], -1)
+    text = np.repeat((16 + np.arange(24))[:, None], 3, -1)
+    pos_img = np.broadcast_to(np.concatenate([grid, text])[None], (2, 40, 3)).astype(np.int32)
+    pos_any = rng.integers(0, 300, (2, 40, 3)).astype(np.int32)
+    for pos in (pos_img, pos_any):
+        got = tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta, sections).numpy()
+        want = jl.apply_rope(jnp.asarray(x), jnp.asarray(pos), jnp.float32(theta), sections)
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=1e-6)
+    xt = torch.from_numpy(x[:, 16:])
+    text_only = tl.apply_rope(xt, torch.from_numpy(pos_img[:, 16:]), theta, sections)
+    one_d = tl.apply_rope(xt, torch.from_numpy(pos_img[:, 16:, 0]), theta)
+    np.testing.assert_allclose(text_only.numpy(), one_d.numpy(), atol=1e-6)
+    with pytest.raises(ValueError, match="one stream a section"):
+        tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos_img[..., :2]), theta, sections)
+    with pytest.raises(ValueError, match="frequency slots"):
+        tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos_img), theta,
+                      (sections[0] + 1,) + sections[1:])
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu"])

@@ -144,12 +144,17 @@ def test_configs_registry():
     assert configs.get_config("tinyllama-1.1b").n_layers == 22
     assert configs.get_config("tinyllama-1.1b").dtype == torch.bfloat16
     assert configs.get_smoke("gemma3-1b").dtype == torch.float32
-    for name in ("whisper-tiny", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1, LM stack"):
-            configs.get_config(name)
+    # the enc-dec and VLM configs load, equal to JAX's field for field below
+    whisper, qwen = configs.get_config("whisper-tiny"), configs.get_config("qwen2-vl-7b")
+    assert (whisper.kind, whisper.n_enc_layers, whisper.enc_seq) == ("encdec", 4, 1500)
+    assert (qwen.kind, qwen.mrope_sections, qwen.hd) == ("vlm", (16, 24, 24), 128)
+    assert sum(qwen.mrope_sections) == qwen.hd // 2
+    assert configs.ENCDEC == ("whisper_tiny",) and configs.VLM == ("qwen2_vl_7b",)
+    assert set(DENSE + MOE + configs.SSM + configs.ENCDEC + configs.VLM) == set(configs.ARCHS)
     with pytest.raises(KeyError):
         configs.get_config("llama-9000")
-    for arch in DENSE + MOE + configs.SSM:
+    assert configs.ARCHS == jconfigs.ARCHS
+    for arch in configs.ARCHS:
         for j, t in ((jconfigs.get_config(arch), configs.get_config(arch)),
                      (jconfigs.get_smoke(arch), configs.get_smoke(arch))):
             for f in dataclasses.fields(t):
@@ -167,7 +172,7 @@ def test_configs_registry():
     assert configs.get_config("mixtral-8x22b").max_window == 4096
     assert configs.get_config("zamba2-2.7b").hd == 80
     assert configs.get_config("falcon-mamba-7b").ssm.kind == "mamba1"
-    for arch in configs.SSM:
+    for arch in configs.SSM + configs.ENCDEC + configs.VLM:
         get_model(configs.get_config(arch))
 
 

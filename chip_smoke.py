@@ -9,7 +9,8 @@ fallback, and a missing GPU is a failure):
 1. card: the GPU's name and power limit (nvidia-smi); build the CUDA kernels
    from src/repro_torch/csrc with nvcc and print the build seconds; count
    instructions in the built library's SASS (cuobjdump): HGMMA/HMMA in the
-   bf16 attention kernel (HGMMA in its D = 112 and D = 80 instances), IGMMA/IMMA and no
+   bf16 attention kernels (HGMMA in the D = 112 and D = 80 instances of the
+   forward and of both backward passes), IGMMA/IMMA and no
    IDP4A in assoc_matmul, LDGSTS
    (16-byte cp.async) in the sparse kernels, BMMA (1-bit tensor-core
    products) in the Hamming search and top-k kernels and BGMMA (1-bit
@@ -43,8 +44,7 @@ fallback, and a missing GPU is a failure):
    over 8, D = 128, window 4096) at B = 8 x 1024 and B = 1 x 8192,
    Kimi-K2's (64 heads over 8, D = 112) and Zamba2-2.7B's (32 heads over
    32, D = 80) in bf16 and f32 -- within atol = rtol = 2e-2 in bf16 and
-   1e-5 in f32 (the backward kernel refuses D = 112 and D = 80 by name,
-   before any launch); each with the kernel's median
+   1e-5 in f32; each with the kernel's median
    device time (CUDA-graph replay) and eager call time, the plain version's
    time, one PyTorch library call's where one computes the same function
    (for the Hamming searches also one bf16 `torch.bmm` on the +-1
@@ -173,8 +173,11 @@ fallback, and a missing GPU is a failure):
    from the seed, remat on, batch 8 x 1024 of `SyntheticLM`): (a) the
    attention backward kernel against its plain twin at the training shape,
    gemma3-1b's layer (windowed and global), deepseek-coder-33b's, D = 16
-   and 32, non-causal, ragged, a chunk's q_offset, f32 at two small shapes
-   and rows that see no key (the forward's lse held to the twin's too): f32
+   and 32, non-causal, ragged, a chunk's q_offset, f32 at two small shapes,
+   rows that see no key, Kimi-K2's layer (D = 112) and Zamba2-2.7B's shared
+   block (D = 80) at B 4 x 1024, Mixtral-8x22B's layer at B 1 x 8192 past
+   its window of 4096, a D = 112 chunk over a cache prefix and f32 at
+   D = 80 and 112 (the forward's lse held to the twin's too): f32
    within FLASH_F32_TOL, bf16 no further off f64 than FLASH_BF16_VS_TWIN
    times the twin and within a bf16 ulp of the twin in the kernel's own
    arithmetic (P and dS as bf16 hi + lo), two launches at the training
@@ -324,7 +327,31 @@ fallback, and a missing GPU is a failure):
    of prefill(x ‖ t), the ContinuousEngine's completions at 4 slots ==
    static B = 1 generates (each request with its own frames or image, two
    image grids), and no aten op given a CPU tensor in a prefill and a
-   decode step.
+   decode step;
+23. training of the MoE, SSM and hybrid decoders at their published widths
+   (NT_RUNS; bf16 parameters from the seed, remat on, B x 1024 of
+   `SyntheticLM`, one model on the card at a time, the attention
+   projections at fan-in over their contraction): first one Mamba-1
+   layer's forward and backward at Falcon-Mamba-7B's width under remat, at
+   B 1 x S 1024, its peak device memory printed (what sizes Falcon-Mamba's
+   cut); then Mixtral-8x22B at 1 layer, Kimi-K2 at 1 layer with 24 of its
+   384 routed experts, Zamba2-2.7B at all 54 layers and Falcon-Mamba-7B at
+   its cut each take TRAIN["steps"] AdamW steps (NT_OPT: lr 3e-5 from the
+   first step) through `build_train_fns`: every loss finite and the last below the
+   first by TRAIN["min_drop"]; every step the attention forward twice and
+   the backward once a layer under remat (Mixtral and Kimi-K2: 2 + 1), the
+   shared block's 9 + 9 (Zamba2; not under remat), nothing for
+   Falcon-Mamba, and no other kernel of the table; the first step's
+   backward calls held to the twin on their own inputs (`bwd_vs_twin`);
+   the MoE's aux loss finite and positive and its router's gradient
+   non-zero; for Falcon-Mamba and Zamba2 an f32 gradient gate at NT_GRAD's
+   2 layers: layer 0's block (Zamba2: group 0's shared block and Mamba-2
+   layer, the attention through the f32 kernels at D = 80), its gradient
+   with respect to its input and every leaf within NT_GRAD["rel"] of each
+   one's largest entry of the same block in f64 with the sequential
+   recurrence. Reported: ms a step (median of steps 3-15, host clock),
+   tokens/s, peak memory, the model-FLOPs share of the bf16 peak (MoE on
+   its active parameters), beside the card's name and power limit.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
@@ -348,7 +375,8 @@ of phase 19 (the one-rank comparison steps are not counted), phase
 are not counted), and phase 21's generates (its timed prefill and decodes,
 gates, part timings and SSM_SMALL's runs are not counted), and phase
 22's generates (its encoder timing, layer-0 checks and XD_SMALL's runs
-are not counted);
+are not counted), and phase 23's training steps (its memory probe and
+gradient gates are not counted);
 the d = 8192 comparisons, the
 keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
 quarantine check are not counted), and as the last line {"ok": true, ...}.
@@ -610,6 +638,52 @@ XD_RUNS = {"whisper-tiny": dict(batch=32, prompt_len=32, max_new=64),
 XD_BF16_REL = 2.0 ** -5
 XD_SMALL = dict(layers=2, batch=2, prompt_len=200, steps=3, tol=5e-3, requests=6,
                 lengths=(16, 40, 96), grids=((16, 16), (8, 8)), slots=4, max_new=8)
+# phase 23: training of the MoE, SSM and hybrid decoders at their published
+# widths on one card (bf16 parameters from the seed, remat on, B x NT_SEQ of
+# SyntheticLM, TRAIN["steps"] AdamW steps at NT_OPT through build_train_fns;
+# one model on the card at a time; the attention projections at fan-in over
+# their contraction, phase 16's rule). bf16 parameters and gradients and
+# AdamW's f32 moments take 12 bytes a parameter, which sets the cuts
+# (PERF.md §4): Mixtral-8x22B at 1 of 56 layers (2.907 B parameters, 32.5
+# GiB; 2 layers need 60.5 GiB before activations); Kimi-K2 at 1 of 61
+# layers with 24 of its 384 routed experts, one model shard's
+# (src/repro/configs/kimi_k2.py: "EP 384/16 = 24 experts per model shard";
+# 3.566 B, 39.8 GiB; all 384 need 217 GiB), top-8, the shared expert and
+# d_expert 2048 kept; Zamba2-2.7B uncut (54 Mamba-2 layers, 9 calls of the
+# shared block; 2.423 B, 27.1 GiB); Falcon-Mamba-7B at NT_FALCON's cut.
+NT_SEQ = 1024
+# AdamW held at lr 3e-5 from the first step (warm-up 1), as phase 19 holds
+# its own: at phase 16's schedule (1e-3 after a warm-up of 5) every model's
+# loss rose within 6 steps to 1.41-2.82x its first (Mixtral-8x22B 10.96 ->
+# 30.93) before falling, and held at 3e-4 or 1e-4 Mixtral's and Zamba2's
+# still rose to 1.36-2.25x; at 3e-5 no loss rose above its first and the
+# last fell by 2.03-4.76 (benchmarks/torch_nondense_lr.py on an H100 80GB
+# HBM3 at 700 W, PERF.md §6)
+NT_OPT = dict(lr=3e-5, warmup=1, total_steps=TRAIN["total_steps"])
+# Falcon-Mamba-7B's cut, from phase 23's own probe: autograd through the
+# eager Hillis-Steele scan keeps a chunk's [B, 128, 8192, 16] f32 pairs for
+# every step of the scan, and one Mamba-1 layer's forward and backward
+# under remat at B 1 x S 1024 takes 8.71 GiB above its weights (H100 80GB
+# HBM3 at 700 W, PERF.md §4), about B times that while a layer recomputes.
+# 16 of 64 layers are 2.218 B parameters, 24.8 GiB of bf16 parameters and
+# gradients and f32 moments; at B 2 that reckons ~42 GiB (read: a 52.86 GiB
+# peak with AdamW's f32 temporaries), under ~70, at 3.8 s a step; B 4 adds
+# ~17 GiB and doubles the step; all 64 layers need 81.3 GiB before any
+# activation. B 2 fits at 8 and more layers, so the scan needs no
+# per-chunk recompute.
+NT_FALCON = dict(layers=16, batch=2)
+NT_RUNS = (dict(arch="mixtral-8x22b", layers=1, batch=4),
+           dict(arch="kimi-k2", layers=1, batch=4, experts=24),
+           dict(arch="zamba2-2.7b", layers=None, batch=4),
+           dict(arch="falcon-mamba-7b", **NT_FALCON))
+# the f32 gradient gate of the SSM and hybrid runs: layer 0's block (the
+# hybrid's group 0: the shared attention block, then its Mamba-2 layer) at 2
+# layers (the hybrid at 2 groups of 1, its shared attention at fan-in over
+# its contraction as SSM_SMALL's), on its own input, B 1 x S 256 (two scan
+# chunks), against the same block in f64 with the sequential recurrence:
+# the gradient with respect to the input and to each leaf within ``rel`` of
+# that one's largest entry (the CPU tests hold the port to JAX at 1e-4)
+NT_GRAD = dict(layers=2, batch=1, seq=256, rel=1e-4)
 # phase 16 (a): the backward kernel's cases, label -> (B, Sq, Skv, H, KH, D,
 # causal, window, q_offset, dtype); the training shape first
 FLASH_BWD_CASES = [
@@ -626,6 +700,16 @@ FLASH_BWD_CASES = [
     ("f32 windowed chunk", (2, 128, 384, 4, 2, 32, True, 64, 256, "float32")),
     # queries 0-63 see no key: P = 1 on every key in the backward
     ("fully masked rows", (2, 128, 128, 4, 2, 64, True, -1, -64, "bfloat16")),
+    # phase 23's layers: Kimi-K2 (D = 112) and Zamba2-2.7B's shared block
+    # (D = 80) in the D = 128 tiles, Mixtral-8x22B past its window of 4096
+    # (the one published config whose window binds the dQ pass's key range),
+    # a D = 112 chunk over a cache prefix, and f32 at D = 80 and 112
+    ("kimi-k2 D=112", (4, 1024, 1024, 64, 8, 112, True, -1, 0, "bfloat16")),
+    ("zamba2 D=80", (4, 1024, 1024, 32, 32, 80, True, -1, 0, "bfloat16")),
+    ("mixtral windowed", (1, 8192, 8192, 48, 8, 128, True, 4096, 0, "bfloat16")),
+    ("D=112 chunk", (2, 256, 768, 8, 2, 112, True, -1, 512, "bfloat16")),
+    ("f32 D=80", (2, 256, 256, 4, 2, 80, True, -1, 0, "float32")),
+    ("f32 D=112", (2, 128, 384, 4, 2, 112, True, 64, 256, "float32")),
 ]
 # serve modes: (serve, PHY tier, permuted bundling, representation)
 MODES = ([("ota", ch, perm, rep) for ch, perm in (("bsc", False), ("bsc", True), ("ideal", False))
@@ -1351,32 +1435,7 @@ def phase_kernels(torch, gen) -> dict:
               f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms"
               f"{'' if bmm_ms is None else f', bf16 bmm {bmm_ms:.5f} ms'}, bound "
               f"{bound_ms:.5f} ms ({bound_by}; {nbytes} B, {ops} {kind} ops)", flush=True)
-    for d in (112, 80):
-        results[f"flash_attention_bwd D={d}"] = bwd_refuses(torch, d)
     return results
-
-
-def bwd_refuses(torch, d: int) -> str:
-    """The backward kernel is not built for Kimi-K2's D = 112 or Zamba2's
-    D = 80 (the forward is): on CUDA tensors its wrapper refuses before any
-    launch, naming the ROADMAP."""
-    from repro_torch import kernels as tk
-
-    q, k, v = (torch.zeros(1, 64, 2, d, device="cuda", dtype=torch.bfloat16)
-               for _ in range(3))
-    out, lse = tk.flash_attention_fwd(q, k, v, return_lse=True)
-    before = tk.flash_attention_bwd.launches
-    try:
-        tk.flash_attention_bwd(q, k, v, out, lse, out)
-        said = None
-    except NotImplementedError as e:
-        said = str(e)
-    require(said is not None and "ROADMAP" in said and f"D = {d}" in said
-            and tk.flash_attention_bwd.launches == before,
-            f"flash_attention_bwd at D = {d}: not refused by name before a launch ({said})")
-    print(f"kernel flash_attention_bwd [D={d} bf16]: refused before any launch: {said}",
-          flush=True)
-    return said
 
 
 # ---------------------------------------------------------------------------
@@ -3870,7 +3929,10 @@ def flash_bwd_cases(torch, gen) -> list:
     (TinyLlama-1.1B, B = 8, S = 1024, causal, bf16), then gemma3-1b's layer
     (windowed and global), deepseek-coder-33b's, D = 16 and 32, non-causal, a
     ragged length, a prefill chunk's q_offset, f32 at two small shapes (one
-    windowed over a cache prefix) and rows that see no key (q_offset -64).
+    windowed over a cache prefix), rows that see no key (q_offset -64), and
+    phase 23's head dims: Kimi-K2's layer (D = 112) and Zamba2-2.7B's shared
+    block (D = 80), Mixtral-8x22B's layer at S 8192 past its window, a
+    D = 112 chunk and f32 at D = 80 and 112.
     Each case runs the forward kernel with its log-sum-exp (held to the
     twin's within FLASH_F32_TOL), then the backward kernel and the twin on
     the same (q, k, v, out, lse, dout) (`bwd_vs_twin`; at the training
@@ -3992,30 +4054,39 @@ def recorded_bwd(keep_rows: int):
         ops.FlashAttention.backward = staticmethod(orig)
 
 
-def train_launches(counts: dict, cfg, steps: int, what: str) -> None:
-    """With remat, a step launches the forward kernel twice a layer (the
-    forward and its recomputation) and the backward kernel once, and no
-    other kernel of the table."""
-    require_only(counts, ("flash_attention_fwd", "flash_attention_bwd"), what)
-    want = (2 * cfg.n_layers * steps, cfg.n_layers * steps)
+def train_launches(counts: dict, cfg, steps: int, what: str, per_step=None) -> None:
+    """A step launches ``per_step`` = (forward, backward) attention kernels,
+    by default remat's: the forward twice a layer (the forward and its
+    recomputation) and the backward once; and no other kernel of the
+    table."""
+    fwd, bwd = per_step or (2 * cfg.n_layers, cfg.n_layers)
+    require_only(counts, tuple(k for k, n in (("flash_attention_fwd", fwd),
+                                              ("flash_attention_bwd", bwd)) if n), what)
+    want = (fwd * steps, bwd * steps)
     got = (counts["flash_attention_fwd"], counts["flash_attention_bwd"])
     require(got == want, f"{what}: (forward, backward) launches {got}, expected {want}")
 
 
-def model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+def model_flops(cfg, n_params: int, batch: int, seq: int, attn_calls=None) -> float:
     """A training step's model FLOPs: 6 N T for the parameters' products plus
-    attention's 12 * B * H * pairs * D a layer (forward 4, backward 8; the
-    remat recomputation not counted)."""
+    attention's 12 * B * H * pairs * D a call (forward 4, backward 8; the
+    remat recomputation not counted), ``attn_calls`` calls a step (default
+    one a layer)."""
+    calls = cfg.n_layers if attn_calls is None else attn_calls
+    if not calls:
+        return 6 * n_params * batch * seq
     pairs = attention_pairs(seq, seq, True, -1, 0)
-    return 6 * n_params * batch * seq + 12 * batch * cfg.n_heads * pairs * cfg.hd * cfg.n_layers
+    return 6 * n_params * batch * seq + 12 * batch * cfg.n_heads * pairs * cfg.hd * calls
 
 
 def train_steps(torch, fns, pipe, params, opt_state, steps: int, cfg, what: str,
-                launches: dict, record: bool = False, generators=None):
+                launches: dict, record: bool = False, generators=None, per_step=None,
+                auxes=None):
     """``steps`` counted train steps from step 0 (the counters reset before
-    and read after each, `train_launches` gating each): (params, opt_state,
-    losses, gnorms, host seconds a step, the first step's recorded backward
-    calls when ``record``)."""
+    and read after each, `train_launches` gating each against ``per_step``):
+    (params, opt_state, losses, gnorms, host seconds a step, the first
+    step's recorded backward calls when ``record``); each step's aux loss
+    appended to ``auxes`` when given."""
     from repro_torch import kernels as tk
 
     losses, gnorms, step_s, seen = [], [], [], []
@@ -4031,10 +4102,11 @@ def train_steps(torch, fns, pipe, params, opt_state, steps: int, cfg, what: str,
         gnorms.append(float(m["gnorm"]) if "gnorm" in m else None)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        gnorms.append(float(m["gnorm"]) if "gnorm" in m else None)
+        if auxes is not None:
+            auxes.append(float(m["aux"]))
         seen += log
         counts = tk.launch_counts()
-        train_launches(counts, cfg, 1, f"{what} step {step}")
+        train_launches(counts, cfg, 1, f"{what} step {step}", per_step)
         add_launches(launches, counts)
     return params, opt_state, losses, gnorms, step_s, seen
 
@@ -6624,6 +6696,263 @@ def phase_xd(torch, launches: dict, profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: training of the MoE, SSM and hybrid decoders
+# ---------------------------------------------------------------------------
+
+def nt_cfg(run: dict):
+    """A run of NT_RUNS as a config: the MoE decoders cut to ``layers`` (and
+    ``experts`` routed experts), the SSM and hybrid ones as `ssm_cfg` cuts
+    them; bf16, remat on, as published."""
+    if run["arch"] in dict(MOE_RUNS):
+        changes = {"n_experts": run["experts"]} if "experts" in run else {}
+        return moe_cfg(run["arch"], run["layers"], **changes)
+    return ssm_cfg(run["arch"], run["layers"])
+
+
+def nt_active_params(cfg, n_params: int) -> int:
+    """The parameters a token's forward multiplies by: all of them but, in
+    an MoE, the routed experts it is not sent to (top-k of E; the shared
+    expert counted)."""
+    if cfg.moe is None:
+        return n_params
+    m = cfg.moe
+    routed = 3 * cfg.n_layers * m.n_experts * cfg.d_model * m.d_expert
+    return n_params - routed + routed * m.top_k // m.n_experts
+
+
+def nt_mamba_layer_peak(torch) -> dict:
+    """One Mamba-1 layer at Falcon-Mamba-7B's width in bf16, under
+    torch.utils.checkpoint as the model runs it with remat, forward and
+    backward at B 1 x S NT_SEQ: the peak device memory above its weights
+    and input (its gradients, the recomputed forward's saved tensors and
+    the scan's backward), which sizes Falcon-Mamba's cut (NT_FALCON)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models import init_params, mamba
+
+    dev = "cuda"
+    cfg = ssm_cfg("falcon-mamba-7b")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    p = init_params(mamba.mamba1_specs(cfg, layers=0), gen, dev)
+    for t in p.values():
+        t.requires_grad_()
+    x = torch.randn(1, NT_SEQ, cfg.d_model, generator=gen, device=dev).to(cfg.dtype)
+    x.requires_grad_()
+    ct = torch.randn(x.shape, generator=gen, device=dev).to(cfg.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = checkpoint(lambda p, x: mamba.mamba1_block(p, cfg, x)[0], p, x, use_reentrant=False,
+                     preserve_rng_state=False)
+    out.backward(ct)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    weights = sum(t.numel() * t.element_size() for t in p.values())
+    require(all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in p.values()),
+            "nt falcon-mamba-7b probe: a layer gradient is missing or not finite")
+    print(f"nt falcon-mamba-7b probe: one Mamba-1 layer (d {cfg.d_model}, d_inner "
+          f"{cfg.ssm.expand * cfg.d_model}, state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk}, "
+          f"bf16, remat) forward + backward at B 1 x S {NT_SEQ}: peak {peak / 2**30:.3f} GiB "
+          f"above its {weights / 2**30:.3f} GiB of weights and its input, {sec * 1e3:.1f} ms "
+          f"(first call); {card_line()}", flush=True)
+    del p, x, ct, out
+    torch.cuda.empty_cache()
+    return dict(peak_above_weights=peak, weights=weights, seconds=sec)
+
+
+def nt_grad_gate(torch, arch: str) -> dict:
+    """The f32 gradient gate (NT_GRAD) of an SSM or hybrid decoder: layer 0's
+    block at 2 layers in f32 on its own input (the embedded tokens), the
+    gradient of sum(block(x) * ct) with respect to x and to every leaf of
+    the block (the hybrid's group 0: the shared attention and MLP, its two
+    norm gains, then its Mamba-2 layer; the attention through the f32
+    forward and backward kernels at D = 80), against the same block in f64
+    (`xd_block_f64` with RoPE for the shared block, `ssm_block_f64` with the
+    sequential recurrence): each within NT_GRAD["rel"] of its largest
+    entry."""
+    import dataclasses
+
+    from repro_torch import kernels as tk
+    from repro_torch.models import get_model, hybrid, init_params, mamba
+    from repro_torch.models.transformer import embed_tokens
+    from repro_torch.tree import tree_flatten, tree_unflatten
+
+    g, dev = NT_GRAD, "cuda"
+    cfg = ssm_cfg(arch, g["layers"], torch.float32)
+    params = init_params(get_model(cfg).specs, torch.Generator(device=dev).manual_seed(SEED + 7),
+                         dev)
+    hyb = bool(cfg.shared_attn_every)
+    if hyb:
+        fan_in_over_contraction({"blocks": {"attn": params["shared"]["attn"]}}, cfg)
+        grp, sh = params["groups"], params["shared"]
+        block = {"attn": sh["attn"], "mlp": sh["mlp"], "ln1": grp["ln1"][0],
+                 "ln2": grp["ln2"][0], "mamba": hybrid._mamba_layer(grp, 0, 0)}
+    else:
+        block = {"mamba": {k: v[0] for k, v in params["blocks"].items()}}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    b, n = g["batch"], g["seq"]
+    toks = torch.randint(0, cfg.vocab, (b, n), device=dev, dtype=torch.int32, generator=gen)
+    x = embed_tokens(params, cfg, toks)
+    ct = torch.randn(x.shape, generator=gen, device=dev)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[None].expand(b, n)
+    # the shared block's RoPE as M-RoPE of one position stream
+    rope_cfg = dataclasses.replace(cfg, mrope_sections=(cfg.hd // 2,)) if hyb else None
+    paths = [p for p, _ in tree_flatten(block)]
+
+    def port(t, xs):
+        if hyb:
+            xs = hybrid._shared_attn_train(t, t["ln1"], t["ln2"], cfg, xs, pos)[0]
+            return mamba.mamba2_block(t["mamba"], cfg, xs)[0]
+        return mamba.mamba1_block(t["mamba"], cfg, xs)[0]
+
+    def exact(t, xs):
+        if hyb:
+            xs = xd_block_f64(torch, t, rope_cfg, xs, positions=pos[..., None])
+        return ssm_block_f64(torch, t["mamba"], cfg, xs)[0]
+
+    def grads(fn, dtype):
+        xs = x.detach().to(dtype).requires_grad_()
+        leaves = [t.detach().to(dtype).requires_grad_() for _, t in tree_flatten(block)]
+        out = fn(tree_unflatten(block, leaves), xs)
+        return torch.autograd.grad((out * ct.to(dtype)).sum(), [xs] + leaves)
+
+    tk.reset_launch_counts()
+    got = grads(port, torch.float32)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    want = grads(exact, torch.float64)
+    rel = {}
+    for name, a, e in zip(["x"] + ["/".join(map(str, p)) for p in paths], got, want):
+        scale = float(e.abs().max())
+        require(scale > 0 and bool(torch.isfinite(a).all()),
+                f"nt grad {arch}: the f64 gradient of {name} is zero or the f32 one not finite")
+        rel[name] = float((a.double() - e).abs().max()) / scale
+    worst = max(rel, key=rel.get)
+    require(rel[worst] <= g["rel"], f"nt grad {arch}: layer 0's block gradient of {worst} "
+                                    f"{rel[worst]:.3g} of its largest entry off f64 (bound "
+                                    f"{g['rel']}): {rel}")
+    if hyb:   # the f32 attention kernels at D = 80 ran, forward and backward
+        require(counts["flash_attention_fwd"] == 1 and counts["flash_attention_bwd"] == 1,
+                f"nt grad {arch}: attention launches {counts}, expected one of each")
+    print(f"nt grad {cfg.name} ({g['layers']} layers, f32, B {b} x S {n}): layer 0's block"
+          f"{' (shared attention at D = ' + str(cfg.hd) + ' + Mamba-2)' if hyb else ''} "
+          f"gradient vs f64 with the sequential recurrence, {len(rel)} tensors (x and every "
+          f"leaf): worst {worst} {rel[worst]:.3g} of its largest entry (bound {g['rel']}); x "
+          f"{rel['x']:.3g}", flush=True)
+    del params, block, got, want
+    torch.cuda.empty_cache()
+    return dict(rel=rel, worst=worst, launches=counts)
+
+
+def nt_train(torch, run: dict, launches: dict) -> dict:
+    """One run of NT_RUNS: TRAIN["steps"] AdamW steps at NT_OPT through
+    `build_train_fns`, the attention projections at fan-in over their
+    contraction, gated as phase 23 says; then the model is freed."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import count_params, get_model
+    from repro_torch.train.loop import build_train_fns
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import tree_leaves
+
+    t, dev = TRAIN, "cuda"
+    cfg = nt_cfg(run)
+    model = get_model(cfg)
+    b, n = run["batch"], NT_SEQ
+    moe, hyb = cfg.moe is not None, bool(cfg.shared_attn_every)
+    # attention calls a step: the MoE's layers run under remat (forward,
+    # recomputation, backward); the hybrid's shared block is outside remat
+    calls = cfg.n_layers if moe else cfg.n_layers // cfg.shared_attn_every if hyb else 0
+    per_step = (2 * calls, calls) if moe else (calls, calls)
+    what = f"nt {cfg.name}"
+    fns = build_train_fns(model, OptConfig(**NT_OPT), device=dev)
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=n, global_batch=b), device=dev)
+    n_params = count_params(model.specs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state = fns.init(SEED)
+    if moe:
+        fan_in_over_contraction(params, cfg)
+    elif hyb:
+        fan_in_over_contraction({"blocks": {"attn": params["shared"]["attn"]}}, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    auxes = []
+    params, opt_state, losses, gnorms, step_s, seen = train_steps(
+        torch, fns, pipe, params, opt_state, t["steps"], cfg, what, launches, record=True,
+        per_step=per_step, auxes=auxes)
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses), f"{what}: a loss is not finite: {losses}")
+    require(losses[-1] <= losses[0] - t["min_drop"],
+            f"{what}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, fell by less than "
+            f"{t['min_drop']}: {losses}")
+    router = None
+    if moe:
+        require(all(math.isfinite(a) and a > 0 for a in auxes),
+                f"{what}: an aux loss is not finite and positive: {auxes}")
+        router = float(opt_state["m"]["blocks"]["mlp"]["router"].abs().max())
+        require(router > 0, f"{what}: the router's gradient is zero (its AdamW moment is)")
+    rows = []
+    for inputs, got, kw in seen:
+        row = bwd_vs_twin(torch, inputs, got, kw)
+        require(row.pop("ok"), f"{what}: a backward kernel call off its twin: {row}")
+        rows.append(row)
+    require(len(rows) == calls, f"{what}: {len(rows)} backward calls captured, expected {calls}")
+    state_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params) + tree_leaves(
+        opt_state["m"]) + tree_leaves(opt_state["v"]))
+    del seen, params, opt_state, fns
+    torch.cuda.empty_cache()
+    ms = statistics.median(step_s[2:]) * 1e3
+    active = nt_active_params(cfg, n_params)
+    flops = model_flops(cfg, active, b, n, attn_calls=calls)
+    card = card_line()
+    out = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params, active_params=active,
+               batch=b, seq=n, losses=losses, gnorms=gnorms, aux=auxes, router_moment=router,
+               init_s=init_s, step_s=step_s, ms_per_step=ms, tokens_per_s=b * n / ms * 1e3,
+               max_memory_allocated=peak, params_and_moments_bytes=state_bytes,
+               model_flops=flops, mfu_bf16=flops / (ms / 1e3) / BF16_FLOPS_PER_S,
+               launches_per_step=per_step, layer_bwd=rows, card=card)
+    experts = f", {cfg.moe.n_experts} routed experts" if moe else ""
+    print(f"nt train {cfg.name} ({cfg.n_layers} layers{experts}, {n_params} parameters, "
+          f"d {cfg.d_model}, bf16, remat), batch {b} x seq {n}, {t['steps']} AdamW steps: loss "
+          + " ".join(f"{x:.4f}" for x in losses) + ", gradient norm "
+          + " ".join(f"{x:.3g}" for x in gnorms)
+          + ("" if not moe else ", aux " + " ".join(f"{x:.4g}" for x in auxes)), flush=True)
+    print(f"nt train {cfg.name}: {ms:.2f} ms a step (median of steps 3-{t['steps']}, host "
+          f"clock; first {step_s[0] * 1e3:.1f} ms), {out['tokens_per_s']:.0f} tokens/s, peak "
+          f"memory {peak / 2**30:.2f} GiB (parameters + AdamW moments "
+          f"{state_bytes / 2**30:.2f} GiB), model FLOPs {flops:.4g} a step on {active} active "
+          f"parameters = {out['mfu_bf16']:.4f} of the bf16 peak (989 TFLOP/s); {card}",
+          flush=True)
+    worst = max((r["kernel_vs_f64"][i] / r["twin_vs_f64"][i] for r in rows for i in range(3)
+                 if r["twin_vs_f64"][i] > 0), default=float("nan"))
+    print(f"nt checks {cfg.name}: losses finite, fell {losses[0] - losses[-1]:.4f} >= "
+          f"{t['min_drop']}; {per_step[0]} forward and {per_step[1]} backward attention "
+          f"launches every step, no other kernel"
+          + (f"; every backward call within its twin's bound on the first step's own inputs "
+             f"(D = {cfg.hd}; worst kernel/twin error vs f64 {worst:.4f})" if rows else "")
+          + ("" if not moe else f"; aux finite and positive, router moment {router:.3g}"),
+          flush=True)
+    return out
+
+
+def phase_nondense_train(torch, launches: dict) -> dict:
+    """Phase 23: Falcon-Mamba's layer probe, then NT_RUNS one model at a
+    time, each SSM-family run followed by its f32 gradient gate."""
+    print(f"nt: {card_line()}", flush=True)
+    out = {"falcon_layer_probe": nt_mamba_layer_peak(torch)}
+    for run in NT_RUNS:
+        res = nt_train(torch, run, launches)
+        if run["arch"] in SSM_RUNS:
+            res["grad_gate"] = nt_grad_gate(torch, run["arch"])
+        out[run["arch"]] = res
+    return out
+
+
 def phase_profile(torch, state, protos_u, base) -> dict:
     """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
@@ -6679,13 +7008,14 @@ def main(argv: list[str]) -> int:
         require(all(got[op] == 0 for op in bad), f"sass {name}: {bad} present: {got}")
     require(not sass["gone"], f"sass: retired kernels still built: {sass['gone']}")
     # Kimi-K2's D = 112 and Zamba2's D = 80 run in the D = 128 tiles: their
-    # bf16 instances on wgmma too
-    for d in (112, 80):
-        inst = {fn: c["HGMMA"] for fn, c in sass["instances"].items()
-                if "flash_fwd_mma_kernel" in fn and f"Li{d}E" in fn}
-        print(f"sass flash_fwd_mma_kernel<{d}>: HGMMA {sum(inst.values())}", flush=True)
-        require(len(inst) == 1 and all(n > 0 for n in inst.values()),
-                f"sass: the D = {d} instance of flash_fwd_mma_kernel has no HGMMA: {inst}")
+    # bf16 instances of the forward and of both backward passes on wgmma too
+    for kern in ("flash_fwd_mma_kernel", "flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel"):
+        for d in (112, 80):
+            inst = {fn: c["HGMMA"] for fn, c in sass["instances"].items()
+                    if kern in fn and f"Li{d}E" in fn}
+            print(f"sass {kern}<{d}>: HGMMA {sum(inst.values())}", flush=True)
+            require(len(inst) == 1 and all(n > 0 for n in inst.values()),
+                    f"sass: the D = {d} instance of {kern} has no HGMMA: {inst}")
     # the SIMT attention kernels are built for f32 only (no bf16 instance)
     for name, fns in sass["simt_attention"].items():
         print(f"sass {name}: {len(fns)} instances, bf16 among them: "
@@ -6757,6 +7087,8 @@ def main(argv: list[str]) -> int:
         torch, launches, profile=args.profile))
     xd_dec = phase("22 the enc-dec and VLM decoders", lambda: phase_xd(
         torch, launches, profile=args.profile))
+    nondense = phase("23 training of the MoE, SSM and hybrid decoders",
+                     lambda: phase_nondense_train(torch, launches))
     kernels["flash_attention_bwd"] = train["kernel_cases"]
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
@@ -6785,6 +7117,7 @@ def main(argv: list[str]) -> int:
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
             faults=fault, cont=cont, train=train, multirank=multirank, living_ranks=living,
             train_ranks=train_ranks, moe=moe_dec, ssm=ssm_dec, xd=xd_dec,
+            nondense_train=nondense,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

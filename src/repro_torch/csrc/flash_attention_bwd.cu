@@ -78,6 +78,17 @@
 //   ragged end evaluate the mask per element. Outputs are staged in shared
 //   memory and written in 16-byte rows.
 //
+// D = 80 (Zamba2's head dim, 2560 / 32) and D = 112 (Kimi-K2's, 7168 / 64):
+// the bf16 passes run the D = 128 tiles, swizzle, descriptors and wgmma
+// shapes (`Bwd<D>::DP`), as the forward does: shared-memory columns D-127
+// of Q, K, V and dO are zero-filled (cp.async with no source bytes), so
+// they add nothing to S or dP and give dQ, dK and dV columns that are never
+// stored. Global loads and stores touch the D real columns only (rows of
+// 160 or 224 bytes fit no swizzle; each row start stays 16-byte aligned),
+// and the scale is 1/sqrt(D), from the true D. The tensor cores do 128/D of
+// the products the function needs, the forward's price. The delta kernel
+// and the f32 SIMT kernels take D = 80 and 112 as they are.
+//
 // f32: the SIMT kernels (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel), every
 // product in f32 on the CUDA cores (67 TFLOP/s at best): TF32 would round
 // the inputs to 10 bits, which the f32 model's identity with its plain twin
@@ -223,14 +234,23 @@ __device__ __forceinline__ float dot16(uint4 a, uint4 b, float s, bf16) {
   return s;
 }
 
+// threads a row of the delta kernel: the largest power of two at most the
+// row's 16-byte chunks (D / 8 in bf16, D / 4 in f32) and a warp, so that a
+// row's threads sit in one warp and its xor shuffles sum them alone (D = 80
+// and 112 have 10 and 14 chunks in bf16, 20 and 28 in f32)
+template <int D, typename T> struct Delta {
+  static constexpr int CHUNKS = D / (16 / sizeof(T));
+  static constexpr int TPR = CHUNKS >= 32 ? 32 : CHUNKS >= 16 ? 16 : CHUNKS >= 8 ? 8
+                             : CHUNKS >= 4 ? 4 : CHUNKS >= 2 ? 2 : 1;
+};
+
 // delta[b, h, i] = sum_d dO[b, i, h, :] * O[b, i, h, :] in f32: TPR threads a
-// row (D / 8 in bf16, D / 4 in f32, at most a warp), 16 bytes a load
+// row, 16 bytes a load, the D real columns only
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                        float* __restrict__ delta, int rows, int Sq, int H) {
-  constexpr int VEC = 16 / sizeof(T), CHUNKS = D / VEC;
-  constexpr int TPR = CHUNKS < 32 ? CHUNKS : 32;
+  constexpr int CHUNKS = Delta<D, T>::CHUNKS, TPR = Delta<D, T>::TPR;
   const size_t t = (size_t)blockIdx.x * THREADS + threadIdx.x;
   const int row = (int)(t / TPR), part = (int)(t % TPR);
   float s = 0.f;
@@ -451,20 +471,23 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 constexpr int WG = 64;               // accumulator rows of a warpgroup (keys or query rows)
 constexpr int WG_THREADS = 128;      // one warpgroup a block
 
+// D: the head dim in device memory; DP: the tiles' width in shared memory
+// (D = 80 and 112 in the D = 128 tiles, their last chunks a row zero)
 template <int D> struct Bwd {
+  static constexpr int DP = D == 80 || D == 112 ? 128 : D;
   // dK/dV pass: 64 keys a block, query tiles of BQ rows, DH columns of dK/dV
-  static constexpr int BQ = D >= 128 ? 32 : 64;
-  static constexpr int DH = D >= 256 ? 128 : D;
-  static constexpr int HALVES = D / DH;
-  static constexpr size_t KV_BYTES = (size_t)WG * D * 2;       // the K or V tile
-  static constexpr size_t QD_BYTES = (size_t)BQ * D * 2;       // a Q or dO tile
+  static constexpr int BQ = DP >= 128 ? 32 : 64;
+  static constexpr int DH = DP >= 256 ? 128 : DP;
+  static constexpr int HALVES = DP / DH;
+  static constexpr size_t KV_BYTES = (size_t)WG * DP * 2;      // the K or V tile
+  static constexpr size_t QD_BYTES = (size_t)BQ * DP * 2;      // a Q or dO tile
   // K, V; Q and dO in two stages; their lse and delta rows; the 1024-byte
   // alignment of the swizzle atoms
   static constexpr size_t DKDV_SMEM = 2 * KV_BYTES + 4 * QD_BYTES + 4 * BQ * 4 + 1024;
   // dQ pass: 64 query rows a block, key tiles of BK
-  static constexpr int BK = D >= 256 ? 32 : 64;
-  static constexpr size_t Q_BYTES = (size_t)WG * D * 2;        // the Q or dO tile
-  static constexpr size_t K_BYTES = (size_t)BK * D * 2;        // a K or V tile
+  static constexpr int BK = DP >= 256 ? 32 : 64;
+  static constexpr size_t Q_BYTES = (size_t)WG * DP * 2;       // the Q or dO tile
+  static constexpr size_t K_BYTES = (size_t)BK * DP * 2;       // a K or V tile
   static constexpr size_t DQ_SMEM = 2 * Q_BYTES + 4 * K_BYTES + 1024;
 };
 
@@ -514,24 +537,26 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// rows [0, rows) of a bf16 tile whose row r starts at src + r * stride into
-// its swizzled shared-memory layout; rows at or past `valid` are zero
-template <int D>
+// rows [0, rows) of a bf16 tile whose row r starts at src + r * stride (D
+// values) into its swizzled shared-memory layout of DP columns; rows at or
+// past `valid`, and columns D.. (DP > D), are zero
+template <int D, int DP>
 __device__ __forceinline__ void load_tile_async(unsigned char* dst, const bf16* src,
                                                 size_t stride, int rows, int valid) {
-  constexpr int CH = D / 8;
+  constexpr int CH = DP / 8, CHR = D / 8;           // 16-byte chunks: a tile row, in memory
   for (int e = threadIdx.x; e < rows * CH; e += WG_THREADS) {
     const int r = e / CH, c = e % CH;
-    const bool ok = r < valid;
-    cp_async16(dst + tile_off<D>(r, c, rows), src + (ok ? (size_t)r * stride : 0) + (size_t)c * 8,
-               ok ? 16 : 0);
+    const bool ok = r < valid && c < CHR;
+    cp_async16(dst + tile_off<DP>(r, c, rows),
+               src + (ok ? (size_t)r * stride + (size_t)c * 8 : 0), ok ? 16 : 0);
   }
 }
 
 // An m64 accumulator of `DT` n8 tiles (columns c0 .. c0 + 8 DT - 1 of a
-// D-column row) into a swizzled 64-row tile `st` (this warp's 16 rows), then
-// out to rows dst + r * stride (those below `valid`), 16 bytes a copy.
-template <int D, int DT>
+// DP-column tile row) into a swizzled 64-row tile `st` (this warp's 16
+// rows), then out to rows dst + r * stride (those below `valid`; the
+// columns below D), 16 bytes a copy.
+template <int D, int DP, int DT>
 __device__ __forceinline__ void store_rows(unsigned char* st, const float (&acc)[DT][4], int c0,
                                            bf16* dst, size_t stride, int valid) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -539,17 +564,17 @@ __device__ __forceinline__ void store_rows(unsigned char* st, const float (&acc)
   const int cb = 4 * (lane & 3);                    // byte offset inside a chunk
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
-    *reinterpret_cast<uint32_t*>(st + tile_off<D>(r0, c0 / 8 + j, WG) + cb) =
+    *reinterpret_cast<uint32_t*>(st + tile_off<DP>(r0, c0 / 8 + j, WG) + cb) =
         pack_bf16(acc[j][0], acc[j][1]);
-    *reinterpret_cast<uint32_t*>(st + tile_off<D>(r0 + 8, c0 / 8 + j, WG) + cb) =
+    *reinterpret_cast<uint32_t*>(st + tile_off<DP>(r0 + 8, c0 / 8 + j, WG) + cb) =
         pack_bf16(acc[j][2], acc[j][3]);
   }
   __syncwarp();
   for (int e = lane; e < 16 * DT; e += 32) {
     const int r = 16 * warp + e / DT, c = c0 / 8 + e % DT;
-    if (r < valid) {
+    if (r < valid && c < D / 8) {
       *reinterpret_cast<uint4*>(dst + (size_t)r * stride + c * 8) =
-          *reinterpret_cast<const uint4*>(st + tile_off<D>(r, c, WG));
+          *reinterpret_cast<const uint4*>(st + tile_off<DP>(r, c, WG));
     }
   }
 }
@@ -564,9 +589,9 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           int KH, int causal, int window, int q_offset, float scale_log2,
                           float scale) {
   using C = Bwd<D>;
-  constexpr int BQ = C::BQ, DH = C::DH;
+  constexpr int DP = C::DP, BQ = C::BQ, DH = C::DH;
   constexpr int NT = BQ / 8;       // n8 tiles of queries in S^T
-  constexpr int KS = D / 16;       // k16 steps of S^T and dP^T
+  constexpr int KS = DP / 16;      // k16 steps of S^T and dP^T
   constexpr int PS = BQ / 16;      // k16 steps of dV and dK
   constexpr int DT = DH / 8;       // n8 tiles of dK and dV
   extern __shared__ unsigned char smem_raw[];
@@ -583,8 +608,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int G = H / KH, nqt = (Sq + BQ - 1) / BQ, total = G * nqt;
   const size_t q_row = (size_t)H * D, kv_row = (size_t)KH * D;
   const size_t kv_off = ((size_t)b * Skv + k0) * kv_row + (size_t)kh * D;
-  load_tile_async<D>(sk, k + kv_off, kv_row, WG, nk);
-  load_tile_async<D>(sv, v + kv_off, kv_row, WG, nk);
+  load_tile_async<D, DP>(sk, k + kv_off, kv_row, WG, nk);
+  load_tile_async<D, DP>(sv, v + kv_off, kv_row, WG, nk);
 
   // query tile t is visited when a row of it sees a key of the tile, or sees
   // no key at all (such rows lie at the ends of the positions, so the first
@@ -605,8 +630,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int h = kh * G + it / nqt, i0 = (it % nqt) * BQ, nq = min(BQ, Sq - i0);
     const size_t off = ((size_t)b * Sq + i0) * q_row + (size_t)h * D;
     unsigned char* st = sqd + (size_t)(2 * stage) * C::QD_BYTES;
-    load_tile_async<D>(st, q + off, q_row, BQ, nq);
-    load_tile_async<D>(st + C::QD_BYTES, dout + off, q_row, BQ, nq);
+    load_tile_async<D, DP>(st, q + off, q_row, BQ, nq);
+    load_tile_async<D, DP>(st + C::QD_BYTES, dout + off, q_row, BQ, nq);
     const size_t row = ((size_t)b * H + h) * Sq + i0;
     float* sr = srows + 2 * BQ * stage;
     for (int r = tid; r < BQ; r += WG_THREADS) {
@@ -650,13 +675,13 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      wgmma_ss<BQ>(&st[0][0], kmajor_desc<D>(sk_addr, WG, 0, kk),
-                   kmajor_desc<D>(sq_addr, BQ, 0, kk), kk == 0);
+      wgmma_ss<BQ>(&st[0][0], kmajor_desc<DP>(sk_addr, WG, 0, kk),
+                   kmajor_desc<DP>(sq_addr, BQ, 0, kk), kk == 0);
     }
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      wgmma_ss<BQ>(&dpt[0][0], kmajor_desc<D>(sv_addr, WG, 0, kk),
-                   kmajor_desc<D>(sdo_addr, BQ, 0, kk), kk == 0);
+      wgmma_ss<BQ>(&dpt[0][0], kmajor_desc<DP>(sv_addr, WG, 0, kk),
+                   kmajor_desc<DP>(sdo_addr, BQ, 0, kk), kk == 0);
     }
     wgmma_commit();
     wgmma_wait();
@@ -689,7 +714,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < PS; ++ks) {
-      const uint64_t db = mnmajor_desc<D>(sdo_addr + col_off, BQ, ks);
+      const uint64_t db = mnmajor_desc<DP>(sdo_addr + col_off, BQ, ks);
       wgmma_rs<DH>(&acc_v[0][0], ah[ks], db);
       wgmma_rs<DH>(&acc_v[0][0], al[ks], db);
     }
@@ -708,7 +733,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < PS; ++ks) {
-      const uint64_t db = mnmajor_desc<D>(sq_addr + col_off, BQ, ks);
+      const uint64_t db = mnmajor_desc<DP>(sq_addr + col_off, BQ, ks);
       wgmma_rs<DH>(&acc_k[0][0], dh[ks], db);
       wgmma_rs<DH>(&acc_k[0][0], dl[ks], db);
     }
@@ -719,8 +744,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   __syncthreads();                // every copy into the K and V tiles landed
 
   // the K and V tiles are consumed: stage dK and dV there
-  store_rows<D, DT>(sk, acc_k, half * DH, dk + kv_off, kv_row, nk);
-  store_rows<D, DT>(sv, acc_v, half * DH, dv + kv_off, kv_row, nk);
+  store_rows<D, DP, DT>(sk, acc_k, half * DH, dk + kv_off, kv_row, nk);
+  store_rows<D, DP, DT>(sv, acc_v, half * DH, dv + kv_off, kv_row, nk);
 }
 
 // pass 2: dQ of one (b, head, 64 query rows)
@@ -732,11 +757,11 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         bf16* __restrict__ dq, int Sq, int Skv, int H, int KH, int causal,
                         int window, int q_offset, float scale_log2, float scale) {
   using C = Bwd<D>;
-  constexpr int BK = C::BK;
+  constexpr int DP = C::DP, BK = C::BK;
   constexpr int NT = BK / 8;       // n8 tiles of keys in S
-  constexpr int KS = D / 16;       // k16 steps of S and dP
+  constexpr int KS = DP / 16;      // k16 steps of S and dP
   constexpr int PS = BK / 16;      // k16 steps of dQ
-  constexpr int DT = D / 8;        // n8 tiles of dQ
+  constexpr int DT = DP / 8;       // n8 tiles of dQ
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = align1024(smem_raw);
   unsigned char* sdo = sq + C::Q_BYTES;
@@ -751,8 +776,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t q_off = ((size_t)b * Sq + i0) * q_row + (size_t)h * D;
   const bf16* kbase = k + (size_t)b * Skv * kv_row + (size_t)kh * D;
   const bf16* vbase = v + (size_t)b * Skv * kv_row + (size_t)kh * D;
-  load_tile_async<D>(sq, q + q_off, q_row, WG, nrows);
-  load_tile_async<D>(sdo, dout + q_off, q_row, WG, nrows);
+  load_tile_async<D, DP>(sq, q + q_off, q_row, WG, nrows);
+  load_tile_async<D, DP>(sdo, dout + q_off, q_row, WG, nrows);
 
   int k_beg, k_end;
   kv_range(q_offset + i0, q_offset + i0 + nrows - 1, Skv, causal, window, BK, k_beg, k_end);
@@ -760,8 +785,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_kv = [&](int t, int stage) {
     const int kt = k_beg + t * BK;
     unsigned char* st = skv + (size_t)(2 * stage) * C::K_BYTES;
-    load_tile_async<D>(st, kbase + (size_t)kt * kv_row, kv_row, BK, Skv - kt);
-    load_tile_async<D>(st + C::K_BYTES, vbase + (size_t)kt * kv_row, kv_row, BK, Skv - kt);
+    load_tile_async<D, DP>(st, kbase + (size_t)kt * kv_row, kv_row, BK, Skv - kt);
+    load_tile_async<D, DP>(st + C::K_BYTES, vbase + (size_t)kt * kv_row, kv_row, BK, Skv - kt);
   };
   if (ntiles > 0) load_kv(0, 0);
   cp_async_commit();
@@ -795,13 +820,13 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      wgmma_ss<BK>(&s[0][0], kmajor_desc<D>(sq_addr, WG, 0, kk),
-                   kmajor_desc<D>(sk_addr, BK, 0, kk), kk == 0);
+      wgmma_ss<BK>(&s[0][0], kmajor_desc<DP>(sq_addr, WG, 0, kk),
+                   kmajor_desc<DP>(sk_addr, BK, 0, kk), kk == 0);
     }
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      wgmma_ss<BK>(&dp[0][0], kmajor_desc<D>(sdo_addr, WG, 0, kk),
-                   kmajor_desc<D>(sv_addr, BK, 0, kk), kk == 0);
+      wgmma_ss<BK>(&dp[0][0], kmajor_desc<DP>(sdo_addr, WG, 0, kk),
+                   kmajor_desc<DP>(sv_addr, BK, 0, kk), kk == 0);
     }
     wgmma_commit();
     wgmma_wait();
@@ -833,9 +858,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < PS; ++ks) {
-      const uint64_t db = mnmajor_desc<D>(sk_addr, BK, ks);
-      wgmma_rs<D>(&acc[0][0], ah[ks], db);
-      wgmma_rs<D>(&acc[0][0], al[ks], db);
+      const uint64_t db = mnmajor_desc<DP>(sk_addr, BK, ks);
+      wgmma_rs<DP>(&acc[0][0], ah[ks], db);
+      wgmma_rs<DP>(&acc[0][0], al[ks], db);
     }
     wgmma_commit();
     wgmma_wait();
@@ -844,7 +869,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();                // every copy into the Q tile landed
 
   // the Q tile is consumed: stage dQ there
-  store_rows<D, DT>(sq, acc, 0, dq + q_off, q_row, nrows);
+  store_rows<D, DP, DT>(sq, acc, 0, dq + q_off, q_row, nrows);
 }
 
 template <int D>
@@ -912,10 +937,10 @@ int launch_d(const void* q, const void* k, const void* v, const void* out, const
   const int rows = B * Sq * H;
   auto grid = [rows](int tpr) { return (unsigned)(((size_t)rows * tpr + THREADS - 1) / THREADS); };
   if (is_bf16) {
-    flash_bwd_delta_kernel<D, bf16><<<grid(D / 8 < 32 ? D / 8 : 32), THREADS, 0, s>>>(
+    flash_bwd_delta_kernel<D, bf16><<<grid(Delta<D, bf16>::TPR), THREADS, 0, s>>>(
         (const bf16*)out, (const bf16*)dout, delta, rows, Sq, H);
   } else {
-    flash_bwd_delta_kernel<D, float><<<grid(D / 4 < 32 ? D / 4 : 32), THREADS, 0, s>>>(
+    flash_bwd_delta_kernel<D, float><<<grid(Delta<D, float>::TPR), THREADS, 0, s>>>(
         (const float*)out, (const float*)dout, delta, rows, Sq, H);
   }
   const cudaError_t err = cudaGetLastError();
@@ -944,6 +969,8 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
     case 16: return launch_d<16>(q, k, v, out, dout, lse, dl, dq, dk, dv, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 32: return launch_d<32>(q, k, v, out, dout, lse, dl, dq, dk, dv, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 64: return launch_d<64>(q, k, v, out, dout, lse, dl, dq, dk, dv, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 80: return launch_d<80>(q, k, v, out, dout, lse, dl, dq, dk, dv, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
+    case 112: return launch_d<112>(q, k, v, out, dout, lse, dl, dq, dk, dv, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 128: return launch_d<128>(q, k, v, out, dout, lse, dl, dq, dk, dv, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     case 256: return launch_d<256>(q, k, v, out, dout, lse, dl, dq, dk, dv, B, Sq, Skv, H, KH, causal, window, q_offset, bf16, s);
     default: return (int)cudaErrorInvalidValue;

@@ -13,11 +13,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_contiguous, dispatch
 from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
 
-# Head dims the kernels are instantiated for: the forward
-# (csrc/flash_attention.cu; D = 80 and 112 run in the D = 128 tiles) and the
-# backward (csrc/flash_attention_bwd.cu).
+# Head dims both kernels are instantiated for (csrc/flash_attention.cu and
+# csrc/flash_attention_bwd.cu; in bf16, D = 80 and 112 run in the D = 128
+# tiles).
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID = 65535   # grid y limit
 
@@ -38,23 +37,16 @@ def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
         raise ValueError(f"{name}: {h} query heads over {kh} kv heads")
 
 
-def _check_head_dim(name: str, d: int, dims: tuple) -> None:
-    """D must be one the kernel is built for. The backward refuses the
-    forward's D = 80 (Zamba2's) and D = 112 (Kimi-K2's) by name: they come
-    with hybrid and MoE training on the card."""
-    if d in dims:
-        return
-    if d in HEAD_DIMS:
-        raise NotImplementedError(
-            f"{name}: head dim {d} runs in the forward kernel only; the backward at "
-            f"D = {d} waits for hybrid and MoE training on the card (ROADMAP §1, LM stack)")
-    raise ValueError(f"{name}: head dim {d} not in the kernel's {dims}")
+def _check_head_dim(name: str, d: int) -> None:
+    """D must be one the kernels are built for (`HEAD_DIMS`)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in the kernel's {HEAD_DIMS}")
 
 
-def _check_launch(name: str, d: int, dims: tuple, *tensors: torch.Tensor) -> None:
-    """What the CUDA kernels take: D in ``dims`` and dense 16-byte aligned
+def _check_launch(name: str, d: int, *tensors: torch.Tensor) -> None:
+    """What the CUDA kernels take: D in `HEAD_DIMS` and dense 16-byte aligned
     memory."""
-    _check_head_dim(name, d, dims)
+    _check_head_dim(name, d)
     check_contiguous(name, *tensors)
     for t in tensors:
         if t.data_ptr() % 16:
@@ -78,7 +70,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dispatch("flash_attention_fwd", q, k, v) == "cpu":
         return flash_fwd_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
                              block_q=block_q, block_k=block_k, return_lse=return_lse)
-    _check_launch("flash_attention_fwd", d, HEAD_DIMS, q, k, v)
+    _check_launch("flash_attention_fwd", d, q, k, v)
     if (sq > MAX_GRID * 64 or b * h > 2**31 - 1 or skv >= 2**30
             or abs(q_offset) >= 2**30 or abs(window) >= 2**30):
         raise ValueError("flash_attention_fwd: sizes beyond the kernel's grid or int positions")
@@ -104,8 +96,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     """The gradients (dq [B, Sq, H, D], dk, dv [B, Skv, KH, D]) of
     `flash_attention_fwd` with respect to q, k, v, from its ``out`` and
     ``lse`` and the output's gradient ``dout``, in the inputs' dtype. The
-    kernel takes what the forward kernel takes but D = 80 and 112
-    (`BWD_HEAD_DIMS`);
+    kernel takes what the forward kernel takes, D in `HEAD_DIMS`;
     ``block_q``/``block_k`` tile the plain version only."""
     _check_qkv("flash_attention_bwd", q, k, v)
     b, sq, h, d = q.shape
@@ -124,7 +115,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     if dispatch("flash_attention_bwd", q, k, v, out, lse, dout) == "cpu":
         return flash_bwd_ref(q, k, v, out, lse, dout, block_q=block_q, block_k=block_k, **kw)
     dout = dout.contiguous()
-    _check_launch("flash_attention_bwd", d, BWD_HEAD_DIMS, q, k, v, out, lse, dout)
+    _check_launch("flash_attention_bwd", d, q, k, v, out, lse, dout)
     if (sq > MAX_GRID * 32 or skv > MAX_GRID * 32 or b * sq * h > 2**31 - 1
             or skv >= 2**30 or abs(q_offset) >= 2**30 or abs(window) >= 2**30):
         raise ValueError("flash_attention_bwd: sizes beyond the kernel's grid or int positions")

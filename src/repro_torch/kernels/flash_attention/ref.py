@@ -166,12 +166,13 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
 
 def flash_bwd_exact(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, *,
                     causal: bool = True, window: int = -1, q_offset: int = 0):
-    """The attention backward in f64 (dq, dk, dv), batch row by batch row:
-    the yardstick the bf16 backward is held to. The reference's formula
-    (FlashAttention-2's, P = exp(s - lse)) on exact scores, with O the f64
-    softmax attention; a row that sees no key has lse = -1e30 here too (f64
-    rounds -1e30 + log Skv back to -1e30), so P = 1 on every key, as the
-    reference and the kernel give it."""
+    """The attention backward in f64 (dq, dk, dv), batch row by batch row and
+    kv head by kv head (its G query heads at once, so that a long sequence's
+    f64 scores stay a few GB): the yardstick the bf16 backward is held to.
+    The reference's formula (FlashAttention-2's, P = exp(s - lse)) on exact
+    scores, with O the f64 softmax attention; a row that sees no key has
+    lse = -1e30 here too (f64 rounds -1e30 + log Skv back to -1e30), so
+    P = 1 on every key, as the reference and the kernel give it."""
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -179,23 +180,25 @@ def flash_bwd_exact(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: tor
                torch.arange(skv, device=q.device))
     outs = []
     for i in range(b):
-        qd, gd = q[i].double(), dout[i].double()
-        kd, vd = (x[i].double().repeat_interleave(g, 1) for x in (k, v))
-        s = torch.einsum("qhd,khd->hqk", qd, kd) / math.sqrt(d)
-        s = s.masked_fill(~ok, NEG_INF)
-        m = s.amax(-1, keepdim=True)
-        pu = torch.exp(s - m)
-        lsum = pu.sum(-1, keepdim=True)
-        o = torch.einsum("hqk,khd->qhd", pu / lsum, vd)
-        p = torch.exp(s - (m + torch.log(lsum)))
-        del pu
-        dv = torch.einsum("hqk,qhd->khd", p, gd)
-        dp = torch.einsum("qhd,khd->hqk", gd, vd)
-        delta = (gd * o).sum(-1).transpose(0, 1)[..., None]
-        ds = p * (dp - delta) / math.sqrt(d)
-        del p, dp
-        dq = torch.einsum("hqk,khd->qhd", ds, kd)
-        dk = torch.einsum("hqk,qhd->khd", ds, qd)
-        outs.append((dq, dk.reshape(skv, kh, g, d).sum(2), dv.reshape(skv, kh, g, d).sum(2)))
-        del ds
+        dqs, dks, dvs = [], [], []
+        for j in range(kh):
+            qd, gd = (x[i, :, j * g:(j + 1) * g].double() for x in (q, dout))   # [Sq, G, D]
+            kd, vd = k[i, :, j].double(), v[i, :, j].double()                   # [Skv, D]
+            s = torch.einsum("qhd,kd->hqk", qd, kd) / math.sqrt(d)
+            s = s.masked_fill(~ok, NEG_INF)
+            m = s.amax(-1, keepdim=True)
+            pu = torch.exp(s - m)
+            lsum = pu.sum(-1, keepdim=True)
+            o = torch.einsum("hqk,kd->qhd", pu / lsum, vd)
+            p = torch.exp(s - (m + torch.log(lsum)))
+            del pu, s
+            dvs.append(torch.einsum("hqk,qhd->kd", p, gd))
+            dp = torch.einsum("qhd,kd->hqk", gd, vd)
+            delta = (gd * o).sum(-1).transpose(0, 1)[..., None]
+            ds = p * (dp - delta) / math.sqrt(d)
+            del p, dp
+            dqs.append(torch.einsum("hqk,kd->qhd", ds, kd))
+            dks.append(torch.einsum("hqk,qhd->kd", ds, qd))
+            del ds
+        outs.append((torch.cat(dqs, 1), torch.stack(dks, 1), torch.stack(dvs, 1)))
     return tuple(torch.stack([o[j] for o in outs]) for j in range(3))

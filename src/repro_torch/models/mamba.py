@@ -38,11 +38,14 @@ from repro_torch.models.layers import dense, rmsnorm
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w [K, N] summed and returned in f32 (the reference's
     ``preferred_element_type=f32`` kept as f32): bf16 operands on the card
-    write f32 through cuBLAS (``out_dtype``); on the CPU they are widened
-    first, which sums the same exact products in f32."""
+    write f32 through cuBLAS (``out_dtype``); on the CPU, and wherever
+    autograd records (``mm`` with ``out_dtype`` has no derivative), they are
+    widened first, which sums the same exact products in f32 and gives the
+    reference's gradients: each cast back to its operand's dtype."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w)
-    if x.is_cuda:
+    records = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.is_cuda and not records:
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return out.reshape(x.shape[:-1] + (w.shape[-1],))
     return torch.matmul(x.float(), w.float())

@@ -83,12 +83,16 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
 def _bmm_acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [N, M, K] @ b [N, K, P], summed and returned in `_acc` of their
     dtype (the reference's ``preferred_element_type=f32``): bf16 operands
-    on the card write f32 through cuBLAS (``out_dtype``); on the CPU they
-    are widened first, which sums the same exact products in f32."""
+    on the card write f32 through cuBLAS (``out_dtype``); on the CPU, and
+    wherever autograd records (``bmm`` with ``out_dtype`` has no
+    derivative), they are widened first, which sums the same exact products
+    in f32 and gives the reference's gradients, each cast back to its
+    operand's dtype."""
     acc = _acc(a.dtype)
     if a.dtype == acc:
         return torch.bmm(a, b)
-    if a.is_cuda:
+    records = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if a.is_cuda and not records:
         return torch.bmm(a, b, out_dtype=acc)
     return torch.bmm(a.to(acc), b.to(acc))
 

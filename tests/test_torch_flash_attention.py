@@ -159,19 +159,25 @@ def test_zamba2_head_dim_80_against_pallas_interpret(causal, win):
 
 
 def test_head_dims_of_the_forward_and_the_backward_kernels():
-    """The forward kernel is built for D = 80 (Zamba2's) and D = 112
-    (Kimi-K2's), the backward is not: its check refuses each by name,
-    pointing at the ROADMAP, before any launch (the check the wrapper runs
-    on CUDA tensors, called here without one); a D neither is built for is
-    refused as before."""
+    """Both kernels are built for the same head dims, D = 80 (Zamba2's) and
+    D = 112 (Kimi-K2's) among them: the case labels of each CUDA source's
+    launch switch are `HEAD_DIMS`, and the wrapper's check (the one it runs
+    on CUDA tensors, called here without one) takes each for either kernel.
+    A D neither is built for (96) is refused for both before any launch."""
+    import re
+    from pathlib import Path
+
     from repro_torch.kernels.flash_attention import ops
 
-    assert set(ops.BWD_HEAD_DIMS) < set(ops.HEAD_DIMS)
-    for d in (80, 112):
-        assert d in ops.HEAD_DIMS and d not in ops.BWD_HEAD_DIMS
-        ops._check_head_dim("flash_attention_fwd", d, ops.HEAD_DIMS)
-        with pytest.raises(NotImplementedError, match=f"D = {d} waits for .*ROADMAP §1"):
-            ops._check_head_dim("flash_attention_bwd", d, ops.BWD_HEAD_DIMS)
-    for dims in (ops.HEAD_DIMS, ops.BWD_HEAD_DIMS):
+    csrc = Path(ops.__file__).resolve().parents[2] / "csrc"
+    for src, fn in (("flash_attention.cu", "flash_attention_fwd_launch"),
+                    ("flash_attention_bwd.cu", "flash_attention_bwd_launch")):
+        text = (csrc / src).read_text()
+        body = text[text.index(f'extern "C" int {fn}('):]
+        cases = tuple(int(c) for c in re.findall(r"case (\d+): return", body))
+        assert cases == ops.HEAD_DIMS, (src, cases)
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        for d in ops.HEAD_DIMS:
+            ops._check_head_dim(name, d)
         with pytest.raises(ValueError, match="not in the kernel's"):
-            ops._check_head_dim("flash_attention_fwd", 96, dims)
+            ops._check_head_dim(name, 96)

@@ -72,6 +72,14 @@ CASES = [  # tests/test_models.py's four shapes, then prefill chunks over a cach
     (512, 512, 0, 2, 2, 64, 128, True),
     (64, 192, 128, 4, 2, 32, -1, True),
     (64, 192, 128, 4, 1, 64, 48, True),
+    # Zamba2's D = 80 and Kimi-K2's D = 112 (the bf16 kernel runs them in its
+    # D = 128 tiles): causal GQA, windowed, a chunk over a cache prefix
+    (128, 128, 0, 4, 2, 80, -1, True),
+    (128, 128, 0, 4, 1, 80, 48, True),
+    (64, 192, 128, 4, 2, 80, -1, True),
+    (128, 128, 0, 4, 2, 112, -1, True),
+    (128, 128, 0, 4, 1, 112, 48, True),
+    (64, 192, 128, 4, 2, 112, 64, True),
 ]
 
 

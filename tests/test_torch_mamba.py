@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_ssm_common import numpy_params, pair
+from _torch_ssm_common import check_loss_and_grads, numpy_params, pair
 from repro import configs as jconfigs
 from repro.models import get_model as j_get_model
 from repro.models import mamba as jmamba
@@ -353,6 +353,45 @@ def test_continuous_completions_equal_static_generates(slots):
     for rid, p in zip(rids, prompts):
         want = Engine(tm, scfg).generate(tp, {"tokens": torch.from_numpy(p)[None]})[0]
         assert sched.poll(rid).tokens == want.tolist()
+
+
+class _OnTheCard(torch.Tensor):
+    """A meta tensor that reports itself on the card, so that `_dot_f32`
+    takes its card branch here (``mm`` with ``out_dtype`` has a meta
+    kernel); its results keep the class."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_dot_f32_is_differentiable_on_the_card():
+    """On the card `_dot_f32` writes f32 out of bf16 through ``mm``'s
+    ``out_dtype``, which has no derivative: training Falcon-Mamba-7B on an
+    H100 raised "derivative for aten::mm is not implemented" in x_proj.
+    Where autograd records it widens instead: the gradients of both
+    operands exist, in their own dtype; without a gradient it keeps the
+    cuBLAS path."""
+    x, w = (torch.empty(shape, dtype=torch.bfloat16, device="meta").as_subclass(_OnTheCard)
+            for shape in ((2, 5, 8), (8, 3)))
+    with torch.no_grad():
+        assert mamba._dot_f32(x, w).dtype == torch.float32
+    with pytest.raises(RuntimeError, match="derivative for aten::mm"):
+        torch.mm(x.reshape(-1, 8).requires_grad_(), w, out_dtype=torch.float32).sum().backward()
+    xg, wg = x.detach().requires_grad_(), w.detach().requires_grad_()
+    out = mamba._dot_f32(xg, wg)
+    assert out.dtype == torch.float32 and out.shape == (2, 5, 3)
+    gx, gw = torch.autograd.grad(out.sum(), (xg, wg))
+    assert (gx.shape, gx.dtype, gw.shape, gw.dtype) == (x.shape, x.dtype, w.shape, w.dtype)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_loss_and_every_gradient_match_jax(remat):
+    """loss_fn and the gradient of every leaf against ``jax.value_and_grad``
+    of the reference's loss_fn, with remat off and on (each layer under
+    checkpoint), through the chunked selective scan (S = 37 pads its last chunk): the
+    loss within 1e-5 relative, each leaf within 1e-4 of its largest |g|."""
+    check_loss_and_grads(ARCH, remat, seed=12)
 
 
 def test_remat_gives_the_same_loss_and_gradients():

@@ -234,6 +234,36 @@ def _paired(port_tree, jax_tree):
     return [(p, t, jl[tuple(str(k) for k in p)]) for p, t in tree_flatten(port_tree)]
 
 
+class _OnTheCard(torch.Tensor):
+    """A meta tensor that reports itself on the card, so that `_bmm_acc`
+    takes its card branch here (``bmm`` with ``out_dtype`` has a meta
+    kernel); its results keep the class."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_expert_products_are_differentiable_on_the_card():
+    """On the card `moe._bmm_acc` writes f32 out of bf16 through ``bmm``'s
+    ``out_dtype``, which has no derivative, so an MoE training step on the
+    card would raise "derivative for aten::bmm is not implemented" in the
+    experts' gate and up products. Where autograd records it widens
+    instead: both gradients exist, in their operands' dtype; without a
+    gradient it keeps the cuBLAS path."""
+    a, b = (torch.empty(shape, dtype=torch.bfloat16, device="meta").as_subclass(_OnTheCard)
+            for shape in ((2, 5, 8), (2, 8, 3)))
+    with torch.no_grad():
+        assert moe._bmm_acc(a, b).dtype == torch.float32
+    with pytest.raises(RuntimeError, match="derivative for aten::bmm"):
+        torch.bmm(a.detach().requires_grad_(), b, out_dtype=torch.float32).sum().backward()
+    ag, bg = a.detach().requires_grad_(), b.detach().requires_grad_()
+    out = moe._bmm_acc(ag, bg)
+    assert out.dtype == torch.float32 and out.shape == (2, 5, 3)
+    ga, gb = torch.autograd.grad(out.sum(), (ag, bg))
+    assert (ga.shape, ga.dtype, gb.shape, gb.dtype) == (a.shape, a.dtype, b.shape, b.dtype)
+
+
 @pytest.mark.parametrize("arch", MOE)
 def test_loss_and_every_gradient_match_jax(arch):
     """loss_fn's ce + aux (aux summed over the layers) within 1e-5 relative

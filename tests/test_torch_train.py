@@ -211,20 +211,23 @@ def test_sign_update_matches_jax():
 # train steps
 # ---------------------------------------------------------------------------
 
-def test_adamw_steps_match_jax():
-    """Three AdamW steps from JAX's initial parameters on JAX's batches: step
-    1's loss within 1e-5 relative, steps 2-3 within 1e-3 (AdamW's first
-    update turns near-zero gradients into about +-lr, so the parameters may
-    part by 2 lr where the two gradients round apart)."""
-    jcfg = jconfigs.get_smoke("tinyllama_1_1b")
+@pytest.mark.parametrize("arch", ["tinyllama_1_1b", "mixtral_8x22b", "kimi_k2",
+                                  "falcon_mamba_7b", "zamba2_2_7b"])
+def test_adamw_steps_match_jax(arch):
+    """Three AdamW steps from JAX's initial parameters on JAX's batches, for
+    the dense decoder and the MoE, SSM and hybrid ones: step 1's loss within
+    1e-5 relative, steps 2-3 within 1e-3 (AdamW's first update turns
+    near-zero gradients into about +-lr, so the parameters may part by 2 lr
+    where the two gradients round apart)."""
+    jcfg = jconfigs.get_smoke(arch)
     jmodel = j_get_model(jcfg)
     opt = dict(lr=1e-3, warmup=2, total_steps=10)
     fns = j_build_train_fns(jmodel, _mesh(), jopt.OptConfig(**opt))
     jp, js = fns.init(KEY)
     params = params_from_numpy(_np_tree(jp), "cpu")
     state = opt_state_from_numpy(_np_tree(js), "cpu")
-    tfns = build_train_fns(get_model(configs.get_smoke("tinyllama_1_1b")),
-                           topt.OptConfig(**opt), device="cpu")
+    tfns = build_train_fns(get_model(configs.get_smoke(arch)), topt.OptConfig(**opt),
+                           device="cpu")
     pipe = JSyntheticLM(JDataConfig(vocab=jcfg.vocab, seq=64, global_batch=4))
     for step in range(3):
         batch = pipe.batch(step)

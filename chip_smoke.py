@@ -328,20 +328,24 @@ fallback, and a missing GPU is a failure):
    static B = 1 generates (each request with its own frames or image, two
    image grids), and no aten op given a CPU tensor in a prefill and a
    decode step;
-23. training of the MoE, SSM and hybrid decoders at their published widths
+23. training of the non-dense decoders at their published widths
    (NT_RUNS; bf16 parameters from the seed, remat on, B x 1024 of
    `SyntheticLM`, one model on the card at a time, the attention
    projections at fan-in over their contraction): first one Mamba-1
    layer's forward and backward at Falcon-Mamba-7B's width under remat, at
    B 1 x S 1024, its peak device memory printed (what sizes Falcon-Mamba's
    cut); then Mixtral-8x22B at 1 layer, Kimi-K2 at 1 layer with 24 of its
-   384 routed experts, Zamba2-2.7B at all 54 layers and Falcon-Mamba-7B at
-   its cut each take TRAIN["steps"] AdamW steps (NT_OPT: lr 3e-5 from the
+   384 routed experts, Zamba2-2.7B at all 54 layers, Falcon-Mamba-7B at
+   its cut, Whisper-tiny whole (B 16 x 448 over 1500 stub frames) and
+   Qwen2-VL-7B at 14 of 28 layers (B 4 x (256 patch embeddings + 1024
+   tokens), M-RoPE positions; its peak sizes the cut) each take
+   TRAIN["steps"] AdamW steps (NT_OPT: lr 3e-5 from the
    first step) through `build_train_fns`: every loss finite and the last below the
    first by TRAIN["min_drop"]; every step the attention forward twice and
-   the backward once a layer under remat (Mixtral and Kimi-K2: 2 + 1), the
-   shared block's 9 + 9 (Zamba2; not under remat), nothing for
-   Falcon-Mamba, and no other kernel of the table; the first step's
+   the backward once a layer under remat (Mixtral and Kimi-K2: 2 + 1;
+   Whisper 24 + 12: its encoder's 4, its decoder's 4 self and 4 cross;
+   Qwen2-VL 28 + 14), the shared block's 9 + 9 (Zamba2; not under remat),
+   nothing for Falcon-Mamba, and no other kernel of the table; the first step's
    backward calls held to the twin on their own inputs (`bwd_vs_twin`);
    the MoE's aux loss finite and positive and its router's gradient
    non-zero; for Falcon-Mamba and Zamba2 an f32 gradient gate at NT_GRAD's
@@ -351,7 +355,20 @@ fallback, and a missing GPU is a failure):
    one's largest entry of the same block in f64 with the sequential
    recurrence. Reported: ms a step (median of steps 3-15, host clock),
    tokens/s, peak memory, the model-FLOPs share of the bf16 peak (MoE on
-   its active parameters), beside the card's name and power limit.
+   its active parameters), beside the card's name and power limit;
+24. training of every non-dense family across ranks (NR_RUNS; gloo ranks
+   all on the one card, spawned as phase 19 spawns its own; phase 23's
+   draw, NR["steps"] AdamW steps at NT_OPT): on 1x2 Mixtral-8x22B and
+   Kimi-K2 at 1 layer (24 experts), Falcon-Mamba-7B at 2 layers,
+   Zamba2-2.7B at 1 group and Qwen2-VL-7B at 2 layers, on 2x2
+   Whisper-tiny whole; one rank's steps on the same parameters and
+   batches first (this process): the ranks report one loss, every step's
+   within NR's bounds of one rank's (step 1's routing flips printed for
+   the MoE runs) and the step-1 gradient norm within NR["gnorm_rtol"];
+   each rank holds its resolved shards' bytes; every step launches the
+   attention kernels phase 23 counts for the config and nothing else.
+   Reported: rank 0's ms a step beside one rank's, tokens/s, each rank's
+   peak memory and wire bytes a step.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
@@ -376,7 +393,8 @@ are not counted), and phase 21's generates (its timed prefill and decodes,
 gates, part timings and SSM_SMALL's runs are not counted), and phase
 22's generates (its encoder timing, layer-0 checks and XD_SMALL's runs
 are not counted), and phase 23's training steps (its memory probe and
-gradient gates are not counted);
+gradient gates are not counted), and every training step on every rank
+of phase 24 (the one-rank comparison steps are not counted);
 the d = 8192 comparisons, the
 keep == n_grp identity at C = 1024, phase 11's checks and phase 12's
 quarantine check are not counted), and as the last line {"ok": true, ...}.
@@ -638,11 +656,11 @@ XD_RUNS = {"whisper-tiny": dict(batch=32, prompt_len=32, max_new=64),
 XD_BF16_REL = 2.0 ** -5
 XD_SMALL = dict(layers=2, batch=2, prompt_len=200, steps=3, tol=5e-3, requests=6,
                 lengths=(16, 40, 96), grids=((16, 16), (8, 8)), slots=4, max_new=8)
-# phase 23: training of the MoE, SSM and hybrid decoders at their published
-# widths on one card (bf16 parameters from the seed, remat on, B x NT_SEQ of
-# SyntheticLM, TRAIN["steps"] AdamW steps at NT_OPT through build_train_fns;
-# one model on the card at a time; the attention projections at fan-in over
-# their contraction, phase 16's rule). bf16 parameters and gradients and
+# phase 23: training of the non-dense decoders (MoE, SSM, hybrid, enc-dec,
+# VLM) at their published widths on one card (bf16 parameters from the seed,
+# remat on, B x NT_SEQ of SyntheticLM, TRAIN["steps"] AdamW steps at NT_OPT
+# through build_train_fns; one model on the card at a time; the attention
+# projections at fan-in over their contraction, phase 16's rule). bf16 parameters and gradients and
 # AdamW's f32 moments take 12 bytes a parameter, which sets the cuts
 # (PERF.md §4): Mixtral-8x22B at 1 of 56 layers (2.907 B parameters, 32.5
 # GiB; 2 layers need 60.5 GiB before activations); Kimi-K2 at 1 of 61
@@ -672,10 +690,20 @@ NT_OPT = dict(lr=3e-5, warmup=1, total_steps=TRAIN["total_steps"])
 # activation. B 2 fits at 8 and more layers, so the scan needs no
 # per-chunk recompute.
 NT_FALCON = dict(layers=16, batch=2)
+# Whisper-tiny whole (4 + 4 layers, ~41 M parameters): B 16 x 448 tokens,
+# the real model's target cap (src/repro/configs/whisper_tiny.py), over
+# 1500 stub frames a row drawn at unit scale as phase 22 draws them.
+# Qwen2-VL-7B at 14 of 28 layers: 4.353 B parameters, 48.6 GiB at 12 bytes
+# a parameter (16 layers 53.9 GiB, all 28 91 GB), B 4 x (256 patch
+# embeddings of a 16 x 16 grid + 1024 tokens) with `vlm.default_positions`;
+# the run's peak sizes the cut (`nt_cut_line`). The frames and patch
+# embeddings come from this script: the launcher feeds tokens only.
 NT_RUNS = (dict(arch="mixtral-8x22b", layers=1, batch=4),
            dict(arch="kimi-k2", layers=1, batch=4, experts=24),
            dict(arch="zamba2-2.7b", layers=None, batch=4),
-           dict(arch="falcon-mamba-7b", **NT_FALCON))
+           dict(arch="falcon-mamba-7b", **NT_FALCON),
+           dict(arch="whisper-tiny", layers=None, batch=16, seq=448),
+           dict(arch="qwen2-vl-7b", layers=14, batch=4, grid=(16, 16)))
 # the f32 gradient gate of the SSM and hybrid runs: layer 0's block (the
 # hybrid's group 0: the shared attention block, then its Mamba-2 layer) at 2
 # layers (the hybrid at 2 groups of 1, its shared attention at fan-in over
@@ -684,6 +712,47 @@ NT_RUNS = (dict(arch="mixtral-8x22b", layers=1, batch=4),
 # the gradient with respect to the input and to each leaf within ``rel`` of
 # that one's largest entry (the CPU tests hold the port to JAX at 1e-4)
 NT_GRAD = dict(layers=2, batch=1, seq=256, rel=1e-4)
+# phase 24: training of every non-dense family across ranks (gloo, every rank
+# on cuda:0, spawned as phase 19 spawns its own), each family at its
+# published width, phase 23's draw (the attention projections at fan-in
+# over their contraction), NR["steps"] AdamW steps at NT_OPT, one rank's
+# steps on the same parameters and batches run first in this process. On
+# 1x2: Mixtral-8x22B at 1 layer (each rank half of every expert's hidden
+# width, `expert_mlp: model`), Kimi-K2 at 1 layer with 24 routed experts
+# (12 a rank, the router's logits gathered), Falcon-Mamba-7B at 2 layers
+# (d_inner 4096 a rank; in_proj's x|z cut puts all of x on rank 0),
+# Zamba2-2.7B at 1 group (6 Mamba-2 layers, 40 heads a rank, and the shared
+# block) and Qwen2-VL-7B at 2 layers with its vision prefix; on 2x2
+# Whisper-tiny whole (its vocabulary does not divide: the tied head whole,
+# embed over data). B 2 x 1024 (Qwen2-VL 2 x (256 + 1024)), Whisper B 8 x 448
+# over 1500 frames. Gates: the ranks report one loss; every step's loss
+# within NR["loss_rtol"] of one rank's and the step-1 gradient norm within
+# NR["gnorm_rtol"]; each rank holds its resolved shards' bytes; every step
+# launches the attention kernels phase 23 counts for the config and no
+# other kernel. The MoE runs also print how many of step 1's layer-0
+# (token, expert) assignments route otherwise on the ranks than on one
+# rank (bf16 near-ties). Step 1's loss (before any update) is held to
+# loss_rtol on every run, and so is every later step where step 1 routes
+# alike; where it does not, steps 2-3 are held to moe_loss_rtol, the flips
+# printed beside them. Readings on an H100 80GB HBM3 at 700 W (PERF.md §6):
+# sound runs, loss up to 6.22e-05 routed alike (Zamba2) and 8.37e-05 at
+# step 1 but 1.54e-03 at step 3 with 14 of 4,096 layer-0 assignments
+# flipped (Mixtral-8x22B); step-1 gradient norm up to 1.60e-04 on 1x2
+# (Kimi-K2) and 9.66e-04 on 2x2 (Whisper-tiny; phase 19 read 5.21e-03
+# there); planted faults (benchmarks/torch_nondense_rank_mutants.py),
+# Zamba2's gated norm over the rank's channels 7.44e-04 (loss; 1.38e-04 at
+# step 1) and 1.34e-03 (norm), a model rank's partial sums unreduced
+# 1.53e-03 to 3.46e-02 (loss; 1.53e-03 to 1.02e-02 at step 1, 6.89e-03 the
+# least of an MoE run's steps 2-3) and 0.0392 to 0.331 (norm; 0.183 on
+# 2x2), Mixtral's and Whisper's ranks reporting different losses.
+NR = dict(steps=3, loss_rtol=3e-4, moe_loss_rtol=5e-3, gnorm_rtol={"1x2": 5e-4, "2x2": 2e-2},
+          timeout=900)
+NR_RUNS = {(1, 2): (dict(arch="mixtral-8x22b", layers=1, batch=2),
+                    dict(arch="kimi-k2", layers=1, batch=2, experts=24),
+                    dict(arch="falcon-mamba-7b", layers=2, batch=2),
+                    dict(arch="zamba2-2.7b", groups=1, batch=2),
+                    dict(arch="qwen2-vl-7b", layers=2, batch=2, grid=(16, 16))),
+           (2, 2): (dict(arch="whisper-tiny", layers=None, batch=8, seq=448),)}
 # phase 16 (a): the backward kernel's cases, label -> (B, Sq, Skv, H, KH, D,
 # causal, window, q_offset, dtype); the training shape first
 FLASH_BWD_CASES = [
@@ -710,6 +779,13 @@ FLASH_BWD_CASES = [
     ("D=112 chunk", (2, 256, 768, 8, 2, 112, True, -1, 512, "bfloat16")),
     ("f32 D=80", (2, 256, 256, 4, 2, 80, True, -1, 0, "float32")),
     ("f32 D=112", (2, 128, 384, 4, 2, 112, True, 64, 256, "float32")),
+    # phase 23's Whisper-tiny and Qwen2-VL-7B: the encoder's non-causal
+    # attention over 1500 frames, the cross-attention (Sq 448 over Skv 1500,
+    # no tile multiple), and Qwen2-VL's causal layer over 256 patches + 1024
+    # tokens
+    ("whisper-tiny encoder", (16, 1500, 1500, 6, 6, 64, False, -1, 0, "bfloat16")),
+    ("whisper-tiny cross", (16, 448, 1500, 6, 6, 64, False, -1, 0, "bfloat16")),
+    ("qwen2-vl-7b", (4, 1280, 1280, 28, 4, 128, True, -1, 0, "bfloat16")),
 ]
 # serve modes: (serve, PHY tier, permuted bundling, representation)
 MODES = ([("ota", ch, perm, rep) for ch, perm in (("bsc", False), ("bsc", True), ("ideal", False))
@@ -3932,7 +4008,9 @@ def flash_bwd_cases(torch, gen) -> list:
     windowed over a cache prefix), rows that see no key (q_offset -64), and
     phase 23's head dims: Kimi-K2's layer (D = 112) and Zamba2-2.7B's shared
     block (D = 80), Mixtral-8x22B's layer at S 8192 past its window, a
-    D = 112 chunk and f32 at D = 80 and 112.
+    D = 112 chunk and f32 at D = 80 and 112, and Whisper-tiny's and
+    Qwen2-VL-7B's: the encoder's non-causal 1500 x 1500, the cross-attention
+    448 over 1500, Qwen2-VL's causal 1280 at D = 128.
     Each case runs the forward kernel with its log-sum-exp (held to the
     twin's within FLASH_F32_TOL), then the backward kernel and the twin on
     the same (q, k, v, out, lse, dout) (`bwd_vs_twin`; at the training
@@ -6701,13 +6779,112 @@ def phase_xd(torch, launches: dict, profile: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 
 def nt_cfg(run: dict):
-    """A run of NT_RUNS as a config: the MoE decoders cut to ``layers`` (and
-    ``experts`` routed experts), the SSM and hybrid ones as `ssm_cfg` cuts
-    them; bf16, remat on, as published."""
+    """A run of NT_RUNS (or NR_RUNS) as a config: the MoE decoders cut to
+    ``layers`` (and ``experts`` routed experts), the enc-dec and VLM ones as
+    `xd_cfg` cuts them, the SSM and hybrid ones as `ssm_cfg` does or, with
+    ``groups``, the hybrid cut to whole groups of its published
+    shared_attn_every Mamba-2 layers; bf16, remat on, as published."""
+    import dataclasses
+
     if run["arch"] in dict(MOE_RUNS):
         changes = {"n_experts": run["experts"]} if "experts" in run else {}
         return moe_cfg(run["arch"], run["layers"], **changes)
+    if run["arch"] in XD_RUNS:
+        return xd_cfg(run["arch"], run["layers"])
+    if "groups" in run:
+        cfg = ssm_cfg(run["arch"])
+        return dataclasses.replace(cfg, n_layers=run["groups"] * cfg.shared_attn_every)
     return ssm_cfg(run["arch"], run["layers"])
+
+
+def nt_attention_calls(cfg) -> tuple[int, tuple[int, int]]:
+    """(attention calls a forward, (forward, backward) attention launches a
+    training step): remat recomputes each checkpointed layer's attention
+    once more (the MoE and VLM stacks, Whisper's encoder and decoder layers,
+    the latter two calls each); the hybrid's shared block runs outside
+    remat; the SSM has none."""
+    if cfg.kind == "encdec":
+        calls = cfg.n_enc_layers + 2 * cfg.n_layers
+    elif cfg.shared_attn_every:
+        calls = cfg.n_layers // cfg.shared_attn_every
+        return calls, (calls, calls)
+    elif cfg.ssm is not None:
+        return 0, (0, 0)
+    else:
+        calls = cfg.n_layers
+    return calls, ((2 if cfg.remat else 1) * calls, calls)
+
+
+def nt_pipe(torch, cfg, run: dict):
+    """The run's batches: SyntheticLM's tokens (B x ``seq``, NT_SEQ by
+    default) and, for Whisper, B stub frames of enc_seq a row (unit scale,
+    as `xd_request` draws them) or, for Qwen2-VL, B images of ``grid``
+    patch embeddings with their default M-RoPE positions; a step's extras
+    drawn from a generator seeded by the step, so every rank draws the
+    same batch."""
+    import types
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import vlm
+
+    b, n = run["batch"], run.get("seq", NT_SEQ)
+    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=n, global_batch=b), device="cuda")
+    if cfg.kind not in ("encdec", "vlm"):
+        return pipe
+
+    def batch(step: int) -> dict:
+        out = dict(pipe.batch(step))
+        gen = cuda_gen(torch, SEED + 4000 + step)
+        if cfg.kind == "encdec":
+            out["frames"] = torch.randn((b, cfg.enc_seq, cfg.d_model), device="cuda",
+                                        generator=gen, dtype=cfg.dtype)
+        else:
+            sv = run["grid"][0] * run["grid"][1]
+            out["patch_embeds"] = torch.randn((b, sv, cfg.d_model), device="cuda",
+                                              generator=gen, dtype=cfg.dtype)
+            out["positions"] = vlm.default_positions(b, sv, n, run["grid"], device="cuda")
+        return out
+
+    return types.SimpleNamespace(batch=batch)
+
+
+def nt_condition(params: dict, cfg) -> dict:
+    """The attention projections at fan-in over their contraction (phase
+    16's rule), in place: every set of the enc-dec and VLM, the MoE stack's,
+    the hybrid's shared block's; the SSM has none."""
+    if cfg.kind in ("encdec", "vlm"):
+        return xd_condition(params, cfg)
+    if cfg.moe is not None:
+        return fan_in_over_contraction(params, cfg)
+    if cfg.shared_attn_every:
+        fan_in_over_contraction({"blocks": {"attn": params["shared"]["attn"]}}, cfg)
+    return params
+
+
+def nt_flops(cfg, params: dict, active: int, b: int, n: int, sv: int, calls: int) -> float:
+    """A training step's model FLOPs: `model_flops` for the MoE, SSM and
+    hybrid; for Whisper 6 x parameters x the tokens they see (the encoder's
+    B x enc_seq frames, the decoder's and the tied head's B x n tokens) plus
+    each attention's 12 * B * H * pairs * D; for Qwen2-VL the stack over the
+    B x (sv + n) positions and the head over the n text ones."""
+    from repro_torch.tree import tree_leaves
+
+    def size(tree):
+        return sum(x.numel() for x in tree_leaves(tree))
+
+    if cfg.kind == "encdec":
+        t = cfg.enc_seq
+        flops = 6 * b * (size(params["enc_blocks"]) * t
+                         + (size(params["dec_blocks"]) + cfg.vocab * cfg.d_model) * n)
+        pairs = (cfg.n_enc_layers * attention_pairs(t, t, False, -1, 0) + cfg.n_layers
+                 * (attention_pairs(n, n, True, -1, 0) + attention_pairs(n, t, False, -1, 0)))
+    elif cfg.kind == "vlm":
+        s = sv + n
+        flops = 6 * b * (size(params["blocks"]) * s + size(params["lm_head"]) * n)
+        pairs = cfg.n_layers * attention_pairs(s, s, True, -1, 0)
+    else:
+        return model_flops(cfg, active, b, n, attn_calls=calls)
+    return flops + 12 * b * cfg.n_heads * cfg.hd * pairs
 
 
 def nt_active_params(cfg, n_params: int) -> int:
@@ -6852,7 +7029,6 @@ def nt_train(torch, run: dict, launches: dict) -> dict:
     """One run of NT_RUNS: TRAIN["steps"] AdamW steps at NT_OPT through
     `build_train_fns`, the attention projections at fan-in over their
     contraction, gated as phase 23 says; then the model is freed."""
-    from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.models import count_params, get_model
     from repro_torch.train.loop import build_train_fns
     from repro_torch.train.optimizer import OptConfig
@@ -6861,24 +7037,19 @@ def nt_train(torch, run: dict, launches: dict) -> dict:
     t, dev = TRAIN, "cuda"
     cfg = nt_cfg(run)
     model = get_model(cfg)
-    b, n = run["batch"], NT_SEQ
-    moe, hyb = cfg.moe is not None, bool(cfg.shared_attn_every)
-    # attention calls a step: the MoE's layers run under remat (forward,
-    # recomputation, backward); the hybrid's shared block is outside remat
-    calls = cfg.n_layers if moe else cfg.n_layers // cfg.shared_attn_every if hyb else 0
-    per_step = (2 * calls, calls) if moe else (calls, calls)
+    b, n = run["batch"], run.get("seq", NT_SEQ)
+    sv = run["grid"][0] * run["grid"][1] if "grid" in run else 0
+    moe = cfg.moe is not None
+    calls, per_step = nt_attention_calls(cfg)
     what = f"nt {cfg.name}"
     fns = build_train_fns(model, OptConfig(**NT_OPT), device=dev)
-    pipe = SyntheticLM(DataConfig(vocab=cfg.vocab, seq=n, global_batch=b), device=dev)
+    pipe = nt_pipe(torch, cfg, run)
     n_params = count_params(model.specs)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, opt_state = fns.init(SEED)
-    if moe:
-        fan_in_over_contraction(params, cfg)
-    elif hyb:
-        fan_in_over_contraction({"blocks": {"attn": params["shared"]["attn"]}}, cfg)
+    nt_condition(params, cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     auxes = []
@@ -6904,21 +7075,27 @@ def nt_train(torch, run: dict, launches: dict) -> dict:
     require(len(rows) == calls, f"{what}: {len(rows)} backward calls captured, expected {calls}")
     state_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params) + tree_leaves(
         opt_state["m"]) + tree_leaves(opt_state["v"]))
+    active = nt_active_params(cfg, n_params)
+    flops = nt_flops(cfg, params, active, b, n, sv, calls)
     del seen, params, opt_state, fns
     torch.cuda.empty_cache()
     ms = statistics.median(step_s[2:]) * 1e3
-    active = nt_active_params(cfg, n_params)
-    flops = model_flops(cfg, active, b, n, attn_calls=calls)
     card = card_line()
+    tokens = b * (n + sv)
     out = dict(arch=cfg.name, layers=cfg.n_layers, params=n_params, active_params=active,
-               batch=b, seq=n, losses=losses, gnorms=gnorms, aux=auxes, router_moment=router,
-               init_s=init_s, step_s=step_s, ms_per_step=ms, tokens_per_s=b * n / ms * 1e3,
+               batch=b, seq=n, prefix=sv, losses=losses, gnorms=gnorms, aux=auxes,
+               router_moment=router,
+               init_s=init_s, step_s=step_s, ms_per_step=ms, tokens_per_s=tokens / ms * 1e3,
                max_memory_allocated=peak, params_and_moments_bytes=state_bytes,
                model_flops=flops, mfu_bf16=flops / (ms / 1e3) / BF16_FLOPS_PER_S,
                launches_per_step=per_step, layer_bwd=rows, card=card)
     experts = f", {cfg.moe.n_experts} routed experts" if moe else ""
-    print(f"nt train {cfg.name} ({cfg.n_layers} layers{experts}, {n_params} parameters, "
-          f"d {cfg.d_model}, bf16, remat), batch {b} x seq {n}, {t['steps']} AdamW steps: loss "
+    shape = (f"batch {b} x seq {n}" + (f" over {cfg.enc_seq} frames" if cfg.kind == "encdec"
+                                       else "") + (f" after {sv} patches" if sv else ""))
+    layers = (f"{cfg.n_enc_layers} + {cfg.n_layers}" if cfg.kind == "encdec"
+              else str(cfg.n_layers))
+    print(f"nt train {cfg.name} ({layers} layers{experts}, {n_params} parameters, "
+          f"d {cfg.d_model}, bf16, remat), {shape}, {t['steps']} AdamW steps: loss "
           + " ".join(f"{x:.4f}" for x in losses) + ", gradient norm "
           + " ".join(f"{x:.3g}" for x in gnorms)
           + ("" if not moe else ", aux " + " ".join(f"{x:.4g}" for x in auxes)), flush=True)
@@ -6928,6 +7105,8 @@ def nt_train(torch, run: dict, launches: dict) -> dict:
           f"{state_bytes / 2**30:.2f} GiB), model FLOPs {flops:.4g} a step on {active} active "
           f"parameters = {out['mfu_bf16']:.4f} of the bf16 peak (989 TFLOP/s); {card}",
           flush=True)
+    if "grid" in run:
+        out["cut"] = nt_cut_line(torch, cfg, peak, state_bytes)
     worst = max((r["kernel_vs_f64"][i] / r["twin_vs_f64"][i] for r in rows for i in range(3)
                  if r["twin_vs_f64"][i] > 0), default=float("nan"))
     print(f"nt checks {cfg.name}: losses finite, fell {losses[0] - losses[-1]:.4f} >= "
@@ -6940,9 +7119,37 @@ def nt_train(torch, run: dict, launches: dict) -> dict:
     return out
 
 
+def nt_cut_line(torch, cfg, peak: int, state_bytes: int) -> dict:
+    """Qwen2-VL-7B's cut, probed by its own run: the peak above the
+    parameters and moments (activations, AdamW's temporaries) added to the
+    state of 2 more layers and of the whole model (12 bytes a parameter,
+    `count_params`) against the card's memory."""
+    import dataclasses
+
+    from repro_torch.models import count_params, get_model
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    above = peak - state_bytes
+    rows = {}
+    for layers in (cfg.n_layers + 2, xd_cfg(cfg.name).n_layers):
+        c = dataclasses.replace(cfg, n_layers=layers)
+        state = 12 * count_params(get_model(c).specs)
+        rows[layers] = dict(state=state, peak=state + above, fits=state + above < total)
+    require(peak < total, f"nt {cfg.name}: peak {peak} B over the card's {total}")
+    print(f"nt cut {cfg.name}: {cfg.n_layers} layers peak {peak / 2**30:.2f} GiB, "
+          f"{above / 2**30:.2f} above its {state_bytes / 2**30:.2f} GiB of parameters and "
+          f"moments; with that overhead " + ", ".join(
+              f"{k} layers need ~{v['peak'] / 2**30:.1f} GiB ({v['state'] / 2**30:.1f} of state; "
+              f"{'fits' if v['fits'] else 'does not fit'})" for k, v in rows.items())
+          + f" on the card's {total / 2**30:.1f} GiB", flush=True)
+    return dict(peak=peak, above_state=above, card_bytes=total,
+                **{f"{k}_layers": v for k, v in rows.items()})
+
+
 def phase_nondense_train(torch, launches: dict) -> dict:
     """Phase 23: Falcon-Mamba's layer probe, then NT_RUNS one model at a
-    time, each SSM-family run followed by its f32 gradient gate."""
+    time (the MoE, hybrid, SSM, enc-dec and VLM decoders), each SSM-family
+    run followed by its f32 gradient gate."""
     print(f"nt: {card_line()}", flush=True)
     out = {"falcon_layer_probe": nt_mamba_layer_peak(torch)}
     for run in NT_RUNS:
@@ -6950,6 +7157,197 @@ def phase_nondense_train(torch, launches: dict) -> dict:
         if run["arch"] in SSM_RUNS:
             res["grad_gate"] = nt_grad_gate(torch, run["arch"])
         out[run["arch"]] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 24: training of every non-dense family across ranks
+# ---------------------------------------------------------------------------
+
+def nr_label(run: dict) -> str:
+    cut = (f"{run['groups']} group" if "groups" in run else
+           "whole" if run.get("layers") is None else f"{run['layers']} layers")
+    return f"{run['arch']} ({cut})"
+
+
+def nr_train(torch, mesh, run: dict) -> dict:
+    """NR["steps"] AdamW steps of ``run`` on this rank's shards (``mesh``
+    None: one rank): the global losses and gradient norms, host seconds a
+    step, each step's launches and wire bytes (the counters set to 0 just
+    before and read just after), the peak device memory, the bytes held
+    beside those of the resolved shards, and (MoE) step 1's layer-0
+    routing."""
+    from repro_torch import kernels as tk
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.models import get_model, init_params, moe
+    from repro_torch.train.loop import build_train_fns
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = nt_cfg(run)
+    model = get_model(cfg)
+    fns = build_train_fns(model, OptConfig(**NT_OPT), mesh=mesh, device="cuda")
+    whole = nt_condition(init_params(model.specs, cuda_gen(torch, SEED), "cuda"), cfg)
+    params, state = fns.shard_params(whole)
+    del whole
+    torch.cuda.empty_cache()
+    held = sum(x.numel() * x.element_size() for x in tree_leaves((params, state)))
+    resolved = sharding.local_bytes(fns.placements, (params, state), fns.mesh)
+    pipe = nt_pipe(torch, cfg, run)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = dict(losses=[], gnorms=[], aux=[], step_s=[], counts=[], wire=[], routing=None)
+    route = moe.route
+
+    def first_route(*a, **kw):               # step 1's first call: layer 0's forward
+        r = route(*a, **kw)
+        if out["routing"] is None:         # numpy: a rank's result crosses a queue
+            out["routing"] = r.idx.detach().cpu().numpy()
+        return r
+
+    for step in range(NR["steps"]):
+        batch = pipe.batch(step)
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        collectives.reset_wire_bytes()
+        moe.route = first_route if step == 0 else route
+        t0 = time.perf_counter()
+        try:
+            params, state, m = fns.step(params, state, batch, None)
+        finally:
+            moe.route = route
+        out["losses"].append(float(m["loss"]))
+        out["gnorms"].append(float(m["gnorm"]))
+        out["aux"].append(float(m["aux"]))
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["counts"].append(tk.launch_counts())
+        out["wire"].append(collectives.wire_bytes())
+    out.update(peak=torch.cuda.max_memory_allocated(), held=held, resolved=resolved)
+    del params, state, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def nr_rank(mesh, runs: tuple) -> dict:
+    """What each rank of a phase-24 grid runs on cuda:0: its runs in
+    order."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"coords": (mesh.index("data"), mesh.index("model"))}
+    for run in runs:
+        out[nr_label(run)] = nr_train(torch, mesh, run)
+    return out
+
+
+def nr_flips(torch, a, b) -> int:
+    """(token, expert) assignments in one top-k routing [G, Tg, K] (numpy)
+    and not in the other."""
+    e = int(max(a.max(), b.max())) + 1
+    oh = [torch.nn.functional.one_hot(torch.from_numpy(x), e).sum(-2) for x in (a, b)]
+    return int((oh[0] - oh[1]).clamp_min(0).sum())
+
+
+def phase_nondense_ranks(torch, launches: dict) -> dict:
+    """Phase 24: one rank's steps of every run of NR_RUNS on the same
+    parameters and batches (this process; not counted), then each grid's
+    ranks (gloo, all on cuda:0) train its runs, gated as NR_RUNS says."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as tmesh
+
+    print(f"nr: {card_line()}", flush=True)
+    ref = {}
+    for runs in NR_RUNS.values():
+        for run in runs:
+            ref[nr_label(run)] = nr_train(torch, None, run)
+    _build.build()             # the ranks load the library built here
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    print(f"nr: one rank's runs done; this process keeps {held / 2**30:.2f} GiB of the card "
+          "while the ranks run", flush=True)
+    out = {"grids": {}, "parent_reserved": held}
+    worst = {"loss": 0.0, "gnorm": 0.0}
+    for grid, runs in NR_RUNS.items():
+        label = f"{grid[0]}x{grid[1]}"
+        t0 = time.perf_counter()
+        results = tmesh.spawn(nr_rank, grid, (runs,), timeout=NR["timeout"], threads=None)
+        wall = time.perf_counter() - t0
+        row = {"wall_s": wall}
+        for run in runs:
+            name = nr_label(run)
+            what = f"nr {label} {name}"
+            cfg = nt_cfg(run)
+            rs, want = [r[name] for r in results], ref[name]
+            losses = rs[0]["losses"]
+            require(all(r["losses"] == losses for r in rs),
+                    f"{what}: the ranks report different losses: {[r['losses'] for r in rs]}")
+            require(all(math.isfinite(x) for x in losses), f"{what}: a loss is not finite")
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, want["losses"])]
+            gn_rel = abs(rs[0]["gnorms"][0] - want["gnorms"][0]) / want["gnorms"][0]
+            worst["loss"], worst["gnorm"] = max(worst["loss"], *rel), max(worst["gnorm"], gn_rel)
+            flips = (None if want["routing"] is None else
+                     nr_flips(torch, want["routing"], rs[0]["routing"]))
+            print(f"{what}: loss against one rank's, relative, step by step: "
+                  + " ".join(f"{x:.3g}" for x in rel) + f"; step-1 gradient norm "
+                  f"{rs[0]['gnorms'][0]:.6g} vs {want['gnorms'][0]:.6g}, relative {gn_rel:.3g}"
+                  + ("" if flips is None else
+                     f"; step 1 layer 0 routes {flips} of {want['routing'].size} (token, "
+                     f"expert) assignments otherwise than one rank"), flush=True)
+            bound = [NR["loss_rtol"]] + [NR["moe_loss_rtol"] if flips else NR["loss_rtol"]] * (
+                len(rel) - 1)
+            require(all(x <= b for x, b in zip(rel, bound)),
+                    f"{what}: losses {losses} vs one rank {want['losses']} (relative "
+                    + " ".join(f"{x:.3g}" for x in rel) + f" over bounds {bound})")
+            require(gn_rel <= NR["gnorm_rtol"][label], f"{what}: step-1 gradient norm relative "
+                                                       f"{gn_rel:.3g} > {NR['gnorm_rtol'][label]}")
+            per_step = nt_attention_calls(cfg)[1]
+            for r in rs:
+                require(r["held"] == r["resolved"],
+                        f"{what}: a rank holds {r['held']} B of parameters and optimizer "
+                        f"state, its resolved shards {r['resolved']} B")
+                for step, counts in enumerate(r["counts"]):
+                    train_launches(counts, cfg, 1, f"{what} step {step}", per_step)
+                    add_launches(launches, counts)
+            ms = statistics.median(rs[0]["step_s"][1:]) * 1e3
+            sv = run["grid"][0] * run["grid"][1] if "grid" in run else 0
+            tokens = run["batch"] * (run.get("seq", NT_SEQ) + sv)
+            res = dict(losses=losses, gnorms=rs[0]["gnorms"], aux=rs[0]["aux"],
+                       one_rank={k: want[k] for k in ("losses", "gnorms", "aux", "step_s",
+                                                      "peak")},
+                       loss_rel=rel, loss_bound=bound, gnorm_rel=gn_rel, routing_flips=flips,
+                       ms_per_step=ms,
+                       step_s=rs[0]["step_s"], tokens_per_s=tokens / ms * 1e3,
+                       one_rank_ms=statistics.median(want["step_s"][1:]) * 1e3,
+                       peak=[r["peak"] for r in rs], held=[r["held"] for r in rs],
+                       wire=[statistics.median(r["wire"]) for r in rs],
+                       launches_per_step=per_step)
+            row[name] = res
+            print(f"{what}: {cfg.name} (bf16, remat), batch {run['batch']} x seq "
+                  f"{run.get('seq', NT_SEQ)}" + (f" after {sv} patches" if sv else "")
+                  + f", {NR['steps']} AdamW steps: loss " + " ".join(f"{x:.4f}" for x in losses)
+                  + "; one rank " + " ".join(f"{x:.4f}" for x in want["losses"])
+                  + f"; rank 0 {ms:.1f} ms a step (median of steps 2-{NR['steps']}, host "
+                  f"clock; one rank {res['one_rank_ms']:.1f}), {res['tokens_per_s']:.0f} "
+                  f"tokens/s; peak memory a rank " + ", ".join(
+                      f"{p / 2**30:.2f}" for p in res["peak"]) + " GiB (one rank "
+                  f"{want['peak'] / 2**30:.2f}); parameters + optimizer a rank " + ", ".join(
+                      f"{h:,}" for h in res["held"]) + " B (== the resolved shards); wire "
+                  "bytes a step a rank " + ", ".join(f"{int(w):,}" for w in res["wire"])
+                  + f"; {per_step[0]} forward and {per_step[1]} backward attention launches "
+                  "every step on every rank", flush=True)
+        out["grids"][label] = row
+        print(f"nr {label}: {len(results)} ranks over gloo on cuda:0, {wall:.1f} s with the "
+              "ranks' start", flush=True)
+    out["worst"] = worst
+    print(f"nr checks: every run's ranks report one loss, finite; every step's loss within "
+          f"{NR['loss_rtol']} of one rank's on the same parameters and batches, steps 2-"
+          f"{NR['steps']} of a run whose step 1 routes otherwise within {NR['moe_loss_rtol']} "
+          f"(worst {worst['loss']:.3g}), and the step-1 gradient norm within "
+          + ", ".join(f"{v} on {k}" for k, v in NR["gnorm_rtol"].items())
+          + f" (worst {worst['gnorm']:.3g}); every rank holds exactly its resolved shards' "
+          "bytes; every step on every rank launches the attention kernels its config counts "
+          "and no other kernel of the table", flush=True)
     return out
 
 
@@ -7087,8 +7485,10 @@ def main(argv: list[str]) -> int:
         torch, launches, profile=args.profile))
     xd_dec = phase("22 the enc-dec and VLM decoders", lambda: phase_xd(
         torch, launches, profile=args.profile))
-    nondense = phase("23 training of the MoE, SSM and hybrid decoders",
+    nondense = phase("23 training of the non-dense decoders",
                      lambda: phase_nondense_train(torch, launches))
+    nondense_ranks = phase("24 training of every non-dense family across ranks",
+                           lambda: phase_nondense_ranks(torch, launches))
     kernels["flash_attention_bwd"] = train["kernel_cases"]
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
@@ -7117,7 +7517,7 @@ def main(argv: list[str]) -> int:
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
             faults=fault, cont=cont, train=train, multirank=multirank, living_ranks=living,
             train_ranks=train_ranks, moe=moe_dec, ssm=ssm_dec, xd=xd_dec,
-            nondense_train=nondense,
+            nondense_train=nondense, nondense_ranks=nondense_ranks,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

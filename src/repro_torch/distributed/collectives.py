@@ -439,6 +439,14 @@ class _GatherFromGroup(torch.autograd.Function):
         return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
 
 
+def sum_both_ways(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the group, whose backward sums the gradient
+    over the group too: partial sums (or a mean's shares) that every rank
+    then uses for its own part of the work, so each rank's gradient of them
+    is a part of the whole."""
+    return copy_to_group(reduce_from_group(x, group), group)
+
+
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     """`_CopyToGroup` (x itself when ``group`` is None)."""
     return x if group is None else _CopyToGroup.apply(x, group)
@@ -467,6 +475,13 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, start: int, group
     ok = (local >= 0) & (local < table.shape[0])
     rows = table[torch.where(ok, local, 0)] * ok[..., None].to(table.dtype)
     return reduce_from_group(rows, group)
+
+
+def cut_group(tp, local: int, whole: int):
+    """The model group of ``tp`` (a `TensorParallel`, or None) when a width
+    is cut over it (the rank's shard holds ``local`` of ``whole``), else
+    None."""
+    return tp.group if tp is not None and local < whole else None
 
 
 @dataclasses.dataclass(frozen=True)

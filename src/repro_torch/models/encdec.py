@@ -16,6 +16,11 @@ cross-attention) is the hand-written forward kernel behind
 attends over its caches with the plain `layers.decode_attention`, as the
 reference does. The decode writes its K/V into the cache's tensors in place
 at each row's slot; the cross K/V (``ck``/``cv``) are read, never written.
+
+Training across ranks (``tp``) runs every projection on the rank's heads
+and MLP columns, as the dense decoder's tensor-parallel layers do: the
+encoder's and the decoder's self-attention, the cross-attention (its K/V
+from the encoder states, whole on every model rank) and the gelu MLP.
 """
 from __future__ import annotations
 
@@ -23,12 +28,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives
+from repro_torch.models import transformer as tfm
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     decode_attention,
     flash_attention,
-    gated_mlp,
     rmsnorm,
     sinusoid_positions,
 )
@@ -65,20 +71,38 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, -1)).reshape(b, s, w.shape[-2], w.shape[-1])
 
 
-def _proj_qkv(blk: dict, xq: torch.Tensor, xkv: torch.Tensor):
-    """q from ``xq``, k and v from ``xkv``: no RoPE, no qk-norm."""
-    return _proj(xq, blk["wq"]), _proj(xkv, blk["wk"]), _proj(xkv, blk["wv"])
+def _proj_qkv(blk: dict, xq: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig | None = None,
+              tp=None):
+    """q from ``xq``, k and v from ``xkv``: no RoPE, no qk-norm. With the
+    heads cut over the model group (``tp``) the rank's heads, its inputs
+    through `copy_to_group` and whole kv heads narrowed to the ones its q
+    heads read, as `transformer._attn_heads` takes them."""
+    wk, wv = blk["wk"], blk["wv"]
+    h = blk["wq"].shape[-2]
+    group = None if tp is None else collectives.cut_group(tp, h, cfg.n_heads)
+    if group is not None:
+        same = xkv is xq
+        xq = collectives.copy_to_group(xq, group)
+        xkv = xq if same else collectives.copy_to_group(xkv, group)
+        if wk.shape[-2] == cfg.n_kv_heads:
+            wk = tfm._kv_for_rank(collectives.copy_to_group(wk, group), tp, h, cfg)
+            wv = tfm._kv_for_rank(collectives.copy_to_group(wv, group), tp, h, cfg)
+    return _proj(xq, blk["wq"]), _proj(xkv, wk), _proj(xkv, wv)
 
 
-def _out(blk: dict, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _out(blk: dict, o: torch.Tensor, dtype: torch.dtype, cfg: ModelConfig | None = None,
+         tp=None) -> torch.Tensor:
+    """The output projection of the rank's heads, summed over the model
+    group when they are cut."""
     b, s, h, hd = o.shape
-    return (o.reshape(b, s, h * hd) @ blk["wo"].reshape(h * hd, -1)).to(dtype)
+    out = (o.reshape(b, s, h * hd) @ blk["wo"].reshape(h * hd, -1)).to(dtype)
+    return out if tp is None else collectives.reduce_from_group(
+        out, collectives.cut_group(tp, h, cfg.n_heads))
 
 
-def _mlp(blk: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _mlp(blk: dict, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
     h = rmsnorm(x, blk["ln2"], cfg.norm_eps)
-    m = blk["mlp"]
-    return x + gated_mlp(h, m["wg"], m["wu"], m["wd"], cfg.act)
+    return x + tfm.mlp_out(blk["mlp"], cfg, h, tp)
 
 
 def _attend(cfg: ModelConfig, q, k, v, causal: bool) -> torch.Tensor:
@@ -86,57 +110,60 @@ def _attend(cfg: ModelConfig, q, k, v, causal: bool) -> torch.Tensor:
                            block_k=cfg.flash_block_k)
 
 
-def _enc_block(blk: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _enc_block(blk: dict, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
     h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
-    q, k, v = _proj_qkv(blk["attn"], h, h)
-    x = x + _out(blk["attn"], _attend(cfg, q, k, v, causal=False), x.dtype)
-    return _mlp(blk, cfg, x)
+    q, k, v = _proj_qkv(blk["attn"], h, h, cfg, tp)
+    x = x + _out(blk["attn"], _attend(cfg, q, k, v, causal=False), x.dtype, cfg, tp)
+    return _mlp(blk, cfg, x, tp)
 
 
-def run_encoder(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+def run_encoder(params: dict, cfg: ModelConfig, frames: torch.Tensor, tp=None
+                ) -> torch.Tensor:
     """frames [B, T, d] (the stub frontend's output) -> encoder states
     [B, T, d]. The sinusoid is added in f32 and the sum rounded once to the
     model's dtype, as in the reference. With ``cfg.remat`` each layer runs
-    under ``torch.utils.checkpoint``."""
+    under ``torch.utils.checkpoint``; ``tp`` (training) on the rank's
+    shards."""
     t = frames.shape[1]
     x = (frames + sinusoid_positions(t, cfg.d_model, frames.device)[None]).to(cfg.dtype)
     for blk in _layers(params["enc_blocks"], cfg.n_enc_layers):
         if cfg.remat:
-            x = checkpoint(_enc_block, blk, cfg, x, use_reentrant=False,
+            x = checkpoint(_enc_block, blk, cfg, x, tp, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _enc_block(blk, cfg, x)
+            x = _enc_block(blk, cfg, x, tp)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _dec_block(blk: dict, cfg: ModelConfig, x: torch.Tensor, enc: torch.Tensor):
+def _dec_block(blk: dict, cfg: ModelConfig, x: torch.Tensor, enc: torch.Tensor, tp=None):
     """One decoder block: (x, (k, v, cross k, cross v))."""
     h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
-    q, k, v = _proj_qkv(blk["attn"], h, h)
-    x = x + _out(blk["attn"], _attend(cfg, q, k, v, causal=True), x.dtype)
+    q, k, v = _proj_qkv(blk["attn"], h, h, cfg, tp)
+    x = x + _out(blk["attn"], _attend(cfg, q, k, v, causal=True), x.dtype, cfg, tp)
     h = rmsnorm(x, blk["lnx"], cfg.norm_eps)
-    qx, kx, vx = _proj_qkv(blk["xattn"], h, enc)
-    x = x + _out(blk["xattn"], _attend(cfg, qx, kx, vx, causal=False), x.dtype)
-    return _mlp(blk, cfg, x), (k, v, kx, vx)
+    qx, kx, vx = _proj_qkv(blk["xattn"], h, enc, cfg, tp)
+    x = x + _out(blk["xattn"], _attend(cfg, qx, kx, vx, causal=False), x.dtype, cfg, tp)
+    return _mlp(blk, cfg, x, tp), (k, v, kx, vx)
 
 
 def run_decoder_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                      enc: torch.Tensor, return_kv: bool = False):
+                      enc: torch.Tensor, return_kv: bool = False, tp=None):
     """tokens [B, S]; enc [B, T, d] -> (hidden [B, S, d], kv or None), kv the
     stacks (k, v [L, B, S, KH, hd], cross k, v [L, B, T, KH, hd]). The
     embedding and the sinusoid are each rounded to the model's dtype, then
     added, as in the reference. With ``cfg.remat`` and no K/V asked for,
-    each layer runs under ``torch.utils.checkpoint``."""
+    each layer runs under ``torch.utils.checkpoint``; ``tp`` (training) on
+    the rank's shards, the embedding's vocabulary too where it is cut."""
     s = tokens.shape[1]
-    x = (params["embed"][tokens].to(cfg.dtype)
+    x = (tfm.embed_tokens(params, cfg, tokens, tp)
          + sinusoid_positions(s, cfg.d_model, tokens.device)[None].to(cfg.dtype))
     kvs = []
     for blk in _layers(params["dec_blocks"], cfg.n_layers):
         if cfg.remat and not return_kv:
-            x = checkpoint(lambda blk, x, enc: _dec_block(blk, cfg, x, enc)[0], blk, x, enc,
-                           use_reentrant=False, preserve_rng_state=False)
+            x = checkpoint(lambda blk, x, enc: _dec_block(blk, cfg, x, enc, tp)[0], blk, x,
+                           enc, use_reentrant=False, preserve_rng_state=False)
             continue
-        x, kv = _dec_block(blk, cfg, x, enc)
+        x, kv = _dec_block(blk, cfg, x, enc, tp)
         if return_kv:
             kvs.append(kv)
     if not return_kv:

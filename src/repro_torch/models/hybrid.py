@@ -14,6 +14,10 @@ norm gains ``ln1``/``ln2``. The prefill attention is the hand-written
 forward kernel (`layers.flash_attention`; head dim 80 at Zamba2's widths),
 the decode attention the plain `layers.decode_attention`.
 
+Training across ranks (``tp``) runs the shared block as the dense decoder's
+tensor-parallel attention and MLP (`transformer._attn_heads`, `_attn_out`,
+`mlp_out`) and each Mamba-2 layer on the rank's heads (`mamba.mamba2_block`).
+
 Decode: the shared block runs G times a token on different activations, so
 the KV cache carries G entries [G, B, Sc, KH, hd]; the Mamba states are
 [G, per, B, ...]. The decode writes the step's K/V and the new conv and SSM
@@ -28,8 +32,14 @@ from repro_torch.device import resolve
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import decode_attention, flash_attention, gated_mlp, rmsnorm
-from repro_torch.models.transformer import _attn_heads, _attn_out, attn_specs, mlp_specs
+from repro_torch.models.layers import decode_attention, flash_attention, rmsnorm
+from repro_torch.models.transformer import (
+    _attn_heads,
+    _attn_out,
+    attn_specs,
+    mlp_out,
+    mlp_specs,
+)
 
 
 def _counts(cfg: ModelConfig) -> tuple[int, int]:
@@ -67,42 +77,43 @@ def _mamba_layer(groups: dict, gi: int, j: int) -> dict:
     return {k: v[gi, j] for k, v in groups["mamba"].items()}
 
 
-def _shared_mlp(shared: dict, ln2: torch.Tensor, cfg: ModelConfig, x: torch.Tensor):
+def _shared_mlp(shared: dict, ln2: torch.Tensor, cfg: ModelConfig, x: torch.Tensor, tp=None):
     h = rmsnorm(x, ln2, cfg.norm_eps)
-    m = shared["mlp"]
-    return x + gated_mlp(h, m["wg"], m["wu"], m["wd"], cfg.act)
+    return x + mlp_out(shared["mlp"], cfg, h, tp)
 
 
 def _shared_attn_train(shared: dict, ln1: torch.Tensor, ln2: torch.Tensor, cfg: ModelConfig,
-                       x: torch.Tensor, positions: torch.Tensor, return_kv: bool = False):
+                       x: torch.Tensor, positions: torch.Tensor, return_kv: bool = False,
+                       tp=None):
     """The shared block on a full sequence: (x, (k, v) or None)."""
     h = rmsnorm(x, ln1, cfg.norm_eps)
-    q, k, v = _attn_heads(shared["attn"], cfg, h, positions, cfg.rope_theta)
+    q, k, v = _attn_heads(shared["attn"], cfg, h, positions, cfg.rope_theta, tp)
     o = flash_attention(q, k, v, causal=True, block_q=cfg.flash_block_q,
                         block_k=cfg.flash_block_k)
-    x = x + _attn_out(shared["attn"], cfg, o)
-    return _shared_mlp(shared, ln2, cfg, x), ((k, v) if return_kv else None)
+    x = x + _attn_out(shared["attn"], cfg, o, tp)
+    return _shared_mlp(shared, ln2, cfg, x, tp), ((k, v) if return_kv else None)
 
 
 def run_hybrid_train(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                     return_kv: bool = False):
+                     return_kv: bool = False, tp=None):
     """Returns (hidden, aux = 0, ((k, v) [G, B, S, KH, hd], (conv [G, per, B, K-1, Cc],
     ssm [G, per, B, H, N, P])) or None). With ``cfg.remat`` and no states
     asked for, each Mamba-2 layer runs under ``torch.utils.checkpoint``, as
-    the reference checkpoints its layer body."""
+    the reference checkpoints its layer body. ``tp`` (training) runs every
+    block on the rank's shards."""
     g, per = _counts(cfg)
     grp = params["groups"]
     ks, vs, convs, ssms = [], [], [], []
     for gi in range(g):
         x, kv = _shared_attn_train(params["shared"], grp["ln1"][gi], grp["ln2"][gi], cfg, x,
-                                   positions, return_kv)
+                                   positions, return_kv, tp)
         for j in range(per):
             mp = _mamba_layer(grp, gi, j)
             if cfg.remat and not return_kv:
-                x = checkpoint(lambda mp, x: mamba_lib.mamba2_block(mp, cfg, x)[0], mp, x,
-                               use_reentrant=False, preserve_rng_state=False)
+                x = checkpoint(lambda mp, x: mamba_lib.mamba2_block(mp, cfg, x, tp=tp)[0], mp,
+                               x, use_reentrant=False, preserve_rng_state=False)
             else:
-                x, (cst, sst) = mamba_lib.mamba2_block(mp, cfg, x)
+                x, (cst, sst) = mamba_lib.mamba2_block(mp, cfg, x, tp=tp)
                 if return_kv:
                     convs.append(cst)
                     ssms.append(sst)

@@ -24,12 +24,27 @@ Both blocks have a full-sequence form, returning the final (conv_state,
 ssm_state) for the decode, and a single-token decode against that cache.
 The conv state after a prefill is the last K-1 *pre-conv* inputs, zero-padded
 in front for prompts shorter than K-1.
+
+Across ranks (``tp``, training) a model rank runs its contiguous 1/S of
+the d_inner channels (Mamba-2: of the heads): the conv and the scan are
+elementwise across channels and need no collective, and the products out
+of d_inner are partial sums over the model group (the out projection;
+Mamba-1's x_proj, whose dt, B and C every rank then uses; Mamba-2's gated
+norm's sum of squares). The rules engine cuts the concatenated in_proj
+columns (x|z, z|xBC|dt) and Mamba-2's conv channels (x|B|C) into
+contiguous blocks, as the reference's ``NamedSharding`` does, which do not
+line up with the channels; a rank gathers such a leaf whole (the autograd
+gather, whose backward reduce-scatters the gradient) and takes its
+channels' columns (`_spans`). Mamba-2's B and C (one group) are whole on
+every rank, and its per-head A_log, D and dt_bias, replicated, are
+narrowed to the rank's heads.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense, rmsnorm
@@ -49,6 +64,43 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return out.reshape(x.shape[:-1] + (w.shape[-1],))
     return torch.matmul(x.float(), w.float())
+
+
+def _model_split(tp, whole: int, unit: int = 1) -> tuple:
+    """(model group or None, this rank's place in it, its first channel,
+    its channel count) for ``whole`` channels cut into contiguous blocks of
+    whole ``unit``s (heads) over the model ranks."""
+    group = tp.group if tp is not None else None
+    n, rank = collectives.ranks(group), tp.rank if group is not None else 0
+    if whole % (n * unit):
+        raise ValueError(f"{whole} channels ({whole // unit} of {unit}) do not split over "
+                         f"{n} model ranks")
+    return group, rank, rank * (whole // n), whole // n
+
+
+def _spans(w: torch.Tensor, dim: int, whole: int, group, spans, rank: int = 0
+           ) -> torch.Tensor:
+    """The entries ``spans`` [(start, length), ...] of dimension ``dim`` of a
+    leaf of ``whole`` entries there, concatenated, from this rank's shard
+    ``w`` (piece ``rank`` of the group when the leaf is cut): ``w`` itself
+    when the spans, adjacent ones merged, are that piece or the whole leaf;
+    otherwise the leaf gathered whole over the group when it is cut (the
+    gradient reduce-scattered back), or passed through `copy_to_group` when
+    it is whole (the gradient summed), since each rank then adds only its
+    channels' part of the gradient."""
+    merged = [list(spans[0])]
+    for a, k in spans[1:]:
+        if a == merged[-1][0] + merged[-1][1]:
+            merged[-1][1] += k
+        else:
+            merged.append([a, k])
+    n = w.shape[dim]
+    if len(merged) == 1 and merged[0] == [rank * n if n < whole else 0, n]:
+        return w
+    full = (collectives.gather_from_group(w, dim, group) if n < whole
+            else collectives.copy_to_group(w, group))
+    parts = [full.narrow(dim, a, k) for a, k in spans]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -199,8 +251,9 @@ def selective_scan_ref(u, dt, A, B, C, D, h0):
     return y.to(u.dtype) if acc == torch.float32 else y, h
 
 
-def mamba1_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state=None):
-    """Full-sequence mamba-1 block. state=None -> zero initial state.
+def mamba1_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state=None, tp=None):
+    """Full-sequence mamba-1 block. state=None -> zero initial state; ``tp``
+    runs the rank's d_inner channels (training; see the module's note).
 
     Returns (x + out [B, S, d], (conv_state, ssm_state)) — final states for chaining.
     """
@@ -209,19 +262,24 @@ def mamba1_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state=None):
     din = s_cfg.expand * d
     r = s_cfg.dt_rank or d // 16
     n = s_cfg.d_state
-    h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    xz = dense(h, p["in_proj"])
-    xin, z = xz.split(din, dim=-1)
-    xc = causal_conv1d(xin, p["conv_w"], p["conv_b"])
+    group, rank, c0, dl = _model_split(tp, din)
+
+    def mine(name, dim):
+        return _spans(p[name], dim, din, group, [(c0, dl)], rank)
+
+    h = collectives.copy_to_group(rmsnorm(x, p["norm"], cfg.norm_eps), group)
+    xz = dense(h, _spans(p["in_proj"], -1, 2 * din, group, [(c0, dl), (din + c0, dl)], rank))
+    xin, z = xz.split(dl, dim=-1)
+    xc = causal_conv1d(xin, mine("conv_w", 0), mine("conv_b", 0))
     xc = F.silu(xc.float()).to(x.dtype)
-    dbc = _dot_f32(xc, p["x_proj"])
+    dbc = collectives.sum_both_ways(_dot_f32(xc, mine("x_proj", 0)), group)
     dt_raw, Bm, Cm = dbc.split([r, n, n], dim=-1)
-    dt = F.softplus(torch.matmul(dt_raw, p["dt_proj"].float()) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    h0 = torch.zeros((b, din, n), dtype=torch.float32, device=x.device) if state is None else state
-    y, h_fin = selective_scan(xc, dt, A, Bm, Cm, p["D"], h0, s_cfg.chunk)
+    dt = F.softplus(torch.matmul(dt_raw, mine("dt_proj", -1).float()) + mine("dt_bias", 0))
+    A = -torch.exp(mine("A_log", 0))
+    h0 = torch.zeros((b, dl, n), dtype=torch.float32, device=x.device) if state is None else state
+    y, h_fin = selective_scan(xc, dt, A, Bm, Cm, mine("D", 0), h0, s_cfg.chunk)
     y = (y.float() * F.silu(z.float())).to(x.dtype)
-    out = dense(y, p["out_proj"])
+    out = collectives.reduce_from_group(dense(y, mine("out_proj", 0)), group)
     return x + out, (_last_inputs(xin, s_cfg.d_conv), h_fin)
 
 
@@ -351,30 +409,61 @@ def ssd_ref(x, dt, A, B, C, D, h0):
     return y.to(x.dtype) if acc == torch.float32 else y, h
 
 
-def mamba2_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state=None):
-    """Full-sequence mamba-2 block; returns (x + out, (conv_state, ssm_state))."""
+def _gated_rmsnorm(y: torch.Tensor, gain: torch.Tensor, eps: float, group, whole: int
+                   ) -> torch.Tensor:
+    """`layers.rmsnorm` over ``whole`` channels of which y holds this rank's:
+    the sum of squares summed over the model group."""
+    if group is None:
+        return rmsnorm(y, gain, eps)
+    yf = y.float()
+    var = collectives.sum_both_ways((yf * yf).sum(-1, keepdim=True), group) / whole
+    return (yf * torch.rsqrt(var + eps) * (1.0 + gain.float())).to(y.dtype)
+
+
+def mamba2_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state=None, tp=None):
+    """Full-sequence mamba-2 block; returns (x + out, (conv_state, ssm_state)).
+    ``tp`` runs the rank's heads (training; see the module's note)."""
     s_cfg = cfg.ssm
     b, s, d = x.shape
     din = s_cfg.expand * d
     nh = din // s_cfg.head_dim
-    gn = s_cfg.n_groups * s_cfg.d_state
-    h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    zxbcdt = dense(h, p["in_proj"])
-    z, xbc_pre, dt_raw = zxbcdt.split([din, din + 2 * gn, nh], dim=-1)
-    xbc = causal_conv1d(xbc_pre, p["conv_w"], p["conv_b"])
+    ng = s_cfg.n_groups
+    gn = ng * s_cfg.d_state
+    group, rank, c0, dl = _model_split(tp, din, s_cfg.head_dim)
+    h0_, hl = c0 // s_cfg.head_dim, dl // s_cfg.head_dim            # the rank's heads
+    hpg = nh // ng
+    g0, gl = h0_ // hpg, max(1, hl // hpg)                           # and their groups
+    if hl % hpg and hpg % hl:
+        raise ValueError(f"{hl} heads a rank do not sit in whole groups of {hpg}")
+    gs, gw = g0 * s_cfg.d_state, gl * s_cfg.d_state
+    h = collectives.copy_to_group(rmsnorm(x, p["norm"], cfg.norm_eps), group)
+    w_in = _spans(p["in_proj"], -1, 2 * din + 2 * gn + nh, group,
+                  [(c0, dl), (din + c0, dl), (2 * din + gs, gw), (2 * din + gn + gs, gw),
+                   (2 * din + 2 * gn + h0_, hl)], rank)
+    z, xbc_pre, dt_raw = dense(h, w_in).split([dl, dl + 2 * gw, hl], dim=-1)
+    conv = [(c0, dl), (din + gs, gw), (din + gn + gs, gw)]
+    xbc = causal_conv1d(xbc_pre, _spans(p["conv_w"], 0, din + 2 * gn, group, conv, rank),
+                        _spans(p["conv_b"], 0, din + 2 * gn, group, conv, rank))
     xbc = F.silu(xbc.float()).to(x.dtype)
-    xin, Bm, Cm = xbc.split([din, gn, gn], dim=-1)
-    xh = xin.reshape(b, s, nh, s_cfg.head_dim)
-    Bh = Bm.reshape(b, s, s_cfg.n_groups, s_cfg.d_state)
-    Ch = Cm.reshape(b, s, s_cfg.n_groups, s_cfg.d_state)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    h0 = (torch.zeros((b, nh, s_cfg.d_state, s_cfg.head_dim), dtype=torch.float32,
+    xin, Bm, Cm = xbc.split([dl, gw, gw], dim=-1)
+    xh = xin.reshape(b, s, hl, s_cfg.head_dim)
+    Bh = Bm.reshape(b, s, gl, s_cfg.d_state)
+    Ch = Cm.reshape(b, s, gl, s_cfg.d_state)
+
+    def heads(name):
+        return _spans(p[name], 0, nh, group, [(h0_, hl)], rank)
+
+    dt = F.softplus(dt_raw.float() + heads("dt_bias"))
+    A = -torch.exp(heads("A_log"))
+    h0 = (torch.zeros((b, hl, s_cfg.d_state, s_cfg.head_dim), dtype=torch.float32,
                       device=x.device) if state is None else state)
-    y, h_fin = ssd(xh, dt, A, Bh, Ch, p["D"], h0, s_cfg.chunk)
-    y = y.reshape(b, s, din)
-    y = rmsnorm((y.float() * F.silu(z.float())).to(x.dtype), p["gate_norm"], cfg.norm_eps)
-    out = dense(y, p["out_proj"])
+    y, h_fin = ssd(xh, dt, A, Bh, Ch, heads("D"), h0, s_cfg.chunk)
+    y = y.reshape(b, s, dl)
+    y = _gated_rmsnorm((y.float() * F.silu(z.float())).to(x.dtype),
+                       _spans(p["gate_norm"], 0, din, group, [(c0, dl)], rank), cfg.norm_eps,
+                       group, din)
+    out = collectives.reduce_from_group(
+        dense(y, _spans(p["out_proj"], 0, din, group, [(c0, dl)], rank)), group)
     return x + out, (_last_inputs(xbc_pre, s_cfg.d_conv), h_fin)
 
 

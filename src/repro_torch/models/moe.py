@@ -21,8 +21,22 @@ the down projection and the combine round their f32 sums to the model's
 dtype once, as the reference's ``.astype`` does.
 
 The steps are separate functions (`route`, `combine_weights`, `dispatch`,
-`experts`, `combine`), which `apply` runs in order. MoE across ranks
-(experts over ``model``, the dispatch as an all-to-all) waits for ROADMAP §1.
+`experts`, `combine`), which `apply` runs in order.
+
+Across ranks (``tp``, training) the groups ride the data ranks and the
+experts the model ranks, as the reference's GSPMD places its einsums. x is
+whole on every model rank, so a rank dispatches its groups to its own
+experts locally and the combine, a contraction over the experts, is a sum
+over the model group (`collectives.reduce_from_group`): no all-to-all.
+With the experts cut (Kimi-K2) the router's expert columns are cut too and
+its logits are gathered over the model group before the softmax; with the
+expert MLP cut instead (Mixtral's ``expert_mlp: model``) every rank holds
+every expert's slice of the hidden width, and the combine's partial sums
+are reduced alike. The load-balancing aux takes its means over the global
+tokens (averaged over the data ranks before the product), and each data
+rank counts 1/D of it, so the data ranks' shares sum to the reference's.
+Tg comes from the global token count; a group that would straddle two data
+ranks raises.
 """
 from __future__ import annotations
 
@@ -31,6 +45,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import act_fn
@@ -120,16 +135,19 @@ class Routing:
     capacity: int
 
 
-def route(router: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor) -> Routing:
+def route(router: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor, group=None) -> Routing:
     """The router and the priority slot assignment of xg [G, Tg, d]: logits
     and softmax in f32, the top-k with ties to the lower expert index (a
     stable descending sort), the gates normalised by max(sum, 1e-9), and
-    the slot-major cumsum (``moe.py:83-91`` of the reference)."""
+    the slot-major cumsum (``moe.py:83-91`` of the reference). With
+    ``group`` the router holds this rank's expert columns, and the logits
+    are gathered over the group (the gradient reduce-scattered back)."""
     m = cfg.moe
     g, tg, _ = xg.shape
     e, k = m.n_experts, m.top_k
     acc = _acc(xg.dtype)
-    probs = torch.softmax(torch.matmul(xg.to(acc), router.to(acc)), dim=-1)
+    logits = collectives.gather_from_group(torch.matmul(xg.to(acc), router.to(acc)), -1, group)
+    probs = torch.softmax(logits, dim=-1)
     idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :k]
     gate = probs.gather(-1, idx)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -177,38 +195,74 @@ def combine(comb: torch.Tensor, ye: torch.Tensor) -> torch.Tensor:
     return torch.bmm(comb, ye)
 
 
+def data_ranks(tp) -> int:
+    """The data ranks the batch is cut over (1 without ``tp``)."""
+    return math.prod(collectives.ranks(g) for g in tp.data_groups) if tp is not None else 1
+
+
 def apply(p: dict, cfg: ModelConfig, x: torch.Tensor, tp=None,
           group_size: int | None = None):
     """x [B, S, d] -> (out [B, S, d], aux load-balancing loss, a scalar in
     f32): ``router_aux_coef * E * sum(frac * pmean)``, frac the share of the
     tokens whose first choice is each expert. ``group_size`` overrides the
-    config's (1 routes every token as a group of its own)."""
-    if tp is not None:
-        raise NotImplementedError(
-            "the MoE block across ranks (experts over `model`, the dispatch as an "
-            "all-to-all) waits for ROADMAP §1, LM stack")
+    config's (1 routes every token as a group of its own). With ``tp`` (a
+    `collectives.TensorParallel`) x is this data rank's rows, the weights
+    are the rank's shards, and aux is this data rank's share (1/D) of the
+    global batch's."""
     m = cfg.moe
     b, s, d = x.shape
-    tg = group_tokens(b * s, m.group_size if group_size is None else group_size)
+    n_data = data_ranks(tp)
+    t = b * s * n_data
+    tg = group_tokens(t, m.group_size if group_size is None else group_size)
+    if (b * s) % tg:
+        raise ValueError(
+            f"{cfg.name}: the global batch's {t} tokens ({b * n_data} x {s}) route in groups "
+            f"of {tg}, which straddle the {n_data} data ranks' {b} x {s} = {b * s} tokens "
+            "each; choose a batch whose rows a rank holds split into whole groups")
     g = b * s // tg
     e = m.n_experts
+    el = p["router"].shape[-1]
+    eg = collectives.cut_group(tp, el, e)                        # experts cut (Kimi-K2)
+    fg = collectives.cut_group(tp, p["wg"].shape[-1], m.d_expert)  # expert MLP cut (Mixtral)
+    group = eg or fg
     xg = x.reshape(g, tg, d)
-    r = route(p["router"], cfg, xg)
+    xr = collectives.copy_to_group(xg, group)
+    r = route(p["router"], cfg, xr if eg is not None else xg, eg)
     c = r.capacity
     comb = combine_weights(r, cfg.dtype)
-    xe = dispatch(xg, comb)                                          # [G, E*C, d]
-    xe = xe.reshape(g, e, c, d).transpose(0, 1).reshape(e, g * c, d)
-    ye = experts(p, cfg, xe)                                         # [E, G*C, d]
-    ye = ye.reshape(e, g, c, d).transpose(0, 1).reshape(g, e * c, d)
+    if eg is not None:                                  # this rank's experts' slots
+        comb = comb.narrow(-1, tp.rank * el * c, el * c)
+    elif fg is not None:                                # every rank weighs partial outputs
+        comb = collectives.copy_to_group(comb, fg)
+    xe = dispatch(xr, comb)                                          # [G, El*C, d]
+    xe = xe.reshape(g, el, c, d).transpose(0, 1).reshape(el, g * c, d)
+    ye = experts(p, cfg, xe)                                         # [El, G*C, d]
+    ye = ye.reshape(el, g, c, d).transpose(0, 1).reshape(g, el * c, d)
     out = combine(comb, ye).reshape(b, s, d)
 
     if m.n_shared:
-        sh, xs = p["shared"], x.reshape(1, b * s, d)
+        sh = p["shared"]
+        sg = collectives.cut_group(tp, sh["wg"].shape[-1], m.d_expert * m.n_shared)
+        xs = collectives.copy_to_group(x, sg).reshape(1, b * s, d)
         hs = (act_fn(cfg.act)(_bmm_acc(xs, sh["wg"][None]))
               * _bmm_acc(xs, sh["wu"][None])).to(cfg.dtype)
-        out = out + torch.matmul(hs, sh["wd"]).reshape(b, s, d)
+        shared = torch.matmul(hs, sh["wd"]).reshape(b, s, d)
+        if sg is group:
+            out = out + shared
+        else:
+            out = (collectives.reduce_from_group(out, group)
+                   + collectives.reduce_from_group(shared, sg))
+            group = None
+    out = collectives.reduce_from_group(out, group)
 
     frac = _one_hot(r.idx[..., 0], e, r.probs.dtype).mean(dim=(0, 1))
     pmean = r.probs.mean(dim=(0, 1))
-    aux = m.router_aux_coef * e * torch.sum(frac * pmean)
-    return out, aux
+    if eg is not None:                                  # this rank's experts' terms
+        frac, pmean = (t_.narrow(0, tp.rank * el, el) for t_ in (frac, pmean))
+    if n_data > 1:                                      # the means over the global tokens
+        frac = collectives.all_reduce_groups(frac, tp.data_groups) / n_data
+        for grp in tp.data_groups:
+            pmean = collectives.sum_both_ways(pmean, grp)
+        pmean = pmean / n_data
+    aux = collectives.reduce_from_group(m.router_aux_coef * e * torch.sum(frac * pmean), eg)
+    return out, aux / n_data

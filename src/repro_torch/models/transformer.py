@@ -126,12 +126,6 @@ def _layers(tree: dict, n: int) -> list[dict]:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _split(tp, local: int, whole: int):
-    """The model group when a width is cut over it (the rank's shard holds
-    ``local`` of ``whole``), else None."""
-    return tp.group if tp is not None and local < whole else None
-
-
 def _kv_for_rank(w: torch.Tensor, tp, h: int, cfg: ModelConfig) -> torch.Tensor:
     """The kv heads a rank's ``h`` query heads read, from the whole kv
     projection w [d, KH, hd]: global q head ``rank*h + j`` reads kv head
@@ -161,7 +155,7 @@ def _attn_heads(blk: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     h, hd = blk["wq"].shape[-2], blk["wq"].shape[-1]
     wk, wv = blk["wk"], blk["wv"]
     q_norm, k_norm = blk.get("q_norm"), blk.get("k_norm")
-    group = _split(tp, h, cfg.n_heads)
+    group = collectives.cut_group(tp, h, cfg.n_heads)
     if group is not None:
         x = collectives.copy_to_group(x, group)
         if wk.shape[-2] == cfg.n_kv_heads:
@@ -187,7 +181,17 @@ def _attn_out(blk: dict, cfg: ModelConfig, o: torch.Tensor, tp=None) -> torch.Te
     heads when they are cut, summed over the model group."""
     b, s, h, hd = o.shape
     out = o.reshape(b, s, h * hd) @ blk["wo"].reshape(h * hd, -1)
-    return collectives.reduce_from_group(out, _split(tp, h, cfg.n_heads))
+    return collectives.reduce_from_group(out, collectives.cut_group(tp, h, cfg.n_heads))
+
+
+def mlp_out(mlp: dict, cfg: ModelConfig, h: torch.Tensor, tp=None) -> torch.Tensor:
+    """The gated MLP of the normed h; with its hidden width cut over the
+    model group (``tp``), the rank's columns of wg/wu and rows of wd, the
+    partial sums summed over the group."""
+    group = collectives.cut_group(tp, mlp["wg"].shape[-1], cfg.d_ff)
+    h = collectives.copy_to_group(h, group)
+    m = gated_mlp(h, mlp["wg"], mlp["wu"], mlp["wd"], cfg.act)
+    return collectives.reduce_from_group(m, group)
 
 
 def _mlp_residual(blk: dict, cfg: ModelConfig, x: torch.Tensor, o: torch.Tensor, tp=None,
@@ -203,10 +207,7 @@ def _mlp_residual(blk: dict, cfg: ModelConfig, x: torch.Tensor, o: torch.Tensor,
     if cfg.moe:
         m, aux = moe_lib.apply(mlp, cfg, h, tp, group_size)
     else:
-        group = _split(tp, mlp["wg"].shape[-1], cfg.d_ff)
-        h = collectives.copy_to_group(h, group)
-        m = gated_mlp(h, mlp["wg"], mlp["wu"], mlp["wd"], cfg.act)
-        m, aux = collectives.reduce_from_group(m, group), 0.0
+        m, aux = mlp_out(mlp, cfg, h, tp), 0.0
     if cfg.sandwich_norm:
         m = rmsnorm(m, blk["ln2_post"], cfg.norm_eps)
     return x + m, aux
@@ -265,7 +266,7 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor, tp=None
     """The embedding of ``tokens``; with the vocabulary cut over the model
     group (``tp``) a masked lookup of the rank's rows, summed over it."""
     table = params["embed"]
-    group = _split(tp, table.shape[0], cfg.vocab)
+    group = collectives.cut_group(tp, table.shape[0], cfg.vocab)
     if group is None:
         x = table[tokens]
     else:

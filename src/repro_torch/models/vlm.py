@@ -23,9 +23,10 @@ def vlm_specs(cfg: ModelConfig) -> dict:
 
 
 def assemble_sequence(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                      patch_embeds: torch.Tensor | None) -> torch.Tensor:
-    """[B, S_vis, d] vision prefix + embedded tokens -> [B, S, d]."""
-    xt = tfm.embed_tokens(params, cfg, tokens)
+                      patch_embeds: torch.Tensor | None, tp=None) -> torch.Tensor:
+    """[B, S_vis, d] vision prefix + embedded tokens -> [B, S, d] (``tp``:
+    the embedding's vocabulary cut over the model ranks)."""
+    xt = tfm.embed_tokens(params, cfg, tokens, tp)
     if patch_embeds is None or patch_embeds.shape[1] == 0:
         return xt
     return torch.cat([patch_embeds.to(cfg.dtype), xt], dim=1)
@@ -57,12 +58,12 @@ def _prefix_len(patch_embeds: torch.Tensor | None) -> int:
 
 
 def run_vlm_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                  patch_embeds: torch.Tensor | None, positions: torch.Tensor):
+                  patch_embeds: torch.Tensor | None, positions: torch.Tensor, tp=None):
     """(hidden of the text positions [B, S_text, d], aux loss): the causal
-    stack over prefix and text, remat as `transformer.run_stack_train`
-    does it."""
-    x = assemble_sequence(params, cfg, tokens, patch_embeds)
-    h, aux = tfm.run_stack_train(params, cfg, x, positions)
+    stack over prefix and text, remat and ranks (``tp``) as
+    `transformer.run_stack_train` does them."""
+    x = assemble_sequence(params, cfg, tokens, patch_embeds, tp)
+    h, aux = tfm.run_stack_train(params, cfg, x, positions, tp)
     return h[:, _prefix_len(patch_embeds):], aux
 
 

@@ -36,8 +36,9 @@ prefix and M-RoPE positions from the batch) and the encoder-decoder
 (whisper: a frame encoder, a decoder with cross-attention, a cache of
 self K/V and the encoder's cross K/V). The SSM and hybrid decode steps
 write the new states into the cache's tensors in place, as every family's
-decode writes its K/V. Training across ranks (``tp=``) is dense-decoder
-only.
+decode writes its K/V. Every family trains across ranks (``tp=``): the
+rank's shards of each family's layers, as the reference's GSPMD step
+places them.
 """
 from __future__ import annotations
 
@@ -80,7 +81,7 @@ def _final_loss(params: dict, cfg: ModelConfig, h: torch.Tensor, targets: torch.
     if tp is None:
         ce = chunked_cross_entropy(h, w, targets, chunk=cfg.loss_chunk)
         return ce + aux, {"ce": ce, "aux": aux}
-    group = tfm._split(tp, w.shape[1], cfg.vocab)
+    group = collectives.cut_group(tp, w.shape[1], cfg.vocab)
     ce = chunked_cross_entropy(collectives.copy_to_group(h, group), w, targets,
                                chunk=cfg.loss_chunk, group=group,
                                vocab_start=tp.rank * w.shape[1] if group else 0,
@@ -113,10 +114,9 @@ def _decoder_model(cfg: ModelConfig) -> Model:
 
     def loss_fn(params, batch, tp=None):
         if is_vlm:
-            _no_tp(tp, cfg)
             h, aux = vlm.run_vlm_train(params, cfg, batch["tokens"], batch.get("patch_embeds"),
-                                       vlm_positions(batch))
-            return _final_loss(params, cfg, h, batch["targets"], aux)
+                                       vlm_positions(batch), tp)
+            return _final_loss(params, cfg, h, batch["targets"], aux, tp)
         x = tfm.embed_tokens(params, cfg, batch["tokens"], tp)
         h, aux = tfm.run_stack_train(params, cfg, x, _positions(batch["tokens"]), tp)
         return _final_loss(params, cfg, h, batch["targets"], aux, tp)
@@ -155,13 +155,6 @@ def _decoder_model(cfg: ModelConfig) -> Model:
                  ("tokens", "patch_embeds", "positions") if is_vlm else ("tokens",))
 
 
-def _no_tp(tp, cfg: ModelConfig) -> None:
-    if tp is not None:
-        raise NotImplementedError(f"{cfg.name}: training across ranks is dense-decoder only; "
-                                  "the other families' training waits for ROADMAP §1, "
-                                  "LM stack")
-
-
 # ---------------------------------------------------------------------------
 # SSM (falcon-mamba)
 # ---------------------------------------------------------------------------
@@ -182,28 +175,28 @@ def _ssm_model(cfg: ModelConfig) -> Model:
     s = cfg.ssm
     din = s.expand * cfg.d_model
 
-    def run_train(params, x, return_state=False):
+    def run_train(params, x, return_state=False, tp=None):
         """(hidden, (conv [L, B, K-1, din], ssm [L, B, din, N]) or None); with
         ``cfg.remat`` and no states asked for, each layer runs under
-        ``torch.utils.checkpoint``, as the reference checkpoints its body."""
+        ``torch.utils.checkpoint``, as the reference checkpoints its body;
+        ``tp`` (training) on the rank's d_inner channels."""
         convs, ssms = [], []
         for blk in tfm._layers(params["blocks"], cfg.n_layers):
             if cfg.remat and not return_state:
-                x = checkpoint(lambda blk, x: mamba_lib.mamba1_block(blk, cfg, x)[0], blk, x,
-                               use_reentrant=False, preserve_rng_state=False)
+                x = checkpoint(lambda blk, x: mamba_lib.mamba1_block(blk, cfg, x, tp=tp)[0],
+                               blk, x, use_reentrant=False, preserve_rng_state=False)
                 continue
-            x, (cst, sst) = mamba_lib.mamba1_block(blk, cfg, x)
+            x, (cst, sst) = mamba_lib.mamba1_block(blk, cfg, x, tp=tp)
             if return_state:
                 convs.append(cst)
                 ssms.append(sst)
         return x, ((torch.stack(convs), torch.stack(ssms)) if return_state else None)
 
     def loss_fn(params, batch, tp=None):
-        _no_tp(tp, cfg)
-        x = tfm.embed_tokens(params, cfg, batch["tokens"])
-        h, _ = run_train(params, x)
+        x = tfm.embed_tokens(params, cfg, batch["tokens"], tp)
+        h, _ = run_train(params, x, tp=tp)
         return _final_loss(params, cfg, h, batch["targets"],
-                           torch.zeros((), dtype=torch.float32, device=h.device))
+                           torch.zeros((), dtype=torch.float32, device=h.device), tp)
 
     def prefill_fn(params, batch, pad_to=None):
         del pad_to  # SSM state is O(1); no cache capacity
@@ -241,12 +234,11 @@ def _hybrid_model(cfg: ModelConfig) -> Model:
     specs = hybrid.hybrid_specs(cfg)
 
     def loss_fn(params, batch, tp=None):
-        _no_tp(tp, cfg)
         tokens = batch["tokens"]
-        x = tfm.embed_tokens(params, cfg, tokens)
-        h, _, _ = hybrid.run_hybrid_train(params, cfg, x, _positions(tokens))
+        x = tfm.embed_tokens(params, cfg, tokens, tp)
+        h, _, _ = hybrid.run_hybrid_train(params, cfg, x, _positions(tokens), tp=tp)
         return _final_loss(params, cfg, h, batch["targets"],
-                           torch.zeros((), dtype=torch.float32, device=h.device))
+                           torch.zeros((), dtype=torch.float32, device=h.device), tp)
 
     def prefill_fn(params, batch, pad_to=None):
         tokens = batch["tokens"]
@@ -278,11 +270,10 @@ def _encdec_model(cfg: ModelConfig) -> Model:
     specs = encdec.encdec_specs(cfg)
 
     def loss_fn(params, batch, tp=None):
-        _no_tp(tp, cfg)
-        enc = encdec.run_encoder(params, cfg, batch["frames"])
-        h, _ = encdec.run_decoder_train(params, cfg, batch["tokens"], enc)
+        enc = encdec.run_encoder(params, cfg, batch["frames"], tp)
+        h, _ = encdec.run_decoder_train(params, cfg, batch["tokens"], enc, tp=tp)
         return _final_loss(params, cfg, h, batch["targets"],
-                           torch.zeros((), dtype=torch.float32, device=h.device))
+                           torch.zeros((), dtype=torch.float32, device=h.device), tp)
 
     def prefill_fn(params, batch, pad_to=None):
         tokens = batch["tokens"]

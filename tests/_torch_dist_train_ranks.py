@@ -28,6 +28,8 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 CPU = "cpu"
 DENSE = ("tinyllama_1_1b", "smollm_360m", "gemma3_1b", "deepseek_coder_33b")
+ALL = DENSE + ("mixtral_8x22b", "kimi_k2", "falcon_mamba_7b", "zamba2_2_7b", "whisper_tiny",
+               "qwen2_vl_7b")
 ADAMW = dict(lr=1e-3, warmup=2, total_steps=10)
 SIGN = dict(kind="sign_majority", lr=3e-4, warmup=5, total_steps=40)
 
@@ -58,9 +60,10 @@ def _whole(fns, params, opt_state):
 
 
 def shard_shapes(mesh) -> dict:
-    """Every leaf's local shape on this rank, per smoke config and mode."""
+    """Every leaf's local shape on this rank, per smoke config (all ten) and
+    mode."""
     out = {}
-    for arch in DENSE:
+    for arch in ALL:
         for kind, opt in (("adamw", ADAMW), ("sign_majority", SIGN)):
             _, fns = _fns(arch, mesh, opt)
             params, state = fns.init(0)

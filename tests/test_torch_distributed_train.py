@@ -1,8 +1,10 @@
 """Sharded training on gloo ranks (CPU) against one rank and against the
 reference: the four dense smoke configs (f32) on (data, model) grids of
-1x2, 2x1, 2x2 and 4x2 ranks.
+1x2, 2x1, 2x2 and 4x2 ranks (the non-dense families' training on ranks is
+tests/test_torch_distributed_nondense.py's).
 
-* Every rank's shard of every parameter and optimizer leaf has the shape
+* Every rank's shard of every parameter and optimizer leaf, for all ten
+  smoke configs, has the shape
   the reference's `NamedSharding.shard_shape` gives on the same mesh (its
   `build_train_fns` shardings, AdamW and signum, computed in a subprocess
   with 8 host devices started with the module), and the rank's parameter
@@ -115,7 +117,7 @@ def jax8(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("jax8") / "out.pkl")
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    code = textwrap.dedent(JAX8 % dict(grids=GRIDS, archs=tranks.DENSE))
+    code = textwrap.dedent(JAX8 % dict(grids=GRIDS, archs=tranks.ALL))
     proc = subprocess.Popen([sys.executable, "-c", code, path], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     got = {}
@@ -212,7 +214,7 @@ def _paths(tree) -> dict:
 
 
 @pytest.mark.parametrize("grid", GRIDS, ids=GRID_IDS)
-@pytest.mark.parametrize("arch", tranks.DENSE)
+@pytest.mark.parametrize("arch", tranks.ALL)
 @pytest.mark.parametrize("kind", ["adamw", "sign_majority"])
 def test_shard_shapes_are_the_references(worlds, jax8, grid, arch, kind):
     want = jax8()["shapes"][(grid, arch, kind)]

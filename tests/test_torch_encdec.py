@@ -33,6 +33,7 @@ from repro.serving import Engine as JEngine
 from repro.serving import ServeConfig as JServeConfig
 from repro_torch import configs, convert
 from repro_torch.launch import serve as launch_serve
+from repro_torch.distributed.collectives import TensorParallel
 from repro_torch.models import encdec, get_model, init_params, layers
 from repro_torch.serving import ContinuousEngine, Engine, Scheduler, ServeConfig
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
@@ -355,14 +356,16 @@ def test_continuous_completions_equal_static_generates(slots):
 
 
 def test_refusals():
-    """Training across ranks, chunked prefill, inputs the family does not
-    read, frames the slot's cross K/V cannot hold, a batch of two, and the
-    launcher's --stream all raise."""
+    """Chunked prefill, inputs the family does not read, frames the slot's
+    cross K/V cannot hold, a batch of two, and the launcher's --stream all
+    raise; training on a one-rank `TensorParallel` gives the plain loss bit
+    for bit (training across ranks: test_torch_distributed_nondense.py)."""
     _, _, tm, tp = _pair()
     toks = torch.zeros((1, 4), dtype=torch.int32)
     frames = torch.zeros((1, tm.cfg.enc_seq, tm.cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1"):
-        tm.loss_fn(tp, {"tokens": toks, "targets": toks, "frames": frames}, tp=object())
+    batch = {"tokens": toks, "targets": toks,
+             "frames": torch.from_numpy(_frames(11, 1, tm.cfg))}
+    assert torch.equal(tm.loss_fn(tp, batch, tp=TensorParallel())[0], tm.loss_fn(tp, batch)[0])
     with pytest.raises(ValueError, match="no chunked prefill"):
         ContinuousEngine(tm, ServeConfig(max_new=4), 2, 32, prefill_chunk=8, device="cpu")
     eng = ContinuousEngine(tm, ServeConfig(max_new=4), 2, 8, device="cpu")

@@ -30,6 +30,7 @@ from repro.models import mamba as jmamba
 from repro.serving import Engine as JEngine
 from repro.serving import ServeConfig as JServeConfig
 from repro_torch import configs, convert
+from repro_torch.distributed.collectives import TensorParallel
 from repro_torch.models import get_model, init_params, mamba
 from repro_torch.serving import ContinuousEngine, Engine, Scheduler, ServeConfig
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
@@ -322,14 +323,17 @@ def test_static_engine_tokens_equal_jax():
 
 
 def test_model_refuses_chunked_prefill_and_ranks():
+    """The model has no chunked prefill and the engine refuses one; the
+    training loss on a one-rank `TensorParallel` is the plain loss bit for
+    bit (training across ranks: test_torch_distributed_nondense.py)."""
     _, _, tm, tp = pair(ARCH)
     assert tm.prefill_chunk_fn is None
     with pytest.raises(ValueError, match="no chunked prefill"):
         ContinuousEngine(tm, ServeConfig(max_new=4), num_slots=2, max_prompt_len=32,
                          prefill_chunk=8, device="cpu")
-    toks = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1"):
-        tm.loss_fn(tp, {"tokens": toks, "targets": toks}, tp=object())
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, tm.cfg.vocab, (2, 12)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    assert torch.equal(tm.loss_fn(tp, batch, tp=TensorParallel())[0], tm.loss_fn(tp, batch)[0])
 
 
 @pytest.mark.parametrize("slots", [1, 3])

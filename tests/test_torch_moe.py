@@ -28,6 +28,7 @@ from repro.serving import ServeConfig as JServeConfig
 from repro_torch import configs, convert
 from repro_torch.models import base, get_model, init_params
 from repro_torch.models import moe
+from repro_torch.distributed.collectives import TensorParallel
 from repro_torch.models import transformer as ttfm
 from repro_torch.serving import ContinuousEngine, Engine, Scheduler, ServeConfig
 from repro_torch.tree import tree_flatten, tree_leaves
@@ -162,11 +163,23 @@ def test_moe_block_matches_jax(arch, case):
         assert (tg, g) == (7, 3)
 
 
-def test_moe_block_refuses_tensor_parallel():
+def test_moe_block_on_one_rank_tensor_parallel_is_plain_and_straddling_groups_raise(
+        monkeypatch):
+    """A one-rank `TensorParallel` (no model group, no data ranks) gives the
+    plain block's output and aux bit for bit; with two data ranks, B 1 x S
+    60 a rank at group_size 40 raises (the global 120 tokens route in
+    groups of 40, one of which would span both ranks' rows)."""
     tcfg = configs.get_smoke("mixtral_8x22b")
     p = init_params(moe.moe_specs(tcfg, 0), torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1"):
-        moe.apply(p, tcfg, torch.zeros(1, 4, tcfg.d_model), tp=object())
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 32, tcfg.d_model)).astype(np.float32))
+    want = moe.apply(p, tcfg, x)
+    got = moe.apply(p, tcfg, x, tp=TensorParallel())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cfg40 = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe, group_size=40))
+    monkeypatch.setattr(moe, "data_ranks", lambda tp: 2)
+    with pytest.raises(ValueError, match=r"120 tokens \(2 x 60\) route in groups of 40"):
+        moe.apply(p, cfg40, torch.zeros(1, 60, tcfg.d_model), tp=TensorParallel())
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from repro.serving import Engine as JEngine
 from repro.serving import ServeConfig as JServeConfig
 from repro_torch import configs, convert
 from repro_torch.launch import serve as launch_serve
+from repro_torch.distributed.collectives import TensorParallel
 from repro_torch.models import get_model, vlm
 from repro_torch.serving import ContinuousEngine, Engine, Scheduler, ServeConfig
 from repro_torch.tree import tree_flatten, tree_leaves
@@ -316,16 +317,18 @@ def test_requeued_request_replays_with_its_image():
 
 
 def test_refusals():
-    """A batch without positions, training across ranks, chunked prefill,
-    positions that miss the prefix, a prompt past the capacity, and the
-    launcher's --stream all raise; a dense decoder refuses patch_embeds
-    (the reference would take them as a prefix: ROADMAP §3)."""
+    """A batch without positions, chunked prefill, positions that miss the
+    prefix, a prompt past the capacity, and the launcher's --stream all
+    raise; a dense decoder refuses patch_embeds (the reference would take
+    them as a prefix: ROADMAP §3); training on a one-rank `TensorParallel`
+    gives the plain loss bit for bit (training across ranks:
+    test_torch_distributed_nondense.py)."""
     _, _, tm, tp = _pair()
     r = {k: torch.from_numpy(v) for k, v in _request(3, 1, 8, tm.cfg).items()}
     with pytest.raises(ValueError, match="positions"):
         tm.prefill_fn(tp, {"tokens": r["tokens"], "patch_embeds": r["patch_embeds"]})
-    with pytest.raises(NotImplementedError, match="ROADMAP §1"):
-        tm.loss_fn(tp, {**r, "targets": r["tokens"]}, tp=object())
+    batch = {**r, "targets": r["tokens"]}
+    assert torch.equal(tm.loss_fn(tp, batch, tp=TensorParallel())[0], tm.loss_fn(tp, batch)[0])
     with pytest.raises(ValueError, match="no chunked prefill"):
         ContinuousEngine(tm, ServeConfig(max_new=4), 2, 32, prefill_chunk=8, device="cpu")
     eng = ContinuousEngine(tm, ServeConfig(max_new=4), 2, 8, max_prefix=SV, device="cpu")

@@ -368,7 +368,23 @@ fallback, and a missing GPU is a failure):
    each rank holds its resolved shards' bytes; every step launches the
    attention kernels phase 23 counts for the config and nothing else.
    Reported: rank 0's ms a step beside one rank's, tokens/s, each rank's
-   peak memory and wire bytes a step.
+   peak memory and wire bytes a step;
+25. the dry run held to the card (DRY): `python -m repro_torch.launch.dryrun`
+   in three subprocesses at once (`dry_run_records`), counting on fake
+   CUDA tensors (every record must say so), as rank 0 of fake worlds:
+   (a) phase 16's AdamW step on one rank, its predicted peak plus what phase 16 held outside its steps
+   (tensors of earlier phases resident as the steps started, and its
+   recorded backward rows, both read there) within DRY["peak_rel"] of phase
+   16's max_memory_allocated (the categories at the peak, the counted
+   FLOPs over phase 16's model FLOPs and the roofline bound over its ms a
+   step reported); (b) phase 19's 1x2 AdamW step: rank 0's wire bytes a
+   step equal to phase 19's counter and its peak within DRY["peak_rel"];
+   (c) every phase 17 1x4 serve on the repo's own tiers: rank 0's wire
+   bytes a call equal to phase 17's counter; (d) tinyllama-1.1b train_4k
+   and hdc-scaleout serve_packed on the 16x16 production mesh: status ok,
+   each one's per-rank peak against the card's memory and its dominant
+   roofline term printed. The compat line (the runtime's capabilities)
+   prints after the card's.
 
 Each phase prints its seconds. Then the card line again, a JSON line
 {"kernels": [...]} (launches counted on the main-path runs of phases 4-5 and
@@ -436,18 +452,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
-BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
-F32_FLOPS_PER_S = 67e12          # H100 SXM f32 peak outside the tensor cores
-# the 1-bit tensor-core products (mma.sync m16n8k256 and wgmma m64n128k256,
-# .b1 .and.popc), counted as 2 operations a bit product like the int8 peak:
-# NVIDIA publishes no 1-bit peak, so this is the highest rate
-# benchmarks/torch_hamming_b1_probe.py measured on an H100 80GB HBM3 at
-# 700 W (the wgmma product from shared memory; about 7.9x the int8 peak)
-B1_OPS_PER_S = 15684e12
-PEAKS = {"int8": INT8_OPS_PER_S, "b1": B1_OPS_PER_S, "bf16": BF16_FLOPS_PER_S,
-         "f32": F32_FLOPS_PER_S}
+# the card's peaks (H100 SXM) and the roofline's helpers: one count for the
+# kernels' bounds here and the dry run's roofline (phase 25)
+from repro_torch.analysis.roofline import (  # noqa: E402
+    BF16_FLOPS_PER_S, kernel_bound)
+from repro_torch.kernels.flash_attention.ops import attention_pairs  # noqa: E402
 CALLS = 8                        # serve calls per mode
 SEED = 0
 SPARSE_DIM, SPARSE_DENSITY, SPARSE_K = 2**20, 0.001, 2048   # benchmarks/sparse.py:46-47
@@ -753,6 +762,16 @@ NR_RUNS = {(1, 2): (dict(arch="mixtral-8x22b", layers=1, batch=2),
                     dict(arch="zamba2-2.7b", groups=1, batch=2),
                     dict(arch="qwen2-vl-7b", layers=2, batch=2, grid=(16, 16))),
            (2, 2): (dict(arch="whisper-tiny", layers=None, batch=8, seq=448),)}
+# phase 25: the dry run (`python -m repro_torch.launch.dryrun`, fake tensors
+# standing for this card) held to what phases 16, 17 and 19 measured in this
+# run: (a) phase 16's AdamW step (TRAIN) on one rank, (b) phase 19's 1x2
+# AdamW step (TR) as rank 0 of a fake world of 2, (c) phase 17's 1x4 serves
+# (the cases on the repo's own tiers), (d) two production records on the
+# 16x16 mesh. The predicted peak within DRY["peak_rel"] of the measured
+# max_memory_allocated (phase 16's with what that phase held outside its
+# steps added); the wire bytes equal to the counter's reading
+DRY = dict(peak_rel=0.10, timeout=240,
+           production=(("tinyllama-1.1b", "train_4k"), ("hdc-scaleout", "serve_packed")))
 # phase 16 (a): the backward kernel's cases, label -> (B, Sq, Skv, H, KH, D,
 # causal, window, q_offset, dtype); the training shape first
 FLASH_BWD_CASES = [
@@ -1004,9 +1023,11 @@ def kernel_cases(torch, gen):
     and the tall shape."""
     from repro_torch import kernels as tk
     from repro_torch.core import hypervector as hv
+    from repro_torch.kernels.assoc_matmul import ops as assoc_ops
     from repro_torch.kernels.assoc_matmul.ref import assoc_matmul_ref
-    from repro_torch.kernels.hamming.ops import CLASS_TILE, plan_top1
+    from repro_torch.kernels.hamming.ops import CLASS_TILE, plan_top1, search_cost, topk_cost
     from repro_torch.kernels.hamming.ref import hamming_search_ref, hamming_topk_banked_ref
+    from repro_torch.kernels.majority import ops as majority_ops
     from repro_torch.kernels.majority.ref import majority_bundle_ref
 
     dev = "cuda"
@@ -1024,8 +1045,7 @@ def kernel_cases(torch, gen):
         cr = c if c_real is None else c_real
         return ("hamming_topk_banked", f"{label} G={g} B={b} C={c} c_real={cr} W={w}",
                 lambda: tk.hamming_topk_banked(q, p, c_real=cr),
-                lambda: hamming_topk_banked_ref(q, p, cr), None,
-                4 * g * (b + cr) * w + 8 * g * b, 2 * g * b * cr * 32 * w, "b1",
+                lambda: hamming_topk_banked_ref(q, p, cr), None, *topk_cost(g, b, cr, w),
                 {} if expect is None else dict(expect=expect))
 
     # the main path's shapes (the OTA serves, phase 10's flat serve at
@@ -1052,8 +1072,7 @@ def kernel_cases(torch, gen):
     cases.append(("hamming_topk_banked", "mt step (a) with bank_rows G=1024 B=4 C=100 W=16",
                   lambda q=q, t=table, r=bank_rows: tk.hamming_topk_banked(q, t, bank_rows=r),
                   lambda q=q, t=table, r=bank_rows: hamming_topk_banked_ref(q, t, 100, r), None,
-                  4 * (1024 * 4 + 256 * 100) * 16 + 4 * 1024 + 8 * 1024 * 4,
-                  2 * 1024 * 4 * 100 * 32 * 16, "b1", {}))
+                  *topk_cost(1024, 4, 100, 16, table_rows=256), {}))
     # every row equal: every query's first minimum is column 0, in every split
     same = words(2, 1, 64).expand(2, 1000, 64).contiguous()
     cases.append(top1_case("all rows equal", 2, 100, 1000, 64, p=same, expect=lambda got: bool(
@@ -1083,7 +1102,7 @@ def kernel_cases(torch, gen):
                       lambda q=q, p=p: tk.hamming_search(q, p),
                       lambda q=q, p=p: hamming_search_ref(q, p),
                       lambda qf=qf, pf=pf: torch.cdist(qf, pf, p=0),
-                      4 * (b + c) * w + 4 * b * c, 2 * b * c * 32 * w, "b1",
+                      *search_cost(1, b, c, w),
                       bmm_yardstick(torch, hv, q[None], p[None])))
     for label, (g, b, c, k) in [("serve per core G=64", (64, 256, 100, 512)),
                                 ("serve permuted G=192", (192, 256, 100, 512)),
@@ -1104,14 +1123,14 @@ def kernel_cases(torch, gen):
                       lambda q=q, p=p: tk.assoc_matmul_banked(q, p),
                       lambda q=q, p=p: assoc_matmul_ref(q, p),
                       lambda qb=qb, pbt=pbt: torch.bmm(qb, pbt),
-                      g * (b + c) * k + 4 * g * b * c, 2 * g * b * c * k, "int8"))
+                      *assoc_ops.cost(g, b, c, k)))
     for label, (m, b, d) in [("serve wired", (3, 256, 512)), ("tall", (3, 4096, 2048))]:
         x = bits(m, b, d)
         cases.append(("majority_bundle", f"{label} M={m} B={b} d={d}",
                       lambda x=x: tk.majority_bundle(x),
                       lambda x=x, m=m: majority_bundle_ref(x.reshape(m, -1)).reshape(x.shape[1:]),
                       lambda x=x: torch.mode(x, 0).values,   # odd M: the mode is the majority
-                      m * b * d + b * d, m * b * d, "int32"))
+                      *majority_ops.cost(m, b * d)))
     # every byte value at M = 300 (past the 16-bit lanes' 257-row flush; even
     # M, so ties give 0); N odd (the byte-wise path and tail); a base one byte
     # past an aligned address (a sliced input)
@@ -1123,7 +1142,7 @@ def kernel_cases(torch, gen):
         cases.append(("majority_bundle", f"{label} M={m} B={b} d={d}",
                       lambda x=x: tk.majority_bundle(x),
                       lambda x=x, m=m: majority_bundle_ref(x.reshape(m, -1)).reshape(x.shape[1:]),
-                      None, m * b * d + b * d, m * b * d, "int32"))
+                      None, *majority_ops.cost(m, b * d)))
     return cases
 
 
@@ -1139,7 +1158,7 @@ def sparse_kernel_cases(torch, gen):
     set)."""
     from repro_torch import kernels as tk
     from repro_torch.core import hypervector as hv, sparse
-    from repro_torch.kernels.sparse.ops import plan
+    from repro_torch.kernels.sparse.ops import plan, search_cost, topk_cost
     from repro_torch.kernels.sparse.ref import sparse_search_ref, sparse_topk_banked_ref
 
     dev, S = "cuda", sparse.SENTINEL
@@ -1218,7 +1237,7 @@ def sparse_kernel_cases(torch, gen):
         cases.append(("sparse_search", f"{label} B={b} C={c} k={k} W={w}",
                       lambda q=q, p=p: tk.sparse_search(q, p),
                       lambda q=q, p=p: sparse_search_ref(q, p), libfn,
-                      4 * (b * k + c * w + b * c), live(q) * c, "gather", extra))
+                      *search_cost(b, c, w, k, live=live(q)), extra))
     for label, (g, b, c, c_real, w, k, dens, empty) in [
             ("serve G=64", (64, 256, 100, 100, 32768, 2048, SPARSE_DENSITY, ())),
             ("ragged", (3, 77, 333, 300, 1000, 2097, 0.04, (2, 80, 150))),
@@ -1237,7 +1256,7 @@ def sparse_kernel_cases(torch, gen):
         cases.append(("sparse_topk_banked", f"{label} B={b} C={c} c_real={c_real} k={k} W={w}",
                       lambda q=q, p=p, cr=c_real: tk.sparse_topk_banked(q, p, c_real=cr),
                       lambda q=q, p=p, cr=c_real: sparse_topk_banked_ref(q, p, cr), None,
-                      4 * g * (b * k + c * w) + 8 * g * b, live(q) * c_real, "gather", {}))
+                      *topk_cost(g, b, c, w, k, c_real, live=live(q)), {}))
     # duplicates of query 0's bank row across tile boundaries (32 rows a tile
     # at W = 1000, one at W = 32768): the first copy must win at distance 0
     for w, k, dens, dups in [(1000, 2097, 0.04, (31, 32, 64)), (32768, 2048, SPARSE_DENSITY,
@@ -1254,8 +1273,7 @@ def sparse_kernel_cases(torch, gen):
         cases.append(("sparse_topk_banked", f"ties at {dups} B={b} C={c} k={k} W={w}",
                       lambda q=q, p=p: tk.sparse_topk_banked(q, p),
                       lambda q=q, p=p: sparse_topk_banked_ref(q, p), None,
-                      4 * g * (b * k + c * w) + 8 * g * b, live(q) * c, "gather",
-                      dict(expect=expect)))
+                      *topk_cost(g, b, c, w, k, live=live(q)), dict(expect=expect)))
     return cases
 
 
@@ -1268,7 +1286,7 @@ def hamming_k_cases(torch, gen):
     kernel's limit."""
     from repro_torch import kernels as tk
     from repro_torch.core import hypervector as hv
-    from repro_torch.kernels.hamming.ops import CLASS_TILE, MAX_K, plan
+    from repro_torch.kernels.hamming.ops import CLASS_TILE, MAX_K, plan, search_cost, topk_cost
     from repro_torch.kernels.hamming.ref import (hamming_search_banked_ref,
                                                  hamming_topk_k_banked_ref)
 
@@ -1283,7 +1301,7 @@ def hamming_k_cases(torch, gen):
         return ("hamming_topk_k_banked", f"{label} G={g} B={b} C={c} c_real={cr} W={w} k={k}",
                 lambda: tk.hamming_topk_banked(q, p, k=k, c_real=cr),
                 lambda: hamming_topk_k_banked_ref(q, p, k, cr), None,
-                4 * g * (b + cr) * w + 8 * g * b * k, 2 * g * b * cr * 32 * w, "b1",
+                *topk_cost(g, b, cr, w, k),
                 {} if expect is None else dict(expect=expect))
 
     cases = [topk_case("screen", 8, 512, 1600, 64, 8),
@@ -1354,22 +1372,9 @@ def hamming_k_cases(torch, gen):
                       lambda q=q, p=p: tk.hamming_search_banked(q, p),
                       lambda q=q, p=p: hamming_search_banked_ref(q, p),
                       lambda qf=qf, pf=pf: torch.cdist(qf, pf, p=0),   # batched, on bits
-                      4 * g * (b + c) * w + 4 * g * b * c, 2 * g * b * c * 32 * w, "b1",
+                      *search_cost(g, b, c, w),
                       bmm_yardstick(torch, hv, q, p)))
     return cases
-
-
-def attention_pairs(sq: int, skv: int, causal: bool, window: int, q_offset: int) -> int:
-    """The (query, key) pairs of one head that the mask keeps: the work these
-    inputs need (query i at position q_offset + i; a row that sees no key
-    takes the mean of V over all Skv keys, as the reference gives it)."""
-    n = 0
-    for i in range(sq):
-        qp = q_offset + i
-        hi = min(skv, qp + 1) if causal else skv
-        lo = max(0, qp - window + 1) if window > 0 else 0
-        n += hi - lo if hi > lo else skv
-    return n
 
 
 def flash_cases(torch, gen):
@@ -1394,6 +1399,7 @@ def flash_cases(torch, gen):
     import torch.nn.functional as F
 
     from repro_torch import kernels as tk
+    from repro_torch.kernels.flash_attention.ops import fwd_cost
     from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
 
     cases = []
@@ -1452,9 +1458,7 @@ def flash_cases(torch, gen):
             f"window={win} q_offset={off} {str(dt).split('.')[-1]}",
             lambda q=q, k=k, v=v, kw=kw: tk.flash_attention_fwd(q, k, v, **kw),
             lambda q=q, k=k, v=v, kw=kw: flash_fwd_ref(q, k, v, **kw), lib,
-            q.element_size() * 2 * b * d * (sq * h + skv * kh),
-            4 * b * h * d * attention_pairs(sq, skv, causal, win, off),
-            "bf16" if dt == torch.bfloat16 else "f32",
+            *fwd_cost(b, sq, skv, h, kh, d, causal, win, off, dt),
             dict(tol=(tol, tol), lib_eager=True,
                  lib_what="F.scaled_dot_product_attention (eager)")))
     return cases
@@ -1494,13 +1498,10 @@ def phase_kernels(torch, gen) -> dict:
         lib_timer = call_ms if extra.get("lib_eager") else time_ms
         lib_ms = lib_timer(torch, lib, samples=3) if lib is not None else None
         bmm_ms = time_ms(torch, extra["bmm"], samples=3) if "bmm" in extra else None
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        if kind in PEAKS:       # products with a peak for their type (b1: measured)
-            ops_ms = ops / PEAKS[kind] * 1e3
-            bound_ms, bound_by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                                          else "operations")
-        else:                   # gathers: no published peak, bytes bound
-            bound_ms, bound_by = bytes_ms, "bytes"
+        # products with a peak for their type (b1: measured); gathers and
+        # int32 counts have no published peak and are bytes bound
+        bound_s, bound_by = kernel_bound(nbytes, ops, kind)
+        bound_ms = bound_s * 1e3
         row = dict(shape=label, max_abs_err=err, ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bmm_ms=bmm_ms,
                    bound_by=bound_by, library_ms=lib_ms, bytes=nbytes, ops=ops, op_kind=kind,
@@ -4024,6 +4025,7 @@ def flash_bwd_cases(torch, gen) -> list:
     import torch.nn.functional as F
 
     from repro_torch import kernels as tk
+    from repro_torch.kernels.flash_attention.ops import bwd_cost
     from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
 
     rows = []
@@ -4081,14 +4083,10 @@ def flash_bwd_cases(torch, gen) -> list:
         ms, eager_ms = time_ms(torch, kern), call_ms(torch, kern)
         plain_ms = time_ms(torch, plain, samples=3)
         lib_ms = call_ms(torch, lib, samples=3)
-        es = q.element_size()
-        nbytes = es * (4 * b * sq * h * d + 4 * b * skv * kh * d) + 4 * b * h * sq
-        ops = 10 * b * h * d * attention_pairs(sq, skv, causal, win, off)
-        kind = "bf16" if dt == torch.bfloat16 else "f32"
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAKS[kind] * 1e3
+        nbytes, ops, kind = bwd_cost(b, sq, skv, h, kh, d, causal, win, off, dt)
+        bound_s, bound_by = kernel_bound(nbytes, ops, kind)
         row.update(shape=shape, lse_err=lse_err, ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
-                   bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   bound_ms=bound_s * 1e3, bound_by=bound_by,
                    library_ms=lib_ms, bytes=nbytes, ops=ops, op_kind=kind,
                    library_what="autograd.grad through F.scaled_dot_product_attention "
                                 "(backward only, eager)")
@@ -4145,8 +4143,9 @@ def train_launches(counts: dict, cfg, steps: int, what: str, per_step=None) -> N
     require(got == want, f"{what}: (forward, backward) launches {got}, expected {want}")
 
 
-def model_flops(cfg, n_params: int, batch: int, seq: int, attn_calls=None) -> float:
-    """A training step's model FLOPs: 6 N T for the parameters' products plus
+def step_model_flops(cfg, n_params: int, batch: int, seq: int, attn_calls=None) -> float:
+    """A training step's model FLOPs with its attention (not the reference's
+    6 N D, `analysis.roofline.model_flops`): 6 N T for the parameters' products plus
     attention's 12 * B * H * pairs * D a call (forward 4, backward 8; the
     remat recomputation not counted), ``attn_calls`` calls a step (default
     one a layer)."""
@@ -4211,6 +4210,7 @@ def phase_train_adamw(torch, launches: dict, profile: bool = False) -> dict:
     from repro_torch.models import count_params, get_model
     from repro_torch.train.loop import build_train_fns
     from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import tree_leaves
 
     t = TRAIN
     cfg = configs.get_config(t["arch"])
@@ -4233,6 +4233,10 @@ def phase_train_adamw(torch, launches: dict, profile: bool = False) -> dict:
     fan_in_over_contraction(params, cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # what the process holds as the steps start (phase 25 (a) reads it):
+    # the parameters and moments, and tensors of earlier phases still resident
+    resident = torch.cuda.memory_allocated()
+    state_bytes = sum(x.numel() * x.element_size() for x in tree_leaves((params, opt_state)))
     params, opt_state, losses, gnorms, step_s, seen = train_steps(
         torch, fns, pipe, params, opt_state, t["steps"], cfg, "train adamw", launches,
         record=True)
@@ -4241,6 +4245,7 @@ def phase_train_adamw(torch, launches: dict, profile: bool = False) -> dict:
     require(losses[-1] <= losses[0] - t["min_drop"],
             f"train adamw: loss {losses[0]:.4f} -> {losses[-1]:.4f}, fell by less than "
             f"{t['min_drop']}: {losses}")
+    recorded = sum(x.numel() * x.element_size() for inputs, got, _ in seen for x in inputs + got)
     rows = []
     for inputs, got, kw in seen:
         row = bwd_vs_twin(torch, inputs, got, kw)
@@ -4259,11 +4264,12 @@ def phase_train_adamw(torch, launches: dict, profile: bool = False) -> dict:
     del seen, params, opt_state
     ms = statistics.median(step_s[2:]) * 1e3
     tokens = t["batch"] * t["seq"]
-    flops = model_flops(cfg, n_params, t["batch"], t["seq"])
+    flops = step_model_flops(cfg, n_params, t["batch"], t["seq"])
     out = dict(arch=cfg.name, params=n_params, batch=t["batch"], seq=t["seq"], losses=losses,
                gnorms=gnorms, ref_init_losses=ref_losses, ref_init_gnorms=ref_gnorms,
                step_s=step_s, ms_per_step=ms, tokens_per_s=tokens / ms * 1e3,
-               max_memory_allocated=peak, model_flops=flops,
+               max_memory_allocated=peak, model_flops=flops, resident_before=resident,
+               state_bytes=state_bytes, recorded_bytes=recorded,
                mfu_bf16=flops / (ms / 1e3) / BF16_FLOPS_PER_S, layer_bwd=rows,
                launches_per_step=(2 * cfg.n_layers, cfg.n_layers), profile=prof)
     worst = max((r["kernel_vs_f64"][i] / r["twin_vs_f64"][i] for r in rows for i in range(3)
@@ -6862,7 +6868,7 @@ def nt_condition(params: dict, cfg) -> dict:
 
 
 def nt_flops(cfg, params: dict, active: int, b: int, n: int, sv: int, calls: int) -> float:
-    """A training step's model FLOPs: `model_flops` for the MoE, SSM and
+    """A training step's model FLOPs: `step_model_flops` for the MoE, SSM and
     hybrid; for Whisper 6 x parameters x the tokens they see (the encoder's
     B x enc_seq frames, the decoder's and the tied head's B x n tokens) plus
     each attention's 12 * B * H * pairs * D; for Qwen2-VL the stack over the
@@ -6883,7 +6889,7 @@ def nt_flops(cfg, params: dict, active: int, b: int, n: int, sv: int, calls: int
         flops = 6 * b * (size(params["blocks"]) * s + size(params["lm_head"]) * n)
         pairs = cfg.n_layers * attention_pairs(s, s, True, -1, 0)
     else:
-        return model_flops(cfg, active, b, n, attn_calls=calls)
+        return step_model_flops(cfg, active, b, n, attn_calls=calls)
     return flops + 12 * b * cfg.n_heads * cfg.hd * pairs
 
 
@@ -7351,6 +7357,161 @@ def phase_nondense_ranks(torch, launches: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the dry run held to the card
+# ---------------------------------------------------------------------------
+
+def dry_jobs() -> list:
+    """The dry run's jobs of (a)-(c): phase 16's and phase 19's steps and
+    phase 17's 1x4 serves on the repo's own tiers (its replaying tiers are
+    this script's and move what the tiers they replay move)."""
+    jobs = [dict(kind="train", arch=TRAIN["arch"], batch=TRAIN["batch"], seq=TRAIN["seq"],
+                 mesh=[1], what="a"),
+            dict(kind="train", arch=TR["arch"], batch=TR["batch"], seq=TR["seq"], mesh=[1, 2],
+                 what="b")]
+    for c in mr_cases((1, 4)):
+        if c["cfg"].get("channel", "bsc").endswith("_replay"):
+            continue
+        jobs.append(dict(kind={"ota": "ota", "wired": "wired", "train": "train_hdc"}[c["kind"]],
+                         cfg=c["cfg"], mesh=[1, 4], what="c", name=c["name"]))
+    return jobs
+
+
+def dry_run_records(tmp: Path) -> tuple[list, dict]:
+    """Phase 25's dry runs (`python -m repro_torch.launch.dryrun` on fake
+    tensors standing for this card), three subprocesses at once, each given
+    DRY["timeout"] seconds: the custom jobs of `dry_jobs` in one, each
+    production record of DRY in its own (16x16, rank 0). Returns (the custom
+    records, {(arch, cell): production record}); fails on a non-zero exit or
+    a run past its time (killed)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    (tmp / "jobs.json").write_text(json.dumps(dry_jobs()))
+    mod = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", "cuda"]
+    runs = [["--custom", str(tmp / "jobs.json"), "--out", str(tmp / "custom.json")]]
+    runs += [["--arch", arch, "--cell", cell, "--force", "--out", str(tmp / "prod")]
+             for arch, cell in DRY["production"]]
+    procs = []
+    try:
+        for i, args in enumerate(runs):
+            with open(tmp / f"run{i}.log", "w") as log:
+                procs.append(subprocess.Popen(mod + args, env=env, cwd=ROOT, stdout=log,
+                                              stderr=subprocess.STDOUT))
+        for i, (p, args) in enumerate(zip(procs, runs)):
+            try:
+                p.wait(timeout=DRY["timeout"])
+            except subprocess.TimeoutExpired:
+                require(False, f"dry run {args[:2]} not done in {DRY['timeout']} s")
+            require(p.returncode == 0, f"dry run {args[:2]} exited {p.returncode}: "
+                    + (tmp / f"run{i}.log").read_text()[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = json.loads((tmp / "custom.json").read_text())
+    prod = {(a, c): json.loads((tmp / "prod" / "pod1" / f"{a}__{c}.json").read_text())
+            for a, c in DRY["production"]}
+    return recs, prod
+
+
+def phase_dryrun(torch, train: dict, train_ranks: dict, multirank: dict) -> dict:
+    """Phase 25: the dry runs of `dry_run_records`, each record traced on
+    fake CUDA tensors, and each prediction held to what the earlier phases
+    of this run measured, read from their results, with no second run of
+    those steps:
+    (a) the peak, plus what phase 16 held outside its steps (read there),
+    within DRY["peak_rel"] of phase 16's max_memory_allocated (the
+    categories at the peak printed; the counted FLOPs over phase 16's model
+    FLOPs and the roofline bound over its ms a step reported); (b) rank 0's
+    wire bytes a step equal to phase 19's 1x2 counter and its peak within
+    DRY["peak_rel"] of rank 0's; (c) rank 0's wire bytes a call equal to
+    phase 17's counter on every 1x4 case counted; (d) both production
+    records ok, their per-rank peak against the card's memory and their
+    dominant roofline term printed."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        recs, prod = dry_run_records(Path(tmp))
+    for r in recs + list(prod.values()):
+        require(r.get("traced_on") == "cuda", f"dry run {r.get('job') or r.get('cell')}: "
+                f"traced on {r.get('traced_on')}, not on fake CUDA tensors")
+    card = torch.cuda.get_device_properties(0).total_memory
+    out = {"records": recs, "production": {f"{a} {c}": r for (a, c), r in prod.items()}}
+
+    def gib(x):
+        return x / 2**30
+
+    # (a) phase 16's AdamW step on one rank
+    a = next(r for r in recs if r["job"]["what"] == "a")
+    ta = train["adamw"]
+    meas = ta["max_memory_allocated"]
+    # the dry run counts the step; phase 16's reading also counts what the
+    # process holds outside it, both read in that phase: tensors of earlier
+    # phases resident as its steps start, and the backward rows it records
+    outside = ta["resident_before"] - ta["state_bytes"] + ta["recorded_bytes"]
+    step_pred = a["memory_per_rank"]["peak_bytes"]
+    pred = step_pred + outside
+    rel = abs(pred - meas) / meas
+    cats = a["memory_per_rank"]["categories_at_peak"]
+    flops_ratio = a["cost_per_rank"]["flops"] / train["adamw"]["model_flops"]
+    bound_ratio = a["roofline_s"]["bound"] * 1e3 / train["adamw"]["ms_per_step"]
+    print(f"dry (a) {TRAIN['arch']} AdamW B {TRAIN['batch']} x {TRAIN['seq']}, one rank: "
+          f"predicted step peak {gib(step_pred):.3f} GiB + held outside the step "
+          f"{gib(outside):.3f} (resident {gib(ta['resident_before'] - ta['state_bytes']):.3f}, "
+          f"recorded rows {gib(ta['recorded_bytes']):.3f}) = {gib(pred):.3f} GiB vs phase "
+          f"16's {gib(meas):.3f} GiB (relative {rel:.4f}, gate {DRY['peak_rel']}; the step "
+          f"alone {abs(step_pred - meas) / meas:.4f}); at the peak " + ", ".join(
+              f"{k} {gib(v):.2f}" for k, v in cats.items()) + f" GiB; counted FLOPs / phase "
+          f"16's model FLOPs {flops_ratio:.4f}; roofline bound {a['roofline_s']['bound'] * 1e3:.2f}"
+          f" ms ({a['roofline_s']['dominant']}) / measured {train['adamw']['ms_per_step']:.2f} "
+          f"ms = {bound_ratio:.4f}; {a['t_count_s']:.1f} s to count", flush=True)
+    require(rel <= DRY["peak_rel"], f"dry (a): predicted peak {pred} vs measured {meas} "
+                                    f"(relative {rel:.4f} > {DRY['peak_rel']})")
+    out["a"] = dict(pred=pred, step_pred=step_pred, outside=outside, meas=meas, rel=rel,
+                    flops_ratio=flops_ratio, bound_ratio=bound_ratio)
+    # (b) phase 19's 1x2 AdamW step, rank 0
+    b = next(r for r in recs if r["job"]["what"] == "b")
+    grid = train_ranks["grids"]["1x2"]["adamw"]
+    wire_meas, peak_meas = int(grid["wire"][0]), grid["peak"][0]
+    wire_pred = b["cost_per_rank"]["collective"]["total"]
+    pred_b = b["memory_per_rank"]["peak_bytes"]
+    rel_b = abs(pred_b - peak_meas) / peak_meas
+    print(f"dry (b) {TR['arch']} AdamW 1x2, rank 0 of a fake world of 2: wire bytes a step "
+          f"{wire_pred:,} (by type {b['cost_per_rank']['collective']}) vs phase 19's counter "
+          f"{wire_meas:,}; predicted peak {gib(pred_b):.2f} GiB vs {gib(peak_meas):.2f} GiB "
+          f"(relative {rel_b:.4f})", flush=True)
+    require(wire_pred == wire_meas, f"dry (b): wire bytes {wire_pred} != phase 19's {wire_meas}")
+    require(rel_b <= DRY["peak_rel"], f"dry (b): predicted peak {pred_b} vs measured "
+                                      f"{peak_meas} (relative {rel_b:.4f})")
+    out["b"] = dict(wire=wire_pred, wire_meas=wire_meas, pred=pred_b, meas=peak_meas,
+                    rel=rel_b)
+    # (c) phase 17's 1x4 serves, rank 0
+    bytes_meas = multirank["grids"]["1x4"]["bytes"]
+    rows = [(r["job"]["name"], r["cost_per_rank"]["collective"]["total"],
+             bytes_meas[r["job"]["name"]]) for r in recs if r["job"]["what"] == "c"]
+    bad = [(n, p, m) for n, p, m in rows if p != m]
+    print(f"dry (c) phase 17's 1x4 serves, rank 0: {len(rows) - len(bad)} of {len(rows)} "
+          f"cases' wire bytes a call equal the counter's (" + "; ".join(
+              f"{n} {p:,}" for n, p, _ in rows[:4]) + "; ...)", flush=True)
+    require(not bad, f"dry (c): wire bytes differ from phase 17's counter: {bad}")
+    out["c"] = dict(cases=len(rows))
+    # (d) two production records on 16x16
+    for (arch, cell), r in prod.items():
+        require(r["status"] == "ok", f"dry (d) {arch} {cell}: status {r['status']}: "
+                                     f"{r.get('error')}")
+        m, rl = r["memory_per_rank"], r["roofline_s"]
+        print(f"dry (d) {arch} {cell} on {r['mesh']}, rank 0: peak {gib(m['peak_bytes']):.2f} "
+              f"GiB of the card's {gib(card):.2f} (arguments {gib(m['arguments']):.3f}); "
+              f"roofline compute {rl['compute'] * 1e3:.4g} / memory {rl['memory'] * 1e3:.4g} / "
+              f"collective {rl['collective'] * 1e3:.4g} ms, dominant {rl['dominant']}; "
+              f"{r['t_count_s']:.1f} s to count", flush=True)
+    print(f"dry checks: (a) and (b)'s predicted peaks within {DRY['peak_rel']} of phases 16 "
+          "and 19's max_memory_allocated; (b) and (c)'s wire bytes equal the counter's "
+          "readings of phases 19 and 17; both production records ok", flush=True)
+    return out
+
+
 def phase_profile(torch, state, protos_u, base) -> dict:
     """``--profile``: each serve mode's CALLS calls under torch.profiler."""
     out = {}
@@ -7392,6 +7553,8 @@ def main(argv: list[str]) -> int:
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"card: {card} ({kind}, {count} visible, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})", flush=True)
+    from repro_torch import compat
+    print(compat.describe(), flush=True)
     _build.library()
     print(f"build: {_build.build_seconds:.2f} s (nvcc, sm_90a, "
           f"{len(_build.SOURCES)} sources in parallel)", flush=True)
@@ -7489,6 +7652,8 @@ def main(argv: list[str]) -> int:
                      lambda: phase_nondense_train(torch, launches))
     nondense_ranks = phase("24 training of every non-dense family across ranks",
                            lambda: phase_nondense_ranks(torch, launches))
+    dryrun = phase("25 the dry run held to the card",
+                   lambda: phase_dryrun(torch, train, train_ranks, multirank))
     kernels["flash_attention_bwd"] = train["kernel_cases"]
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
@@ -7517,7 +7682,7 @@ def main(argv: list[str]) -> int:
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
             faults=fault, cont=cont, train=train, multirank=multirank, living_ranks=living,
             train_ranks=train_ranks, moe=moe_dec, ssm=ssm_dec, xd=xd_dec,
-            nondense_train=nondense, nondense_ranks=nondense_ranks,
+            nondense_train=nondense, nondense_ranks=nondense_ranks, dryrun=dryrun,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

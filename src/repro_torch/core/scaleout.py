@@ -1090,8 +1090,10 @@ def make_hdc_train(cfg: ScaleOutConfig, device: str | torch.device | None = "cud
         bipolar = 2 * ex.to(torch.int32) - 1                  # [B, d]
         keep = (labels >= lo) & (labels < lo + c_l)
         sums = torch.zeros((c_l, cfg.dim), dtype=torch.int32, device=dev)
-        rows = labels[keep] - lo if lo else labels[keep]
-        sums.index_add_(0, rows.to(torch.int64), bipolar[keep])
+        # every row added, those of other ranks' classes as zeros into row 0:
+        # no data-dependent shape (a masked select waits for the host)
+        rows = torch.where(keep, labels - lo, 0)
+        sums.index_add_(0, rows.to(torch.int64), bipolar * keep[:, None].to(torch.int32))
         for g in sh.data_groups:
             sums = collectives.all_reduce(sums, g)
         protos = (sums > 0).to(torch.uint8)

@@ -20,8 +20,13 @@ used here), so no payload is staged by this module.
 A per-process counter adds up the bytes each call moves, as operand plus
 result bytes: an all-reduce of N bytes counts 2N, an all-gather of N bytes
 over S ranks N + S*N, a reduce-scatter of N bytes N + N/S (the counting of
-`repro/analysis/hlo_cost.py`). `wire_bytes` reads it and
-`reset_wire_bytes` sets it to 0. It counts the serve's collectives only:
+`repro/analysis/hlo_cost.py`). `wire_bytes` reads the total,
+`wire_bytes_by_op` the bytes of each collective type (``all-reduce``,
+``all-gather``, ``reduce-scatter``, as the reference's HLO names them) and
+`wire_bytes_by_axis` those of each mesh axis (the axis whose group carried
+the call, as `distributed.mesh.make_mesh` labels its groups with
+`label_group`; ``"other"`` for a group it did not make), and
+`reset_wire_bytes` sets all three to 0. It counts the serve's collectives only:
 the step barrier's host-side helpers (`gather_rows`, `SharedClock`), the
 SPMD counterpart of the reference's single controller, are not counted.
 
@@ -40,17 +45,45 @@ import torch.distributed as dist
 
 from repro_torch.core import hypervector as hv
 
-_wire = [0]          # bytes moved by this process's collectives
+_by_op: dict[str, int] = {}      # bytes moved by this process's collectives, by type
+_by_axis: dict[str, int] = {}    # ... and by the mesh axis of the group that carried them
+_axis_of: dict = {}              # process group -> its mesh axis (`label_group`)
+
+
+def label_group(group, axis: str) -> None:
+    """Name the mesh axis ``group`` runs along, for `wire_bytes_by_axis`
+    (`distributed.mesh.make_mesh` labels every group it makes)."""
+    _axis_of[group] = axis
+
+
+def _count(op: str, nbytes: int, group) -> None:
+    _by_op[op] = _by_op.get(op, 0) + nbytes
+    axis = _axis_of.get(group, "other")
+    _by_axis[axis] = _by_axis.get(axis, 0) + nbytes
 
 
 def wire_bytes() -> int:
     """Bytes this process's collectives moved since the last reset."""
-    return _wire[0]
+    return sum(_by_op.values())
+
+
+def wire_bytes_by_op() -> dict[str, int]:
+    """`wire_bytes` by collective type: {"all-reduce": n, "all-gather": n,
+    "reduce-scatter": n} (types that moved nothing are left out)."""
+    return dict(_by_op)
+
+
+def wire_bytes_by_axis() -> dict[str, int]:
+    """`wire_bytes` by the mesh axis of the carrying group ("pod", "data",
+    "model", or "other" for an unlabelled group)."""
+    return dict(_by_axis)
 
 
 def reset_wire_bytes() -> int:
-    """Set the byte counter to 0; returns what it held."""
-    held, _wire[0] = _wire[0], 0
+    """Set the byte counters to 0; returns the total they held."""
+    held = wire_bytes()
+    _by_op.clear()
+    _by_axis.clear()
     return held
 
 
@@ -71,7 +104,7 @@ def all_reduce(x: torch.Tensor, group, wire_dtype: torch.dtype | None = None
         return x
     buf = x.to(wire_dtype or x.dtype, copy=True).contiguous()
     dist.all_reduce(buf, group=group)
-    _wire[0] += 2 * _nbytes(buf)
+    _count("all-reduce", 2 * _nbytes(buf), group)
     return buf.to(x.dtype)
 
 
@@ -82,7 +115,7 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     flat = x.reshape(-1).contiguous()
     out = torch.empty((ranks(group) * flat.numel(),), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, flat, group=group)
-    _wire[0] += _nbytes(flat) + _nbytes(out)
+    _count("all-gather", _nbytes(flat) + _nbytes(out), group)
     return out.reshape((-1,) + tuple(x.shape))
 
 
@@ -105,7 +138,7 @@ def reduce_scatter_last(x: torch.Tensor, group) -> torch.Tensor:
     inp = x.reshape(tuple(x.shape[:-1]) + (s, n // s)).movedim(-2, 0).contiguous()
     out = torch.empty((inp.numel() // s,), dtype=x.dtype, device=x.device)
     dist.reduce_scatter_tensor(out, inp.reshape(-1), group=group)
-    _wire[0] += _nbytes(inp) + _nbytes(out)
+    _count("reduce-scatter", _nbytes(inp) + _nbytes(out), group)
     return out.reshape(tuple(inp.shape[1:]))
 
 
@@ -380,7 +413,7 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
         return x
     buf = x.clone().contiguous()
     dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
-    _wire[0] += 2 * _nbytes(buf)
+    _count("all-reduce", 2 * _nbytes(buf), group)
     return buf
 
 

@@ -18,6 +18,8 @@ from typing import Sequence
 
 import torch.distributed as dist
 
+from repro_torch.distributed import collectives
+
 
 @dataclasses.dataclass(frozen=True)
 class RankMesh:
@@ -72,6 +74,7 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> RankMesh:
             for rest in itertools.product(*others):
                 line = [_ravel(rest[:ax] + (j,) + rest[ax:], shape) for j in range(size)]
                 g = dist.new_group(line)
+                collectives.label_group(g, axes[ax])
                 if rank in line:
                     mine = g
         groups.append(mine)

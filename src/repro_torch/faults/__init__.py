@@ -5,8 +5,9 @@ host-side failover planner and the combo-wire erasure helpers.
 through the serve when built with ``faults=``; `serving.FaultController`
 promotes persistently quarantined cores to a failover remap at the step
 barrier. `shard_fstate` (the reference's ``fstate_spec``) cuts a model
-rank's rows and `gather_fstate` gathers them back at the barrier; the AOT
-helper ``fstate_shape_structs`` waits for the dry run (ROADMAP §1)."""
+rank's rows and `gather_fstate` gathers them back at the barrier;
+`fstate_shape_structs` gives an empty state's shapes to the dry run
+(`launch.dryrun`)."""
 from repro_torch.faults.model import (
     FAULTS,
     FaultModel,
@@ -14,6 +15,7 @@ from repro_torch.faults.model import (
     StaticFaults,
     TransientVoteFaults,
     WearoutFaults,
+    fstate_shape_structs,
     gather_fstate,
     get_fault_model,
     healthy_for,
@@ -36,6 +38,7 @@ __all__ = [
     "StaticFaults",
     "TransientVoteFaults",
     "WearoutFaults",
+    "fstate_shape_structs",
     "gather_fstate",
     "get_fault_model",
     "healthy_for",

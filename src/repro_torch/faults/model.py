@@ -118,6 +118,21 @@ def healthy_for(cfg, device: str | torch.device | None = "cuda", *,
     return healthy_state(cfg.n_rx_cores, m_slots, cfg.words, device)
 
 
+def fstate_shape_structs(n_rx: int, m_slots: int, words: int, device="meta") -> FaultState:
+    """An empty `FaultState` on ``device`` (meta by default; fake under a
+    FakeTensorMode): the shapes and dtypes of `healthy_state` (the stuck
+    masks int32 words, the reference's uint32 bits), for the dry run's
+    ``serve_faulty`` cells (the reference's ``fstate_shape_structs``)."""
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    return FaultState(
+        dead_tx=empty((m_slots,), torch.bool), vote_drop=empty((m_slots,), torch.bool),
+        dead_rx=empty((n_rx,), torch.bool), stuck0=empty((n_rx, words), torch.int32),
+        stuck1=empty((n_rx, words), torch.int32), serve_rows=empty((n_rx,), torch.int32),
+        rx_mask=empty((n_rx,), torch.bool), t=empty((), torch.int32))
+
+
 RX_LEAVES = ("dead_rx", "stuck0", "stuck1", "serve_rows", "rx_mask")   # [N]-leading
 
 

@@ -137,9 +137,21 @@ def library() -> ctypes.CDLL:
 
 def launch(entry: str, *args) -> None:
     """Call C entry `entry` on PyTorch's current stream; raise if the launch
-    was refused (the entry returns ``cudaGetLastError()``)."""
+    was refused (the entry returns ``cudaGetLastError()``). A tensor
+    argument passes its data pointer (None a null pointer); a fake tensor
+    raises, since it has no memory to hand a kernel."""
     import torch
 
+    from repro_torch.kernels.common import is_fake
+
+    def pointer(a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        if is_fake(a):
+            raise RuntimeError(f"{entry}: a fake tensor reached the kernel launch")
+        return a.data_ptr()
+
+    args = tuple(pointer(a) for a in args)
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(library(), entry)(*args, stream)
     if err != 0:

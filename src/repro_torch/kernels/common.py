@@ -4,9 +4,22 @@ Counterpart of `repro/kernels/common.py` (`pad_dim`, `cdiv`,
 `hamming_blocks`), plus what the torch side needs on top: a SWAR popcount
 (torch has no popcount op) and the device dispatch every wrapper follows —
 CPU tensors run the plain ``ref.py`` twin, CUDA tensors launch the kernel,
-anything else raises.
+fake tensors (`torch._subclasses.fake_tensor.FakeTensor`, of any device)
+take the wrapper's fake branch, anything else raises.
+
+The fake branch is the wrapper's fake implementation, the role
+``register_fake`` plays for a ``torch.library`` op: the wrapper makes its
+kernel's outputs, shaped and typed as the kernel's (and any scratch the
+kernel's launch allocates), and records its family's ``cost()`` — (bytes
+moved, operations, their kind) — with every active recorder
+(`recording`; `analysis.op_cost` is one) in place of the launch. It is not
+a fallback: it runs only on fake tensors, which hold no data, and a real
+CUDA tensor still goes to the kernel or raises (`_build.launch` refuses a
+fake tensor).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -63,10 +76,29 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# H100 SXM streaming multiprocessors: the launch plans' SM count for fake
+# tensors, which stand for the card and have no device to ask
+FAKE_SMS = 132
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (no data; a shape, dtype and device)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
 def dispatch(name: str, *tensors: torch.Tensor) -> str:
-    """"cpu" (run the plain version) or "cuda" (launch the kernel) for the
-    wrapper `name`; raises for mixed or other devices. Never a fallback:
-    a CUDA tensor always goes to the kernel."""
+    """"cpu" (run the plain version), "cuda" (launch the kernel) or "fake"
+    (fake tensors of any device: make the outputs and record the cost) for
+    the wrapper `name`; raises for mixed fake and real tensors and for mixed
+    or other devices. Never a fallback: a CUDA tensor always goes to the
+    kernel."""
+    fake = [is_fake(t) for t in tensors]
+    if any(fake):
+        if not all(fake):
+            raise ValueError(f"{name}: fake and real tensors mixed")
+        return "fake"
     kinds = {t.device.type for t in tensors}
     if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
         raise ValueError(f"{name}: tensors must all lie on the CPU or all on "
@@ -89,3 +121,43 @@ def check_contiguous(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# the fake branch's cost records
+# ---------------------------------------------------------------------------
+
+_recorders: list = []
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Within the block, every fake launch calls ``recorder.kernel(name,
+    nbytes, ops, kind)`` when it starts and ``recorder.kernel_done()`` when
+    its outputs are made (the aten ops in between make the kernel's outputs
+    and are the kernel's, not work of their own)."""
+    _recorders.append(recorder)
+    try:
+        yield recorder
+    finally:
+        _recorders.remove(recorder)
+
+
+@contextlib.contextmanager
+def fake_launch(name: str, cost: tuple):
+    """The fake branch of wrapper ``name``: records ``cost`` = (bytes moved,
+    operations, their kind) with every active recorder; the block makes the
+    kernel's outputs."""
+    for r in _recorders:
+        r.kernel(name, *cost)
+    try:
+        yield
+    finally:
+        for r in _recorders:
+            r.kernel_done()
+
+
+def record_launch(name: str, cost: tuple) -> None:
+    """A fake launch whose outputs are already made: records ``cost``."""
+    with fake_launch(name, cost):
+        pass

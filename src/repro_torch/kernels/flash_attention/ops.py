@@ -3,14 +3,18 @@ an online softmax), its backward, and the autograd function that joins them.
 
 A wrapper given CPU tensors runs the plain version in `ref.py`; given CUDA
 tensors it launches the kernel of ``csrc/flash_attention.cu`` or
-``csrc/flash_attention_bwd.cu`` (and counts the launch) or raises.
+``csrc/flash_attention_bwd.cu`` (and counts the launch) or raises; given
+fake tensors it makes the kernel's outputs and records its cost
+(`fwd_cost`, `bwd_cost`; `kernels.common.fake_launch`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_contiguous, dispatch
+import functools
+
+from repro_torch.kernels.common import check_contiguous, dispatch, is_fake, record_launch
 from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
 
 # Head dims both kernels are instantiated for (csrc/flash_attention.cu and
@@ -19,6 +23,46 @@ from repro_torch.kernels.flash_attention.ref import flash_bwd_ref, flash_fwd_ref
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID = 65535   # grid y limit
+
+
+@functools.lru_cache(maxsize=1024)
+def attention_pairs(sq: int, skv: int, causal: bool, window: int, q_offset: int) -> int:
+    """The (query, key) pairs of one head that the mask keeps: the work these
+    inputs need (query i at position q_offset + i; a row that sees no key
+    takes the mean of V over all Skv keys, as the reference gives it)."""
+    n = 0
+    for i in range(sq):
+        qp = q_offset + i
+        hi = min(skv, qp + 1) if causal else skv
+        lo = max(0, qp - window + 1) if window > 0 else 0
+        n += hi - lo if hi > lo else skv
+    return n
+
+
+def _kind(dtype: torch.dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def fwd_cost(b: int, sq: int, skv: int, h: int, kh: int, d: int, causal: bool, window: int,
+             q_offset: int, dtype: torch.dtype) -> tuple[int, int, str]:
+    """(bytes, operations, kind) of the forward: q, k, v read and the output
+    written once; 4 operations a kept (query, key) pair and head dimension
+    (the S and P V products), at the inputs' type."""
+    es = dtype.itemsize
+    return (es * 2 * b * d * (sq * h + skv * kh),
+            4 * b * h * d * attention_pairs(sq, skv, bool(causal), int(window), int(q_offset)),
+            _kind(dtype))
+
+
+def bwd_cost(b: int, sq: int, skv: int, h: int, kh: int, d: int, causal: bool, window: int,
+             q_offset: int, dtype: torch.dtype) -> tuple[int, int, str]:
+    """(bytes, operations, kind) of the backward: q, out, dout, dq and k, v,
+    dk, dv read or written once, and the f32 log-sum-exp; 10 operations a
+    kept pair and head dimension (S and dP recomputed, dQ, dK, dV)."""
+    es = dtype.itemsize
+    return (es * (4 * b * sq * h * d + 4 * b * skv * kh * d) + 4 * b * h * sq,
+            10 * b * h * d * attention_pairs(sq, skv, bool(causal), int(window), int(q_offset)),
+            _kind(dtype))
 
 
 def _check_qkv(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -49,7 +93,7 @@ def _check_launch(name: str, d: int, *tensors: torch.Tensor) -> None:
     _check_head_dim(name, d)
     check_contiguous(name, *tensors)
     for t in tensors:
-        if t.data_ptr() % 16:
+        if not is_fake(t) and t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
 
 
@@ -67,7 +111,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     window, q_offset = int(window), int(q_offset)
-    if dispatch("flash_attention_fwd", q, k, v) == "cpu":
+    mode = dispatch("flash_attention_fwd", q, k, v)
+    if mode == "cpu":
         return flash_fwd_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
                              block_q=block_q, block_k=block_k, return_lse=return_lse)
     _check_launch("flash_attention_fwd", d, q, k, v)
@@ -77,9 +122,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    if out.numel():
-        _build.launch("flash_attention_fwd_launch", q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+    if out.numel() and mode == "fake":
+        record_launch("flash_attention_fwd",
+                      fwd_cost(b, sq, skv, h, kh, d, causal, window, q_offset, q.dtype))
+    elif out.numel():
+        _build.launch("flash_attention_fwd_launch", q, k, v, out, lse,
                       b, sq, skv, h, kh, d, int(bool(causal)), window, q_offset,
                       int(q.dtype == torch.bfloat16))
         flash_attention_fwd.launches += 1
@@ -112,7 +159,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     window, q_offset = int(window), int(q_offset)
     dout = dout.to(q.dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    if dispatch("flash_attention_bwd", q, k, v, out, lse, dout) == "cpu":
+    mode = dispatch("flash_attention_bwd", q, k, v, out, lse, dout)
+    if mode == "cpu":
         return flash_bwd_ref(q, k, v, out, lse, dout, block_q=block_q, block_k=block_k, **kw)
     dout = dout.contiguous()
     _check_launch("flash_attention_bwd", d, q, k, v, out, lse, dout)
@@ -121,10 +169,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
         raise ValueError("flash_attention_bwd: sizes beyond the kernel's grid or int positions")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    if dq.numel():
-        _build.launch("flash_attention_bwd_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kh, d,
+    if dq.numel() and mode == "fake":
+        record_launch("flash_attention_bwd",
+                      bwd_cost(b, sq, skv, h, kh, d, causal, window, q_offset, q.dtype))
+    elif dq.numel():
+        _build.launch("flash_attention_bwd_launch", q, k, v, out, dout, lse, delta,
+                      dq, dk, dv, b, sq, skv, h, kh, d,
                       int(bool(causal)), window, q_offset, int(q.dtype == torch.bfloat16))
         flash_attention_bwd.launches += 1
     else:

@@ -3,7 +3,9 @@ per-bank top-1 and top-k.
 
 Packed words are int32 tensors holding the reference's uint32 bits. A wrapper
 given CPU tensors runs the plain version in `ref.py`; given CUDA tensors it
-launches the kernel of ``csrc/hamming.cu`` (and counts the launch) or raises.
+launches the kernel of ``csrc/hamming.cu`` (and counts the launch) or raises;
+given fake tensors it makes the kernel's outputs and records its cost
+(`search_cost`, `topk_cost`; `kernels.common.fake_launch`).
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import cdiv, check, check_contiguous, dispatch
+from repro_torch.kernels.common import (FAKE_SMS, cdiv, check, check_contiguous, dispatch,
+                                        fake_launch, record_launch)
 from repro_torch.kernels.hamming.ref import (
     hamming_search_banked_ref,
     hamming_search_ref,
@@ -72,6 +75,31 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _sms(mode: str, t: torch.Tensor) -> int:
+    return FAKE_SMS if mode == "fake" else _sm_count(t.device.index)
+
+
+def search_cost(g: int, b: int, c: int, w: int) -> tuple[int, int, str]:
+    """(bytes, operations, kind) of the search of g banks of b queries
+    against c classes of w words: every query and class word read once,
+    the int32 distances written; 2 operations a bit product (AND + popcount
+    on the 1-bit tensor cores)."""
+    return 4 * g * (b + c) * w + 4 * g * b * c, 2 * g * b * c * 32 * w, "b1"
+
+
+def topk_cost(g: int, b: int, c_real: int, w: int, k: int = 1,
+              table_rows: int | None = None) -> tuple[int, int, str]:
+    """(bytes, operations, kind) of the fused top-1 (k = 1) or top-k of g
+    banks: the queries and each bank's c_real classes read once, k (distance,
+    index) pairs a query written. With ``table_rows`` (T) the banks are rows
+    ``bank_rows`` of a [T, C, W] table: the table's T * c_real classes and
+    the g row ids are read instead."""
+    classes = g * c_real if table_rows is None else table_rows * c_real
+    extra = 0 if table_rows is None else 4 * g
+    return (4 * (g * b + classes) * w + extra + 8 * g * b * k, 2 * g * b * c_real * 32 * w,
+            "b1")
+
+
 def hamming_search(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
     """Hamming distances between packed queries [.., W] and prototypes [C, W]
     -> int32 [.., C]."""
@@ -82,15 +110,17 @@ def hamming_search(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
     if protos.shape[1] != w:
         raise ValueError(f"word counts differ: {tuple(q.shape)} vs {tuple(protos.shape)}")
     b, c = qf.shape[0], protos.shape[0]
-    if dispatch("hamming_search", qf, protos) == "cpu":
+    mode = dispatch("hamming_search", qf, protos)
+    if mode == "cpu":
         return hamming_search_ref(qf, protos).reshape(lead + (c,))
     check_contiguous("hamming_search", qf, protos)
     if b > MAX_GRID * 32:
         raise ValueError(f"hamming_search: B={b} beyond the kernel's limits")
     out = torch.empty((b, c), dtype=torch.int32, device=q.device)
-    if b and c:
-        _build.launch("hamming_search_banked_launch", qf.data_ptr(), protos.data_ptr(),
-                      out.data_ptr(), 1, b, c, w)
+    if b and c and mode == "fake":
+        record_launch("hamming_search", search_cost(1, b, c, w))
+    elif b and c:
+        _build.launch("hamming_search_banked_launch", qf, protos, out, 1, b, c, w)
         hamming_search.launches += 1
     return out.reshape(lead + (c,))
 
@@ -108,15 +138,17 @@ def hamming_search_banked(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor
     if protos.shape[0] != g or protos.shape[2] != w:
         raise ValueError(f"bank shapes differ: {tuple(q.shape)} vs {tuple(protos.shape)}")
     c = protos.shape[1]
-    if dispatch("hamming_search_banked", q, protos) == "cpu":
+    mode = dispatch("hamming_search_banked", q, protos)
+    if mode == "cpu":
         return hamming_search_banked_ref(q, protos)
     check_contiguous("hamming_search_banked", q, protos)
     if g > MAX_GRID or b > MAX_GRID * 32:
         raise ValueError(f"hamming_search_banked: G={g} or B={b} beyond the kernel's limits")
     out = torch.empty((g, b, c), dtype=torch.int32, device=q.device)
-    if g and b and c:
-        _build.launch("hamming_search_banked_launch", q.data_ptr(), protos.data_ptr(),
-                      out.data_ptr(), g, b, c, w)
+    if g and b and c and mode == "fake":
+        record_launch("hamming_search_banked", search_cost(g, b, c, w))
+    elif g and b and c:
+        _build.launch("hamming_search_banked_launch", q, protos, out, g, b, c, w)
         hamming_search_banked.launches += 1
     return out
 
@@ -160,7 +192,8 @@ def hamming_topk_k_banked(
     g, b, w = q.shape
     if not 1 <= k <= c_real:
         raise ValueError(f"k={k} outside [1, {c_real}]")
-    if dispatch("hamming_topk_k_banked", q, protos) == "cpu":
+    mode = dispatch("hamming_topk_k_banked", q, protos)
+    if mode == "cpu":
         return hamming_topk_k_banked_ref(q, protos, k, c_real)
     check_contiguous("hamming_topk_k_banked", q, protos)
     if k > MAX_K:
@@ -171,15 +204,16 @@ def hamming_topk_k_banked(
     dist = torch.empty((g, b, k), dtype=torch.int32, device=q.device)
     idx = torch.empty((g, b, k), dtype=torch.int32, device=q.device)
     if g and b:
-        splits = plan(g, b, c_real, _sm_count(q.device.index))
+        splits = plan(g, b, c_real, _sms(mode, q))
         # the split lists (dist, idx) before their merge; none for one split
         scratch = [torch.empty((splits, g, b, k), dtype=torch.int32, device=q.device)
                    if splits > 1 else None for _ in range(2)]
-        _build.launch("hamming_topk_k_banked_launch", q.data_ptr(), protos.data_ptr(),
-                      dist.data_ptr(), idx.data_ptr(),
-                      *(None if t is None else t.data_ptr() for t in scratch),
-                      g, b, protos.shape[1], w, c_real, k, splits)
-        hamming_topk_k_banked.launches += 1
+        if mode == "fake":
+            record_launch("hamming_topk_k_banked", topk_cost(g, b, c_real, w, k))
+        else:
+            _build.launch("hamming_topk_k_banked_launch", q, protos, dist, idx, *scratch,
+                          g, b, protos.shape[1], w, c_real, k, splits)
+            hamming_topk_k_banked.launches += 1
     return dist, idx
 
 
@@ -210,10 +244,18 @@ def hamming_topk_banked(
     """
     c_real = _banks("hamming_topk_banked", q, protos, bank_rows, c_real)
     rows = () if bank_rows is None else (bank_rows,)
-    if dispatch("hamming_topk_banked", q, protos, *rows) == "cpu":
+    mode = dispatch("hamming_topk_banked", q, protos, *rows)
+    if mode == "cpu":
         if k is None:
             return hamming_topk_banked_ref(q, protos, c_real, bank_rows)
         return hamming_topk_k_banked_ref(q, protos, k, c_real, bank_rows)
+    if mode == "fake" and bank_rows is not None:
+        # the whole call, the rows' gather included, as one cost
+        name = "hamming_topk_banked" if k is None else "hamming_topk_k_banked"
+        with fake_launch(name, topk_cost(q.shape[0], q.shape[1], c_real, q.shape[2], k or 1,
+                                         table_rows=protos.shape[0])):
+            return hamming_topk_banked(q, protos.index_select(0, bank_rows), k=k,
+                                       c_real=c_real)
     if bank_rows is not None:
         protos = protos.index_select(0, bank_rows)                # [G, C, W]
     if k is not None:
@@ -225,15 +267,16 @@ def hamming_topk_banked(
     dist = torch.empty((g, b), dtype=torch.int32, device=q.device)
     idx = torch.empty((g, b), dtype=torch.int32, device=q.device)
     if g and b:
-        bm, splits = plan_top1(g, b, c_real, _sm_count(q.device.index))
+        bm, splits = plan_top1(g, b, c_real, _sms(mode, q))
         # the split results (dist, idx) before their merge; none for one split
         scratch = [torch.empty((splits, g, b), dtype=torch.int32, device=q.device)
                    if splits > 1 else None for _ in range(2)]
-        _build.launch("hamming_topk_banked_launch", q.data_ptr(), protos.data_ptr(),
-                      dist.data_ptr(), idx.data_ptr(),
-                      *(None if t is None else t.data_ptr() for t in scratch),
-                      g, b, protos.shape[1], w, c_real, bm, splits)
-        hamming_topk_banked.launches += 1
+        if mode == "fake":
+            record_launch("hamming_topk_banked", topk_cost(g, b, c_real, w))
+        else:
+            _build.launch("hamming_topk_banked_launch", q, protos, dist, idx, *scratch,
+                          g, b, protos.shape[1], w, c_real, bm, splits)
+            hamming_topk_banked.launches += 1
     return dist, idx
 
 

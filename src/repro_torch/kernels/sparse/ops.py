@@ -5,6 +5,8 @@ Queries are int32 index lists, each SORTED ascending and padded at the end
 with ``SENTINEL``, their entries in [0, 32*W); prototypes are packed int32
 words. The kernels rely on the order: they walk each list once and stop at
 its first SENTINEL (an unsorted list gives wrong distances on the card).
+A wrapper given fake tensors makes the kernel's outputs and records its
+cost (`search_cost`, `topk_cost`; `kernels.common.fake_launch`).
 A wrapper given CPU tensors runs the plain version in `ref.py`; given CUDA
 tensors it launches the kernels of ``csrc/sparse.cu`` (and counts the
 launch) or raises, also where the kernels refuse the shape (W of 2^26 words
@@ -20,7 +22,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import cdiv, check, check_contiguous, dispatch
+from repro_torch.kernels.common import cdiv, check, check_contiguous, dispatch, record_launch
 from repro_torch.kernels.sparse.ref import sparse_search_ref, sparse_topk_banked_ref
 
 # csrc/sparse.cu's constants
@@ -33,6 +35,28 @@ MAX_W = 1 << 26            # rows of MAX_W words or more: a bit index leaves int
 SMEM_BUDGET = 213 * 1024   # a block's shared memory: one block an SM
 SMS = 132                  # H100 SXM streaming multiprocessors
 MAX_SPLITS = 8             # splits of a walk over W, unless fewer blocks leave SMs idle
+
+
+def search_cost(b: int, c: int, w: int, k: int, live: int | None = None
+                ) -> tuple[int, int, str]:
+    """(bytes, operations, kind) of b index lists of k slots against c
+    packed classes of w words: the lists and the classes read once, the
+    int32 distances written; one gathered bit test a live index and class
+    (``live`` indices in all, by default every slot: a fake tensor holds no
+    data to count). Gathers have no tensor-core peak: bound by the bytes."""
+    live = b * k if live is None else live
+    return 4 * (b * k + c * w + b * c), live * c, "gather"
+
+
+def topk_cost(g: int, b: int, c: int, w: int, k: int, c_real: int | None = None,
+              live: int | None = None) -> tuple[int, int, str]:
+    """(bytes, operations, kind) of the fused sparse top-1 of g banks: the
+    lists and each bank's c classes read once, the (distance, index) pairs
+    written; operations as `search_cost` over the c_real (default c)
+    classes that rank."""
+    live = g * b * k if live is None else live
+    return (4 * g * (b * k + c * w) + 8 * g * b, live * (c if c_real is None else c_real),
+            "gather")
 
 
 def landing_stride(wseg: int) -> int:
@@ -115,7 +139,8 @@ def sparse_search(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
     check("sparse_search protos", protos, torch.int32, 2)
     b, k = q.shape
     c, w = protos.shape
-    if dispatch("sparse_search", q, protos) == "cpu":
+    mode = dispatch("sparse_search", q, protos)
+    if mode == "cpu":
         return sparse_search_ref(q, protos)
     check_contiguous("sparse_search", q, protos)
     if not (b and c):
@@ -124,7 +149,10 @@ def sparse_search(q: torch.Tensor, protos: torch.Tensor) -> torch.Tensor:
     # split walks add their partial distances into a zeroed output
     out = (torch.zeros if pl.splits > 1 else torch.empty)(
         (b, c), dtype=torch.int32, device=q.device)
-    _build.launch("sparse_search_launch", q.data_ptr(), protos.data_ptr(), out.data_ptr(),
+    if mode == "fake":
+        record_launch("sparse_search", search_cost(b, c, w, k))
+        return out
+    _build.launch("sparse_search_launch", q, protos, out,
                   b, c, w, k, pl.qpw, pl.wseg, pl.stride, pl.splits)
     sparse_search.launches += 1
     return out
@@ -150,17 +178,20 @@ def sparse_topk_banked(
     c_real = c if c_real is None else c_real
     if not 0 < c_real <= c:
         raise ValueError(f"c_real={c_real} outside (0, {c}]")
-    if dispatch("sparse_topk_banked", q, protos) == "cpu":
+    mode = dispatch("sparse_topk_banked", q, protos)
+    if mode == "cpu":
         return sparse_topk_banked_ref(q, protos, c_real)
     check_contiguous("sparse_topk_banked", q, protos)
     dist = torch.empty((g, b), dtype=torch.int32, device=q.device)
     idx = torch.empty((g, b), dtype=torch.int32, device=q.device)
     if g and b:
         pl = plan(b, c_real, w, banks=g)
-        _build.launch("sparse_topk_banked_launch", q.data_ptr(), protos.data_ptr(),
-                      dist.data_ptr(), idx.data_ptr(), g, b, c, w, k, c_real,
-                      pl.qpw, pl.wseg, pl.stride)
-        sparse_topk_banked.launches += 1
+        if mode == "fake":
+            record_launch("sparse_topk_banked", topk_cost(g, b, c, w, k, c_real))
+        else:
+            _build.launch("sparse_topk_banked_launch", q, protos, dist, idx,
+                          g, b, c, w, k, c_real, pl.qpw, pl.wseg, pl.stride)
+            sparse_topk_banked.launches += 1
     return dist, idx
 
 

@@ -4,9 +4,18 @@
 ``file://`` store, builds each rank's `distributed.mesh.RankMesh`, runs a
 function on every rank and returns what each rank returned.
 `make_host_mesh` lays the initialized world out as ("data", "model").
+
+The production meshes (`make_production_mesh`): (16, 16) over ("data",
+"model") and (2, 16, 16) over ("pod", "data", "model"), the reference's
+layouts (`repro/launch/mesh.py`). No host holds 256 or 512 cards: the dry
+run (`launch.dryrun`) builds them from one rank's view over a fake world
+(`fake_world`), a default process group of the "fake" backend, in which
+every collective returns at once and sends nothing, so that one process
+traces a rank's step with its real groups and its real wire counts.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import queue
@@ -36,6 +45,35 @@ def make_host_mesh() -> RankMesh:
     process group)."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     return make_mesh(host_mesh_shape(n), ("data", "model"))
+
+
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0):
+    """A default process group of ``world`` ranks of the "fake" backend
+    (``torch.testing``'s fake process group), this process being ``rank``:
+    every collective on it returns at once and moves nothing. Destroyed on
+    leaving the block."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(multi_pod: bool = False) -> RankMesh:
+    """This rank's production mesh: (16, 16) ("data", "model"), or with
+    ``multi_pod`` (2, 16, 16) ("pod", "data", "model"); over the initialized
+    world of 256 or 512 ranks (a `fake_world` on one host)."""
+    shape, axes = PRODUCTION[multi_pod]
+    return make_mesh(shape, axes)
 
 
 # ---------------------------------------------------------------------------

@@ -98,6 +98,22 @@ def shard_state(state: ChannelState, rx_base: int, n_cores: int) -> ChannelState
                                          for f in RX_FIELDS})
 
 
+def state_shape_structs(n_rx: int, m_tx: int, device="meta") -> ChannelState:
+    """An empty `ChannelState` of ``n_rx`` cores and ``m_tx`` TXs on
+    ``device`` (meta by default; fake under a FakeTensorMode): the shapes
+    and dtypes of `state_from_ber` / `state_from_ota`, for the dry run's
+    cells without the EM pipeline (the reference's ``state_shape_structs``)."""
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    return ChannelState(
+        ber=empty((n_rx,), torch.float32), valid=empty((n_rx,), torch.bool),
+        h=empty((n_rx, m_tx), torch.complex64), phase_idx=empty((m_tx, 2), torch.int32),
+        symbols=empty((n_rx, 2 ** m_tx), torch.complex64),
+        c0=empty((n_rx,), torch.complex64), c1=empty((n_rx,), torch.complex64),
+        n0=empty((), torch.float32))
+
+
 def combo_index(bits: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """TX bit combo index along `axis`: bits [.., M, ..] {0,1} -> int32 [..],
     LSB-first as `ota.bit_combos`."""

@@ -54,7 +54,7 @@ import torch
 
 from repro_torch.core import em, ota
 from repro_torch.distributed import collectives
-from repro_torch.phy.channel import RX_FIELDS, ChannelState, shard_state
+from repro_torch.phy.channel import RX_FIELDS, ChannelState, shard_state, state_shape_structs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +112,22 @@ def process_generators(seed: int, device: str | torch.device = "cuda") -> Proces
 
 
 RX_LEAVES = ("base_h", "phase", "fade", "igain", "est", "quarantine")  # [N]-leading, besides chan
+
+
+def pstate_shape_structs(n_rx: int, m_tx: int, device="meta") -> ProcessState:
+    """An empty `ProcessState` on ``device`` (meta by default; fake under a
+    FakeTensorMode): the shapes and dtypes of `ChannelProcess.init`, for
+    the dry run's ``serve_adaptive`` cells without the EM pipeline (the
+    reference's ``pstate_shape_structs``)."""
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    return ProcessState(
+        chan=state_shape_structs(n_rx, m_tx, device),
+        base_h=empty((n_rx, m_tx), torch.complex64), phase=empty((n_rx, m_tx), torch.float32),
+        fade=empty((n_rx,), torch.float32), igain=empty((n_rx,), torch.complex64),
+        est=empty((n_rx,), torch.float32), quarantine=empty((n_rx,), torch.bool),
+        t=empty((), torch.int32))
 
 
 def shard_pstate(pstate: ProcessState, rx_base: int, n_cores: int) -> ProcessState:

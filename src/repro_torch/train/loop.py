@@ -60,6 +60,7 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 @dataclasses.dataclass
 class TrainFns:
     step: Callable          # (params, opt_state, batch, generator) -> (params, opt_state, metrics)
+    #                         (``local=True``: the batch is this data rank's rows already)
     init: Callable          # (seed) -> (params, opt_state): this rank's shards
     abstract: Callable      # () -> (params, opt_state) as global meta tensors: the structure
     device: torch.device
@@ -112,7 +113,9 @@ def build_train_fns(model, opt_cfg: opt_lib.OptConfig, *, mesh=None, microbatch:
     every rank of the mesh builds and calls the step alike: ``init`` gives
     its shards of the parameters and optimizer state (`TrainFns.placements`
     place them), the step takes the global batch and cuts its data rows,
-    and the metrics are the global step's on every rank."""
+    and the metrics are the global step's on every rank. A rank that holds
+    its rows of the batch already (the dry run, `launch.dryrun`) passes
+    ``local=True``."""
     dev = resolve(device)
     if opt_cfg.kind not in ("adamw", "sign_majority"):
         raise ValueError(opt_cfg.kind)
@@ -184,9 +187,12 @@ def build_train_fns(model, opt_cfg: opt_lib.OptConfig, *, mesh=None, microbatch:
                 {k: collectives.all_reduce_groups(v, dgroups) for k, v in metrics.items()})
 
     zero1 = opt_lib.Zero1(mesh, pp, zp) if mesh is not None else None
+    def rows(batch, local):
+        return batch if local else _rows(batch, mesh, dpos)
+
     if opt_cfg.kind == "adamw":
-        def step(params, opt_state, batch, generator=None):
-            loss, metrics, grads = accumulate(params, _rows(batch, mesh, dpos))
+        def step(params, opt_state, batch, generator=None, *, local=False):
+            loss, metrics, grads = accumulate(params, rows(batch, local))
             loss, metrics = global_metrics(loss, metrics)
             params, opt_state, om = opt_lib.adamw_update(opt_cfg, grads, opt_state, params,
                                                          zero1)
@@ -196,8 +202,8 @@ def build_train_fns(model, opt_cfg: opt_lib.OptConfig, *, mesh=None, microbatch:
     else:
         vote_group = dgroups if len(dgroups) > 1 else (dgroups[0] if dgroups else None)
 
-        def step(params, opt_state, batch, generator=None):
-            loss, metrics, grads = accumulate(params, _rows(batch, mesh, dpos))
+        def step(params, opt_state, batch, generator=None, *, local=False):
+            loss, metrics, grads = accumulate(params, rows(batch, local))
             loss, metrics = global_metrics(loss, metrics)
             votes = tree_map(lambda g: collectives.sign_allreduce(
                 g, group=vote_group, generator=generator, ber=ota_ber), grads)

@@ -23,7 +23,9 @@ v as `distributed.sharding.zero1_axes` places them, takes the matching
 piece of the gradient reduced over the data ranks (a reduce-scatter, or the
 piece of what the parameter's own all-gather backward reduce-scattered),
 updates that piece of the parameter and all-gathers it over the data ranks
-into its parameter shard. The clipping norm counts every element once
+into its parameter shard. Over a data axis that a parameter and its
+moments cut alike nothing is gathered or narrowed: the piece is already
+the other's block there. The clipping norm counts every element once
 across the model group and the data pieces, so it is one rank's norm.
 Signum's momentum sits where the parameter does (`strip_dp`: no data
 axis) and its update is local.
@@ -106,31 +108,77 @@ def _data_groups(mesh, axes) -> list:
     return [mesh.group(a) for a in axes]
 
 
-def _piece(x: torch.Tensor, cut, pl: Placement, mesh) -> torch.Tensor:
-    """This rank's piece of a data cut of ``x`` (whole over the data)."""
-    if cut is None:
-        return x
-    d = cut[0]
-    n = x.shape[d] // pl.pieces(mesh, d)
-    return x.narrow(d, pl.index(mesh, d) * n, n)
+def _dp_cuts(pl: Placement) -> list:
+    """The cuts of ``pl`` over data axes, [(dimension, axes)] in its order
+    (on a pod mesh a leaf may have two: ``fsdp`` on the layer axis over
+    ``pod`` alone where the layers do not divide pod x data, and ``embed``
+    over ``data``)."""
+    return [(d, axes) for d, axes in pl.cuts if any(a in DP_AXES for a in axes)]
+
+
+def _shared(src: Placement, dst: Placement) -> dict:
+    """{dimension: the leading data axes its cut in ``src`` and in ``dst``
+    share}: over those a piece placed by one is already the other's block
+    (a dimension's cut nests its axes major first)."""
+    cuts = dict(_dp_cuts(dst))
+    out = {}
+    for d, axes in _dp_cuts(src):
+        k = 0
+        while k < min(len(axes), len(cuts.get(d, ()))) and axes[k] == cuts[d][k]:
+            k += 1
+        out[d] = axes[:k]
+    return out
+
+
+def _gather_unshared(x: torch.Tensor, src: Placement, dst: Placement, mesh) -> torch.Tensor:
+    """``x`` (a piece placed by ``src``) gathered over the data axes of
+    ``src``'s cuts that ``dst`` does not share."""
+    kept = _shared(src, dst)
+    for d, axes in reversed(_dp_cuts(src)):
+        x = gather_cut(x, (d, axes[len(kept[d]):]), mesh)
+    return x
+
+
+def _unshared_cuts(src: Placement, dst: Placement) -> list:
+    """[(dimension, axis)]: ``dst``'s data cuts beyond what ``src`` shares,
+    major axis first."""
+    kept = _shared(src, dst)
+    return [(d, a) for d, axes in _dp_cuts(dst) for a in axes[len(kept.get(d, ())):]]
+
+
+def _narrow(x: torch.Tensor, d: int, a: str, mesh) -> torch.Tensor:
+    n = x.shape[d] // mesh.axis_size(a)
+    return x.narrow(d, mesh.index(a) * n, n)
+
+
+def _move(x: torch.Tensor, src: Placement, dst: Placement, mesh) -> torch.Tensor:
+    """``x`` (a piece placed by ``src`` over the data axes) as ``dst``
+    places it: gathered over the data axes the two do not share, then
+    narrowed to this rank's block of ``dst``'s."""
+    x = _gather_unshared(x, src, dst, mesh)
+    for d, a in _unshared_cuts(src, dst):
+        x = _narrow(x, d, a, mesh)
+    return x
 
 
 def _zero1_grad(g: torch.Tensor, pp: Placement, zp: Placement, mesh) -> torch.Tensor:
     """The gradient's piece of the moments' placement, summed over the data
-    ranks. A parameter cut over the data ranks has its gradient summed
-    already (its all-gather's backward); otherwise the sum is a
-    reduce-scatter onto the moments' cut, or an all-reduce when they have
-    none."""
-    pc, zc = pp.cut_over(DP_AXES), zp.cut_over(DP_AXES)
-    if pc is not None:
-        return g if pc == zc else _piece(gather_cut(g, pc, mesh), zc, zp, mesh)
-    if zc is None:
-        return collectives.all_reduce_groups(
-            g, _data_groups(mesh, [a for a in DP_AXES if a in mesh.axis_names]))
-    d, axes = zc
-    for a in axes:
-        g = collectives.reduce_scatter_dim(g, d, mesh.group(a))
-    return g
+    ranks. A parameter cut over data axes has its gradient summed over those
+    already (its all-gather's backward); it is gathered over those the
+    moments do not cut alike. Then, along each data cut of the moments
+    beyond the shared axes, major axis first, an axis not yet summed is
+    reduce-scattered and a summed one narrowed to this rank's block; the
+    data axes left are all-reduced."""
+    done = {a for _, axes in _dp_cuts(pp) for a in axes}
+    g = _gather_unshared(g, pp, zp, mesh)
+    for d, a in _unshared_cuts(pp, zp):
+        if a in done:
+            g = _narrow(g, d, a, mesh)
+        else:
+            g = collectives.reduce_scatter_dim(g, d, mesh.group(a))
+            done.add(a)
+    return collectives.all_reduce_groups(
+        g, _data_groups(mesh, [a for a in DP_AXES if a in mesh.axis_names and a not in done]))
 
 
 def _zero1_norm(pieces: list, zps: list, mesh) -> torch.Tensor:
@@ -140,15 +188,6 @@ def _zero1_norm(pieces: list, zps: list, mesh) -> torch.Tensor:
     dev = pieces[0].device
     tot = sum(own) if own else torch.zeros((), dtype=torch.float32, device=dev)
     return torch.sqrt(collectives.all_reduce_groups(tot, _data_groups(mesh, mesh.axis_names)))
-
-
-def _zero1_write(p: torch.Tensor, new: torch.Tensor, pp: Placement, zp: Placement, mesh
-                 ) -> None:
-    """Write the updated piece ``new`` (the moments' placement) into the
-    parameter shard ``p``: an all-gather over the data ranks, then the
-    parameter's own data piece (the two placements cut the data ranks
-    differently: where they agree the update writes ``p`` in place)."""
-    p.copy_(_piece(gather_cut(new, zp.cut_over(DP_AXES), mesh), pp.cut_over(DP_AXES), pp, mesh))
 
 
 @torch.no_grad()
@@ -212,14 +251,15 @@ def _adamw_zero1(cfg: OptConfig, grads, state: dict, params, zero1: Zero1):
     bc = _bias_corrections(cfg, step)
     for g, m, v, p, pp, zp in zip(gs, tree_leaves(state["m"]), tree_leaves(state["v"]), ps,
                                   pps, zps):
-        pc, zc = pp.cut_over(DP_AXES), zp.cut_over(DP_AXES)
-        if pc == zc:
+        if _dp_cuts(pp) == _dp_cuts(zp):
             _adam_slices(cfg, g, m, v, p, p, scale, lr, bc)
             continue
-        pz = _piece(gather_cut(p, pc, mesh), zc, zp, mesh)
+        pz = _move(p, pp, zp, mesh)
         new = torch.empty(pz.shape, dtype=p.dtype, device=pz.device)
         _adam_slices(cfg, g, m, v, pz, new, scale, lr, bc)
-        _zero1_write(p, new, pp, zp, mesh)
+        # the updated piece back into the parameter shard (where the two
+        # placements agree the update wrote ``p`` in place above)
+        p.copy_(_move(new, zp, pp, mesh))
     return params, dict(state, step=step), {"lr": lr, "gnorm": gnorm}
 
 

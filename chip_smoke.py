@@ -606,7 +606,10 @@ LR_TIMEOUT = 300                 # seconds a grid's ranks may take, their start 
 TR = dict(arch="tinyllama-1.1b", batch=4, seq=1024, steps=4, loss_rtol=5e-4, gnorm_rtol=2e-2,
           adamw=dict(kind="adamw", lr=3e-5, warmup=1, total_steps=30),
           sign=dict(kind="sign_majority", lr=3e-5, warmup=1, total_steps=30, ber=0.01))
-TR_RUNS = {(1, 2): (("adamw", None),), (2, 1): (("adamw", None), ("sign", None)),
+# The 1x2 and 2x1 runs at 4 of 22 layers: at 22 they took 58 and 68 s of a
+# whole run of 1277 s once phase 26 joined, over the run's 1200 s limit
+# (H100 80GB HBM3 at 700 W)
+TR_RUNS = {(1, 2): (("adamw", 4),), (2, 1): (("adamw", 4), ("sign", 4)),
            (2, 2): (("adamw", 2),)}
 TR_TIMEOUT = 600                 # seconds a grid's ranks may take, their start included
 # phase 20: the MoE decoder at its published widths on one card, depth cut to
@@ -771,7 +774,58 @@ NR_RUNS = {(1, 2): (dict(arch="mixtral-8x22b", layers=1, batch=2),
 # max_memory_allocated (phase 16's with what that phase held outside its
 # steps added); the wire bytes equal to the counter's reading
 DRY = dict(peak_rel=0.10, timeout=240,
-           production=(("tinyllama-1.1b", "train_4k"), ("hdc-scaleout", "serve_packed")))
+           production=(("tinyllama-1.1b", "train_4k"), ("hdc-scaleout", "serve_packed"),
+                       ("tinyllama-1.1b", "prefill_32k"), ("tinyllama-1.1b", "decode_32k")))
+# phase 26: sharded inference (gloo, every rank on cuda:0, spawned as phase
+# 24 spawns its own), each family at its published width in bf16, the
+# attention projections at fan-in over their contraction (phase 16's rule):
+# TinyLlama-1.1B whole, Mixtral-8x22B and Kimi-K2 at 1 layer (Kimi with 24
+# routed experts, one model shard's), Falcon-Mamba-7B and Qwen2-VL-7B at 2
+# layers, Zamba2-2.7B and Whisper-tiny whole. B 2 (one row a data rank on
+# 2x1 and 2x2) x ``prompt`` tokens (Qwen2-VL behind 256 patches of a 16 x 16
+# grid, Whisper over its 1500 stub frames) at ``pad_to`` slots, then
+# NI["steps"] greedy steps. On a cut K/V cache (``kv_seq`` on ``model``: 256
+# of 512 slots a rank) the decode crosses from rank 0's slots into rank
+# 1's (positions 255-256; Qwen2-VL 511-512 of 1024); Mixtral's 4096-slot
+# window ring, 4095 of it filled, wraps from slot 4095 on rank 1 to slot 0
+# on rank 0. One rank's run first in this process; its greedy tokens are
+# every grid's inputs; each grid runs the families NI_GRIDS names. Gates: each step's logits, gathered, within
+# NI["logit_rel"] of one rank's largest |logit|; the rank's argmax equal to
+# one rank's wherever one rank's top-2 margin exceeds twice that bound;
+# each rank's cache within NI["cache_rel"] of the largest entry of its
+# slice of one rank's (slot_pos equal); every prefill launches the
+# attention kernel once a call on each rank, a decode step no kernel. The
+# bounds are bf16's: a CPU rehearsal at the smoke widths in bf16 read up to
+# 0.0148 (logits) and 0.0242 (Zamba2's conv state) on 1x2; a rank that
+# reads the wrong slots, heads or channels is off by O(1). Where bf16's own
+# rounding is larger (Zamba2-2.7B's 54 layers read 0.069-0.085 on 1x2), a
+# call or leaf is held to NI["yard"] times one rank's bf16 distance from
+# the same run in f32 (the bf16 parameters widened, one rank's greedy
+# tokens). An MoE call
+# whose routing differs from one rank's (bf16 near-ties in the router: on
+# the card Kimi-K2's 1x2 prefill read 0.0906) is held to
+# NI["moe_logit_rel"] instead, the assignments routed otherwise printed and
+# held under NI["max_rerouted"] of rank 0's, or 4 (phase 24 read 14 of
+# 4,096).
+NI = dict(batch=2, steps=2, logit_rel=5e-2, cache_rel=5e-2, yard=2.0, moe_logit_rel=0.25,
+          max_rerouted=0.01, timeout=900)
+NI_RUNS = (dict(arch="tinyllama-1.1b", prompt=255, pad_to=512),
+           dict(arch="mixtral-8x22b", layers=1, prompt=4095, pad_to=4096),
+           dict(arch="kimi-k2", layers=1, experts=24, prompt=255, pad_to=512),
+           dict(arch="falcon-mamba-7b", layers=2, prompt=255, pad_to=512),
+           dict(arch="zamba2-2.7b", prompt=255, pad_to=512),
+           dict(arch="whisper-tiny", prompt=255, pad_to=512),
+           dict(arch="qwen2-vl-7b", layers=2, prompt=255, pad_to=1024, grid=(16, 16)))
+# the families each grid runs: every one on 1x2; on the data grids those
+# the run's limit affords (Mixtral's dispatch group straddles the data
+# ranks; Kimi-K2's and Qwen2-VL's `embed: data` leaves move 10.7 and 4.7 GB
+# a call on 2x1, Zamba2-2.7B's in_proj 4.5 GB a step on 2x2: 8.3, 3.1 and
+# 5.0 s a decode step through gloo; a rank's first Whisper-tiny prefill
+# takes 11-14 s; H100 80GB HBM3 at 700 W). The CPU tests run every family
+# on every grid (tests/test_torch_distributed_infer.py)
+NI_GRIDS = {(1, 2): tuple(r["arch"] for r in NI_RUNS),
+            (2, 1): ("tinyllama-1.1b", "mixtral-8x22b", "falcon-mamba-7b", "zamba2-2.7b"),
+            (2, 2): ("tinyllama-1.1b", "mixtral-8x22b")}
 # phase 16 (a): the backward kernel's cases, label -> (B, Sq, Skv, H, KH, D,
 # causal, window, q_offset, dtype); the training shape first
 FLASH_BWD_CASES = [
@@ -7358,6 +7412,332 @@ def phase_nondense_ranks(torch, launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 26: sharded inference on ranks
+# ---------------------------------------------------------------------------
+
+def ni_cfg(run: dict):
+    """A run of NI_RUNS as a config: the MoE decoders cut as `moe_cfg` cuts
+    them, the others as `xd_cfg` / `ssm_cfg` do (uncut without ``layers``);
+    bf16, as published."""
+    from repro_torch import configs
+
+    if run["arch"] in dict(MOE_RUNS):
+        changes = {"n_experts": run["experts"]} if "experts" in run else {}
+        return moe_cfg(run["arch"], run["layers"], **changes)
+    if run["arch"] in XD_RUNS:
+        return xd_cfg(run["arch"], run.get("layers"))
+    if run["arch"] in SSM_RUNS:
+        return ssm_cfg(run["arch"], run.get("layers"))
+    return configs.get_config(run["arch"])
+
+
+def ni_job(run: dict) -> dict:
+    """The dry run's job of a run (`launch.dryrun.run_custom`), without its
+    kind and mesh."""
+    job = dict(arch=run["arch"], batch=NI["batch"], layers=run.get("layers"),
+               experts=run.get("experts"))
+    if "grid" in run:
+        job["vision"] = run["grid"][0] * run["grid"][1]
+    return job
+
+
+def ni_batch(torch, cfg, run: dict) -> dict:
+    """The prompt batch: B x prompt tokens and, for Whisper, B x enc_seq stub
+    frames at unit scale, for Qwen2-VL B images of ``grid`` patch embeddings
+    with their default M-RoPE positions; drawn from seeded generators in
+    bf16 (an f32 run widens the same values), the same on every rank."""
+    from repro_torch.models import vlm
+
+    b, n = NI["batch"], run["prompt"]
+    out = {"tokens": torch.randint(0, cfg.vocab, (b, n), device="cuda",
+                                   generator=cuda_gen(torch, SEED + 5000),
+                                   dtype=torch.int32)}
+    gen = cuda_gen(torch, SEED + 5001)
+    if cfg.kind == "encdec":
+        out["frames"] = torch.randn((b, cfg.enc_seq, cfg.d_model), device="cuda",
+                                    generator=gen, dtype=torch.bfloat16).to(cfg.dtype)
+    if cfg.kind == "vlm":
+        sv = run["grid"][0] * run["grid"][1]
+        out["patch_embeds"] = torch.randn((b, sv, cfg.d_model), device="cuda", generator=gen,
+                                          dtype=torch.bfloat16).to(cfg.dtype)
+        out["positions"] = vlm.default_positions(b, sv, n, run["grid"], device="cuda")
+    return out
+
+
+def ni_condition(params: dict, cfg) -> dict:
+    """phase 16's rule on every family: the attention projections at fan-in
+    over their contraction (`nt_condition`; the dense decoder's stack as the
+    MoE's)."""
+    if cfg.moe is None and cfg.ssm is None and cfg.kind not in ("encdec", "vlm"):
+        return fan_in_over_contraction(params, cfg)
+    return nt_condition(params, cfg)
+
+
+def ni_infer(torch, mesh, run: dict, tokens=None, one_cache: str | None = None,
+             f32: bool = False) -> dict:
+    """One run on this rank (``mesh`` None: one rank): the prefill, then
+    NI["steps"] decode steps, greedy on one rank, else on ``tokens`` (one
+    rank's greedy tokens [steps, B]); ``f32``: the same bf16 parameters
+    widened, the model in f32 (the yardstick of bf16's own rounding). Each
+    call's host ms, launches, wire
+    bytes and peak device memory (the counters and the peak reset just
+    before it) and its MoE routing (every route's top-k experts [tokens, K],
+    the layers' concatenated), the logits of every step gathered whole
+    ([steps + 1, B, V], CPU f32), and, given ``one_cache`` (one rank's
+    final cache, saved), each leaf's largest |difference| from its slice
+    there over that slice's largest entry (an int leaf: 0 where equal)."""
+    from repro_torch import kernels as tk
+    from repro_torch.distributed import collectives
+    from repro_torch.models import get_model, init_params, moe
+    from repro_torch.train.loop import build_infer_fns
+    from repro_torch.tree import tree_flatten
+
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+
+    cfg = ni_cfg(run)
+    whole = ni_condition(init_params(get_model(cfg).specs, cuda_gen(torch, SEED), "cuda"), cfg)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        whole = tree_map(lambda t: t.float(), whole)
+    model = get_model(cfg)
+    fns = build_infer_fns(model, mesh=mesh, device="cuda")
+    params = fns.shard_params(whole)
+    del whole
+    torch.cuda.empty_cache()
+    batch = ni_batch(torch, cfg, run)
+    b = NI["batch"]
+    start = run["prompt"] + (run["grid"][0] * run["grid"][1] if "grid" in run else 0)
+    out = dict(calls=[], logits=[], argmax=[])
+    route, routes = moe.route, []
+
+    def tap(*a, **kw):                     # numpy: a rank's result crosses a queue
+        r = route(*a, **kw)
+        routes.append(r.idx.reshape(-1, r.idx.shape[-1]).cpu().numpy())
+        return r
+
+    def call(fn):
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        collectives.reset_wire_bytes()
+        torch.cuda.reset_peak_memory_stats()
+        routes.clear()
+        moe.route = tap
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        try:
+            lg, cache = fn()
+            torch.cuda.synchronize()
+        finally:
+            moe.route = route
+        out["calls"].append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                 launches=tk.launch_counts(), wire=collectives.wire_bytes(),
+                                 peak=torch.cuda.max_memory_allocated(), base=base,
+                                 routes=list(routes)))
+        lg = fns.gather_logits(lg).float()
+        if mesh is not None and lg.shape[0] < b:          # the rows over the data ranks
+            lg = collectives.all_gather_dim(lg, 0, mesh.group("data"))
+        out["logits"].append(lg.cpu())
+        out["argmax"].append(lg.argmax(-1).to(torch.int32))
+        return cache
+
+    cache = call(lambda: fns.prefill(params, batch, run["pad_to"]))
+    for i in range(NI["steps"]):
+        tok = out["argmax"][-1] if tokens is None else torch.from_numpy(tokens[i]).to("cuda")
+        cache = call(lambda: fns.decode(params, cache, tok, start + i))
+    # numpy: a rank's result crosses a queue
+    out["logits"] = torch.stack(out["logits"]).numpy()
+    out["argmax"] = torch.stack(out["argmax"]).cpu().numpy()
+    if one_cache is not None:
+        want = torch.load(one_cache)
+        plc = dict(tree_flatten(fns.cache_placements(b, run["pad_to"])))
+        err = {}
+        for path, x in tree_flatten(cache):
+            name = "/".join(path)
+            ref = want[name].to("cuda")
+            ref = ref[plc[path].slices(fns.mesh)] if fns.mesh is not None else ref
+            require(tuple(x.shape) == tuple(ref.shape),
+                    f"ni {run['arch']} {name}: piece {tuple(x.shape)} != slice "
+                    f"{tuple(ref.shape)}")
+            diff = float((x.float() - ref.float()).abs().max())
+            err[name] = (0.0 if diff == 0 else float("inf")) if not x.is_floating_point() \
+                else diff / max(float(ref.float().abs().max()), 1e-30)
+        out["cache_rel"] = err
+    else:
+        out["cache"] = {"/".join(p): x.cpu() for p, x in tree_flatten(cache)}
+    del params, cache, fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def ni_rank(mesh, runs: tuple, tokens: dict, caches: dict) -> dict:
+    """What each rank of a phase-26 grid runs on cuda:0: every run on one
+    rank's greedy tokens, its cache held to one rank's."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"coords": (mesh.index("data"), mesh.index("model"))}
+    for run in runs:
+        out[run["arch"]] = ni_infer(torch, mesh, run, tokens[run["arch"]], caches[run["arch"]])
+    return out
+
+
+def phase_infer_ranks(torch, launches: dict, tmp: Path) -> dict:
+    """Phase 26: one rank's run of every NI_RUNS family (this process, its
+    final cache saved under ``tmp``), then each grid of NI_GRIDS (gloo
+    ranks, all on cuda:0) runs every family on one rank's greedy tokens,
+    gated as NI_RUNS says. Returns every reading, phase 25's among them."""
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as tmesh
+
+    print(f"ni: {card_line()}", flush=True)
+    ref, tokens, caches = {}, {}, {}
+    yard = {}
+    for run in NI_RUNS:
+        arch = run["arch"]
+        res = ni_infer(torch, None, run)
+        caches[arch] = str(tmp / f"ni_{arch}.pt")
+        tokens[arch] = res["argmax"][:-1]
+        # bf16's own rounding: the same run in f32 on one rank's greedy tokens
+        wide = ni_infer(torch, None, run, tokens[arch], f32=True)
+        scale = float(np.abs(res["logits"]).max())
+        yard[arch] = dict(
+            logits=(np.abs(res["logits"] - wide["logits"]).reshape(len(wide["logits"]), -1)
+                    .max(-1) / scale),
+            cache={k: float((x.float() - wide["cache"][k].float()).abs().max())
+                   / max(float(x.float().abs().max()), 1e-30)
+                   for k, x in res["cache"].items() if x.is_floating_point()})
+        add_launches(launches, {k: sum(c["launches"][k] for c in wide["calls"])
+                                for k in wide["calls"][0]["launches"]})
+        del wide
+        torch.save(res.pop("cache"), caches[arch])
+        ref[arch] = res
+        cfg = ni_cfg(run)
+        calls = nt_attention_calls(cfg)[0]
+        for i, c in enumerate(res["calls"]):
+            want = calls if i == 0 else 0
+            require(c["launches"].get("flash_attention_fwd", 0) == want and all(
+                v == 0 for k, v in c["launches"].items() if k != "flash_attention_fwd"),
+                f"ni one rank {arch} call {i}: launches {c['launches']}, expected "
+                f"{want} of flash_attention_fwd and nothing else")
+            add_launches(launches, c["launches"])
+        require(bool(np.isfinite(res["logits"]).all()), f"ni one rank {arch}: non-finite")
+    _build.build()             # the ranks load the library built here
+    torch.cuda.empty_cache()
+    out = {"one_rank": {a: [{k: v for k, v in c.items() if k != "routes"} for c in r["calls"]]
+                        for a, r in ref.items()}, "grids": {}}
+    worst = {"logit": 0.0, "cache": 0.0, "flips": 0, "margins": 0}
+    for grid, archs in NI_GRIDS.items():
+        label = f"{grid[0]}x{grid[1]}"
+        runs = tuple(r for r in NI_RUNS if r["arch"] in archs)
+        t0 = time.perf_counter()
+        results = tmesh.spawn(ni_rank, grid, (runs, tokens, caches), timeout=NI["timeout"],
+                              threads=None)
+        wall = time.perf_counter() - t0
+        row = {"wall_s": wall}
+        for run in runs:
+            arch = run["arch"]
+            what = f"ni {label} {arch}"
+            one = ref[arch]
+            lg1 = one["logits"]
+            scale = float(np.abs(lg1).max())
+            top2 = np.sort(lg1, axis=-1)[..., -2:]
+            margin = top2[..., 1] - top2[..., 0]                 # [steps + 1, B]
+            rel, flips, sure = 0.0, 0, int((margin > 2 * NI["logit_rel"] * scale).sum())
+            # MoE: each call's (token, expert) assignments rank 0 routes otherwise
+            # than one rank (rank 0's tokens lead the global order)
+            rerouted, assigned = [], 0
+            for c1, c0 in zip(one["calls"], results[0][arch]["calls"]):
+                n = sum(nr_flips(torch, a[None, :len(b)], b[None])
+                        for a, b in zip(c1["routes"], c0["routes"]))
+                rerouted.append(n)
+                assigned += sum(b.size for b in c0["routes"])
+            for r in results:
+                got = r[arch]
+                per_call = np.abs(got["logits"] - lg1).reshape(len(lg1), -1).max(-1) / scale
+                bound = np.where(np.array(rerouted) > 0, NI["moe_logit_rel"],
+                                 np.maximum(NI["logit_rel"], NI["yard"] * yard[arch]["logits"]))
+                require(bool((per_call <= bound).all()),
+                        f"{what} rank {r['coords']}: logits off one rank's, call by call "
+                        f"{np.round(per_call, 4).tolist()} over bounds {bound.tolist()} "
+                        f"(assignments routed otherwise {rerouted})")
+                rel = max(rel, float(per_call.max()))
+                differ = got["argmax"] != one["argmax"]
+                flips += int((differ & (margin > 2 * NI["logit_rel"] * scale)).sum())
+                cache_rel = max(got["cache_rel"].values())
+                worst["cache"] = max(worst["cache"], cache_rel)
+                cbound = {k: max(NI["cache_rel"], NI["yard"] * yard[arch]["cache"].get(k, 0.0))
+                          for k in got["cache_rel"]}
+                require(all(v <= cbound[k] for k, v in got["cache_rel"].items()),
+                        f"{what} rank {r['coords']}: cache off one rank's slice "
+                        f"{got['cache_rel']} (bounds {cbound})")
+                for i, c in enumerate(got["calls"]):
+                    want = nt_attention_calls(ni_cfg(run))[0] if i == 0 else 0
+                    require(c["launches"].get("flash_attention_fwd", 0) == want and all(
+                        v == 0 for k, v in c["launches"].items()
+                        if k != "flash_attention_fwd"),
+                        f"{what} rank {r['coords']} call {i}: launches {c['launches']}")
+                    add_launches(launches, c["launches"])
+            worst["logit"] = max(worst["logit"], rel)
+            worst["flips"] += flips
+            worst["margins"] += sure
+            r0 = results[0][arch]["calls"]
+            require(sum(rerouted) <= max(4, NI["max_rerouted"] * assigned),
+                    f"{what}: {sum(rerouted)} of {assigned} (token, expert) assignments "
+                    "routed otherwise than one rank")
+            res = dict(logit_rel=rel, flips=flips, sure=sure, rerouted=rerouted,
+                       assigned=assigned, bf16_vs_f32=dict(
+                           logits=float(yard[arch]["logits"].max()),
+                           cache=max(yard[arch]["cache"].values())),
+                       cache_rel=[r[arch]["cache_rel"] for r in results],
+                       prefill=dict(ms=r0[0]["ms"], wire=r0[0]["wire"], peak=r0[0]["peak"],
+                                    base=r0[0]["base"]),
+                       decode=dict(ms=statistics.median(c["ms"] for c in r0[2:]),
+                                   wire=r0[1]["wire"], peak=r0[1]["peak"], base=r0[1]["base"]),
+                       one_rank=dict(prefill_ms=one["calls"][0]["ms"],
+                                     decode_ms=statistics.median(
+                                         c["ms"] for c in one["calls"][2:])))
+            row[arch] = res
+            print(f"{what} ({ni_cfg(run).n_layers} layers, B {NI['batch']} x {run['prompt']} "
+                  f"at {run['pad_to']} slots, {NI['steps']} steps): logits against one rank's, "
+                  f"largest |difference| / largest |logit| {rel:.3g}; greedy tokens differ at "
+                  f"{flips} of the {sure} (step, row) pairs whose one-rank top-2 margin "
+                  f"exceeds {2 * NI['logit_rel']:.3g} of the scale; one rank's bf16 logits "
+                  f"off its f32 run's {res['bf16_vs_f32']['logits']:.3g}, its cache "
+                  f"{res['bf16_vs_f32']['cache']:.3g}; "
+                  + (f"{sum(rerouted)} of {assigned} (token, expert) assignments routed "
+                     f"otherwise than one rank on rank 0, call by call {rerouted}; "
+                     if assigned else "") + f"cache off its slice of "
+                  f"one rank's {max(max(c.values()) for c in res['cache_rel']):.3g}; rank 0 "
+                  f"prefill {res['prefill']['ms']:.1f} ms (one rank "
+                  f"{res['one_rank']['prefill_ms']:.1f}), decode {res['decode']['ms']:.1f} "
+                  f"ms a step (one rank {res['one_rank']['decode_ms']:.1f}), wire bytes "
+                  f"{res['prefill']['wire']:,} a prefill and {res['decode']['wire']:,} a "
+                  f"step, peak {res['prefill']['peak'] / 2**30:.3f} / "
+                  f"{res['decode']['peak'] / 2**30:.3f} GiB", flush=True)
+            require(flips == 0, f"{what}: {flips} greedy tokens differ where one rank's "
+                                "margin is clear")
+        out["grids"][label] = row
+        print(f"ni {label}: {len(results)} ranks over gloo on cuda:0, {wall:.1f} s with the "
+              "ranks' start", flush=True)
+    out["worst"] = worst
+    print(f"ni checks: every grid's logits within {NI['logit_rel']} of one rank's scale or "
+          f"{NI['yard']}x one rank's bf16 distance from f32, an MoE call routed otherwise "
+          f"than one rank's within {NI['moe_logit_rel']} (worst {worst['logit']:.3g}); "
+          f"greedy tokens equal at all {worst['margins']} "
+          f"clear-margin (step, row) pairs ({worst['flips']} differ); every rank's cache "
+          f"within {NI['cache_rel']} (or {NI['yard']}x bf16's) of its slice of one rank's "
+          f"(worst {worst['cache']:.3g}), "
+          "slot_pos equal; one attention launch a prefill call, none a decode step",
+          flush=True)
+    return out
+
+
+
+# ---------------------------------------------------------------------------
 # phase 25: the dry run held to the card
 # ---------------------------------------------------------------------------
 
@@ -7367,8 +7747,8 @@ def dry_jobs() -> list:
     this script's and move what the tiers they replay move)."""
     jobs = [dict(kind="train", arch=TRAIN["arch"], batch=TRAIN["batch"], seq=TRAIN["seq"],
                  mesh=[1], what="a"),
-            dict(kind="train", arch=TR["arch"], batch=TR["batch"], seq=TR["seq"], mesh=[1, 2],
-                 what="b")]
+            dict(kind="train", arch=TR["arch"], layers=TR_RUNS[(1, 2)][0][1],
+                 batch=TR["batch"], seq=TR["seq"], mesh=[1, 2], what="b")]
     for c in mr_cases((1, 4)):
         if c["cfg"].get("channel", "bsc").endswith("_replay"):
             continue
@@ -7377,18 +7757,40 @@ def dry_jobs() -> list:
     return jobs
 
 
+def dry_infer_jobs() -> list:
+    """The dry run's jobs of (e): phase 26's prefill and decode, every
+    family on 1x2, TinyLlama-1.1B, Mixtral-8x22B and Whisper-tiny on the
+    data grids that run them, as rank 0 of each grid."""
+    jobs = []
+    for grid, archs in NI_GRIDS.items():
+        label = f"{grid[0]}x{grid[1]}"
+        keep = archs if grid == (1, 2) else [a for a in archs if a in (
+            "tinyllama-1.1b", "mixtral-8x22b", "whisper-tiny")]
+        for run in (r for r in NI_RUNS if r["arch"] in keep):
+            base = dict(ni_job(run), mesh=list(grid), what="e", grid=label)
+            jobs.append(dict(base, kind="prefill", seq=run["prompt"], pad_to=run["pad_to"]))
+            jobs.append(dict(base, kind="decode", seq=run["pad_to"]))
+    return jobs
+
+
 def dry_run_records(tmp: Path) -> tuple[list, dict]:
     """Phase 25's dry runs (`python -m repro_torch.launch.dryrun` on fake
-    tensors standing for this card), three subprocesses at once, each given
-    DRY["timeout"] seconds: the custom jobs of `dry_jobs` in one, each
-    production record of DRY in its own (16x16, rank 0). Returns (the custom
-    records, {(arch, cell): production record}); fails on a non-zero exit or
-    a run past its time (killed)."""
+    tensors standing for this card), every subprocess at once, each given
+    DRY["timeout"] seconds: the custom jobs of `dry_jobs` in one, those of
+    `dry_infer_jobs` in three, each production record of DRY in its own
+    (16x16, rank 0). Returns (the custom records, {(arch, cell): production
+    record}); fails on a non-zero exit or a run past its time (killed)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     (tmp / "jobs.json").write_text(json.dumps(dry_jobs()))
+    infer = dry_infer_jobs()
+    for i in range(3):                      # a run's prefill and decode, every third run
+        (tmp / f"infer{i}.json").write_text(json.dumps(
+            [j for k, j in enumerate(infer) if k // 2 % 3 == i]))
     mod = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device", "cuda"]
     runs = [["--custom", str(tmp / "jobs.json"), "--out", str(tmp / "custom.json")]]
+    runs += [["--custom", str(tmp / f"infer{i}.json"), "--out", str(tmp / f"infer{i}_out.json")]
+             for i in range(3)]
     runs += [["--arch", arch, "--cell", cell, "--force", "--out", str(tmp / "prod")]
              for arch, cell in DRY["production"]]
     procs = []
@@ -7410,12 +7812,48 @@ def dry_run_records(tmp: Path) -> tuple[list, dict]:
                 p.kill()
                 p.wait()
     recs = json.loads((tmp / "custom.json").read_text())
+    for i in range(3):
+        recs += json.loads((tmp / f"infer{i}_out.json").read_text())
     prod = {(a, c): json.loads((tmp / "prod" / "pod1" / f"{a}__{c}.json").read_text())
             for a, c in DRY["production"]}
     return recs, prod
 
 
-def phase_dryrun(torch, train: dict, train_ranks: dict, multirank: dict) -> dict:
+def dry_infer_check(recs: list, infer_ranks: dict) -> dict:
+    """Phase 25 (e): rank 0's wire bytes of each of phase 26's prefills and
+    decode steps counted (the records of `dry_infer_jobs`) equal to its
+    counter, and the predicted peak within DRY["peak_rel"] of its
+    max_memory_allocated (each call's, the peak reset just before it), with
+    what the rank held outside the call's arguments added, as (a) adds it:
+    its memory_allocated as the call starts less the arguments counted (31-33
+    MiB in every call on an H100, the size of cuBLAS's default
+    workspace)."""
+    rows, worst = 0, 0.0
+    for r in recs:
+        job = r["job"]
+        if job["what"] != "e":
+            continue
+        what = f"dry (e) {job['grid']} {job['arch']} {job['kind']}"
+        meas = infer_ranks["grids"][job["grid"]][job["arch"]][job["kind"]]
+        wire = r["cost_per_rank"]["collective"]["total"]
+        outside = meas["base"] - r["memory_per_rank"]["arguments"]
+        pred = r["memory_per_rank"]["peak_bytes"] + outside
+        rel = abs(pred - meas["peak"]) / meas["peak"]
+        worst, rows = max(worst, rel), rows + 1
+        print(f"{what}, rank 0: wire bytes {wire:,} (by type "
+              f"{r['cost_per_rank']['collective']}) vs phase 26's counter {meas['wire']:,}; "
+              f"predicted peak {r['memory_per_rank']['peak_bytes'] / 2**30:.3f} GiB + held "
+              f"outside the arguments {outside / 2**20:.1f} MiB = {pred / 2**30:.3f} GiB vs "
+              f"{meas['peak'] / 2**30:.3f} GiB (relative {rel:.4f}); {r['t_count_s']:.1f} s "
+              "to count", flush=True)
+        require(wire == meas["wire"], f"{what}: wire bytes {wire} != phase 26's {meas['wire']}")
+        require(rel <= DRY["peak_rel"], f"{what}: predicted peak {pred} vs {meas['peak']} "
+                                        f"(relative {rel:.4f})")
+    return dict(cases=rows, worst_peak_rel=worst)
+
+
+def phase_dryrun(torch, train: dict, train_ranks: dict, multirank: dict, infer_ranks: dict
+                 ) -> dict:
     """Phase 25: the dry runs of `dry_run_records`, each record traced on
     fake CUDA tensors, and each prediction held to what the earlier phases
     of this run measured, read from their results, with no second run of
@@ -7428,7 +7866,10 @@ def phase_dryrun(torch, train: dict, train_ranks: dict, multirank: dict) -> dict
     DRY["peak_rel"] of rank 0's; (c) rank 0's wire bytes a call equal to
     phase 17's counter on every 1x4 case counted; (d) both production
     records ok, their per-rank peak against the card's memory and their
-    dominant roofline term printed."""
+    dominant roofline term printed; (e) rank 0's wire bytes of each of
+    phase 26's prefills and decode steps counted equal to its counter, and
+    the predicted peak within DRY["peak_rel"] of its max_memory_allocated
+    (each call's, the peak reset just before it)."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
@@ -7472,12 +7913,14 @@ def phase_dryrun(torch, train: dict, train_ranks: dict, multirank: dict) -> dict
                     flops_ratio=flops_ratio, bound_ratio=bound_ratio)
     # (b) phase 19's 1x2 AdamW step, rank 0
     b = next(r for r in recs if r["job"]["what"] == "b")
-    grid = train_ranks["grids"]["1x2"]["adamw"]
+    layers = TR_RUNS[(1, 2)][0][1]
+    grid = train_ranks["grids"]["1x2"]["adamw" + ("" if layers is None else f"-{layers}L")]
     wire_meas, peak_meas = int(grid["wire"][0]), grid["peak"][0]
     wire_pred = b["cost_per_rank"]["collective"]["total"]
     pred_b = b["memory_per_rank"]["peak_bytes"]
     rel_b = abs(pred_b - peak_meas) / peak_meas
-    print(f"dry (b) {TR['arch']} AdamW 1x2, rank 0 of a fake world of 2: wire bytes a step "
+    print(f"dry (b) {TR['arch']} AdamW 1x2 ({layers or 'all'} layers), rank 0 of a fake world "
+          "of 2: wire bytes a step "
           f"{wire_pred:,} (by type {b['cost_per_rank']['collective']}) vs phase 19's counter "
           f"{wire_meas:,}; predicted peak {gib(pred_b):.2f} GiB vs {gib(peak_meas):.2f} GiB "
           f"(relative {rel_b:.4f})", flush=True)
@@ -7506,9 +7949,14 @@ def phase_dryrun(torch, train: dict, train_ranks: dict, multirank: dict) -> dict
               f"roofline compute {rl['compute'] * 1e3:.4g} / memory {rl['memory'] * 1e3:.4g} / "
               f"collective {rl['collective'] * 1e3:.4g} ms, dominant {rl['dominant']}; "
               f"{r['t_count_s']:.1f} s to count", flush=True)
+    out["e"] = dry_infer_check(recs, infer_ranks)
+    rows_e, worst_e = out["e"]["cases"], out["e"]["worst_peak_rel"]
     print(f"dry checks: (a) and (b)'s predicted peaks within {DRY['peak_rel']} of phases 16 "
           "and 19's max_memory_allocated; (b) and (c)'s wire bytes equal the counter's "
-          "readings of phases 19 and 17; both production records ok", flush=True)
+          "readings of phases 19 and 17; every production record ok; (e) "
+          f"{rows_e} of phase 26's prefills and decode steps: wire bytes equal the "
+          f"counter's, predicted peaks within {DRY['peak_rel']} (worst {worst_e:.4f})",
+          flush=True)
     return out
 
 
@@ -7652,8 +8100,12 @@ def main(argv: list[str]) -> int:
                      lambda: phase_nondense_train(torch, launches))
     nondense_ranks = phase("24 training of every non-dense family across ranks",
                            lambda: phase_nondense_ranks(torch, launches))
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ni_") as tmp:
+        infer_ranks = phase("26 sharded inference on ranks",
+                            lambda: phase_infer_ranks(torch, launches, Path(tmp)))
     dryrun = phase("25 the dry run held to the card",
-                   lambda: phase_dryrun(torch, train, train_ranks, multirank))
+                   lambda: phase_dryrun(torch, train, train_ranks, multirank, infer_ranks))
     kernels["flash_attention_bwd"] = train["kernel_cases"]
     profiles = (phase("profile", lambda: phase_profile(torch, state, protos_u, cfg))
                 if args.profile else None)
@@ -7682,7 +8134,8 @@ def main(argv: list[str]) -> int:
             sparse_serve=sparse_serve, coarse=coarse, lm=lm, physical=physical, mt=mt,
             faults=fault, cont=cont, train=train, multirank=multirank, living_ranks=living,
             train_ranks=train_ranks, moe=moe_dec, ssm=ssm_dec, xd=xd_dec,
-            nondense_train=nondense, nondense_ranks=nondense_ranks, dryrun=dryrun,
+            nondense_train=nondense, nondense_ranks=nondense_ranks, infer_ranks=infer_ranks,
+            dryrun=dryrun,
             launches=launches,
             profiles=profiles, seconds=seconds), indent=1))
     print(card)

@@ -205,7 +205,11 @@ class OpCost(TorchDispatchMode):
             self.calls_by_op[name] += 1
             if packet in self._flop_registry:
                 first = next(iter(_tensors(args)), None)
-                f = self._flop_registry[packet](*args, **kwargs, out_val=out)
+                # the products' out_dtype overloads (cuBLAS's f32 out of bf16,
+                # `moe._bmm_acc`) pass the dtype where the formulas take shapes
+                fargs = tuple(a for a in args if not isinstance(a, torch.dtype))
+                fkw = {k: v for k, v in kwargs.items() if k != "out_dtype"}
+                f = self._flop_registry[packet](*fargs, **fkw, out_val=out)
                 self.flops_by_kind[_kind(first.dtype) if first is not None else "other"] += f
             nb = self._bytes(func, args, kwargs, out)
             self.hbm_bytes += nb

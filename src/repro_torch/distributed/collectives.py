@@ -22,7 +22,8 @@ result bytes: an all-reduce of N bytes counts 2N, an all-gather of N bytes
 over S ranks N + S*N, a reduce-scatter of N bytes N + N/S (the counting of
 `repro/analysis/hlo_cost.py`). `wire_bytes` reads the total,
 `wire_bytes_by_op` the bytes of each collective type (``all-reduce``,
-``all-gather``, ``reduce-scatter``, as the reference's HLO names them) and
+``all-gather``, ``reduce-scatter``, ``all-to-all``, as the reference's HLO
+names them) and
 `wire_bytes_by_axis` those of each mesh axis (the axis whose group carried
 the call, as `distributed.mesh.make_mesh` labels its groups with
 `label_group`; ``"other"`` for a group it did not make), and
@@ -69,7 +70,8 @@ def wire_bytes() -> int:
 
 def wire_bytes_by_op() -> dict[str, int]:
     """`wire_bytes` by collective type: {"all-reduce": n, "all-gather": n,
-    "reduce-scatter": n} (types that moved nothing are left out)."""
+    "reduce-scatter": n, "all-to-all": n} (types that moved nothing are
+    left out)."""
     return dict(_by_op)
 
 
@@ -407,6 +409,24 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return reduce_scatter_last(x.movedim(dim, -1), group).movedim(-1, dim).contiguous()
 
 
+def all_to_all_dim(x: torch.Tensor, split_dim: int, cat_dim: int, group) -> torch.Tensor:
+    """Re-cut ``x`` over the group: ``split_dim`` into S contiguous blocks,
+    block j sent to rank j, and the blocks received concatenated along
+    ``cat_dim`` in rank order (a cache cut by heads becomes one cut by
+    sequence: [.., S_seq, KH/S, ..] -> [.., S_seq/S, KH, ..])."""
+    if group is None:
+        return x
+    s = ranks(group)
+    n = x.shape[split_dim]
+    if n % s:
+        raise ValueError(f"all-to-all of {n} entries over {s} ranks does not tile")
+    inp = torch.stack(x.chunk(s, split_dim)).contiguous()          # [S, ..., n/S, ...]
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=group)
+    _count("all-to-all", _nbytes(inp) + _nbytes(out), group)
+    return torch.cat(out.unbind(0), cat_dim)
+
+
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """Elementwise maximum over the group's ranks (a new tensor)."""
     if group is None:
@@ -521,12 +541,18 @@ def cut_group(tp, local: int, whole: int):
 class TensorParallel:
     """Where a rank sits for the model's layers: the ``group`` of its model
     axis (None for one model rank) with its coordinate ``rank`` there, and
-    the process groups ``data_groups`` of its data axes, over which the
-    loss counts its tokens (the global batch's mean)."""
+    the process groups ``data_groups`` of the data axes its rows are cut
+    over (pod first), over which the loss counts its tokens (the global
+    batch's mean), with its flat place ``data_index`` there. ``infer``
+    marks an inference step: an MoE dispatch group that straddles data
+    ranks is then gathered whole over them (`moe.apply`), where training
+    refuses it."""
 
     group: object = None
     rank: int = 0
     data_groups: tuple = ()
+    data_index: int = 0
+    infer: bool = False
 
 
 def all_reduce_groups(x: torch.Tensor, groups, wire_dtype: torch.dtype | None = None

@@ -268,12 +268,18 @@ def _pairs(tree: Any, placements: Any) -> list:
 
 
 def shard_tree(tree: Any, placements: Any, mesh) -> Any:
-    """This rank's shards of a global tree (contiguous copies; the leaves
-    themselves on one rank)."""
+    """This rank's shards of a global tree: a leaf cut over the mesh as a
+    copy of its own (a view would keep the whole leaf's storage alive,
+    contiguous or not), a whole leaf as it is; the leaves themselves on one
+    rank."""
     if mesh is None:
         return tree
-    return tree_unflatten(tree, [p.shard(x, mesh).contiguous() for x, p in
-                                 _pairs(tree, placements)])
+
+    def own(x, p):
+        y = p.shard(x, mesh)
+        return y.clone(memory_format=torch.contiguous_format) if p.cuts else y.contiguous()
+
+    return tree_unflatten(tree, [own(x, p) for x, p in _pairs(tree, placements)])
 
 
 def gather_tree(tree: Any, placements: Any, mesh) -> Any:

@@ -13,7 +13,8 @@ their ``cost()``; the collectives run on the fake group and count their
 wire bytes. So each record holds, per rank:
 
 * ``memory_per_rank``: the arguments' bytes (parameters, optimizer state,
-  the rank's batch rows; for a serve its classes, queries and state), the
+  the rank's batch rows; a decode's cache piece; for a serve its classes,
+  queries and state), the
   peak of the live bytes over the call, its temporaries, and every
   category at the peak (the counterpart of ``memory_analysis()``);
 * ``cost_per_rank``: FLOPs (aten products by dtype and the kernels'
@@ -22,14 +23,15 @@ wire bytes. So each record holds, per rank:
   wire bytes by collective type and by mesh axis;
 * ``roofline_s`` at the H100's peaks (`analysis.roofline`): counts at the
   datasheet's rates, not timings;
-* ``model_flops_global`` and ``useful_flops_ratio`` (training cells).
+* ``model_flops_global`` and ``useful_flops_ratio`` (the model cells).
 
-Cells: `configs.shapes.CELLS` for the ten architectures, and the reference's
-21 HDC cells. Statuses: ``ok``; ``skipped`` where the reference skips
-(``long_500k`` on the full-attention architectures, ``serve_sparse_packed``);
-``not_ported`` for the prefill and decode cells, whose ``prefill_fn`` and
-``decode_fn`` take no ``tp=`` yet (sharded inference, ROADMAP.md §1); and
-``error`` with the traceback. The reference's XLA lowering switches
+Cells: `configs.shapes.CELLS` for the ten architectures (an AdamW step for
+``train_4k``; the prefill of ``prefill_32k``; one decode step over a full
+cache for ``decode_32k`` and ``long_500k``, both through
+`train.loop.build_infer_fns`), and the reference's 21 HDC cells. Statuses:
+``ok``; ``skipped`` where the reference skips (``long_500k`` on the
+full-attention architectures, ``serve_sparse_packed``); and ``error`` with
+the traceback. The reference's XLA lowering switches
 (``--flash-vjp``, ``--uneven-heads``, ``--expand-kv``, ``REPRO_FLASH_P_BF16``,
 ``REPRO_REDUCE_BF16``) have no counterpart: the port has one attention
 backward, the kernel, and no GSPMD.
@@ -73,8 +75,6 @@ HDC_CELLS = ("serve", "serve_psumpacked", "serve_rsag", "serve_symbol", "serve_t
              "serve_symbol_packed", "serve_topk_packed", "serve_adaptive_packed",
              "serve_faulty_packed", "serve_wired_packed", "serve_hdc_multitenant_packed",
              "train_packed", "serve_sparse")
-NOT_PORTED = ("the port's prefill_fn and decode_fn take no tp= (sharded inference is the "
-              "next slice, ROADMAP.md §1)")
 SLOTS = TENANTS = 8          # the multi-tenant cell: 8 resident tenants x 8 slots
 BF16_STATE_ABOVE = 2e11      # parameters above which AdamW's moments are bf16
 
@@ -194,6 +194,64 @@ def count_train(cfg, batch: dict, mesh, device: str) -> dict:
                 t_count_s=time.perf_counter() - t0, _oc=oc)
 
 
+def count_infer(cfg, kind: str, batch: dict, mesh, device: str, seq: int | None = None,
+                pad_to: int | None = None) -> dict:
+    """One traced prefill (``kind`` "prefill": ``batch`` {name: (global
+    shape, dtype)}, at ``pad_to`` capacity) or one decode step (``kind``
+    "decode": ``batch`` {"token": ((B,), int32)} at position ``seq`` - 1
+    over a cache of ``seq`` slots, every slot full) of ``cfg`` on this
+    rank's shards (`train.loop.build_infer_fns`): the rank's rows of the
+    batch, its piece of the cache as the rules engine cuts it. The
+    arguments' categories: parameters, cache (decode), batch (the rank's
+    rows, and the decode's int32 position as the reference's 0-d
+    argument). Returns the record's counts."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.op_cost import OpCost
+    from repro_torch.models import count_params, get_model
+    from repro_torch.models.base import abstract_params
+    from repro_torch.train.loop import build_infer_fns
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    model = get_model(cfg)
+    n_params = count_params(model.specs)
+    fns = build_infer_fns(model, mesh=mesh, device=device)
+    like = abstract_params(model.specs)
+    b = next(iter(batch.values()))[0][0]
+    rows = fns.rows(torch.empty((b,), device="meta")).shape[0]
+    cplc = fns.cache_placements(b, seq) if kind == "decode" else None
+    cache_like = model.init_cache_fn(b, seq, device="meta") if kind == "decode" else None
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        def local(p, x):
+            shape = p.local_shape(fns.mesh) if fns.mesh is not None else p.shape
+            return torch.empty(shape, dtype=x.dtype, device=device)
+
+        params = tree_unflatten(like, [local(p, x) for p, x in
+                                       zip(tree_leaves(fns.placements), tree_leaves(like))])
+        mine = {k: torch.empty((rows,) + tuple(shape[1:]), dtype=dtype, device=device)
+                for k, (shape, dtype) in batch.items()}
+        if kind == "decode":
+            cache = tree_unflatten(cache_like, [local(p, x) for p, x in
+                                                zip(tree_leaves(cplc), tree_leaves(cache_like))])
+            pos = torch.empty((), dtype=torch.int32, device=device)
+        with OpCost() as oc:
+            arg = dict(parameters=oc.track(params, "parameters"))
+            if kind == "decode":
+                arg["cache"] = oc.track(cache, "cache")
+                arg["batch"] = oc.track([mine["token"], pos], "batch")
+                out = fns.decode(params, cache, mine["token"], seq - 1, global_batch=b)
+            else:
+                arg["batch"] = oc.track(mine, "batch")
+                out = fns.prefill(params, mine, pad_to, global_batch=b)
+            del out
+    return dict(params=n_params,
+                memory_per_rank=dict(arguments=sum(arg.values()), arguments_by_kind=arg,
+                                     **oc.memory()),
+                cost_per_rank=_costs(oc), roofline_s=_roofline(oc),
+                t_count_s=time.perf_counter() - t0, _oc=oc)
+
+
 def count_cell(arch: str, cell_name: str, multi_pod: bool, device: str = "cuda",
                capacity_factor: float | None = None) -> dict:
     """The record of one (architecture x cell) on a production mesh (the
@@ -213,8 +271,6 @@ def count_cell(arch: str, cell_name: str, multi_pod: bool, device: str = "cuda",
     ok, why = cell_applicable(cfg, cell)
     if not ok:
         return dict(head, status="skipped", why=why)
-    if cell.kind != "train":
-        return dict(head, status="not_ported", why=NOT_PORTED)
     if capacity_factor is not None and cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                               capacity_factor=capacity_factor))
@@ -223,11 +279,17 @@ def count_cell(arch: str, cell_name: str, multi_pod: bool, device: str = "cuda",
     batch = {k: (tuple(v.shape), v.dtype) for k, v in shapes.items()}
     t0 = time.perf_counter()
     with _world(shape) as mesh:
-        rec = count_train(cfg, batch, mesh, device)
+        if cell.kind == "train":
+            rec = count_train(cfg, batch, mesh, device)
+        else:
+            if cell.kind == "decode":
+                batch = {"token": ((cell.batch,), torch.int32)}
+            rec = count_infer(cfg, cell.kind, batch, mesh, device, seq=cell.seq)
     oc = rec.pop("_oc")
     rec["t_count_s"] = time.perf_counter() - t0
     mf = roofline.model_flops(cfg, cell, rec["params"])
-    return dict(head, status="ok", traced_on=device, notes=notes, rank=0, opt="adamw",
+    extra = dict(opt="adamw") if cell.kind == "train" else dict(kind=cell.kind)
+    return dict(head, status="ok", traced_on=device, notes=notes, rank=0, **extra,
                 **rec, model_flops_global=mf,
                 useful_flops_ratio=mf / max(oc.flops * chips, 1.0))
 
@@ -376,24 +438,64 @@ def _count_hdc(cell_name: str, multi_pod: bool, device: str = "cuda") -> dict:
 # custom jobs (chip_smoke.py's phase 25: a measured run's own shapes)
 # ---------------------------------------------------------------------------
 
+def _custom_cfg(job: dict):
+    """The job's model config: its architecture's, cut to its first
+    ``layers`` layers (their windows with them; whole groups of a hybrid's)
+    and, for the MoE, to ``experts`` routed experts."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(job["arch"])
+    if job.get("layers"):
+        cut = {"n_layers": job["layers"]}
+        if cfg.window_pattern is not None:
+            cut["window_pattern"] = cfg.window_pattern[:job["layers"]]
+        cfg = dataclasses.replace(cfg, **cut)
+    if job.get("experts"):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                              n_experts=job["experts"]))
+    return cfg
+
+
+def _infer_batch(cfg, job: dict) -> dict:
+    """A prefill job's batch: {name: (global shape, dtype)}, tokens [B, seq]
+    and, where the family reads them, the config's enc_seq frames or
+    ``vision`` patch embeddings with their M-RoPE positions."""
+    b, s, sv = job["batch"], job["seq"], job.get("vision", 0)
+    out = {"tokens": ((b, s), torch.int32)}
+    if cfg.kind == "encdec":
+        out["frames"] = ((b, cfg.enc_seq, cfg.d_model), cfg.dtype)
+    if cfg.kind == "vlm":
+        out["patch_embeds"] = ((b, sv, cfg.d_model), cfg.dtype)
+        out["positions"] = ((b, sv + s, 3), torch.int32)
+    return out
+
+
 def run_custom(job: dict, device: str) -> dict:
     """One job of ``--custom``: {"kind": "train", "arch", "layers" (optional
-    depth cut), "batch", "seq", "mesh": [data, model]} (an AdamW step) or
-    {"kind": "ota" | "wired" | "train_hdc" | ..., "cfg": {ScaleOutConfig
-    fields}, "mesh": [...]} traced as rank 0 of that mesh."""
-    from repro_torch import configs
+    depth cut), "batch", "seq", "mesh": [data, model]} (an AdamW step);
+    {"kind": "prefill", "arch", "layers", "experts" (optional), "batch",
+    "seq", "vision" (VLM patches), "pad_to", "mesh"} or {"kind": "decode",
+    ..., "batch", "seq" (the cache's slots; the step at seq - 1), "mesh"};
+    or {"kind": "ota" | "wired" | "train_hdc" | ..., "cfg": {ScaleOutConfig
+    fields}, "mesh": [...]}; each traced as rank 0 of that mesh."""
     from repro_torch.core import scaleout
 
     notes = trace_notes(device)
     shape = tuple(job.get("mesh", (1,)))
     with _world(shape) as mesh:
         if job["kind"] == "train":
-            cfg = configs.get_config(job["arch"])
-            if job.get("layers"):
-                cfg = dataclasses.replace(cfg, n_layers=job["layers"])
             bs = (job["batch"], job["seq"])
-            rec = count_train(cfg, {"tokens": (bs, torch.int32), "targets": (bs, torch.int32)},
+            rec = count_train(_custom_cfg(job),
+                              {"tokens": (bs, torch.int32), "targets": (bs, torch.int32)},
                               mesh, device)
+        elif job["kind"] == "prefill":
+            cfg = _custom_cfg(job)
+            rec = count_infer(cfg, "prefill", _infer_batch(cfg, job), mesh, device,
+                              pad_to=job.get("pad_to"))
+        elif job["kind"] == "decode":
+            rec = count_infer(_custom_cfg(job), "decode",
+                              {"token": ((job["batch"],), torch.int32)}, mesh, device,
+                              seq=job["seq"])
         else:
             kind = "train" if job["kind"] == "train_hdc" else job["kind"]
             rec = count_serve(kind, scaleout.ScaleOutConfig(**job["cfg"]), mesh, device)
@@ -499,19 +601,20 @@ def sweep(args) -> int:
     bad = [r for r in recs if r.get("status") == "error"]
     print(f"done: {len(recs)} records, " + ", ".join(
         f"{s} {sum(r.get('status') == s for r in recs)}"
-        for s in ("ok", "skipped", "not_ported", "error")), flush=True)
+        for s in ("ok", "skipped", "error")), flush=True)
     for r in bad:
         print(f"  ERROR: {r['arch']} {r['cell']} {r['mesh']}: {r.get('error')}", flush=True)
     return 0
 
 
 def table(out: str = OUT) -> str:
-    """The records under ``out`` as two markdown tables, one row per
-    architecture or HDC cell (its packed variant beside it) and a column
-    per mesh: per rank, the peak
-    GiB, TFLOP (training) or wire and device bytes a trial (HDC), wire GB
-    (the pod axis's apart), and the roofline bound with its dominant term.
-    Counts at the H100 SXM's datasheet peaks, not timings."""
+    """The records under ``out`` as two markdown tables, the model cells'
+    (a row per architecture, a column per cell and mesh) and the HDC
+    cells' (a row per cell, its packed variant beside it, a column per
+    mesh): per rank, the peak GiB, TFLOP (model cells) or wire and device
+    bytes a trial (HDC), wire GB (the pod axis's apart), and the roofline
+    bound with its dominant term. Counts at the H100 SXM's datasheet peaks,
+    not timings."""
     recs = {}
     for arch, cell, mp in all_jobs():
         path = out_path(out, arch, cell, mp)
@@ -536,13 +639,15 @@ def table(out: str = OUT) -> str:
         return (f"{m['peak_bytes'] / 2**30:.3g} / {c['flops'] / 1e12:.4g} / "
                 f"{wire / 1e9:.4g}" + (f" ({pod / 1e9:.3g} pod)" if pod else "") + f" / {bound}")
 
-    rows = ["| arch (train_4k) | 16x16: GiB / TFLOP / wire GB / bound | 2x16x16: the same |",
-            "|---|---|---|"]
     from repro_torch import configs
+    cells = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+    rows = ["| arch (GiB / TFLOP / wire GB / bound) | " + " | ".join(
+                f"{c} {m}" for c in cells for m in ("16x16", "2x16x16")) + " |",
+            "|---|" + "---|" * 2 * len(cells)]
     for arch in configs.ARCHS:
         a = arch.replace("_", "-")
-        rows.append(f"| {a} | {one(recs.get((a, 'train_4k', False)), False)} | "
-                    f"{one(recs.get((a, 'train_4k', True)), False)} |")
+        rows.append(f"| {a} | " + " | ".join(one(recs.get((a, c, mp)), False)
+                                             for c in cells for mp in (False, True)) + " |")
     rows += ["", "| HDC cell (GiB / wire a trial / device bytes a trial / bound) | "
              "unpacked 16x16 | unpacked 2x16x16 | packed 16x16 | packed 2x16x16 |",
              "|---|---|---|---|---|"]

@@ -21,6 +21,9 @@ Training across ranks (``tp``) runs every projection on the rank's heads
 and MLP columns, as the dense decoder's tensor-parallel layers do: the
 encoder's and the decoder's self-attention, the cross-attention (its K/V
 from the encoder states, whole on every model rank) and the gelu MLP.
+Inference across ranks runs the same shards; the decode attends over the
+rank's piece of each cache, the self K/V and the cross K/V each placed as
+the rules engine cuts them (`transformer.cache_attend`).
 """
 from __future__ import annotations
 
@@ -32,12 +35,7 @@ from repro_torch.distributed import collectives
 from repro_torch.models import transformer as tfm
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (
-    decode_attention,
-    flash_attention,
-    rmsnorm,
-    sinusoid_positions,
-)
+from repro_torch.models.layers import flash_attention, rmsnorm, sinusoid_positions
 from repro_torch.models.transformer import _layers, attn_specs, mlp_specs
 
 
@@ -185,41 +183,37 @@ def _step_sinusoid(cfg: ModelConfig, pos, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, None]
 
 
-def run_decoder_step(params: dict, cfg: ModelConfig, token: torch.Tensor, pos, cache: dict):
+def run_decoder_step(params: dict, cfg: ModelConfig, token: torch.Tensor, pos, cache: dict,
+                     tp=None):
     """One decode step. token [B]; cache k/v [L, B, Sc, KH, hd] with
     slot_pos [Sc] (``pos`` an int) or [B, Sc] (``pos`` an int32 tensor [B]
     on the device, one position a row, as `transformer.run_stack_decode`
     takes it), and the cross ck/cv [L, B, T, KH, hd]. Writes the step's K/V
     at each row's slot ``pos % Sc`` in place; the cross-attention reads all
     T frames (slot positions 0..T-1 at position T) whatever form ``pos``
-    takes. Returns (hidden [B, 1, d], cache with the new slot_pos)."""
-    b = token.shape[0]
-    sc = cache["k"].shape[2]
-    slot_pos = cache["slot_pos"].clone()
-    if isinstance(pos, torch.Tensor) != (slot_pos.dim() == 2):
-        raise ValueError("per-row positions need a per-row slot_pos [B, Sc], an int "
-                         "position a shared slot_pos [Sc]")
-    if isinstance(pos, torch.Tensor):
-        where = (torch.arange(b, device=token.device), (pos % sc).long())
-        slot_pos[where] = pos
-    else:
-        where = (slice(None), pos % sc)
-        slot_pos[pos % sc] = pos
-    x = (params["embed"][token][:, None].to(cfg.dtype)
+    takes. Returns (hidden [B, 1, d], cache with the new slot_pos). ``tp``
+    runs the rank's shards over its pieces of both caches, each as the
+    rules engine places it (`transformer.cache_attend`), an int ``pos``
+    only."""
+    slot_pos, where = tfm.decode_slots(cache, pos, tp)
+    x = (tfm.embed_tokens(params, cfg, token[:, None], tp)
          + _step_sinusoid(cfg, pos, token.device).to(cfg.dtype))
-    t = cache["ck"].shape[2]
+    # on ranks the cross K/V hold the config's enc_seq frames (the prefill
+    # checks), of which a cut over their sequence leaves the rank a block
+    t = cache["ck"].shape[2] if tp is None or tp.group is None else cfg.enc_seq
     frame_pos = torch.arange(t, dtype=torch.int32, device=token.device)
-    for i, blk in enumerate(_layers(params["dec_blocks"], cfg.n_layers)):
-        h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
-        q, k, v = _proj_qkv(blk["attn"], h, h)
-        kc, vc = cache["k"][i], cache["v"][i]
-        kc[where] = k[:, 0]
-        vc[where] = v[:, 0]
-        x = x + _out(blk["attn"], decode_attention(q, kc, vc, slot_pos, pos), x.dtype)
-        h = rmsnorm(x, blk["lnx"], cfg.norm_eps)
-        qx = _proj(h, blk["xattn"]["wq"])
-        ox = decode_attention(qx, cache["ck"][i], cache["cv"][i], frame_pos, t, window=-1)
-        x = _mlp(blk, cfg, x + _out(blk["xattn"], ox, x.dtype))
+    with torch.no_grad():
+        for i, blk in enumerate(_layers(params["dec_blocks"], cfg.n_layers)):
+            h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
+            kc, vc = cache["k"][i], cache["v"][i]
+            q, k, v = _proj_qkv(blk["attn"], h, h, cfg, tfm.heads_tp(cfg, kc, slot_pos, tp))
+            o = tfm.cache_attend(cfg, q, k, v, kc, vc, slot_pos, pos, -1, where, tp)
+            x = x + _out(blk["attn"], o, x.dtype, cfg, tp)
+            h = rmsnorm(x, blk["lnx"], cfg.norm_eps)
+            qx = _proj(h, blk["xattn"]["wq"])
+            ox = tfm.cache_attend(cfg, qx, None, None, cache["ck"][i], cache["cv"][i],
+                                  frame_pos, t, -1, None, tp)
+            x = _mlp(blk, cfg, x + _out(blk["xattn"], ox, x.dtype, cfg, tp), tp)
     return x, dict(cache, slot_pos=slot_pos)
 
 

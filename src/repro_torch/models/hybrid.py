@@ -21,7 +21,10 @@ tensor-parallel attention and MLP (`transformer._attn_heads`, `_attn_out`,
 Decode: the shared block runs G times a token on different activations, so
 the KV cache carries G entries [G, B, Sc, KH, hd]; the Mamba states are
 [G, per, B, ...]. The decode writes the step's K/V and the new conv and SSM
-states into the cache's tensors in place.
+states into the cache's tensors in place. Inference across ranks runs the
+same shards over the rank's piece of the cache: the K/V cut by sequence
+(`transformer.cache_attend`), the conv states by conv_dim and the SSM
+states whole, as the reference's cache axes place them.
 """
 from __future__ import annotations
 
@@ -29,10 +32,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives, sharding
 from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import transformer as tfm
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import decode_attention, flash_attention, rmsnorm
+from repro_torch.models.layers import flash_attention, rmsnorm
 from repro_torch.models.transformer import (
     _attn_heads,
     _attn_out,
@@ -87,11 +92,16 @@ def _shared_attn_train(shared: dict, ln1: torch.Tensor, ln2: torch.Tensor, cfg: 
                        tp=None):
     """The shared block on a full sequence: (x, (k, v) or None)."""
     h = rmsnorm(x, ln1, cfg.norm_eps)
-    q, k, v = _attn_heads(shared["attn"], cfg, h, positions, cfg.rope_theta, tp)
+    q, k, v = _attn_heads(shared["attn"], cfg, h, positions, cfg.rope_theta, tp,
+                          whole_kv=return_kv)
+    kv = (k, v)
+    # a prefill's kv heads, whole on every rank: the rank's attention reads its own
+    if return_kv and k.shape[2] == cfg.n_kv_heads and q.shape[2] < cfg.n_heads:
+        k, v = (tfm._kv_for_rank(t, tp, q.shape[2], cfg, dim=2).contiguous() for t in kv)
     o = flash_attention(q, k, v, causal=True, block_q=cfg.flash_block_q,
                         block_k=cfg.flash_block_k)
     x = x + _attn_out(shared["attn"], cfg, o, tp)
-    return _shared_mlp(shared, ln2, cfg, x, tp), ((k, v) if return_kv else None)
+    return _shared_mlp(shared, ln2, cfg, x, tp), (kv if return_kv else None)
 
 
 def run_hybrid_train(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -129,43 +139,52 @@ def run_hybrid_train(params: dict, cfg: ModelConfig, x: torch.Tensor, positions:
     return x, 0.0, ((torch.stack(ks), torch.stack(vs)), (stack(convs), stack(ssms)))
 
 
-def run_hybrid_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, pos, cache: dict):
+def run_hybrid_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, pos, cache: dict,
+                      tp=None):
     """One decode step. cache: k/v [G, B, Sc, KH, hd], slot_pos [Sc] (``pos``
     an int) or [B, Sc] (``pos`` an int32 tensor [B], one position a row, as
     `transformer.run_stack_decode` takes it), conv [G, per, B, K-1, Cc], ssm
     [G, per, B, H, N, P]. Writes the step's K/V at each row's slot ``pos %
     Sc`` and the new conv and SSM states into the cache's tensors in place;
-    returns (hidden, cache with the new slot_pos)."""
+    returns (hidden, cache with the new slot_pos). ``tp`` runs the shared
+    block over the rank's piece of the K/V cache
+    (`transformer.cache_attend`) and each Mamba-2 layer on the rank's heads
+    (`mamba.mamba2_decode`), an int ``pos`` only."""
     g, per = _counts(cfg)
     b = x.shape[0]
-    sc = cache["k"].shape[2]
-    slot_pos = cache["slot_pos"].clone()
-    if isinstance(pos, torch.Tensor) != (slot_pos.dim() == 2):
-        raise ValueError("per-row positions need a per-row slot_pos [B, Sc], an int "
-                         "position a shared slot_pos [Sc]")
+    slot_pos, where = tfm.decode_slots(cache, pos, tp)
     if isinstance(pos, torch.Tensor):
-        where = (torch.arange(b, device=x.device), (pos % sc).long())
-        slot_pos[where] = pos
         positions = pos[:, None]
     else:
-        where = (slice(None), pos % sc)
-        slot_pos[pos % sc] = pos
         positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     shared, grp = params["shared"], params["groups"]
-    for gi in range(g):
-        h = rmsnorm(x, grp["ln1"][gi], cfg.norm_eps)
-        q, k, v = _attn_heads(shared["attn"], cfg, h, positions, cfg.rope_theta)
-        kc, vc = cache["k"][gi], cache["v"][gi]
-        kc[where] = k[:, 0]
-        vc[where] = v[:, 0]
-        o = decode_attention(q, kc, vc, slot_pos, pos)
-        x = _shared_mlp(shared, grp["ln2"][gi], cfg, x + _attn_out(shared["attn"], cfg, o))
-        for j in range(per):
-            x, cst, sst = mamba_lib.mamba2_decode(_mamba_layer(grp, gi, j), cfg, x,
-                                                  cache["conv"][gi, j], cache["ssm"][gi, j])
-            cache["conv"][gi, j].copy_(cst)
-            cache["ssm"][gi, j].copy_(sst)
+    with torch.no_grad():
+        for gi in range(g):
+            h = rmsnorm(x, grp["ln1"][gi], cfg.norm_eps)
+            kc, vc = cache["k"][gi], cache["v"][gi]
+            q, k, v = _attn_heads(shared["attn"], cfg, h, positions, cfg.rope_theta,
+                                  tfm.heads_tp(cfg, kc, slot_pos, tp))
+            o = tfm.cache_attend(cfg, q, k, v, kc, vc, slot_pos, pos, -1, where, tp)
+            x = _shared_mlp(shared, grp["ln2"][gi], cfg,
+                            x + _attn_out(shared["attn"], cfg, o, tp), tp)
+            for j in range(per):
+                x, cst, sst = mamba_lib.mamba2_decode(_mamba_layer(grp, gi, j), cfg, x,
+                                                      cache["conv"][gi, j], cache["ssm"][gi, j],
+                                                      tp)
+                cache["conv"][gi, j].copy_(cst)
+                cache["ssm"][gi, j].copy_(sst)
     return x, dict(cache, slot_pos=slot_pos)
+
+
+def conv_cut(cfg: ModelConfig, tp) -> bool:
+    """Whether the rules engine cuts the cache's conv states over the model
+    ranks of ``tp`` (``inner`` on conv_dim, where it divides)."""
+    m = collectives.ranks(None if tp is None else tp.group)
+    if m == 1:
+        return False
+    shapes, axes = hybrid_cache_specs(cfg, 1, 1)
+    return "model" in sharding.resolve(axes["conv"], shapes["conv"][0], {"model": m},
+                                       sharding.merged_rules(cfg))
 
 
 def hybrid_cache_specs(cfg: ModelConfig, batch: int, seq: int) -> tuple[dict, dict]:

@@ -21,6 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives
 from repro_torch.kernels.flash_attention.ops import FlashAttention, flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import NEG_INF, expand_kv, largest_divisor
 
@@ -142,7 +143,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      slot_pos: torch.Tensor, cur_pos: int | torch.Tensor, *,
-                     window: int = -1) -> torch.Tensor:
+                     window: int = -1, group=None, slot_base: int = 0) -> torch.Tensor:
     """Single-token attention over a (ring) KV cache.
 
     q [B, 1, H, D]; caches [B, Sc, KH, D]; slot_pos [Sc] (one for the whole
@@ -151,13 +152,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     int32 tensor [B] (one a row, as the continuous engine's slots decode).
     Scores and softmax in f32; P cast to the cache's dtype for the P.V
     product, as in the reference. The query heads of one kv head are
-    grouped instead of expanding the cache."""
+    grouped instead of expanding the cache.
+
+    With a ``group`` (the model ranks of a cache cut over its sequence),
+    the caches hold this rank's slots [slot_base, slot_base + Sc) of
+    the whole slot_pos (one position for the batch), every query head
+    attends over them, and the ranks' partial softmaxes are merged over the
+    group: M = max_r m_r, L = sum_r l_r e^(m_r - M), O = sum_r o_r e^(m_r -
+    M) / L. Masked scores stay at the finite NEG_INF, so a rank with no
+    visible slot adds nothing next to one that has some, and a row with
+    none anywhere takes the mean over every slot, as on one rank."""
     b, _, h, d = q.shape
-    kh = k_cache.shape[2]
+    sc, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
     scale = 1.0 / math.sqrt(d)
     qg = q.reshape(b, kh, g, d).float()                               # [B, KH, G, D]
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale  # [B, KH, G, Sc]
+    if group is not None:
+        if isinstance(cur_pos, torch.Tensor) or slot_pos.dim() != 1:
+            raise ValueError("a cache cut over its sequence decodes one position for the batch")
+        slot_pos = slot_pos[slot_base:slot_base + sc]
     cur = cur_pos[:, None] if isinstance(cur_pos, torch.Tensor) else cur_pos
     ok = (slot_pos >= 0) & (slot_pos <= cur)                          # [Sc] or [B, Sc]
     if window > 0:
@@ -165,6 +179,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if ok.dim() == 2:
         ok = ok[:, None, None, :]
     s = s.masked_fill(~ok, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
+    if group is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
+        return out.reshape(b, 1, h, d).to(q.dtype)
+    m = s.amax(-1, keepdim=True)                                      # [B, KH, G, 1]
+    p = torch.exp(s - m)
+    l_ = p.sum(-1, keepdim=True)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
+    top = collectives.all_reduce_max(m, group)
+    w = torch.exp(m - top)
+    den = collectives.all_reduce(l_ * w, group)
+    out = collectives.all_reduce(o * w, group) / den
     return out.reshape(b, 1, h, d).to(q.dtype)

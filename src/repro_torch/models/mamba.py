@@ -37,7 +37,10 @@ line up with the channels; a rank gathers such a leaf whole (the autograd
 gather, whose backward reduce-scatters the gradient) and takes its
 channels' columns (`_spans`). Mamba-2's B and C (one group) are whole on
 every rank, and its per-head A_log, D and dt_bias, replicated, are
-narrowed to the rank's heads.
+narrowed to the rank's heads. The decodes on ranks run the same split over
+the cache's placement: Mamba-1's states are the rank's channels; Mamba-2's
+conv state is cut by conv_dim (gathered whole for a step) and its SSM
+state is whole (the rank's heads updated, then gathered).
 """
 from __future__ import annotations
 
@@ -284,29 +287,37 @@ def mamba1_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state=None, tp=None
 
 
 def mamba1_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tensor,
-                  ssm_state: torch.Tensor):
+                  ssm_state: torch.Tensor, tp=None):
     """x [B, 1, d]; conv_state [B, K-1, din]; ssm_state [B, din, N] f32.
-    Returns (x + out, new conv_state, new ssm_state)."""
+    Returns (x + out, new conv_state, new ssm_state). ``tp`` runs the
+    rank's d_inner channels, as `mamba1_block` does: both states are the
+    rank's channels (the cache's ``inner`` cut), x_proj's product is summed
+    over the model group and out_proj's reduced."""
     s_cfg = cfg.ssm
     d = x.shape[-1]
     din = s_cfg.expand * d
     r = s_cfg.dt_rank or d // 16
     n = s_cfg.d_state
+    group, rank, c0, dl = _model_split(tp, din)
+
+    def mine(name, dim):
+        return _spans(p[name], dim, din, group, [(c0, dl)], rank)
+
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    xz = dense(h, p["in_proj"])
-    xin, z = xz[:, 0].split(din, dim=-1)
-    conv_state, xc = conv_step(conv_state, xin, p["conv_w"], p["conv_b"])
+    xz = dense(h, _spans(p["in_proj"], -1, 2 * din, group, [(c0, dl), (din + c0, dl)], rank))
+    xin, z = xz[:, 0].split(dl, dim=-1)
+    conv_state, xc = conv_step(conv_state, xin, mine("conv_w", 0), mine("conv_b", 0))
     xc = F.silu(xc.float()).to(x.dtype)
-    dbc = _dot_f32(xc, p["x_proj"])
+    dbc = collectives.reduce_from_group(_dot_f32(xc, mine("x_proj", 0)), group)
     dt_raw, Bm, Cm = dbc.split([r, n, n], dim=-1)
-    dt = F.softplus(torch.matmul(dt_raw, p["dt_proj"].float()) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    dt = F.softplus(torch.matmul(dt_raw, mine("dt_proj", -1).float()) + mine("dt_bias", 0))
+    A = -torch.exp(mine("A_log", 0))
     dA = torch.exp(dt[..., None] * A[None])
     xcf = xc.float()
     ssm_state = dA * ssm_state + (dt * xcf)[..., None] * Bm[:, None, :]
-    y = torch.einsum("bdn,bn->bd", ssm_state, Cm) + xcf * p["D"][None]
+    y = torch.einsum("bdn,bn->bd", ssm_state, Cm) + xcf * mine("D", 0)[None]
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = dense(y, p["out_proj"])
+    out = collectives.reduce_from_group(dense(y, mine("out_proj", 0)), group)
     return x + out[:, None], conv_state, ssm_state
 
 
@@ -420,30 +431,43 @@ def _gated_rmsnorm(y: torch.Tensor, gain: torch.Tensor, eps: float, group, whole
     return (yf * torch.rsqrt(var + eps) * (1.0 + gain.float())).to(y.dtype)
 
 
+def _mamba2_split(cfg: ModelConfig, tp) -> dict:
+    """A rank's share of a Mamba-2 layer over the model ranks of ``tp``: its
+    channels (c0, dl), heads (h0, hl) and their B/C groups (gl of them, gw
+    channels), and the spans of in_proj's columns and the conv's channels
+    it reads."""
+    s_cfg = cfg.ssm
+    din = s_cfg.expand * cfg.d_model
+    nh = din // s_cfg.head_dim
+    gn = s_cfg.n_groups * s_cfg.d_state
+    group, rank, c0, dl = _model_split(tp, din, s_cfg.head_dim)
+    h0, hl = c0 // s_cfg.head_dim, dl // s_cfg.head_dim
+    hpg = nh // s_cfg.n_groups
+    if hl % hpg and hpg % hl:
+        raise ValueError(f"{hl} heads a rank do not sit in whole groups of {hpg}")
+    g0, gl = h0 // hpg, max(1, hl // hpg)
+    gs, gw = g0 * s_cfg.d_state, gl * s_cfg.d_state
+    return dict(din=din, nh=nh, gn=gn, group=group, rank=rank, c0=c0, dl=dl, h0=h0, hl=hl,
+                hpg=hpg, gl=gl, gw=gw,
+                w_in=[(c0, dl), (din + c0, dl), (2 * din + gs, gw), (2 * din + gn + gs, gw),
+                      (2 * din + 2 * gn + h0, hl)],
+                conv=[(c0, dl), (din + gs, gw), (din + gn + gs, gw)])
+
+
 def mamba2_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state=None, tp=None):
     """Full-sequence mamba-2 block; returns (x + out, (conv_state, ssm_state)).
     ``tp`` runs the rank's heads (training; see the module's note)."""
     s_cfg = cfg.ssm
-    b, s, d = x.shape
-    din = s_cfg.expand * d
-    nh = din // s_cfg.head_dim
-    ng = s_cfg.n_groups
-    gn = ng * s_cfg.d_state
-    group, rank, c0, dl = _model_split(tp, din, s_cfg.head_dim)
-    h0_, hl = c0 // s_cfg.head_dim, dl // s_cfg.head_dim            # the rank's heads
-    hpg = nh // ng
-    g0, gl = h0_ // hpg, max(1, hl // hpg)                           # and their groups
-    if hl % hpg and hpg % hl:
-        raise ValueError(f"{hl} heads a rank do not sit in whole groups of {hpg}")
-    gs, gw = g0 * s_cfg.d_state, gl * s_cfg.d_state
+    b, s, _ = x.shape
+    sp = _mamba2_split(cfg, tp)
+    group, rank, din, nh, dl, hl, gl, gw = (sp[k] for k in ("group", "rank", "din", "nh",
+                                                             "dl", "hl", "gl", "gw"))
     h = collectives.copy_to_group(rmsnorm(x, p["norm"], cfg.norm_eps), group)
-    w_in = _spans(p["in_proj"], -1, 2 * din + 2 * gn + nh, group,
-                  [(c0, dl), (din + c0, dl), (2 * din + gs, gw), (2 * din + gn + gs, gw),
-                   (2 * din + 2 * gn + h0_, hl)], rank)
+    w_in = _spans(p["in_proj"], -1, 2 * din + 2 * sp["gn"] + nh, group, sp["w_in"], rank)
     z, xbc_pre, dt_raw = dense(h, w_in).split([dl, dl + 2 * gw, hl], dim=-1)
-    conv = [(c0, dl), (din + gs, gw), (din + gn + gs, gw)]
-    xbc = causal_conv1d(xbc_pre, _spans(p["conv_w"], 0, din + 2 * gn, group, conv, rank),
-                        _spans(p["conv_b"], 0, din + 2 * gn, group, conv, rank))
+    cdim = din + 2 * sp["gn"]
+    xbc = causal_conv1d(xbc_pre, _spans(p["conv_w"], 0, cdim, group, sp["conv"], rank),
+                        _spans(p["conv_b"], 0, cdim, group, sp["conv"], rank))
     xbc = F.silu(xbc.float()).to(x.dtype)
     xin, Bm, Cm = xbc.split([dl, gw, gw], dim=-1)
     xh = xin.reshape(b, s, hl, s_cfg.head_dim)
@@ -451,7 +475,7 @@ def mamba2_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state=None, tp=None
     Ch = Cm.reshape(b, s, gl, s_cfg.d_state)
 
     def heads(name):
-        return _spans(p[name], 0, nh, group, [(h0_, hl)], rank)
+        return _spans(p[name], 0, nh, group, [(sp["h0"], hl)], rank)
 
     dt = F.softplus(dt_raw.float() + heads("dt_bias"))
     A = -torch.exp(heads("A_log"))
@@ -460,39 +484,96 @@ def mamba2_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state=None, tp=None
     y, h_fin = ssd(xh, dt, A, Bh, Ch, heads("D"), h0, s_cfg.chunk)
     y = y.reshape(b, s, dl)
     y = _gated_rmsnorm((y.float() * F.silu(z.float())).to(x.dtype),
-                       _spans(p["gate_norm"], 0, din, group, [(c0, dl)], rank), cfg.norm_eps,
-                       group, din)
+                       _spans(p["gate_norm"], 0, din, group, [(sp["c0"], dl)], rank),
+                       cfg.norm_eps, group, din)
     out = collectives.reduce_from_group(
-        dense(y, _spans(p["out_proj"], 0, din, group, [(c0, dl)], rank)), group)
+        dense(y, _spans(p["out_proj"], 0, din, group, [(sp["c0"], dl)], rank)), group)
     return x + out, (_last_inputs(xbc_pre, s_cfg.d_conv), h_fin)
 
 
+def xbc_whole(t: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """A rank's conv channels (x of its heads | B | C of their groups) on the
+    last axis of ``t`` -> every channel (x | B | C), gathered over the model
+    group: x in rank order, each B/C group from the first rank holding it."""
+    sp = _mamba2_split(cfg, tp)
+    if sp["group"] is None:
+        return t
+    parts = collectives.all_gather(t, sp["group"])                 # [S, ..., dl + 2 gw]
+    dl, gw = sp["dl"], sp["gw"]
+    keep = [r for r in range(parts.shape[0]) if (r * sp["hl"]) % sp["hpg"] == 0]
+    xs = torch.cat(parts[..., :dl].unbind(0), -1)
+    bs = torch.cat([parts[r, ..., dl:dl + gw] for r in keep], -1)
+    cs = torch.cat([parts[r, ..., dl + gw:] for r in keep], -1)
+    return torch.cat([xs, bs, cs], -1)
+
+
+def mamba2_cache_states(cfg: ModelConfig, conv: torch.Tensor, ssm: torch.Tensor, tp,
+                        conv_cut: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """A prefill's final states on the rank's share ([..., K-1, dl + 2 gw],
+    [..., hl, N, P]) as the cache places them: the conv channels gathered
+    whole and, where the cache cuts them over ``model`` (``conv_cut``), the
+    rank's contiguous block; the SSM state gathered over every head (the
+    cache holds it whole)."""
+    sp = _mamba2_split(cfg, tp)
+    if sp["group"] is None:
+        return conv, ssm
+    conv = xbc_whole(conv, cfg, tp)
+    if conv_cut:
+        n = conv.shape[-1] // collectives.ranks(sp["group"])
+        conv = conv.narrow(-1, sp["rank"] * n, n).contiguous()
+    return conv, collectives.all_gather_dim(ssm, ssm.dim() - 3, sp["group"])
+
+
 def mamba2_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, conv_state: torch.Tensor,
-                  ssm_state: torch.Tensor):
+                  ssm_state: torch.Tensor, tp=None):
     """x [B,1,d]; conv_state [B,K-1,conv_dim]; ssm_state [B,H,N,P] f32.
-    Returns (x + out, new conv_state, new ssm_state)."""
+    Returns (x + out, new conv_state, new ssm_state). ``tp`` runs the
+    rank's heads, as `mamba2_block` does, on the cache's placement: the
+    conv state whole or the rank's contiguous block of conv_dim (gathered
+    whole for the step, the new column gathered from every rank's
+    channels), the SSM state whole (the rank updates its heads, gathered
+    back over every head)."""
     s_cfg = cfg.ssm
-    b, _, d = x.shape
-    din = s_cfg.expand * d
-    nh = din // s_cfg.head_dim
-    gn = s_cfg.n_groups * s_cfg.d_state
+    b = x.shape[0]
+    sp = _mamba2_split(cfg, tp)
+    group, rank, dl, hl = sp["group"], sp["rank"], sp["dl"], sp["hl"]
+    cdim = sp["din"] + 2 * sp["gn"]
     h = rmsnorm(x, p["norm"], cfg.norm_eps)
-    zxbcdt = dense(h, p["in_proj"])
-    z, xbc, dt_raw = zxbcdt[:, 0].split([din, din + 2 * gn, nh], dim=-1)
-    conv_state, xbc = conv_step(conv_state, xbc, p["conv_w"], p["conv_b"])
-    xbc = F.silu(xbc.float()).to(x.dtype)
-    xin, Bm, Cm = xbc.split([din, gn, gn], dim=-1)
-    xh = xin.reshape(b, nh, s_cfg.head_dim).float()
-    rep = nh // s_cfg.n_groups
-    Bh = Bm.reshape(b, s_cfg.n_groups, s_cfg.d_state).float().repeat_interleave(rep, dim=1)
-    Ch = Cm.reshape(b, s_cfg.n_groups, s_cfg.d_state).float().repeat_interleave(rep, dim=1)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])                         # [B,H]
-    A = -torch.exp(p["A_log"])
+    w_in = _spans(p["in_proj"], -1, 2 * sp["din"] + 2 * sp["gn"] + sp["nh"], group,
+                  sp["w_in"], rank)
+    z, xbc, dt_raw = dense(h, w_in)[:, 0].split([dl, dl + 2 * sp["gw"], hl], dim=-1)
+    whole = (collectives.all_gather_dim(conv_state, -1, group)
+             if conv_state.shape[-1] < cdim else conv_state)
+    own = torch.cat([whole.narrow(-1, a, k) for a, k in sp["conv"]], -1)
+    _, xbc_c = conv_step(own, xbc, _spans(p["conv_w"], 0, cdim, group, sp["conv"], rank),
+                         _spans(p["conv_b"], 0, cdim, group, sp["conv"], rank))
+    col = xbc_whole(xbc, cfg, tp)
+    if conv_state.shape[-1] < cdim:
+        col = col.narrow(-1, rank * conv_state.shape[-1], conv_state.shape[-1])
+    conv_state = torch.cat([conv_state[:, 1:], col[:, None]], dim=1)
+    xbc_c = F.silu(xbc_c.float()).to(x.dtype)
+    xin, Bm, Cm = xbc_c.split([dl, sp["gw"], sp["gw"]], dim=-1)
+    xh = xin.reshape(b, hl, s_cfg.head_dim).float()
+    rep = hl // sp["gl"]
+    Bh = Bm.reshape(b, sp["gl"], s_cfg.d_state).float().repeat_interleave(rep, dim=1)
+    Ch = Cm.reshape(b, sp["gl"], s_cfg.d_state).float().repeat_interleave(rep, dim=1)
+
+    def heads(name):
+        return _spans(p[name], 0, sp["nh"], group, [(sp["h0"], hl)], rank)
+
+    dt = F.softplus(dt_raw.float() + heads("dt_bias"))                  # [B,H]
+    A = -torch.exp(heads("A_log"))
     a = torch.exp(dt * A[None])
     xdt = xh * dt[..., None]
-    ssm_state = a[..., None, None] * ssm_state + torch.einsum("bhn,bhp->bhnp", Bh, xdt)
-    y = torch.einsum("bhn,bhnp->bhp", Ch, ssm_state) + xh * p["D"][None, :, None]
-    y = y.reshape(b, din)
-    y = rmsnorm((y * F.silu(z.float())).to(x.dtype), p["gate_norm"], cfg.norm_eps)
-    out = dense(y, p["out_proj"])
-    return x + out[:, None], conv_state, ssm_state
+    mine = ssm_state.narrow(1, sp["h0"], hl) if ssm_state.shape[1] > hl else ssm_state
+    mine = a[..., None, None] * mine + torch.einsum("bhn,bhp->bhnp", Bh, xdt)
+    y = torch.einsum("bhn,bhnp->bhp", Ch, mine) + xh * heads("D")[None, :, None]
+    y = y.reshape(b, dl)
+    y = _gated_rmsnorm((y * F.silu(z.float())).to(x.dtype),
+                       _spans(p["gate_norm"], 0, sp["din"], group, [(sp["c0"], dl)], rank),
+                       cfg.norm_eps, group, sp["din"])
+    out = collectives.reduce_from_group(
+        dense(y, _spans(p["out_proj"], 0, sp["din"], group, [(sp["c0"], dl)], rank)), group)
+    if ssm_state.shape[1] > hl:
+        mine = collectives.all_gather_dim(mine, 1, group)
+    return x + out[:, None], conv_state, mine

@@ -196,7 +196,10 @@ def combine(comb: torch.Tensor, ye: torch.Tensor) -> torch.Tensor:
 
 
 def data_ranks(tp) -> int:
-    """The data ranks the batch is cut over (1 without ``tp``)."""
+    """The data ranks the rows are cut over (1 without ``tp``):
+    ``tp.data_groups`` holds only the data axes a rank's rows are really
+    cut over, so a batch whole on every data rank (the B = 1 of a
+    long-context decode) counts 1, and its tokens are not multiplied."""
     return math.prod(collectives.ranks(g) for g in tp.data_groups) if tp is not None else 1
 
 
@@ -208,12 +211,23 @@ def apply(p: dict, cfg: ModelConfig, x: torch.Tensor, tp=None,
     config's (1 routes every token as a group of its own). With ``tp`` (a
     `collectives.TensorParallel`) x is this data rank's rows, the weights
     are the rank's shards, and aux is this data rank's share (1/D) of the
-    global batch's."""
+    global batch's. A dispatch group that straddles data ranks (a decode's
+    B tokens in one group) is refused in training; at inference
+    (``tp.infer``) the rows are gathered whole over the data ranks, routed
+    as one rank routes them (the same groups, the same capacity drops), and
+    each rank keeps its own rows."""
     m = cfg.moe
     b, s, d = x.shape
     n_data = data_ranks(tp)
     t = b * s * n_data
     tg = group_tokens(t, m.group_size if group_size is None else group_size)
+    if (b * s) % tg and tp.infer:
+        whole = x
+        for grp in reversed(tp.data_groups):        # the inner axis first: global row order
+            whole = collectives.all_gather_dim(whole, 0, grp)
+        out, aux = apply(p, cfg, whole, dataclasses.replace(tp, data_groups=(), data_index=0),
+                         group_size)
+        return out.narrow(0, tp.data_index * b, b), aux / n_data
     if (b * s) % tg:
         raise ValueError(
             f"{cfg.name}: the global batch's {t} tokens ({b * n_data} x {s}) route in groups "

@@ -11,7 +11,13 @@ static engine) or one a row on the device (the continuous engine's slots),
 and the chunked prefill (`run_stack_chunk`) runs one chunk of a prompt on
 the attention kernel's ``q_offset``. Training on ranks (``tp=``) runs the
 rank's shards of the heads, the MLP and the vocabulary, with the widths read
-from the weight shards.
+from the weight shards. Inference on ranks runs the same shards; the
+prefill's K/V become the rank's piece of the cache as the rules engine
+places the reference's cache axes (`kv_cut`: over the sequence where a
+config puts ``kv_seq`` on ``model``), and the decode attends over that
+piece (`cache_attend`), a cut sequence's partial softmaxes merged over the
+model ranks, where the reference's GSPMD partitions its decode attention
+unasked.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, sharding
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.base import ParamSpec
 from repro_torch.models.config import ModelConfig
@@ -32,6 +38,10 @@ from repro_torch.models.layers import (
     gated_mlp,
     rmsnorm,
 )
+
+
+# the logical axes of every K/V cache leaf [L, B, Sc, KH, hd] (the reference's)
+KV_AXES = (None, "batch", "kv_seq", "kv_heads", "head_dim")
 
 
 # ---------------------------------------------------------------------------
@@ -126,31 +136,34 @@ def _layers(tree: dict, n: int) -> list[dict]:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _kv_for_rank(w: torch.Tensor, tp, h: int, cfg: ModelConfig) -> torch.Tensor:
+def _kv_for_rank(w: torch.Tensor, tp, h: int, cfg: ModelConfig, dim: int = 1
+                 ) -> torch.Tensor:
     """The kv heads a rank's ``h`` query heads read, from the whole kv
-    projection w [d, KH, hd]: global q head ``rank*h + j`` reads kv head
-    ``(rank*h + j) // (H/KH)``. A contiguous span of whole groups, or one
-    kv head when the rank's heads sit inside one group; otherwise one kv
-    head for each q head."""
+    projection w [d, KH, hd] (or whole k/v, their heads on ``dim``): global
+    q head ``rank*h + j`` reads kv head ``(rank*h + j) // (H/KH)``. A
+    contiguous span of whole groups, or one kv head when the rank's heads
+    sit inside one group; otherwise one kv head for each q head."""
     g = cfg.n_heads // cfg.n_kv_heads
     first = tp.rank * h
     if h % g == 0:
-        return w.narrow(1, first // g, h // g)
+        return w.narrow(dim, first // g, h // g)
     if g % h == 0:
-        return w.narrow(1, first // g, 1)
+        return w.narrow(dim, first // g, 1)
     ids = torch.tensor([(first + j) // g for j in range(h)], device=w.device)
-    return w.index_select(1, ids)
+    return w.index_select(dim, ids)
 
 
 def _attn_heads(blk: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                theta: float, tp=None):
+                theta: float, tp=None, whole_kv: bool = False):
     """q, k, v [B, S, heads, hd] at the rank's own heads: the widths come
     from the weight shards. With the heads cut over the model group
     (``tp``), x enters through `copy_to_group`; kv heads that are whole on
     every rank are narrowed to the ones the rank's q heads read, through
     `copy_to_group` too, since each rank adds only its heads' part of
     their gradient; so are the whole q and k norms, which act on the
-    rank's heads alone."""
+    rank's heads alone. ``whole_kv`` (a prefill on ranks, whose cache
+    holds every kv head) projects such kv heads whole; the caller narrows
+    them for its attention."""
     b, s, d = x.shape
     h, hd = blk["wq"].shape[-2], blk["wq"].shape[-1]
     wk, wv = blk["wk"], blk["wv"]
@@ -158,7 +171,7 @@ def _attn_heads(blk: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
     group = collectives.cut_group(tp, h, cfg.n_heads)
     if group is not None:
         x = collectives.copy_to_group(x, group)
-        if wk.shape[-2] == cfg.n_kv_heads:
+        if wk.shape[-2] == cfg.n_kv_heads and not whole_kv:
             wk = _kv_for_rank(collectives.copy_to_group(wk, group), tp, h, cfg)
             wv = _kv_for_rank(collectives.copy_to_group(wv, group), tp, h, cfg)
         if cfg.qk_norm:
@@ -221,18 +234,83 @@ def attn_block_train(blk: dict, cfg: ModelConfig, x: torch.Tensor, positions: to
     layers by `run_stack_train`. ``tp`` (a `collectives.TensorParallel`)
     runs the block on the rank's shards of the heads and the MLP
     (Megatron's split: column-split q/k/v and gate/up, row-split output and
-    down projections, one all-reduce after each)."""
+    down projections, one all-reduce after each); the returned k/v are the
+    rank's kv heads, or every kv head where they are whole on each rank."""
     h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
-    q, k, v = _attn_heads(blk["attn"], cfg, h, positions, theta, tp)
+    q, k, v = _attn_heads(blk["attn"], cfg, h, positions, theta, tp, whole_kv=return_kv)
+    kv = (k, v)
+    # a prefill's kv heads, whole on every rank: the rank's attention reads its own
+    if return_kv and k.shape[2] == cfg.n_kv_heads and q.shape[2] < cfg.n_heads:
+        k, v = (_kv_for_rank(t, tp, q.shape[2], cfg, dim=2).contiguous() for t in kv)
     o = flash_attention(q, k, v, causal=True, window=window,
                         block_q=cfg.flash_block_q, block_k=cfg.flash_block_k)
     x, aux = _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o, tp), tp)
-    return (x, aux, (k, v)) if return_kv else (x, aux)
+    return (x, aux, kv) if return_kv else (x, aux)
+
+
+def kv_cut(cfg: ModelConfig, slots: int, tp) -> str | None:
+    """How the rules engine places a K/V cache of ``slots`` slots on the
+    model ranks of ``tp``: "seq" (``kv_seq`` on ``model``, where a config
+    overrides it and the slots divide), "heads" (``kv_heads``, where the kv
+    heads divide instead), or None (whole on every model rank)."""
+    m = collectives.ranks(None if tp is None else tp.group)
+    if m == 1:
+        return None
+    spec = sharding.resolve(KV_AXES, (1, 1, slots, cfg.n_kv_heads, cfg.hd), {"model": m},
+                            sharding.merged_rules(cfg))
+    spec = spec + (None,) * (len(KV_AXES) - len(spec))
+    return "seq" if spec[2] == "model" else "heads" if spec[3] == "model" else None
+
+
+def heads_tp(cfg: ModelConfig, kc: torch.Tensor, slot_pos: torch.Tensor, tp):
+    """``tp`` where the rank's piece of the cache kc [B, Sc, KH, hd] is cut
+    by kv heads, so a decode projects as training does (the rank's q heads
+    and the kv heads they read); None otherwise: the projections then run
+    on the rank's shards as they are, and `cache_attend` gathers them."""
+    if tp is None or kc.shape[2] == cfg.n_kv_heads or kc.shape[1] < slot_pos.shape[-1]:
+        return None
+    return tp
+
+
+def cache_attend(cfg: ModelConfig, q: torch.Tensor, k, v, kc: torch.Tensor, vc: torch.Tensor,
+                 slot_pos: torch.Tensor, pos, window: int, where: tuple, tp=None
+                 ) -> torch.Tensor:
+    """Write one step's k/v [B, 1, heads, hd] (None: a read-only cache, the
+    cross K/V) into the cache kc/vc [B, Sc, KH, hd] at ``where`` and attend
+    q over it; returns o at q's heads. On model ranks (``tp``) the cache is
+    this rank's piece, as `kv_cut` places it: cut by kv heads, the rank's
+    q heads attend over its kv heads, as in training; cut by sequence (its
+    slots fewer than slot_pos's) or whole, q and the new k/v are gathered to
+    every head, the rank owning slot ``pos % Sc`` writes it, and every rank
+    attends over its slots with the partial softmaxes merged over the group
+    (`layers.decode_attention`), or over the whole cache; the rank's q heads
+    of o are returned."""
+    group = None if tp is None else tp.group
+    seq_cut = kc.shape[1] < slot_pos.shape[-1]
+    if group is None or (kc.shape[2] < cfg.n_kv_heads and not seq_cut):
+        if k is not None:
+            kc[where] = k[:, 0]
+            vc[where] = v[:, 0]
+        return decode_attention(q, kc, vc, slot_pos, pos, window=window)
+    h = q.shape[2]
+    qa = collectives.all_gather_dim(q, 2, group) if h < cfg.n_heads else q
+    if k is not None:
+        if k.shape[2] < cfg.n_kv_heads:
+            k, v = (collectives.all_gather_dim(t, 2, group) for t in (k, v))
+        if not seq_cut:
+            kc[where] = k[:, 0]
+            vc[where] = v[:, 0]
+        elif (pos % slot_pos.shape[-1]) // kc.shape[1] == tp.rank:
+            kc[:, pos % slot_pos.shape[-1] - tp.rank * kc.shape[1]] = k[:, 0]
+            vc[:, pos % slot_pos.shape[-1] - tp.rank * kc.shape[1]] = v[:, 0]
+    o = decode_attention(qa, kc, vc, slot_pos, pos, window=window,
+                         group=group if seq_cut else None, slot_base=tp.rank * kc.shape[1])
+    return o.narrow(2, tp.rank * h, h) if h < cfg.n_heads else o
 
 
 def attn_block_decode(blk: dict, cfg: ModelConfig, x: torch.Tensor, pos, window: int,
                       theta: float, kc: torch.Tensor, vc: torch.Tensor,
-                      slot_pos: torch.Tensor, where: tuple) -> torch.Tensor:
+                      slot_pos: torch.Tensor, where: tuple, tp=None) -> torch.Tensor:
     """x [B, 1, d]; kc/vc [B, Sc, KH, hd], written in place at ``where``
     (``(slice(None), slot)`` for one position, ``(rows, slots)`` for one a
     row); pos an int or an int32 tensor [B] (under M-RoPE every stream of
@@ -240,7 +318,9 @@ def attn_block_decode(blk: dict, cfg: ModelConfig, x: torch.Tensor, pos, window:
     tokens of one position as one group (t = B), as the reference's decode
     does; at per-row positions each row is a request of its own, which the
     reference decodes as a vmap of B = 1 decodes, so each row is routed as
-    a group of its own (its experts never drop for its neighbours)."""
+    a group of its own (its experts never drop for its neighbours). ``tp``
+    runs the block on the rank's shards over the rank's piece of the cache
+    (`cache_attend`)."""
     per_row = isinstance(pos, torch.Tensor)
     if per_row:
         positions = pos[:, None]
@@ -249,11 +329,9 @@ def attn_block_decode(blk: dict, cfg: ModelConfig, x: torch.Tensor, pos, window:
     if cfg.mrope_sections is not None:      # every M-RoPE stream at the decode position
         positions = positions[..., None].expand(-1, -1, len(cfg.mrope_sections))
     h = rmsnorm(x, blk["ln1"], cfg.norm_eps)
-    q, k, v = _attn_heads(blk["attn"], cfg, h, positions, theta)
-    kc[where] = k[:, 0]
-    vc[where] = v[:, 0]
-    o = decode_attention(q, kc, vc, slot_pos, pos, window=window)
-    return _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o),
+    q, k, v = _attn_heads(blk["attn"], cfg, h, positions, theta, heads_tp(cfg, kc, slot_pos, tp))
+    o = cache_attend(cfg, q, k, v, kc, vc, slot_pos, pos, window, where, tp)
+    return _mlp_residual(blk, cfg, x, _attn_out(blk["attn"], cfg, o, tp), tp,
                          group_size=1 if per_row else None)[0]
 
 
@@ -289,16 +367,19 @@ def logits_head(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor
 
 
 def run_stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                      positions: torch.Tensor):
-    """Full-sequence causal stack: (hidden [B, S, d], (k, v) stacks
-    [L, B, S, KH, hd])."""
+                      positions: torch.Tensor, tp=None):
+    """Full-sequence causal stack, without autograd: (hidden [B, S, d],
+    (k, v) stacks [L, B, S, KH, hd]); ``tp`` runs the training blocks on
+    the rank's shards, the stacks at the rank's kv heads or, where they are
+    whole on each rank, every kv head."""
     windows, thetas = layer_meta(cfg)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, _, (k, v) = attn_block_train(_layer(params["blocks"], i), cfg, x, positions,
-                                        windows[i], thetas[i], return_kv=True)
-        ks.append(k)
-        vs.append(v)
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            x, _, (k, v) = attn_block_train(_layer(params["blocks"], i), cfg, x, positions,
+                                            windows[i], thetas[i], return_kv=True, tp=tp)
+            ks.append(k)
+            vs.append(v)
     return x, (torch.stack(ks), torch.stack(vs))
 
 
@@ -327,13 +408,16 @@ def run_stack_train(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return x, aux
 
 
-def cache_from_kv(cfg: ModelConfig, kv, seq: int, pad_to: int | None = None) -> dict:
+def cache_from_kv(cfg: ModelConfig, kv, seq: int, pad_to: int | None = None, tp=None
+                  ) -> dict:
     """Build a decode cache from prefill K/V stacks [L, B, S, KH, hd].
 
     For pure sliding-window models the cache is a ring of the largest window
     (slot = pos % window; further decodes wrap correctly). Otherwise the cache
     is full-length, optionally padded to `pad_to` capacity so decode can extend
-    beyond the prompt without evicting position 0.
+    beyond the prompt without evicting position 0. On model ranks (``tp``)
+    the stacks hold the rank's kv heads or every kv head, and the cache is
+    the rank's piece as `recut_kv` places it.
     """
     k, v = kv
     dev = k.device
@@ -343,9 +427,31 @@ def cache_from_kv(cfg: ModelConfig, kv, seq: int, pad_to: int | None = None) -> 
         k = torch.roll(k[:, :, seq - sc:], shift, dims=2)
         v = torch.roll(v[:, :, seq - sc:], shift, dims=2)
         pos = torch.arange(seq - sc, seq, dtype=torch.int32, device=dev)
-        return {"k": k, "v": v, "slot_pos": torch.roll(pos, shift)}
-    slot_pos = torch.arange(seq, dtype=torch.int32, device=dev)
-    return pad_kv_cache({"k": k, "v": v, "slot_pos": slot_pos}, pad_to)
+        cache = {"k": k, "v": v, "slot_pos": torch.roll(pos, shift)}
+    else:
+        slot_pos = torch.arange(seq, dtype=torch.int32, device=dev)
+        cache = pad_kv_cache({"k": k, "v": v, "slot_pos": slot_pos}, pad_to)
+    return recut_kv(cfg, cache, tp)
+
+
+def recut_kv(cfg: ModelConfig, cache: dict, tp, names=("k", "v")) -> dict:
+    """The rank's piece of whole-slot K/V leaves [L, B, Sc, heads, hd] as
+    `kv_cut` places them: the rank's kv heads re-cut by sequence with one
+    all-to-all over the model group, or whole kv heads narrowed to the
+    rank's slots; kept as they are where the cut is by kv heads (they are
+    the rank's) or there is none (every kv head). slot_pos stays whole."""
+    cut = kv_cut(cfg, cache[names[0]].shape[2], tp)
+    if cut != "seq":
+        return cache
+    out = dict(cache)
+    for name in names:
+        t = cache[name]
+        if t.shape[3] < cfg.n_kv_heads:
+            out[name] = collectives.all_to_all_dim(t, 2, 3, tp.group)
+        else:
+            n = t.shape[2] // collectives.ranks(tp.group)
+            out[name] = t.narrow(2, tp.rank * n, n).contiguous()
+    return out
 
 
 def pad_kv_cache(cache: dict, pad_to: int | None) -> dict:
@@ -365,29 +471,49 @@ def pad_kv_cache(cache: dict, pad_to: int | None) -> dict:
     return out
 
 
-def run_stack_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, pos, cache: dict):
+def decode_slots(cache: dict, pos, tp=None) -> tuple[torch.Tensor, tuple]:
+    """(the new slot_pos, ``where`` the step writes a whole-slot cache):
+    ``pos`` an int (``slot_pos`` [Sc], one slot ``pos % Sc`` for the batch)
+    or an int32 tensor [B] (``slot_pos`` [B, Sc], each row's slot). On
+    ranks (``tp``) ``pos`` must be an int: the engines, whose slots decode
+    at positions of their own, stay off ranks, as the reference's take no
+    mesh. slot_pos is whole on every rank."""
+    slot_pos = cache["slot_pos"].clone()
+    per_row = isinstance(pos, torch.Tensor)
+    if per_row and tp is not None:
+        raise ValueError("a decode on ranks takes one int position for the batch: per-row "
+                         "positions are the continuous engine's, which stays off ranks as "
+                         "the reference's engines take no mesh")
+    if per_row != (slot_pos.dim() == 2):
+        raise ValueError("per-row positions need a per-row slot_pos [B, Sc], an int "
+                         "position a shared slot_pos [Sc]")
+    sc = slot_pos.shape[-1]
+    if per_row:
+        where = (torch.arange(pos.shape[0], device=pos.device), (pos % sc).long())
+        slot_pos[where] = pos
+    else:
+        where = (slice(None), pos % sc)
+        slot_pos[pos % sc] = pos
+    return slot_pos, where
+
+
+def run_stack_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, pos, cache: dict,
+                     tp=None):
     """One decode step. ``pos`` is an int (every row at one position; the
     cache's ``slot_pos`` [Sc]) or an int32 tensor [B] on the device (one
     position a row; ``slot_pos`` [B, Sc]): each row writes its K/V at its
     own slot ``pos % Sc`` with one indexed write a layer, and nothing is
     read back to the host. Writes the step's K/V into the cache's k/v
     tensors in place (the reference returns new arrays; the port saves the
-    copy) and returns (hidden, cache with the new slot_pos)."""
+    copy) and returns (hidden, cache with the new slot_pos). ``tp`` runs
+    each block on the rank's shards over its piece of the cache (an int
+    ``pos`` only; see `decode_slots`)."""
     windows, thetas = layer_meta(cfg)
-    sc = cache["k"].shape[2]
-    slot_pos = cache["slot_pos"].clone()
-    if isinstance(pos, torch.Tensor) != (slot_pos.dim() == 2):
-        raise ValueError("per-row positions need a per-row slot_pos [B, Sc], an int "
-                         "position a shared slot_pos [Sc]")
-    if isinstance(pos, torch.Tensor):
-        where = (torch.arange(x.shape[0], device=x.device), (pos % sc).long())
-        slot_pos[where] = pos
-    else:
-        where = (slice(None), pos % sc)
-        slot_pos[pos % sc] = pos
-    for i in range(cfg.n_layers):
-        x = attn_block_decode(_layer(params["blocks"], i), cfg, x, pos, windows[i],
-                              thetas[i], cache["k"][i], cache["v"][i], slot_pos, where)
+    slot_pos, where = decode_slots(cache, pos, tp)
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            x = attn_block_decode(_layer(params["blocks"], i), cfg, x, pos, windows[i],
+                                  thetas[i], cache["k"][i], cache["v"][i], slot_pos, where, tp)
     return x, dict(cache, slot_pos=slot_pos)
 
 

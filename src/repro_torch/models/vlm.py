@@ -68,10 +68,11 @@ def run_vlm_train(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def run_vlm_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                    patch_embeds: torch.Tensor | None, positions: torch.Tensor):
+                    patch_embeds: torch.Tensor | None, positions: torch.Tensor, tp=None):
     """(hidden of the text positions [B, S_text, d], (k, v) stacks
     [L, B, S_vis + S_text, KH, hd]): the prefill, whose cache holds the
-    prefix's K/V ahead of the text's."""
-    x = assemble_sequence(params, cfg, tokens, patch_embeds)
-    h, kv = tfm.run_stack_prefill(params, cfg, x, positions)
+    prefix's K/V ahead of the text's; ``tp`` on the rank's shards, as
+    `transformer.run_stack_prefill` runs them."""
+    x = assemble_sequence(params, cfg, tokens, patch_embeds, tp)
+    h, kv = tfm.run_stack_prefill(params, cfg, x, positions, tp)
     return h[:, _prefix_len(patch_embeds):], kv

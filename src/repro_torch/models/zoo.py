@@ -8,10 +8,20 @@
   dense decoder); with ``tp`` (a `collectives.TensorParallel`)
   on the rank's tensor-parallel shards, the loss being this data rank's
   share of the global batch's mean
-* prefill_fn(params, batch, pad_to=None) -> (last logits [B, V] f32, cache)
-* decode_fn(params, cache, token [B], pos) -> (logits [B, V] f32, cache);
-  pos an int, or an int32 tensor [B] on the device (one position a row,
-  with a per-row ``slot_pos`` [B, Sc] in the cache)
+* prefill_fn(params, batch, pad_to=None, tp=None) -> (last logits [B, V]
+  f32, cache)
+* decode_fn(params, cache, token [B], pos, tp=None) -> (logits [B, V] f32,
+  cache); pos an int, or an int32 tensor [B] on the device (one position a
+  row, with a per-row ``slot_pos`` [B, Sc] in the cache)
+
+  Both run without autograd. With ``tp`` (inference across ranks, the
+  counterpart of the reference's GSPMD prefill and decode;
+  `train.loop.build_infer_fns` builds it) they take this rank's rows and
+  shards, the cache is this rank's piece as the rules engine cuts it from
+  ``cache_axes`` (the K/V over their sequence where a config puts
+  ``kv_seq`` on ``model``, `transformer.kv_cut`), and the logits stay cut
+  over the vocabulary, as the reference leaves them: [B, V / model]. On
+  ranks ``pos`` is an int: the engines stay off ranks
 * init_cache_fn(batch, seq, device="cuda") -> an empty cache (raises without
   CUDA unless the caller asks for the CPU)
 * cache_axes: each cache leaf's logical axes, the reference's
@@ -36,9 +46,9 @@ prefix and M-RoPE positions from the batch) and the encoder-decoder
 (whisper: a frame encoder, a decoder with cross-attention, a cache of
 self K/V and the encoder's cross K/V). The SSM and hybrid decode steps
 write the new states into the cache's tensors in place, as every family's
-decode writes its K/V. Every family trains across ranks (``tp=``): the
-rank's shards of each family's layers, as the reference's GSPMD step
-places them.
+decode writes its K/V. Every family trains and infers across ranks
+(``tp=``): the rank's shards of each family's layers, as the reference's
+GSPMD step places them.
 """
 from __future__ import annotations
 
@@ -121,23 +131,25 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         h, aux = tfm.run_stack_train(params, cfg, x, _positions(batch["tokens"]), tp)
         return _final_loss(params, cfg, h, batch["targets"], aux, tp)
 
-    def prefill_fn(params, batch, pad_to=None):
+    @torch.no_grad()
+    def prefill_fn(params, batch, pad_to=None, tp=None):
         tokens = batch["tokens"]
         if is_vlm:
             positions = vlm_positions(batch)
             h, kv = vlm.run_vlm_prefill(params, cfg, tokens, batch.get("patch_embeds"),
-                                        positions)
+                                        positions, tp)
             seq = positions.shape[1]
         else:
-            x = tfm.embed_tokens(params, cfg, tokens)
-            h, kv = tfm.run_stack_prefill(params, cfg, x, _positions(tokens))
+            x = tfm.embed_tokens(params, cfg, tokens, tp)
+            h, kv = tfm.run_stack_prefill(params, cfg, x, _positions(tokens), tp)
             seq = tokens.shape[1]
-        cache = tfm.cache_from_kv(cfg, kv, seq, pad_to)
+        cache = tfm.cache_from_kv(cfg, kv, seq, pad_to, tp)
         return _last_logits(params, cfg, h[:, -1:]), cache
 
-    def decode_fn(params, cache, token, pos):
-        x = tfm.embed_tokens(params, cfg, token[:, None])
-        h, cache = tfm.run_stack_decode(params, cfg, x, pos, cache)
+    @torch.no_grad()
+    def decode_fn(params, cache, token, pos, tp=None):
+        x = tfm.embed_tokens(params, cfg, token[:, None], tp)
+        h, cache = tfm.run_stack_decode(params, cfg, x, pos, cache, tp)
         return _last_logits(params, cfg, h), cache
 
     def init_cache_fn(batch, seq, device="cuda"):
@@ -148,7 +160,7 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         h, cache = tfm.run_stack_chunk(params, cfg, x, _positions(tokens, start), cache, start)
         return _last_logits(params, cfg, h[:, -1:]), cache
 
-    kv_axes = (None, "batch", "kv_seq", "kv_heads", "head_dim")
+    kv_axes = tfm.KV_AXES
     return Model(cfg, specs, loss_fn, prefill_fn, decode_fn, init_cache_fn,
                  {"k": kv_axes, "v": kv_axes, "slot_pos": (None,)},
                  None if cfg.moe or is_vlm else prefill_chunk_fn,
@@ -198,18 +210,22 @@ def _ssm_model(cfg: ModelConfig) -> Model:
         return _final_loss(params, cfg, h, batch["targets"],
                            torch.zeros((), dtype=torch.float32, device=h.device), tp)
 
-    def prefill_fn(params, batch, pad_to=None):
+    @torch.no_grad()
+    def prefill_fn(params, batch, pad_to=None, tp=None):
         del pad_to  # SSM state is O(1); no cache capacity
-        x = tfm.embed_tokens(params, cfg, batch["tokens"])
-        h, (conv, ssm) = run_train(params, x, return_state=True)
+        x = tfm.embed_tokens(params, cfg, batch["tokens"], tp)
+        # on ranks the states are the rank's d_inner channels: the cache's cut
+        h, (conv, ssm) = run_train(params, x, return_state=True, tp=tp)
         return _last_logits(params, cfg, h[:, -1:]), {"conv": conv, "ssm": ssm}
 
-    def decode_fn(params, cache, token, pos):
-        del pos  # the state carries the position
-        x = tfm.embed_tokens(params, cfg, token[:, None])
+    @torch.no_grad()
+    def decode_fn(params, cache, token, pos, tp=None):
+        if tp is not None and isinstance(pos, torch.Tensor):
+            raise ValueError("a decode on ranks takes one int position for the batch")
+        x = tfm.embed_tokens(params, cfg, token[:, None], tp)
         for i in range(cfg.n_layers):
             x, cst, sst = mamba_lib.mamba1_decode(tfm._layer(params["blocks"], i), cfg, x,
-                                                  cache["conv"][i], cache["ssm"][i])
+                                                  cache["conv"][i], cache["ssm"][i], tp)
             cache["conv"][i].copy_(cst)
             cache["ssm"][i].copy_(sst)
         return _last_logits(params, cfg, x), dict(cache)
@@ -240,19 +256,23 @@ def _hybrid_model(cfg: ModelConfig) -> Model:
         return _final_loss(params, cfg, h, batch["targets"],
                            torch.zeros((), dtype=torch.float32, device=h.device), tp)
 
-    def prefill_fn(params, batch, pad_to=None):
+    @torch.no_grad()
+    def prefill_fn(params, batch, pad_to=None, tp=None):
         tokens = batch["tokens"]
-        x = tfm.embed_tokens(params, cfg, tokens)
+        x = tfm.embed_tokens(params, cfg, tokens, tp)
         h, _, ((k, v), (conv, ssm)) = hybrid.run_hybrid_train(
-            params, cfg, x, _positions(tokens), return_kv=True)
+            params, cfg, x, _positions(tokens), return_kv=True, tp=tp)
         slot_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
-        cache = tfm.pad_kv_cache({"k": k, "v": v, "slot_pos": slot_pos}, pad_to)
+        cache = tfm.recut_kv(cfg, tfm.pad_kv_cache({"k": k, "v": v, "slot_pos": slot_pos},
+                                                   pad_to), tp)
+        conv, ssm = mamba_lib.mamba2_cache_states(cfg, conv, ssm, tp, hybrid.conv_cut(cfg, tp))
         cache.update(conv=conv, ssm=ssm)
         return _last_logits(params, cfg, h[:, -1:]), cache
 
-    def decode_fn(params, cache, token, pos):
-        x = tfm.embed_tokens(params, cfg, token[:, None])
-        h, cache = hybrid.run_hybrid_decode(params, cfg, x, pos, cache)
+    @torch.no_grad()
+    def decode_fn(params, cache, token, pos, tp=None):
+        x = tfm.embed_tokens(params, cfg, token[:, None], tp)
+        h, cache = hybrid.run_hybrid_decode(params, cfg, x, pos, cache, tp)
         return _last_logits(params, cfg, h), cache
 
     def init_cache_fn(batch, seq, device="cuda"):
@@ -275,17 +295,26 @@ def _encdec_model(cfg: ModelConfig) -> Model:
         return _final_loss(params, cfg, h, batch["targets"],
                            torch.zeros((), dtype=torch.float32, device=h.device), tp)
 
-    def prefill_fn(params, batch, pad_to=None):
-        tokens = batch["tokens"]
-        enc = encdec.run_encoder(params, cfg, batch["frames"])
-        h, (k, v, ck, cv) = encdec.run_decoder_train(params, cfg, tokens, enc, return_kv=True)
+    @torch.no_grad()
+    def prefill_fn(params, batch, pad_to=None, tp=None):
+        tokens, frames = batch["tokens"], batch["frames"]
+        if tp is not None and tp.group is not None and frames.shape[1] != cfg.enc_seq:
+            raise ValueError(f"{cfg.name}: on ranks the frames are the config's "
+                             f"{cfg.enc_seq} a row, as the cross K/V's placement counts "
+                             f"them (got {frames.shape[1]})")
+        enc = encdec.run_encoder(params, cfg, frames, tp)
+        h, (k, v, ck, cv) = encdec.run_decoder_train(params, cfg, tokens, enc, return_kv=True,
+                                                     tp=tp)
         slot_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
-        cache = tfm.pad_kv_cache({"k": k, "v": v, "slot_pos": slot_pos}, pad_to)
-        cache.update(ck=ck, cv=cv)        # the cross K/V over the frames: not padded
+        cache = tfm.recut_kv(cfg, tfm.pad_kv_cache({"k": k, "v": v, "slot_pos": slot_pos},
+                                                   pad_to), tp)
+        # the cross K/V over the frames: not padded, placed as the rules engine cuts them
+        cache.update(tfm.recut_kv(cfg, {"ck": ck, "cv": cv}, tp, names=("ck", "cv")))
         return _last_logits(params, cfg, h[:, -1:]), cache
 
-    def decode_fn(params, cache, token, pos):
-        h, cache = encdec.run_decoder_step(params, cfg, token, pos, cache)
+    @torch.no_grad()
+    def decode_fn(params, cache, token, pos, tp=None):
+        h, cache = encdec.run_decoder_step(params, cfg, token, pos, cache, tp)
         return _last_logits(params, cfg, h), cache
 
     def init_cache_fn(batch, seq, device="cuda"):

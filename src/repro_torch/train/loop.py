@@ -1,5 +1,7 @@
 """Single-GPU training (counterpart of `repro/train/loop.py`): the train
-step and the fault-tolerant host runner.
+step and the fault-tolerant host runner; and, beside the train step, the
+prefill and decode on ranks (`build_infer_fns`, the counterpart of the
+reference's GSPMD inference that its dry run lowers).
 
 Two gradient modes, as in the reference:
 
@@ -101,6 +103,23 @@ def step_generator(seed: int, step: int, device, data_index: int = 0) -> torch.G
     return torch.Generator(device=device).manual_seed(s % (2**63))
 
 
+def data_gather(mesh, placements, gather=collectives.all_gather_dim) -> Callable:
+    """(params) -> the parameters whole over the data ranks: each leaf cut
+    over them (``embed: data`` in a config's rules) gathered with
+    ``gather`` (`collectives.gather_from_group` for training, whose
+    backward reduce-scatters the gradient; the plain all-gather for
+    inference), the others as they are."""
+    cuts = [p.cut_over(sharding.DP_AXES) for p in tree_leaves(placements)]
+
+    def fn(params):
+        if mesh is None or not any(cuts):
+            return params
+        return tree_unflatten(params, [sharding.gather_cut(x, cut, mesh, gather)
+                                       for x, cut in zip(tree_leaves(params), cuts)])
+
+    return fn
+
+
 def build_train_fns(model, opt_cfg: opt_lib.OptConfig, *, mesh=None, microbatch: int = 1,
                     ota_ber: float | None = None, device="cuda") -> TrainFns:
     """The train step and initializers of ``model`` on ``device`` (the card
@@ -139,16 +158,9 @@ def build_train_fns(model, opt_cfg: opt_lib.OptConfig, *, mesh=None, microbatch:
         has_model = "model" in mesh.axis_names
         tp = collectives.TensorParallel(mesh.group("model") if has_model else None,
                                         mesh.index("model") if has_model else 0, dgroups)
-    data_cuts = [p.cut_over(sharding.DP_AXES) for p in tree_leaves(pp)]
-
-    def gather_data(params):
-        """The parameters whole over the data ranks: an all-gather of each
-        leaf cut over them, whose backward reduce-scatters its gradient."""
-        if mesh is None or not any(data_cuts):
-            return params
-        return tree_unflatten(params, [
-            sharding.gather_cut(x, cut, mesh, collectives.gather_from_group)
-            for x, cut in zip(tree_leaves(params), data_cuts)])
+    # the parameters whole over the data ranks: an all-gather of each leaf
+    # cut over them, whose backward reduce-scatters its gradient
+    gather_data = data_gather(mesh, pp, collectives.gather_from_group)
 
     def value_and_grad(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
@@ -234,6 +246,102 @@ def build_train_fns(model, opt_cfg: opt_lib.OptConfig, *, mesh=None, microbatch:
         return params, opt_init(opt_cfg, params)
 
     return TrainFns(step, init, abstract, dev, mesh, (pp, opt_plc), dpos, shard_params)
+
+
+# ---------------------------------------------------------------------------
+# inference on ranks
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class InferFns:
+    prefill: Callable       # (params, batch, pad_to=None, *, global_batch=None)
+    #                         -> (logits [b, V_l], cache)
+    decode: Callable        # (params, cache, token [B], pos: int, *, global_batch=None)
+    #                         -> (logits [b, V_l], cache)
+    init_cache: Callable    # (batch, seq) -> this rank's piece of an empty cache
+    cache_placements: Callable   # (batch, seq) -> the cache's tree of sharding.Placement
+    rows: Callable          # (tensor [B, ...]) -> this rank's rows of a global batch
+    gather_logits: Callable  # (logits [b, V_l]) -> [b, V]: whole over the vocabulary
+    shard_params: Callable  # (global params) -> this rank's shards
+    device: torch.device
+    mesh: object = None
+    placements: object = None    # the parameters' tree of sharding.Placement
+
+
+def build_infer_fns(model, *, mesh=None, device="cuda") -> InferFns:
+    """The prefill and the decode of ``model`` on this rank of ``mesh`` (a
+    `distributed.mesh.RankMesh`; None or one rank: the model's own
+    functions), the counterpart of the reference's GSPMD
+    ``jax.jit(prefill_fn / decode_fn, in_shardings=...)``. Every rank of
+    the mesh calls them alike, with the global batch (token batch [B, S] and
+    its extras, or the decode's tokens [B]; or, with ``global_batch=B``,
+    this rank's rows of it, as the dry run passes them) and an int
+    position: each takes the rows of its data ranks where B divides them
+    (the rules' ``batch`` axis; a B = 1 batch is whole on every data
+    rank), its parameter shards (placed by the rules engine, the leaves cut
+    over the data ranks gathered whole for the call, without autograd) and
+    its piece of the cache, and returns its rows' logits cut over the
+    vocabulary (`gather_logits` makes them whole) and its piece of the
+    cache (`cache_placements`: the model's ``cache_axes`` through the rules
+    engine; `init_cache` allocates an empty one). MoE dispatch groups that
+    straddle data ranks are gathered whole over them
+    (``TensorParallel.infer``)."""
+    dev = resolve(device)
+    mesh = mesh if mesh is not None and mesh.size > 1 else None
+    rules = sharding.merged_rules(model.cfg)
+    pp = sharding.tree_placements(mesh, param_shapes(model.specs), param_axes(model.specs),
+                                  rules)
+    gather = data_gather(mesh, pp)
+    has_model = mesh is not None and "model" in mesh.axis_names
+    group = mesh.group("model") if has_model else None
+
+    def rows_of(b: int):
+        """(tp, this rank's slice of a global batch of b rows)."""
+        if mesh is None:
+            return None, slice(None)
+        plc = sharding.placement(("batch",), (b,), mesh, rules)
+        cut = plc.cut_over(sharding.DP_AXES)
+        tp = collectives.TensorParallel(
+            group, mesh.index("model") if has_model else 0,
+            tuple(mesh.group(a) for a in (cut[1] if cut else ())), plc.index(mesh, 0), True)
+        return tp, plc.slices(mesh)[0]
+
+    def prefill(params, batch, pad_to=None, *, global_batch=None):
+        b = next(iter(batch.values())).shape[0]
+        tp, mine = rows_of(b if global_batch is None else global_batch)
+        if global_batch is None:
+            batch = {k: v[mine] for k, v in batch.items()}
+        return model.prefill_fn(gather(params), batch, pad_to, tp=tp)
+
+    def decode(params, cache, token, pos, *, global_batch=None):
+        tp, mine = rows_of(token.shape[0] if global_batch is None else global_batch)
+        if global_batch is None:
+            token = token[mine]
+        return model.decode_fn(gather(params), cache, token, pos, tp=tp)
+
+    def cache_placements(batch: int, seq: int):
+        like = model.init_cache_fn(batch, seq, device="meta")
+        return sharding.tree_placements(mesh, tree_map(lambda t: tuple(t.shape), like),
+                                        model.cache_axes, rules)
+
+    def init_cache(batch: int, seq: int):
+        like = model.init_cache_fn(batch, seq, device="meta")
+        plc = tree_leaves(cache_placements(batch, seq))
+        out = tree_unflatten(like, [torch.zeros(p.local_shape(mesh) if mesh else p.shape,
+                                                dtype=t.dtype, device=dev)
+                                    for t, p in zip(tree_leaves(like), plc)])
+        if "slot_pos" in out:
+            out["slot_pos"].fill_(-1)           # every slot empty
+        return out
+
+    def gather_logits(logits):
+        if group is None or logits.shape[-1] == model.cfg.vocab:
+            return logits
+        return collectives.all_gather_dim(logits, logits.dim() - 1, group)
+
+    return InferFns(prefill, decode, init_cache, cache_placements,
+                    lambda t: t[rows_of(t.shape[0])[1]], gather_logits,
+                    lambda params: sharding.shard_tree(params, pp, mesh), dev, mesh, pp)
 
 
 # ---------------------------------------------------------------------------

@@ -98,6 +98,26 @@ def test_matmul_flops_and_bytes_equal_hlo_cost():
     assert mem["temporaries_at_peak"] == 4 * 256 * 128
 
 
+@pytest.mark.parametrize("op", ["bmm", "mm"])
+def test_out_dtype_products_count_their_flops(op):
+    """The card's f32-out-of-bf16 products (cuBLAS's ``out_dtype``, the MoE
+    experts' `moe._bmm_acc`) count as their plain twin does: the dtype
+    argument is no shape (the bmm formula once raised on it)."""
+    with FakeTensorMode():
+        a = torch.empty(4, 8, 16, dtype=torch.bfloat16)
+        b = torch.empty(4, 16, 32, dtype=torch.bfloat16)
+        if op == "mm":
+            a, b = a[0], b[0]
+        fn = getattr(torch, op)
+        with op_cost.OpCost() as wide:
+            out = fn(a, b, out_dtype=torch.float32)
+        with op_cost.OpCost() as plain:
+            fn(a, b)
+    assert out.dtype == torch.float32
+    assert wide.flops == plain.flops == 2 * a.numel() * b.shape[-1]
+    assert dict(wide.flops_by_kind) == {"bf16": wide.flops}
+
+
 def test_loop_flops_equal_hlo_cost_trip_count():
     def body(c, _):
         return jnp.tanh(c @ c), None

@@ -22,9 +22,10 @@
   and the dry run's count of the same step on a fake 2x2x2 world sends
   what each gloo rank sent, axis by axis.
 * The sweep's table: 2 meshes x (10 architectures x 4 cells + 21 HDC
-  cells), ``skipped`` exactly where the reference skips, every prefill and
-  decode record ``not_ported`` with its reason; and the CLI's records of
-  ``tinyllama-1.1b train_4k`` and ``hdc-scaleout serve_packed`` on 16x16.
+  cells), ``skipped`` exactly where the reference skips and every other
+  model cell counted (no record short of a count); and the CLI's records
+  of ``tinyllama-1.1b train_4k`` and ``decode_32k`` and ``hdc-scaleout
+  serve_packed`` on 16x16.
 """
 import json
 import os
@@ -342,21 +343,29 @@ def test_pod_mesh_adamw_equals_one_rank(arch, pod_ranks):
 # ---------------------------------------------------------------------------
 
 def test_sweep_covers_every_cell_with_the_references_skips():
+    """Every job of the sweep, once; the reference's skips exactly, with its
+    reasons, and no other record short of a count: the model cells the
+    reference lowers are all counted (the prefill and decode cells through
+    `count_infer`, traced below on the smoke config and in the CLI's decode
+    record; the 48 production traces are the host sweep's and phase 25's)."""
     jobs = dryrun.all_jobs()
     assert len(jobs) == len(set(jobs)) == 2 * (10 * 4 + 21)
     hdc = [c for a, c, mp in jobs if a == "hdc-scaleout" and not mp]
     assert hdc == list(dryrun.HDC_CELLS) and "serve_sparse" in hdc
+    counted = []
     for arch, cell, multi_pod in jobs:
-        if arch == "hdc-scaleout" or cell == "train_4k":
-            continue                          # counted by a trace: below and on the card
-        rec = dryrun.count_cell(arch, cell, multi_pod)
+        if arch == "hdc-scaleout":
+            continue
         jcfg = jconfigs.get_config(arch)
         ok, why = jshapes.cell_applicable(jcfg, jshapes.CELLS[cell])
         if not ok:
+            rec = dryrun.count_cell(arch, cell, multi_pod)
             assert rec["status"] == "skipped" and rec["why"] == why, (arch, cell)
+            assert rec["mesh"] == ("2x16x16" if multi_pod else "16x16")
         else:
-            assert rec["status"] == "not_ported" and "tp=" in rec["why"], (arch, cell)
-        assert rec["mesh"] == ("2x16x16" if multi_pod else "16x16")
+            counted.append((arch, cell, multi_pod))
+    assert len(counted) == 2 * (10 * 4 - 6)      # long_500k runs on the 4 sub-quadratic
+    assert not hasattr(dryrun, "NOT_PORTED")
     rec = dryrun.count_cell("hdc-scaleout", "serve_sparse_packed", False)
     assert rec["status"] == "skipped" and "no _packed variant" in rec["why"]
 
@@ -387,8 +396,8 @@ def test_cli_records(tmp_path, capsys):
     assert dryrun.main(["--arch", "tinyllama-1.1b", "--cell", "decode_32k", "--out", out]) == 0
     capsys.readouterr()
     recs = {p.name: json.loads(p.read_text()) for p in (tmp_path / "pod1").glob("*.json")}
-    assert recs["tinyllama-1.1b__decode_32k.json"]["status"] == "not_ported"
-    for name in ("hdc-scaleout__serve_packed.json", "tinyllama-1.1b__train_4k.json"):
+    for name in ("hdc-scaleout__serve_packed.json", "tinyllama-1.1b__train_4k.json",
+                 "tinyllama-1.1b__decode_32k.json"):
         r = recs[name]
         assert r["status"] == "ok" and r["mesh"] == "16x16" and r["chips"] == 256
         assert r["traced_on"] == "cpu" and "standing for the card" in r["notes"][0]
@@ -400,6 +409,12 @@ def test_cli_records(tmp_path, capsys):
     train = recs["tinyllama-1.1b__train_4k.json"]
     assert train["model_flops_global"] == 6.0 * train["params"] * 256 * 4096
     assert train["cost_per_rank"]["kernels"]["flash_attention_bwd"]["launches"] == 22
+    decode = recs["tinyllama-1.1b__decode_32k.json"]
+    assert decode["kind"] == "decode" and decode["model_flops_global"] == \
+        2.0 * decode["params"] * 128
+    # TinyLlama-1.1B's cache on rank 0: 8 rows of 32768 / 16 slots, all 4 kv heads
+    assert decode["memory_per_rank"]["arguments_by_kind"]["cache"] == \
+        2 * 22 * 8 * 2048 * 4 * 64 * 2 + 32768 * 4
     serve = recs["hdc-scaleout__serve_packed.json"]
     assert serve["cost_per_rank"]["kernels"]["hamming_topk_banked"]["launches"] == 1
     assert serve["cost_per_rank"]["collective_bytes_per_trial"] == \

@@ -1,0 +1,1 @@
+"""reference of the benchmark, found by name (see harness.load)."""

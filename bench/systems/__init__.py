@@ -1,0 +1,1 @@
+"""systems of the benchmark, found by name (see harness.load)."""

@@ -88,7 +88,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch import device as _device, faults as _faults, phy
+from repro_torch import device as _device, faults as _faults, phy, spans
 from repro_torch.core import em, hypervector as hv, ota, sparse
 from repro_torch.distributed import collectives
 from repro_torch.kernels.assoc_matmul import assoc_matmul, assoc_matmul_banked
@@ -231,17 +231,19 @@ def precharacterize_state(cfg: ScaleOutConfig, geom: em.PackageGeometry | None =
                           device: str | torch.device | None = "cuda") -> phy.ChannelState:
     """Channel precharacterization -> `phy.ChannelState` (the paper's offline
     CST + MATLAB step): channel matrix, noise density at ``cfg.snr_db``, the
-    joint phase search (exhaustive for M <= 3) and its Eq. 1 per-core BER."""
+    joint phase search (exhaustive for M <= 3) and its Eq. 1 per-core BER.
+    The ``ota.precharacterize`` set-up span, recorded in every process."""
     dev = _device.resolve(device)
-    geom = geom or em.PackageGeometry()
-    h = em.channel_matrix(geom, cfg.m_tx, cfg.n_rx_cores, dev)
-    n0 = ota.default_n0(h, cfg.snr_db)
-    if cfg.m_tx <= 3:
-        res = ota.optimize_phases_exhaustive(h, n0)
-    else:
-        g = torch.Generator(device=dev).manual_seed(0)
-        res = ota.optimize_phases_coordinate(h, n0, g)
-    return phy.state_from_ota(res, h)
+    with spans.span("ota.precharacterize", always=True):
+        geom = geom or em.PackageGeometry()
+        h = em.channel_matrix(geom, cfg.m_tx, cfg.n_rx_cores, dev)
+        n0 = ota.default_n0(h, cfg.snr_db)
+        if cfg.m_tx <= 3:
+            res = ota.optimize_phases_exhaustive(h, n0)
+        else:
+            g = torch.Generator(device=dev).manual_seed(0)
+            res = ota.optimize_phases_coordinate(h, n0, g)
+        return phy.state_from_ota(res, h)
 
 
 def precharacterize(cfg: ScaleOutConfig, device: str | torch.device | None = "cuda"
@@ -884,23 +886,29 @@ def _serve_slots(cfg: ScaleOutConfig, chan: phy.Channel, sh: _Shard, store: torc
     ``fstate`` applies one fault state to every slot (they ride the same
     hardware): the erasures in the bundle, the dead-core zeroing and the
     failover gather on the fan-out's copies, the stuck cells in the
-    search."""
+    search. The bundle, the fan-out and the search are the ``ota.bundle``,
+    ``ota.fanout`` and ``ota.search`` spans, each with its device time."""
     n, b = queries.shape[:2]
+    dev = store.device
     q_mine = queries[:, :, 0].reshape((n * b,) + tuple(queries.shape[3:]))  # [N*B, e, d|W]
     if cfg.permuted:                      # TX g transmits rho^g(q_g)
         rho = hv.permute_packed if cfg.packed else hv.permute
         q_mine = torch.stack([rho(q_mine[:, j], sh.tx * sh.e_per + j)
                               for j in range(sh.e_per)], 1)
-    q_bundled = _ota_bundle(cfg, chan, sh, q_mine, fstate)
+    with spans.span("ota.bundle", dev):
+        q_bundled = _ota_bundle(cfg, chan, sh, q_mine, fstate)
     q_bundled = q_bundled.reshape((n, b) + tuple(q_bundled.shape[1:]))
-    copies = [_rx_fanout(cfg, chan, sh, q_bundled[s], state, generators[s]) for s in range(n)]
-    q_rx = copies[0][None] if n == 1 else torch.stack(copies)   # [N, cores, B, d|W]
+    with spans.span("ota.fanout", dev):
+        copies = [_rx_fanout(cfg, chan, sh, q_bundled[s], state, generators[s])
+                  for s in range(n)]
+        q_rx = copies[0][None] if n == 1 else torch.stack(copies)   # [N, cores, B, d|W]
     stuck = None
     if fstate is not None:
         q_rx, qmask = _apply_rx_faults(fstate, q_rx, qmask, sh.tx * sh.cores)
         stuck = (fstate.stuck0, fstate.stuck1)
-    val, idx = _shard_top1(cfg, q_rx, store, rows, qmask, stuck, tx=sh.tx)
-    return _gather_top1(cfg, sh, val, idx)
+    with spans.span("ota.search", dev):
+        val, idx = _shard_top1(cfg, q_rx, store, rows, qmask, stuck, tx=sh.tx)
+        return _gather_top1(cfg, sh, val, idx)
 
 
 def _evolving(cfg: ScaleOutConfig, sh: _Shard, process, faults, serve_core):

@@ -35,6 +35,11 @@ families), or the multi-tenant HDC service replaying one.
   PYTHONPATH=src python -m repro_torch.launch.serve --hdc --requests 48 \
       --rate 800 --slots 8 --tenants 4
 
+  # the same with the port's span recorder on (`repro_torch.spans`): after
+  # the trace, each span's count and host and device ms a step, and the
+  # slots' occupancy
+  PYTHONPATH=src python -m repro_torch.launch.serve --hdc --trace
+
 The weights, the trace and the tenants' codebooks are drawn from ``--seed``
 (no download), as the reference's launcher draws them.
 """
@@ -160,11 +165,15 @@ def run_hdc_stream(args, dev: torch.device) -> dict:
     """Multi-tenant HDC serving: tenant-tagged Poisson arrivals through the
     slot-ring `HDCScheduler`, every step one multi-tenant OTA serve. A warm-up
     fills every slot once; then the trace is replayed in real time and the
-    trials/s and request latencies (queueing included) are printed."""
-    from repro_torch import phy
+    trials/s and request latencies (queueing included) are printed. With
+    ``--trace`` the span recorder is on from the start, and its summary is
+    printed at the end."""
+    from repro_torch import phy, spans
     from repro_torch.core import classifier, hypervector as hv, scaleout
     from repro_torch.serving import HDCEngine, HDCScheduler
 
+    if args.trace:
+        spans.enable()
     rep = "unpacked" if args.unpacked else "packed"
     cfg = scaleout.ScaleOutConfig(n_classes=args.classes, dim=args.dim, m_tx=3, n_rx_cores=8,
                                   batch=args.hdc_batch, representation=rep, noise="exact")
@@ -212,7 +221,43 @@ def run_hdc_stream(args, dev: torch.device) -> dict:
           f"{n_trials / wall:.1f} trials/s, {sched.steps} serve steps")
     print(f"request latency p50 {np.percentile(lat, 50) * 1e3:.3f} ms  "
           f"p95 {np.percentile(lat, 95) * 1e3:.3f} ms  max {lat.max() * 1e3:.3f} ms")
+    if args.trace:
+        spans.disable()
+        print_spans(spans.summary())
+        print_slowest(sched.results, spans.records(), spans.unix_ns)
     return sched.results
+
+
+def print_spans(summary: dict) -> None:
+    """The span recorder's summary: a line a span name, then the slots'
+    occupancy (live slots over slots served)."""
+    def ms(x):
+        return "-" if x is None else f"{x:.4f}"
+
+    print(f"spans over {summary['steps']} steps ({summary['dropped']} dropped): "
+          "count, host ms a step, device ms a step, host ms in all")
+    for name, s in summary["spans"].items():
+        print(f"  {name:20s} {s['count']:6d} {ms(s['host_ms_per_step']):>10s} "
+              f"{ms(s['device_ms_per_step']):>10s} {s['host_ms']:10.3f}")
+    c = summary["counters"]
+    if c.get("hdc.slots"):
+        print(f"slot occupancy {c.get('hdc.slots_live', 0)} of {c['hdc.slots']} slots "
+              f"served ({c.get('hdc.slots_live', 0) / c['hdc.slots']:.3f})")
+
+
+def print_slowest(results: dict, records: list, unix_ns) -> None:
+    """The slowest request, the step that served it (`HDCCompletion.step`)
+    and that step's spans, host and device ms, with the step's start in Unix
+    ns (``unix_ns``), where a profile taken alongside places it."""
+    done = max(results.values(), key=lambda c: c.latency)
+    mine = [r for r in records if r.step == done.step]
+    head = next((r for r in mine if r.name == "sched.step"), None)
+    if head is None:
+        return
+    parts = ", ".join(f"{r.name} {r.host_ms:.3f}" + (
+        "" if r.device_ms is None else f" (device {r.device_ms:.3f})") for r in mine)
+    print(f"slowest request {done.rid}: {done.latency * 1e3:.3f} ms, served in step "
+          f"{done.step} (from Unix ns {unix_ns(head.start_ns)}); its spans, ms: {parts}")
 
 
 def main(argv: list[str] | None = None) -> torch.Tensor | dict:
@@ -244,6 +289,8 @@ def main(argv: list[str] | None = None) -> torch.Tensor | dict:
     ap.add_argument("--dim", type=int, default=512)
     ap.add_argument("--unpacked", action="store_true",
                     help="(--hdc) elementwise representation instead of packed")
+    ap.add_argument("--trace", action="store_true",
+                    help="(--hdc) record the port's spans and print their summary")
     args = ap.parse_args(argv)
 
     if args.hdc:

@@ -62,7 +62,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch import device as _device, faults, phy
+from repro_torch import device as _device, faults, phy, spans
 from repro_torch.core import classifier, hypervector as hv, scaleout
 from repro_torch.core.scaleout import ScaleOutConfig, make_mt_ota_serve
 from repro_torch.distributed import collectives
@@ -90,6 +90,7 @@ class HDCCompletion:
     t_admit: float
     t_finish: float
     status: str = "ok"           # "ok" | "evicted" (deadline-expired slot)
+    step: int | None = None      # the scheduler step that served it (`SlotScheduler.step_id`)
 
     @property
     def latency(self) -> float:
@@ -276,15 +277,16 @@ class HDCEngine(slotring.SlotRingEngine):
         """Admit K requests' query batches into ``slots``, bound to their
         tenants' current store rows and their generators (this rank's,
         `rank_generator`): one ``index_copy_`` scatter per state tensor
-        (`slot_update`), not one call a request."""
-        rows = [self._tenant_row(t) for t in tenant_ids]
-        for q in queries:
-            self._check_queries(q)
-        q = torch.stack(queries)
-        if self.mesh is not None:                    # this rank's rows and model column
-            q = scaleout.shard_batch(self.mesh, q, 1).narrow(2, self._shard.tx, 1)
-        return self.admit(state, slots, q, rows,
-                          [rank_generator(g, self.mesh) for g in generators])
+        (`slot_update`), not one call a request (the ``hdc.admit`` span)."""
+        with spans.span("hdc.admit"):
+            rows = [self._tenant_row(t) for t in tenant_ids]
+            for q in queries:
+                self._check_queries(q)
+            q = torch.stack(queries)
+            if self.mesh is not None:                    # this rank's rows and model column
+                q = scaleout.shard_batch(self.mesh, q, 1).narrow(2, self._shard.tx, 1)
+            return self.admit(state, slots, q, rows,
+                              [rank_generator(g, self.mesh) for g in generators])
 
     def _serve_slots(self, params, state):
         store, chan_state = params
@@ -300,9 +302,10 @@ class HDCEngine(slotring.SlotRingEngine):
         return pred, maxsim
 
     def _step_impl(self, params, state):
-        out = self._whole_batch(*self._serve_slots(params, state))
-        state["generator"][:] = [self._placeholder] * self.num_slots
-        return state, out
+        with spans.span("hdc.serve"):
+            out = self._whole_batch(*self._serve_slots(params, state))
+            state["generator"][:] = [self._placeholder] * self.num_slots
+            return state, out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -669,15 +672,18 @@ class HDCScheduler(SlotScheduler):
 
     def _collect(self, emitted) -> list:
         pred, maxsim = emitted
-        p = _host(pred)             # the step barrier: one copy to the host each
-        s = _host(maxsim)
-        self.engine.on_barrier()    # adaptive engines: commit the evolved state, act
+        with spans.span("sched.barrier"):
+            p = _host(pred)             # the step barrier: one copy to the host each
+            s = _host(maxsim)
+            self.engine.on_barrier()    # adaptive engines: commit the evolved state, act
+            spans.count("hdc.slots", self.engine.num_slots)
+            spans.count("hdc.slots_live", len(self.running))
         finished = []
         t_finish = self.clock()     # every running slot finishes at the barrier
         for slot in sorted(self.running):
             req, t_admit = self.running.pop(slot)
             done = HDCCompletion(req.rid, req.tenant, p[slot], s[slot], req.t_submit,
-                                 t_admit, t_finish)
+                                 t_admit, t_finish, step=self.step_id)
             self.results[req.rid] = done
             self.free.append(slot)
             finished.append(done)

@@ -35,13 +35,19 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import time
 from typing import Any, Callable
 
 import torch
 
+from repro_torch import spans
 from repro_torch.distributed import collectives
 from repro_torch.serving.engine import ContinuousEngine, _prompt_sig
+
+# step ids, from 1, unique over every scheduler of the process, so that the
+# spans of one step (and the completions it served) share an id no other has
+_STEP_IDS = itertools.count(1)
 
 
 @dataclasses.dataclass
@@ -117,6 +123,7 @@ class SlotScheduler:
             collections.deque)
         self.results: dict[int, Any] = {}
         self.steps = 0
+        self.step_id = 0                        # the latest `step` call's (`_STEP_IDS`)
         self._next_rid = 0
         self.max_slot_steps = max_slot_steps
         self.max_requeues = max_requeues
@@ -227,18 +234,22 @@ class SlotScheduler:
     def step(self) -> list:
         """Advance in-flight admissions one unit, fill free slots, run one
         multi-slot engine step, collect finished slots. Returns the requests
-        completed during this call (at admission too)."""
-        finished = self._advance_admissions()
-        finished.extend(self._admit_free_slots())
-        if not self.running:
+        completed during this call (at admission too). The call is the
+        ``sched.step`` span of step ``step_id``."""
+        self.step_id = next(_STEP_IDS)
+        with spans.span("sched.step", step=self.step_id):
+            finished = self._advance_admissions()
+            with spans.span("sched.admit"):
+                finished.extend(self._admit_free_slots())
+            if not self.running:
+                return finished
+            stepped = list(self.running)
+            self.state, emitted = self.engine.step(self._step_params(), self.state)
+            self.steps += 1
+            finished.extend(self._collect(emitted))
+            if self.max_slot_steps is not None:
+                finished.extend(self._enforce_deadlines(stepped))
             return finished
-        stepped = list(self.running)
-        self.state, emitted = self.engine.step(self._step_params(), self.state)
-        self.steps += 1
-        finished.extend(self._collect(emitted))
-        if self.max_slot_steps is not None:
-            finished.extend(self._enforce_deadlines(stepped))
-        return finished
 
     def run(self, timeout: float | None = None) -> dict:
         """Step until the queue and all slots drain. Returns {rid: completion}."""
